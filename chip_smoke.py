@@ -1,0 +1,489 @@
+"""Smoke run of the PyTorch port on one CUDA card (an NVIDIA H100).
+
+    python3 chip_smoke.py
+
+Three phases, any failure exits non-zero:
+
+1. build -- compile the hand-written kernels under src/repro_torch/csrc with
+   nvcc (one process per source, all started together) and print the time.
+2. kernels -- hold each kernel (K2 flat scan, K6 channel scan, K3 flat
+   mapreduce, K7m batched mapreduce) against its plain PyTorch version on the
+   card, at the serving path's shapes and at ragged and large sizes; time
+   the kernel, the plain version and one PyTorch library call of the same
+   function with CUDA events.
+3. serve -- serve recurrentgemma-2b at full width (26 layers, d_model 2560,
+   vocab 256000, bf16 weights from a seed) through Engine.generate: 8 greedy
+   requests on 4 slots, so slots recycle.  Checks every request's length and
+   ids, the prefill logits of the cuda backend against the plain torch
+   backend on the card, and that the serving run launched every kernel;
+   then profiles one prefill and eight decode steps (torch.profiler) for
+   where the time goes.
+
+The line before the card line holds {"kernels": [...]}; the last line is
+{"ok": true, "device": {...}}.  The script imports nothing of JAX or of the
+JAX package.
+"""
+from __future__ import annotations
+
+import collections
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "src"))
+
+from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.core import intrinsics as ki  # noqa: E402
+from repro_torch.core import operators as alg  # noqa: E402
+from repro_torch.kernels import _lib  # noqa: E402
+from repro_torch.kernels import batched as batched_k  # noqa: E402
+from repro_torch.kernels import mapreduce as mapreduce_k  # noqa: E402
+from repro_torch.kernels import scan as scan_k  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.serving.engine import Engine, Request  # noqa: E402
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
+F32_OPS_PER_S = 67e12          # float32 outside the tensor cores (same rate
+                               # taken for int32 ALU operations)
+SEED = 0
+BATCH = 4                      # Engine slots: the flat kernels see n = 4
+CACHE_LEN = 4096
+PROMPT_LENS = (17, 64, 200, 511, 1024, 1500, 2100, 300)
+MAX_NEW = (16, 24, 32, 40, 48, 20, 28, 36)
+
+WRAPPERS = {
+    "K2": scan_k.scan_1d_cuda,
+    "K6": scan_k.scan_channel_cuda,
+    "K3": mapreduce_k.mapreduce_1d_cuda,
+    "K7m": batched_k.batched_mapreduce_cuda,
+}
+META = {
+    "K2": ("scan_1d", "src/repro_torch/csrc/scan_flat.cu",
+           "src/repro/kernels/scan.py:139"),
+    "K6": ("scan_channel", "src/repro_torch/csrc/scan_channel.cu",
+           "src/repro/kernels/scan.py:227"),
+    "K3": ("mapreduce_1d", "src/repro_torch/csrc/mapreduce.cu",
+           "src/repro/kernels/mapreduce.py:81"),
+    "K7m": ("batched_mapreduce", "src/repro_torch/csrc/batched.cu",
+            "src/repro/kernels/batched.py:121"),
+}
+
+
+class CheckFailed(Exception):
+    pass
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def time_ms(fn, reps: int = 50) -> float:
+    """Mean milliseconds per call over ``reps`` back-to-back calls, after a
+    warm-up call, between CUDA events (includes the host side of a call)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(bytes_moved: float, ops: float) -> tuple[float, str]:
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_err(got, want) -> float:
+    got, want = torch.utils._pytree.tree_leaves(got), \
+        torch.utils._pytree.tree_leaves(want)
+    return max(float((g.double() - w.double()).abs().max()) if g.numel()
+               else 0.0 for g, w in zip(got, want))
+
+
+def expect(ok: bool, msg: str) -> None:
+    if not ok:
+        raise CheckFailed(msg)
+    log(f"  ok  {msg}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 1: build
+# ---------------------------------------------------------------------------
+
+
+def phase_build() -> None:
+    t0 = time.perf_counter()
+    paths = _lib.build()
+    log(f"[build] {len(paths)} libraries in {time.perf_counter() - t0:.2f} s "
+        f"({_lib.BUILD_DIR})")
+    for src, path in paths.items():
+        report = path.with_suffix(".log")
+        text = report.read_text() if report.exists() else ""
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+        spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", text))
+        smem = [int(b) for b in re.findall(r"(\d+) bytes smem", text)]
+        log(f"  ptxas {src}: {len(regs)} kernels, at most "
+            f"{max(regs, default=0)} registers and {max(smem, default=0)} "
+            f"bytes of shared memory, {spills} bytes spilled")
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: every kernel against its plain version on the card
+# ---------------------------------------------------------------------------
+
+
+def phase_kernels(gen: torch.Generator) -> dict:
+    dev = torch.device("cuda")
+    res = {k: {"max_abs_err": 0.0} for k in WRAPPERS}
+
+    def ints(n):
+        return torch.randint(-100, 100, (n,), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    def note(k, err):
+        res[k]["max_abs_err"] = max(res[k]["max_abs_err"], err)
+
+    # -- K2: flat scan.  Integer ADD must be bit-exact; the AFFINE leg is
+    # f32 through the multi-block path, held at 1e-5 relative to the
+    # output's magnitude because the log-step plain scan folds in another
+    # order.
+    tile = _lib.library("scan_flat.cu").rt_scan_flat_tile()
+    for n in (BATCH, 8, 1, tile + 1, 1 << 24):
+        x = ints(n)
+        for inclusive in (True, False):
+            got = scan_k.scan_1d_cuda(alg.ADD, x, inclusive=inclusive)
+            want = scan_k.scan_1d_plain(alg.ADD, x, inclusive=inclusive)
+            err = max_err(got, want)
+            note("K2", err)
+            expect(err == 0, f"K2 scan ADD int32 n={n} inclusive="
+                             f"{inclusive}: bit-exact")
+    for n in (tile + 1, 3 * tile + 7):
+        a = torch.empty(n, device=dev).uniform_(0.9, 1.0, generator=gen)
+        b = torch.empty(n, device=dev).uniform_(-1, 1, generator=gen)
+        got = scan_k.scan_1d_cuda(alg.AFFINE, (a, b))
+        want = scan_k.scan_1d_plain(alg.AFFINE, (a, b))
+        err = max_err(got, want)
+        note("K2", err)
+        scale = max(float(want[1].abs().max()), 1.0)
+        expect(err <= 1e-5 * scale, f"K2 scan AFFINE f32 n={n}: max abs err "
+                                    f"{err:.3g} <= 1e-5 x {scale:.3g}")
+    x = ints(BATCH)
+    res["K2"]["ms"] = time_ms(lambda: scan_k.scan_1d_cuda(alg.ADD, x))
+    res["K2"]["plain_ms"] = time_ms(lambda: scan_k.scan_1d_plain(alg.ADD, x))
+    res["K2"]["library_ms"] = time_ms(
+        lambda: torch.cumsum(x, 0, dtype=torch.int32))
+    res["K2"]["bound"] = bound_ms(2 * 4 * BATCH, BATCH)
+    res["K2"]["shape"] = f"({BATCH},) int32 ADD"
+    big = ints(1 << 24)
+    res["K2"]["large"] = {
+        "n": 1 << 24,
+        "ms": time_ms(lambda: scan_k.scan_1d_cuda(alg.ADD, big), 20),
+        "plain_ms": time_ms(lambda: scan_k.scan_1d_plain(alg.ADD, big), 3),
+        "library_ms": time_ms(
+            lambda: torch.cumsum(big, 0, dtype=torch.int32), 20),
+        "bound_ms": bound_ms(2 * 4 * (1 << 24), 1 << 24)[0]}
+
+    # -- K6: channel scan (the RG-LRU recurrence).  The plain version walks
+    # T in the kernel's order with the kernel's rounding (no fused
+    # multiply-add), so the two agree to float32 rounding: held at 1e-6.
+    def affine_bt(B, T, C):
+        a = torch.empty(B, T, C, device=dev).uniform_(0.9, 0.999,
+                                                      generator=gen)
+        b = torch.empty(B, T, C, device=dev).uniform_(-1, 1, generator=gen)
+        return a, b
+
+    for (B, T, C), inclusive, reverse in (
+            ((1, 1024, 2560), True, False), ((8, 2048, 2560), True, False),
+            ((2, 61, 130), True, True), ((2, 61, 130), False, False),
+            ((3, 1, 1), False, True)):
+        ab = affine_bt(B, T, C)
+        got = scan_k.scan_channel_cuda(alg.AFFINE, ab, inclusive=inclusive,
+                                       reverse=reverse)
+        want = scan_k.scan_channel_plain(alg.AFFINE, ab, inclusive=inclusive,
+                                         reverse=reverse)
+        err = max_err(got, want)
+        note("K6", err)
+        expect(err <= 1e-6, f"K6 AFFINE f32 ({B},{T},{C}) inclusive="
+                            f"{inclusive} reverse={reverse}: max abs err "
+                            f"{err:.3g} <= 1e-6")
+    ab = affine_bt(1, 1024, 2560)
+    res["K6"]["ms"] = time_ms(lambda: scan_k.scan_channel_cuda(alg.AFFINE, ab))
+    res["K6"]["plain_ms"] = time_ms(
+        lambda: scan_k.scan_channel_plain(alg.AFFINE, ab), 3)
+    res["K6"]["library_ms"] = None      # no PyTorch call scans AFFINE pairs
+    elems = 1 * 1024 * 2560
+    res["K6"]["bound"] = bound_ms(4 * 4 * elems, 3 * elems)
+    res["K6"]["shape"] = "(1, 1024, 2560) f32 AFFINE"
+    ab8 = affine_bt(8, 2048, 2560)
+    res["K6"]["large"] = {
+        "shape": [8, 2048, 2560],
+        "ms": time_ms(lambda: scan_k.scan_channel_cuda(alg.AFFINE, ab8), 10),
+        "plain_ms": time_ms(
+            lambda: scan_k.scan_channel_plain(alg.AFFINE, ab8), 1),
+        "bound_ms": bound_ms(4 * 4 * 8 * 2048 * 2560, 3 * 8 * 2048 * 2560)[0]}
+
+    # -- K3: flat mapreduce.  MAX over int32 is bit-exact; the masked ADD leg
+    # is f32 in another fold order, held at 1e-5 relative.
+    block = 256 * 8
+    for n in (BATCH, 8, 1, block + 1, 1 << 24):
+        x = ints(n)
+        got = mapreduce_k.mapreduce_1d_cuda(alg.IDENTITY, alg.MAX, x)
+        want = mapreduce_k.mapreduce_1d_plain(alg.IDENTITY, alg.MAX, x)
+        err = max_err(got, want)
+        note("K3", err)
+        expect(err == 0 and int(got) == int(x.max()),
+               f"K3 MAX int32 n={n}: bit-exact")
+    v = torch.randn(1 << 20, generator=gen, device=dev)
+    m = (torch.rand(1 << 20, generator=gen, device=dev) > 0.5).int()
+    got = mapreduce_k.mapreduce_1d_cuda(alg.masked_select(0.0), alg.ADD, (v, m))
+    want = mapreduce_k.mapreduce_1d_plain(alg.masked_select(0.0), alg.ADD,
+                                          (v, m))
+    err = max_err(got, want)
+    scale = float(v.abs().sum())
+    expect(err <= 1e-5 * scale, f"K3 masked ADD f32 n=2^20: max abs err "
+                                f"{err:.3g} <= 1e-5 x sum|v| {scale:.3g}")
+    x = (torch.rand(BATCH, generator=gen, device=dev) > 0.5).int()
+    res["K3"]["ms"] = time_ms(
+        lambda: mapreduce_k.mapreduce_1d_cuda(alg.IDENTITY, alg.MAX, x))
+    res["K3"]["plain_ms"] = time_ms(
+        lambda: mapreduce_k.mapreduce_1d_plain(alg.IDENTITY, alg.MAX, x))
+    res["K3"]["library_ms"] = time_ms(lambda: torch.amax(x))
+    res["K3"]["bound"] = bound_ms(4 * BATCH + 4, BATCH)
+    res["K3"]["shape"] = f"({BATCH},) int32 MAX"
+    big = ints(1 << 24)
+    res["K3"]["large"] = {
+        "n": 1 << 24,
+        "ms": time_ms(lambda: mapreduce_k.mapreduce_1d_cuda(
+            alg.IDENTITY, alg.MAX, big), 20),
+        "plain_ms": time_ms(lambda: mapreduce_k.mapreduce_1d_plain(
+            alg.IDENTITY, alg.MAX, big), 3),
+        "library_ms": time_ms(lambda: torch.amax(big), 20),
+        "bound_ms": bound_ms(4 * (1 << 24), 1 << 24)[0]}
+
+    # -- K7m: batched masked mapreduce (per-slot sequence scores).  f32 sums
+    # in another order: held at 1e-5 relative to the row's sum of |values|.
+    masked = alg.masked_select(0.0)
+
+    def scores(B, n):
+        logp = -torch.rand(B, n, generator=gen, device=dev) * 12
+        emitted = torch.randint(0, n + 1, (B,), generator=gen, device=dev)
+        mask = (torch.arange(n, device=dev)[None] < emitted[:, None]).int()
+        return logp, mask
+
+    for B, n in ((8, 64), (BATCH, CACHE_LEN), (1, 1), (3, 257)):
+        lp, mask = scores(B, n)
+        got = batched_k.batched_mapreduce_cuda(masked, alg.ADD, (lp, mask))
+        want = batched_k.batched_mapreduce_plain(masked, alg.ADD, (lp, mask))
+        err = max_err(got, want)
+        note("K7m", err)
+        scale = max(float(lp.abs().sum(1).max()), 1.0)
+        expect(err <= 1e-5 * scale, f"K7m masked ADD f32 ({B},{n}): max abs "
+                                    f"err {err:.3g} <= 1e-5 x {scale:.3g}")
+    lp, mask = scores(BATCH, CACHE_LEN)
+    res["K7m"]["ms"] = time_ms(lambda: batched_k.batched_mapreduce_cuda(
+        masked, alg.ADD, (lp, mask)))
+    res["K7m"]["plain_ms"] = time_ms(lambda: batched_k.batched_mapreduce_plain(
+        masked, alg.ADD, (lp, mask)))
+    res["K7m"]["library_ms"] = time_ms(
+        lambda: torch.sum(torch.where(mask != 0, lp, 0.0), dim=1))
+    res["K7m"]["bound"] = bound_ms(8 * BATCH * CACHE_LEN + 4 * BATCH,
+                                   BATCH * CACHE_LEN)
+    res["K7m"]["shape"] = f"({BATCH}, {CACHE_LEN}) f32 masked ADD"
+    for k, r in res.items():
+        log(f"[kernels] {k} {r['shape']}: {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
+            f"{r['bound'][0]:.6f} ms ({r['bound'][1]}); large {r.get('large')}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: serve recurrentgemma-2b FULL
+# ---------------------------------------------------------------------------
+
+
+def phase_serve() -> dict:
+    dev = torch.device("cuda")
+    cfg = get_config("recurrentgemma-2b")
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=SEED, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in torch.utils._pytree.tree_leaves(params))
+    log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B parameters, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in PROMPT_LENS]
+
+    # The cuda backend against the plain torch backend on the card, on the
+    # first request's prompt and on the 1024-token one.  bf16 activations
+    # round the recurrence's f32 output, so one ulp of f32 difference can
+    # flip a bf16 rounding and move through 26 layers: held at 2e-2 of the
+    # logits' magnitude.
+    for p in (prompts[0], prompts[4]):
+        toks = torch.tensor([p], dtype=torch.int64, device=dev)
+        logits_c, _ = lm.prefill(params, cfg, toks, cache_len=CACHE_LEN)
+        with ki.use_backend("torch"):
+            logits_t, _ = lm.prefill(params, cfg, toks, cache_len=CACHE_LEN)
+        expect(bool(torch.isfinite(logits_c).all()) and tuple(
+            logits_c.shape) == (1, cfg.vocab_size),
+            f"prefill T={len(p)}: finite logits of shape (1, {cfg.vocab_size})")
+        err = float((logits_c - logits_t).abs().max())
+        scale = float(logits_t.abs().max())
+        expect(err <= 2e-2 * scale,
+               f"prefill T={len(p)}: cuda vs torch backend max abs err "
+               f"{err:.4g} <= 2e-2 x max|logit| {scale:.4g}; argmax "
+               f"{int(logits_c.argmax())} vs {int(logits_t.argmax())}")
+
+    eng = Engine(cfg, params, cache_len=CACHE_LEN, batch_size=BATCH,
+                 device=dev)
+    reqs = [Request(prompt=p, max_new_tokens=m)
+            for p, m in zip(prompts, MAX_NEW)]
+    for w in WRAPPERS.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    stats = eng.last_stats
+    for i, (o, r) in enumerate(zip(outs, reqs)):
+        expect(len(o) == r.max_new_tokens and all(
+            0 <= t < cfg.vocab_size for t in o),
+            f"request {i} (prompt {len(r.prompt)}): {len(o)} tokens == "
+            f"max_new_tokens {r.max_new_tokens}, ids in the vocabulary")
+    for k, n in launches.items():
+        expect(n > 0, f"{k} launched {n} times on the serving path")
+    profile = profile_serving(eng, params, cfg, prompts[4])
+    prompt_tokens = sum(PROMPT_LENS)
+    summary = {
+        "requests": len(reqs), "slots": BATCH, "cache_len": CACHE_LEN,
+        "prompt_tokens": prompt_tokens,
+        "generated_tokens": stats["total_tokens"],
+        "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
+        "serve_s": wall,
+        "prefill_tok_per_s": prompt_tokens / stats["prefill_s"],
+        "decode_tok_per_s": stats["decode_tok_per_s"],
+        "decode_steps": stats["decode_steps"],
+        "loop_dispatches": stats["loop_dispatches"],
+        "launches": launches,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "profile": profile,
+    }
+    log("[serve] " + json.dumps(summary))
+    return summary
+
+
+def profile_device(label: str, fn, units: int) -> dict:
+    """Run ``fn`` once under torch.profiler and report, per unit of work
+    (a decode step, a prefill), the wall time, the device kernel time, the
+    device's idle share, the device operations and the kernels that take
+    the most time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = collections.Counter()
+    ops = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us() / 1e3
+            ops += 1
+    if not ops:
+        log(f"[profile {label}] device time not measured (no device events)")
+        return {"measured": False}
+    busy_ms = sum(by_name.values())
+    out = {"measured": True, "units": units,
+           "wall_ms_profiled": wall_ms / units,
+           "device_ms": busy_ms / units,
+           "device_idle_share": 1.0 - busy_ms / wall_ms,
+           "device_ops": ops / units,
+           "top": [[name[:60], ms / units]
+                   for name, ms in by_name.most_common(8)]}
+    log(f"[profile {label}] " + json.dumps(out))
+    return out
+
+
+def profile_serving(eng, params, cfg, prompt, steps: int = 8) -> dict:
+    """Where the time goes: one prefill of ``prompt``, and ``steps``
+    iterations of the engine's decode loop with all four slots live
+    (positions 17, 600, 1500 and 2100, the last past the 2048-slot ring)."""
+    toks = torch.tensor([prompt], dtype=torch.int64, device="cuda")
+    prefill = profile_device(
+        f"prefill T={len(prompt)}",
+        lambda: lm.prefill(params, cfg, toks, cache_len=CACHE_LEN), 1)
+    state = eng._fresh_state()
+    state["active"][:] = True
+    state["max_new"][:] = eng.max_new_cap
+    state["pos"].copy_(torch.tensor([17, 600, 1500, 2100], dtype=torch.int32))
+    state, _ = eng._dispatch_loop(state, 2, False)          # warm-up
+    ran = []
+    decode = profile_device(
+        f"decode x{steps}",
+        lambda: ran.append(eng._dispatch_loop(state, steps, False)[1]), steps)
+    if ran != [steps]:
+        raise CheckFailed(f"the profiled decode loop ran {ran} steps, not "
+                          f"{steps}")
+    return {"prefill": prefill, "decode_step": decode}
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else \
+        f"nvidia-smi failed: {out.stderr.strip()}"
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    try:
+        phase_build()
+        res = phase_kernels(gen)
+        serve = phase_serve()
+    except CheckFailed as e:
+        print(f"chip_smoke: check failed: {e}", file=sys.stderr)
+        return 1
+    kernels = []
+    for k, r in res.items():
+        name, source, replaces = META[k]
+        kernels.append({
+            "name": f"{k} {name}", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": serve["launches"][k],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+            "shape": r["shape"]})
+    print(json.dumps({"kernels": kernels}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,300 @@
+"""The route registry and backend dispatch (the registry half of
+``repro.core.intrinsics``).
+
+One declarative table says which (primitive, layout) routes exist, how each
+validates its arguments and what it does at zero extent; implementations
+register per backend from ``kernels/ops.py``.  Two backends exist:
+
+* ``torch`` -- the plain PyTorch versions, always available, on any device;
+* ``cuda``  -- the hand-written kernels under ``csrc/``.  On a CUDA tensor a
+  ``cuda`` route launches its kernel or raises; it never swaps in the plain
+  version.
+
+With no explicit ``backend=`` and no :func:`use_backend` scope, the backend
+follows the operands: ``cuda`` for tensors on a CUDA device, ``torch``
+otherwise.  The TPU tiling helpers and tuning policies of the reference do
+not port: their work moves inside the kernels.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import threading
+from typing import Callable
+
+import torch
+from torch.utils import _pytree as pytree
+
+from repro_torch.core import layout as lay
+
+# --------------------------------------------------------------------------
+# Backend registry: a thread-local scoped override (use_backend) and
+# registry-driven capability queries (available_backends / supports).
+# --------------------------------------------------------------------------
+
+_IMPL_REGISTRY: dict[tuple[str, str], Callable] = {}
+
+
+class _BackendScope(threading.local):
+    """Per-thread stack of use_backend() overrides (innermost wins)."""
+
+    def __init__(self):
+        self.stack: list[str] = []
+
+
+_BACKEND_SCOPE = _BackendScope()
+
+
+def register_impl(primitive: str, backend: str):
+    def deco(fn):
+        _IMPL_REGISTRY[(primitive, backend)] = fn
+        return fn
+
+    return deco
+
+
+def _known_backends() -> set[str]:
+    # Registration happens when kernels/ops.py imports; pull it in lazily so
+    # the query API works without making this layer import the kernels.
+    if not _IMPL_REGISTRY:
+        from repro_torch.kernels import ops as _ops  # noqa: F401
+    return {b for (_, b) in _IMPL_REGISTRY}
+
+
+def available_backends() -> tuple[str, ...]:
+    """All backend names with at least one registered implementation."""
+    return tuple(sorted(_known_backends()))
+
+
+def supports(route: str, backend: str) -> bool:
+    """Whether ``route`` (e.g. ``"scan@flat"``) has a ``backend``
+    implementation.  Unknown route or backend names raise ValueError."""
+    if route not in route_keys():
+        raise ValueError(
+            f"unknown route {route!r} (routes: {sorted(route_keys())})")
+    if backend not in _known_backends():
+        raise ValueError(
+            f"unknown backend {backend!r} "
+            f"(available: {', '.join(available_backends())})")
+    return (route, backend) in _IMPL_REGISTRY
+
+
+@contextlib.contextmanager
+def use_backend(backend: str):
+    """Scoped backend override: ``with use_backend("torch"): ...``.
+
+    Thread-safe (each thread keeps its own stack; innermost scope wins) and
+    validated up front.  An explicit ``backend=`` argument on a primitive
+    call still takes precedence over the scope.
+    """
+    if backend not in _known_backends():
+        raise ValueError(
+            f"unknown backend {backend!r} "
+            f"(available: {', '.join(available_backends())})")
+    _BACKEND_SCOPE.stack.append(backend)
+    try:
+        yield backend
+    finally:
+        _BACKEND_SCOPE.stack.pop()
+
+
+def current_backend(data=None) -> str:
+    """The backend dispatch uses when no explicit ``backend=`` is passed:
+    the innermost use_backend() scope, else ``cuda`` when ``data``'s leaves
+    lie on a CUDA device, else ``torch``."""
+    if _BACKEND_SCOPE.stack:
+        return _BACKEND_SCOPE.stack[-1]
+    leaves = pytree.tree_leaves(data)
+    if leaves and isinstance(leaves[0], torch.Tensor) and leaves[0].is_cuda:
+        return "cuda"
+    return "torch"
+
+
+def resolve_impl(primitive: str, backend: str | None = None,
+                 data=None) -> Callable:
+    backend = backend or current_backend(data)
+    impl = _IMPL_REGISTRY.get((primitive, backend))
+    if impl is None:
+        if backend not in _known_backends():
+            raise ValueError(
+                f"{primitive}: unknown backend {backend!r} "
+                f"(available: {', '.join(available_backends())})")
+        # Unlike the reference (which falls back to xla here), a known
+        # backend without this route raises: a missing kernel must not be
+        # hidden behind the plain version.
+        raise NotImplementedError(
+            f"{primitive}: no {backend!r} implementation")
+    return impl
+
+
+# --------------------------------------------------------------------------
+# The declarative primitive registry.
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class RouteDef:
+    """One (primitive, layout) row of the registry.
+
+    ``args`` indices refer to the positional call convention of the public
+    entry point (and of the registered implementations, which share it).
+    """
+
+    primitive: str
+    layout: str
+    data_arg: int = 0
+    op_arg: int | None = None
+    # ((arg index, required leaf rank), ...) -- checked on every leaf.
+    arg_ranks: tuple = ()
+    # ((kwarg name, required value), ...) -- kwargs the layout pins; they are
+    # validated then stripped before the implementation call.
+    fixed_kwargs: tuple = ()
+    commutative_only: bool = False
+    # Name of a shared zero-extent guard in _ZERO_GUARDS (None: the
+    # implementation handles zero extents itself).
+    zero_extent: str | None = None
+    notes: str = ""
+
+    @property
+    def key(self) -> str:
+        return f"{self.primitive}@{self.layout}"
+
+
+@dataclasses.dataclass(frozen=True)
+class PrimitiveDef:
+    """A public primitive and its layout routes."""
+
+    name: str
+    routes: dict  # layout kind -> RouteDef
+    doc: str = ""
+
+
+PRIMITIVE_DEFS: dict[str, PrimitiveDef] = {}
+
+
+def define_primitive(name: str, *routes: RouteDef, doc: str = ""):
+    PRIMITIVE_DEFS[name] = PrimitiveDef(
+        name=name, routes={r.layout: r for r in routes}, doc=doc)
+
+
+def iter_routes():
+    """Every RouteDef in the registry, in definition order."""
+    for pdef in PRIMITIVE_DEFS.values():
+        yield from pdef.routes.values()
+
+
+def route_keys() -> set[str]:
+    return {r.key for r in iter_routes()}
+
+
+def get_route(primitive: str, kind: str) -> RouteDef:
+    pdef = PRIMITIVE_DEFS.get(primitive)
+    if pdef is None:
+        raise NotImplementedError(f"unknown primitive {primitive!r}")
+    route = pdef.routes.get(kind)
+    if route is None:
+        raise ValueError(
+            f"{primitive}: unsupported layout {kind!r} "
+            f"(supported: {sorted(pdef.routes)})")
+    return route
+
+
+# -- shared zero-extent guards (single implementations, wired by name) ------
+
+
+def _zg_passthrough(route, args, kwargs):
+    """Any zero extent in the data: the input already is the output."""
+    data = args[route.data_arg]
+    lead = pytree.tree_leaves(data)[0]
+    if any(d == 0 for d in lead.shape):
+        return True, data
+    return False, None
+
+
+def _zg_batched_reduce_identity(route, args, kwargs):
+    """(B, 0) rows / B == 0: reducing zero elements yields identity rows."""
+    f, op, xs = args[0], args[1], args[2]
+    B, n = pytree.tree_leaves(xs)[0].shape
+    if B and n:
+        return False, None
+    one = f(pytree.tree_map(lambda l: l[:1, :0], xs))   # mapped dtypes only
+    return True, op.identity(pytree.tree_map(
+        lambda l: torch.empty((B,), dtype=l.dtype, device=l.device), one))
+
+
+_ZERO_GUARDS = {
+    "passthrough": _zg_passthrough,
+    "batched_reduce_identity": _zg_batched_reduce_identity,
+}
+
+
+# -- the dispatch pipeline --------------------------------------------------
+
+
+def _validate(route: RouteDef, layout, args, kwargs):
+    where = route.key
+    for name, required in route.fixed_kwargs:
+        if name in kwargs:
+            got = kwargs.pop(name)
+            if got is not required and got != required:
+                raise ValueError(
+                    f"{where}: {name}= is pinned by the "
+                    f"{layout.describe()} layout -- leave it at its "
+                    f"default ({required!r}); got {got!r}"
+                    + (f". {route.notes}" if route.notes else ""))
+    for idx, rank in route.arg_ranks:
+        for leaf in pytree.tree_leaves(args[idx]):
+            if leaf.ndim != rank:
+                raise ValueError(
+                    f"{where}: argument {idx} expects rank-{rank} leaves "
+                    f"for the {layout.describe()} layout, got shape "
+                    f"{tuple(leaf.shape)}")
+    if route.op_arg is not None and route.commutative_only:
+        op = args[route.op_arg]
+        if not getattr(op, "commutative", False):
+            raise ValueError(
+                f"{where}: requires a commutative operator, got "
+                f"{getattr(op, 'name', op)!r} (non-commutative ops take "
+                f"the order-preserving scan routes)")
+
+
+def dispatch(primitive: str, layout, backend: str | None,
+             args: tuple, kwargs: dict):
+    """Resolve and call one (primitive, layout, backend) route: validation,
+    zero-extent guard, then the backend's implementation."""
+    layout = lay.as_layout(layout)
+    route = get_route(primitive, layout.kind)
+    kwargs = dict(kwargs)
+    _validate(route, layout, args, kwargs)
+    if route.zero_extent is not None:
+        handled, result = _ZERO_GUARDS[route.zero_extent](route, args, kwargs)
+        if handled:
+            return result
+    impl = resolve_impl(route.key, backend, args[route.data_arg])
+    return impl(*args, **kwargs)
+
+
+# -- the table itself -------------------------------------------------------
+
+define_primitive(
+    "scan",
+    RouteDef("scan", "flat", data_arg=1, op_arg=0, zero_extent="passthrough"),
+    doc="prefix scan with any associative operator")
+
+define_primitive(
+    "mapreduce",
+    RouteDef("mapreduce", "flat", data_arg=2, op_arg=1,
+             commutative_only=True),
+    RouteDef("mapreduce", "batched", data_arg=2, op_arg=1,
+             arg_ranks=((2, 2),), fixed_kwargs=(("axis", None),),
+             zero_extent="batched_reduce_identity",
+             notes="non-commutative ops take the order-preserving torch "
+                   "route; the cuda kernel refuses them"),
+    doc="op-reduction of f(x)")
+
+define_primitive(
+    "linear_recurrence",
+    RouteDef("linear_recurrence", "flat", arg_ranks=((0, 3), (1, 3))),
+    RouteDef("linear_recurrence", "batched", arg_ranks=((0, 3), (1, 3)),
+             notes="the recurrent models' prefill route"),
+    doc="h_t = a_t * h_{t-1} + b_t along axis 1 of (B, T, C)")

@@ -1,0 +1,148 @@
+"""Backend registration for every route of the slice.
+
+The port of ``repro/kernels/ops.py``: ``IMPLS`` maps each route key
+(``"scan@flat"``) to its per-backend implementations, and the module checks
+at import that the table covers exactly the routes of the registry in
+``core.intrinsics``.
+
+* ``torch`` -- plain PyTorch, mirroring the reference's ``xla`` rows
+  (``_scan_xla``, ``_mapreduce_xla``, ``_batched_mapreduce_xla``,
+  ``_linrec_xla``); it runs on any device.
+* ``cuda`` -- the hand-written kernels: K2 and K6 (``kernels/scan.py``),
+  K3 (``kernels/mapreduce.py``) and K7m (``kernels/batched.py``).  The
+  shape handling around them (flips, axis moves) is plain tensor code here.
+
+Validation and zero-extent guards live in the registry's dispatch, so these
+functions only see well-formed, non-empty problems through the public API.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+from torch.utils import _pytree as pytree
+
+from repro_torch.core import intrinsics as ki
+from repro_torch.core import operators as alg
+from repro_torch.kernels import batched as batched_k
+from repro_torch.kernels import mapreduce as mapreduce_k
+from repro_torch.kernels import ref
+from repro_torch.kernels import scan as scan_k
+
+Pytree = Any
+
+# Standard algebra over one plain tensor: the torch rows take the library
+# reduction, as the reference's xla rows take jnp's.
+_DIRECT = {
+    "add": lambda v, dim: v.sum(dim=dim, dtype=v.dtype),
+    "mul": lambda v, dim: v.prod(dim=dim, dtype=v.dtype),
+    "max": lambda v, dim: v.amax() if dim is None else v.amax(dim=dim),
+    "min": lambda v, dim: v.amin() if dim is None else v.amin(dim=dim),
+}
+
+
+# ---------------------------------------------------------------------------
+# scan@flat
+# ---------------------------------------------------------------------------
+
+
+def _scan_torch(op, xs, *, axis=0, inclusive=True, reverse=False):
+    return ref.ref_scan(op, xs, axis=axis, inclusive=inclusive,
+                        reverse=reverse)
+
+
+def _scan_cuda(op, xs, *, axis=0, inclusive=True, reverse=False):
+    leaves, spec = pytree.tree_flatten(xs)
+    ndim = leaves[0].ndim
+    if ndim == 1:
+        if reverse:
+            xs = pytree.tree_map(lambda l: torch.flip(l, (0,)), xs)
+        out = scan_k.scan_1d_cuda(op, xs, inclusive=inclusive)
+        if reverse:
+            out = pytree.tree_map(lambda l: torch.flip(l, (0,)), out)
+        return out
+    if ndim == 3 and axis == 1:
+        return scan_k.scan_channel_cuda(op, xs, inclusive=inclusive,
+                                        reverse=reverse)
+    # Any other rank or axis: move the scan axis to 1 and flatten the rest
+    # into channels, (lead, T, rest), then restore.
+    moved = [l.movedim(axis, 1) for l in leaves]
+    xs3 = [m.reshape(m.shape[0], m.shape[1], -1).contiguous() for m in moved]
+    out = scan_k.scan_channel_cuda(op, pytree.tree_unflatten(xs3, spec),
+                                   inclusive=inclusive, reverse=reverse)
+    outs = [o.reshape(m.shape).movedim(1, axis)
+            for o, m in zip(pytree.tree_leaves(out), moved)]
+    return pytree.tree_unflatten(outs, spec)
+
+
+# ---------------------------------------------------------------------------
+# mapreduce@flat / mapreduce@batched
+# ---------------------------------------------------------------------------
+
+
+def _mapreduce_torch(f, op, xs, *, axis=None):
+    vals = f(xs)
+    if op.name in _DIRECT and isinstance(vals, torch.Tensor):
+        return _DIRECT[op.name](vals, axis)
+    return ref.ref_mapreduce(f, op, xs, axis=axis)
+
+
+def _mapreduce_cuda(f, op, xs, *, axis=None):
+    if axis is not None:
+        raise NotImplementedError(
+            "mapreduce@flat (cuda): axis= reductions ride the matvec "
+            "kernels (K4), which this port does not have yet")
+    flat = pytree.tree_map(lambda l: l.reshape(-1), xs)
+    return mapreduce_k.mapreduce_1d_cuda(f, op, flat)
+
+
+def _batched_mapreduce_torch(f, op, xs):
+    vals = f(xs)
+    if op.name in _DIRECT and isinstance(vals, torch.Tensor):
+        return _DIRECT[op.name](vals, 1)
+    return ref.ref_fold(op, vals, axis=1)
+
+
+# ---------------------------------------------------------------------------
+# linear_recurrence  h_t = a_t * h_{t-1} + b_t  on (B, T, C)
+#
+# The (B, T, C) channel scan is batch-native, so the same implementations
+# serve the flat and batched routes.
+# ---------------------------------------------------------------------------
+
+
+def _linrec_torch(a, b, h0=None, *, reverse=False):
+    return ref.ref_linear_recurrence(a, b, h0=h0, axis=1, reverse=reverse)
+
+
+def _linrec_cuda(a, b, h0=None, *, reverse=False):
+    A, B = scan_k.scan_channel_cuda(alg.AFFINE, (a, b), inclusive=True,
+                                    reverse=reverse)
+    if h0 is None:
+        return B
+    return A * h0[:, None, :] + B
+
+
+IMPLS: dict[str, dict[str, Any]] = {
+    "scan@flat": {"torch": _scan_torch, "cuda": _scan_cuda},
+    "mapreduce@flat": {"torch": _mapreduce_torch, "cuda": _mapreduce_cuda},
+    "mapreduce@batched": {"torch": _batched_mapreduce_torch,
+                          "cuda": batched_k.batched_mapreduce_cuda},
+    "linear_recurrence@flat": {"torch": _linrec_torch, "cuda": _linrec_cuda},
+    "linear_recurrence@batched": {"torch": _linrec_torch,
+                                  "cuda": _linrec_cuda},
+}
+
+# The table and the registry must enumerate exactly the same routes, and
+# every route must keep its plain torch row.  Raised (not assert) so the
+# check survives python -O.
+if set(IMPLS) != ki.route_keys():
+    raise RuntimeError(
+        "kernels/ops.py IMPLS out of sync with the PrimitiveDef registry: "
+        f"missing={sorted(ki.route_keys() - set(IMPLS))} "
+        f"extra={sorted(set(IMPLS) - ki.route_keys())}")
+for _key, _impls in IMPLS.items():
+    if "torch" not in _impls:
+        raise RuntimeError(f"{_key}: every route needs a torch row")
+    for _backend, _fn in _impls.items():
+        ki.register_impl(_key, _backend)(_fn)

@@ -1,0 +1,105 @@
+"""Plain PyTorch oracles for the slice's kernels (the ``ref.py`` contract).
+
+Written against plain tensor operations and independent of the kernels'
+block structure -- a log-step (Hillis-Steele) scan and a pairwise ordered
+fold, both order-preserving, so they serve non-commutative operators too --
+so that kernel-against-ref agreement is a real check.  They run on any
+device.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+from torch.utils import _pytree as pytree
+
+from repro_torch.core import operators as ops_alg
+
+Pytree = Any
+
+
+def _narrow(xs, axis, start, stop):
+    return pytree.tree_map(lambda l: l.narrow(axis, start, stop - start), xs)
+
+
+def _flip(xs, axis):
+    return pytree.tree_map(lambda l: torch.flip(l, (axis,)), xs)
+
+
+def _inclusive_scan(op, xs, axis):
+    """Hillis-Steele: after the step of distance d, element i holds the
+    ordered fold of the 2d elements ending at i."""
+    n = pytree.tree_leaves(xs)[0].shape[axis]
+    out, d = xs, 1
+    while d < n:
+        comb = op.combine(_narrow(out, axis, 0, n - d), _narrow(out, axis, d, n))
+        out = pytree.tree_map(
+            lambda o, c: torch.cat([o.narrow(axis, 0, d), c], dim=axis),
+            out, comb)
+        d *= 2
+    return out
+
+
+def ref_scan(op, xs: Pytree, axis: int = 0, inclusive: bool = True,
+             reverse: bool = False) -> Pytree:
+    """Inclusive/exclusive scan along ``axis`` with an arbitrary AssocOp.
+
+    ``reverse`` scans from the end: element t folds x[T-1], ..., x[t].
+    """
+    if reverse:
+        xs = _flip(xs, axis)
+    out = _inclusive_scan(op, xs, axis)
+    if not inclusive:
+        # Exclusive: shift by one along axis, filling with the identity.
+        n = pytree.tree_leaves(xs)[0].shape[axis]
+        ident = op.identity(_narrow(xs, axis, 0, 1))
+        out = pytree.tree_map(
+            lambda o, i: torch.cat([i, o.narrow(axis, 0, n - 1)], dim=axis),
+            out, ident)
+    return _flip(out, axis) if reverse else out
+
+
+def ref_fold(op, vals: Pytree, axis: int) -> Pytree:
+    """Ordered pairwise fold of ``vals`` along ``axis`` (axis removed)."""
+    vals = pytree.tree_map(lambda l: l.movedim(axis, 0), vals)
+    while pytree.tree_leaves(vals)[0].shape[0] > 1:
+        n = pytree.tree_leaves(vals)[0].shape[0]
+        if n % 2:
+            ident = op.identity(pytree.tree_map(lambda l: l[:1], vals))
+            vals = pytree.tree_map(lambda l, i: torch.cat([l, i]), vals, ident)
+        vals = op.combine(pytree.tree_map(lambda l: l[0::2], vals),
+                          pytree.tree_map(lambda l: l[1::2], vals))
+    return pytree.tree_map(lambda l: l[0], vals)
+
+
+def ref_mapreduce(f, op, xs: Pytree, axis=None) -> Pytree:
+    """op-reduce of f(x) over ``axis`` (None = all elements)."""
+    vals = f(xs)
+    if axis is None:
+        vals = pytree.tree_map(lambda l: l.reshape(-1), vals)
+        axis = 0
+    return ref_fold(op, vals, axis)
+
+
+def ref_linear_recurrence(a: torch.Tensor, b: torch.Tensor, h0=None,
+                          axis: int = 1, reverse: bool = False) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + b_t along ``axis`` (h_{-1} = h0 or 0)."""
+    A, B = ref_scan(ops_alg.AFFINE, (a, b), axis=axis, reverse=reverse)
+    if h0 is None:
+        return B
+    return A * h0.unsqueeze(axis) + B
+
+
+def ref_batched_mapreduce(f, op, xs: Pytree) -> Pytree:
+    """Row-by-row op-reduce of ``f(row)`` -> one element per row.
+
+    Length-0 rows (and B == 0 batches) yield ``op``'s identity per row.
+    """
+    B, n = pytree.tree_leaves(xs)[0].shape[:2]
+    one = f(pytree.tree_map(lambda l: l[:1, :0], xs))
+    if B == 0 or n == 0:
+        return op.identity(pytree.tree_map(
+            lambda l: torch.empty((B,), dtype=l.dtype, device=l.device), one))
+    rows = [ref_mapreduce(f, op, pytree.tree_map(lambda l: l[i], xs))
+            for i in range(B)]
+    return pytree.tree_map(lambda *ls: torch.stack(ls), *rows)

@@ -1,0 +1,201 @@
+"""Attention of the slice: local (sliding-window) GQA, prefill and decode.
+
+The port of the parts of ``repro.models.attention`` that recurrentgemma's
+local-attention layers use.  As in the reference, both attention cores are
+plain tensor code outside any kernel: ``blockwise_attention`` (the online
+softmax over KV blocks, the flash pattern) for prefill and
+``decode_attention`` for one decode step against a fixed cache.  Local
+layers keep a ring cache of ``min(cache_len, local_window)`` slots.
+
+Layouts are the reference's: q (B, S, K, G, hd), k and v (B, T, K, hd).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.models import layers as L
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Blockwise (flash) attention core
+# ---------------------------------------------------------------------------
+
+
+def blockwise_attention(q, k, v, *, qpos, causal=True, window=0,
+                        softcap=0.0, kv_block=512, kv_len=None):
+    """q: (B,S,K,G,hd); k,v: (B,T,K,hd).  Returns (B,S,K,G,hd).
+
+    ``qpos``: (S,) absolute positions of queries.  ``window``>0 limits keys to
+    (qpos - kpos) < window.  ``kv_len``: actual valid key count (<= T).
+    Scores and the softmax state are float32; probabilities round to v's
+    dtype before the value product, as in the reference.
+
+    The last block is the ragged tail [start, T): every key is read once at
+    its own position.  (The reference slices a full ``kv_block`` there,
+    which its dynamic slice clamps back to [T - kv_block, T) while the mask
+    still labels the keys from ``start`` on.)
+    """
+    B, S, K, G, hd = q.shape
+    T = k.shape[1]
+    kv_block = min(kv_block, T)
+    scale = 1.0 / math.sqrt(hd)
+    kv_len = T if kv_len is None else kv_len
+
+    qf = (q.float() * scale).to(q.dtype).float()
+    m = torch.full((B, S, K, G), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, S, K, G), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, S, K, G, v.shape[-1]), dtype=torch.float32,
+                      device=q.device)
+    for start in range(0, T, kv_block):
+        ks = k[:, start:start + kv_block].float()
+        vs = v[:, start:start + kv_block]
+        s = torch.einsum("bskgd,btkd->bskgt", qf, ks)
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        kpos = start + torch.arange(ks.shape[1], device=q.device)
+        mask = kpos[None, :] < kv_len
+        if causal:
+            mask = mask & (qpos[:, None] >= kpos[None, :])
+        if window:
+            mask = mask & ((qpos[:, None] - kpos[None, :]) < window)
+        s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bskgt,btkd->bskgd", p.to(v.dtype).float(),
+                          vs.float())
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, *, key_valid, softcap=0.0):
+    """Single-step attention over a fixed cache.
+
+    q: (B,1,K,G,hd); caches: (B,L,K,hd); key_valid: (L,) or (B,L) bool.
+    """
+    hd = q.shape[-1]
+    scale = 1.0 / math.sqrt(hd)
+    s = torch.einsum("bskgd,btkd->bskgt", q.float() * scale, k_cache.float())
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    if key_valid.ndim == 1:
+        mask = key_valid[None, None, None, None, :]
+    else:
+        mask = key_valid[:, None, None, None, :]
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bskgt,btkd->bskgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention layer
+# ---------------------------------------------------------------------------
+
+
+def init_gqa(gen, cfg, dtype=torch.float32):
+    d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if cfg.qk_norm:
+        raise NotImplementedError("qk_norm attention is not in this port yet")
+    return {
+        "wq": L.dense_init(gen, (d, H, hd), 0, dtype),
+        "wk": L.dense_init(gen, (d, K, hd), 0, dtype),
+        "wv": L.dense_init(gen, (d, K, hd), 0, dtype),
+        "wo": L.dense_init(gen, (H, hd, d), (0, 1), dtype),
+    }
+
+
+def _require_local(is_local):
+    if not is_local:
+        raise NotImplementedError("global attention is not in this port yet; "
+                                  "its layers are local (sliding window)")
+
+
+def _project_qkv(params, cfg, x, positions, dtype):
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dtype))
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(dtype))
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(dtype))
+    q = L.rope(q, positions, cfg.rope_theta)
+    k = L.rope(k, positions, cfg.rope_theta)
+    return q.reshape(q.shape[0], q.shape[1], K, H // K, hd), k, v
+
+
+def gqa_forward(params, cfg, x, positions, *, is_local, causal=True,
+                return_cache_len=0):
+    """Full-sequence forward.  positions: (S,).  Returns (y, cache|None)."""
+    _require_local(is_local)
+    dtype = x.dtype
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(params, cfg, x, positions, dtype)
+    out = blockwise_attention(q, k, v, qpos=positions, causal=causal,
+                              window=cfg.local_window,
+                              softcap=cfg.attn_softcap)
+    out = out.reshape(B, S, cfg.n_heads, cfg.head_dim)
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dtype))
+    cache = None
+    if return_cache_len:
+        cache = _build_cache(k, v, return_cache_len, cfg)
+    return y, cache
+
+
+def _build_cache(k, v, cache_len, cfg):
+    """Build a local decode cache from prefill K/V: a ring where position t
+    sits in slot t % W and the ring holds the last W positions."""
+    B, S, K, hd = k.shape
+    W = min(cache_len, cfg.local_window)
+    t0 = max(S - W, 0)
+    slots = (t0 + torch.arange(S - t0, device=k.device)) % W
+    kc = torch.zeros((B, W, K, hd), dtype=k.dtype, device=k.device)
+    vc = torch.zeros((B, W, K, hd), dtype=v.dtype, device=v.device)
+    kc[:, slots] = k[:, t0:]
+    vc[:, slots] = v[:, t0:]
+    return {"k": kc, "v": vc}
+
+
+def init_gqa_cache(cfg, batch, cache_len, dtype, device):
+    """Zeroed local ring cache of ``min(cache_len, local_window)`` slots."""
+    K, hd = cfg.n_kv_heads, cfg.head_dim
+    Lc = min(cache_len, cfg.local_window)
+    return {"k": torch.zeros((batch, Lc, K, hd), dtype=dtype, device=device),
+            "v": torch.zeros((batch, Lc, K, hd), dtype=dtype, device=device)}
+
+
+def gqa_decode(params, cfg, x, cache, pos, *, is_local):
+    """One-token decode.  x: (B,1,D); pos: (B,) per-slot positions
+    (continuous batching: every row sits at its own depth in its own cache
+    slot).  Returns (y, new_cache); the input cache is left as it was."""
+    _require_local(is_local)
+    if pos.ndim != 1:
+        raise ValueError(f"gqa_decode takes a (B,) position vector, got "
+                         f"shape {tuple(pos.shape)}")
+    dtype = x.dtype
+    B = x.shape[0]
+    H, hd = cfg.n_heads, cfg.head_dim
+    positions = pos.to(torch.int32)[:, None]
+    q, k, v = _project_qkv(params, cfg, x, positions, dtype)
+    Lc = cache["k"].shape[1]
+    slot = pos % Lc
+    slot_idx = torch.arange(Lc, device=x.device)
+    qpos = pos[:, None]
+    # Slot s holds absolute position pos - ((pos - s) mod Lc); valid if >= 0.
+    key_valid = (qpos - torch.remainder(qpos - slot_idx, Lc)) >= 0
+    bidx = torch.arange(B, device=x.device)
+    kc = cache["k"].clone()
+    vc = cache["v"].clone()
+    kc[bidx, slot] = k[:, 0].to(kc.dtype)
+    vc[bidx, slot] = v[:, 0].to(vc.dtype)
+    out = decode_attention(q, kc, vc, key_valid=key_valid,
+                           softcap=cfg.attn_softcap)
+    out = out.reshape(B, 1, H, hd)
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dtype))
+    return y, {"k": kc, "v": vc}

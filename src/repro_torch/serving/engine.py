@@ -1,0 +1,285 @@
+"""Serving engine: continuous batching over slots, greedy decoding.
+
+The port of the continuous path of ``repro.serving.engine``.  A host-side
+FIFO scheduler (``serving/scheduler.py``) admits requests into live batch
+slots; each admission prefills the request alone at its exact prompt length
+and scatters the resulting caches into its slot (``serving/cache.py``).
+Decode then runs in a loop whose body is the strategy's ``step`` and whose
+condition is the all-done predicate: a ``mapreduce`` over the active flags
+(kernel K3 on the card).  Slots free as requests hit EOS or
+``max_new_tokens``; the scheduler recycles them for waiting arrivals.
+
+Where the reference runs the loop as one ``lax.while_loop`` on the device,
+the port runs it from Python and reads the predicate back once per step:
+one host sync per decode step.  Drains read the finished outputs back
+through the CSR compaction (kernel K2) and the per-slot scores (K7m).
+
+Greedy decoding with exact-length prefill only; temperature sampling,
+prefill buckets, quantized KV, the other strategies, the padded oracle and
+the ``mesh`` argument come with later slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+from torch.utils import _pytree as pytree
+
+from repro_torch.core import operators as alg
+from repro_torch.core import primitives as forge
+from repro_torch.core.layout import Flat
+from repro_torch.devices import resolve_device
+from repro_torch.models import lm
+from repro_torch.serving import cache as CA
+from repro_torch.serving import sampling as SP
+from repro_torch.serving.scheduler import Scheduler
+from repro_torch.serving.strategies import Vanilla
+
+
+@dataclasses.dataclass
+class Request:
+    prompt: list          # token ids
+    max_new_tokens: int = 16
+    eos_id: int = -1      # -1: never stops early
+    # Per-request seed; None = the scheduler assigns the submission index.
+    # Greedy decoding does not read it; it is kept on the records.
+    seed: int | None = None
+
+
+def _has_global_attn(cfg) -> bool:
+    kinds = tuple(cfg.prefix) + tuple(cfg.unit) + tuple(cfg.suffix)
+    return any(k not in ("attn_local", "rglru", "mlstm", "slstm")
+               for k in kinds)
+
+
+class Engine:
+    def __init__(self, cfg, params, *, cache_len: int, batch_size: int,
+                 max_new_cap: int | None = None, device=None):
+        if cfg.is_encdec:
+            raise NotImplementedError(
+                "encoder-decoder serving is not in this port yet")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.params = pytree.tree_map(lambda t: t.to(self.device), params)
+        self.cache_len = cache_len
+        self.batch_size = batch_size
+        self.max_new_cap = max_new_cap or cache_len
+        self.strategy = Vanilla()
+        self._sample = SP.sample_tokens
+        self.strategy.bind(self)
+        self._strategy_params = self.strategy.loop_params(self)
+        self.last_stats: dict = {}
+        self.last_scores = np.zeros((0,), np.float32)
+
+    def _prefill(self, params, toks):
+        return lm.prefill(params, self.cfg, toks, cache_len=self.cache_len)
+
+    def _decode(self, params, caches, toks, pos):
+        return lm.decode_step(params, self.cfg, caches, toks, pos)
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -----------------------------------------------------------------------
+    # Continuous-batching path
+    # -----------------------------------------------------------------------
+
+    def _cache_zeros(self):
+        """Zeroed decode caches for every slot, in the dtypes prefill
+        produces (attention rings and conv tails in the activation dtype,
+        recurrent states in float32)."""
+        return lm.init_caches(self.cfg, self.batch_size, self.cache_len,
+                              self.cfg.activation_dtype, self.device)
+
+    def _base_state(self) -> dict:
+        """The standard device-resident state: caches + per-slot control
+        arrays."""
+        B, T = self.batch_size, self.max_new_cap
+
+        def zeros(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+
+        return {
+            "caches": self._cache_zeros(),
+            "tok": zeros(B), "pos": zeros(B), "emitted": zeros(B),
+            "active": zeros(B, dtype=torch.bool),
+            "out": zeros(B, T), "logps": zeros(B, T, dtype=torch.float32),
+            "seeds": zeros(B), "max_new": zeros(B),
+            "eos": torch.full((B,), -1, dtype=torch.int32,
+                              device=self.device),
+        }
+
+    def _fresh_state(self) -> dict:
+        return self.strategy.init_state(self)
+
+    def _admit_impl(self, state, caches1, logits1, extras, slot, seed,
+                    max_new, eos, pos0):
+        """Admission, delegated to the strategy; the first token stays on
+        the device."""
+        return self.strategy.admit(
+            self, state, caches1, logits1, extras, slot=slot, seed=seed,
+            max_new=max_new, eos=eos, pos0=pos0)
+
+    def _loop_impl(self, params, sparams, state, budget, *, stop_on_free):
+        """The decode loop: run until every live slot is done (EOS or length
+        cap), or ``budget`` steps have run (the scheduler bounds a dispatch
+        at the next arrival event), or -- with ``stop_on_free`` (waiters are
+        queued) -- as soon as any slot frees.  Returns (state, steps_run).
+
+        The condition is computed on the device and read back once per
+        step; that read is the loop's only host sync.
+        """
+        active0 = state["active"].clone()
+        steps = 0
+        while steps < budget:
+            # All-done predicate as a commutative mapreduce over the active
+            # flags -- the loop predicate runs on the primitive layer.
+            go = forge.mapreduce(alg.IDENTITY, alg.MAX,
+                                 state["active"].to(torch.int32),
+                                 layout=Flat()) > 0
+            if stop_on_free:
+                go = go & torch.all(~active0 | state["active"])
+            if not bool(go):
+                break
+            state = self.strategy.step(self, params, sparams, state)
+            steps += 1
+        return state, steps
+
+    def _dispatch_loop(self, state, budget, stop_on_free):
+        return self._loop_impl(self.params, self._strategy_params, state,
+                               budget, stop_on_free=stop_on_free)
+
+    def _validate_request(self, r: Request):
+        plen = len(r.prompt) + self.cfg.num_prefix_embeds
+        if plen > self.cache_len:
+            raise ValueError(
+                f"prompt ({plen} tokens incl. prefix) exceeds cache_len="
+                f"{self.cache_len}")
+        if r.max_new_tokens > self.max_new_cap:
+            raise ValueError(
+                f"max_new_tokens={r.max_new_tokens} exceeds the engine's "
+                f"output buffer cap {self.max_new_cap} (raise max_new_cap)")
+        if _has_global_attn(self.cfg) and \
+                plen + r.max_new_tokens > self.cache_len:
+            raise ValueError(
+                f"prompt+max_new ({plen}+{r.max_new_tokens}) exceeds "
+                f"cache_len={self.cache_len} for a global-attention arch "
+                f"(the KV ring would overwrite live context)")
+
+    def serve(self, arrivals) -> list:
+        """Run an open-loop arrival trace to completion.
+
+        ``arrivals``: iterable of ``(arrival_step, Request)`` (or bare
+        ``Request``s, all arriving at step 0) on the decode-step clock.
+        Returns the scheduler's completed ``RequestState`` records in
+        submission order (tokens, seq_logprob, submit/admit/finish steps).
+        """
+        pending = []
+        for a in arrivals:
+            step, req = a if isinstance(a, tuple) else (0, a)
+            self._validate_request(req)
+            pending.append((int(step), req))
+        pending.sort(key=lambda a: a[0])
+        pending = list(reversed(pending))   # pop() = earliest
+
+        sched = Scheduler(self.batch_size)
+        state = self._fresh_state()
+        now = 0
+        stats = {"loop_dispatches": 0, "decode_steps": 0, "prefill_s": 0.0,
+                 "decode_s": 0.0, "admissions": 0}
+        t_serve = time.perf_counter()
+
+        def submit_due():
+            while pending and pending[-1][0] <= now:
+                step, req = pending.pop()
+                sched.submit(req, step=max(step, now))
+
+        submit_due()
+        while not (sched.all_done and not pending):
+            # -- admission: prefill each new request alone, scatter its cache
+            for rec in sched.admit(step=now):
+                r = rec.request
+                if r.max_new_tokens < 1:
+                    sched.complete(rec.slot, step=now)
+                    continue
+                t0 = time.perf_counter()
+                toks = torch.tensor([r.prompt], dtype=torch.int64,
+                                    device=self.device)
+                logits1, caches1 = self._prefill(self.params, toks)
+                extras = self.strategy.host_prefill(self, toks)
+                pos0 = len(r.prompt) + self.cfg.num_prefix_embeds
+                state = self._admit_impl(
+                    state, caches1, logits1, extras, rec.slot, rec.seed,
+                    r.max_new_tokens, r.eos_id, pos0)
+                self._sync()
+                stats["prefill_s"] += time.perf_counter() - t0
+                stats["admissions"] += 1
+
+            live = sched.live_slots
+            if not live:
+                if pending:
+                    now = max(now, pending[-1][0])
+                    submit_due()
+                    continue
+                break
+            # An admitted request may be done already (EOS/cap on its first
+            # token); drain before dispatching an empty loop.
+            state = self._drain_done(sched, state, now)
+            if not sched.live_slots:
+                submit_due()
+                continue
+
+            # -- one decode-loop dispatch: run until all-done, bounded by the
+            # next arrival event; break out early on a freed slot only when
+            # someone is waiting for it.
+            budget = int((state["max_new"] - state["emitted"]).max()) + 1
+            if pending:
+                budget = max(1, min(budget, pending[-1][0] - now))
+            stop_on_free = sched.has_waiting or bool(pending)
+            t0 = time.perf_counter()
+            state, steps = self._dispatch_loop(state, budget, stop_on_free)
+            stats["decode_s"] += time.perf_counter() - t0
+            stats["loop_dispatches"] += 1
+            stats["decode_steps"] += steps
+            now += steps
+            submit_due()
+            state = self._drain_done(sched, state, now)
+
+        recs = [sched.records[rid] for rid in sorted(sched.records)]
+        stats["serve_s"] = time.perf_counter() - t_serve
+        n_tok = sum(len(rec.tokens) for rec in recs)
+        stats["decode_tok_per_s"] = n_tok / max(stats["decode_s"], 1e-9)
+        stats["seq_logprob"] = [rec.seq_logprob for rec in recs]
+        stats["total_tokens"] = n_tok
+        stats["final_step"] = now
+        stats.update(self.strategy.stats(self, state))
+        self.last_stats = stats
+        self.last_scores = np.asarray(
+            [rec.seq_logprob for rec in recs], np.float32)
+        return recs
+
+    def _drain_done(self, sched: Scheduler, state, now):
+        """Evict finished slots: pull their ragged outputs (the only token
+        read-back, at completion) through the CSR compaction descriptor."""
+        active = state["active"].cpu()
+        done_slots = [s for s in sched.live_slots if not bool(active[s])]
+        if not done_slots:
+            return state
+        outs = self.strategy.outputs(self, state)
+        flat, offsets = CA.compact_ragged(outs["out"], outs["emitted"])
+        flat, offsets = flat.cpu(), offsets.cpu()
+        seq_lp = outs["seq_logprob"].cpu()
+        for slot in done_slots:
+            rec = sched.complete(slot, step=now)
+            rec.tokens = [int(t) for t in flat[offsets[slot]:offsets[slot + 1]]]
+            rec.seq_logprob = float(seq_lp[slot])
+        return state
+
+    def generate(self, requests: list) -> list:
+        """Run requests to completion (continuous batching); token lists in
+        input order.  More requests than ``batch_size`` simply queue."""
+        recs = self.serve([(0, r) for r in requests])
+        return [rec.tokens for rec in recs]

@@ -1,0 +1,342 @@
+"""The PyTorch port's primitives and kernel modules against the JAX package.
+
+Inputs come from numpy with a seed (``conftest.make_operand``); the same
+arrays go through the JAX function -- its Pallas kernel in interpret mode,
+``backend="pallas-interpret"`` -- and through the port's counterpart.  On
+the CPU the port's kernel wrappers run their plain versions, so these tests
+hold the plain versions (the oracles the card's kernels are held against
+in ``chip_smoke.py``) and the route layer to the reference.
+
+Tolerances: integer scans and reductions are bit-exact; float32 results
+differ only by reassociation (the reference scans tiles with log-step
+combines, the port's plain versions fold in other orders) and are held at
+rtol = atol = 1e-5.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from conftest import make_operand  # noqa: E402
+from repro.core import operators as j_alg  # noqa: E402
+from repro.core import primitives as j_forge  # noqa: E402
+from repro.core.layout import Batched as JBatched  # noqa: E402
+from repro_torch.core import intrinsics as t_ki  # noqa: E402
+from repro_torch.core import operators as t_alg  # noqa: E402
+from repro_torch.core import primitives as t_forge  # noqa: E402
+from repro_torch.core.layout import Batched as TBatched  # noqa: E402
+from repro_torch.kernels import _lib  # noqa: E402
+from repro_torch.kernels import batched as batched_k  # noqa: E402
+from repro_torch.kernels import mapreduce as mapreduce_k  # noqa: E402
+from repro_torch.kernels import ref as t_ref  # noqa: E402
+from repro_torch.kernels import scan as scan_k  # noqa: E402
+
+PI = "pallas-interpret"
+F32_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _np(x):
+    return np.asarray(x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+                      else x)
+
+
+# ---------------------------------------------------------------------------
+# K2: flat scan (ADD over int32), exact
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [1, 8, 1030])
+@pytest.mark.parametrize("inclusive", [True, False])
+def test_k2_scan_add_int32_matches_pallas(n, inclusive):
+    x = make_operand("add", np.random.default_rng(n), (n,), jnp.int32)
+    want = j_forge.scan(j_alg.ADD, x, inclusive=inclusive, backend=PI)
+    xt = _t(x)
+    plain = scan_k.scan_1d_plain(t_alg.ADD, xt, inclusive=inclusive)
+    routed = t_forge.scan(t_alg.ADD, xt, inclusive=inclusive)
+    wrapped = scan_k.scan_1d_cuda(t_alg.ADD, xt, inclusive=inclusive)
+    for got in (plain, routed, wrapped):
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(_np(got), np.asarray(want))
+
+
+def test_k2_scan_reverse_matches_pallas():
+    x = make_operand("add", np.random.default_rng(3), (77,), jnp.int32)
+    for inclusive in (True, False):
+        want = j_forge.scan(j_alg.ADD, x, inclusive=inclusive, reverse=True,
+                            backend=PI)
+        for backend in ("torch", "cuda"):
+            got = t_forge.scan(t_alg.ADD, _t(x), inclusive=inclusive,
+                               reverse=True, backend=backend)
+            np.testing.assert_array_equal(_np(got), np.asarray(want))
+
+
+def test_k2_scan_affine_pair_matches_pallas():
+    """The non-commutative pair operator through the flat scan."""
+    a, b = make_operand("affine", np.random.default_rng(5), (300,))
+    wa, wb = j_forge.scan(j_alg.AFFINE, (a, b), backend=PI)
+    ga, gb = scan_k.scan_1d_plain(t_alg.AFFINE, (_t(a), _t(b)))
+    np.testing.assert_allclose(_np(ga), np.asarray(wa), **F32_TOL)
+    np.testing.assert_allclose(_np(gb), np.asarray(wb), **F32_TOL)
+
+
+# ---------------------------------------------------------------------------
+# K3: flat mapreduce (MAX over int32), exact
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [1, 8, 300])
+def test_k3_mapreduce_max_int32_matches_pallas(n):
+    x = make_operand("max", np.random.default_rng(n), (n,), jnp.int32)
+    want = j_forge.mapreduce(lambda v: v, j_alg.MAX, x, backend=PI)
+    xt = _t(x)
+    for got in (mapreduce_k.mapreduce_1d_plain(t_alg.IDENTITY, t_alg.MAX, xt),
+                mapreduce_k.mapreduce_1d_cuda(t_alg.IDENTITY, t_alg.MAX, xt),
+                t_forge.mapreduce(t_alg.IDENTITY, t_alg.MAX, xt)):
+        assert got.dtype == torch.int32 and got.shape == ()
+        assert int(got) == int(want)
+
+
+def test_k3_masked_add_f32_matches_pallas():
+    rng = np.random.default_rng(11)
+    v = make_operand("add", rng, (513,))
+    m = jnp.asarray(rng.integers(0, 2, (513,)), jnp.int32)
+    want = j_forge.mapreduce(lambda t: jnp.where(t[1] != 0, t[0], 0.0),
+                             j_alg.ADD, (v, m), backend=PI)
+    got = t_forge.mapreduce(t_alg.masked_select(0.0), t_alg.ADD,
+                            (_t(v), _t(m)), backend="cuda")
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5,
+                               atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# K7m: batched masked mapreduce (ADD over f32 with an int32 mask)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,n", [(2, 64), (3, 5), (1, 300)])
+def test_k7m_masked_batched_add_matches_pallas(B, n):
+    rng = np.random.default_rng(B * 1000 + n)
+    logp = make_operand("add", rng, (B, n))
+    emitted = rng.integers(0, n + 1, (B,))
+    mask = jnp.asarray(np.arange(n)[None, :] < emitted[:, None], jnp.int32)
+    want = j_forge.mapreduce(lambda t: jnp.where(t[1] != 0, t[0], 0.0),
+                             j_alg.ADD, (logp, mask), layout=JBatched(),
+                             backend=PI)
+    xs = (_t(logp), _t(mask))
+    masked = t_alg.masked_select(0.0)
+    for got in (batched_k.batched_mapreduce_plain(masked, t_alg.ADD, xs),
+                t_ref.ref_batched_mapreduce(masked, t_alg.ADD, xs),
+                batched_k.batched_mapreduce_cuda(masked, t_alg.ADD, xs),
+                t_forge.mapreduce(masked, t_alg.ADD, xs, layout=TBatched())):
+        assert got.shape == (B,) and got.dtype == torch.float32
+        np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5,
+                                   atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# K6: channel scan / linear recurrence (AFFINE over f32)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("T", [1, 61, 256])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_k6_linear_recurrence_matches_pallas(T, reverse):
+    a, b = make_operand("affine", np.random.default_rng(T), (2, T, 130))
+    want = j_forge.linear_recurrence(a, b, reverse=reverse,
+                                     layout=JBatched(), backend=PI)
+    at, bt = _t(a), _t(b)
+    for backend in ("torch", "cuda"):
+        got = t_forge.linear_recurrence(at, bt, reverse=reverse,
+                                        layout=TBatched(), backend=backend)
+        np.testing.assert_allclose(_np(got), np.asarray(want), **F32_TOL)
+
+
+@pytest.mark.parametrize("T", [1, 61, 256])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("inclusive", [True, False])
+def test_k6_channel_scan_plain_matches_pallas(T, reverse, inclusive):
+    a, b = make_operand("affine", np.random.default_rng(7 + T), (2, T, 20))
+    wa, wb = j_forge.scan(j_alg.AFFINE, (a, b), axis=1, inclusive=inclusive,
+                          reverse=reverse, backend=PI)
+    ga, gb = scan_k.scan_channel_plain(t_alg.AFFINE, (_t(a), _t(b)),
+                                       inclusive=inclusive, reverse=reverse)
+    np.testing.assert_allclose(_np(ga), np.asarray(wa), **F32_TOL)
+    np.testing.assert_allclose(_np(gb), np.asarray(wb), **F32_TOL)
+
+
+def test_linear_recurrence_h0_matches_reference():
+    a, b = make_operand("affine", np.random.default_rng(2), (2, 33, 8))
+    h0 = make_operand("add", np.random.default_rng(9), (2, 8))
+    want = j_forge.linear_recurrence(a, b, h0, layout=JBatched(), backend=PI)
+    for backend in ("torch", "cuda"):
+        got = t_forge.linear_recurrence(_t(a), _t(b), _t(h0),
+                                        layout=TBatched(), backend=backend)
+        np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5,
+                                   atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Routes: validation texts and zero-extent guards, as the reference's
+# ---------------------------------------------------------------------------
+
+
+def _message(fn):
+    with pytest.raises(ValueError) as info:
+        fn()
+    return str(info.value)
+
+
+VALIDATION_CASES = {
+    "mapreduce@flat non-commutative": (
+        lambda: j_forge.mapreduce(lambda v: v, j_alg.AFFINE,
+                                  (jnp.ones(8), jnp.ones(8)), backend="xla"),
+        lambda: t_forge.mapreduce(t_alg.IDENTITY, t_alg.AFFINE,
+                                  (torch.ones(8), torch.ones(8)))),
+    "mapreduce@batched rank": (
+        lambda: j_forge.mapreduce(lambda v: v, j_alg.ADD, jnp.zeros((2, 3, 4)),
+                                  layout=JBatched(), backend="xla"),
+        lambda: t_forge.mapreduce(t_alg.IDENTITY, t_alg.ADD,
+                                  torch.zeros(2, 3, 4), layout=TBatched())),
+    "linear_recurrence@batched rank": (
+        lambda: j_forge.linear_recurrence(jnp.zeros((4, 4)), jnp.zeros((4, 4)),
+                                          layout=JBatched(), backend="xla"),
+        lambda: t_forge.linear_recurrence(torch.zeros(4, 4), torch.zeros(4, 4),
+                                          layout=TBatched())),
+    "linear_recurrence@flat rank": (
+        lambda: j_forge.linear_recurrence(jnp.zeros((2, 4, 4)), jnp.zeros(4),
+                                          backend="xla"),
+        lambda: t_forge.linear_recurrence(torch.zeros(2, 4, 4),
+                                          torch.zeros(4))),
+}
+
+
+@pytest.mark.parametrize("case", sorted(VALIDATION_CASES))
+def test_validation_texts_match_reference(case):
+    ref_call, port_call = VALIDATION_CASES[case]
+    assert _message(port_call) == _message(ref_call)
+
+
+def test_pinned_kwarg_text_matches_reference_up_to_notes():
+    ref = _message(lambda: j_forge.mapreduce(
+        lambda v: v, j_alg.ADD, jnp.zeros((2, 4)), axis=1, layout=JBatched(),
+        backend="xla"))
+    port = _message(lambda: t_forge.mapreduce(
+        t_alg.IDENTITY, t_alg.ADD, torch.zeros(2, 4), axis=1,
+        layout=TBatched()))
+    head = "mapreduce@batched: axis= is pinned by the Batched() layout"
+    assert ref.startswith(head) and port.startswith(head)
+    assert ref.split(". ")[0] == port.split(". ")[0]
+
+
+def test_unsupported_layout_and_unknown_backend():
+    with pytest.raises(ValueError, match=r"scan: unsupported layout 'batched'"):
+        t_forge.scan(t_alg.ADD, torch.zeros(2, 4), layout=TBatched())
+    with pytest.raises(ValueError, match=r"scan@flat: unknown backend 'tpu'"):
+        t_forge.scan(t_alg.ADD, torch.zeros(4), backend="tpu")
+    with pytest.raises(ValueError, match="unknown backend"):
+        with t_ki.use_backend("tpu"):
+            pass
+    assert t_ki.available_backends() == ("cuda", "torch")
+    assert all(t_ki.supports(r, b) for r in t_ki.route_keys()
+               for b in ("cuda", "torch"))
+
+
+@pytest.mark.parametrize("op_name", ["add", "max", "min"])
+@pytest.mark.parametrize("shape", [(0, 5), (3, 0)])
+def test_batched_zero_extent_guard_matches_reference(op_name, shape):
+    jop, top = getattr(j_alg, op_name.upper()), getattr(t_alg, op_name.upper())
+    for dt in (jnp.float32, jnp.int32):
+        x = jnp.zeros(shape, dt)
+        want = j_forge.mapreduce(lambda v: v, jop, x, layout=JBatched(),
+                                 backend="xla")
+        got = t_forge.mapreduce(t_alg.IDENTITY, top, _t(x),
+                                layout=TBatched())
+        assert got.shape == want.shape
+        assert str(got.dtype).split(".")[-1] == str(want.dtype)
+        np.testing.assert_array_equal(_np(got), np.asarray(want))
+
+
+def test_flat_scan_zero_extent_passthrough():
+    x = torch.zeros(0, dtype=torch.int32)
+    want = j_forge.scan(j_alg.ADD, jnp.zeros((0,), jnp.int32), backend="xla")
+    got = t_forge.scan(t_alg.ADD, x, backend="cuda")
+    assert got is x and got.shape == want.shape
+
+
+# ---------------------------------------------------------------------------
+# No fallback: what no kernel runs raises on the cuda route
+# ---------------------------------------------------------------------------
+
+
+def test_ops_without_device_functor_raise():
+    no_functor = t_alg.AssocOp("logsumexp", lambda a, b: a, lambda l: l, True)
+    with pytest.raises(NotImplementedError,
+                       match="scan@flat.*'logsumexp' has no device functor"):
+        _lib.op_codes("scan@flat", no_functor, [torch.zeros(4)])
+    with pytest.raises(NotImplementedError, match="has no float64 form"):
+        _lib.op_codes("scan@flat", t_alg.ADD,
+                      [torch.zeros(4, dtype=torch.float64)])
+    with pytest.raises(NotImplementedError, match="takes 2 leaf"):
+        _lib.op_codes("scan@flat", t_alg.AFFINE, [torch.zeros(4)])
+    with pytest.raises(NotImplementedError, match="map .* has no device form"):
+        _lib.map_code("mapreduce@flat", lambda v: v)
+
+
+def test_cpu_tensors_take_the_plain_version_without_launching():
+    counts = {w: w.launches for w in (scan_k.scan_1d_cuda,
+                                      mapreduce_k.mapreduce_1d_cuda)}
+    x = torch.arange(6, dtype=torch.int32)
+    t_forge.scan(t_alg.ADD, x, backend="cuda")
+    t_forge.mapreduce(t_alg.IDENTITY, t_alg.MAX, x, backend="cuda")
+    assert {w: w.launches for w in counts} == counts
+
+
+def test_kernel_sources_are_listed_and_annotated():
+    """Every CUDA source is built, and names the TPU kernel it replaces."""
+    sources = sorted(p.name for p in _lib.CSRC.glob("*.cu"))
+    assert sources == sorted(_lib.SOURCES)
+    for name in sources:
+        text = (_lib.CSRC / name).read_text()
+        assert "Replaces: src/repro/kernels/" in text
+        assert "Bound on this card:" in text
+
+
+# ---------------------------------------------------------------------------
+# On the card: each kernel against its plain version (skips without one)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the CPU runs the plain versions")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_versions_on_the_card(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randint(-100, 100, (5000,), generator=gen, device=cuda_device,
+                      dtype=torch.int32)
+    assert torch.equal(scan_k.scan_1d_cuda(t_alg.ADD, x),
+                       scan_k.scan_1d_plain(t_alg.ADD, x))
+    assert int(mapreduce_k.mapreduce_1d_cuda(t_alg.IDENTITY, t_alg.MAX, x)) \
+        == int(x.max())
+    a = torch.rand(2, 50, 300, generator=gen, device=cuda_device)
+    b = torch.randn(2, 50, 300, generator=gen, device=cuda_device)
+    for got, want in zip(scan_k.scan_channel_cuda(t_alg.AFFINE, (a, b)),
+                         scan_k.scan_channel_plain(t_alg.AFFINE, (a, b))):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    v = b[0, :4, :70].contiguous()
+    m = (torch.rand(4, 70, generator=gen, device=cuda_device) > 0.5).int()
+    masked = t_alg.masked_select(0.0)
+    torch.testing.assert_close(
+        batched_k.batched_mapreduce_cuda(masked, t_alg.ADD, (v, m)),
+        batched_k.batched_mapreduce_plain(masked, t_alg.ADD, (v, m)),
+        rtol=1e-5, atol=1e-4)

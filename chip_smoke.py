@@ -2,22 +2,31 @@
 
     python3 chip_smoke.py
 
-Three phases, any failure exits non-zero:
+Four phases, any failure exits non-zero:
 
 1. build -- compile the hand-written kernels under src/repro_torch/csrc with
    nvcc (one process per source, all started together) and print the time.
-2. kernels -- hold each kernel (K2 flat scan, K6 channel scan, K3 flat
-   mapreduce, K7m batched mapreduce) against its plain PyTorch version on the
-   card, at the serving path's shapes and at ragged and large sizes; time
-   the kernel, the plain version and one PyTorch library call of the same
-   function with CUDA events.
+2. kernels -- hold each kernel (K2 flat scan, K6 channel scan and its long-T
+   path, K3 flat mapreduce, K7m batched mapreduce, K7s batched scan, K4
+   matvec and vecmat) against its plain PyTorch version on the card, at the
+   serving path's shapes and at ragged and large sizes; time the kernel,
+   the plain version and one PyTorch library call of the same function with
+   CUDA events.
 3. serve -- serve recurrentgemma-2b at full width (26 layers, d_model 2560,
    vocab 256000, bf16 weights from a seed) through Engine.generate: 8 greedy
    requests on 4 slots, so slots recycle.  Checks every request's length and
    ids, the prefill logits of the cuda backend against the plain torch
-   backend on the card, and that the serving run launched every kernel;
-   then profiles one prefill and eight decode steps (torch.profiler) for
-   where the time goes.
+   backend on the card, and that the serving run launched every kernel of
+   its path; then profiles one prefill and eight decode steps
+   (torch.profiler) for where the time goes.
+4. sampled serve -- the same model through Engine(temperature=0.8,
+   top_k=40, top_p=0.95, seed=0): the first four prompts, 16 new tokens
+   each, request seeds 0-3.  Checks lengths and ids, that a second run and
+   request 2 served alone give the same tokens, that the cuda and torch
+   backends agree bit for bit on top_k and on the sampled ids of one decode
+   step's (4, 256000) logits, a one-request full-vocabulary run at
+   temperature 1.0, and that the run launched every kernel of its path;
+   then profiles one sampled decode step.
 
 The line before the card line holds {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  The script imports nothing of JAX or of the
@@ -44,9 +53,14 @@ from repro_torch.core import intrinsics as ki  # noqa: E402
 from repro_torch.core import operators as alg  # noqa: E402
 from repro_torch.kernels import _lib  # noqa: E402
 from repro_torch.kernels import batched as batched_k  # noqa: E402
+from repro_torch.core import primitives as forge  # noqa: E402
+from repro_torch.core.layout import Segmented  # noqa: E402
 from repro_torch.kernels import mapreduce as mapreduce_k  # noqa: E402
+from repro_torch.kernels import matvec as matvec_k  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import scan as scan_k  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.serving import sampling as SP  # noqa: E402
 from repro_torch.serving.engine import Engine, Request  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
@@ -57,13 +71,26 @@ BATCH = 4                      # Engine slots: the flat kernels see n = 4
 CACHE_LEN = 4096
 PROMPT_LENS = (17, 64, 200, 511, 1024, 1500, 2100, 300)
 MAX_NEW = (16, 24, 32, 40, 48, 20, 28, 36)
+SAMPLING = dict(temperature=0.8, top_k=40, top_p=0.95, seed=0)
+SAMPLED_NEW = 16
+N_SORT = BATCH * 256000            # the sampled top-k's flat (B V,) stream
 
-WRAPPERS = {
-    "K2": scan_k.scan_1d_cuda,
-    "K6": scan_k.scan_channel_cuda,
-    "K3": mapreduce_k.mapreduce_1d_cuda,
-    "K7m": batched_k.batched_mapreduce_cuda,
+# Each kernel's launch counter: (wrapper, attribute).  K6's wrapper counts
+# its serial route and its long-T path apart.
+COUNTERS = {
+    "K2": (scan_k.scan_1d_cuda, "launches"),
+    "K6": (scan_k.scan_channel_cuda, "launches"),
+    "K6-long": (scan_k.scan_channel_cuda, "long_t_launches"),
+    "K3": (mapreduce_k.mapreduce_1d_cuda, "launches"),
+    "K7m": (batched_k.batched_mapreduce_cuda, "launches"),
+    "K7s": (batched_k.batched_scan_cuda, "launches"),
+    "K4-matvec": (matvec_k.matvec_cuda, "launches"),
+    "K4-vecmat": (matvec_k.vecmat_cuda, "launches"),
 }
+GREEDY_PATH = ("K2", "K6", "K3", "K7m")
+# K4's vecmat shares matvec's source but nothing on the serving path calls
+# it: mapreduce over axis 1 is its only user.
+SAMPLED_PATH = ("K2", "K6", "K6-long", "K3", "K7m", "K7s", "K4-matvec")
 META = {
     "K2": ("scan_1d", "src/repro_torch/csrc/scan_flat.cu",
            "src/repro/kernels/scan.py:139"),
@@ -73,7 +100,24 @@ META = {
            "src/repro/kernels/mapreduce.py:81"),
     "K7m": ("batched_mapreduce", "src/repro_torch/csrc/batched.cu",
             "src/repro/kernels/batched.py:121"),
+    "K6-long": ("scan_channel long-T", "src/repro_torch/csrc/scan_channel.cu",
+                "src/repro/kernels/scan.py:227"),
+    "K7s": ("batched_scan", "src/repro_torch/csrc/batched.cu",
+            "src/repro/kernels/batched.py:85"),
+    "K4-matvec": ("matvec", "src/repro_torch/csrc/matvec.cu",
+                  "src/repro/kernels/matvec.py:117"),
+    "K4-vecmat": ("vecmat", "src/repro_torch/csrc/matvec.cu",
+                  "src/repro/kernels/matvec.py:386"),
 }
+
+
+def reset_counts() -> None:
+    for obj, attr in COUNTERS.values():
+        setattr(obj, attr, 0)
+
+
+def read_counts() -> dict:
+    return {k: getattr(obj, attr) for k, (obj, attr) in COUNTERS.items()}
 
 
 class CheckFailed(Exception):
@@ -146,7 +190,7 @@ def phase_build() -> None:
 
 def phase_kernels(gen: torch.Generator) -> dict:
     dev = torch.device("cuda")
-    res = {k: {"max_abs_err": 0.0} for k in WRAPPERS}
+    res = {k: {"max_abs_err": 0.0} for k in COUNTERS}
 
     def ints(n):
         return torch.randint(-100, 100, (n,), generator=gen, device=dev,
@@ -197,7 +241,8 @@ def phase_kernels(gen: torch.Generator) -> dict:
 
     # -- K6: channel scan (the RG-LRU recurrence).  The plain version walks
     # T in the kernel's order with the kernel's rounding (no fused
-    # multiply-add), so the two agree to float32 rounding: held at 1e-6.
+    # multiply-add): bit-equal at the RG-LRU's own shapes (B C >= 2560, the
+    # serial route), 1e-6 elsewhere.
     def affine_bt(B, T, C):
         a = torch.empty(B, T, C, device=dev).uniform_(0.9, 0.999,
                                                       generator=gen)
@@ -215,9 +260,10 @@ def phase_kernels(gen: torch.Generator) -> dict:
                                          reverse=reverse)
         err = max_err(got, want)
         note("K6", err)
-        expect(err <= 1e-6, f"K6 AFFINE f32 ({B},{T},{C}) inclusive="
-                            f"{inclusive} reverse={reverse}: max abs err "
-                            f"{err:.3g} <= 1e-6")
+        tol = 0.0 if C == 2560 else 1e-6
+        expect(not scan_k.uses_long_t(B, T, C) and err <= tol,
+               f"K6 AFFINE f32 ({B},{T},{C}) inclusive={inclusive} reverse="
+               f"{reverse}: serial route, max abs err {err:.3g} <= {tol}")
     ab = affine_bt(1, 1024, 2560)
     res["K6"]["ms"] = time_ms(lambda: scan_k.scan_channel_cuda(alg.AFFINE, ab))
     res["K6"]["plain_ms"] = time_ms(
@@ -301,6 +347,9 @@ def phase_kernels(gen: torch.Generator) -> dict:
     res["K7m"]["bound"] = bound_ms(8 * BATCH * CACHE_LEN + 4 * BATCH,
                                    BATCH * CACHE_LEN)
     res["K7m"]["shape"] = f"({BATCH}, {CACHE_LEN}) f32 masked ADD"
+    check_k6_long(res, gen, note)
+    check_k4(res, gen, note)
+    check_k7s(res, gen, note)
     for k, r in res.items():
         log(f"[kernels] {k} {r['shape']}: {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
@@ -308,12 +357,204 @@ def phase_kernels(gen: torch.Generator) -> dict:
     return res
 
 
+def onehot_digits(gen, n: int, buckets: int) -> torch.Tensor:
+    """The radix pass's (n, buckets) int32 one-hot digit matrix."""
+    digit = torch.randint(0, buckets, (n,), generator=gen, device="cuda")
+    return (digit[:, None] == torch.arange(buckets, device="cuda")).int()
+
+
+def check_k6_long(res, gen, note) -> None:
+    """K6's long-T path: the radix sort's rank scans, (1, B V, 2^d) int32
+    exclusive ADD, bit-exact; AFFINE through it reassociates float combines
+    at chunk boundaries, held at 1e-5 of the output's size.  Every shape
+    here takes the long-T path by the threshold (B C <= 1024, T >= 128).
+    The serial plain walk runs up to T = 65,536; at T = B V the rank scans
+    are held against the log-step reference scan and torch.cumsum."""
+    k6l = scan_k.scan_channel_cuda
+    for (B, T, C), inclusive, reverse in (
+            ((1, 65536, 256), False, False), ((1, 5000, 4), False, False),
+            ((2, 3001, 7), True, True), ((3, 300, 5), False, True)):
+        expect(scan_k.uses_long_t(B, T, C),
+               f"({B},{T},{C}) takes the long-T path by the threshold")
+        x = torch.randint(0, 3, (B, T, C), generator=gen, device="cuda",
+                          dtype=torch.int32)
+        got = k6l(alg.ADD, x, inclusive=inclusive, reverse=reverse)
+        want = scan_k.scan_channel_plain(alg.ADD, x, inclusive=inclusive,
+                                         reverse=reverse)
+        err = max_err(got, want)
+        note("K6-long", err)
+        expect(err == 0, f"K6-long ADD int32 ({B},{T},{C}) inclusive="
+                         f"{inclusive} reverse={reverse}: bit-exact")
+    a = torch.empty(2, 3000, 130, device="cuda").uniform_(0.9, 0.999,
+                                                           generator=gen)
+    b = torch.empty(2, 3000, 130, device="cuda").uniform_(-1, 1,
+                                                           generator=gen)
+    expect(scan_k.uses_long_t(2, 3000, 130),
+           "(2,3000,130) takes the long-T path by the threshold")
+    got = k6l(alg.AFFINE, (a, b))
+    want = scan_k.scan_channel_plain(alg.AFFINE, (a, b))
+    err = max_err(got, want)
+    scale = float(want[1].abs().max())
+    expect(err <= 1e-5 * scale, f"K6-long AFFINE f32 (2,3000,130): "
+                                f"max abs err {err:.3g} <= 1e-5 x {scale:.3g}")
+    # The segment-id pass: 4 buckets (B = 4 rows) over all B V elements.
+    oh = onehot_digits(gen, N_SORT, 4)[None]
+    expect(scan_k.uses_long_t(1, N_SORT, 4),
+           f"(1, {N_SORT}, 4) takes the long-T path by the threshold")
+    got = k6l(alg.ADD, oh, inclusive=False)
+    err = max(max_err(got, ref.ref_scan(alg.ADD, oh, axis=1,
+                                        inclusive=False)),
+              max_err(got, torch.cumsum(oh, dim=1, dtype=torch.int32) - oh))
+    note("K6-long", err)
+    expect(err == 0, f"K6-long rank scan (1,{N_SORT},4) int32 exclusive: "
+                     f"bit-exact against the reference scan and torch.cumsum")
+    oh = onehot_digits(gen, N_SORT, 256)[None]
+    expect(scan_k.uses_long_t(1, N_SORT, 256),
+           f"(1, {N_SORT}, 256) takes the long-T path by the threshold")
+    got = k6l(alg.ADD, oh, inclusive=False)
+    err = max(max_err(got, ref.ref_scan(alg.ADD, oh, axis=1,
+                                        inclusive=False)),
+              max_err(got, torch.cumsum(oh, dim=1, dtype=torch.int32) - oh))
+    note("K6-long", err)
+    expect(err == 0, f"K6-long rank scan (1,{N_SORT},256) int32 exclusive: "
+                     f"bit-exact against the reference scan and torch.cumsum")
+    del got
+    plain_in = oh[:, :65536].contiguous()
+    res["K6-long"].update(
+        ms=time_ms(lambda: k6l(alg.ADD, oh, inclusive=False), 10),
+        plain_ms=time_ms(lambda: scan_k.scan_channel_plain(
+            alg.ADD, plain_in, inclusive=False), 1),
+        library_ms=time_ms(lambda: torch.cumsum(oh, dim=1,
+                                                dtype=torch.int32), 10),
+        bound=bound_ms(2 * 4 * N_SORT * 256, N_SORT * 256),
+        shape=f"(1, {N_SORT}, 256) int32 ADD exclusive (plain at T = 65536)")
+
+
+def check_k4(res, gen, note) -> None:
+    """K4: integer ops bit-exact against the plain fold; f32 ADD GEMV held
+    at 1e-5 of sum_i |x_i A_ij| (another summation order)."""
+    for n, p in ((1000, 37), (5, 3), (70000, 4), (3, 5000)):
+        A = torch.randint(-9, 10, (n, p), generator=gen, device="cuda",
+                          dtype=torch.int32)
+        xv = torch.randint(-9, 10, (n,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+        xz = torch.randint(-9, 10, (p,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+        for op in (alg.ADD, alg.MAX, alg.MIN, alg.MUL):
+            for k, fn, plain, x in (
+                    ("K4-matvec", matvec_k.matvec_cuda, matvec_k.matvec_plain,
+                     xv),
+                    ("K4-vecmat", matvec_k.vecmat_cuda, matvec_k.vecmat_plain,
+                     xz)):
+                err = max_err(fn(alg.TIMES, op, A, x),
+                              plain(alg.TIMES, op, A, x))
+                note(k, err)
+                expect(err == 0, f"{k} times/{op.name} int32 ({n},{p}): "
+                                 f"bit-exact")
+    # The segment-id pass's histogram: 4 buckets over all B V elements.
+    oh = onehot_digits(gen, N_SORT, 4)
+    for k, fn, plain in (
+            ("K4-matvec", matvec_k.matvec_cuda, matvec_k.matvec_plain),
+            ("K4-vecmat", matvec_k.vecmat_cuda, matvec_k.vecmat_plain)):
+        err = max_err(fn(alg.IDENTITY, alg.ADD, oh, None),
+                      plain(alg.IDENTITY, alg.ADD, oh, None))
+        note(k, err)
+        expect(err == 0, f"{k} identity/add int32 ({N_SORT},4): bit-exact")
+    oh = onehot_digits(gen, N_SORT, 256)
+    for k, fn, plain, lib in (
+            ("K4-matvec", matvec_k.matvec_cuda, matvec_k.matvec_plain,
+             lambda: oh.sum(0, dtype=torch.int32)),
+            ("K4-vecmat", matvec_k.vecmat_cuda, matvec_k.vecmat_plain,
+             lambda: oh.sum(1, dtype=torch.int32))):
+        got = fn(alg.IDENTITY, alg.ADD, oh, None)
+        err = max(max_err(got, plain(alg.IDENTITY, alg.ADD, oh, None)),
+                  max_err(got, lib()))
+        note(k, err)
+        expect(err == 0, f"{k} identity/add int32 ({N_SORT},256): bit-exact "
+                         f"against the plain fold and the library sum")
+        if k == "K4-matvec":
+            res[k].update(
+                ms=time_ms(lambda: fn(alg.IDENTITY, alg.ADD, oh, None), 20),
+                plain_ms=time_ms(lambda: plain(alg.IDENTITY, alg.ADD, oh,
+                                               None), 3),
+                library_ms=time_ms(lib, 20),
+                bound=bound_ms(4 * N_SORT * 256 + 4 * 256, N_SORT * 256),
+                shape=f"({N_SORT}, 256) int32 ADD of A (the digit histogram)")
+    A = torch.randn(8192, 8192, generator=gen, device="cuda")
+    x = torch.randn(8192, generator=gen, device="cuda")
+    for k, fn, plain, lib, scale in (
+            ("K4-matvec", matvec_k.matvec_cuda, matvec_k.matvec_plain,
+             lambda: torch.mv(A.t(), x), (x.abs()[:, None] * A.abs()).sum(0)),
+            ("K4-vecmat", matvec_k.vecmat_cuda, matvec_k.vecmat_plain,
+             lambda: torch.mv(A, x), (A.abs() * x.abs()[None]).sum(1))):
+        got = fn(alg.TIMES, alg.ADD, A, x)
+        errs = (got.double() - plain(alg.TIMES, alg.ADD, A, x).double()).abs()
+        err = float(errs.max())
+        note(k, err)
+        expect(bool((errs <= 1e-5 * scale).all()),
+               f"{k} f32 GEMV (8192, 8192): max abs err {err:.3g}, within "
+               f"1e-5 x sum|x||A| of every output")
+        timing = dict(
+            ms=time_ms(lambda: fn(alg.TIMES, alg.ADD, A, x), 20),
+            plain_ms=time_ms(lambda: plain(alg.TIMES, alg.ADD, A, x), 3),
+            library_ms=time_ms(lib, 20))
+        bound = bound_ms(4 * 8192 * 8192 + 8 * 8192, 2 * 8192 * 8192)
+        if k == "K4-vecmat":           # its row's shape: vecmat is off the path
+            res[k].update(timing, bound=bound,
+                          shape="(8192, 8192) f32 times/ADD")
+        else:
+            res[k]["large"] = dict(timing, bound_ms=bound[0],
+                                   shape="(8192, 8192) f32 times/ADD")
+
+
+def check_k7s(res, gen, note) -> None:
+    """K7s: integer ADD bit-exact; the nucleus scan of probability rows
+    (prefixes below 1) held at 1e-6 at (4, 64) and 1e-5 at 65,536 terms."""
+    for B, n in ((4, 64), (4, 40), (3, 2049), (2, 2048), (1, 1), (64, 65536)):
+        x = torch.randint(-100, 100, (B, n), generator=gen, device="cuda",
+                          dtype=torch.int32)
+        for inclusive in (True, False):
+            err = max_err(batched_k.batched_scan_cuda(alg.ADD, x,
+                                                      inclusive=inclusive),
+                          batched_k.batched_scan_plain(alg.ADD, x,
+                                                       inclusive=inclusive))
+            note("K7s", err)
+            expect(err == 0, f"K7s ADD int32 ({B},{n}) inclusive="
+                             f"{inclusive}: bit-exact")
+    probs = {}
+    for (B, n), tol in (((BATCH, 64), 1e-6), ((64, 65536), 1e-5)):
+        p = torch.softmax(torch.randn(B, n, generator=gen, device="cuda"), 1)
+        probs[n] = p
+        got = batched_k.batched_scan_cuda(alg.ADD, p, inclusive=False)
+        err = max_err(got, batched_k.batched_scan_plain(alg.ADD, p,
+                                                        inclusive=False))
+        note("K7s", err)
+        expect(err <= tol, f"K7s ADD f32 probabilities ({B},{n}) exclusive: "
+                           f"max abs err {err:.3g} <= {tol}")
+    for n, key in ((64, None), (65536, "large")):
+        p = probs[n]
+        B = p.shape[0]
+        timing = dict(
+            ms=time_ms(lambda: batched_k.batched_scan_cuda(
+                alg.ADD, p, inclusive=False)),
+            plain_ms=time_ms(lambda: batched_k.batched_scan_plain(
+                alg.ADD, p, inclusive=False), 3),
+            library_ms=time_ms(lambda: torch.cumsum(p, dim=1)))
+        if key is None:
+            res["K7s"].update(timing, bound=bound_ms(2 * 4 * B * n, B * n),
+                              shape=f"({B}, {n}) f32 ADD exclusive")
+        else:
+            res["K7s"]["large"] = dict(
+                timing, shape=f"({B}, {n}) f32 ADD exclusive",
+                bound_ms=bound_ms(2 * 4 * B * n, B * n)[0])
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: serve recurrentgemma-2b FULL
 # ---------------------------------------------------------------------------
 
 
-def phase_serve() -> dict:
+def load_model():
     dev = torch.device("cuda")
     cfg = get_config("recurrentgemma-2b")
     t0 = time.perf_counter()
@@ -326,6 +567,11 @@ def phase_serve() -> dict:
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
                for n in PROMPT_LENS]
+    return cfg, params, prompts
+
+
+def phase_serve(cfg, params, prompts) -> dict:
+    dev = torch.device("cuda")
 
     # The cuda backend against the plain torch backend on the card, on the
     # first request's prompt and on the 1024-token one.  bf16 activations
@@ -351,21 +597,21 @@ def phase_serve() -> dict:
                  device=dev)
     reqs = [Request(prompt=p, max_new_tokens=m)
             for p, m in zip(prompts, MAX_NEW)]
-    for w in WRAPPERS.values():
-        w.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     outs = eng.generate(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    launches = read_counts()
     stats = eng.last_stats
     for i, (o, r) in enumerate(zip(outs, reqs)):
         expect(len(o) == r.max_new_tokens and all(
             0 <= t < cfg.vocab_size for t in o),
             f"request {i} (prompt {len(r.prompt)}): {len(o)} tokens == "
             f"max_new_tokens {r.max_new_tokens}, ids in the vocabulary")
-    for k, n in launches.items():
-        expect(n > 0, f"{k} launched {n} times on the serving path")
+    for k in GREEDY_PATH:
+        expect(launches[k] > 0, f"{k} launched {launches[k]} times on the "
+                                f"greedy serving path")
     profile = profile_serving(eng, params, cfg, prompts[4])
     prompt_tokens = sum(PROMPT_LENS)
     summary = {
@@ -383,6 +629,121 @@ def phase_serve() -> dict:
         "profile": profile,
     }
     log("[serve] " + json.dumps(summary))
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: sampled serving
+# ---------------------------------------------------------------------------
+
+
+def phase_sampled(cfg, params, prompts) -> dict:
+    dev = torch.device("cuda")
+    eng = Engine(cfg, params, cache_len=CACHE_LEN, batch_size=BATCH,
+                 device=dev, **SAMPLING)
+    reqs = [Request(prompt=p, max_new_tokens=SAMPLED_NEW, seed=i)
+            for i, p in enumerate(prompts[:BATCH])]
+    eng.generate(reqs[:1])                               # warm-up
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    stats = dict(eng.last_stats)
+    for i, o in enumerate(outs):
+        expect(len(o) == SAMPLED_NEW and all(0 <= t < cfg.vocab_size
+                                             for t in o),
+               f"sampled request {i}: {len(o)} tokens == {SAMPLED_NEW}, ids "
+               f"in the vocabulary")
+    for k in SAMPLED_PATH:
+        expect(launches[k] > 0, f"{k} launched {launches[k]} times on the "
+                                f"sampled serving path")
+    again = eng.generate(reqs)
+    expect(again == outs, "a second sampled run gives identical tokens")
+    alone = eng.generate([reqs[2]])
+    expect(alone[0] == outs[2], "request 2 served alone gives the tokens it "
+                                "got in the batch of 4")
+
+    # One decode step's (4, 256000) logits through both backends; then the
+    # same on unit-normal logits, where no token dominates the draw.
+    state = eng._fresh_state()
+    state["pos"].copy_(torch.tensor([17, 600, 1500, 2100],
+                                    dtype=torch.int32))
+    state["tok"].copy_(torch.tensor([p[-1] for p in prompts[:BATCH]],
+                                    dtype=torch.int32))
+    logits, _ = eng._decode(eng.params, state["caches"],
+                            state["tok"][:, None], state["pos"])
+    offsets = torch.arange(BATCH + 1, dtype=torch.int32,
+                           device=dev) * cfg.vocab_size
+    seeds = torch.arange(BATCH, dtype=torch.int32, device=dev)
+    steps = torch.full((BATCH,), 3, dtype=torch.int32, device=dev)
+    knobs = dict(temperature=SAMPLING["temperature"], top_k=SAMPLING["top_k"],
+                 top_p=SAMPLING["top_p"], top_p_candidates=64)
+    noise = torch.randn(BATCH, cfg.vocab_size, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(3))
+    for what, lg in (("a decode step's logits", logits),
+                     ("unit-normal logits", noise)):
+        flat = lg.float().reshape(-1)
+        got = {}
+        for backend in ("cuda", "torch"):
+            with ki.use_backend(backend):
+                v, i = forge.top_k(flat, SAMPLING["top_k"],
+                                   layout=Segmented(offsets=offsets))
+                ids = SP.sample_tokens(eng._base_key, lg, seeds, steps,
+                                       **knobs)
+            got[backend] = (v, i, ids)
+        (vc, ic, sc), (vt, it, st) = got["cuda"], got["torch"]
+        lib = torch.topk(flat.reshape(BATCH, -1), SAMPLING["top_k"], dim=1)
+        expect(torch.equal(vc, vt) and torch.equal(ic, it),
+               f"{what}: top_k (4, {cfg.vocab_size}) k={SAMPLING['top_k']}, "
+               f"cuda and torch backends bit-identical in values and indices")
+        expect(torch.equal(vc, lib.values),
+               f"{what}: top_k values equal torch.topk's")
+        expect(torch.equal(sc, st), f"{what}: sampled ids identical across "
+                                    f"backends: {sc.tolist()}")
+
+    full = Engine(cfg, params, cache_len=CACHE_LEN, batch_size=1,
+                  device=dev, temperature=1.0, seed=1)
+    one = full.generate([Request(prompt=prompts[0],
+                                 max_new_tokens=SAMPLED_NEW, seed=5)])[0]
+    expect(len(one) == SAMPLED_NEW and all(0 <= t < cfg.vocab_size
+                                           for t in one),
+           f"full-vocabulary Gumbel (temperature 1.0, no filter): "
+           f"{len(one)} tokens in the vocabulary")
+    expect(full.generate([Request(prompt=prompts[0],
+                                  max_new_tokens=SAMPLED_NEW,
+                                  seed=5)])[0] == one,
+           "the full-vocabulary run repeats")
+
+    state = eng._fresh_state()
+    state["active"][:] = True
+    state["max_new"][:] = eng.max_new_cap
+    state["pos"].copy_(torch.tensor([17, 600, 1500, 2100], dtype=torch.int32))
+    state, _ = eng._dispatch_loop(state, 2, False)          # warm-up
+    ran = []
+    profile = profile_device(
+        "sampled decode x4",
+        lambda: ran.append(eng._dispatch_loop(state, 4, False)[1]), 4)
+    if ran != [4]:
+        raise CheckFailed(f"the profiled sampled loop ran {ran} steps")
+    summary = {
+        "requests": len(reqs), "sampling": SAMPLING,
+        "generated_tokens": stats["total_tokens"],
+        "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
+        "serve_s": wall, "decode_tok_per_s": stats["decode_tok_per_s"],
+        "decode_steps": stats["decode_steps"],
+        "distinct_tokens": len({t for o in outs for t in o}),
+        "launches": launches,
+        "launches_per_request": {k: n / len(reqs)
+                                 for k, n in launches.items()},
+        "top_k_ms": time_ms(lambda: forge.top_k(
+            flat, SAMPLING["top_k"], layout=Segmented(offsets=offsets)), 10),
+        "torch_topk_ms": time_ms(lambda: torch.topk(
+            flat.reshape(BATCH, -1), SAMPLING["top_k"], dim=1), 10),
+        "profile": profile,
+    }
+    log("[sampled] " + json.dumps(summary))
     return summary
 
 
@@ -463,7 +824,9 @@ def main() -> int:
     try:
         phase_build()
         res = phase_kernels(gen)
-        serve = phase_serve()
+        cfg, params, prompts = load_model()
+        serve = phase_serve(cfg, params, prompts)
+        sampled = phase_sampled(cfg, params, prompts)
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1
@@ -472,7 +835,8 @@ def main() -> int:
         name, source, replaces = META[k]
         kernels.append({
             "name": f"{k} {name}", "route": "cuda", "source": source,
-            "replaces": replaces, "launches": serve["launches"][k],
+            "replaces": replaces, "launches": sampled["launches"][k],
+            "launches_greedy": serve["launches"][k],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],

@@ -13,7 +13,8 @@ register per backend from ``kernels/ops.py``.  Two backends exist:
 With no explicit ``backend=`` and no :func:`use_backend` scope, the backend
 follows the operands: ``cuda`` for tensors on a CUDA device, ``torch``
 otherwise.  The TPU tiling helpers and tuning policies of the reference do
-not port: their work moves inside the kernels.
+not port: their work moves inside the kernels.  The one policy value the
+compositions read is :data:`SORT_DIGIT_BITS`, the radix sort's digit width.
 """
 from __future__ import annotations
 
@@ -26,6 +27,12 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.core import layout as lay
+
+# The radix sort's digit width (bits per scatter pass): the reference's
+# ``gpu_h100`` tuning value.  Wider digits mean fewer passes but a wider
+# one-hot matrix per pass (2^bits buckets); kernels/sort.py reads it.
+SORT_DIGIT_BITS = 8
+
 
 # --------------------------------------------------------------------------
 # Backend registry: a thread-local scoped override (use_backend) and
@@ -151,8 +158,10 @@ class RouteDef:
     fixed_kwargs: tuple = ()
     commutative_only: bool = False
     # Name of a shared zero-extent guard in _ZERO_GUARDS (None: the
-    # implementation handles zero extents itself).
+    # implementation/composition handles zero extents itself).
     zero_extent: str | None = None
+    needs_descriptor: bool = False    # Segmented: exactly one of flags/offsets
+    needs_num_segments: bool = False  # Segmented flag variant: static extent
     notes: str = ""
 
     @property
@@ -242,6 +251,13 @@ def _validate(route: RouteDef, layout, args, kwargs):
                     f"{layout.describe()} layout -- leave it at its "
                     f"default ({required!r}); got {got!r}"
                     + (f". {route.notes}" if route.notes else ""))
+    if route.needs_descriptor:
+        lay.validate_descriptor(layout.flags, layout.offsets, where=where)
+        if (route.needs_num_segments and layout.offsets is None
+                and layout.num_segments is None):
+            raise ValueError(
+                f"{where}: the flags descriptor needs Segmented("
+                f"num_segments=...) -- the output extent is static")
     for idx, rank in route.arg_ranks:
         for leaf in pytree.tree_leaves(args[idx]):
             if leaf.ndim != rank:
@@ -261,11 +277,17 @@ def _validate(route: RouteDef, layout, args, kwargs):
 def dispatch(primitive: str, layout, backend: str | None,
              args: tuple, kwargs: dict):
     """Resolve and call one (primitive, layout, backend) route: validation,
-    zero-extent guard, then the backend's implementation."""
+    layout-descriptor injection, zero-extent guard, then the backend's
+    implementation."""
     layout = lay.as_layout(layout)
     route = get_route(primitive, layout.kind)
     kwargs = dict(kwargs)
     _validate(route, layout, args, kwargs)
+    if route.needs_descriptor:
+        kwargs["flags"] = layout.flags
+        kwargs["offsets"] = layout.offsets
+        if route.needs_num_segments:
+            kwargs["num_segments"] = layout.num_segments
     if route.zero_extent is not None:
         handled, result = _ZERO_GUARDS[route.zero_extent](route, args, kwargs)
         if handled:
@@ -279,6 +301,9 @@ def dispatch(primitive: str, layout, backend: str | None,
 define_primitive(
     "scan",
     RouteDef("scan", "flat", data_arg=1, op_arg=0, zero_extent="passthrough"),
+    RouteDef("scan", "batched", data_arg=1, op_arg=0, arg_ranks=((1, 2),),
+             fixed_kwargs=(("axis", 0),), zero_extent="passthrough",
+             notes="per-row scan along axis 1 of (B, n) leaves"),
     doc="prefix scan with any associative operator")
 
 define_primitive(
@@ -293,8 +318,36 @@ define_primitive(
     doc="op-reduction of f(x)")
 
 define_primitive(
+    "matvec",
+    RouteDef("matvec", "flat", data_arg=2, op_arg=1,
+             arg_ranks=((2, 2), (3, 1))),
+    doc="y[j] = op_i f(x[i], A[i, j]) (generalized semiring matvec)")
+
+define_primitive(
+    "vecmat",
+    RouteDef("vecmat", "flat", data_arg=2, op_arg=1,
+             arg_ranks=((2, 2), (3, 1))),
+    doc="z[i] = op_j f(A[i, j], x[j]) (generalized semiring vecmat)")
+
+define_primitive(
     "linear_recurrence",
     RouteDef("linear_recurrence", "flat", arg_ranks=((0, 3), (1, 3))),
     RouteDef("linear_recurrence", "batched", arg_ranks=((0, 3), (1, 3)),
              notes="the recurrent models' prefill route"),
     doc="h_t = a_t * h_{t-1} + b_t along axis 1 of (B, T, C)")
+
+for _sort_prim, _sort_notes in (
+        ("sort", "stable LSD radix; zero extents short-circuit in the "
+                 "shared composition (kernels/sort.py)"),
+        ("sort_pairs", "payload pytree rides the same permutation"),
+        ("argsort", "segmented variant returns within-segment offsets"),
+        ("top_k", "extreme-first; segmented fills short segments with "
+                  "identity and index -1")):
+    define_primitive(
+        _sort_prim,
+        RouteDef(_sort_prim, "flat", arg_ranks=((0, 1),)),
+        RouteDef(_sort_prim, "segmented", arg_ranks=((0, 1),),
+                 needs_descriptor=True,
+                 needs_num_segments=(_sort_prim == "top_k"),
+                 notes=_sort_notes),
+        doc=f"radix-sort family: {_sort_prim}")

@@ -1,9 +1,11 @@
 """Associative operators and device maps over tensors and tuples of tensors.
 
-The PyTorch counterpart of ``repro.core.operators`` for the slice the
+The PyTorch counterpart of ``repro.core.operators`` for the slices the
 serving path needs: :class:`AssocOp` with ``ADD``, ``MUL``, ``MAX``, ``MIN``
-and the non-commutative ``AFFINE``, plus the map descriptors a kernel can run
-(:data:`IDENTITY` and :func:`masked_select`).
+and the non-commutative ``AFFINE``; the map descriptors a kernel can run
+(:data:`IDENTITY`, :func:`masked_select` and the matvec product
+:data:`TIMES`); and the radix sort's order-preserving key transforms
+(:func:`key_to_radix_bits` / :func:`radix_bits_to_key`).
 
 An element type is a pytree of tensors (``torch.utils._pytree``); ``combine``
 is associative and elementwise over the leaves, ``identity(like)`` builds the
@@ -100,7 +102,7 @@ AFFINE = AssocOp("affine", _affine_combine, _affine_identity, False, "affine")
 
 @dataclasses.dataclass(frozen=True)
 class DeviceMap:
-    """A map ``f`` of mapreduce that a CUDA kernel can run.
+    """A map ``f`` of mapreduce or matvec that a CUDA kernel can run.
 
     ``name`` selects the kernel's map (``MapCode`` in ``csrc/common.cuh``);
     ``fn`` is the same map as a Python callable, which the plain versions
@@ -108,14 +110,17 @@ class DeviceMap:
     """
 
     name: str
-    fn: Callable[[Pytree], Pytree]
+    fn: Callable[..., Pytree]
     fill: float = 0.0
 
-    def __call__(self, xs: Pytree) -> Pytree:
-        return self.fn(xs)
+    def __call__(self, *args: Pytree) -> Pytree:
+        return self.fn(*args)
 
 
 IDENTITY = DeviceMap("identity", lambda x: x)
+
+# The product of matvec / vecmat: f(x, a) = x * a (ordinary GEMV with ADD).
+TIMES = DeviceMap("times", lambda u, v: u * v)
 
 
 def masked_select(fill: float = 0.0) -> DeviceMap:
@@ -128,3 +133,73 @@ def masked_select(fill: float = 0.0) -> DeviceMap:
                                       device=values.device))
 
     return DeviceMap("masked_select", fn, fill)
+
+
+# --------------------------------------------------------------------------
+# Radix-sortable key transforms (the port of the reference's pinned order).
+#
+# Keys map onto same-width unsigned bits, held in int64 tensors (torch has
+# no unsigned 32-bit arithmetic to rely on), so that a < b iff
+# bits(a) < bits(b).  Signed ints flip the sign bit.  Floats: -0.0 and +0.0
+# compare equal, and every NaN maps to the all-ones-mantissa positive NaN,
+# so all NaNs compare equal and sort after +inf (np.sort's order); then the
+# sign-magnitude fix-up: negative values are bitwise complemented,
+# non-negative values get the sign bit set.
+# --------------------------------------------------------------------------
+
+_UNSIGNED = (torch.uint8, torch.uint16, torch.uint32)
+_SIGNED = (torch.int8, torch.int16, torch.int32)
+_FLOATS = (torch.float32, torch.bfloat16, torch.float16)
+_SIGNED_FOR_WIDTH = {8: torch.int8, 16: torch.int16, 32: torch.int32}
+
+
+def radix_key_bits(dtype: torch.dtype) -> int:
+    """Total significant bits in the sortable-transformed key."""
+    if dtype not in _UNSIGNED + _SIGNED + _FLOATS:
+        raise TypeError(f"radix sort: unsupported key dtype "
+                        f"{str(dtype).removeprefix('torch.')}")
+    return dtype.itemsize * 8
+
+
+def _unsigned_bits(x: torch.Tensor, width: int) -> torch.Tensor:
+    """The two's-complement bits of a signed tensor, as int64 in
+    [0, 2^width)."""
+    return x.to(torch.int64) & ((1 << width) - 1)
+
+
+def _signed_from_bits(bits: torch.Tensor, width: int) -> torch.Tensor:
+    """Inverse of :func:`_unsigned_bits`: the signed int of that width."""
+    half = 1 << (width - 1)
+    return torch.where(bits >= half, bits - (1 << width), bits).to(
+        _SIGNED_FOR_WIDTH[width])
+
+
+def key_to_radix_bits(keys: torch.Tensor) -> torch.Tensor:
+    """Map keys onto unsigned bits (int64); ``a < b`` iff
+    ``bits(a) < bits(b)`` under the pinned total order above."""
+    width = radix_key_bits(keys.dtype)
+    mask, sign = (1 << width) - 1, 1 << (width - 1)
+    if keys.dtype in _UNSIGNED:
+        return keys.to(torch.int64)
+    if keys.dtype in _SIGNED:
+        return _unsigned_bits(keys, width) ^ sign
+    # Floats: canonicalize -0.0 and NaN, then sign-magnitude fix-up.
+    keys = torch.where(keys == 0, torch.zeros_like(keys), keys)
+    bits = _unsigned_bits(keys.view(_SIGNED_FOR_WIDTH[width]), width)
+    bits = torch.where(torch.isnan(keys), torch.full_like(bits, sign - 1),
+                       bits)
+    return torch.where((bits & sign) != 0, ~bits & mask, bits | sign)
+
+
+def radix_bits_to_key(bits: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of :func:`key_to_radix_bits` (up to the documented float
+    canonicalizations: ``-0.0`` comes back as ``+0.0`` and NaNs as the
+    canonical quiet NaN)."""
+    width = radix_key_bits(dtype)
+    mask, sign = (1 << width) - 1, 1 << (width - 1)
+    if dtype in _UNSIGNED:
+        return bits.to(dtype)
+    if dtype in _SIGNED:
+        return _signed_from_bits(bits ^ sign, width)
+    raw = torch.where((bits & sign) != 0, bits ^ sign, ~bits & mask)
+    return _signed_from_bits(raw, width).view(dtype)

@@ -1,5 +1,6 @@
-"""The public primitives of the slice: ``scan``, ``mapreduce`` and
-``linear_recurrence``, each polymorphic over ``layout=``.
+"""The public primitives of the port: ``scan``, ``mapreduce``, ``matvec``,
+``vecmat``, ``linear_recurrence`` and the radix-sort family (``sort``,
+``sort_pairs``, ``argsort``, ``top_k``), each polymorphic over ``layout=``.
 
 The port of ``repro.core.primitives``.  Every call goes through the route
 registry in ``core.intrinsics``; implementations register per backend from
@@ -12,6 +13,8 @@ registry in ``core.intrinsics``; implementations register per backend from
     y = forge.scan(alg.ADD, x)                                 # prefix sum
     m = forge.mapreduce(alg.IDENTITY, alg.MAX, flags)          # any-set
     h = forge.linear_recurrence(a, b, layout=Batched())        # (B, T, C)
+    v, i = forge.top_k(logits.reshape(-1), 40,
+                       layout=Segmented(offsets=offsets))      # (S, 40)
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ import torch
 from repro_torch.core import intrinsics as ki
 from repro_torch.core import operators as alg
 from repro_torch.core.layout import (  # noqa: F401  (re-exported)
-    FLAT, Batched, Flat, Layout)
+    FLAT, Batched, Flat, Layout, Segmented)
 from repro_torch.kernels import ops as _ops  # noqa: F401  (registers backends)
 
 Pytree = Any
@@ -34,8 +37,10 @@ def scan(op: alg.AssocOp, xs: Pytree, *, axis: int = 0,
          backend: str | None = None) -> Pytree:
     """Prefix scan with any associative ``op`` (``op`` need not commute).
 
-    ``Flat()`` (the only layout of this slice): one scan along ``axis`` of
-    the leaves, which share one shape.
+    * ``Flat()`` (default): one scan along ``axis`` of the leaves, which
+      share one shape.
+    * ``Batched()``: per-row scan along axis 1 of ``(B, n)`` leaves -- one
+      launch for all rows.
     """
     return ki.dispatch("scan", layout, backend, (op, xs),
                        {"axis": axis, "inclusive": inclusive,
@@ -58,6 +63,24 @@ def mapreduce(f: Callable, op: alg.AssocOp, xs: Pytree, *, axis=None,
                        {"axis": axis})
 
 
+def matvec(f: Callable, op: alg.AssocOp, A: torch.Tensor, x: torch.Tensor,
+           *, layout: Layout | None = None,
+           backend: str | None = None) -> Pytree:
+    """y[j] = op_i f(x[i], A[i, j]) over ``(n, p)`` / ``(n,)``.
+
+    The ``cuda`` route runs ``f = alg.TIMES`` with ADD/MUL/MAX/MIN over
+    int32 or float32 (the ordinary GEMV is ``TIMES`` with ``ADD``)."""
+    return ki.dispatch("matvec", layout, backend, (f, op, A, x), {})
+
+
+def vecmat(f: Callable, op: alg.AssocOp, A: torch.Tensor, x: torch.Tensor,
+           *, layout: Layout | None = None,
+           backend: str | None = None) -> Pytree:
+    """z[i] = op_j f(A[i, j], x[j]) -- the row-wise mirror of
+    :func:`matvec`, over ``(n, p)`` / ``(p,)``."""
+    return ki.dispatch("vecmat", layout, backend, (f, op, A, x), {})
+
+
 def linear_recurrence(a: torch.Tensor, b: torch.Tensor,
                       h0: torch.Tensor | None = None, *,
                       reverse: bool = False, layout: Layout | None = None,
@@ -70,3 +93,53 @@ def linear_recurrence(a: torch.Tensor, b: torch.Tensor,
     """
     return ki.dispatch("linear_recurrence", layout, backend, (a, b),
                        {"h0": h0, "reverse": reverse})
+
+
+def sort(keys: torch.Tensor, *, descending: bool = False,
+         key_bits: int | None = None, layout: Layout | None = None,
+         backend: str | None = None) -> torch.Tensor:
+    """Stable LSD radix sort, composed from mapreduce + exclusive scan +
+    scatter (kernels/sort.py).
+
+    Keys may be u8/u16/u32, i8/i16/i32, f32/bf16/f16.  The total order is
+    numeric with ``-0.0 == +0.0`` and all NaNs equal, sorting after ``+inf``
+    (ascending); float outputs are canonicalized accordingly.  ``key_bits``
+    (unsigned keys only) caps the significant bits so small-range keys pay
+    proportionally fewer passes.  Under ``Segmented(...)`` every contiguous
+    segment sorts independently, in place in the flat layout.
+    """
+    return ki.dispatch("sort", layout, backend, (keys,),
+                       {"descending": descending, "key_bits": key_bits})
+
+
+def sort_pairs(keys: torch.Tensor, values: Pytree, *,
+               descending: bool = False, key_bits: int | None = None,
+               layout: Layout | None = None,
+               backend: str | None = None) -> tuple[torch.Tensor, Pytree]:
+    """Stable key sort carrying an arbitrary pytree payload (leaves of
+    leading extent ``n``) through the same permutation."""
+    return ki.dispatch("sort_pairs", layout, backend, (keys, values),
+                       {"descending": descending, "key_bits": key_bits})
+
+
+def argsort(keys: torch.Tensor, *, descending: bool = False,
+            key_bits: int | None = None, layout: Layout | None = None,
+            backend: str | None = None) -> torch.Tensor:
+    """The stable sorting permutation (int32) of ``keys``.  Under
+    ``Segmented(...)``, position ``i`` holds the *offset inside its
+    segment* of the element sorted into slot ``i``."""
+    return ki.dispatch("argsort", layout, backend, (keys,),
+                       {"descending": descending, "key_bits": key_bits})
+
+
+def top_k(keys: torch.Tensor, k: int, *, largest: bool = True,
+          key_bits: int | None = None, layout: Layout | None = None,
+          backend: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the ``k`` extreme elements, extreme-first and
+    tie-stable.  NaNs rank above ``+inf``, so with ``largest=True`` they
+    surface first.  Under ``Segmented(...)`` the result is per-segment
+    ``(S, k)`` values and within-segment indices; slots past a segment's
+    length are filled with the reduction identity and index ``-1`` (the
+    flag variant needs ``Segmented(num_segments=...)``)."""
+    return ki.dispatch("top_k", layout, backend, (keys, k),
+                       {"largest": largest, "key_bits": key_bits})

@@ -20,7 +20,7 @@ namespace rt {
 
 enum OpCode { OP_ADD = 0, OP_MUL = 1, OP_MAX = 2, OP_MIN = 3, OP_AFFINE = 4 };
 enum DType { DT_F32 = 0, DT_I32 = 1 };
-enum MapCode { MAP_IDENTITY = 0, MAP_MASKED = 1 };
+enum MapCode { MAP_IDENTITY = 0, MAP_MASKED = 1, MAP_TIMES = 2 };
 
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
@@ -122,6 +122,12 @@ __device__ __forceinline__ float shfl_down(float v, int d) {
 }
 __device__ __forceinline__ int shfl_down(int v, int d) {
   return __shfl_down_sync(FULL_MASK, v, d);
+}
+__device__ __forceinline__ float shfl_down(float v, int d, int width) {
+  return __shfl_down_sync(FULL_MASK, v, d, width);
+}
+__device__ __forceinline__ int shfl_down(int v, int d, int width) {
+  return __shfl_down_sync(FULL_MASK, v, d, width);
 }
 
 // ---------------------------------------------------------------------------

@@ -26,13 +26,14 @@ from repro_torch.core.operators import DeviceMap
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("scan_flat.cu", "scan_channel.cu", "mapreduce.cu", "batched.cu")
+SOURCES = ("scan_flat.cu", "scan_channel.cu", "mapreduce.cu", "batched.cu",
+           "matvec.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 OP_CODES = {"add": 0, "mul": 1, "max": 2, "min": 3, "affine": 4}
 DTYPE_CODES = {torch.float32: 0, torch.int32: 1}
-MAP_CODES = {"identity": 0, "masked_select": 1}
+MAP_CODES = {"identity": 0, "masked_select": 1, "times": 2}
 
 _P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_double
 # C signatures: name -> (restype, argtypes).
@@ -42,8 +43,9 @@ _SIGNATURES = {
         "rt_scan_flat": (_I, [_I, _I, _P, _P, _P, _P, _L, _I, _P, _P]),
     },
     "scan_channel.cu": {
+        "rt_scan_channel_chunk": (_I, []),
         "rt_scan_channel": (_I, [_I, _I, _P, _P, _P, _P, _L, _L, _L, _I, _I,
-                                 _P]),
+                                 _P, _P]),
     },
     "mapreduce.cu": {
         "rt_mapreduce_flat_grid": (_L, [_L]),
@@ -53,6 +55,15 @@ _SIGNATURES = {
     "batched.cu": {
         "rt_mapreduce_batched": (_I, [_I, _I, _I, _P, _P, _D, _L, _L, _P,
                                       _P]),
+        "rt_scan_batched_tile": (_I, []),
+        "rt_scan_batched": (_I, [_I, _I, _P, _P, _P, _P, _L, _L, _I, _P,
+                                 _P]),
+    },
+    "matvec.cu": {
+        "rt_matvec_chunks": (_L, [_L, _L]),
+        "rt_vecmat_chunks": (_L, [_L, _L]),
+        "rt_matvec": (_I, [_I, _I, _I, _P, _P, _L, _L, _P, _P, _P]),
+        "rt_vecmat": (_I, [_I, _I, _I, _P, _P, _L, _L, _P, _P, _P]),
     },
 }
 
@@ -186,3 +197,10 @@ def map_code(route: str, f) -> int:
 
 def ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
+
+
+def scratch(elements: int, leaves: int, like: torch.Tensor) -> torch.Tensor:
+    """Scratch for ``elements`` kernel elements of ``leaves`` 4-byte leaves
+    (8 bytes each for the AFFINE pair), on ``like``'s device."""
+    return torch.empty(4 * leaves * elements, dtype=torch.uint8,
+                       device=like.device)

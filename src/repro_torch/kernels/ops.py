@@ -9,14 +9,20 @@ at import that the table covers exactly the routes of the registry in
   (``_scan_xla``, ``_mapreduce_xla``, ``_batched_mapreduce_xla``,
   ``_linrec_xla``); it runs on any device.
 * ``cuda`` -- the hand-written kernels: K2 and K6 (``kernels/scan.py``),
-  K3 (``kernels/mapreduce.py``) and K7m (``kernels/batched.py``).  The
-  shape handling around them (flips, axis moves) is plain tensor code here.
+  K3 (``kernels/mapreduce.py``), K7s and K7m (``kernels/batched.py``) and
+  K4 (``kernels/matvec.py``).  The shape handling around them (flips, axis
+  moves) is plain tensor code here.
+
+The radix-sort family (``kernels/sort.py``) is one composition registered
+for both backends: its scan and mapreduce steps dispatch to the backend of
+its own row, so ``cuda`` runs the kernels and ``torch`` the plain versions.
 
 Validation and zero-extent guards live in the registry's dispatch, so these
 functions only see well-formed, non-empty problems through the public API.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
@@ -26,8 +32,10 @@ from repro_torch.core import intrinsics as ki
 from repro_torch.core import operators as alg
 from repro_torch.kernels import batched as batched_k
 from repro_torch.kernels import mapreduce as mapreduce_k
+from repro_torch.kernels import matvec as matvec_k
 from repro_torch.kernels import ref
 from repro_torch.kernels import scan as scan_k
+from repro_torch.kernels import sort as sort_k
 
 Pytree = Any
 
@@ -88,12 +96,48 @@ def _mapreduce_torch(f, op, xs, *, axis=None):
 
 
 def _mapreduce_cuda(f, op, xs, *, axis=None):
-    if axis is not None:
-        raise NotImplementedError(
-            "mapreduce@flat (cuda): axis= reductions ride the matvec "
-            "kernels (K4), which this port does not have yet")
-    flat = pytree.tree_map(lambda l: l.reshape(-1), xs)
-    return mapreduce_k.mapreduce_1d_cuda(f, op, flat)
+    if axis is None:
+        flat = pytree.tree_map(lambda l: l.reshape(-1), xs)
+        return mapreduce_k.mapreduce_1d_cuda(f, op, flat)
+    if isinstance(xs, torch.Tensor) and xs.ndim == 2 and -2 <= axis < 2:
+        # The reference's route (paper section V-A): a 2-D reduction over
+        # rows is a matvec, over columns a vecmat, with f on the matrix
+        # element and no vector.
+        reduce = matvec_k.matvec_cuda if axis % 2 == 0 else \
+            matvec_k.vecmat_cuda
+        return reduce(f, op, xs.contiguous(), None)
+    raise NotImplementedError(
+        "mapreduce: the cuda path supports axis=None or 2D")
+
+
+# ---------------------------------------------------------------------------
+# scan@batched: per-row scan along axis 1 of (B, n) leaves
+# ---------------------------------------------------------------------------
+
+
+def _batched_scan_torch(op, xs, *, inclusive=True, reverse=False):
+    return ref.ref_scan(op, xs, axis=1, inclusive=inclusive, reverse=reverse)
+
+
+def _batched_scan_cuda(op, xs, *, inclusive=True, reverse=False):
+    flip = (lambda l: torch.flip(l, (1,))) if reverse else \
+        (lambda l: l.contiguous())
+    out = batched_k.batched_scan_cuda(op, pytree.tree_map(flip, xs),
+                                      inclusive=inclusive)
+    return pytree.tree_map(flip, out) if reverse else out
+
+
+# ---------------------------------------------------------------------------
+# matvec@flat / vecmat@flat (generalized semiring forms)
+# ---------------------------------------------------------------------------
+
+
+def _matvec_cuda(f, op, A, x):
+    return matvec_k.matvec_cuda(f, op, A.contiguous(), x.contiguous())
+
+
+def _vecmat_cuda(f, op, A, x):
+    return matvec_k.vecmat_cuda(f, op, A.contiguous(), x.contiguous())
 
 
 def _batched_mapreduce_torch(f, op, xs):
@@ -123,11 +167,29 @@ def _linrec_cuda(a, b, h0=None, *, reverse=False):
     return A * h0[:, None, :] + B
 
 
+def _per_backend(fn):
+    # The sort compositions take the backend their scan/mapreduce steps
+    # dispatch to; each registered row pins it.
+    return {b: functools.partial(fn, backend=b) for b in ("torch", "cuda")}
+
+
 IMPLS: dict[str, dict[str, Any]] = {
     "scan@flat": {"torch": _scan_torch, "cuda": _scan_cuda},
+    "scan@batched": {"torch": _batched_scan_torch,
+                     "cuda": _batched_scan_cuda},
     "mapreduce@flat": {"torch": _mapreduce_torch, "cuda": _mapreduce_cuda},
     "mapreduce@batched": {"torch": _batched_mapreduce_torch,
                           "cuda": batched_k.batched_mapreduce_cuda},
+    "matvec@flat": {"torch": matvec_k.matvec_plain, "cuda": _matvec_cuda},
+    "vecmat@flat": {"torch": matvec_k.vecmat_plain, "cuda": _vecmat_cuda},
+    "sort@flat": _per_backend(sort_k.sort_radix),
+    "sort@segmented": _per_backend(sort_k.segmented_sort_radix),
+    "sort_pairs@flat": _per_backend(sort_k.sort_pairs_radix),
+    "sort_pairs@segmented": _per_backend(sort_k.segmented_sort_pairs_radix),
+    "argsort@flat": _per_backend(sort_k.argsort_radix),
+    "argsort@segmented": _per_backend(sort_k.segmented_argsort_radix),
+    "top_k@flat": _per_backend(sort_k.top_k_radix),
+    "top_k@segmented": _per_backend(sort_k.segmented_top_k_radix),
     "linear_recurrence@flat": {"torch": _linrec_torch, "cuda": _linrec_cuda},
     "linear_recurrence@batched": {"torch": _linrec_torch,
                                   "cuda": _linrec_cuda},

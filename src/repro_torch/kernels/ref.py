@@ -81,6 +81,27 @@ def ref_mapreduce(f, op, xs: Pytree, axis=None) -> Pytree:
     return ref_fold(op, vals, axis)
 
 
+def ref_matvec(f, op, A: torch.Tensor, x: torch.Tensor) -> Pytree:
+    """y[j] = op_i f(x[i], A[i, j]); A is (n, p), x is (n,), n >= 1."""
+    return ref_fold(op, f(x[:, None], A), axis=0)
+
+
+def ref_vecmat(f, op, A: torch.Tensor, x: torch.Tensor) -> Pytree:
+    """z[i] = op_j f(A[i, j], x[j]); A is (n, p), x is (p,), p >= 1."""
+    return ref_fold(op, f(A, x[None, :]), axis=1)
+
+
+def ref_batched_scan(op, xs: Pytree, *, inclusive: bool = True,
+                     reverse: bool = False) -> Pytree:
+    """Row-by-row flat scan of ``(B, n)`` leaves, restacked."""
+    B = pytree.tree_leaves(xs)[0].shape[0]
+    if B == 0:
+        return pytree.tree_map(torch.clone, xs)
+    rows = [ref_scan(op, pytree.tree_map(lambda l: l[i], xs), axis=0,
+                     inclusive=inclusive, reverse=reverse) for i in range(B)]
+    return pytree.tree_map(lambda *ls: torch.stack(ls), *rows)
+
+
 def ref_linear_recurrence(a: torch.Tensor, b: torch.Tensor, h0=None,
                           axis: int = 1, reverse: bool = False) -> torch.Tensor:
     """h_t = a_t * h_{t-1} + b_t along ``axis`` (h_{-1} = h0 or 0)."""

@@ -6,13 +6,16 @@
   :func:`scan_1d_plain`.
 * :func:`scan_channel_cuda` -- scan along axis 1 of ``(B, T, C)`` leaves,
   independent per (b, c), forward or reverse (``csrc/scan_channel.cu``;
-  replaces ``scan_channel_pallas``).  It carries ``linear_recurrence``.
+  replaces ``scan_channel_pallas``).  It carries ``linear_recurrence`` on
+  the serial route (one thread per channel) and the radix sort's rank scan
+  on the long-T path (T spread over blocks; see :func:`uses_long_t`).
   Plain version: :func:`scan_channel_plain`, the same serial walk over T.
 
 A wrapper given CPU tensors runs the plain version.  Given CUDA tensors it
 launches the kernel or raises.  ``launches`` on each wrapper counts the calls
 that launched its kernel (K2 above one tile issues three CUDA launches per
-call: reduce, scan of the totals, rescan).
+call: reduce, scan of the totals, rescan); K6 counts its long-T path apart,
+in ``long_t_launches``.
 """
 from __future__ import annotations
 
@@ -57,14 +60,13 @@ def scan_1d_cuda(op, xs: Pytree, *, inclusive: bool = True) -> Pytree:
     lib = _lib.library("scan_flat.cu")
     outs = [torch.empty_like(l) for l in leaves]
     tiles = -(-n // lib.rt_scan_flat_tile())
-    scratch = torch.empty(4 * len(leaves) * tiles if tiles > 1 else 0,
-                          dtype=torch.uint8, device=leaves[0].device)
+    scratch = _lib.scratch(tiles, len(leaves), leaves[0]) if tiles > 1 \
+        else None
     x1, y1 = (leaves[1], outs[1]) if len(leaves) == 2 else (None, None)
     _lib.check(lib.rt_scan_flat(
         op_code, dt_code, leaves[0].data_ptr(), _lib.ptr(x1),
         outs[0].data_ptr(), _lib.ptr(y1), n, int(inclusive),
-        scratch.data_ptr() if tiles > 1 else None,
-        _lib.stream_ptr(leaves[0])), what)
+        _lib.ptr(scratch), _lib.stream_ptr(leaves[0])), what)
     scan_1d_cuda.launches += 1
     return pytree.tree_unflatten(outs, spec)
 
@@ -75,6 +77,22 @@ scan_1d_cuda.launches = 0
 # ---------------------------------------------------------------------------
 # K6: channel scan along axis 1 of (B, T, C)
 # ---------------------------------------------------------------------------
+
+# The long-T path takes over when the serial route's B * C threads are too
+# few to fill the card.  At B * C <= 1024 the serial route runs at most 8
+# blocks of 128 threads (8 of 132 SMs), each thread waiting out T load
+# latencies; the radix sort's rank scans (256 and 4 channels, T = B V) are
+# far below it.  The RG-LRU's recurrence, at B * C >= 2560, stays above it
+# on the serial route, which keeps AFFINE bit-equal to the plain version
+# (the long path reassociates float combines at chunk boundaries).  Below
+# LONG_T_MIN_STEPS (two chunks of the long path) there is little to spread.
+LONG_T_MAX_CHANNELS = 1024
+LONG_T_MIN_STEPS = 128
+
+
+def uses_long_t(B: int, T: int, C: int) -> bool:
+    """Whether K6 takes the long-T path for a (B, T, C) scan."""
+    return B * C <= LONG_T_MAX_CHANNELS and T >= LONG_T_MIN_STEPS
 
 
 def scan_channel_plain(op, xs: Pytree, *, inclusive: bool = True,
@@ -99,7 +117,8 @@ def scan_channel_plain(op, xs: Pytree, *, inclusive: bool = True,
 def scan_channel_cuda(op, xs: Pytree, *, inclusive: bool = True,
                       reverse: bool = False) -> Pytree:
     """K6: scan along axis 1 of ``(B, T, C)`` leaves, independent per
-    (b, c); ``reverse`` walks T from the end."""
+    (b, c); ``reverse`` walks T from the end.  :func:`uses_long_t` picks
+    the route from the shape."""
     leaves, spec = pytree.tree_flatten(xs)
     if not leaves[0].is_cuda:
         return scan_channel_plain(op, xs, inclusive=inclusive, reverse=reverse)
@@ -109,15 +128,24 @@ def scan_channel_cuda(op, xs: Pytree, *, inclusive: bool = True,
     B, T, C = leaves[0].shape
     if B > 65535:
         raise ValueError(f"{what}: B = {B} exceeds the grid's 65535 rows")
+    long_t = uses_long_t(B, T, C)
     lib = _lib.library("scan_channel.cu")
     outs = [torch.empty_like(l) for l in leaves]
     x1, y1 = (leaves[1], outs[1]) if len(leaves) == 2 else (None, None)
+    chunks = -(-T // lib.rt_scan_channel_chunk())
+    scratch = _lib.scratch(B * C * chunks, len(leaves), leaves[0]) \
+        if long_t else None
     _lib.check(lib.rt_scan_channel(
         op_code, dt_code, leaves[0].data_ptr(), _lib.ptr(x1),
         outs[0].data_ptr(), _lib.ptr(y1), B, T, C, int(inclusive),
-        int(reverse), _lib.stream_ptr(leaves[0])), what)
-    scan_channel_cuda.launches += 1
+        int(reverse), _lib.ptr(scratch), _lib.stream_ptr(leaves[0])), what)
+    if long_t:
+        scan_channel_cuda.long_t_launches += 1
+    else:
+        scan_channel_cuda.launches += 1
     return pytree.tree_unflatten(outs, spec)
 
 
+# Launches of the serial route and of the long-T path, counted apart.
 scan_channel_cuda.launches = 0
+scan_channel_cuda.long_t_launches = 0

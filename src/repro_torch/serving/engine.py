@@ -1,4 +1,5 @@
-"""Serving engine: continuous batching over slots, greedy decoding.
+"""Serving engine: continuous batching over slots, greedy or sampled
+decoding.
 
 The port of the continuous path of ``repro.serving.engine``.  A host-side
 FIFO scheduler (``serving/scheduler.py``) admits requests into live batch
@@ -14,13 +15,19 @@ the port runs it from Python and reads the predicate back once per step:
 one host sync per decode step.  Drains read the finished outputs back
 through the CSR compaction (kernel K2) and the per-slot scores (K7m).
 
-Greedy decoding with exact-length prefill only; temperature sampling,
-prefill buckets, quantized KV, the other strategies, the padded oracle and
-the ``mesh`` argument come with later slices.
+Decoding is greedy at ``temperature=0`` (the default) and otherwise
+samples with the reference's counter-based keys: the ``j``-th token of a
+request with seed ``s`` uses ``fold_in(fold_in(PRNGKey(seed), s), j)``, so a
+request's stream depends only on its prompt and seed, never on batch
+composition (``serving/sampling.py``; the radix top-k and nucleus scan run
+kernels K2, K4, K6 and K7s on the card).  Prefill is exact-length; prefill
+buckets, quantized KV, the other strategies, the padded oracle and the
+``mesh`` argument come with later slices.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 
 import numpy as np
@@ -43,8 +50,9 @@ class Request:
     prompt: list          # token ids
     max_new_tokens: int = 16
     eos_id: int = -1      # -1: never stops early
-    # Per-request seed; None = the scheduler assigns the submission index.
-    # Greedy decoding does not read it; it is kept on the records.
+    # Per-request sampling seed; None = the scheduler assigns the submission
+    # index.  The j-th sampled token uses fold_in(fold_in(base, seed), j),
+    # so identical (prompt, seed) pairs give identical streams.
     seed: int | None = None
 
 
@@ -56,6 +64,8 @@ def _has_global_attn(cfg) -> bool:
 
 class Engine:
     def __init__(self, cfg, params, *, cache_len: int, batch_size: int,
+                 temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
+                 top_p_candidates: int = 64, seed: int = 0,
                  max_new_cap: int | None = None, device=None):
         if cfg.is_encdec:
             raise NotImplementedError(
@@ -65,9 +75,16 @@ class Engine:
         self.params = pytree.tree_map(lambda t: t.to(self.device), params)
         self.cache_len = cache_len
         self.batch_size = batch_size
+        self.temperature = temperature
+        self.top_k = top_k
+        self.top_p = top_p
+        self.top_p_candidates = top_p_candidates
         self.max_new_cap = max_new_cap or cache_len
         self.strategy = Vanilla()
-        self._sample = SP.sample_tokens
+        self._base_key = SP.PRNGKey(seed, device=self.device)
+        self._sample = functools.partial(
+            SP.sample_tokens, temperature=temperature, top_k=top_k,
+            top_p=top_p, top_p_candidates=top_p_candidates)
         self.strategy.bind(self)
         self._strategy_params = self.strategy.loop_params(self)
         self.last_stats: dict = {}

@@ -63,9 +63,12 @@ class DecodeStrategy:
 
 def vanilla_admit(eng, state, caches1, logits1, *, slot, seed, max_new, eos,
                   pos0):
-    """Scatter a prefilled request into ``slot`` and choose its first token,
-    on the device; the token never visits the host."""
-    tok1 = eng._sample(logits1)[0]
+    """Scatter a prefilled request into ``slot`` and choose its first token
+    (token index 0 of its key stream), on the device; the token never visits
+    the host."""
+    seeds = torch.tensor([seed], dtype=torch.int32, device=eng.device)
+    tok1 = eng._sample(eng._base_key, logits1, seeds,
+                       torch.zeros_like(seeds))[0]
     lp1 = SP.chosen_logprobs(logits1, tok1[None])[0]
     st = dict(state)
     st["caches"] = CA.scatter_slot(state["caches"], caches1, slot)
@@ -84,9 +87,9 @@ def vanilla_admit(eng, state, caches1, logits1, *, slot, seed, max_new, eos,
 
 
 class Vanilla(DecodeStrategy):
-    """Greedy decoding -- the engine's default policy: one decode and one
-    token per loop iteration, per-slot EOS/length-cap masking, log-prob
-    accumulation into the (B, T) buffer."""
+    """Greedy / top-k / top-p sampling -- the engine's default policy: one
+    decode and one token per loop iteration, per-slot EOS/length-cap
+    masking, log-prob accumulation into the (B, T) buffer."""
 
     name = "vanilla"
 
@@ -100,7 +103,7 @@ class Vanilla(DecodeStrategy):
         was_active = st["active"]
         logits, caches = eng._decode(
             params, st["caches"], st["tok"][:, None], st["pos"])
-        nxt = eng._sample(logits)
+        nxt = eng._sample(eng._base_key, logits, st["seeds"], st["emitted"])
         lp = SP.chosen_logprobs(logits, nxt)
         widx = torch.clamp(st["emitted"], max=eng.max_new_cap - 1).long()
         out, logps = st["out"], st["logps"]

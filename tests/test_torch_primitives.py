@@ -7,10 +7,11 @@ the CPU the port's kernel wrappers run their plain versions, so these tests
 hold the plain versions (the oracles the card's kernels are held against
 in ``chip_smoke.py``) and the route layer to the reference.
 
-Tolerances: integer scans and reductions are bit-exact; float32 results
-differ only by reassociation (the reference scans tiles with log-step
-combines, the port's plain versions fold in other orders) and are held at
-rtol = atol = 1e-5.
+Tolerances: integer scans, reductions and matvecs are bit-exact; float32
+results differ only by reassociation (the reference scans tiles with
+log-step combines, the port's plain versions fold in other orders) and are
+held at rtol = atol = 1e-5 (the batched scan of probability rows, whose
+prefixes stay below 1, at atol = 1e-6).
 """
 import numpy as np
 import pytest
@@ -30,6 +31,7 @@ from repro_torch.core.layout import Batched as TBatched  # noqa: E402
 from repro_torch.kernels import _lib  # noqa: E402
 from repro_torch.kernels import batched as batched_k  # noqa: E402
 from repro_torch.kernels import mapreduce as mapreduce_k  # noqa: E402
+from repro_torch.kernels import matvec as matvec_k  # noqa: E402
 from repro_torch.kernels import ref as t_ref  # noqa: E402
 from repro_torch.kernels import scan as scan_k  # noqa: E402
 
@@ -182,6 +184,158 @@ def test_linear_recurrence_h0_matches_reference():
 
 
 # ---------------------------------------------------------------------------
+# K4: semiring matvec / vecmat, and the mapreduce axis forms that ride them
+# ---------------------------------------------------------------------------
+
+INT_OPS = ["add", "max", "min", "mul"]
+
+
+@pytest.mark.parametrize("op_name", INT_OPS)
+@pytest.mark.parametrize("n,p", [(37, 130), (300, 70), (5, 3)])
+def test_k4_matvec_vecmat_int32_match_pallas(op_name, n, p):
+    rng = np.random.default_rng(n * p)
+    A = jnp.asarray(rng.integers(-9, 10, (n, p)), jnp.int32)
+    xv = jnp.asarray(rng.integers(-9, 10, (n,)), jnp.int32)
+    xz = jnp.asarray(rng.integers(-9, 10, (p,)), jnp.int32)
+    jop, top = getattr(j_alg, op_name.upper()), getattr(t_alg, op_name.upper())
+    want_mv = j_forge.matvec(lambda x, a: x * a, jop, A, xv, backend=PI)
+    want_vm = j_forge.vecmat(lambda a, x: a * x, jop, A, xz, backend=PI)
+    At = _t(A)
+    for got in (t_forge.matvec(t_alg.TIMES, top, At, _t(xv)),
+                matvec_k.matvec_cuda(t_alg.TIMES, top, At, _t(xv))):
+        assert got.shape == (p,) and got.dtype == torch.int32
+        np.testing.assert_array_equal(_np(got), np.asarray(want_mv))
+    for got in (t_forge.vecmat(t_alg.TIMES, top, At, _t(xz)),
+                matvec_k.vecmat_cuda(t_alg.TIMES, top, At, _t(xz))):
+        assert got.shape == (n,) and got.dtype == torch.int32
+        np.testing.assert_array_equal(_np(got), np.asarray(want_vm))
+
+
+def test_k4_matvec_vecmat_f32_add_match_pallas():
+    rng = np.random.default_rng(4)
+    A = make_operand("add", rng, (200, 96))
+    xv, xz = make_operand("add", rng, (200,)), make_operand("add", rng, (96,))
+    want_mv = j_forge.matvec(lambda x, a: x * a, j_alg.ADD, A, xv, backend=PI)
+    want_vm = j_forge.vecmat(lambda a, x: a * x, j_alg.ADD, A, xz, backend=PI)
+    for backend in ("torch", "cuda"):
+        np.testing.assert_allclose(
+            _np(t_forge.matvec(t_alg.TIMES, t_alg.ADD, _t(A), _t(xv),
+                               backend=backend)),
+            np.asarray(want_mv), rtol=1e-5, atol=1e-2)
+        np.testing.assert_allclose(
+            _np(t_forge.vecmat(t_alg.TIMES, t_alg.ADD, _t(A), _t(xz),
+                               backend=backend)),
+            np.asarray(want_vm), rtol=1e-5, atol=1e-2)
+
+
+@pytest.mark.parametrize("axis", [0, 1, -1])
+@pytest.mark.parametrize("op_name", ["add", "max"])
+def test_k4_mapreduce_axis_forms_match_pallas(axis, op_name):
+    """mapreduce over one axis of a 2-D array rides matvec (axis 0) or
+    vecmat (axis 1) -- the radix sort's digit histogram is the first."""
+    rng = np.random.default_rng(8)
+    onehot = jnp.asarray(rng.integers(0, 2, (150, 16)), jnp.int32)
+    jop, top = getattr(j_alg, op_name.upper()), getattr(t_alg, op_name.upper())
+    want = j_forge.mapreduce(lambda v: v, jop, onehot, axis=axis, backend=PI)
+    for backend in ("torch", "cuda"):
+        got = t_forge.mapreduce(t_alg.IDENTITY, top, _t(onehot), axis=axis,
+                                backend=backend)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(_np(got), np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
+# K7s: batched scan
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("op_name", INT_OPS)
+@pytest.mark.parametrize("n", [1, 64, 2047, 2048, 2049])
+def test_k7s_batched_scan_int32_matches_pallas(op_name, n):
+    """Rows up to and across the kernel's one-block tile (2,048)."""
+    rng = np.random.default_rng(n)
+    lo, hi = (1, 2) if op_name == "mul" else (-50, 50)
+    x = jnp.asarray(rng.integers(lo, hi, (3, n)), jnp.int32)
+    jop, top = getattr(j_alg, op_name.upper()), getattr(t_alg, op_name.upper())
+    for inclusive in (True, False):
+        want = np.asarray(j_forge.scan(jop, x, inclusive=inclusive,
+                                       layout=JBatched(), backend=PI))
+        for got in (t_forge.scan(top, _t(x), inclusive=inclusive,
+                                 layout=TBatched()),
+                    batched_k.batched_scan_cuda(top, _t(x),
+                                                inclusive=inclusive)):
+            assert got.dtype == torch.int32
+            np.testing.assert_array_equal(_np(got), want)
+
+
+@pytest.mark.parametrize("n", [64, 2049])
+def test_k7s_batched_scan_f32_probabilities_match_pallas(n):
+    """The nucleus cutoff's scan: exclusive ADD over probability rows."""
+    rng = np.random.default_rng(n + 1)
+    logits = rng.normal(size=(4, n)).astype(np.float32)
+    probs = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
+    want = j_forge.scan(j_alg.ADD, jnp.asarray(probs), inclusive=False,
+                        layout=JBatched(), backend=PI)
+    for backend in ("torch", "cuda"):
+        got = t_forge.scan(t_alg.ADD, torch.from_numpy(probs),
+                           inclusive=False, layout=TBatched(),
+                           backend=backend)
+        np.testing.assert_allclose(_np(got), np.asarray(want), rtol=0,
+                                   atol=1e-6)
+
+
+def test_k7s_batched_scan_affine_and_reverse_match_pallas():
+    a, b = make_operand("affine", np.random.default_rng(12), (3, 70))
+    for reverse in (False, True):
+        wa, wb = j_forge.scan(j_alg.AFFINE, (a, b), reverse=reverse,
+                              layout=JBatched(), backend=PI)
+        for backend in ("torch", "cuda"):
+            ga, gb = t_forge.scan(t_alg.AFFINE, (_t(a), _t(b)),
+                                  reverse=reverse, layout=TBatched(),
+                                  backend=backend)
+            np.testing.assert_allclose(_np(ga), np.asarray(wa), **F32_TOL)
+            np.testing.assert_allclose(_np(gb), np.asarray(wb), **F32_TOL)
+
+
+@pytest.mark.parametrize("shape", [(0, 5), (3, 0)])
+def test_k7s_zero_extent_passthrough_matches_reference(shape):
+    x = jnp.zeros(shape, jnp.float32)
+    want = j_forge.scan(j_alg.ADD, x, layout=JBatched(), backend="xla")
+    xt = torch.zeros(shape)
+    got = t_forge.scan(t_alg.ADD, xt, layout=TBatched(), backend="cuda")
+    assert got is xt and tuple(got.shape) == want.shape
+
+
+# ---------------------------------------------------------------------------
+# K6's long-T path: the route choice, and the rank scan's plain version
+# ---------------------------------------------------------------------------
+
+
+def test_k6_long_t_threshold_keeps_the_recurrence_on_the_serial_route():
+    # RG-LRU prefill and decode (C = 2560) stay on the serial route ...
+    for B, T in ((1, 1024), (4, 1), (1, 1 << 20), (8, 2048)):
+        assert not scan_k.uses_long_t(B, T, 2560)
+    # ... the radix sort's rank scans (1, B V, 2^d) take the long-T path.
+    for C in (256, 16, 4):
+        assert scan_k.uses_long_t(1, 1_024_000, C)
+    assert not scan_k.uses_long_t(1, scan_k.LONG_T_MIN_STEPS - 1, 256)
+
+
+@pytest.mark.parametrize("C", [4, 16])
+def test_k6_rank_scan_plain_matches_pallas(C):
+    """The sort's rank scan: exclusive int32 ADD along T of a one-hot
+    (1, T, C) matrix, bit-exact."""
+    rng = np.random.default_rng(C)
+    digit = rng.integers(0, C, 300)
+    onehot = jnp.asarray(digit[None, :, None] == np.arange(C)[None, None],
+                         jnp.int32)
+    want = j_forge.scan(j_alg.ADD, onehot, axis=1, inclusive=False,
+                        backend=PI)
+    got = scan_k.scan_channel_cuda(t_alg.ADD, _t(onehot), inclusive=False)
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
 # Routes: validation texts and zero-extent guards, as the reference's
 # ---------------------------------------------------------------------------
 
@@ -208,6 +362,29 @@ VALIDATION_CASES = {
                                           layout=JBatched(), backend="xla"),
         lambda: t_forge.linear_recurrence(torch.zeros(4, 4), torch.zeros(4, 4),
                                           layout=TBatched())),
+    "scan@batched rank": (
+        lambda: j_forge.scan(j_alg.ADD, jnp.zeros(4), layout=JBatched(),
+                             backend="xla"),
+        lambda: t_forge.scan(t_alg.ADD, torch.zeros(4), layout=TBatched())),
+    "scan@batched axis": (
+        lambda: j_forge.scan(j_alg.ADD, jnp.zeros((2, 4)), axis=1,
+                             layout=JBatched(), backend="xla"),
+        lambda: t_forge.scan(t_alg.ADD, torch.zeros(2, 4), axis=1,
+                             layout=TBatched())),
+    "matvec@flat rank": (
+        lambda: j_forge.matvec(lambda x, a: x * a, j_alg.ADD, jnp.zeros(4),
+                               jnp.zeros(4), backend="xla"),
+        lambda: t_forge.matvec(t_alg.TIMES, t_alg.ADD, torch.zeros(4),
+                               torch.zeros(4))),
+    "vecmat@flat rank": (
+        lambda: j_forge.vecmat(lambda a, x: a * x, j_alg.ADD,
+                               jnp.zeros((4, 4)), jnp.zeros((4, 4)),
+                               backend="xla"),
+        lambda: t_forge.vecmat(t_alg.TIMES, t_alg.ADD, torch.zeros(4, 4),
+                               torch.zeros(4, 4))),
+    "sort@flat rank": (
+        lambda: j_forge.sort(jnp.zeros((2, 4)), backend="xla"),
+        lambda: t_forge.sort(torch.zeros(2, 4))),
     "linear_recurrence@flat rank": (
         lambda: j_forge.linear_recurrence(jnp.zeros((2, 4, 4)), jnp.zeros(4),
                                           backend="xla"),
@@ -235,8 +412,10 @@ def test_pinned_kwarg_text_matches_reference_up_to_notes():
 
 
 def test_unsupported_layout_and_unknown_backend():
-    with pytest.raises(ValueError, match=r"scan: unsupported layout 'batched'"):
-        t_forge.scan(t_alg.ADD, torch.zeros(2, 4), layout=TBatched())
+    with pytest.raises(ValueError,
+                       match=r"matvec: unsupported layout 'batched'"):
+        t_forge.matvec(t_alg.TIMES, t_alg.ADD, torch.zeros(2, 4, 4),
+                       torch.zeros(2, 4), layout=TBatched())
     with pytest.raises(ValueError, match=r"scan@flat: unknown backend 'tpu'"):
         t_forge.scan(t_alg.ADD, torch.zeros(4), backend="tpu")
     with pytest.raises(ValueError, match="unknown backend"):
@@ -301,6 +480,7 @@ def test_kernel_sources_are_listed_and_annotated():
     """Every CUDA source is built, and names the TPU kernel it replaces."""
     sources = sorted(p.name for p in _lib.CSRC.glob("*.cu"))
     assert sources == sorted(_lib.SOURCES)
+    assert "matvec.cu" in sources
     for name in sources:
         text = (_lib.CSRC / name).read_text()
         assert "Replaces: src/repro/kernels/" in text
@@ -340,3 +520,24 @@ def test_kernels_match_plain_versions_on_the_card(cuda_device):
         batched_k.batched_mapreduce_cuda(masked, t_alg.ADD, (v, m)),
         batched_k.batched_mapreduce_plain(masked, t_alg.ADD, (v, m)),
         rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_sampling_kernels_match_plain_versions_on_the_card(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    digit = torch.randint(0, 256, (50_000,), generator=gen,
+                          device=cuda_device)
+    onehot = (digit[:, None] == torch.arange(256, device=cuda_device)).int()
+    assert torch.equal(matvec_k.matvec_cuda(t_alg.IDENTITY, t_alg.ADD,
+                                            onehot, None), onehot.sum(0).int())
+    assert torch.equal(matvec_k.vecmat_cuda(t_alg.IDENTITY, t_alg.ADD,
+                                            onehot, None), onehot.sum(1).int())
+    assert scan_k.uses_long_t(1, 50_000, 256)
+    rank = scan_k.scan_channel_cuda(t_alg.ADD, onehot[None], inclusive=False)
+    assert torch.equal(rank, (onehot.cumsum(0) - onehot).int()[None])
+    probs = torch.softmax(torch.randn(4, 3000, generator=gen,
+                                      device=cuda_device), dim=1)
+    torch.testing.assert_close(
+        batched_k.batched_scan_cuda(t_alg.ADD, probs, inclusive=False),
+        batched_k.batched_scan_plain(t_alg.ADD, probs, inclusive=False),
+        rtol=0, atol=1e-6)

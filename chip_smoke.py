@@ -2,24 +2,36 @@
 
     python3 chip_smoke.py
 
-Four phases, any failure exits non-zero:
+Five phases, any failure exits non-zero:
 
-1. build -- compile the hand-written kernels under src/repro_torch/csrc with
-   nvcc (one process per source, all started together) and print the time.
-2. kernels -- hold each kernel (K2 flat scan, K6 channel scan and its long-T
-   path, K3 flat mapreduce, K7m batched mapreduce, K7s batched scan, K4
-   matvec and vecmat) against its plain PyTorch version on the card, at the
-   serving path's shapes and at ragged and large sizes; time the kernel,
-   the plain version and one PyTorch library call of the same function with
-   CUDA events.
-3. serve -- serve recurrentgemma-2b at full width (26 layers, d_model 2560,
+1. build -- generate the translation units of every kernel, operator, map
+   and dtype combination the run's paths use (kernels/_lib.py, from each
+   operator's and map's device form) and compile them with nvcc, one
+   process per unit, all started together; print the time and each unit's
+   registers and spills.
+2. kernels -- hold each kernel of the serving paths (K2 flat scan, K6
+   channel scan and its long-T path, K3 flat mapreduce, K7m batched
+   mapreduce, K7s batched scan, K4 matvec and vecmat) against its plain
+   PyTorch version on the card, at the serving path's shapes and at ragged
+   and large sizes; time the kernel, the plain version and one PyTorch
+   library call of the same function with CUDA events.
+3. primitives -- the primitive library's own path: the public API
+   (copy, scan, mapreduce, semiring matvec/vecmat, linear_recurrence,
+   Segmented scan and mapreduce, sort_pairs, top_k, quickstart's sequence)
+   at the paper's sizes (n up to 10^9, matrices up to 10^4 x 10^4), with
+   every operator of STD_OPS and every semiring of STD_SEMIRINGS on the
+   cuda route.  Counts every kernel's launches on that run, checks its
+   outputs, holds K1 copy, K5 packed matvec and K8 segmented scan and every
+   kernel the generated functors re-instantiate against their plain
+   versions, and times each call beside its bound and library call.
+4. serve -- serve recurrentgemma-2b at full width (26 layers, d_model 2560,
    vocab 256000, bf16 weights from a seed) through Engine.generate: 8 greedy
    requests on 4 slots, so slots recycle.  Checks every request's length and
    ids, the prefill logits of the cuda backend against the plain torch
    backend on the card, and that the serving run launched every kernel of
    its path; then profiles one prefill and eight decode steps
    (torch.profiler) for where the time goes.
-4. sampled serve -- the same model through Engine(temperature=0.8,
+5. sampled serve -- the same model through Engine(temperature=0.8,
    top_k=40, top_p=0.95, seed=0): the first four prompts, 16 new tokens
    each, request seeds 0-3.  Checks lengths and ids, that a second run and
    request 2 served alone give the same tokens, that the cuda and torch
@@ -53,12 +65,14 @@ from repro_torch.core import intrinsics as ki  # noqa: E402
 from repro_torch.core import operators as alg  # noqa: E402
 from repro_torch.kernels import _lib  # noqa: E402
 from repro_torch.kernels import batched as batched_k  # noqa: E402
+from repro_torch.kernels import copy as copy_k  # noqa: E402
 from repro_torch.core import primitives as forge  # noqa: E402
-from repro_torch.core.layout import Segmented  # noqa: E402
+from repro_torch.core.layout import Batched, Segmented  # noqa: E402
 from repro_torch.kernels import mapreduce as mapreduce_k  # noqa: E402
 from repro_torch.kernels import matvec as matvec_k  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import scan as scan_k  # noqa: E402
+from repro_torch.kernels import segmented as seg_k  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.serving import sampling as SP  # noqa: E402
 from repro_torch.serving.engine import Engine, Request  # noqa: E402
@@ -78,6 +92,7 @@ N_SORT = BATCH * 256000            # the sampled top-k's flat (B V,) stream
 # Each kernel's launch counter: (wrapper, attribute).  K6's wrapper counts
 # its serial route and its long-T path apart.
 COUNTERS = {
+    "K1": (copy_k.copy_cuda, "launches"),
     "K2": (scan_k.scan_1d_cuda, "launches"),
     "K6": (scan_k.scan_channel_cuda, "launches"),
     "K6-long": (scan_k.scan_channel_cuda, "long_t_launches"),
@@ -86,28 +101,37 @@ COUNTERS = {
     "K7s": (batched_k.batched_scan_cuda, "launches"),
     "K4-matvec": (matvec_k.matvec_cuda, "launches"),
     "K4-vecmat": (matvec_k.vecmat_cuda, "launches"),
+    "K5": (matvec_k.matvec_packed_cuda, "launches"),
+    "K8": (seg_k.segmented_scan_1d_cuda, "launches"),
 }
 GREEDY_PATH = ("K2", "K6", "K3", "K7m")
 # K4's vecmat shares matvec's source but nothing on the serving path calls
 # it: mapreduce over axis 1 is its only user.
 SAMPLED_PATH = ("K2", "K6", "K6-long", "K3", "K7m", "K7s", "K4-matvec")
+PRIMITIVES_PATH = tuple(COUNTERS)        # the library's own path runs them all
 META = {
-    "K2": ("scan_1d", "src/repro_torch/csrc/scan_flat.cu",
+    "K1": ("copy", "src/repro_torch/csrc/copy.cuh",
+           "src/repro/kernels/copy.py:24"),
+    "K2": ("scan_1d", "src/repro_torch/csrc/scan.cuh",
            "src/repro/kernels/scan.py:139"),
-    "K6": ("scan_channel", "src/repro_torch/csrc/scan_channel.cu",
+    "K6": ("scan_channel", "src/repro_torch/csrc/scan.cuh",
            "src/repro/kernels/scan.py:227"),
-    "K3": ("mapreduce_1d", "src/repro_torch/csrc/mapreduce.cu",
+    "K3": ("mapreduce_1d", "src/repro_torch/csrc/mapreduce.cuh",
            "src/repro/kernels/mapreduce.py:81"),
-    "K7m": ("batched_mapreduce", "src/repro_torch/csrc/batched.cu",
+    "K7m": ("batched_mapreduce", "src/repro_torch/csrc/mapreduce.cuh",
             "src/repro/kernels/batched.py:121"),
-    "K6-long": ("scan_channel long-T", "src/repro_torch/csrc/scan_channel.cu",
+    "K6-long": ("scan_channel long-T", "src/repro_torch/csrc/scan.cuh",
                 "src/repro/kernels/scan.py:227"),
-    "K7s": ("batched_scan", "src/repro_torch/csrc/batched.cu",
+    "K7s": ("batched_scan", "src/repro_torch/csrc/scan.cuh",
             "src/repro/kernels/batched.py:85"),
-    "K4-matvec": ("matvec", "src/repro_torch/csrc/matvec.cu",
+    "K4-matvec": ("matvec", "src/repro_torch/csrc/matvec.cuh",
                   "src/repro/kernels/matvec.py:117"),
-    "K4-vecmat": ("vecmat", "src/repro_torch/csrc/matvec.cu",
+    "K4-vecmat": ("vecmat", "src/repro_torch/csrc/matvec.cuh",
                   "src/repro/kernels/matvec.py:386"),
+    "K5": ("matvec_packed", "src/repro_torch/csrc/matvec.cuh",
+           "src/repro/kernels/matvec.py:292"),
+    "K8": ("segmented_scan_1d", "src/repro_torch/csrc/segmented.cuh",
+           "src/repro/kernels/segmented.py:141"),
 }
 
 
@@ -167,20 +191,69 @@ def expect(ok: bool, msg: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def phase_build() -> None:
+# matvec's f(x, a) = (x, a): folding these pairs under AFFINE is an
+# operator that does not commute, so K4 must keep row (column) order.
+PAIR = alg.DeviceMap("pair", lambda u, v: (u, v), "return x;")
+LEAVES = {"affine": 2, "maxplus_affine": 2, "softmax_merge": 3,
+          "quaternion_mul": 4, "mat2_mul": 4}
+
+
+def path_units() -> list:
+    """Every generated unit the run's paths call, so that all of them
+    compile at once, in parallel, before anything is timed."""
+    f32, f64, i32, u8 = torch.float32, torch.float64, torch.int32, torch.uint8
+    units = [_lib.unit("copy", "build")]
+    for op in alg.STD_OPS.values():
+        units.append(_lib.unit("scan", "build", op,
+                               [f32] * LEAVES.get(op.name, 1)))
+    for op in (alg.ADD, alg.MAX, alg.MIN, alg.MUL):
+        units.append(_lib.unit("scan", "build", op, [i32]))
+    units.append(_lib.unit("scan", "build", alg.ADD, [f64]))
+    for op, dts in ((alg.ADD, [f32]), (alg.ADD, [i32]), (alg.MAX, [f32]),
+                    (alg.QUATERNION_MUL, [f32] * 4)):
+        units.append(_lib.unit("segscan", "build", alg.segmented(op),
+                               [i32] + dts))
+
+    def mapped(family, f, op, *dtypes):
+        likes = [torch.empty(0, dtype=d) for d in dtypes]
+        if f is alg.masked_select:
+            f, likes = f(0.0), [tuple(likes)]
+        units.append(_lib.map_unit(family, "build", f, op, *likes)[0])
+
+    mapped("mapreduce", alg.IDENTITY, alg.MAX, i32)
+    mapped("mapreduce", alg.IDENTITY, alg.ADD, f32)
+    mapped("mapreduce", alg.masked_select, alg.ADD, f32, i32)
+    mapped("mapreduce", alg.unitfloat8_decode, alg.ADD, u8)
+    for sr in alg.STD_SEMIRINGS.values():
+        mapped("matvec", sr.f, sr.op, f32, f32)
+    for op in (alg.ADD, alg.MAX, alg.MIN, alg.MUL):
+        mapped("matvec", alg.TIMES, op, i32, i32)
+    mapped("matvec", alg.IDENTITY, alg.ADD, i32)
+    mapped("matvec", PAIR, alg.AFFINE, f32, f32)
+    return units
+
+
+def phase_build() -> dict:
+    units = path_units()
     t0 = time.perf_counter()
-    paths = _lib.build()
-    log(f"[build] {len(paths)} libraries in {time.perf_counter() - t0:.2f} s "
+    _lib.build(units)
+    seconds = time.perf_counter() - t0
+    log(f"[build] {len(units)} generated units in {seconds:.2f} s "
         f"({_lib.BUILD_DIR})")
-    for src, path in paths.items():
-        report = path.with_suffix(".log")
-        text = report.read_text() if report.exists() else ""
+    worst = {"registers": 0, "spilled_units": []}
+    for u in units:
+        text = u.path.with_suffix(".log").read_text()
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
         spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", text))
         smem = [int(b) for b in re.findall(r"(\d+) bytes smem", text)]
-        log(f"  ptxas {src}: {len(regs)} kernels, at most "
+        log(f"  ptxas {u.label}: {len(regs)} kernels, at most "
             f"{max(regs, default=0)} registers and {max(smem, default=0)} "
             f"bytes of shared memory, {spills} bytes spilled")
+        worst["registers"] = max(worst["registers"], max(regs, default=0))
+        if spills:
+            worst["spilled_units"].append([u.label, spills])
+    return {"units": len(units), "seconds": seconds, "prebuilt": {
+        u.digest for u in units}, **worst}
 
 
 # ---------------------------------------------------------------------------
@@ -203,7 +276,7 @@ def phase_kernels(gen: torch.Generator) -> dict:
     # f32 through the multi-block path, held at 1e-5 relative to the
     # output's magnitude because the log-step plain scan folds in another
     # order.
-    tile = _lib.library("scan_flat.cu").rt_scan_flat_tile()
+    tile = _lib.load(scan_k.scan_unit("K2", alg.ADD, [ints(1)])).rt_tile()
     for n in (BATCH, 8, 1, tile + 1, 1 << 24):
         x = ints(n)
         for inclusive in (True, False):
@@ -351,6 +424,8 @@ def phase_kernels(gen: torch.Generator) -> dict:
     check_k4(res, gen, note)
     check_k7s(res, gen, note)
     for k, r in res.items():
+        if "ms" not in r:
+            continue                   # K1, K5, K8: the primitives phase
         log(f"[kernels] {k} {r['shape']}: {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
             f"{r['bound'][0]:.6f} ms ({r['bound'][1]}); large {r.get('large')}")
@@ -550,7 +625,520 @@ def check_k7s(res, gen, note) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 3: serve recurrentgemma-2b FULL
+# Phase 3: the primitive library's own path at the paper's sizes
+# ---------------------------------------------------------------------------
+
+SCAN_SIZES = (10**6, 10**7, 10**8, 10**9)             # Table IV
+MV_SHAPES = ((10**3, 10**4), (10**4, 10**3), (10, 10**6), (10**6, 10),
+             (10**4, 10**4))                          # Tables V / VI
+N_PAPER = 10**8
+SEG_MEAN = 1000                  # mean segment length of the ragged stream
+STD_N = 1 << 20                  # every STD_OPS operator's scan
+
+
+def small_ints(gen, n, dtype=torch.float32):
+    """Integers in [-8, 8] as ``dtype``.  Their partial sums are random
+    walks far below 2^24, where float32 stops being exact, so every order
+    of a scan or a sum gives the same bits: the checks can be bit-exact."""
+    return torch.randint(-8, 9, (n,), generator=gen, device="cuda",
+                         dtype=torch.int32).to(dtype)
+
+
+def unit_quaternions(gen, n):
+    """Rotations: products of any length stay of size 1."""
+    q = torch.randn(4, n, generator=gen, device="cuda")
+    q = q / q.norm(dim=0)
+    return tuple(q[i].contiguous() for i in range(4))
+
+
+def csr_offsets(gen, n, mean):
+    """CSR offsets of segments of random length, uniform in [1, 2 mean)."""
+    lens = torch.randint(1, 2 * mean, (2 * n // mean + 16,), generator=gen,
+                         device="cuda")
+    ends = torch.cumsum(lens, 0)
+    zero = torch.zeros(1, dtype=torch.long, device="cuda")
+    return torch.cat([zero, ends[ends < n], zero + n]).to(torch.int32)
+
+
+def std_operand(gen, name, n):
+    """One operand per operator, in ranges where a scan of 2^20 stays
+    finite (the operators' own ranges of tests/conftest.py, narrowed where
+    products would overflow)."""
+    def u(lo, hi):
+        return torch.empty(n, device="cuda").uniform_(lo, hi, generator=gen)
+    if name in ("add", "max", "min"):
+        return u(-100, 100)
+    if name == "mul":
+        return u(0.999, 1.001)
+    if name == "logsumexp":
+        return u(-5, 5)
+    if name == "affine":
+        return (u(0.5, 1.0), u(-2, 2))
+    if name == "maxplus_affine":
+        return (u(-1, 0), u(-3, 3))
+    if name == "softmax_merge":
+        return (u(-3, 3), u(0.1, 2), u(-2, 2))
+    if name == "quaternion_mul":
+        return unit_quaternions(gen, n)
+    angle = u(-3.1416, 3.1416)                    # mat2_mul: rotations
+    c, s = torch.cos(angle), torch.sin(angle)
+    return (c, s, -s, c)
+
+
+def quickstart_data(gen):
+    """examples/quickstart.py's inputs, on the card."""
+    dev = "cuda"
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    W = torch.where(torch.rand(64, 64, generator=gen, device=dev) < 0.2,
+                    torch.rand(64, 64, generator=gen, device=dev) * 10,
+                    torch.full((64, 64), float("inf"), device=dev))
+    W.fill_diagonal_(0.0)
+    dist = torch.full((64,), float("inf"), device=dev)
+    dist[0] = 0.0
+    lens = torch.tensor([8, 3, 5, 1], device=dev)
+    return {
+        "x": rnd(1000),
+        "q": tuple(rnd(256) * 0.1 + (1.0 if i == 0 else 0.0)
+                   for i in range(4)),
+        "u8": torch.randint(0, 256, (100_000,), generator=gen, device=dev,
+                            dtype=torch.int32).to(torch.uint8),
+        "W": W, "dist": dist,
+        "logA": torch.log_softmax(rnd(32, 32), dim=1),
+        "logp": torch.log_softmax(rnd(32), dim=0),
+        "vals": torch.arange(10, dtype=torch.float32, device=dev),
+        "offs": torch.tensor([0, 3, 8, 10], dtype=torch.int32, device=dev),
+        "a": torch.rand(2, 128, 256, generator=gen, device=dev) * 0.09 + 0.9,
+        "b": rnd(2, 128, 256),
+        "probs": torch.softmax(rnd(4, 8), dim=-1),
+        "mask": (torch.arange(8, device=dev)[None] < lens[:, None]).int(),
+        "expert": torch.randint(0, 4, (24,), generator=gen, device=dev,
+                                dtype=torch.int32),
+        "tok": torch.arange(24, dtype=torch.int32, device=dev),
+        "logits": rnd(10),
+    }
+
+
+def quickstart(q, backend=None) -> dict:
+    """examples/quickstart.py sections 1-8 through the public API."""
+    o = {"1 scan": forge.scan(alg.ADD, q["x"], backend=backend),
+         "1 scan max exclusive": forge.scan(alg.MAX, q["x"], inclusive=False,
+                                            backend=backend),
+         "2 quaternion scan": forge.scan(alg.QUATERNION_MUL, q["q"],
+                                         backend=backend),
+         "3 UnitFloat8 sum": forge.mapreduce(alg.unitfloat8_decode, alg.ADD,
+                                             q["u8"], backend=backend)}
+    dist = q["dist"]
+    for _ in range(4):
+        dist = forge.semiring_matvec(alg.TROPICAL_MIN_PLUS, q["W"], dist,
+                                     backend=backend)
+    o["4 tropical 4-hop"] = dist
+    o["5 log vecmat"] = forge.semiring_vecmat(alg.LOG_SEMIRING, q["logA"],
+                                              q["logp"], backend=backend)
+    seg = Segmented(offsets=q["offs"])
+    o["6 segmented scan"] = forge.scan(alg.ADD, q["vals"], layout=seg,
+                                       backend=backend)
+    o["6 segmented sums"] = forge.mapreduce(alg.IDENTITY, alg.ADD, q["vals"],
+                                            layout=seg, backend=backend)
+    o["7 linear recurrence"] = forge.linear_recurrence(q["a"], q["b"],
+                                                       backend=backend)
+    o["7b batched exclusive"] = forge.scan(alg.ADD, q["probs"],
+                                           inclusive=False, layout=Batched(),
+                                           backend=backend)
+    o["7b masked sums"] = forge.mapreduce(alg.masked_select(0.0), alg.ADD,
+                                          (q["probs"], q["mask"]),
+                                          layout=Batched(), backend=backend)
+    o["8 sort_pairs"] = forge.sort_pairs(q["expert"], q["tok"],
+                                         backend=backend)
+    o["8 segmented top_k"] = forge.top_k(q["logits"], 2, layout=seg,
+                                         backend=backend)
+    return o
+
+
+def primitives_data(gen) -> dict:
+    d = {f"x{n}": small_ints(gen, n) for n in SCAN_SIZES}
+    d["x64"] = small_ints(gen, N_PAPER, torch.float64)
+    d["u8"] = torch.randint(0, 256, (N_PAPER,), generator=gen, device="cuda",
+                            dtype=torch.int32).to(torch.uint8)
+    d["q7"] = unit_quaternions(gen, 10**7)
+    d["mv"] = {}
+    for n, p in MV_SHAPES:
+        d["mv"][(n, p)] = tuple(
+            torch.empty(s, device="cuda").uniform_(-1, 1, generator=gen)
+            for s in ((n, p), (n,), (p,)))
+    d["Ai"] = torch.randint(-9, 10, (10**6, 10), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    d["xi"] = torch.randint(-9, 10, (10**6,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    d["offs8"] = csr_offsets(gen, N_PAPER, SEG_MEAN)
+    d["q6"] = unit_quaternions(gen, 10**6)
+    d["offs6"] = csr_offsets(gen, 10**6, SEG_MEAN)
+    d["std"] = {name: std_operand(gen, name, STD_N) for name in alg.STD_OPS}
+    d["keys"] = torch.randn(10**6, generator=gen, device="cuda")
+    d["iota"] = torch.arange(10**6, dtype=torch.int32, device="cuda")
+    d["qs"] = quickstart_data(gen)
+    return d
+
+
+def drive_primitives(d) -> tuple[dict, dict]:
+    """The library's own path, once, through the entry points a user calls:
+    the paper's tables, every STD_OPS operator and STD_SEMIRINGS semiring,
+    the Segmented layout, a radix sort, and quickstart's sequence.  Returns
+    the outputs and each call's kernel launches."""
+    o, per_call = {}, {}
+
+    def run(name, fn):
+        before = read_counts()
+        o[name] = fn()
+        after = read_counts()
+        per_call[name] = {k: after[k] - before[k] for k in after
+                          if after[k] != before[k]}
+
+    x8 = d[f"x{N_PAPER}"]
+    run("copy", lambda: forge.copy(x8))
+    for n in SCAN_SIZES:
+        run(f"scan f32 {n}", lambda: forge.scan(alg.ADD, d[f"x{n}"]))
+    run("scan f64", lambda: forge.scan(alg.ADD, d["x64"]))
+    run("scan quaternion", lambda: forge.scan(alg.QUATERNION_MUL, d["q7"]))
+    for name, op in alg.STD_OPS.items():
+        run(f"scan {name}", lambda: forge.scan(op, d["std"][name]))
+    run("mapreduce f32", lambda: forge.mapreduce(alg.IDENTITY, alg.ADD, x8))
+    run("mapreduce UnitFloat8", lambda: forge.mapreduce(
+        alg.unitfloat8_decode, alg.ADD, d["u8"]))
+    for (n, p), (A, xv, xz) in d["mv"].items():
+        run(f"matvec {n}x{p}", lambda: forge.semiring_matvec(
+            alg.ARITHMETIC, A, xv))
+        run(f"vecmat {n}x{p}", lambda: forge.semiring_vecmat(
+            alg.ARITHMETIC, A, xz))
+    A, xv, xz = d["mv"][(10**4, 10**4)]
+    for name, sr in alg.STD_SEMIRINGS.items():
+        run(f"{name} matvec", lambda: forge.semiring_matvec(sr, A, xv))
+        run(f"{name} vecmat", lambda: forge.semiring_vecmat(sr, A, xz))
+    run("matvec int32 packed", lambda: forge.matvec(alg.TIMES, alg.ADD,
+                                                    d["Ai"], d["xi"]))
+    seg8 = Segmented(offsets=d["offs8"])
+    run("segmented scan", lambda: forge.scan(alg.ADD, x8, layout=seg8))
+    run("segmented sums", lambda: forge.mapreduce(alg.IDENTITY, alg.ADD, x8,
+                                                  layout=seg8))
+    run("segmented quaternion", lambda: forge.scan(
+        alg.QUATERNION_MUL, d["q6"], inclusive=False,
+        layout=Segmented(offsets=d["offs6"])))
+    run("sort_pairs", lambda: forge.sort_pairs(d["keys"], d["iota"]))
+    run("quickstart", lambda: quickstart(d["qs"]))
+    return o, per_call
+
+
+def rel_err(got, want, scale) -> float:
+    """Max abs error over the leaves, over ``scale`` (a tensor or number)."""
+    errs = [((g.double() - w.double()).abs() / scale).max()
+            for g, w in zip(torch.utils._pytree.tree_leaves(got),
+                            torch.utils._pytree.tree_leaves(want))]
+    return float(max(errs))
+
+
+def check_primitives_path(o, d) -> None:
+    """Every output of the path: the right shape and finite, and equal to
+    its plain version or library call -- bit-exact for integer-valued data,
+    copies, MAX/MIN and sorts, within the stated bound for floats."""
+    x8 = d[f"x{N_PAPER}"]
+    expect(torch.equal(o["copy"], x8), "copy 10^8 f32: bit-exact")
+    for n in SCAN_SIZES:
+        got = o[f"scan f32 {n}"]
+        expect(got.shape == (n,) and torch.equal(got, torch.cumsum(
+            d[f"x{n}"], 0)), f"scan ADD f32 n={n:.0e}: bit-exact against "
+                             f"torch.cumsum (integer-valued data)")
+    expect(torch.equal(o["scan f64"], torch.cumsum(d["x64"], 0)),
+           "scan ADD f64 n=1e+08: bit-exact against torch.cumsum")
+    # A product of n factors carries about sqrt(n) float32 roundings in any
+    # association (2e-4 at n = 10^7): products are held at 1e-3 of their
+    # size.
+    err = max_err(o["scan quaternion"],
+                  scan_k.scan_1d_plain(alg.QUATERNION_MUL, d["q7"]))
+    expect(err <= 1e-3, f"scan QUATERNION_MUL n=1e+07 (unit quaternions): "
+                        f"max abs err {err:.3g} <= 1e-3 against the plain scan")
+    for name, op in alg.STD_OPS.items():
+        want = scan_k.scan_1d_plain(op, d["std"][name])
+        got = o[f"scan {name}"]
+        if name in ("max", "min"):
+            err, tol = max_err(got, want), 0.0
+        else:
+            scale = max(max(float(l.abs().max()) for l in
+                            torch.utils._pytree.tree_leaves(want)), 1.0)
+            err, tol = max_err(got, want) / scale, 1e-3
+        expect(err <= tol, f"scan {name} f32 n=2^20 on the cuda route: err "
+                           f"{err:.3g} <= {tol} (relative to max |output|)")
+    got = o["mapreduce f32"]
+    expect(float(got) == float(x8.double().sum()),
+           "mapreduce ADD f32 n=1e+08: bit-exact (integer-valued data)")
+    got = o["mapreduce UnitFloat8"]
+    want = alg.unitfloat8_decode(d["u8"]).double().sum()
+    err = abs(float(got) - float(want))
+    expect(err <= 1e-6 * N_PAPER, f"mapreduce UnitFloat8 -> f32 ADD n=1e+08: "
+                                  f"abs err {err:.4g} <= 1e-6 x n")
+    for (n, p), (A, xv, xz) in d["mv"].items():
+        for key, x, plain, scale in (
+                ("matvec", xv, matvec_k.matvec_plain,
+                 (xv.abs()[:, None] * A.abs()).sum(0).double()),
+                ("vecmat", xz, matvec_k.vecmat_plain,
+                 (A.abs() * xz.abs()[None]).sum(1).double())):
+            err = rel_err(o[f"{key} {n}x{p}"], plain(alg.TIMES, alg.ADD, A, x),
+                          scale)
+            expect(err <= 1e-5, f"{key} ARITHMETIC f32 ({n}, {p}): max err "
+                                f"{err:.3g} <= 1e-5 x sum|x||A| per output")
+    A, xv, xz = d["mv"][(10**4, 10**4)]
+    for name, sr in alg.STD_SEMIRINGS.items():
+        for key, x, plain in (("matvec", xv, matvec_k.matvec_plain),
+                              ("vecmat", xz, matvec_k.vecmat_plain)):
+            got, want = o[f"{name} {key}"], plain(sr.f, sr.op, A, x)
+            if name.startswith("tropical"):
+                err, tol = max_err(got, want), 0.0
+            elif name == "log":
+                err, tol = rel_err(got, want, 1 + want.abs().double()), 1e-5
+            else:
+                continue                      # ARITHMETIC: checked above
+            expect(err <= tol, f"{name} {key} f32 (10^4, 10^4): err {err:.3g}"
+                               f" <= {tol}")
+    got = o["matvec int32 packed"]
+    expect(torch.equal(got, (d["Ai"] * d["xi"][:, None]).sum(0, dtype=torch.int32)),
+           "matvec int32 (10^6, 10) on K5: bit-exact against the library sum")
+    flags8 = seg_k.offsets_to_flags(d["offs8"], N_PAPER)
+    want = ref.ref_segmented_scan(alg.ADD, x8, flags8)
+    expect(torch.equal(o["segmented scan"], want),
+           f"Segmented scan ADD f32 n=1e+08, {d['offs8'].numel() - 1} "
+           f"segments: bit-exact against the plain version")
+    ends = d["offs8"][1:].long() - 1
+    expect(torch.equal(o["segmented sums"], want[ends]),
+           "Segmented mapreduce ADD f32 n=1e+08: every segment's sum exact")
+    del want
+    flags6 = seg_k.offsets_to_flags(d["offs6"], 10**6)
+    err = max_err(o["segmented quaternion"], ref.ref_segmented_scan(
+        alg.QUATERNION_MUL, d["q6"], flags6, inclusive=False))
+    expect(err <= 1e-4, f"Segmented scan QUATERNION_MUL exclusive n=1e+06: "
+                        f"max abs err {err:.3g} <= 1e-4")
+    keys, vals = o["sort_pairs"]
+    want = torch.sort(d["keys"], stable=True)
+    expect(torch.equal(keys, want.values) and torch.equal(
+        vals, want.indices.int()), "sort_pairs f32 n=1e+06: keys and payload "
+                                   "bit-exact against torch.sort(stable=True)")
+    plain = quickstart(d["qs"], backend="torch")
+    for key, got in o["quickstart"].items():
+        want = plain[key]
+        gl = torch.utils._pytree.tree_leaves(got)
+        wl = torch.utils._pytree.tree_leaves(want)
+        same = all(g.shape == w.shape for g, w in zip(gl, wl))
+        if all(not g.dtype.is_floating_point for g in gl) or key in (
+                "4 tropical 4-hop", "1 scan max exclusive"):
+            ok, msg = same and all(torch.equal(g, w) for g, w in zip(gl, wl)), \
+                "bit-exact"
+        else:
+            scale = max(max(float(w.abs().max()) for w in wl), 1.0)
+            err = max_err(got, want) / scale
+            ok, msg = same and err <= 1e-4, \
+                f"max abs err {err:.3g} <= 1e-4 x max|output|"
+        expect(ok, f"quickstart {key}: cuda route against the torch route, "
+                   f"{msg}")
+
+
+def check_new_kernels(res, d, gen, note) -> None:
+    """K1, K5 and K8 against their plain versions at the path's shapes, and
+    K4's ordered fold for an operator that does not commute."""
+    x8 = d[f"x{N_PAPER}"]
+    for nitem in copy_k.NITEMS:
+        got = copy_k.copy_cuda(x8, nitem=nitem)
+        err = max_err(got, copy_k.copy_plain(x8))
+        note("K1", err)
+        expect(err == 0, f"K1 copy f32 n=1e+08 nitem={nitem}: bit-exact")
+    odd = torch.randint(0, 255, (10**6 + 7,), generator=gen, device="cuda",
+                        dtype=torch.int32).to(torch.uint8)
+    for t in (odd, odd[1:]):           # ragged end; misaligned start
+        expect(torch.equal(copy_k.copy_cuda(t), t),
+               f"K1 copy uint8 n={t.numel()} at byte offset "
+               f"{t.data_ptr() % 16}: bit-exact")
+    res["K1"].update(
+        ms=time_ms(lambda: copy_k.copy_cuda(x8), 20),
+        plain_ms=time_ms(lambda: copy_k.copy_plain(x8), 20),
+        library_ms=time_ms(lambda: x8.clone(), 20),
+        bound=bound_ms(2 * 4 * N_PAPER, 0), shape="(10^8,) f32, nitem 8",
+        nitem_ms={n: time_ms(lambda: copy_k.copy_cuda(x8, nitem=n), 20)
+                  for n in copy_k.NITEMS})
+
+    A, xv, _ = d["mv"][(10**6, 10)]
+    expect(matvec_k.uses_packed(10**6, 10, alg.ADD),
+           "(10^6, 10) ADD takes K5 by the route choice")
+    got = matvec_k.matvec_packed_cuda(alg.TIMES, alg.ADD, A, xv)
+    err = rel_err(got, matvec_k.matvec_packed_plain(alg.TIMES, alg.ADD, A, xv),
+                  (xv.abs()[:, None] * A.abs()).sum(0).double())
+    note("K5", err)
+    expect(err <= 1e-5, f"K5 ARITHMETIC f32 (10^6, 10): err {err:.3g} <= 1e-5"
+                        f" x sum|x||A| per output")
+    for n, p in ((10**6, 10), (512, 64), (600, 1), (1000, 33)):
+        Ai = torch.randint(-9, 10, (n, p), generator=gen, device="cuda",
+                           dtype=torch.int32)
+        xi = torch.randint(-9, 10, (n,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+        for op in (alg.ADD, alg.MAX, alg.MIN):
+            err = max_err(matvec_k.matvec_packed_cuda(alg.TIMES, op, Ai, xi),
+                          matvec_k.matvec_packed_plain(alg.TIMES, op, Ai, xi))
+            note("K5", err)
+            expect(err == 0, f"K5 times/{op.name} int32 ({n}, {p}): "
+                             f"bit-exact")
+    res["K5"].update(
+        ms=time_ms(lambda: matvec_k.matvec_packed_cuda(alg.TIMES, alg.ADD, A,
+                                                       xv)),
+        plain_ms=time_ms(lambda: matvec_k.matvec_packed_plain(
+            alg.TIMES, alg.ADD, A, xv), 5),
+        library_ms=time_ms(lambda: torch.mv(A.t(), xv)),
+        bound=bound_ms(4 * (10**6 * 10 + 10**6 + 10), 2 * 10**6 * 10),
+        shape="(10^6, 10) f32 ARITHMETIC",
+        k4_ms=time_ms(lambda: matvec_k.matvec_cuda(alg.TIMES, alg.ADD, A, xv)))
+
+    flags8 = seg_k.offsets_to_flags(d["offs8"], N_PAPER)
+    for inclusive in (True, False):
+        got = seg_k.segmented_scan_1d_cuda(alg.ADD, x8, flags8,
+                                           inclusive=inclusive)
+        err = max_err(got, seg_k.segmented_scan_1d_plain(
+            alg.ADD, x8, flags8, inclusive=inclusive))
+        note("K8", err)
+        expect(err == 0, f"K8 ADD f32 n=1e+08 inclusive={inclusive}: "
+                         f"bit-exact against the plain version")
+        del got
+    for n in (1, 2047, 2048, 2049, 70001):
+        v = torch.randint(-100, 100, (n,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+        fl = (torch.rand(n, generator=gen, device="cuda") < 0.01).int()
+        for inclusive in (True, False):
+            err = max_err(seg_k.segmented_scan_1d_cuda(alg.ADD, v, fl,
+                                                       inclusive=inclusive),
+                          seg_k.segmented_scan_1d_plain(alg.ADD, v, fl,
+                                                        inclusive=inclusive))
+            note("K8", err)
+            expect(err == 0, f"K8 ADD int32 n={n} inclusive={inclusive}: "
+                             f"bit-exact")
+    flags6 = seg_k.offsets_to_flags(d["offs6"], 10**6)
+    for inclusive in (True, False):
+        err = max_err(seg_k.segmented_scan_1d_cuda(
+            alg.QUATERNION_MUL, d["q6"], flags6, inclusive=inclusive),
+            seg_k.segmented_scan_1d_plain(alg.QUATERNION_MUL, d["q6"], flags6,
+                                          inclusive=inclusive))
+        note("K8", err)
+        expect(err <= 1e-4, f"K8 QUATERNION_MUL n=1e+06 inclusive="
+                            f"{inclusive}: max abs err {err:.3g} <= 1e-4")
+    res["K8"].update(
+        ms=time_ms(lambda: seg_k.segmented_scan_1d_cuda(alg.ADD, x8, flags8),
+                   20),
+        plain_ms=time_ms(lambda: seg_k.segmented_scan_1d_plain(
+            alg.ADD, x8, flags8), 1),
+        library_ms=None,                # no PyTorch call scans by segment
+        bound=bound_ms(2 * 4 * N_PAPER + 4 * N_PAPER, N_PAPER),
+        shape=f"(10^8,) f32 ADD, {d['offs8'].numel() - 1} segments of mean "
+              f"length {SEG_MEAN}")
+
+    for n, p in ((700, 300), (300, 700), (5, 3)):
+        Af = torch.empty(n, p, device="cuda").uniform_(0.9, 1.1, generator=gen)
+        for k, fn, plain, x in (
+                ("K4-matvec", matvec_k.matvec_cuda, matvec_k.matvec_plain, n),
+                ("K4-vecmat", matvec_k.vecmat_cuda, matvec_k.vecmat_plain, p)):
+            xf = torch.empty(x, device="cuda").uniform_(-0.1, 0.1,
+                                                        generator=gen)
+            got, want = fn(PAIR, alg.AFFINE, Af, xf), plain(PAIR, alg.AFFINE,
+                                                            Af, xf)
+            err = rel_err(got, want, 1 + want[1].abs().double())
+            note(k, err)
+            expect(err <= 1e-4, f"{k} AFFINE fold of (x, a) pairs ({n}, {p})"
+                                f", in order: err {err:.3g} <= 1e-4")
+
+
+def paper_timings(d) -> list:
+    """The paper's tables through the public API: ms beside the bound and
+    the library call (None where no single PyTorch call computes it)."""
+    rows = []
+
+    def row(what, fn, nbytes, ops, library=None, lib_name=None, reps=10):
+        bound = bound_ms(nbytes, ops)
+        rows.append({"what": what, "ms": time_ms(fn, reps),
+                     "bound_ms": bound[0], "bound_by": bound[1],
+                     "library": lib_name,
+                     "library_ms": time_ms(library, reps) if library else None})
+        log(f"[paper] {json.dumps(rows[-1])}")
+
+    x8 = d[f"x{N_PAPER}"]
+    row("copy f32 1e8 (Fig. 1)", lambda: forge.copy(x8), 8 * N_PAPER, 0,
+        lambda: x8.clone(), "x.clone()")
+    for n in SCAN_SIZES:
+        x = d[f"x{n}"]
+        row(f"scan ADD f32 {n:.0e} (Table IV)", lambda: forge.scan(alg.ADD, x),
+            8 * n, n, lambda: torch.cumsum(x, 0), "torch.cumsum",
+            3 if n > N_PAPER else 10)
+    row("scan ADD f64 1e8 (Table IV)", lambda: forge.scan(alg.ADD, d["x64"]),
+        16 * N_PAPER, N_PAPER, lambda: torch.cumsum(d["x64"], 0),
+        "torch.cumsum")
+    row("scan QUATERNION_MUL f32 1e7", lambda: forge.scan(
+        alg.QUATERNION_MUL, d["q7"]), 32 * 10**7, 28 * 10**7)
+    row("mapreduce ADD f32 1e8 (Table III)", lambda: forge.mapreduce(
+        alg.IDENTITY, alg.ADD, x8), 4 * N_PAPER, N_PAPER,
+        lambda: torch.sum(x8), "torch.sum")
+    row("mapreduce UnitFloat8 -> f32 ADD 1e8 (Table III)",
+        lambda: forge.mapreduce(alg.unitfloat8_decode, alg.ADD, d["u8"]),
+        N_PAPER, 3 * N_PAPER,
+        lambda: torch.sum(alg.unitfloat8_decode(d["u8"])),
+        "torch.sum(decode(u)), two calls")
+    for (n, p), (A, xv, xz) in d["mv"].items():
+        row(f"matvec ARITHMETIC f32 ({n}, {p}) (Table V)",
+            lambda: forge.semiring_matvec(alg.ARITHMETIC, A, xv),
+            4 * (n * p + n + p), 2 * n * p, lambda: torch.mv(A.t(), xv),
+            "torch.mv(A.t(), x)")
+        row(f"vecmat ARITHMETIC f32 ({n}, {p}) (Table VI)",
+            lambda: forge.semiring_vecmat(alg.ARITHMETIC, A, xz),
+            4 * (n * p + n + p), 2 * n * p, lambda: torch.mv(A, xz),
+            "torch.mv(A, x)")
+    A, xv, xz = d["mv"][(10**4, 10**4)]
+    nb = 4 * (10**8 + 2 * 10**4)
+    row("matvec TROPICAL_MIN_PLUS f32 (1e4, 1e4)",
+        lambda: forge.semiring_matvec(alg.TROPICAL_MIN_PLUS, A, xv), nb,
+        2 * 10**8, lambda: (xv[:, None] + A).amin(0),
+        "(x[:, None] + A).amin(0), two calls")
+    row("vecmat LOG_SEMIRING f32 (1e4, 1e4)",
+        lambda: forge.semiring_vecmat(alg.LOG_SEMIRING, A, xz), nb,
+        2 * 10**8, lambda: torch.logsumexp(A + xz[None], 1),
+        "torch.logsumexp(A + x[None], 1), two calls")
+    seg8 = Segmented(offsets=d["offs8"])
+    row("Segmented scan ADD f32 1e8", lambda: forge.scan(
+        alg.ADD, x8, layout=seg8), 12 * N_PAPER, N_PAPER)
+    return rows
+
+
+def phase_primitives(res, gen) -> dict:
+    def note(k, err):
+        res[k]["max_abs_err"] = max(res[k]["max_abs_err"], err)
+
+    d = primitives_data(gen)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    o, per_call = drive_primitives(d)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    log("[primitives] launches per call: " + json.dumps(per_call))
+    for k in PRIMITIVES_PATH:
+        expect(launches[k] > 0, f"{k} launched {launches[k]} times on the "
+                                f"primitives path")
+    check_primitives_path(o, d)
+    del o
+    check_new_kernels(res, d, gen, note)
+    rows = paper_timings(d)
+    for k in ("K1", "K5", "K8"):
+        r = res[k]
+        log(f"[kernels] {k} {r['shape']}: {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
+            f"{r['bound'][0]:.6f} ms ({r['bound'][1]}); "
+            f"{ {x: v for x, v in r.items() if x.endswith('_ms')} }")
+    summary = {"wall_s": wall, "launches": launches, "paper": rows}
+    log("[primitives] " + json.dumps({"wall_s": wall, "launches": launches}))
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: serve recurrentgemma-2b FULL
 # ---------------------------------------------------------------------------
 
 
@@ -633,7 +1221,7 @@ def phase_serve(cfg, params, prompts) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: sampled serving
+# Phase 5: sampled serving
 # ---------------------------------------------------------------------------
 
 
@@ -822,21 +1410,26 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     try:
-        phase_build()
+        build = phase_build()
         res = phase_kernels(gen)
+        prims = phase_primitives(res, gen)
         cfg, params, prompts = load_model()
         serve = phase_serve(cfg, params, prompts)
         sampled = phase_sampled(cfg, params, prompts)
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1
+    lazy = [d for d in _lib._LOADED if d not in build["prebuilt"]]
+    log(f"[build] {len(lazy)} units built during the run, not up front"
+        + (f": {lazy}" if lazy else ""))
     kernels = []
     for k, r in res.items():
         name, source, replaces = META[k]
         kernels.append({
             "name": f"{k} {name}", "route": "cuda", "source": source,
-            "replaces": replaces, "launches": sampled["launches"][k],
+            "replaces": replaces, "launches": prims["launches"][k],
             "launches_greedy": serve["launches"][k],
+            "launches_sampled": sampled["launches"][k],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],

@@ -231,9 +231,24 @@ def _zg_batched_reduce_identity(route, args, kwargs):
         lambda l: torch.empty((B,), dtype=l.dtype, device=l.device), one))
 
 
+def _zg_segmented_reduce_identity(route, args, kwargs):
+    """Zero-length stream: every declared segment reduces to identity."""
+    f, op, xs = args[0], args[1], args[2]
+    if pytree.tree_leaves(xs)[0].shape[0] != 0:
+        return False, None
+    offsets = kwargs.get("offsets")
+    ns = (kwargs.get("num_segments") if offsets is None
+          else offsets.shape[0] - 1)
+    vals = f(xs)                                        # mapped dtypes only
+    return True, op.identity(pytree.tree_map(
+        lambda l: torch.empty((ns,) + tuple(l.shape[1:]), dtype=l.dtype,
+                              device=l.device), vals))
+
+
 _ZERO_GUARDS = {
     "passthrough": _zg_passthrough,
     "batched_reduce_identity": _zg_batched_reduce_identity,
+    "segmented_reduce_identity": _zg_segmented_reduce_identity,
 }
 
 
@@ -299,11 +314,20 @@ def dispatch(primitive: str, layout, backend: str | None,
 # -- the table itself -------------------------------------------------------
 
 define_primitive(
+    "copy",
+    RouteDef("copy", "flat", zero_extent="passthrough"),
+    doc="bandwidth-ceiling tiled copy")
+
+define_primitive(
     "scan",
     RouteDef("scan", "flat", data_arg=1, op_arg=0, zero_extent="passthrough"),
     RouteDef("scan", "batched", data_arg=1, op_arg=0, arg_ranks=((1, 2),),
              fixed_kwargs=(("axis", 0),), zero_extent="passthrough",
              notes="per-row scan along axis 1 of (B, n) leaves"),
+    RouteDef("scan", "segmented", data_arg=1, op_arg=0, arg_ranks=((1, 1),),
+             fixed_kwargs=(("axis", 0), ("reverse", False)),
+             needs_descriptor=True, zero_extent="passthrough",
+             notes="restarts at every segment boundary"),
     doc="prefix scan with any associative operator")
 
 define_primitive(
@@ -315,6 +339,13 @@ define_primitive(
              zero_extent="batched_reduce_identity",
              notes="non-commutative ops take the order-preserving torch "
                    "route; the cuda kernel refuses them"),
+    RouteDef("mapreduce", "segmented", data_arg=2, op_arg=1,
+             arg_ranks=((2, 1),), fixed_kwargs=(("axis", None),),
+             needs_descriptor=True, needs_num_segments=True,
+             zero_extent="segmented_reduce_identity",
+             notes="one output element per segment; empties yield identity; "
+                   "order-preserving (segmented scan + gather), so "
+                   "non-commutative ops are valid"),
     doc="op-reduction of f(x)")
 
 define_primitive(

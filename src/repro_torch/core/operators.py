@@ -1,27 +1,48 @@
-"""Associative operators and device maps over tensors and tuples of tensors.
+"""Associative operators, device maps and semirings over tensors and tuples
+of tensors.
 
-The PyTorch counterpart of ``repro.core.operators`` for the slices the
-serving path needs: :class:`AssocOp` with ``ADD``, ``MUL``, ``MAX``, ``MIN``
-and the non-commutative ``AFFINE``; the map descriptors a kernel can run
-(:data:`IDENTITY`, :func:`masked_select` and the matvec product
-:data:`TIMES`); and the radix sort's order-preserving key transforms
-(:func:`key_to_radix_bits` / :func:`radix_bits_to_key`).
+The PyTorch counterpart of ``repro.core.operators``: :class:`AssocOp` and
+every operator of the reference's ``STD_OPS`` (``ADD``, ``MUL``, ``MAX``,
+``MIN``, ``LOGSUMEXP``, ``AFFINE``, ``MAXPLUS_AFFINE``, ``SOFTMAX_MERGE``,
+``QUATERNION_MUL``, ``MAT2_MUL``), the :func:`segmented` lift, the maps a
+kernel can run (:class:`DeviceMap`: :data:`IDENTITY`, :func:`masked_select`,
+:data:`TIMES`, :data:`PLUS`, :data:`unitfloat8_decode`), the
+:class:`Semiring` bundles of ``STD_SEMIRINGS``, and the radix sort's
+order-preserving key transforms.
 
 An element type is a pytree of tensors (``torch.utils._pytree``); ``combine``
 is associative and elementwise over the leaves, ``identity(like)`` builds the
-identity element shaped like ``like``.  ``device_op`` names the functor of
-``csrc/common.cuh`` that runs the operator inside a CUDA kernel; ``None``
-means the operator has none, and the ``cuda`` routes refuse it.
+identity element shaped like ``like``.
+
+**Device forms.**  Each operator and map also carries its own CUDA form: a
+short C++ fragment (:class:`DeviceOp`, or the map's ``device`` body).  At the
+first use of an (operator, map, leaf dtypes) combination on a CUDA tensor,
+``kernels/_lib.py`` generates the element struct and the functor from these
+fragments, compiles them into the kernel templates of ``csrc/*.cuh`` and
+loads the result.  An operator or map whose form is ``None`` -- any plain
+Python callable -- has none, and the ``cuda`` routes refuse it.  A user's
+own operator gets a device form the same way the ones below do::
+
+    XOR = AssocOp("xor", lambda a, b: a ^ b, lambda l: torch.zeros_like(l),
+                  True, DeviceOp(identity="r.v# = 0;",
+                                 combine="r.v# = a.v# ^ b.v#;"))
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import Any, Callable
 
 import torch
 from torch.utils import _pytree as pytree
 
 Pytree = Any
+
+# Leaf dtypes a device element may hold, with their C++ types.
+DEVICE_CTYPES = {torch.float32: "float", torch.float64: "double",
+                 torch.int32: "int", torch.uint8: "unsigned char"}
+MAX_DEVICE_LEAVES = 5
 
 
 def _min_value(dtype: torch.dtype):
@@ -40,15 +61,122 @@ def _max_value(dtype: torch.dtype):
     return torch.iinfo(dtype).max
 
 
+def _dtype_name(dt: torch.dtype) -> str:
+    return str(dt).removeprefix("torch.")
+
+
+# --------------------------------------------------------------------------
+# Device forms
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceOp:
+    """The CUDA form of an :class:`AssocOp`: the bodies of one functor.
+
+    The build wraps them as ``struct Op { using E = <element>;
+    static E identity(); static E combine(const E& a, const E& b); }``,
+    where the element ``E`` has leaves ``v0, v1, ...`` of types
+    ``E::T0, E::T1, ...``; helpers for every leaf type are in
+    ``csrc/common.cuh`` (``rt::add``, ``rt::max``, ``rt::mul_rn``, ...).
+
+    * ``leaves=None`` (a leafwise operator): each body is one statement for
+      leaf ``#``, repeated for every leaf with ``#`` replaced by its index,
+      into a result ``r`` -- e.g. ``"r.v# = rt::add(a.v#, b.v#);"``.
+    * ``leaves=k``: each body is a whole function body returning an ``E``,
+      for elements of exactly ``k`` leaves of one dtype.
+
+    ``floats_only`` restricts the leaves to floating point.
+    """
+
+    identity: str
+    combine: str
+    leaves: int | None = None
+    floats_only: bool = False
+
+    def check(self, what: str, name: str, dtypes) -> None:
+        if self.leaves is not None and len(dtypes) != self.leaves:
+            raise NotImplementedError(
+                f"{what}: the device form of operator {name!r} takes "
+                f"{self.leaves} leaves, got {len(dtypes)}")
+        if self.leaves is not None and len(set(dtypes)) != 1:
+            raise NotImplementedError(
+                f"{what}: the device form of operator {name!r} takes leaves "
+                f"of one dtype, got {[_dtype_name(d) for d in dtypes]}")
+        for dt in dtypes:
+            if self.floats_only and not dt.is_floating_point:
+                raise NotImplementedError(
+                    f"{what}: operator {name!r} has no device form over "
+                    f"{_dtype_name(dt)} leaves")
+
+    def emit(self, gen, name: str, dtypes, commutative: bool) -> str:
+        elem = gen.elem(dtypes)
+        if self.leaves is None:
+            def body(stmt):
+                lines = "".join(f"    {stmt.replace('#', str(k))}\n"
+                                for k in range(len(dtypes)))
+                return f"    E r;\n{lines}    return r;\n"
+            ident, comb = body(self.identity), body(self.combine)
+        else:
+            ident, comb = self.identity, self.combine
+        return (f"struct {name} {{\n  using E = {elem};\n"
+                f"  static constexpr bool COMMUTATIVE = "
+                f"{'true' if commutative else 'false'};\n"
+                f"  __device__ static E identity() {{\n{ident}\n  }}\n"
+                f"  __device__ static E combine(const E& a, const E& b) {{\n"
+                f"{comb}\n  }}\n}};\n")
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentedDeviceOp:
+    """The CUDA form of :func:`segmented` ``(inner)``, generated from the
+    inner operator's own form: the element is ``(int32 flag, inner
+    leaves...)``."""
+
+    inner: "AssocOp"
+
+    def check(self, what: str, name: str, dtypes) -> None:
+        if len(dtypes) < 2 or dtypes[0] != torch.int32:
+            raise NotImplementedError(
+                f"{what}: operator {name!r} takes an int32 flag leaf and "
+                f"value leaves, got {[_dtype_name(d) for d in dtypes]}")
+        if self.inner.device is None:
+            raise NotImplementedError(
+                f"{what}: operator {self.inner.name!r} has no device functor "
+                f"for the cuda backend")
+        self.inner.device.check(what, self.inner.name, dtypes[1:])
+
+    def emit(self, gen, name: str, dtypes, commutative: bool) -> str:
+        inner = gen.op(self.inner, dtypes[1:])
+        elem, ielem = gen.elem(dtypes), gen.elem(dtypes[1:])
+        k = range(len(dtypes) - 1)
+        split = "".join(f"    x.v{j} = a.v{j + 1}; y.v{j} = b.v{j + 1};\n"
+                        for j in k)
+        pick = "".join(f"    r.v{j + 1} = s ? y.v{j} : m.v{j};\n" for j in k)
+        ident = "".join(f"    r.v{j + 1} = i.v{j};\n" for j in k)
+        return (f"struct {name} {{\n  using E = {elem};\n"
+                f"  static constexpr bool COMMUTATIVE = false;\n"
+                f"  __device__ static E identity() {{\n"
+                f"    const {ielem} i = {inner}::identity();\n"
+                f"    E r;\n    r.v0 = 0;\n{ident}    return r;\n  }}\n"
+                f"  __device__ static E combine(const E& a, const E& b) {{\n"
+                f"    {ielem} x, y;\n{split}"
+                f"    const {ielem} m = {inner}::combine(x, y);\n"
+                f"    const bool s = b.v0 != 0;\n"
+                f"    E r;\n    r.v0 = a.v0 > b.v0 ? a.v0 : b.v0;\n"
+                f"{pick}    return r;\n  }}\n}};\n")
+
+
 @dataclasses.dataclass(frozen=True)
 class AssocOp:
-    """An associative binary operator over pytree elements."""
+    """An associative binary operator over pytree elements, with its CUDA
+    form (``device``; None: the ``cuda`` routes refuse the operator)."""
 
     name: str
     combine: Callable[[Pytree, Pytree], Pytree]
     identity: Callable[[Pytree], Pytree]  # (pytree of shape/dtype likes) -> pytree
     commutative: bool = False
-    device_op: str | None = None          # functor in csrc/common.cuh, or None
+    device: DeviceOp | SegmentedDeviceOp | None = None
 
     def __call__(self, a: Pytree, b: Pytree) -> Pytree:
         return self.combine(a, b)
@@ -69,20 +197,48 @@ def _leafwise(fn):
     return lambda a, b: pytree.tree_map(fn, a, b)
 
 
+def _leafwise_device(fn: str, identity: str, floats_only: bool = False):
+    return DeviceOp(identity=f"r.v# = {identity};",
+                    combine=f"r.v# = {fn}(a.v#, b.v#);",
+                    floats_only=floats_only)
+
+
+# --------------------------------------------------------------------------
+# Standard scalar/elementwise operators.  On the card integer ADD and MUL
+# wrap like torch's int32 arithmetic, and float MAX and MIN propagate NaN
+# like torch.maximum / torch.minimum.
+# --------------------------------------------------------------------------
+
 ADD = AssocOp("add", _leafwise(torch.add),
-              _elementwise_identity(lambda dt: 0), True, "add")
+              _elementwise_identity(lambda dt: 0), True,
+              _leafwise_device("rt::add", "E::T#(0)"))
 MUL = AssocOp("mul", _leafwise(torch.mul),
-              _elementwise_identity(lambda dt: 1), True, "mul")
+              _elementwise_identity(lambda dt: 1), True,
+              _leafwise_device("rt::mul", "E::T#(1)"))
 MAX = AssocOp("max", _leafwise(torch.maximum),
-              _elementwise_identity(_min_value), True, "max")
+              _elementwise_identity(_min_value), True,
+              _leafwise_device("rt::max", "rt::Lim<E::T#>::lowest()"))
 MIN = AssocOp("min", _leafwise(torch.minimum),
-              _elementwise_identity(_max_value), True, "min")
+              _elementwise_identity(_max_value), True,
+              _leafwise_device("rt::min", "rt::Lim<E::T#>::highest()"))
+# logaddexp(-inf, -inf) is -inf, as jnp.logaddexp gives (csrc/common.cuh).
+LOGSUMEXP = AssocOp("logsumexp", _leafwise(torch.logaddexp),
+                    _elementwise_identity(lambda dt: -float("inf")), True,
+                    _leafwise_device("rt::logaddexp",
+                                     "rt::Lim<E::T#>::lowest()",
+                                     floats_only=True))
+
+# Tropical semiring reducers (the paper's shortest-path use case).
+TROPICAL_MIN = MIN   # (min, +) semiring: reduce with min, map with +
+TROPICAL_MAX = MAX   # (max, +) semiring
 
 
 # Affine composition, the operator behind diagonal linear recurrences
 # h_t = a_t * h_{t-1} + b_t.  Elements are pairs (a, b) representing
 # x -> a*x + b, composed left to right: (g1 . g2)(x) = g2(g1(x)).
-# NON-commutative.
+# NON-commutative.  The device form rounds every product and sum on its own
+# (no fused multiply-add), so K6's serial route equals the plain version
+# bit for bit.
 
 
 def _affine_combine(p, q):
@@ -97,32 +253,239 @@ def _affine_identity(like):
             pytree.tree_map(lambda l: torch.zeros_like(l), b_like))
 
 
-AFFINE = AssocOp("affine", _affine_combine, _affine_identity, False, "affine")
+AFFINE = AssocOp("affine", _affine_combine, _affine_identity, False,
+                 DeviceOp(
+                     identity="E r; r.v0 = E::T0(1); r.v1 = E::T1(0); "
+                              "return r;",
+                     combine="E r; r.v0 = rt::mul_rn(b.v0, a.v0); "
+                             "r.v1 = rt::add_rn(rt::mul_rn(b.v0, a.v1), b.v1);"
+                             " return r;",
+                     leaves=2))
+
+
+# Max-plus affine: elements (a, b) represent m -> max(m + a, b), the AFFINE
+# operator over the (max, +) semiring (xLSTM's stabilizer).  NON-commutative.
+# Its device form is float only: over wrapping integers the identity's
+# lowest value plus a shift overflows, and the operator is not associative.
+
+
+def _maxplus_affine_combine(p, q):
+    (a1, b1), (a2, b2) = p, q
+    return (pytree.tree_map(torch.add, a1, a2),
+            pytree.tree_map(lambda b1_, a2_, b2_: torch.maximum(b1_ + a2_, b2_),
+                            b1, a2, b2))
+
+
+def _maxplus_affine_identity(like):
+    a_like, b_like = like
+    return (pytree.tree_map(lambda l: torch.zeros_like(l), a_like),
+            pytree.tree_map(lambda l: torch.full_like(l, _min_value(l.dtype)),
+                            b_like))
+
+
+MAXPLUS_AFFINE = AssocOp(
+    "maxplus_affine", _maxplus_affine_combine, _maxplus_affine_identity,
+    False,
+    DeviceOp(identity="E r; r.v0 = E::T0(0); r.v1 = rt::Lim<E::T1>::lowest();"
+                      " return r;",
+             combine="E r; r.v0 = rt::add(a.v0, b.v0); "
+                     "r.v1 = rt::max(rt::add(a.v1, b.v0), b.v1); return r;",
+             leaves=2, floats_only=True))
+
+
+# Softmax-merge: combining partial attention results (m, l, o) where m is the
+# running max of logits, l the sum of exp(logit - m), o the weighted values.
+# Associative and commutative (distributed flash-decoding).
+
+
+def _softmax_merge(p, q):
+    (m1, l1, o1), (m2, l2, o2) = p, q
+    m = torch.maximum(m1, m2)
+    # Guard exp(-inf - -inf): where both sides are empty keep weights at 0.
+    w1 = torch.where(torch.isneginf(m1), 0.0, torch.exp(m1 - m)).to(l1.dtype)
+    w2 = torch.where(torch.isneginf(m2), 0.0, torch.exp(m2 - m)).to(l2.dtype)
+    l = l1 * w1 + l2 * w2
+    if o1.ndim == l1.ndim + 1:
+        o = o1 * w1[..., None] + o2 * w2[..., None]
+    else:
+        o = o1 * w1 + o2 * w2
+    return (m, l, o)
+
+
+def _softmax_identity(like):
+    m_like, l_like, o_like = like
+    return (pytree.tree_map(lambda l: torch.full_like(l, -float("inf")),
+                            m_like),
+            pytree.tree_map(torch.zeros_like, l_like),
+            pytree.tree_map(torch.zeros_like, o_like))
+
+
+SOFTMAX_MERGE = AssocOp(
+    "softmax_merge", _softmax_merge, _softmax_identity, True,
+    DeviceOp(identity="E r; r.v0 = rt::Lim<E::T0>::lowest(); r.v1 = 0; "
+                      "r.v2 = 0; return r;",
+             combine="const E::T0 m = rt::max(a.v0, b.v0);\n"
+                     "    const E::T0 w1 = rt::is_neg_inf(a.v0) ? E::T0(0) : "
+                     "rt::exp(a.v0 - m);\n"
+                     "    const E::T0 w2 = rt::is_neg_inf(b.v0) ? E::T0(0) : "
+                     "rt::exp(b.v0 - m);\n"
+                     "    E r; r.v0 = m; r.v1 = a.v1 * w1 + b.v1 * w2;\n"
+                     "    r.v2 = a.v2 * w1 + b.v2 * w2; return r;",
+             leaves=3, floats_only=True))
+
+
+# Quaternion multiplication: the paper's canonical non-commutative composite
+# type (a 4-field struct).  Elements are tuples (w, x, y, z) of tensors.
+
+
+def _quat_mul(p, q):
+    w1, x1, y1, z1 = p
+    w2, x2, y2, z2 = q
+    return (
+        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+    )
+
+
+def _quat_identity(like):
+    w, x, y, z = like
+    return (torch.ones_like(w), torch.zeros_like(x), torch.zeros_like(y),
+            torch.zeros_like(z))
+
+
+QUATERNION_MUL = AssocOp(
+    "quaternion_mul", _quat_mul, _quat_identity, False,
+    DeviceOp(identity="E r; r.v0 = 1; r.v1 = 0; r.v2 = 0; r.v3 = 0; "
+                      "return r;",
+             combine="E r;\n"
+                     "    r.v0 = a.v0 * b.v0 - a.v1 * b.v1 - a.v2 * b.v2 - "
+                     "a.v3 * b.v3;\n"
+                     "    r.v1 = a.v0 * b.v1 + a.v1 * b.v0 + a.v2 * b.v3 - "
+                     "a.v3 * b.v2;\n"
+                     "    r.v2 = a.v0 * b.v2 - a.v1 * b.v3 + a.v2 * b.v0 + "
+                     "a.v3 * b.v1;\n"
+                     "    r.v3 = a.v0 * b.v3 + a.v1 * b.v2 - a.v2 * b.v1 + "
+                     "a.v3 * b.v0;\n    return r;",
+             leaves=4, floats_only=True))
+
+
+# 2x2 matrix product under the flattened (m00, m01, m10, m11) form, row-vector
+# convention (state @ M): compose left to right as p then q.
+
+
+def _mat2_mul(p, q):
+    a00, a01, a10, a11 = p
+    b00, b01, b10, b11 = q
+    return (
+        a00 * b00 + a01 * b10,
+        a00 * b01 + a01 * b11,
+        a10 * b00 + a11 * b10,
+        a10 * b01 + a11 * b11,
+    )
+
+
+def _mat2_identity(like):
+    m00, m01, m10, m11 = like
+    return (torch.ones_like(m00), torch.zeros_like(m01),
+            torch.zeros_like(m10), torch.ones_like(m11))
+
+
+MAT2_MUL = AssocOp(
+    "mat2_mul", _mat2_mul, _mat2_identity, False,
+    DeviceOp(identity="E r; r.v0 = 1; r.v1 = 0; r.v2 = 0; r.v3 = 1; "
+                      "return r;",
+             combine="E r;\n"
+                     "    r.v0 = a.v0 * b.v0 + a.v1 * b.v2;\n"
+                     "    r.v1 = a.v0 * b.v1 + a.v1 * b.v3;\n"
+                     "    r.v2 = a.v2 * b.v0 + a.v3 * b.v2;\n"
+                     "    r.v3 = a.v2 * b.v1 + a.v3 * b.v3;\n    return r;",
+             leaves=4, floats_only=True))
+
+
+# --------------------------------------------------------------------------
+# Segmented lift: any AssocOp becomes an operator over (flag, value) pairs
+# that resets at segment boundaries (Blelloch's segmented-scan construction).
+# A nonzero flag marks the first element of a segment.  Never commutative.
+# --------------------------------------------------------------------------
+
+
+@functools.cache
+def segmented(op: AssocOp) -> AssocOp:
+    """Lift ``op`` to the segment-resetting operator over (flag, value).
+
+    combine((f1, v1), (f2, v2)) = (max(f1, f2), v2 if f2 else op(v1, v2)).
+    Identity is (0, identity of op).  The device form is generated from
+    ``op``'s own, so ``segmented(QUATERNION_MUL)`` runs on the card too.
+    """
+
+    def combine(p, q):
+        f1, v1 = p
+        f2, v2 = q
+        started = f2 != 0
+        merged = op(v1, v2)
+        v = pytree.tree_map(lambda m, r: torch.where(started, r, m), merged,
+                            v2)
+        return (torch.maximum(f1, f2), v)
+
+    def identity(like):
+        f_like, v_like = like
+        return (pytree.tree_map(torch.zeros_like, f_like), op.identity(v_like))
+
+    return AssocOp(f"segmented[{op.name}]", combine, identity, False,
+                   SegmentedDeviceOp(op))
+
+
+# --------------------------------------------------------------------------
+# Maps a kernel can run
+# --------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)
 class DeviceMap:
-    """A map ``f`` of mapreduce or matvec that a CUDA kernel can run.
+    """A map ``f`` of mapreduce or matvec, with its CUDA form.
 
-    ``name`` selects the kernel's map (``MapCode`` in ``csrc/common.cuh``);
-    ``fn`` is the same map as a Python callable, which the plain versions
-    call.  ``fill`` is the masked select's value where the mask is 0.
+    ``fn`` is the map as a Python callable, which the plain versions call;
+    the dtypes it returns (on empty tensors) fix the kernel's output
+    element.  ``device`` is the C++ body of ``static Out apply(const In& x)``:
+    ``In`` holds the input leaves (for matvec's ``f(x, a)``: ``x.v0`` the
+    vector element, ``x.v1`` the matrix element; vecmat's ``f(a, x)`` the
+    other way round), ``Out`` the output's.  ``device=None``: the ``cuda``
+    routes refuse the map.
     """
 
     name: str
     fn: Callable[..., Pytree]
-    fill: float = 0.0
+    device: str | None = None
 
     def __call__(self, *args: Pytree) -> Pytree:
         return self.fn(*args)
 
-
-IDENTITY = DeviceMap("identity", lambda x: x)
-
-# The product of matvec / vecmat: f(x, a) = x * a (ordinary GEMV with ADD).
-TIMES = DeviceMap("times", lambda u, v: u * v)
+    def __repr__(self):
+        return f"DeviceMap({self.name})"
 
 
+def _c_literal(v: float) -> str:
+    if math.isnan(v):
+        return "NAN"
+    if math.isinf(v):
+        return "INFINITY" if v > 0 else "(-INFINITY)"
+    return float(v).hex()
+
+
+IDENTITY = DeviceMap("identity", lambda x: x, "return x;")
+
+# The products of matvec / vecmat: f(x, a) = x * a (ordinary GEMV with ADD)
+# and f(x, a) = x + a (the tropical and log semirings).  Each rounds on its
+# own, so it never fuses into the reduction's add.
+TIMES = DeviceMap("times", lambda u, v: u * v,
+                  "Out r; r.v0 = rt::mul_rn(x.v0, x.v1); return r;")
+PLUS = DeviceMap("plus", lambda u, v: u + v,
+                 "Out r; r.v0 = rt::add_rn(x.v0, x.v1); return r;")
+
+
+@functools.cache
 def masked_select(fill: float = 0.0) -> DeviceMap:
     """``where(mask != 0, values, fill)`` over a ``(values, mask)`` pair."""
 
@@ -132,7 +495,66 @@ def masked_select(fill: float = 0.0) -> DeviceMap:
                            torch.full((), fill, dtype=values.dtype,
                                       device=values.device))
 
-    return DeviceMap("masked_select", fn, fill)
+    return DeviceMap(
+        "masked_select", fn,
+        f"Out r; r.v0 = x.v1 != 0 ? x.v0 : static_cast<Out::T0>("
+        f"{_c_literal(fill)}); return r;")
+
+
+# --------------------------------------------------------------------------
+# Semirings: (map f, reduce op) pairs for generalized matvec / mapreduce.
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Semiring:
+    """Generalized (f, op): y = op_i f(x_i, a_i).  ``f`` may change the
+    element type."""
+
+    name: str
+    f: Callable[[Any, Any], Pytree]
+    op: AssocOp
+
+
+ARITHMETIC = Semiring("arithmetic", f=TIMES, op=ADD)
+TROPICAL_MIN_PLUS = Semiring("tropical_min_plus", f=PLUS, op=MIN)
+TROPICAL_MAX_PLUS = Semiring("tropical_max_plus", f=PLUS, op=MAX)
+LOG_SEMIRING = Semiring("log", f=PLUS, op=LOGSUMEXP)
+
+
+# --------------------------------------------------------------------------
+# UnitFloat8: the paper's custom 8-bit type -- values in [-1, 1] encoded as
+# 256 evenly spaced uint8 levels, promoted to f32 before accumulation.
+# --------------------------------------------------------------------------
+
+_UF8_STEP = 2.0 / 255.0
+
+
+def unitfloat8_encode(x: torch.Tensor) -> torch.Tensor:
+    x = torch.clamp(x, -1.0, 1.0)
+    return torch.round((x + 1.0) * (255.0 / 2.0)).to(torch.uint8)
+
+
+# The device form rounds the product and the difference apart, as the
+# tensor code does, so both decode bit for bit alike.
+unitfloat8_decode = DeviceMap(
+    "unitfloat8_decode",
+    lambda u: u.to(torch.float32) * _UF8_STEP - 1.0,
+    f"Out r; r.v0 = __fsub_rn(__fmul_rn(static_cast<float>(x.v0), "
+    f"{_c_literal(float(torch.tensor(_UF8_STEP, dtype=torch.float32)))}f), "
+    f"1.0f); return r;")
+
+
+STD_OPS = {
+    op.name: op
+    for op in [ADD, MUL, MAX, MIN, LOGSUMEXP, AFFINE, MAXPLUS_AFFINE,
+               SOFTMAX_MERGE, QUATERNION_MUL, MAT2_MUL]
+}
+
+STD_SEMIRINGS = {
+    s.name: s for s in [ARITHMETIC, TROPICAL_MIN_PLUS, TROPICAL_MAX_PLUS,
+                        LOG_SEMIRING]
+}
 
 
 # --------------------------------------------------------------------------

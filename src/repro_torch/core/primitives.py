@@ -1,6 +1,8 @@
-"""The public primitives of the port: ``scan``, ``mapreduce``, ``matvec``,
-``vecmat``, ``linear_recurrence`` and the radix-sort family (``sort``,
-``sort_pairs``, ``argsort``, ``top_k``), each polymorphic over ``layout=``.
+"""The public primitives of the port: ``copy``, ``scan``, ``mapreduce``,
+``matvec``/``vecmat`` (+ the semiring bundles ``semiring_matvec`` /
+``semiring_vecmat``), ``linear_recurrence`` and the radix-sort family
+(``sort``, ``sort_pairs``, ``argsort``, ``top_k``), each polymorphic over
+``layout=``.
 
 The port of ``repro.core.primitives``.  Every call goes through the route
 registry in ``core.intrinsics``; implementations register per backend from
@@ -11,6 +13,9 @@ registry in ``core.intrinsics``; implementations register per backend from
     from repro_torch.core.layout import Batched
 
     y = forge.scan(alg.ADD, x)                                 # prefix sum
+    q = forge.scan(alg.QUATERNION_MUL, (w, i, j, k))           # any operator
+    s = forge.scan(alg.ADD, vals, layout=Segmented(offsets=offs))
+    d = forge.semiring_matvec(alg.TROPICAL_MIN_PLUS, W, dist)  # shortest paths
     m = forge.mapreduce(alg.IDENTITY, alg.MAX, flags)          # any-set
     h = forge.linear_recurrence(a, b, layout=Batched())        # (B, T, C)
     v, i = forge.top_k(logits.reshape(-1), 40,
@@ -31,6 +36,14 @@ from repro_torch.kernels import ops as _ops  # noqa: F401  (registers backends)
 Pytree = Any
 
 
+def copy(x: torch.Tensor, *, nitem: int | None = None,
+         layout: Layout | None = None,
+         backend: str | None = None) -> torch.Tensor:
+    """Bandwidth-ceiling copy (paper Fig. 1).  ``nitem`` is the kernel's
+    16-byte vectors per thread (1, 2, 4, 8 or 16 on the card; default 8)."""
+    return ki.dispatch("copy", layout, backend, (x,), {"nitem": nitem})
+
+
 def scan(op: alg.AssocOp, xs: Pytree, *, axis: int = 0,
          inclusive: bool = True, reverse: bool = False,
          layout: Layout | None = None,
@@ -41,6 +54,12 @@ def scan(op: alg.AssocOp, xs: Pytree, *, axis: int = 0,
       share one shape.
     * ``Batched()``: per-row scan along axis 1 of ``(B, n)`` leaves -- one
       launch for all rows.
+    * ``Segmented(flags=... | offsets=...)``: per-segment scan over the flat
+      ``(n,)`` stream; the scan restarts at every boundary (exclusive: the
+      identity at every segment start).
+
+    The ``cuda`` routes run any ``op`` that carries a device form
+    (:class:`~alg.DeviceOp`) over leaves of f32, f64, int32 or uint8.
     """
     return ki.dispatch("scan", layout, backend, (op, xs),
                        {"axis": axis, "inclusive": inclusive,
@@ -56,8 +75,14 @@ def mapreduce(f: Callable, op: alg.AssocOp, xs: Pytree, *, axis=None,
       must be commutative.
     * ``Batched()``: per-row reduction of ``(B, n)`` leaves -> ``(B,)``.
       Length-0 rows yield ``op``'s identity.
+    * ``Segmented(...)``: one output element per segment; the flag variant
+      needs ``Segmented(num_segments=...)``; empty segments yield identity.
+      Order-preserving (segmented scan + gather), so ``op`` need not be
+      commutative.
 
-    The ``cuda`` routes need ``f`` to be a :class:`~alg.DeviceMap`.
+    The ``cuda`` Flat and Batched routes run ``f`` inside the kernel and
+    need it to be a :class:`~alg.DeviceMap` with a device form; the
+    Segmented route applies ``f`` as tensor code, then scans on the card.
     """
     return ki.dispatch("mapreduce", layout, backend, (f, op, xs),
                        {"axis": axis})
@@ -68,8 +93,10 @@ def matvec(f: Callable, op: alg.AssocOp, A: torch.Tensor, x: torch.Tensor,
            backend: str | None = None) -> Pytree:
     """y[j] = op_i f(x[i], A[i, j]) over ``(n, p)`` / ``(n,)``.
 
-    The ``cuda`` route runs ``f = alg.TIMES`` with ADD/MUL/MAX/MIN over
-    int32 or float32 (the ordinary GEMV is ``TIMES`` with ``ADD``)."""
+    The ``cuda`` route runs any :class:`~alg.DeviceMap` ``f`` and operator
+    with device forms (the ordinary GEMV is ``TIMES`` with ``ADD``); a
+    tall-narrow matrix (``p <= 64``, ``n >= 512``) under a commutative
+    ``op`` takes the packed kernel."""
     return ki.dispatch("matvec", layout, backend, (f, op, A, x), {})
 
 
@@ -79,6 +106,22 @@ def vecmat(f: Callable, op: alg.AssocOp, A: torch.Tensor, x: torch.Tensor,
     """z[i] = op_j f(A[i, j], x[j]) -- the row-wise mirror of
     :func:`matvec`, over ``(n, p)`` / ``(p,)``."""
     return ki.dispatch("vecmat", layout, backend, (f, op, A, x), {})
+
+
+def semiring_matvec(semiring: alg.Semiring, A: torch.Tensor,
+                    x: torch.Tensor, *, layout: Layout | None = None,
+                    backend: str | None = None) -> Pytree:
+    """Semiring-bundled :func:`matvec` (paper section V-C)."""
+    return matvec(semiring.f, semiring.op, A, x, layout=layout,
+                  backend=backend)
+
+
+def semiring_vecmat(semiring: alg.Semiring, A: torch.Tensor,
+                    x: torch.Tensor, *, layout: Layout | None = None,
+                    backend: str | None = None) -> Pytree:
+    """Semiring-bundled :func:`vecmat` (paper section V-C)."""
+    return vecmat(semiring.f, semiring.op, A, x, layout=layout,
+                  backend=backend)
 
 
 def linear_recurrence(a: torch.Tensor, b: torch.Tensor,

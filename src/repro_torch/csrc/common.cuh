@@ -1,35 +1,50 @@
-// Device operator functors, element I/O and block-level building blocks shared
-// by the hand-written Hopper kernels of repro_torch (sm_90a).
+// Leaf helpers, leaf pointers and block-level building blocks shared by the
+// hand-written Hopper kernels of repro_torch (sm_90a).
 //
-// An operator is a functor with `identity()` and `combine(earlier, later)`.
-// Every combine keeps operand order, because AFFINE does not commute.  The
-// element types are float, int32 and the (a, b) float pair of AFFINE; a pair
-// lives in two separate arrays (one per pytree leaf) and is loaded and stored
-// through `Io<Pair>`.
+// The kernels are templates over a generated element type and functor
+// (kernels/_lib.py writes them from each operator's and map's device form):
 //
-// The op and dtype codes below must match `OP_CODES` / `DTYPE_CODES` in
-// repro_torch/kernels/_lib.py.
+//   struct E {                        // one element: leaves v0 .. v(k-1)
+//     using T0 = float; ...           // leaf types: float, double, int,
+//     T0 v0; ...                      //   unsigned char
+//     static E load(const rt::Leaves&, long i);
+//     void store(const rt::Leaves&, long i) const;  // skips null leaves
+//     static E shfl_up(E, int d);  static E shfl_down(E, int d, int width);
+//   };
+//   struct Op  { using E = ...; static constexpr bool COMMUTATIVE;
+//                static E identity(); static E combine(const E&, const E&); };
+//   struct Map { using In = ...; using Out = ...;
+//                static Out apply(const In&); };
+//
+// Every combine keeps operand order (earlier on the left), because many
+// operators (AFFINE, QUATERNION_MUL, the segmented lift) do not commute.
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <climits>
+#include <cmath>
 #include <cstdint>
 
 namespace rt {
 
-enum OpCode { OP_ADD = 0, OP_MUL = 1, OP_MAX = 2, OP_MIN = 3, OP_AFFINE = 4 };
-enum DType { DT_F32 = 0, DT_I32 = 1 };
-enum MapCode { MAP_IDENTITY = 0, MAP_MASKED = 1, MAP_TIMES = 2 };
-
 constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr int MAX_LEAVES = 5;
 
-struct Pair {
-  float a, b;
+// One pointer per leaf of an element (unused ones null): leaves live in
+// separate arrays, as the pytree's leaves do.
+struct Leaves {
+  void* p[MAX_LEAVES];
 };
 
+inline Leaves leaves(void* const* p) {
+  Leaves l;
+  for (int k = 0; k < MAX_LEAVES; ++k) l.p[k] = p[k];
+  return l;
+}
+
 // ---------------------------------------------------------------------------
-// Limits (identity of MAX / MIN).
+// Limits (identities of MAX / MIN / LOGSUMEXP).
 // ---------------------------------------------------------------------------
 
 template <typename T> struct Lim;
@@ -37,120 +52,132 @@ template <> struct Lim<float> {
   __device__ static float lowest() { return -__int_as_float(0x7f800000); }
   __device__ static float highest() { return __int_as_float(0x7f800000); }
 };
+template <> struct Lim<double> {
+  __device__ static double lowest() {
+    return -__longlong_as_double(0x7ff0000000000000LL);
+  }
+  __device__ static double highest() {
+    return __longlong_as_double(0x7ff0000000000000LL);
+  }
+};
 template <> struct Lim<int> {
   __device__ static int lowest() { return INT_MIN; }
   __device__ static int highest() { return INT_MAX; }
 };
+template <> struct Lim<unsigned char> {
+  __device__ static unsigned char lowest() { return 0; }
+  __device__ static unsigned char highest() { return 255; }
+};
 
 // ---------------------------------------------------------------------------
-// Operators.  Integer add and mul wrap like torch's int32 arithmetic (the
-// unsigned detour keeps the overflow defined); float max and min propagate
-// NaN like torch.maximum / torch.minimum.
+// Leaf arithmetic.  Integer add and mul wrap like torch's integer arithmetic
+// (the unsigned detour keeps the overflow defined); float max and min
+// propagate NaN like torch.maximum / torch.minimum.  The *_rn forms round
+// each operation on its own, so the compiler never fuses a product into a
+// following sum (torch rounds them apart).
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ int wrap_add(int a, int b) {
+__device__ __forceinline__ float add(float a, float b) { return a + b; }
+__device__ __forceinline__ double add(double a, double b) { return a + b; }
+__device__ __forceinline__ int add(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
 }
-__device__ __forceinline__ int wrap_mul(int a, int b) {
+__device__ __forceinline__ unsigned char add(unsigned char a, unsigned char b) {
+  return static_cast<unsigned char>(a + b);
+}
+
+__device__ __forceinline__ float mul(float a, float b) { return a * b; }
+__device__ __forceinline__ double mul(double a, double b) { return a * b; }
+__device__ __forceinline__ int mul(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) * static_cast<unsigned>(b));
 }
+__device__ __forceinline__ unsigned char mul(unsigned char a, unsigned char b) {
+  return static_cast<unsigned char>(a * b);
+}
 
-template <typename T> struct Add {
-  __device__ static T identity() { return T(0); }
-  __device__ static T combine(T x, T y) { return x + y; }
-};
-template <> struct Add<int> {
-  __device__ static int identity() { return 0; }
-  __device__ static int combine(int x, int y) { return wrap_add(x, y); }
-};
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ int add_rn(int a, int b) { return add(a, b); }
+__device__ __forceinline__ unsigned char add_rn(unsigned char a, unsigned char b) {
+  return add(a, b);
+}
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ int mul_rn(int a, int b) { return mul(a, b); }
+__device__ __forceinline__ unsigned char mul_rn(unsigned char a, unsigned char b) {
+  return mul(a, b);
+}
 
-template <typename T> struct Mul {
-  __device__ static T identity() { return T(1); }
-  __device__ static T combine(T x, T y) { return x * y; }
-};
-template <> struct Mul<int> {
-  __device__ static int identity() { return 1; }
-  __device__ static int combine(int x, int y) { return wrap_mul(x, y); }
-};
+template <typename T>
+__device__ __forceinline__ T max(T a, T b) {
+  return (a != a || a > b) ? a : b;  // a NaN on either side wins
+}
+template <typename T>
+__device__ __forceinline__ T min(T a, T b) {
+  return (a != a || a < b) ? a : b;
+}
 
-template <typename T> struct Max {
-  __device__ static T identity() { return Lim<T>::lowest(); }
-  __device__ static T combine(T x, T y) { return x > y ? x : y; }
-};
-template <> struct Max<float> {
-  __device__ static float identity() { return Lim<float>::lowest(); }
-  __device__ static float combine(float x, float y) {
-    return (x != x || x > y) ? x : y;
-  }
-};
+template <typename T>
+__device__ __forceinline__ bool is_neg_inf(T v) {
+  return v == Lim<T>::lowest();
+}
 
-template <typename T> struct Min {
-  __device__ static T identity() { return Lim<T>::highest(); }
-  __device__ static T combine(T x, T y) { return x < y ? x : y; }
-};
-template <> struct Min<float> {
-  __device__ static float identity() { return Lim<float>::highest(); }
-  __device__ static float combine(float x, float y) {
-    return (x != x || x < y) ? x : y;
-  }
-};
+__device__ __forceinline__ float exp(float v) { return expf(v); }
+__device__ __forceinline__ double exp(double v) { return ::exp(v); }
 
-// x -> a x + b; combine(p, q) applies p first, then q:
-// (q.a * p.a, q.a * p.b + q.b), as core/operators.py::_affine_combine.
-struct Affine {
-  __device__ static Pair identity() { return Pair{1.0f, 0.0f}; }
-  __device__ static Pair combine(Pair p, Pair q) {
-    return Pair{__fmul_rn(q.a, p.a), __fadd_rn(__fmul_rn(q.a, p.b), q.b)};
-  }
-};
+// jnp.logaddexp: max + log1p(exp(-|a - b|)), and a + b where a - b is NaN,
+// which makes logaddexp(-inf, -inf) = -inf and (inf, inf) = inf.
+__device__ __forceinline__ float logaddexp(float a, float b) {
+  const float d = a - b;
+  if (d != d) return a + b;
+  return max(a, b) + log1pf(expf(-fabsf(d)));
+}
+__device__ __forceinline__ double logaddexp(double a, double b) {
+  const double d = a - b;
+  if (d != d) return a + b;
+  return max(a, b) + log1p(::exp(-fabs(d)));
+}
 
 // ---------------------------------------------------------------------------
-// Warp shuffles for every element type.
+// Warp shuffles of one leaf (the generated elements shuffle leaf by leaf).
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ float shfl_up(float v, int d) {
+template <typename T>
+__device__ __forceinline__ T shfl_up_leaf(T v, int d) {
   return __shfl_up_sync(FULL_MASK, v, d);
 }
-__device__ __forceinline__ int shfl_up(int v, int d) {
-  return __shfl_up_sync(FULL_MASK, v, d);
+template <>
+__device__ __forceinline__ unsigned char shfl_up_leaf(unsigned char v, int d) {
+  return static_cast<unsigned char>(
+      __shfl_up_sync(FULL_MASK, static_cast<int>(v), d));
 }
-__device__ __forceinline__ Pair shfl_up(Pair v, int d) {
-  return Pair{__shfl_up_sync(FULL_MASK, v.a, d), __shfl_up_sync(FULL_MASK, v.b, d)};
-}
-__device__ __forceinline__ float shfl_down(float v, int d) {
-  return __shfl_down_sync(FULL_MASK, v, d);
-}
-__device__ __forceinline__ int shfl_down(int v, int d) {
-  return __shfl_down_sync(FULL_MASK, v, d);
-}
-__device__ __forceinline__ float shfl_down(float v, int d, int width) {
+template <typename T>
+__device__ __forceinline__ T shfl_down_leaf(T v, int d, int width) {
   return __shfl_down_sync(FULL_MASK, v, d, width);
 }
-__device__ __forceinline__ int shfl_down(int v, int d, int width) {
-  return __shfl_down_sync(FULL_MASK, v, d, width);
+template <>
+__device__ __forceinline__ unsigned char shfl_down_leaf(unsigned char v, int d,
+                                                        int width) {
+  return static_cast<unsigned char>(
+      __shfl_down_sync(FULL_MASK, static_cast<int>(v), d, width));
 }
 
-// ---------------------------------------------------------------------------
-// Element I/O: a scalar element is one array, a pair is two.
-// ---------------------------------------------------------------------------
-
-template <typename T> struct Io {
-  __device__ static T load(const void* p0, const void*, long i) {
-    return static_cast<const T*>(p0)[i];
+// An element read through L2 only (ld.global.cg), never from a stale L1
+// line: for values another block wrote during this launch.
+template <typename E>
+__device__ E load_cg(const E* p) {
+  E v;
+  if constexpr (sizeof(E) % 4 == 0) {
+    const unsigned* src = reinterpret_cast<const unsigned*>(p);
+    unsigned* dst = reinterpret_cast<unsigned*>(&v);
+    for (unsigned w = 0; w < sizeof(E) / 4; ++w) dst[w] = __ldcg(src + w);
+  } else {
+    const unsigned char* src = reinterpret_cast<const unsigned char*>(p);
+    unsigned char* dst = reinterpret_cast<unsigned char*>(&v);
+    for (unsigned w = 0; w < sizeof(E); ++w) dst[w] = __ldcg(src + w);
   }
-  __device__ static void store(void* p0, void*, long i, T v) {
-    static_cast<T*>(p0)[i] = v;
-  }
-};
-template <> struct Io<Pair> {
-  __device__ static Pair load(const void* p0, const void* p1, long i) {
-    return Pair{static_cast<const float*>(p0)[i], static_cast<const float*>(p1)[i]};
-  }
-  __device__ static void store(void* p0, void* p1, long i, Pair v) {
-    static_cast<float*>(p0)[i] = v.a;
-    static_cast<float*>(p1)[i] = v.b;
-  }
-};
+  return v;
+}
 
 // ---------------------------------------------------------------------------
 // Commutative block reduction: warp shuffle tree, then the warp totals
@@ -158,65 +185,23 @@ template <> struct Io<Pair> {
 // gets the result.  `warp_smem` holds THREADS / 32 elements.
 // ---------------------------------------------------------------------------
 
-template <typename T, typename Op, int THREADS>
-__device__ T block_reduce_commutative(T v, T* warp_smem) {
+template <typename Op, int THREADS>
+__device__ typename Op::E block_reduce_commutative(typename Op::E v,
+                                                   typename Op::E* warp_smem) {
+  using E = typename Op::E;
   static_assert(THREADS % 32 == 0, "whole warps");
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int d = 16; d > 0; d >>= 1) v = Op::combine(v, shfl_down(v, d));
+  for (int d = 16; d > 0; d >>= 1) v = Op::combine(v, E::shfl_down(v, d, 32));
   if (lane == 0) warp_smem[warp] = v;
   __syncthreads();
   if (warp == 0) {
     v = lane < THREADS / 32 ? warp_smem[lane] : Op::identity();
 #pragma unroll
-    for (int d = 16; d > 0; d >>= 1) v = Op::combine(v, shfl_down(v, d));
+    for (int d = 16; d > 0; d >>= 1) v = Op::combine(v, E::shfl_down(v, d, 32));
   }
   return v;
 }
-
-// ---------------------------------------------------------------------------
-// Op / dtype dispatch for the C entry points: expands the body with `T` and `OP`
-// (the variadic body) bound to the element type and functor.  Unknown pairs return
-// cudaErrorInvalidValue, which the Python wrapper raises on.
-// ---------------------------------------------------------------------------
-
-#define RT_DISPATCH_COMMUTATIVE(op, dtype, ...)                            \
-  do {                                                                      \
-    if ((dtype) == rt::DT_F32) {                                            \
-      using T = float;                                                      \
-      switch (op) {                                                         \
-        case rt::OP_ADD: { using OP = rt::Add<T>; __VA_ARGS__; break; }            \
-        case rt::OP_MUL: { using OP = rt::Mul<T>; __VA_ARGS__; break; }            \
-        case rt::OP_MAX: { using OP = rt::Max<T>; __VA_ARGS__; break; }            \
-        case rt::OP_MIN: { using OP = rt::Min<T>; __VA_ARGS__; break; }            \
-        default: return cudaErrorInvalidValue;                              \
-      }                                                                     \
-    } else if ((dtype) == rt::DT_I32) {                                     \
-      using T = int;                                                        \
-      switch (op) {                                                         \
-        case rt::OP_ADD: { using OP = rt::Add<T>; __VA_ARGS__; break; }            \
-        case rt::OP_MUL: { using OP = rt::Mul<T>; __VA_ARGS__; break; }            \
-        case rt::OP_MAX: { using OP = rt::Max<T>; __VA_ARGS__; break; }            \
-        case rt::OP_MIN: { using OP = rt::Min<T>; __VA_ARGS__; break; }            \
-        default: return cudaErrorInvalidValue;                              \
-      }                                                                     \
-    } else {                                                                \
-      return cudaErrorInvalidValue;                                         \
-    }                                                                       \
-  } while (0)
-
-// The commutative ops plus AFFINE over a float pair (dtype must be F32).
-#define RT_DISPATCH_ALL(op, dtype, ...)                                    \
-  do {                                                                      \
-    if ((op) == rt::OP_AFFINE) {                                            \
-      if ((dtype) != rt::DT_F32) return cudaErrorInvalidValue;              \
-      using T = rt::Pair;                                                   \
-      using OP = rt::Affine;                                                \
-      __VA_ARGS__;                                                          \
-    } else {                                                                \
-      RT_DISPATCH_COMMUTATIVE(op, dtype, __VA_ARGS__);                      \
-    }                                                                       \
-  } while (0)
 
 }  // namespace rt

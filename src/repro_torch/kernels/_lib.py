@@ -1,18 +1,27 @@
-"""Build and load the hand-written CUDA kernels under ``repro_torch/csrc``.
+"""Generate, build and load the hand-written CUDA kernels of ``csrc/``.
 
-Each ``*.cu`` source compiles with ``nvcc`` for ``sm_90a`` into its own shared
-library with a plain C interface, loaded with ``ctypes``.  Nothing is built or
-loaded at import: the first call of a kernel wrapper on a CUDA tensor builds
-every library (one ``nvcc`` process per source, all started together) into
-``repro_torch/_build/``, under a name that carries the hash of the sources
-and flags, so an edited source builds anew and an unchanged one is reused.
+The kernel bodies are templates in ``csrc/*.cuh`` over an element type, a
+functor ``Op`` and, for mapreduce and matvec, a map ``Map``.  A kernel
+wrapper asks for a :class:`Unit`: one translation unit for one family of
+kernels (``FAMILIES``) and one (operator, map, leaf dtypes) combination.  The
+unit is generated here from the operator's and the map's own device forms
+(``core/operators.py``): it includes the family's header, defines the element
+structs (per-leaf loads, stores and warp shuffles), the functor and the map,
+and ``extern "C"`` entry points.  There is no closed table of operators:
+whatever carries a device form runs.
 
-The codes below are the ``OpCode`` / ``DType`` / ``MapCode`` enums of
-``csrc/common.cuh``.
+Nothing is built or loaded at import.  The first call of a wrapper on a CUDA
+tensor for a new combination compiles its unit with ``nvcc`` for ``sm_90a``
+into a shared library with a plain C interface, loaded with ``ctypes``, in
+``repro_torch/_build/``, under a name that hashes the generated source, the
+headers and the flags; an unchanged combination is reused.  :func:`build`
+compiles many units in parallel (one ``nvcc`` process each, all started
+together), so a caller that knows its path can build it up front.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
@@ -21,51 +30,298 @@ import subprocess
 from pathlib import Path
 
 import torch
+from torch.utils import _pytree as pytree
 
-from repro_torch.core.operators import DeviceMap
+from repro_torch.core import operators as alg
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("scan_flat.cu", "scan_channel.cu", "mapreduce.cu", "batched.cu",
-           "matvec.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-diag-suppress", "177")    # unused members of the elements
 
-OP_CODES = {"add": 0, "mul": 1, "max": 2, "min": 3, "affine": 4}
-DTYPE_CODES = {torch.float32: 0, torch.int32: 1}
-MAP_CODES = {"identity": 0, "masked_select": 1, "times": 2}
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+_PP = ctypes.POINTER(ctypes.c_void_p)     # one pointer per leaf
 
-_P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_double
-# C signatures: name -> (restype, argtypes).
-_SIGNATURES = {
-    "scan_flat.cu": {
-        "rt_scan_flat_tile": (_I, []),
-        "rt_scan_flat": (_I, [_I, _I, _P, _P, _P, _P, _L, _I, _P, _P]),
-    },
-    "scan_channel.cu": {
+
+@dataclasses.dataclass(frozen=True)
+class Family:
+    """One kernel header and the C entry points a unit of it exports.  The
+    entries name the unit's generated ``Op`` and ``Map``."""
+
+    header: str
+    entries: str
+    signatures: dict    # C name -> (restype, argtypes)
+
+
+_ST = "static_cast<cudaStream_t>(stream)"
+FAMILIES = {
+    # K2 (rows = 1), K7s (rows = B) and K6 (serial route and long-T path).
+    "scan": Family("scan.cuh", f"""
+int rt_tile() {{ return rt::tile::Tile<Op::E>::SIZE; }}
+int rt_scan_rows(void* const* x, void* const* y, long rows, long n,
+                 int inclusive, void* scratch, void* stream) {{
+  return rt::scan::rows<Op>(rt::leaves(x), rt::leaves(y), rows, n,
+                            inclusive != 0, scratch, {_ST});
+}}
+int rt_scan_channel_chunk() {{ return rt::scan::CHUNK; }}
+int rt_scan_channel(void* const* x, void* const* y, long B, long T, long C,
+                    int inclusive, int reverse, void* scratch, void* stream) {{
+  return rt::scan::channel<Op>(rt::leaves(x), rt::leaves(y), B, T, C,
+                               inclusive != 0, reverse != 0, scratch, {_ST});
+}}""", {
+        "rt_tile": (_I, []),
+        "rt_scan_rows": (_I, [_PP, _PP, _L, _L, _I, _P, _P]),
         "rt_scan_channel_chunk": (_I, []),
-        "rt_scan_channel": (_I, [_I, _I, _P, _P, _P, _P, _L, _L, _L, _I, _I,
-                                 _P, _P]),
-    },
-    "mapreduce.cu": {
+        "rt_scan_channel": (_I, [_PP, _PP, _L, _L, _L, _I, _I, _P, _P]),
+    }),
+    # K8 over a segmented lift.
+    "segscan": Family("segmented.cuh", f"""
+int rt_tile() {{ return rt::tile::Tile<Op::E>::SIZE; }}
+int rt_segscan(void* const* x, void* const* y, long n, int inclusive,
+               void* scratch, void* stream) {{
+  return rt::segmented::scan<Op>(rt::leaves(x), rt::leaves(y), n,
+                                 inclusive != 0, scratch, {_ST});
+}}""", {
+        "rt_tile": (_I, []),
+        "rt_segscan": (_I, [_PP, _PP, _L, _I, _P, _P]),
+    }),
+    # K3 (flat) and K7m (rows).
+    "mapreduce": Family("mapreduce.cuh", f"""
+long rt_mapreduce_flat_grid(long n) {{ return rt::mapreduce::grid_for(n); }}
+int rt_mapreduce_flat(void* const* x, long n, void* partials, void* ticket,
+                      void* const* out, void* stream) {{
+  return rt::mapreduce::flat<Map, Op>(rt::leaves(x), n, partials, ticket,
+                                      rt::leaves(out), {_ST});
+}}
+int rt_mapreduce_rows(void* const* x, long B, long n, void* const* out,
+                      void* stream) {{
+  return rt::mapreduce::rows<Map, Op>(rt::leaves(x), B, n, rt::leaves(out),
+                                      {_ST});
+}}""", {
         "rt_mapreduce_flat_grid": (_L, [_L]),
-        "rt_mapreduce_flat": (_I, [_I, _I, _I, _P, _P, _D, _L, _P, _P, _P,
-                                   _P]),
-    },
-    "batched.cu": {
-        "rt_mapreduce_batched": (_I, [_I, _I, _I, _P, _P, _D, _L, _L, _P,
-                                      _P]),
-        "rt_scan_batched_tile": (_I, []),
-        "rt_scan_batched": (_I, [_I, _I, _P, _P, _P, _P, _L, _L, _I, _P,
-                                 _P]),
-    },
-    "matvec.cu": {
-        "rt_matvec_chunks": (_L, [_L, _L]),
-        "rt_vecmat_chunks": (_L, [_L, _L]),
-        "rt_matvec": (_I, [_I, _I, _I, _P, _P, _L, _L, _P, _P, _P]),
-        "rt_vecmat": (_I, [_I, _I, _I, _P, _P, _L, _L, _P, _P, _P]),
-    },
+        "rt_mapreduce_flat": (_I, [_PP, _L, _P, _P, _PP, _P]),
+        "rt_mapreduce_rows": (_I, [_PP, _L, _L, _PP, _P]),
+    }),
+    # K4 matvec (form 0) and vecmat (form 1), K5 (form 2).
+    "matvec": Family("matvec.cuh", f"""
+long rt_matvec_chunks(int form, long n, long p) {{
+  return rt::matvec::plan(form, n, p).chunks;
+}}
+int rt_matvec(int form, const void* A, const void* x, long n, long p,
+              void* partials, void* const* out, void* stream) {{
+  return rt::matvec::run<Map, Op>(form, A, x, n, p, partials,
+                                  rt::leaves(out), {_ST});
+}}""", {
+        "rt_matvec_chunks": (_L, [_I, _L, _L]),
+        "rt_matvec": (_I, [_I, _P, _P, _L, _L, _P, _PP, _P]),
+    }),
+    # K1.
+    "copy": Family("copy.cuh", f"""
+int rt_copy(const void* x, void* y, long nbytes, int nitem, void* stream) {{
+  return rt::copy::run(x, y, nbytes, nitem, {_ST});
+}}""", {
+        "rt_copy": (_I, [_P, _P, _L, _I, _P]),
+    }),
 }
+
+_LEAF_TAGS = {torch.float32: "f32", torch.float64: "f64", torch.int32: "i32",
+                torch.uint8: "u8"}
+
+
+@dataclasses.dataclass(frozen=True)
+class Unit:
+    """One generated translation unit: ``family``'s kernels for one
+    combination.  ``label`` says which, for logs."""
+
+    family: str
+    label: str
+    source: str
+
+    @functools.cached_property
+    def digest(self) -> str:
+        h = hashlib.sha256(_headers_digest().encode())
+        h.update(self.source.encode())
+        return h.hexdigest()[:16]
+
+    @property
+    def path(self) -> Path:
+        return BUILD_DIR / f"{self.family}-{self.digest}.so"
+
+
+@functools.cache
+def _headers_digest() -> str:
+    """The hash of the flags and every kernel header, read once."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cuh")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()
+
+
+class _Gen:
+    """Collects the element structs and functors of one unit."""
+
+    def __init__(self):
+        self.parts: list[str] = []
+        self.elems: set[str] = set()
+        self.ops = 0
+
+    def elem(self, dtypes) -> str:
+        name = "E_" + "_".join(_LEAF_TAGS[d] for d in dtypes)
+        if name in self.elems:
+            return name
+        self.elems.add(name)
+        k = range(len(dtypes))
+        types = "".join(f"  using T{i} = {alg.DEVICE_CTYPES[d]};\n"
+                        for i, d in enumerate(dtypes))
+        self.parts.append(
+            f"struct {name} {{\n{types}"
+            f"  static constexpr int LEAVES = {len(dtypes)};\n"
+            + "".join(f"  T{i} v{i};\n" for i in k)
+            + f"  __device__ static {name} load(const rt::Leaves& p, long i) {{\n"
+            f"    {name} e;\n"
+            + "".join(f"    e.v{i} = static_cast<const T{i}*>(p.p[{i}])[i];\n"
+                      for i in k)
+            + "    return e;\n  }\n"
+            "  __device__ void store(const rt::Leaves& p, long i) const {\n"
+            + "".join(f"    if (p.p[{i}]) static_cast<T{i}*>(p.p[{i}])[i] = "
+                      f"v{i};\n" for i in k)
+            + "  }\n"
+            f"  __device__ static {name} shfl_up({name} v, int d) {{\n"
+            + "".join(f"    v.v{i} = rt::shfl_up_leaf(v.v{i}, d);\n" for i in k)
+            + "    return v;\n  }\n"
+            f"  __device__ static {name} shfl_down({name} v, int d, int w) {{\n"
+            + "".join(f"    v.v{i} = rt::shfl_down_leaf(v.v{i}, d, w);\n"
+                      for i in k)
+            + "    return v;\n  }\n};\n")
+        return name
+
+    def op(self, op: alg.AssocOp, dtypes) -> str:
+        name = f"Op{self.ops}"
+        self.ops += 1
+        text = op.device.emit(self, name, dtypes, op.commutative)
+        self.parts.append(f"// {op.name}\n{text}")
+        return name
+
+
+def _names(dtypes) -> list[str]:
+    return [str(d).removeprefix("torch.") for d in dtypes]
+
+
+def _check_dtypes(what: str, op: alg.AssocOp, dtypes) -> None:
+    if not 1 <= len(dtypes) <= alg.MAX_DEVICE_LEAVES:
+        raise NotImplementedError(
+            f"{what}: the cuda kernels take elements of 1 to "
+            f"{alg.MAX_DEVICE_LEAVES} leaves, got {len(dtypes)}")
+    for d in dtypes:
+        if d not in alg.DEVICE_CTYPES:
+            raise NotImplementedError(
+                f"{what}: operator {op.name!r} has no "
+                f"{str(d).removeprefix('torch.')} form on the cuda kernels "
+                f"(leaves: {', '.join(_names(alg.DEVICE_CTYPES))})")
+
+
+def map_out(what: str, f, *likes) -> tuple[list, object]:
+    """(leaf dtypes, tree spec) of ``f``'s output on inputs of the dtypes of
+    ``likes`` -- the map run on empty CPU tensors.  Raises for a map with no
+    device form."""
+    if not isinstance(f, alg.DeviceMap) or f.device is None:
+        raise NotImplementedError(
+            f"{what}: map {f!r} has no device form; the cuda backend runs "
+            f"DeviceMaps with a device body (core/operators.py: IDENTITY, "
+            f"TIMES, PLUS, masked_select, unitfloat8_decode, or your own)")
+    empty = pytree.tree_map(lambda l: torch.empty(0, dtype=l.dtype), likes)
+    leaves, spec = pytree.tree_flatten(f(*empty))
+    return [l.dtype for l in leaves], spec
+
+
+def map_unit(family: str, what: str, f, op: alg.AssocOp, *likes):
+    """(unit, output dtypes, output tree spec) of ``op`` over the map ``f``
+    of ``likes`` (pytrees of tensors).
+
+    A wrapper asks on every call, and flattening pytrees costs more host
+    time than the kernel takes at the serving path's (B,) shapes, so the
+    answer is kept per (family, map, operator, leaf dtypes) where every
+    ``like`` is a tensor or a flat tuple of tensors."""
+    def sig(like):
+        if isinstance(like, torch.Tensor):
+            return like.dtype
+        if type(like) is tuple and all(isinstance(l, torch.Tensor)
+                                       for l in like):
+            return tuple(l.dtype for l in like)
+        return None
+
+    sigs = tuple(sig(like) for like in likes)
+    key = (family, f, op, sigs) if isinstance(f, alg.DeviceMap) and \
+        None not in sigs else None
+    found = _MAP_UNITS.get(key) if key else None
+    if found is None:
+        out_dtypes, out_spec = map_out(what, f, *likes)
+        found = (unit(family, what, op, out_dtypes, f=f, in_dtypes=[
+            l.dtype for l in pytree.tree_leaves(likes)]), out_dtypes, out_spec)
+        if key:
+            _MAP_UNITS[key] = found
+    return found
+
+
+_MAP_UNITS: dict[tuple, tuple] = {}
+
+
+def unit(family: str, what: str, op: alg.AssocOp | None = None,
+         dtypes=(), f: alg.DeviceMap | None = None, in_dtypes=()) -> Unit:
+    """The unit of ``family`` for ``op`` over elements of leaf ``dtypes``
+    (and, for mapreduce / matvec, the map ``f`` from leaves ``in_dtypes``
+    to ``dtypes``).
+
+    Raises NotImplementedError, naming the route, for an operator or map
+    without a device form and for leaf structures or dtypes the device form
+    does not take -- before anything is built: the cuda routes never fall
+    back to the plain version.  A wrapper asks on every call, so the units
+    are kept per combination.
+    """
+    key = (family, op, tuple(dtypes), f, tuple(in_dtypes))
+    found = _UNITS.get(key)
+    if found is None:
+        found = _UNITS[key] = _make_unit(family, what, op, dtypes, f,
+                                         in_dtypes)
+    return found
+
+
+_UNITS: dict[tuple, Unit] = {}
+
+
+def _make_unit(family, what, op, dtypes, f, in_dtypes) -> Unit:
+    gen = _Gen()
+    label = family
+    if op is not None:
+        if op.device is None:
+            raise NotImplementedError(
+                f"{what}: operator {op.name!r} has no device functor for the "
+                f"cuda backend")
+        dtypes = list(dtypes)
+        _check_dtypes(what, op, dtypes)
+        if f is not None:
+            _check_dtypes(what, op, list(in_dtypes))
+        op.device.check(what, op.name, dtypes)
+        gen.parts.append(f"using Op = {gen.op(op, dtypes)};\n")
+        label = f"{family} {op.name} {' '.join(_names(dtypes))}"
+    if f is not None:
+        In, Out = gen.elem(list(in_dtypes)), gen.elem(dtypes)
+        gen.parts.append(
+            f"// {f.name}\nstruct Map {{\n  using In = {In};\n"
+            f"  using Out = {Out};\n"
+            f"  __device__ static Out apply(const In& x) {{\n    {f.device}\n"
+            f"  }}\n}};\n")
+        label = (f"{family} {f.name}({' '.join(_names(in_dtypes))}) "
+                 f"{op.name} {' '.join(_names(dtypes))}")
+    fam = FAMILIES[family]
+    source = (f"// Generated by repro_torch/kernels/_lib.py: {label}\n"
+              f'#include "{fam.header}"\n\nnamespace {{\n\n'
+              + "\n".join(gen.parts)
+              + f'\n}}  // namespace\n\nextern "C" {{\n{fam.entries}\n\n'
+              f'}}  // extern "C"\n')
+    return Unit(family, label, source)
 
 
 def _nvcc() -> str:
@@ -77,62 +333,59 @@ def _nvcc() -> str:
     return found
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC.iterdir()):
-        if path.suffix in (".cu", ".cuh"):
-            h.update(path.name.encode())
-            h.update(path.read_bytes())
-    return h.hexdigest()[:16]
+def build(units) -> dict[str, Path]:
+    """Build every unit whose library is missing; returns digest -> library.
 
-
-def _lib_path(source: str, digest: str) -> Path:
-    return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
-
-
-def build() -> dict[str, Path]:
-    """Build every library that is missing; returns source -> library path.
-
-    The sources compile in parallel.  A failed compile raises with nvcc's
-    output; the compiler's register and spill report (``-Xptxas -v``) goes
-    to ``<library>.log`` beside each library.
+    The units compile in parallel, one nvcc process each.  A failed compile
+    raises with nvcc's output; the generated source goes to ``<lib>.cu`` and
+    the compiler's register and spill report (``-Xptxas -v``) to
+    ``<lib>.log`` beside each library.
     """
-    digest = _digest()
-    paths = {src: _lib_path(src, digest) for src in SOURCES}
-    todo = [src for src, p in paths.items() if not p.exists()]
-    if not todo:
-        return paths
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    procs = {}
-    for src in todo:
-        tmp = paths[src].with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / src)]
-        procs[src] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    failures = []
-    for src, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        paths[src].with_suffix(".log").write_text(out)
-        if proc.returncode != 0:
-            failures.append(f"--- nvcc {src} (exit {proc.returncode})\n{out}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, paths[src])
-    if failures:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
-    return paths
+    by_digest = {u.digest: u for u in units}
+    todo = {d: u for d, u in by_digest.items() if not u.path.exists()}
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        procs = {}
+        for d, u in todo.items():
+            src = u.path.with_suffix(".cu")
+            src.write_text(u.source)
+            tmp = u.path.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+                   str(src)]
+            procs[d] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        failures = []
+        for d, (tmp, proc) in procs.items():
+            out, _ = proc.communicate()
+            u = todo[d]
+            u.path.with_suffix(".log").write_text(out)
+            if proc.returncode != 0:
+                failures.append(f"--- nvcc {u.label} (exit "
+                                f"{proc.returncode})\n{out}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, u.path)
+        if failures:
+            raise RuntimeError("CUDA kernel build failed:\n"
+                               + "\n".join(failures))
+    return {d: u.path for d, u in by_digest.items()}
 
 
-@functools.cache
-def library(source: str) -> ctypes.CDLL:
-    """The loaded library of ``source`` (built first if needed)."""
-    lib = ctypes.CDLL(str(build()[source]))
-    for name, (restype, argtypes) in _SIGNATURES[source].items():
-        fn = getattr(lib, name)
-        fn.restype = restype
-        fn.argtypes = argtypes
+_LOADED: dict[str, ctypes.CDLL] = {}
+
+
+def load(u: Unit) -> ctypes.CDLL:
+    """The loaded library of ``u`` (built first if needed)."""
+    lib = _LOADED.get(u.digest)
+    if lib is None:
+        lib = ctypes.CDLL(str(build([u])[u.digest]))
+        for name, (restype, argtypes) in FAMILIES[u.family].signatures.items():
+            fn = getattr(lib, name)
+            fn.restype = restype
+            fn.argtypes = argtypes
+        _LOADED[u.digest] = lib
     return lib
 
 
@@ -159,48 +412,19 @@ def require_cuda(what: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{what}: operands must be contiguous")
 
 
-def op_codes(route: str, op, leaves) -> tuple[int, int]:
-    """The kernel's (op code, dtype code) for ``op`` over ``leaves``.
-
-    Raises NotImplementedError, naming the route and the op, for an
-    operator without a device functor and for leaf structures or dtypes no
-    kernel takes: the cuda routes never fall back to the plain version.
-    """
-    code = OP_CODES.get(op.device_op) if op.device_op else None
-    if code is None:
-        raise NotImplementedError(
-            f"{route}: operator {op.name!r} has no device functor for the "
-            f"cuda backend")
-    want = 2 if op.device_op == "affine" else 1
-    dtypes = {leaf.dtype for leaf in leaves}
-    if len(leaves) != want or len(dtypes) != 1:
-        raise NotImplementedError(
-            f"{route}: the cuda kernel takes {want} leaf(s) of one dtype for "
-            f"operator {op.name!r}, got {[str(l.dtype) for l in leaves]}")
-    (dtype,) = dtypes
-    if dtype not in DTYPE_CODES or (want == 2 and dtype != torch.float32):
-        raise NotImplementedError(
-            f"{route}: the cuda kernel has no "
-            f"{str(dtype).removeprefix('torch.')} form of operator "
-            f"{op.name!r}")
-    return code, DTYPE_CODES[dtype]
-
-
-def map_code(route: str, f) -> int:
-    """The kernel's map code for ``f``; raise if no kernel can run it."""
-    if not isinstance(f, DeviceMap) or f.name not in MAP_CODES:
-        raise NotImplementedError(
-            f"{route}: map {f!r} has no device form; the cuda backend runs "
-            f"the DeviceMaps of core/operators.py ({', '.join(MAP_CODES)})")
-    return MAP_CODES[f.name]
-
-
 def ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
 
+def leaf_ptrs(tensors) -> ctypes.Array:
+    """The C ``void* const*`` of up to five leaves (None leaves stay null)."""
+    ptrs = [ptr(t) for t in tensors]
+    return (ctypes.c_void_p * alg.MAX_DEVICE_LEAVES)(
+        *ptrs, *([None] * (alg.MAX_DEVICE_LEAVES - len(ptrs))))
+
+
 def scratch(elements: int, leaves: int, like: torch.Tensor) -> torch.Tensor:
-    """Scratch for ``elements`` kernel elements of ``leaves`` 4-byte leaves
-    (8 bytes each for the AFFINE pair), on ``like``'s device."""
-    return torch.empty(4 * leaves * elements, dtype=torch.uint8,
+    """Scratch for ``elements`` kernel elements of ``leaves`` leaves, on
+    ``like``'s device: 8 bytes a leaf covers every element struct."""
+    return torch.empty(8 * leaves * elements, dtype=torch.uint8,
                        device=like.device)

@@ -1,8 +1,8 @@
 """Batched kernels K7s (scan) and K7m (mapreduce), each with its plain
-version (``csrc/batched.cu``).
+version (``csrc/scan.cuh``, ``csrc/mapreduce.cuh``).
 
 * :func:`batched_scan_cuda` -- per-row prefix scan of ``(B, n)`` leaves
-  under any device operator, AFFINE included (replaces
+  under any operator with a device form, AFFINE included (replaces
   ``repro/kernels/batched.py::batched_scan_pallas``).  Plain version:
   :func:`batched_scan_plain`, the row-by-row reference scan.
 * :func:`batched_mapreduce_cuda` -- per-row commutative op-reduce of
@@ -24,7 +24,7 @@ from torch.utils import _pytree as pytree
 
 from repro_torch.kernels import _lib
 from repro_torch.kernels import ref
-from repro_torch.kernels.mapreduce import map_operands
+from repro_torch.kernels.scan import scan_unit
 
 Pytree = Any
 
@@ -41,7 +41,7 @@ def batched_scan_cuda(op, xs: Pytree, *, inclusive: bool = True) -> Pytree:
     if not leaves[0].is_cuda:
         return batched_scan_plain(op, xs, inclusive=inclusive)
     what = "scan@batched (cuda)"
-    op_code, dt_code = _lib.op_codes(what, op, leaves)
+    unit = scan_unit(what, op, leaves)
     shape = leaves[0].shape
     if any(l.shape != shape for l in leaves) or len(shape) != 2 \
             or 0 in shape:
@@ -51,15 +51,13 @@ def batched_scan_cuda(op, xs: Pytree, *, inclusive: bool = True) -> Pytree:
     B, n = shape
     if B > 65535:
         raise ValueError(f"{what}: B = {B} exceeds the grid's 65535 rows")
-    lib = _lib.library("batched.cu")
+    lib = _lib.load(unit)
     outs = [torch.empty_like(l) for l in leaves]
-    tiles = -(-n // lib.rt_scan_batched_tile())
+    tiles = -(-n // lib.rt_tile())
     scratch = _lib.scratch(B * tiles, len(leaves), leaves[0]) if tiles > 1 \
         else None
-    x1, y1 = (leaves[1], outs[1]) if len(leaves) == 2 else (None, None)
-    _lib.check(lib.rt_scan_batched(
-        op_code, dt_code, leaves[0].data_ptr(), _lib.ptr(x1),
-        outs[0].data_ptr(), _lib.ptr(y1), B, n, int(inclusive),
+    _lib.check(lib.rt_scan_rows(
+        _lib.leaf_ptrs(leaves), _lib.leaf_ptrs(outs), B, n, int(inclusive),
         _lib.ptr(scratch), _lib.stream_ptr(leaves[0])), what)
     batched_scan_cuda.launches += 1
     return pytree.tree_unflatten(outs, spec)
@@ -75,28 +73,30 @@ def batched_mapreduce_plain(f, op, xs: Pytree) -> Pytree:
 
 def batched_mapreduce_cuda(f, op, xs: Pytree) -> Pytree:
     """K7m: per-row op-reduce of ``f(x)`` over ``(B, n)`` leaves, B, n >= 1."""
-    if not pytree.tree_leaves(xs)[0].is_cuda:
+    leaves = pytree.tree_leaves(xs)
+    if not leaves[0].is_cuda:
         return batched_mapreduce_plain(f, op, xs)
     what = "mapreduce@batched (cuda)"
     if not op.commutative:
         raise NotImplementedError(
             f"{what}: the kernel folds rows in no fixed order, so it takes "
             f"commutative operators only, got {op.name!r}")
-    code, values, mask = map_operands(what, f, xs)
-    op_code, dt_code = _lib.op_codes(what, op, [values])
-    operands = [values] + ([mask] if mask is not None else [])
-    if values.ndim != 2 or 0 in values.shape:
-        raise ValueError(f"{what}: takes non-empty (B, n) leaves, got "
-                         f"{tuple(values.shape)}")
-    _lib.require_cuda(what, *operands)
-    B, n = values.shape
-    lib = _lib.library("batched.cu")
-    out = torch.empty((B,), dtype=values.dtype, device=values.device)
-    _lib.check(lib.rt_mapreduce_batched(
-        op_code, dt_code, code, values.data_ptr(), _lib.ptr(mask),
-        float(f.fill), B, n, out.data_ptr(), _lib.stream_ptr(values)), what)
+    unit, out_dtypes, out_spec = _lib.map_unit("mapreduce", what, f, op, xs)
+    shape = leaves[0].shape
+    if any(l.shape != shape for l in leaves) or len(shape) != 2 \
+            or 0 in shape:
+        raise ValueError(f"{what}: takes non-empty (B, n) leaves of one "
+                         f"shape, got {[tuple(l.shape) for l in leaves]}")
+    _lib.require_cuda(what, *leaves)
+    lib = _lib.load(unit)
+    B, n = shape
+    outs = [torch.empty((B,), dtype=d, device=leaves[0].device)
+            for d in out_dtypes]
+    _lib.check(lib.rt_mapreduce_rows(
+        _lib.leaf_ptrs(leaves), B, n, _lib.leaf_ptrs(outs),
+        _lib.stream_ptr(leaves[0])), what)
     batched_mapreduce_cuda.launches += 1
-    return out
+    return pytree.tree_unflatten(outs, out_spec)
 
 
 batched_mapreduce_cuda.launches = 0

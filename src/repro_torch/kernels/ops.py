@@ -8,10 +8,12 @@ at import that the table covers exactly the routes of the registry in
 * ``torch`` -- plain PyTorch, mirroring the reference's ``xla`` rows
   (``_scan_xla``, ``_mapreduce_xla``, ``_batched_mapreduce_xla``,
   ``_linrec_xla``); it runs on any device.
-* ``cuda`` -- the hand-written kernels: K2 and K6 (``kernels/scan.py``),
-  K3 (``kernels/mapreduce.py``), K7s and K7m (``kernels/batched.py``) and
-  K4 (``kernels/matvec.py``).  The shape handling around them (flips, axis
-  moves) is plain tensor code here.
+* ``cuda`` -- the hand-written kernels: K1 (``kernels/copy.py``), K2 and K6
+  (``kernels/scan.py``), K3 (``kernels/mapreduce.py``), K7s and K7m
+  (``kernels/batched.py``), K4 and K5 (``kernels/matvec.py``) and K8
+  (``kernels/segmented.py``), generated for whatever operator and map carry
+  a device form.  The shape handling around them (flips, axis moves, segment
+  descriptors, the map of a segmented mapreduce) is plain tensor code here.
 
 The radix-sort family (``kernels/sort.py``) is one composition registered
 for both backends: its scan and mapreduce steps dispatch to the backend of
@@ -31,10 +33,12 @@ from torch.utils import _pytree as pytree
 from repro_torch.core import intrinsics as ki
 from repro_torch.core import operators as alg
 from repro_torch.kernels import batched as batched_k
+from repro_torch.kernels import copy as copy_k
 from repro_torch.kernels import mapreduce as mapreduce_k
 from repro_torch.kernels import matvec as matvec_k
 from repro_torch.kernels import ref
 from repro_torch.kernels import scan as scan_k
+from repro_torch.kernels import segmented as seg_k
 from repro_torch.kernels import sort as sort_k
 
 Pytree = Any
@@ -47,6 +51,19 @@ _DIRECT = {
     "max": lambda v, dim: v.amax() if dim is None else v.amax(dim=dim),
     "min": lambda v, dim: v.amin() if dim is None else v.amin(dim=dim),
 }
+
+
+# ---------------------------------------------------------------------------
+# copy@flat
+# ---------------------------------------------------------------------------
+
+
+def _copy_torch(x, *, nitem=None):
+    return ref.ref_copy(x)
+
+
+def _copy_cuda(x, *, nitem=None):
+    return copy_k.copy_cuda(x.contiguous(), nitem=nitem)
 
 
 # ---------------------------------------------------------------------------
@@ -81,6 +98,58 @@ def _scan_cuda(op, xs, *, axis=0, inclusive=True, reverse=False):
     outs = [o.reshape(m.shape).movedim(1, axis)
             for o, m in zip(pytree.tree_leaves(out), moved)]
     return pytree.tree_unflatten(outs, spec)
+
+
+# ---------------------------------------------------------------------------
+# scan@segmented / mapreduce@segmented (ragged workloads)
+# ---------------------------------------------------------------------------
+
+
+def _segment_flags(xs, flags, offsets):
+    """Normalize either segment descriptor to an int32 flag array (the
+    dispatch layer has already checked that exactly one is present)."""
+    n = pytree.tree_leaves(xs)[0].shape[0]
+    if offsets is not None:
+        return seg_k.offsets_to_flags(offsets, n)
+    return flags.to(torch.int32)
+
+
+def _segmented_scan_torch(op, xs, *, flags=None, offsets=None,
+                          inclusive=True):
+    return ref.ref_segmented_scan(op, xs, _segment_flags(xs, flags, offsets),
+                                  inclusive=inclusive)
+
+
+def _segmented_scan_cuda(op, xs, *, flags=None, offsets=None,
+                         inclusive=True):
+    xs = pytree.tree_map(lambda l: l.contiguous(), xs)
+    return seg_k.segmented_scan_1d_cuda(
+        op, xs, _segment_flags(xs, flags, offsets), inclusive=inclusive)
+
+
+def _segmented_mapreduce(scan_seg, scan_flat, f, op, xs, flags, offsets,
+                         num_segments):
+    """One output per segment: the inclusive segmented scan of ``f(xs)``,
+    then each segment's last element (identity for empty segments).  The
+    map runs as plain tensor code, as the reference leaves it to XLA."""
+    fl = _segment_flags(xs, flags, offsets)
+    vals = pytree.tree_map(lambda l: l.contiguous(), f(xs))
+    incl = scan_seg(op, vals, fl, inclusive=True)
+    return seg_k.gather_segment_lasts(
+        op, incl, scan_flat, offsets=offsets,
+        flags=None if offsets is not None else fl, num_segments=num_segments)
+
+
+def _segmented_mapreduce_torch(f, op, xs, *, flags=None, offsets=None,
+                               num_segments=None):
+    return _segmented_mapreduce(ref.ref_segmented_scan, _scan_torch, f, op,
+                                xs, flags, offsets, num_segments)
+
+
+def _segmented_mapreduce_cuda(f, op, xs, *, flags=None, offsets=None,
+                              num_segments=None):
+    return _segmented_mapreduce(seg_k.segmented_scan_1d_cuda, _scan_cuda, f,
+                                op, xs, flags, offsets, num_segments)
 
 
 # ---------------------------------------------------------------------------
@@ -133,7 +202,12 @@ def _batched_scan_cuda(op, xs, *, inclusive=True, reverse=False):
 
 
 def _matvec_cuda(f, op, A, x):
-    return matvec_k.matvec_cuda(f, op, A.contiguous(), x.contiguous())
+    A, x = A.contiguous(), x.contiguous()
+    if matvec_k.uses_packed(A.shape[0], A.shape[1], op):
+        # Tall-narrow: K5 packs row groups across the threads instead of
+        # giving each column a lane (the reference's ops.py route).
+        return matvec_k.matvec_packed_cuda(f, op, A, x)
+    return matvec_k.matvec_cuda(f, op, A, x)
 
 
 def _vecmat_cuda(f, op, A, x):
@@ -174,12 +248,17 @@ def _per_backend(fn):
 
 
 IMPLS: dict[str, dict[str, Any]] = {
+    "copy@flat": {"torch": _copy_torch, "cuda": _copy_cuda},
     "scan@flat": {"torch": _scan_torch, "cuda": _scan_cuda},
     "scan@batched": {"torch": _batched_scan_torch,
                      "cuda": _batched_scan_cuda},
     "mapreduce@flat": {"torch": _mapreduce_torch, "cuda": _mapreduce_cuda},
     "mapreduce@batched": {"torch": _batched_mapreduce_torch,
                           "cuda": batched_k.batched_mapreduce_cuda},
+    "scan@segmented": {"torch": _segmented_scan_torch,
+                       "cuda": _segmented_scan_cuda},
+    "mapreduce@segmented": {"torch": _segmented_mapreduce_torch,
+                            "cuda": _segmented_mapreduce_cuda},
     "matvec@flat": {"torch": matvec_k.matvec_plain, "cuda": _matvec_cuda},
     "vecmat@flat": {"torch": matvec_k.vecmat_plain, "cuda": _vecmat_cuda},
     "sort@flat": _per_backend(sort_k.sort_radix),

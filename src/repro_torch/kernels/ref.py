@@ -111,6 +111,28 @@ def ref_linear_recurrence(a: torch.Tensor, b: torch.Tensor, h0=None,
     return A * h0.unsqueeze(axis) + B
 
 
+def ref_segmented_scan(op, xs: Pytree, flags: torch.Tensor,
+                       inclusive: bool = True) -> Pytree:
+    """Segmented scan of flat ``(n,)`` leaves: the scan of the
+    :func:`~repro_torch.core.operators.segmented` lift over (flags, xs);
+    exclusive shifts by one element and puts the identity at every segment
+    start (``flags != 0``)."""
+    f = flags.to(torch.int32)
+    _, incl = ref_scan(ops_alg.segmented(op), (f, xs), axis=0)
+    if inclusive:
+        return incl
+    ident = op.identity(_narrow(xs, 0, 0, 1))
+    shifted = pytree.tree_map(lambda l, i: torch.cat([i, l[:-1]]), incl,
+                              ident)
+    return pytree.tree_map(lambda s, i: torch.where(f != 0, i, s), shifted,
+                           op.identity(incl))
+
+
+def ref_copy(x: torch.Tensor) -> torch.Tensor:
+    """A copy of ``x``."""
+    return x.clone()
+
+
 def ref_batched_mapreduce(f, op, xs: Pytree) -> Pytree:
     """Row-by-row op-reduce of ``f(row)`` -> one element per row.
 

@@ -1,11 +1,11 @@
 """Scan kernels K2 (flat) and K6 (channel), each with its plain version.
 
 * :func:`scan_1d_cuda` -- prefix scan of flat ``(n,)`` leaves under any
-  device operator, commutative or not (``csrc/scan_flat.cu``; replaces
+  operator with a device form, commutative or not (``csrc/scan.cuh``; replaces
   ``repro/kernels/scan.py::scan_1d_pallas``).  Plain version:
   :func:`scan_1d_plain`.
 * :func:`scan_channel_cuda` -- scan along axis 1 of ``(B, T, C)`` leaves,
-  independent per (b, c), forward or reverse (``csrc/scan_channel.cu``;
+  independent per (b, c), forward or reverse (``csrc/scan.cuh``;
   replaces ``scan_channel_pallas``).  It carries ``linear_recurrence`` on
   the serial route (one thread per channel) and the radix sort's rank scan
   on the long-T path (T spread over blocks; see :func:`uses_long_t`).
@@ -38,6 +38,11 @@ def _check_leaves(what, leaves, ndim):
     _lib.require_cuda(what, *leaves)
 
 
+def scan_unit(what, op, leaves) -> _lib.Unit:
+    """The generated unit of K2, K7s and K6 for ``op`` over ``leaves``."""
+    return _lib.unit("scan", what, op, [l.dtype for l in leaves])
+
+
 # ---------------------------------------------------------------------------
 # K2: flat scan
 # ---------------------------------------------------------------------------
@@ -54,18 +59,16 @@ def scan_1d_cuda(op, xs: Pytree, *, inclusive: bool = True) -> Pytree:
     if not leaves[0].is_cuda:
         return scan_1d_plain(op, xs, inclusive=inclusive)
     what = "scan@flat (cuda)"
-    op_code, dt_code = _lib.op_codes(what, op, leaves)
+    unit = scan_unit(what, op, leaves)
     _check_leaves(what, leaves, 1)
+    lib = _lib.load(unit)
     n = leaves[0].shape[0]
-    lib = _lib.library("scan_flat.cu")
     outs = [torch.empty_like(l) for l in leaves]
-    tiles = -(-n // lib.rt_scan_flat_tile())
+    tiles = -(-n // lib.rt_tile())
     scratch = _lib.scratch(tiles, len(leaves), leaves[0]) if tiles > 1 \
         else None
-    x1, y1 = (leaves[1], outs[1]) if len(leaves) == 2 else (None, None)
-    _lib.check(lib.rt_scan_flat(
-        op_code, dt_code, leaves[0].data_ptr(), _lib.ptr(x1),
-        outs[0].data_ptr(), _lib.ptr(y1), n, int(inclusive),
+    _lib.check(lib.rt_scan_rows(
+        _lib.leaf_ptrs(leaves), _lib.leaf_ptrs(outs), 1, n, int(inclusive),
         _lib.ptr(scratch), _lib.stream_ptr(leaves[0])), what)
     scan_1d_cuda.launches += 1
     return pytree.tree_unflatten(outs, spec)
@@ -123,21 +126,19 @@ def scan_channel_cuda(op, xs: Pytree, *, inclusive: bool = True,
     if not leaves[0].is_cuda:
         return scan_channel_plain(op, xs, inclusive=inclusive, reverse=reverse)
     what = "scan along T of (B, T, C) (cuda)"
-    op_code, dt_code = _lib.op_codes(what, op, leaves)
+    unit = scan_unit(what, op, leaves)
     _check_leaves(what, leaves, 3)
     B, T, C = leaves[0].shape
     if B > 65535:
         raise ValueError(f"{what}: B = {B} exceeds the grid's 65535 rows")
+    lib = _lib.load(unit)
     long_t = uses_long_t(B, T, C)
-    lib = _lib.library("scan_channel.cu")
     outs = [torch.empty_like(l) for l in leaves]
-    x1, y1 = (leaves[1], outs[1]) if len(leaves) == 2 else (None, None)
     chunks = -(-T // lib.rt_scan_channel_chunk())
     scratch = _lib.scratch(B * C * chunks, len(leaves), leaves[0]) \
         if long_t else None
     _lib.check(lib.rt_scan_channel(
-        op_code, dt_code, leaves[0].data_ptr(), _lib.ptr(x1),
-        outs[0].data_ptr(), _lib.ptr(y1), B, T, C, int(inclusive),
+        _lib.leaf_ptrs(leaves), _lib.leaf_ptrs(outs), B, T, C, int(inclusive),
         int(reverse), _lib.ptr(scratch), _lib.stream_ptr(leaves[0])), what)
     if long_t:
         scan_channel_cuda.long_t_launches += 1

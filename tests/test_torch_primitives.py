@@ -7,11 +7,14 @@ the CPU the port's kernel wrappers run their plain versions, so these tests
 hold the plain versions (the oracles the card's kernels are held against
 in ``chip_smoke.py``) and the route layer to the reference.
 
-Tolerances: integer scans, reductions and matvecs are bit-exact; float32
-results differ only by reassociation (the reference scans tiles with
-log-step combines, the port's plain versions fold in other orders) and are
-held at rtol = atol = 1e-5 (the batched scan of probability rows, whose
-prefixes stay below 1, at atol = 1e-6).
+Tolerances: integer scans, reductions and matvecs, copies and sorts are
+bit-exact; float32 results differ only by reassociation (the reference scans
+tiles with log-step combines, the port's plain versions fold in other
+orders) and are held at rtol = atol = 1e-5 (the batched scan of probability
+rows, whose prefixes stay below 1, at atol = 1e-6).  The AFFINE matvec folds
+products of up to 700 factors near 1: rtol = 1e-4.  Quickstart's sequence
+ends in 1,000-term sums, 100,000-term UnitFloat8 sums and 128-step
+recurrences: rtol = 1e-4, atol = 1e-3.
 """
 import numpy as np
 import pytest
@@ -30,6 +33,7 @@ from repro_torch.core import primitives as t_forge  # noqa: E402
 from repro_torch.core.layout import Batched as TBatched  # noqa: E402
 from repro_torch.kernels import _lib  # noqa: E402
 from repro_torch.kernels import batched as batched_k  # noqa: E402
+from repro_torch.kernels import copy as copy_k  # noqa: E402
 from repro_torch.kernels import mapreduce as mapreduce_k  # noqa: E402
 from repro_torch.kernels import matvec as matvec_k  # noqa: E402
 from repro_torch.kernels import ref as t_ref  # noqa: E402
@@ -457,14 +461,13 @@ def test_ops_without_device_functor_raise():
     no_functor = t_alg.AssocOp("logsumexp", lambda a, b: a, lambda l: l, True)
     with pytest.raises(NotImplementedError,
                        match="scan@flat.*'logsumexp' has no device functor"):
-        _lib.op_codes("scan@flat", no_functor, [torch.zeros(4)])
-    with pytest.raises(NotImplementedError, match="has no float64 form"):
-        _lib.op_codes("scan@flat", t_alg.ADD,
-                      [torch.zeros(4, dtype=torch.float64)])
-    with pytest.raises(NotImplementedError, match="takes 2 leaf"):
-        _lib.op_codes("scan@flat", t_alg.AFFINE, [torch.zeros(4)])
+        _lib.unit("scan", "scan@flat", no_functor, [torch.float32])
+    with pytest.raises(NotImplementedError, match="has no int64 form"):
+        _lib.unit("scan", "scan@flat", t_alg.ADD, [torch.int64])
+    with pytest.raises(NotImplementedError, match="takes 2 leaves"):
+        _lib.unit("scan", "scan@flat", t_alg.AFFINE, [torch.float32])
     with pytest.raises(NotImplementedError, match="map .* has no device form"):
-        _lib.map_code("mapreduce@flat", lambda v: v)
+        _lib.map_out("mapreduce@flat", lambda v: v, torch.zeros(4))
 
 
 def test_cpu_tensors_take_the_plain_version_without_launching():
@@ -477,13 +480,16 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
 
 
 def test_kernel_sources_are_listed_and_annotated():
-    """Every CUDA source is built, and names the TPU kernel it replaces."""
-    sources = sorted(p.name for p in _lib.CSRC.glob("*.cu"))
-    assert sources == sorted(_lib.SOURCES)
-    assert "matvec.cu" in sources
-    for name in sources:
+    """Every kernel header is built by a family, and names the TPU kernel
+    it replaces and what bounds it."""
+    headers = {p.name for p in _lib.CSRC.glob("*.cuh")}
+    built = {fam.header for fam in _lib.FAMILIES.values()}
+    assert built <= headers
+    assert headers - built == {"common.cuh", "tile_scan.cuh"}
+    assert "matvec.cuh" in built
+    for name in built:
         text = (_lib.CSRC / name).read_text()
-        assert "Replaces: src/repro/kernels/" in text
+        assert "eplaces: src/repro/kernels/" in text
         assert "Bound on this card:" in text
 
 
@@ -541,3 +547,147 @@ def test_sampling_kernels_match_plain_versions_on_the_card(cuda_device):
         batched_k.batched_scan_cuda(t_alg.ADD, probs, inclusive=False),
         batched_k.batched_scan_plain(t_alg.ADD, probs, inclusive=False),
         rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The primitive library's own path: copy, the K5 route, quickstart
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.int32, jnp.uint8])
+def test_k1_copy_matches_pallas(dtype):
+    x = jnp.asarray(np.random.default_rng(2).integers(0, 200, 1000), dtype)
+    want = j_forge.copy(x, backend=PI)
+    xt = _t(x)
+    for got in (t_forge.copy(xt), t_forge.copy(xt, nitem=4, backend="cuda"),
+                copy_k.copy_cuda(xt), copy_k.copy_plain(xt)):
+        assert got.dtype == xt.dtype and got.data_ptr() != xt.data_ptr()
+        np.testing.assert_array_equal(_np(got), np.asarray(want))
+    empty = torch.zeros(0)
+    assert t_forge.copy(empty, backend="cuda") is empty
+
+
+def test_k5_route_choice_follows_the_reference():
+    """p <= 64, n >= 512 and a commutative op take K5 (ops.py:374)."""
+    assert matvec_k.uses_packed(512, 64, t_alg.ADD)
+    assert matvec_k.uses_packed(10**6, 10, t_alg.MIN)
+    assert not matvec_k.uses_packed(512, 65, t_alg.ADD)
+    assert not matvec_k.uses_packed(511, 64, t_alg.ADD)
+    assert not matvec_k.uses_packed(512, 64, t_alg.AFFINE)
+
+
+PAIR = t_alg.DeviceMap("pair", lambda u, v: (u, v), "return x;")
+
+
+@pytest.mark.parametrize("n,p", [(511, 64), (512, 64), (512, 65), (700, 10)])
+def test_k5_and_k4_matvec_match_pallas(n, p):
+    """Both sides of the route choice, bit-exact over int32 ADD, and a
+    non-commutative fold (AFFINE over (x_i, A_ij) pairs) that must keep
+    row order on K4."""
+    rng = np.random.default_rng(n + p)
+    A = jnp.asarray(rng.integers(-9, 10, (n, p)), jnp.int32)
+    xv = jnp.asarray(rng.integers(-9, 10, (n,)), jnp.int32)
+    want = j_forge.matvec(lambda x, a: x * a, j_alg.ADD, A, xv, backend=PI)
+    for got in (t_forge.matvec(t_alg.TIMES, t_alg.ADD, _t(A), _t(xv),
+                               backend="cuda"),
+                matvec_k.matvec_packed_cuda(t_alg.TIMES, t_alg.ADD, _t(A),
+                                            _t(xv))):
+        np.testing.assert_array_equal(_np(got), np.asarray(want))
+    Af = jnp.asarray(rng.uniform(0.9, 1.1, (n, p)), jnp.float32)
+    xf = jnp.asarray(rng.uniform(-0.1, 0.1, (n,)), jnp.float32)
+    wa, wb = j_forge.matvec(lambda x, a: (x, a), j_alg.AFFINE, Af, xf,
+                            backend="xla")
+    for backend in ("torch", "cuda"):
+        ga, gb = t_forge.matvec(PAIR, t_alg.AFFINE, _t(Af), _t(xf),
+                                backend=backend)
+        np.testing.assert_allclose(_np(ga), np.asarray(wa), rtol=1e-4)
+        np.testing.assert_allclose(_np(gb), np.asarray(wb), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def _quickstart(forge, alg, Segmented, Batched, arr, masked, backend):
+    """examples/quickstart.py sections 1-8 on numpy inputs, through either
+    package (``arr`` makes the package's array from numpy; ``masked`` is the
+    package's masked-select map)."""
+    rng = np.random.default_rng(0)
+    out = {}
+    x = arr(rng.normal(size=1000).astype(np.float32))
+    out["1 scan add"] = forge.scan(alg.ADD, x, backend=backend)
+    out["1 scan max excl"] = forge.scan(alg.MAX, x, inclusive=False,
+                                        backend=backend)
+    q = tuple(arr((rng.normal(size=256) * 0.1 + (1.0 if i == 0 else 0.0))
+                  .astype(np.float32)) for i in range(4))
+    out["2 quaternion scan"] = forge.scan(alg.QUATERNION_MUL, q,
+                                          backend=backend)
+    u8 = arr(rng.integers(0, 256, 100_000).astype(np.uint8))
+    out["3 unitfloat8 sum"] = forge.mapreduce(alg.unitfloat8_decode, alg.ADD,
+                                              u8, backend=backend)
+    W = np.where(rng.uniform(size=(64, 64)) < 0.2,
+                 rng.uniform(0, 10, (64, 64)), np.inf).astype(np.float32)
+    W[np.arange(64), np.arange(64)] = 0.0
+    dist = np.full(64, np.inf, np.float32)
+    dist[0] = 0.0
+    dist = arr(dist)
+    for _ in range(4):
+        dist = forge.semiring_matvec(alg.TROPICAL_MIN_PLUS, arr(W), dist,
+                                     backend=backend)
+    out["4 tropical"] = dist
+    logits = rng.normal(size=(32, 32)).astype(np.float32)
+    logA = logits - np.log(np.exp(logits).sum(1, keepdims=True))
+    lp = rng.normal(size=32).astype(np.float32)
+    logp = lp - np.log(np.exp(lp).sum())
+    out["5 log vecmat"] = forge.semiring_vecmat(alg.LOG_SEMIRING, arr(logA),
+                                                arr(logp), backend=backend)
+    vals = arr(np.arange(10, dtype=np.float32))
+    offs = arr(np.asarray([0, 3, 8, 10], np.int32))
+    out["6 segmented scan"] = forge.scan(
+        alg.ADD, vals, layout=Segmented(offsets=offs), backend=backend)
+    out["6 segmented sums"] = forge.mapreduce(
+        lambda v: v, alg.ADD, vals, layout=Segmented(offsets=offs),
+        backend=backend)
+    a = arr(rng.uniform(0.9, 0.99, (2, 128, 256)).astype(np.float32))
+    b = arr(rng.normal(size=(2, 128, 256)).astype(np.float32))
+    out["7 linear recurrence"] = forge.linear_recurrence(a, b,
+                                                         backend=backend)
+    pl = rng.normal(size=(4, 8)).astype(np.float32)
+    probs = np.exp(pl) / np.exp(pl).sum(1, keepdims=True)
+    out["7b batched excl"] = forge.scan(alg.ADD, arr(probs), inclusive=False,
+                                        layout=Batched(), backend=backend)
+    lens = np.asarray([8, 3, 5, 1])
+    msk = (np.arange(8)[None] < lens[:, None]).astype(np.int32)
+    out["7b masked sums"] = forge.mapreduce(masked, alg.ADD,
+                                            (arr(probs), arr(msk)),
+                                            layout=Batched(), backend=backend)
+    expert = arr(rng.integers(0, 4, 24).astype(np.uint32))
+    tok = arr(np.arange(24, dtype=np.int32))
+    out["8 sort_pairs"] = forge.sort_pairs(expert, tok, key_bits=2,
+                                           backend=backend)
+    lg = arr(rng.normal(size=10).astype(np.float32))
+    out["8 segmented top_k"] = forge.top_k(lg, 2,
+                                           layout=Segmented(offsets=offs),
+                                           backend=backend)
+    return out
+
+
+def test_quickstart_sequence_matches_reference():
+    from repro.core.layout import Segmented as JSegmented
+    from repro_torch.core.layout import Segmented as TSegmented
+    want = _quickstart(j_forge, j_alg, JSegmented, JBatched, jnp.asarray,
+                       lambda t: jnp.where(t[1] != 0, t[0], 0.0), "xla")
+    for backend in ("torch", "cuda"):
+        got = _quickstart(t_forge, t_alg, TSegmented, TBatched,
+                          lambda a: torch.from_numpy(np.array(a)),
+                          t_alg.masked_select(0.0), backend)
+        assert got.keys() == want.keys()
+        for key in want:
+            g = torch.utils._pytree.tree_leaves(got[key])
+            w = jax.tree.leaves(want[key])
+            assert len(g) == len(w), key
+            for gl, wl in zip(g, w):
+                a, b = _np(gl), np.asarray(wl)
+                assert a.shape == b.shape, key
+                if a.dtype.kind in "iu":
+                    np.testing.assert_array_equal(a, b, err_msg=key)
+                else:
+                    np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-3,
+                                               err_msg=key)

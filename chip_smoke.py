@@ -11,19 +11,29 @@ Five phases, any failure exits non-zero:
    registers and spills.
 2. kernels -- hold each kernel of the serving paths (K2 flat scan, K6
    channel scan and its long-T path, K3 flat mapreduce, K7m batched
-   mapreduce, K7s batched scan, K4 matvec and vecmat) against its plain
-   PyTorch version on the card, at the serving path's shapes and at ragged
-   and large sizes; time the kernel, the plain version and one PyTorch
-   library call of the same function with CUDA events.
+   mapreduce, K7s batched scan, K4 matvec and vecmat) and of the matvec
+   family (K7's batched matvec and vecmat; K9, the quantized matvec and
+   vecmat, flat and batched, for int8, fp8_e4m3 and fp8_e5m2 codes) against
+   its plain PyTorch version on the card, at the serving path's shapes, at
+   ragged sizes (B = 1 and 3, n and p at the block +-1, a quantization
+   block that does not divide n, every one of the 256 fp8 codes, int8
+   leaves) and at full width: recurrentgemma-2b's decode-attention GEMVs
+   (40, 2048, 256), (8, 4096, 4096), its unembed GEMV (2560, 256000)
+   quantized at block 64; time the kernel, the plain version and one
+   PyTorch library call of the same function with CUDA events.
 3. primitives -- the primitive library's own path: the public API
    (copy, scan, mapreduce, semiring matvec/vecmat, linear_recurrence,
-   Segmented scan and mapreduce, sort_pairs, top_k, quickstart's sequence)
-   at the paper's sizes (n up to 10^9, matrices up to 10^4 x 10^4), with
-   every operator of STD_OPS and every semiring of STD_SEMIRINGS on the
-   cuda route.  Counts every kernel's launches on that run, checks its
-   outputs, holds K1 copy, K5 packed matvec and K8 segmented scan and every
-   kernel the generated functors re-instantiate against their plain
-   versions, and times each call beside its bound and library call.
+   Segmented scan and mapreduce, sort_pairs, top_k, quickstart's sequence,
+   matvec/vecmat at Batched layout and over Quantized operands at both
+   layouts) at the paper's sizes (n up to 10^9, matrices up to 10^4 x
+   10^4) and the model's GEMV shapes, with every operator of STD_OPS and
+   every semiring of STD_SEMIRINGS on the cuda route, and the reroute of
+   mapreduce(quaternion_mul, layout=Batched()) at (64, 65536), which must
+   launch K7s and not K7m.  Counts every kernel's launches on that run,
+   checks its outputs, holds K1 copy, K5 packed matvec and K8 segmented
+   scan and every kernel the generated functors re-instantiate against
+   their plain versions, and times each call beside its bound and library
+   call.
 4. serve -- serve recurrentgemma-2b at full width (26 layers, d_model 2560,
    vocab 256000, bf16 weights from a seed) through Engine.generate: 8 greedy
    requests on 4 slots, so slots recycle.  Checks every request's length and
@@ -103,6 +113,14 @@ COUNTERS = {
     "K4-vecmat": (matvec_k.vecmat_cuda, "launches"),
     "K5": (matvec_k.matvec_packed_cuda, "launches"),
     "K8": (seg_k.segmented_scan_1d_cuda, "launches"),
+    "K7-matvec": (batched_k.batched_matvec_cuda, "launches"),
+    "K7-vecmat": (batched_k.batched_vecmat_cuda, "launches"),
+    "K9-matvec": (matvec_k.matvec_quantized_cuda, "launches"),
+    "K9-vecmat": (matvec_k.vecmat_quantized_cuda, "launches"),
+    "K9-batched-matvec": (batched_k.batched_matvec_quantized_cuda,
+                          "launches"),
+    "K9-batched-vecmat": (batched_k.batched_vecmat_quantized_cuda,
+                          "launches"),
 }
 GREEDY_PATH = ("K2", "K6", "K3", "K7m")
 # K4's vecmat shares matvec's source but nothing on the serving path calls
@@ -132,6 +150,20 @@ META = {
            "src/repro/kernels/matvec.py:292"),
     "K8": ("segmented_scan_1d", "src/repro_torch/csrc/segmented.cuh",
            "src/repro/kernels/segmented.py:141"),
+    "K7-matvec": ("batched_matvec", "src/repro_torch/csrc/matvec.cuh",
+                  "src/repro/kernels/batched.py:173"),
+    "K7-vecmat": ("batched_vecmat", "src/repro_torch/csrc/matvec.cuh",
+                  "src/repro/kernels/batched.py:205"),
+    "K9-matvec": ("matvec_quantized", "src/repro_torch/csrc/matvec.cuh",
+                  "src/repro/kernels/matvec.py:189"),
+    "K9-vecmat": ("vecmat_quantized", "src/repro_torch/csrc/matvec.cuh",
+                  "src/repro/kernels/matvec.py:460"),
+    "K9-batched-matvec": ("batched_matvec_quantized",
+                          "src/repro_torch/csrc/matvec.cuh",
+                          "src/repro/kernels/batched.py:237"),
+    "K9-batched-vecmat": ("batched_vecmat_quantized",
+                          "src/repro_torch/csrc/matvec.cuh",
+                          "src/repro/kernels/batched.py:274"),
 }
 
 
@@ -194,6 +226,23 @@ def expect(ok: bool, msg: str) -> None:
 # matvec's f(x, a) = (x, a): folding these pairs under AFFINE is an
 # operator that does not commute, so K4 must keep row (column) order.
 PAIR = alg.DeviceMap("pair", lambda u, v: (u, v), "return x;")
+# Shear terms [[1, x a], [0, 1]] under MAT2_MUL, an operator that does not
+# commute (tests/test_conformance.py's mat2_mul case); matvec's f(x, a) and
+# vecmat's f(a, x).
+SHEAR = alg.DeviceMap(
+    "shear", lambda x, a: (1.0 + 0 * a, x * a, 0 * a, 1.0 + 0 * a),
+    "Out r; r.v0 = __fadd_rn(1.0f, __fmul_rn(0.0f, x.v1)); "
+    "r.v1 = rt::mul_rn(x.v0, x.v1); r.v2 = __fmul_rn(0.0f, x.v1); "
+    "r.v3 = r.v0; return r;")
+SHEAR_VM = alg.DeviceMap(
+    "shear_vm", lambda a, x: (1.0 + 0 * a, a * x, 0 * a, 1.0 + 0 * a),
+    "Out r; r.v0 = __fadd_rn(1.0f, __fmul_rn(0.0f, x.v0)); "
+    "r.v1 = rt::mul_rn(x.v0, x.v1); r.v2 = __fmul_rn(0.0f, x.v0); "
+    "r.v3 = r.v0; return r;")
+QUANT_BLOCK = 64
+UNEMBED = (2560, 256000)           # recurrentgemma-2b's unembed GEMV
+ATTN = (40, 2048, 256)             # 4 slots x 10 heads, 2,048-token window
+BIG_BATCHED = (8, 4096, 4096)
 LEAVES = {"affine": 2, "maxplus_affine": 2, "softmax_merge": 3,
           "quaternion_mul": 4, "mat2_mul": 4}
 
@@ -214,11 +263,12 @@ def path_units() -> list:
         units.append(_lib.unit("segscan", "build", alg.segmented(op),
                                [i32] + dts))
 
-    def mapped(family, f, op, *dtypes):
+    def mapped(family, f, op, *dtypes, quant=None):
         likes = [torch.empty(0, dtype=d) for d in dtypes]
         if f is alg.masked_select:
             f, likes = f(0.0), [tuple(likes)]
-        units.append(_lib.map_unit(family, "build", f, op, *likes)[0])
+        units.append(_lib.map_unit(family, "build", f, op, *likes,
+                                   quant=quant)[0])
 
     mapped("mapreduce", alg.IDENTITY, alg.MAX, i32)
     mapped("mapreduce", alg.IDENTITY, alg.ADD, f32)
@@ -230,6 +280,13 @@ def path_units() -> list:
         mapped("matvec", alg.TIMES, op, i32, i32)
     mapped("matvec", alg.IDENTITY, alg.ADD, i32)
     mapped("matvec", PAIR, alg.AFFINE, f32, f32)
+    # K7 over ADD/TIMES and MIN/PLUS shares the flat units above.
+    mapped("matvec", SHEAR, alg.MAT2_MUL, f32, f32)
+    mapped("matvec", SHEAR_VM, alg.MAT2_MUL, f32, f32)
+    mapped("matvec", alg.TIMES, alg.ADD, torch.int8, torch.int8)
+    for mode in alg.QUANT_MODES:                         # K9, every form
+        mapped("qmatvec", alg.TIMES, alg.ADD, f32, f32, quant=mode)
+    mapped("qmatvec", alg.PLUS, alg.MIN, f32, f32, quant="int8")
     return units
 
 
@@ -423,12 +480,15 @@ def phase_kernels(gen: torch.Generator) -> dict:
     check_k6_long(res, gen, note)
     check_k4(res, gen, note)
     check_k7s(res, gen, note)
+    check_k7_k9(res, gen, note)
     for k, r in res.items():
         if "ms" not in r:
             continue                   # K1, K5, K8: the primitives phase
         log(f"[kernels] {k} {r['shape']}: {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
-            f"{r['bound'][0]:.6f} ms ({r['bound'][1]}); large {r.get('large')}")
+            f"{r['bound'][0]:.6f} ms ({r['bound'][1]}); " + json.dumps(
+                {x: v for x, v in r.items() if x in (
+                    "large", "modes", "dense_mv_ms", "dense_bmm_ms")}))
     return res
 
 
@@ -625,6 +685,202 @@ def check_k7s(res, gen, note) -> None:
 
 
 # ---------------------------------------------------------------------------
+# The matvec family: K7's batched GEMVs and K9's quantized GEMVs
+# ---------------------------------------------------------------------------
+
+# Operations per matrix element, for the bound: the product and the sum;
+# for a code also its conversion and its scale (int8), or the fp8 field
+# decode (shifts, masks, the exponent's bits, three products, the sign).
+QUANT_OPS = {"int8": 4, "fp8_e4m3": 12, "fp8_e5m2": 12}
+
+
+def gemv_scale(A, x, matvec: bool) -> torch.Tensor:
+    """sum |x| |a| per output of a (batched) matvec or vecmat: the size of
+    an ADD over TIMES result, in float64."""
+    if matvec:
+        return (x.abs()[..., :, None] * A.abs()).sum(-2).double()
+    return (A.abs() * x.abs()[..., None, :]).sum(-1).double()
+
+
+def quant_bytes(n: int, p: int, B: int = 1) -> int:
+    """Codes, scales and both vectors read once, the output written once."""
+    nb = -(-n // QUANT_BLOCK)
+    return B * (n * p + 4 * nb * p + 4 * n + 4 * p)
+
+
+def check_gemv(k, note, got, want, scale, what, exact=False) -> None:
+    """Bit-exact, or within 1e-5 of sum |x| |a| (plus 1 for the shear's
+    constant leaves) per output."""
+    err = max_err(got, want)
+    note(k, err)
+    if exact:
+        expect(err == 0, f"{k} {what}: bit-exact")
+    else:
+        rel = rel_err(got, want, scale + 1)
+        expect(rel <= 1e-5, f"{k} {what}: max abs err {err:.3g}, "
+                            f"{rel:.3g} <= 1e-5 of sum|x||a| per output")
+
+
+def check_k7_k9(res, gen, note) -> None:
+    """K7's GEMVs and K9 against their plain versions: ragged sizes, every
+    operator kind (ADD over TIMES within 1e-5 of sum |x||a|, MIN over PLUS
+    bit-exact, MAT2_MUL's ordered fold of shears), int8 leaves, every fp8
+    code, then the full-width shapes, timed."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    bmv = (("K7-matvec", batched_k.batched_matvec_cuda,
+            batched_k.batched_matvec_plain, SHEAR, True),
+           ("K7-vecmat", batched_k.batched_vecmat_cuda,
+            batched_k.batched_vecmat_plain, SHEAR_VM, False))
+    for B, n, p in ((1, 1, 1), (3, 65, 33), (1, 255, 257), (3, 1000, 5),
+                    (2, 7, 3000), (3, 64, 31)):
+        A = randn(B, n, p)
+        for k, fn, plain, shear, mv in bmv:
+            x = randn(B, n if mv else p)
+            scale = gemv_scale(A, x, mv)
+            for f, op, exact in ((alg.TIMES, alg.ADD, False),
+                                 (alg.PLUS, alg.MIN, True),
+                                 (shear, alg.MAT2_MUL, False)):
+                check_gemv(k, note, fn(f, op, A, x), plain(f, op, A, x),
+                           scale, f"{f.name}/{op.name} f32 ({B},{n},{p})",
+                           exact)
+    # int8 leaves: products and sums wrap, as torch's int8 arithmetic.
+    A8 = torch.randint(-128, 128, (3, 100, 40), generator=gen,
+                       device="cuda", dtype=torch.int32).to(torch.int8)
+    for k, fn, plain, _, mv in bmv:
+        x8 = A8[:, :, 0].contiguous() if mv else A8[:, 0, :].contiguous()
+        check_gemv(k, note, fn(alg.TIMES, alg.ADD, A8, x8),
+                   plain(alg.TIMES, alg.ADD, A8, x8), None,
+                   "times/add int8 (3,100,40), wrapping", exact=True)
+    expect(torch.equal(matvec_k.matvec_cuda(alg.TIMES, alg.ADD, A8[0],
+                                            A8[0, :, 0].contiguous()),
+                       matvec_k.matvec_plain(alg.TIMES, alg.ADD, A8[0],
+                                             A8[0, :, 0].contiguous())),
+           "K4 matvec times/add int8 (100, 40): bit-exact")
+
+    qforms = (("K9-matvec", matvec_k.matvec_quantized_cuda,
+               matvec_k.matvec_quantized_plain, True, False),
+              ("K9-vecmat", matvec_k.vecmat_quantized_cuda,
+               matvec_k.vecmat_quantized_plain, False, False),
+              ("K9-batched-matvec", batched_k.batched_matvec_quantized_cuda,
+               batched_k.batched_matvec_quantized_plain, True, True),
+              ("K9-batched-vecmat", batched_k.batched_vecmat_quantized_cuda,
+               batched_k.batched_vecmat_quantized_plain, False, True))
+    for B, n, p, block in ((1, 63, 33, 64), (3, 65, 31, 64), (3, 200, 5, 64),
+                           (1, 1, 1, 16), (3, 17, 40, 16), (1, 300, 3000, 64)):
+        A = randn(B, n, p)
+        for mode in alg.QUANT_MODES:
+            qb = alg.quantize(A, mode=mode, block=block)
+            qf = alg.quantize(A[0], mode=mode, block=block)
+            for k, fn, plain, mv, batched in qforms:
+                q = qb if batched else qf
+                x = randn(*((B,) if batched else ()), n if mv else p)
+                scale = gemv_scale(q.dequantize(), x, mv)
+                what = f"{mode} {tuple(q.shape)} block {block}"
+                check_gemv(k, note, fn(alg.TIMES, alg.ADD, q, x),
+                           plain(alg.TIMES, alg.ADD, q, x), scale,
+                           f"times/add {what}")
+                if mode == "int8":
+                    check_gemv(k, note, fn(alg.PLUS, alg.MIN, q, x),
+                               plain(alg.PLUS, alg.MIN, q, x), None,
+                               f"plus/min {what}", exact=True)
+    # Every code of each mode through the device decode: a (256, 1) operand
+    # of all codes, scale 1, against x = 1.
+    for mode in alg.QUANT_MODES:
+        codes = torch.arange(256, dtype=torch.int32, device="cuda").to(
+            alg.QUANT_DEVICE[mode][0])[:, None]
+        q = alg.Quantized(codes, torch.ones(16, 1, device="cuda"), 16, mode)
+        got = matvec_k.vecmat_quantized_cuda(alg.TIMES, alg.ADD, q,
+                                             torch.ones(1, device="cuda"))
+        expect(torch.equal(got, q.decoded()[:, 0]) and (
+            mode != "fp8_e4m3" or float(got[0x7F]) == 480.0),
+            f"K9-vecmat {mode}: all 256 codes decode as the codec does "
+            f"(e4m3 0x7F to 480)")
+
+    # -- Full width.  K7: recurrentgemma-2b's decode-attention GEMVs (4 slots
+    # x 10 heads against the 2,048-token window at head_dim 256) and
+    # (8, 4096, 4096); library: one torch.bmm.
+    for k, fn, plain, _, mv in bmv:
+        lib = (lambda A, x: torch.bmm(x[:, None, :], A)) if mv else \
+            (lambda A, x: torch.bmm(A, x[:, :, None]))
+        for shape, key in ((ATTN, None), (BIG_BATCHED, "large")):
+            B, n, p = shape
+            A = randn(*shape)
+            x = randn(B, n if mv else p)
+            check_gemv(k, note, fn(alg.TIMES, alg.ADD, A, x),
+                       plain(alg.TIMES, alg.ADD, A, x), gemv_scale(A, x, mv),
+                       f"times/add f32 {shape}")
+            timing = dict(
+                ms=time_ms(lambda: fn(alg.TIMES, alg.ADD, A, x), 20),
+                plain_ms=time_ms(lambda: plain(alg.TIMES, alg.ADD, A, x), 3),
+                library_ms=time_ms(lambda: lib(A, x), 20))
+            bound = bound_ms(4 * (B * n * p + B * n + B * p), 2 * B * n * p)
+            what = f"{shape} f32 ARITHMETIC"
+            if key is None:
+                res[k].update(timing, bound=bound, shape=what)
+            else:
+                res[k][key] = dict(timing, bound_ms=bound[0], shape=what)
+            del A, x
+    # K9 flat: the unembed GEMV (2560, 256000) in each mode, block 64;
+    # library: dequantize then torch.mv (two calls), and the dense f32
+    # torch.mv at the same shape.
+    n, p = UNEMBED
+    W = randn(n, p) * 0.02
+    xs = {True: randn(n), False: randn(p)}
+    for mode in alg.QUANT_MODES:
+        q = alg.quantize(W, mode=mode, block=QUANT_BLOCK)
+        for k, fn, plain, mv, batched in qforms[:2]:
+            x = xs[mv]
+            check_gemv(k, note, fn(alg.TIMES, alg.ADD, q, x),
+                       plain(alg.TIMES, alg.ADD, q, x),
+                       gemv_scale(q.dequantize(), x, mv),
+                       f"times/add {mode} {UNEMBED} block {QUANT_BLOCK}")
+            ms = time_ms(lambda: fn(alg.TIMES, alg.ADD, q, x), 20)
+            bound = bound_ms(quant_bytes(n, p), QUANT_OPS[mode] * n * p)
+            res[k].setdefault("modes", {})[mode] = {
+                "ms": ms, "bound_ms": bound[0], "library_ms": time_ms(
+                    lambda: torch.mv(q.dequantize().t() if mv else
+                                     q.dequantize(), x), 5)}
+            if mode == "int8":
+                res[k].update(
+                    ms=ms, bound=bound,
+                    plain_ms=time_ms(lambda: plain(alg.TIMES, alg.ADD, q, x),
+                                     2),
+                    library_ms=res[k]["modes"][mode]["library_ms"],
+                    dense_mv_ms=time_ms(lambda: torch.mv(
+                        W.t() if mv else W, x), 20),
+                    shape=f"{UNEMBED} int8, block {QUANT_BLOCK} (library: "
+                          f"dequantize + torch.mv)")
+        del q
+    del W, xs
+    # K9 batched: (8, 4096, 4096) int8, block 64; library: dequantize then
+    # torch.bmm (two calls).
+    B, n, p = BIG_BATCHED
+    A = randn(B, n, p)
+    q = alg.quantize(A, mode="int8", block=QUANT_BLOCK)
+    for k, fn, plain, mv, batched in qforms[2:]:
+        x = randn(B, n if mv else p)
+        check_gemv(k, note, fn(alg.TIMES, alg.ADD, q, x),
+                   plain(alg.TIMES, alg.ADD, q, x),
+                   gemv_scale(q.dequantize(), x, mv),
+                   f"times/add int8 {BIG_BATCHED} block {QUANT_BLOCK}")
+        lib = (lambda: torch.bmm(x[:, None, :], q.dequantize())) if mv else \
+            (lambda: torch.bmm(q.dequantize(), x[:, :, None]))
+        res[k].update(
+            ms=time_ms(lambda: fn(alg.TIMES, alg.ADD, q, x), 20),
+            plain_ms=time_ms(lambda: plain(alg.TIMES, alg.ADD, q, x), 3),
+            library_ms=time_ms(lib, 10),
+            dense_bmm_ms=time_ms(
+                (lambda: torch.bmm(x[:, None, :], A)) if mv else
+                (lambda: torch.bmm(A, x[:, :, None])), 10),
+            bound=bound_ms(quant_bytes(n, p, B), QUANT_OPS["int8"] * B * n * p),
+            shape=f"{BIG_BATCHED} int8, block {QUANT_BLOCK} (library: "
+                  f"dequantize + torch.bmm)")
+    del A, q
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: the primitive library's own path at the paper's sizes
 # ---------------------------------------------------------------------------
 
@@ -776,6 +1032,32 @@ def primitives_data(gen) -> dict:
     d["keys"] = torch.randn(10**6, generator=gen, device="cuda")
     d["iota"] = torch.arange(10**6, dtype=torch.int32, device="cuda")
     d["qs"] = quickstart_data(gen)
+    d.update(gemv_data(gen, d["mv"][(10**4, 10**4)][0]))
+    return d
+
+
+def gemv_data(gen, A4) -> dict:
+    """The matvec family's operands: K7's model shapes, shears, the unembed
+    matrix quantized in each mode, the paper's (10^4, 10^4) matrix ``A4``
+    quantized, (8, 4096, 4096) in int8, and (64, 65536) unit quaternions
+    for the reroute."""
+    def u(*shape, lo=-1.0):
+        return torch.empty(*shape, device="cuda").uniform_(lo, 1.0,
+                                                           generator=gen)
+    d = {"bmv": {shape: (u(*shape), u(*shape[:2]), u(shape[0], shape[2]))
+                 for shape in (ATTN, BIG_BATCHED)}}
+    d["bmv_shear"] = (u(3, 1000, 64), u(3, 1000), u(3, 64))
+    d["W"] = u(*UNEMBED) * 0.02
+    d["unembed_x"] = (u(UNEMBED[0]), u(UNEMBED[1]))
+    d["q_unembed"] = {m: alg.quantize(d["W"], mode=m, block=QUANT_BLOCK)
+                      for m in alg.QUANT_MODES}
+    d["q_paper"] = {m: alg.quantize(A4, mode=m, block=QUANT_BLOCK)
+                    for m in alg.QUANT_MODES}
+    d["qb"] = alg.quantize(d["bmv"][BIG_BATCHED][0], mode="int8",
+                           block=QUANT_BLOCK)
+    q = torch.randn(4, 64, 65536, generator=gen, device="cuda")
+    q = q / q.norm(dim=0)
+    d["quat64"] = tuple(q[i].contiguous() for i in range(4))
     return d
 
 
@@ -824,7 +1106,53 @@ def drive_primitives(d) -> tuple[dict, dict]:
         layout=Segmented(offsets=d["offs6"])))
     run("sort_pairs", lambda: forge.sort_pairs(d["keys"], d["iota"]))
     run("quickstart", lambda: quickstart(d["qs"]))
+    drive_gemvs(d, run)
     return o, per_call
+
+
+def drive_gemvs(d, run) -> None:
+    """The matvec family through the public API: Batched matvec / vecmat
+    (K7) over three algebras, Quantized operands (K9) in every mode at
+    Flat and Batched layout, and mapreduce with a non-commutative operator
+    at Batched layout, which reroutes through scan@batched (K7s)."""
+    bat = Batched()
+    for shape, (A, xv, xz) in d["bmv"].items():
+        run(f"batched matvec {shape}", lambda: forge.semiring_matvec(
+            alg.ARITHMETIC, A, xv, layout=bat))
+        run(f"batched vecmat {shape}", lambda: forge.semiring_vecmat(
+            alg.ARITHMETIC, A, xz, layout=bat))
+    A, xv, xz = d["bmv"][ATTN]
+    run("batched tropical matvec", lambda: forge.semiring_matvec(
+        alg.TROPICAL_MIN_PLUS, A, xv, layout=bat))
+    run("batched tropical vecmat", lambda: forge.semiring_vecmat(
+        alg.TROPICAL_MIN_PLUS, A, xz, layout=bat))
+    A, xv, xz = d["bmv_shear"]
+    run("batched mat2 matvec", lambda: forge.matvec(
+        SHEAR, alg.MAT2_MUL, A, xv, layout=bat))
+    run("batched mat2 vecmat", lambda: forge.vecmat(
+        SHEAR_VM, alg.MAT2_MUL, A, xz, layout=bat))
+    h, v = d["unembed_x"]
+    for mode, q in d["q_unembed"].items():
+        run(f"quantized {mode} matvec unembed", lambda: forge.matvec(
+            alg.TIMES, alg.ADD, q, h))
+        run(f"quantized {mode} vecmat unembed", lambda: forge.vecmat(
+            alg.TIMES, alg.ADD, q, v))
+    _, xv, xz = d["mv"][(10**4, 10**4)]
+    for mode, q in d["q_paper"].items():
+        run(f"quantized {mode} matvec 1e4", lambda: forge.semiring_matvec(
+            alg.ARITHMETIC, q, xv))
+        run(f"quantized {mode} vecmat 1e4", lambda: forge.semiring_vecmat(
+            alg.ARITHMETIC, q, xz))
+    run("quantized int8 tropical matvec 1e4", lambda: forge.semiring_matvec(
+        alg.TROPICAL_MIN_PLUS, d["q_paper"]["int8"], xv))
+    _, xv, xz = d["bmv"][BIG_BATCHED]
+    run("quantized int8 batched matvec", lambda: forge.matvec(
+        alg.TIMES, alg.ADD, d["qb"], xv, layout=bat))
+    run("quantized int8 batched vecmat", lambda: forge.vecmat(
+        alg.TIMES, alg.ADD, d["qb"], xz, layout=bat))
+    run("reroute quaternion", lambda: forge.mapreduce(
+        alg.IDENTITY, alg.QUATERNION_MUL, d["quat64"], layout=bat,
+        backend="cuda"))
 
 
 def rel_err(got, want, scale) -> float:
@@ -936,6 +1264,94 @@ def check_primitives_path(o, d) -> None:
                 f"max abs err {err:.3g} <= 1e-4 x max|output|"
         expect(ok, f"quickstart {key}: cuda route against the torch route, "
                    f"{msg}")
+
+
+def check_gemvs(o, d, per_call) -> None:
+    """The matvec family's outputs against their plain versions on the
+    card: ADD over TIMES within 1e-5 of sum |x||a| per output, MIN over
+    PLUS bit-exact, the quantized results also within the integrated
+    dequantization bound of the dense result; the reroute launched K7s and
+    not K7m, and agrees with the torch route."""
+    def close(got, want, scale, what):
+        err = rel_err(got, want, scale + 1)
+        expect(err <= 1e-5, f"{what}: err {err:.3g} <= 1e-5 of sum|x||a| "
+                            f"per output")
+
+    bm, bv = batched_k.batched_matvec_plain, batched_k.batched_vecmat_plain
+    for shape, (A, xv, xz) in d["bmv"].items():
+        close(o[f"batched matvec {shape}"], bm(alg.TIMES, alg.ADD, A, xv),
+              gemv_scale(A, xv, True), f"Batched matvec f32 {shape}")
+        close(o[f"batched vecmat {shape}"], bv(alg.TIMES, alg.ADD, A, xz),
+              gemv_scale(A, xz, False), f"Batched vecmat f32 {shape}")
+    A, xv, xz = d["bmv"][ATTN]
+    for key, plain, x in (("matvec", bm, xv), ("vecmat", bv, xz)):
+        expect(torch.equal(o[f"batched tropical {key}"],
+                           plain(alg.PLUS, alg.MIN, A, x)),
+               f"Batched TROPICAL_MIN_PLUS {key} {ATTN}: bit-exact")
+    A, xv, xz = d["bmv_shear"]
+    close(o["batched mat2 matvec"], bm(SHEAR, alg.MAT2_MUL, A, xv),
+          gemv_scale(A, xv, True), "Batched MAT2_MUL matvec of shears "
+                                   "(3, 1000, 64), in row order")
+    close(o["batched mat2 vecmat"], bv(SHEAR_VM, alg.MAT2_MUL, A, xz),
+          gemv_scale(A, xz, False), "Batched MAT2_MUL vecmat of shears "
+                                    "(3, 1000, 64), in column order")
+    h, v = d["unembed_x"]
+    for mode, q in d["q_unembed"].items():
+        deq = q.dequantize()
+        for key, x, mv, plain, bound in (
+                ("matvec", h, True, matvec_k.matvec_plain,
+                 ref.ref_quantized_matvec_bound),
+                ("vecmat", v, False, matvec_k.vecmat_plain,
+                 ref.ref_quantized_vecmat_bound)):
+            got = o[f"quantized {mode} {key} unembed"]
+            scale = gemv_scale(deq, x, mv)
+            close(got, plain(alg.TIMES, alg.ADD, deq, x), scale,
+                  f"Quantized {mode} {key} {UNEMBED}")
+            gap = (got.double() - plain(alg.TIMES, alg.ADD, d["W"], x)
+                   .double()).abs()
+            limit = bound(q, x).double() + 1e-5 * scale
+            expect(bool((gap <= limit).all()),
+                   f"Quantized {mode} {key} {UNEMBED}: within the "
+                   f"dequantization bound of the dense f32 result (max gap "
+                   f"{float(gap.max()):.3g})")
+        del deq
+    A4, xv, xz = d["mv"][(10**4, 10**4)]
+    for mode, q in d["q_paper"].items():
+        deq = q.dequantize()
+        close(o[f"quantized {mode} matvec 1e4"],
+              matvec_k.matvec_plain(alg.TIMES, alg.ADD, deq, xv),
+              gemv_scale(deq, xv, True), f"Quantized {mode} matvec (1e4, 1e4)")
+        close(o[f"quantized {mode} vecmat 1e4"],
+              matvec_k.vecmat_plain(alg.TIMES, alg.ADD, deq, xz),
+              gemv_scale(deq, xz, False),
+              f"Quantized {mode} vecmat (1e4, 1e4)")
+    expect(torch.equal(o["quantized int8 tropical matvec 1e4"],
+                       matvec_k.matvec_plain(
+                           alg.PLUS, alg.MIN,
+                           d["q_paper"]["int8"].dequantize(), xv)),
+           "Quantized int8 TROPICAL_MIN_PLUS matvec (1e4, 1e4): bit-exact")
+    deq = d["qb"].dequantize()
+    _, xv, xz = d["bmv"][BIG_BATCHED]
+    close(o["quantized int8 batched matvec"], bm(alg.TIMES, alg.ADD, deq, xv),
+          gemv_scale(deq, xv, True), f"Quantized int8 Batched matvec "
+                                     f"{BIG_BATCHED}")
+    close(o["quantized int8 batched vecmat"], bv(alg.TIMES, alg.ADD, deq, xz),
+          gemv_scale(deq, xz, False), f"Quantized int8 Batched vecmat "
+                                      f"{BIG_BATCHED}")
+    del deq
+    calls = per_call["reroute quaternion"]
+    expect(calls.get("K7s", 0) >= 1 and "K7m" not in calls,
+           f"mapreduce(quaternion_mul, Batched) (64, 65536) on the cuda route "
+           f"launched {calls}: K7s, not K7m")
+    got = o["reroute quaternion"]
+    want = forge.mapreduce(alg.IDENTITY, alg.QUATERNION_MUL, d["quat64"],
+                           layout=Batched(), backend="torch")
+    err = max_err(got, want)
+    expect(all(g.shape == (64,) and bool(torch.isfinite(g).all())
+               for g in got) and err <= 1e-3,
+           f"mapreduce(quaternion_mul, Batched) (64, 65536) unit quaternions:"
+           f" finite (64,) leaves, max abs err {err:.3g} <= 1e-3 against the "
+           f"torch route")
 
 
 def check_new_kernels(res, d, gen, note) -> None:
@@ -1103,7 +1519,77 @@ def paper_timings(d) -> list:
     seg8 = Segmented(offsets=d["offs8"])
     row("Segmented scan ADD f32 1e8", lambda: forge.scan(
         alg.ADD, x8, layout=seg8), 12 * N_PAPER, N_PAPER)
+    gemv_timings(d, row)
     return rows
+
+
+def gemv_timings(d, row) -> None:
+    """The matvec family's calls: ms beside the bound and the library call
+    (dequantize-then-torch.mv for quantized operands, two calls), with the
+    dense f32 library call at the same shape."""
+    bat = Batched()
+    for (B, n, p), (A, xv, xz) in d["bmv"].items():
+        nb, ops = 4 * (B * n * p + B * n + B * p), 2 * B * n * p
+        row(f"Batched matvec ARITHMETIC f32 {(B, n, p)}",
+            lambda: forge.semiring_matvec(alg.ARITHMETIC, A, xv, layout=bat),
+            nb, ops, lambda: torch.bmm(xv[:, None, :], A),
+            "torch.bmm(x[:, None], A)")
+        row(f"Batched vecmat ARITHMETIC f32 {(B, n, p)}",
+            lambda: forge.semiring_vecmat(alg.ARITHMETIC, A, xz, layout=bat),
+            nb, ops, lambda: torch.bmm(A, xz[:, :, None]),
+            "torch.bmm(A, x[:, :, None])")
+    B, n, p = ATTN
+    A, xv, xz = d["bmv"][ATTN]
+    row(f"Batched matvec TROPICAL_MIN_PLUS f32 {ATTN}",
+        lambda: forge.semiring_matvec(alg.TROPICAL_MIN_PLUS, A, xv,
+                                      layout=bat),
+        4 * (B * n * p + B * n + B * p), 2 * B * n * p,
+        lambda: (xv[:, :, None] + A).amin(1),
+        "(x[:, :, None] + A).amin(1), two calls")
+    h, v = d["unembed_x"]
+    n, p = UNEMBED
+    for mode, q in d["q_unembed"].items():
+        row(f"Quantized {mode} matvec {UNEMBED} block {QUANT_BLOCK}",
+            lambda: forge.matvec(alg.TIMES, alg.ADD, q, h),
+            quant_bytes(n, p), QUANT_OPS[mode] * n * p,
+            lambda: torch.mv(q.dequantize().t(), h),
+            "torch.mv(q.dequantize().t(), x), two calls")
+        row(f"Quantized {mode} vecmat {UNEMBED} block {QUANT_BLOCK}",
+            lambda: forge.vecmat(alg.TIMES, alg.ADD, q, v),
+            quant_bytes(n, p), QUANT_OPS[mode] * n * p,
+            lambda: torch.mv(q.dequantize(), v),
+            "torch.mv(q.dequantize(), x), two calls")
+    row(f"dense f32 matvec {UNEMBED} (the library call alone)",
+        lambda: torch.mv(d["W"].t(), h), 4 * (n * p + n + p), 2 * n * p)
+    _, xv, xz = d["mv"][(10**4, 10**4)]
+    for mode, q in d["q_paper"].items():
+        row(f"Quantized {mode} matvec (1e4, 1e4) block {QUANT_BLOCK}",
+            lambda: forge.semiring_matvec(alg.ARITHMETIC, q, xv),
+            quant_bytes(10**4, 10**4), QUANT_OPS[mode] * 10**8,
+            lambda: torch.mv(q.dequantize().t(), xv),
+            "torch.mv(q.dequantize().t(), x), two calls")
+        row(f"Quantized {mode} vecmat (1e4, 1e4) block {QUANT_BLOCK}",
+            lambda: forge.semiring_vecmat(alg.ARITHMETIC, q, xz),
+            quant_bytes(10**4, 10**4), QUANT_OPS[mode] * 10**8,
+            lambda: torch.mv(q.dequantize(), xz),
+            "torch.mv(q.dequantize(), x), two calls")
+    B, n, p = BIG_BATCHED
+    _, xv, xz = d["bmv"][BIG_BATCHED]
+    qb = d["qb"]
+    row(f"Quantized int8 Batched matvec {BIG_BATCHED} block {QUANT_BLOCK}",
+        lambda: forge.matvec(alg.TIMES, alg.ADD, qb, xv, layout=bat),
+        quant_bytes(n, p, B), QUANT_OPS["int8"] * B * n * p,
+        lambda: torch.bmm(xv[:, None, :], qb.dequantize()),
+        "torch.bmm(x[:, None], q.dequantize()), two calls")
+    row(f"Quantized int8 Batched vecmat {BIG_BATCHED} block {QUANT_BLOCK}",
+        lambda: forge.vecmat(alg.TIMES, alg.ADD, qb, xz, layout=bat),
+        quant_bytes(n, p, B), QUANT_OPS["int8"] * B * n * p,
+        lambda: torch.bmm(qb.dequantize(), xz[:, :, None]),
+        "torch.bmm(q.dequantize(), x[:, :, None]), two calls")
+    row("mapreduce QUATERNION_MUL Batched (64, 65536), rerouted to K7s",
+        lambda: forge.mapreduce(alg.IDENTITY, alg.QUATERNION_MUL,
+                                d["quat64"], layout=bat),
+        16 * 64 * 65536 + 16 * 64, 28 * 64 * 65536)
 
 
 def phase_primitives(res, gen) -> dict:
@@ -1123,10 +1609,11 @@ def phase_primitives(res, gen) -> dict:
         expect(launches[k] > 0, f"{k} launched {launches[k]} times on the "
                                 f"primitives path")
     check_primitives_path(o, d)
+    check_gemvs(o, d, per_call)
     del o
     check_new_kernels(res, d, gen, note)
     rows = paper_timings(d)
-    for k in ("K1", "K5", "K8"):
+    for k in ("K1", "K5", "K8"):          # K7 and K9: the kernels phase
         r = res[k]
         log(f"[kernels] {k} {r['shape']}: {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "

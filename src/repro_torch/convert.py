@@ -12,11 +12,14 @@ of JAX.  It
   stay float32.
 
 The same JAX parameters then give both packages the same function.
+``quantized_from_jax`` does the same for a quantized matrix operand.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.core import operators as alg
 
 F32_LEAVES = ("lam", "bias_a", "bias_x", "scale")
 
@@ -46,3 +49,19 @@ def _index(node, i):
     if isinstance(node, dict):
         return {k: _index(v, i) for k, v in node.items()}
     return node[i]
+
+
+def quantized_from_jax(values, scales, block: int, mode: str,
+                       device) -> alg.Quantized:
+    """The port's :class:`~repro_torch.core.operators.Quantized` from the
+    reference's (``values`` and ``scales`` as numpy arrays, ``block`` and
+    ``mode`` its static fields): the same codes and scales, bit for bit."""
+    if mode not in alg.QUANT_MODES:
+        raise ValueError(f"mode {mode!r} not in {alg.QUANT_MODES}")
+    codes = alg.QUANT_DEVICE[mode][0]
+    v = torch.from_numpy(np.array(values))
+    if v.dtype != codes:
+        raise ValueError(f"{mode} codes are {codes}, got {v.dtype}")
+    s = torch.from_numpy(np.array(scales, dtype=np.float32))
+    return alg.Quantized(v.to(device), s.to(device), block=int(block),
+                         mode=mode)

@@ -157,6 +157,9 @@ class RouteDef:
     # validated then stripped before the implementation call.
     fixed_kwargs: tuple = ()
     commutative_only: bool = False
+    # Registered key to reroute non-commutative ops through (mapreduce ->
+    # order-preserving scan of the mapped values, take-last).
+    noncomm_route: str | None = None
     # Name of a shared zero-extent guard in _ZERO_GUARDS (None: the
     # implementation/composition handles zero extents itself).
     zero_extent: str | None = None
@@ -245,10 +248,29 @@ def _zg_segmented_reduce_identity(route, args, kwargs):
                               device=l.device), vals))
 
 
+def _zg_batched_mv_identity(route, args, kwargs):
+    """(B, n, p) with any zero extent: identity rows of the output extent."""
+    f, op, A, x = args[0], args[1], args[2], args[3]
+    B, n, p = A.shape
+    if B and n and p:
+        return False, None
+
+    def like(dtype):
+        return torch.empty((1, 1), dtype=dtype, device=x.device)
+    if route.primitive == "matvec":       # y[b, j]: extent p, f(x, a)
+        out_extent, one = p, f(like(x.dtype), like(A.dtype))
+    else:                                 # z[b, i]: extent n, f(a, x)
+        out_extent, one = n, f(like(A.dtype), like(x.dtype))
+    return True, op.identity(pytree.tree_map(
+        lambda l: torch.empty((B, out_extent), dtype=l.dtype,
+                              device=x.device), one))
+
+
 _ZERO_GUARDS = {
     "passthrough": _zg_passthrough,
     "batched_reduce_identity": _zg_batched_reduce_identity,
     "segmented_reduce_identity": _zg_segmented_reduce_identity,
+    "batched_mv_identity": _zg_batched_mv_identity,
 }
 
 
@@ -292,8 +314,8 @@ def _validate(route: RouteDef, layout, args, kwargs):
 def dispatch(primitive: str, layout, backend: str | None,
              args: tuple, kwargs: dict):
     """Resolve and call one (primitive, layout, backend) route: validation,
-    layout-descriptor injection, zero-extent guard, then the backend's
-    implementation."""
+    layout-descriptor injection, zero-extent guard, non-commutative reroute,
+    then the backend's implementation."""
     layout = lay.as_layout(layout)
     route = get_route(primitive, layout.kind)
     kwargs = dict(kwargs)
@@ -307,6 +329,16 @@ def dispatch(primitive: str, layout, backend: str | None,
         handled, result = _ZERO_GUARDS[route.zero_extent](route, args, kwargs)
         if handled:
             return result
+    if route.noncomm_route is not None and not getattr(
+            args[route.op_arg], "commutative", False):
+        # Order-preserving reroute: scan the mapped values with the same
+        # layout, take each problem's last element.  On the cuda backend
+        # that is K7s; K7m, which folds in no fixed order, is never asked.
+        f, op, xs = args[0], args[1], args[2]
+        vals = f(xs)
+        incl = resolve_impl(route.noncomm_route, backend, vals)(
+            op, vals, inclusive=True)
+        return pytree.tree_map(lambda l: l[:, -1], incl)
     impl = resolve_impl(route.key, backend, args[route.data_arg])
     return impl(*args, **kwargs)
 
@@ -336,9 +368,9 @@ define_primitive(
              commutative_only=True),
     RouteDef("mapreduce", "batched", data_arg=2, op_arg=1,
              arg_ranks=((2, 2),), fixed_kwargs=(("axis", None),),
+             noncomm_route="scan@batched",
              zero_extent="batched_reduce_identity",
-             notes="non-commutative ops take the order-preserving torch "
-                   "route; the cuda kernel refuses them"),
+             notes="non-commutative ops reroute via scan@batched"),
     RouteDef("mapreduce", "segmented", data_arg=2, op_arg=1,
              arg_ranks=((2, 1),), fixed_kwargs=(("axis", None),),
              needs_descriptor=True, needs_num_segments=True,
@@ -352,12 +384,16 @@ define_primitive(
     "matvec",
     RouteDef("matvec", "flat", data_arg=2, op_arg=1,
              arg_ranks=((2, 2), (3, 1))),
+    RouteDef("matvec", "batched", data_arg=2, op_arg=1,
+             arg_ranks=((2, 3), (3, 2)), zero_extent="batched_mv_identity"),
     doc="y[j] = op_i f(x[i], A[i, j]) (generalized semiring matvec)")
 
 define_primitive(
     "vecmat",
     RouteDef("vecmat", "flat", data_arg=2, op_arg=1,
              arg_ranks=((2, 2), (3, 1))),
+    RouteDef("vecmat", "batched", data_arg=2, op_arg=1,
+             arg_ranks=((2, 3), (3, 2)), zero_extent="batched_mv_identity"),
     doc="z[i] = op_j f(A[i, j], x[j]) (generalized semiring vecmat)")
 
 define_primitive(

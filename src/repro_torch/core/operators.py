@@ -7,8 +7,9 @@ every operator of the reference's ``STD_OPS`` (``ADD``, ``MUL``, ``MAX``,
 ``QUATERNION_MUL``, ``MAT2_MUL``), the :func:`segmented` lift, the maps a
 kernel can run (:class:`DeviceMap`: :data:`IDENTITY`, :func:`masked_select`,
 :data:`TIMES`, :data:`PLUS`, :data:`unitfloat8_decode`), the
-:class:`Semiring` bundles of ``STD_SEMIRINGS``, and the radix sort's
-order-preserving key transforms.
+:class:`Semiring` bundles of ``STD_SEMIRINGS``, the blockwise int8 / fp8
+codecs of :class:`Quantized` matrix operands and :class:`KVQuant` cache
+vectors, and the radix sort's order-preserving key transforms.
 
 An element type is a pytree of tensors (``torch.utils._pytree``); ``combine``
 is associative and elementwise over the leaves, ``identity(like)`` builds the
@@ -41,7 +42,8 @@ Pytree = Any
 
 # Leaf dtypes a device element may hold, with their C++ types.
 DEVICE_CTYPES = {torch.float32: "float", torch.float64: "double",
-                 torch.int32: "int", torch.uint8: "unsigned char"}
+                 torch.int32: "int", torch.uint8: "unsigned char",
+                 torch.int8: "signed char"}
 MAX_DEVICE_LEAVES = 5
 
 
@@ -543,6 +545,258 @@ unitfloat8_decode = DeviceMap(
     f"Out r; r.v0 = __fsub_rn(__fmul_rn(static_cast<float>(x.v0), "
     f"{_c_literal(float(torch.tensor(_UF8_STEP, dtype=torch.float32)))}f), "
     f"1.0f); return r;")
+
+
+# --------------------------------------------------------------------------
+# Quantized: blockwise-scaled (values, scales) matrices -- the "arbitrary
+# types" stress test on the decode GEMV.  A matrix is stored as int8 codes
+# (mode "int8") or fp8 bit patterns in uint8 (the emulated e4m3 / e5m2
+# modes) plus one f32 scale per ``block`` rows per column; the matvec and
+# vecmat kernels decode in registers and accumulate in f32.  Everything
+# here is bit-exact with the reference's codec on the same input: codes,
+# scales and dequantized values (torch.round rounds half to even, as
+# jnp.round does; powers of two are built from f32 bits).
+# --------------------------------------------------------------------------
+
+# mode -> (exponent bits, mantissa bits, exponent bias, max finite value).
+# e4m3 follows the "fn" convention (448 max); e5m2 keeps 57344.  Every code
+# decodes as finite (e4m3 0x7F is 480, where the hardware's conversion
+# gives NaN); the encoder saturates at the max finite value, so it never
+# emits the codes on which the two differ.
+FP8_FORMATS = {"fp8_e4m3": (4, 3, 7, 448.0), "fp8_e5m2": (5, 2, 15, 57344.0)}
+QUANT_MODES = ("int8",) + tuple(FP8_FORMATS)
+
+
+def fp8_decode(u: torch.Tensor, mode: str) -> torch.Tensor:
+    """uint8 bit patterns -> f32 (sign / exponent / mantissa field decode,
+    integer operations and exact f32 products only)."""
+    _, man, bias, _ = FP8_FORMATS[mode]
+    b = u.to(torch.int32)
+    sign = torch.where(b >= 128, -1.0, 1.0).to(torch.float32)
+    exp = (b >> man) & ((1 << (7 - man)) - 1)
+    frac = (b & ((1 << man) - 1)).to(torch.float32) * (1.0 / (1 << man))
+    # 2**(exp-bias) built as f32 bits: exact, as the reference builds it.
+    pow2 = ((exp - bias + 127) << 23).to(torch.int32).view(torch.float32)
+    normal = pow2 * (1.0 + frac)
+    subnormal = (2.0 ** (1 - bias)) * frac
+    return sign * torch.where(exp > 0, normal, subnormal)
+
+
+def fp8_encode(x: torch.Tensor, mode: str) -> torch.Tensor:
+    """f32 -> uint8 bit patterns, round-to-nearest onto the fp8 grid,
+    saturating at the format's max finite value (no inf / nan codes)."""
+    _, man, bias, fmax = FP8_FORMATS[mode]
+    sign = torch.where(x < 0, 0x80, 0).to(torch.uint8)
+    a = torch.minimum(x.to(torch.float32).abs(),
+                      torch.tensor(fmax, dtype=torch.float32))
+    mant, e = torch.frexp(a)               # a == mant * 2**e, mant in [.5, 1)
+    E = e - 1 + bias                       # tentative biased exponent
+    # Normal path: field = round((1.f - 1) * 2^man), carrying into E.
+    nf = torch.round((mant * 2.0 - 1.0) * (1 << man)).to(torch.int32)
+    E = torch.where(nf >= (1 << man), E + 1, E)
+    nf = torch.where(nf >= (1 << man), 0, nf)
+    # Subnormal path (E <= 0): field = round(a / 2^(1-bias) * 2^man); a
+    # field of 2^man is exactly the smallest normal.
+    sf = torch.round(a * (2.0 ** (bias - 1 + man))).to(torch.int32)
+    bits = torch.where(
+        E <= 0,
+        torch.where(sf < (1 << man), sf, 1 << man),
+        (torch.clamp(E, max=(1 << (7 - man)) - 1) << man) | nf)
+    maxcode = _fp8_max_code(mode)
+    bits = torch.where(a >= fmax, maxcode, torch.clamp(bits, max=maxcode))
+    bits = torch.where(a == 0.0, 0, bits)
+    return bits.to(torch.uint8) | sign
+
+
+@functools.cache
+def _fp8_max_code(mode: str) -> int:
+    """Bit pattern of the largest finite value, found by decoding the
+    positive codes in host float arithmetic (every grid value is exact in
+    double)."""
+    _, man, bias, fmax = FP8_FORMATS[mode]
+    for code in range(127, -1, -1):
+        exp = code >> man
+        frac = (code & ((1 << man) - 1)) / (1 << man)
+        v = ((2.0 ** (exp - bias)) * (1.0 + frac) if exp > 0
+             else (2.0 ** (1 - bias)) * frac)
+        if v == fmax:
+            return code
+    raise AssertionError(f"fmax {fmax} not on the {mode} grid")
+
+
+def _fp8_device(mode: str) -> str:
+    """The C++ decode of one fp8 code ``c`` (unsigned char) to float: the
+    sign, exponent and mantissa fields moved to float32's positions, times
+    2^(127 - bias), which rebiases the exponent exactly (a subnormal code
+    lands on a float32 denormal, and a power of two scales it exactly).
+    The same bits as :func:`fp8_decode`, every code finite, in three
+    integer operations and one product."""
+    _, man, bias, _ = FP8_FORMATS[mode]
+    return (f"const unsigned b = c;\n"
+            f"    return __fmul_rn(__int_as_float(static_cast<int>("
+            f"((b & 0x80u) << 24) | ((b & 0x7Fu) << {23 - man}))), "
+            f"{_c_literal(2.0 ** (127 - bias))}f);")
+
+
+# mode -> (code dtype, C++ body of ``static float apply(Code c)``): the
+# device decode the quantized matvec / vecmat kernels run per element.
+# int8 avoids the integer-to-float conversion unit: 2^23 + (c + 128) is a
+# float32 whose low byte is c ^ 0x80, and subtracting 2^23 + 128 leaves c
+# exactly.
+QUANT_DEVICE = {
+    "int8": (torch.int8,
+             "return __fsub_rn(__int_as_float(0x4B000000 | "
+             "(static_cast<unsigned char>(c) ^ 0x80)), 8388736.0f);"),
+    **{m: (torch.uint8, _fp8_device(m)) for m in FP8_FORMATS},
+}
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in QUANT_MODES:
+        raise ValueError(f"mode {mode!r} not in {QUANT_MODES}")
+
+
+def _encode(scaled: torch.Tensor, mode: str) -> torch.Tensor:
+    if mode == "int8":
+        return torch.clamp(torch.round(scaled), -127, 127).to(torch.int8)
+    return fp8_encode(scaled, mode)
+
+
+def _decode(values: torch.Tensor, mode: str) -> torch.Tensor:
+    if mode == "int8":
+        return values.to(torch.float32)
+    return fp8_decode(values, mode)
+
+
+def _qmax(mode: str) -> float:
+    return 127.0 if mode == "int8" else FP8_FORMATS[mode][3]
+
+
+@dataclasses.dataclass
+class Quantized:
+    """Blockwise-quantized matrix operand: ``values`` holds int8 codes (mode
+    ``"int8"``) or uint8 fp8 bit patterns, ``scales`` one f32 per ``block``
+    rows per column -- shape ``(ceil(n/block), p)`` for an ``(n, p)``
+    matrix, ``(B, ceil(n/block), p)`` batched: the same rank as ``values``,
+    so the registry's rank checks, which see the pytree leaves ``(values,
+    scales)``, pass untouched.
+
+    ``dequantize()`` is the semantics every kernel matches: ``decode(values)
+    * scales``, the scales repeated ``block``-wise along the row axis.
+    ``error_bound()`` is the per-element bound on the dequantization error.
+    """
+
+    values: torch.Tensor
+    scales: torch.Tensor
+    block: int = 64
+    mode: str = "int8"
+
+    @property
+    def shape(self):
+        return self.values.shape
+
+    @property
+    def dtype(self) -> torch.dtype:
+        # The compute dtype: the kernels dequantize to f32 before the map.
+        return torch.float32
+
+    @property
+    def qtag(self) -> str:
+        """Dtype tag of the operand, distinct from the plain dtypes'."""
+        return f"{self.mode}q{self.block}"
+
+    def contiguous(self) -> "Quantized":
+        return Quantized(self.values.contiguous(), self.scales.contiguous(),
+                         self.block, self.mode)
+
+    def _expanded_scales(self) -> torch.Tensor:
+        return self.scales.repeat_interleave(self.block, dim=-2)[
+            ..., : self.values.shape[-2], :]
+
+    def decoded(self) -> torch.Tensor:
+        """values -> f32 on the quantization grid (scales not applied)."""
+        return _decode(self.values, self.mode)
+
+    def dequantize(self) -> torch.Tensor:
+        return self.decoded() * self._expanded_scales()
+
+    def error_bound(self) -> torch.Tensor:
+        """Per-element bound on |original - dequantize()| for a matrix made
+        by :func:`quantize`: half a quantization step.  int8 steps are
+        uniform (the scale); fp8 steps are relative for normals plus the
+        subnormal absolute step, both times the block scale."""
+        s = self._expanded_scales()
+        if self.mode == "int8":
+            return 0.5 * s
+        _, man, bias, _ = FP8_FORMATS[self.mode]
+        rel = self.decoded().abs() * (2.0 ** -man)
+        sub_step = 2.0 ** (1 - bias - man)
+        return (0.5 * rel + 0.5 * sub_step) * s
+
+
+def quantize(A: torch.Tensor, *, mode: str = "int8",
+             block: int = 64) -> Quantized:
+    """Blockwise-quantize ``A`` along its row (reduction) axis.
+
+    Each ``(block, 1)`` column strip gets the scale ``absmax / QMAX``;
+    encoding rounds to the nearest code, so the error is at most half a
+    step (:meth:`Quantized.error_bound`).  Takes ``(n, p)`` and batched
+    ``(B, n, p)`` operands.
+    """
+    _check_mode(mode)
+    if block < 1:
+        raise ValueError(f"block must be positive, got {block}")
+    A = torch.as_tensor(A).to(torch.float32)
+    n, p = A.shape[-2], A.shape[-1]
+    lead = tuple(A.shape[:-2])
+    nb = -(-n // block) if n else 0
+    Ap = torch.nn.functional.pad(A, (0, 0, 0, nb * block - n))
+    absmax = Ap.reshape(lead + (nb, block, p)).abs().amax(dim=-2)
+    scales = torch.clamp(absmax, min=torch.finfo(torch.float32).tiny) \
+        / _qmax(mode)
+    scaled = (Ap / scales.repeat_interleave(block, dim=-2))[..., :n, :]
+    return Quantized(_encode(scaled, mode), scales, block=block, mode=mode)
+
+
+@dataclasses.dataclass
+class KVQuant:
+    """Per-vector quantized KV-cache leaf: ``values`` holds int8 codes or
+    uint8 fp8 bit patterns with the cached vector on the last axis,
+    ``scales`` one f32 per vector (the same shape with a trailing 1), so a
+    slot update addresses values and scales with the same indices."""
+
+    values: torch.Tensor
+    scales: torch.Tensor
+    mode: str = "int8"
+
+    @property
+    def shape(self):
+        return self.values.shape
+
+    def dequantize(self, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        return (_decode(self.values, self.mode) * self.scales).to(dtype)
+
+
+def quantize_kv(x: torch.Tensor, mode: str = "int8") -> KVQuant:
+    """Quantize cache vectors along the last axis, one scale per vector."""
+    _check_mode(mode)
+    a = torch.as_tensor(x).to(torch.float32)
+    absmax = a.abs().amax(dim=-1, keepdim=True)
+    scales = torch.clamp(absmax, min=torch.finfo(torch.float32).tiny) \
+        / _qmax(mode)
+    return KVQuant(_encode(a / scales, mode), scales, mode=mode)
+
+
+# Both are pytree nodes with leaves (values, scales) and the static fields
+# as context, as the reference registers them.
+pytree.register_pytree_node(
+    Quantized, lambda q: ((q.values, q.scales), (q.block, q.mode)),
+    lambda leaves, ctx: Quantized(*leaves, *ctx),
+    serialized_type_name="repro_torch.core.operators.Quantized")
+pytree.register_pytree_node(
+    KVQuant, lambda q: ((q.values, q.scales), (q.mode,)),
+    lambda leaves, ctx: KVQuant(*leaves, *ctx),
+    serialized_type_name="repro_torch.core.operators.KVQuant")
 
 
 STD_OPS = {

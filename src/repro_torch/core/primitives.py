@@ -16,6 +16,8 @@ registry in ``core.intrinsics``; implementations register per backend from
     q = forge.scan(alg.QUATERNION_MUL, (w, i, j, k))           # any operator
     s = forge.scan(alg.ADD, vals, layout=Segmented(offsets=offs))
     d = forge.semiring_matvec(alg.TROPICAL_MIN_PLUS, W, dist)  # shortest paths
+    y = forge.matvec(alg.TIMES, alg.ADD, alg.quantize(W, mode="int8"), x)
+    z = forge.vecmat(alg.TIMES, alg.ADD, A, v, layout=Batched())  # (B, n)
     m = forge.mapreduce(alg.IDENTITY, alg.MAX, flags)          # any-set
     h = forge.linear_recurrence(a, b, layout=Batched())        # (B, T, C)
     v, i = forge.top_k(logits.reshape(-1), 40,
@@ -74,7 +76,9 @@ def mapreduce(f: Callable, op: alg.AssocOp, xs: Pytree, *, axis=None,
     * ``Flat()``: reduce everything (or one axis of a 2-D array).  ``op``
       must be commutative.
     * ``Batched()``: per-row reduction of ``(B, n)`` leaves -> ``(B,)``.
-      Length-0 rows yield ``op``'s identity.
+      Length-0 rows yield ``op``'s identity.  An ``op`` that does not
+      commute reroutes through the order-preserving ``scan@batched`` (K7s
+      on the card) and takes each row's last element.
     * ``Segmented(...)``: one output element per segment; the flag variant
       needs ``Segmented(num_segments=...)``; empty segments yield identity.
       Order-preserving (segmented scan + gather), so ``op`` need not be
@@ -88,38 +92,54 @@ def mapreduce(f: Callable, op: alg.AssocOp, xs: Pytree, *, axis=None,
                        {"axis": axis})
 
 
-def matvec(f: Callable, op: alg.AssocOp, A: torch.Tensor, x: torch.Tensor,
+def matvec(f: Callable, op: alg.AssocOp, A, x: torch.Tensor,
            *, layout: Layout | None = None,
            backend: str | None = None) -> Pytree:
-    """y[j] = op_i f(x[i], A[i, j]) over ``(n, p)`` / ``(n,)``.
+    """y[j] = op_i f(x[i], A[i, j]).
+
+    * ``Flat()`` (default): ``A`` is ``(n, p)``, ``x`` is ``(n,)``.
+    * ``Batched()``: ``y[b, j] = op_i f(x[b, i], A[b, i, j])`` over a
+      ``(B, n, p)`` matrix and ``(B, n)`` vectors -> ``(B, p)``, one launch
+      for the batch.  ``B == 0`` or ``n == 0`` yields ``op``'s identity.
+
+    ``A`` may be a :class:`~alg.Quantized` matrix (:func:`~alg.quantize`:
+    int8, fp8_e4m3 or fp8_e5m2 codes with one f32 scale per ``block`` rows
+    per column) at either layout: ``f`` then sees the dequantized f32
+    element, and ``x`` is float32.  The ``cuda`` route decodes the codes in
+    the kernel (K9); the ``torch`` route dequantizes first.
 
     The ``cuda`` route runs any :class:`~alg.DeviceMap` ``f`` and operator
-    with device forms (the ordinary GEMV is ``TIMES`` with ``ADD``); a
-    tall-narrow matrix (``p <= 64``, ``n >= 512``) under a commutative
-    ``op`` takes the packed kernel."""
+    with device forms (the ordinary GEMV is ``TIMES`` with ``ADD``), in row
+    order for an operator that does not commute; a dense flat tall-narrow
+    matrix (``p <= 64``, ``n >= 512``) under a commutative ``op`` takes the
+    packed kernel."""
     return ki.dispatch("matvec", layout, backend, (f, op, A, x), {})
 
 
-def vecmat(f: Callable, op: alg.AssocOp, A: torch.Tensor, x: torch.Tensor,
+def vecmat(f: Callable, op: alg.AssocOp, A, x: torch.Tensor,
            *, layout: Layout | None = None,
            backend: str | None = None) -> Pytree:
     """z[i] = op_j f(A[i, j], x[j]) -- the row-wise mirror of
-    :func:`matvec`, over ``(n, p)`` / ``(p,)``."""
+    :func:`matvec`, over ``(n, p)`` / ``(p,)``; ``Batched()``: ``(B, n,
+    p)`` / ``(B, p)`` -> ``(B, n)``.  ``A`` may be :class:`~alg.Quantized`
+    at either layout, as for :func:`matvec`."""
     return ki.dispatch("vecmat", layout, backend, (f, op, A, x), {})
 
 
-def semiring_matvec(semiring: alg.Semiring, A: torch.Tensor,
-                    x: torch.Tensor, *, layout: Layout | None = None,
+def semiring_matvec(semiring: alg.Semiring, A, x: torch.Tensor, *,
+                    layout: Layout | None = None,
                     backend: str | None = None) -> Pytree:
-    """Semiring-bundled :func:`matvec` (paper section V-C)."""
+    """Semiring-bundled :func:`matvec` (paper section V-C), at either
+    layout, over a dense or a :class:`~alg.Quantized` ``A``."""
     return matvec(semiring.f, semiring.op, A, x, layout=layout,
                   backend=backend)
 
 
-def semiring_vecmat(semiring: alg.Semiring, A: torch.Tensor,
-                    x: torch.Tensor, *, layout: Layout | None = None,
+def semiring_vecmat(semiring: alg.Semiring, A, x: torch.Tensor, *,
+                    layout: Layout | None = None,
                     backend: str | None = None) -> Pytree:
-    """Semiring-bundled :func:`vecmat` (paper section V-C)."""
+    """Semiring-bundled :func:`vecmat` (paper section V-C), at either
+    layout, over a dense or a :class:`~alg.Quantized` ``A``."""
     return vecmat(semiring.f, semiring.op, A, x, layout=layout,
                   backend=backend)
 

@@ -6,7 +6,7 @@
 //
 //   struct E {                        // one element: leaves v0 .. v(k-1)
 //     using T0 = float; ...           // leaf types: float, double, int,
-//     T0 v0; ...                      //   unsigned char
+//     T0 v0; ...                      //   unsigned char, signed char
 //     static E load(const rt::Leaves&, long i);
 //     void store(const rt::Leaves&, long i) const;  // skips null leaves
 //     static E shfl_up(E, int d);  static E shfl_down(E, int d, int width);
@@ -68,6 +68,10 @@ template <> struct Lim<unsigned char> {
   __device__ static unsigned char lowest() { return 0; }
   __device__ static unsigned char highest() { return 255; }
 };
+template <> struct Lim<signed char> {
+  __device__ static signed char lowest() { return -128; }
+  __device__ static signed char highest() { return 127; }
+};
 
 // ---------------------------------------------------------------------------
 // Leaf arithmetic.  Integer add and mul wrap like torch's integer arithmetic
@@ -85,6 +89,9 @@ __device__ __forceinline__ int add(int a, int b) {
 __device__ __forceinline__ unsigned char add(unsigned char a, unsigned char b) {
   return static_cast<unsigned char>(a + b);
 }
+__device__ __forceinline__ signed char add(signed char a, signed char b) {
+  return static_cast<signed char>(static_cast<unsigned char>(a + b));
+}
 
 __device__ __forceinline__ float mul(float a, float b) { return a * b; }
 __device__ __forceinline__ double mul(double a, double b) { return a * b; }
@@ -94,6 +101,9 @@ __device__ __forceinline__ int mul(int a, int b) {
 __device__ __forceinline__ unsigned char mul(unsigned char a, unsigned char b) {
   return static_cast<unsigned char>(a * b);
 }
+__device__ __forceinline__ signed char mul(signed char a, signed char b) {
+  return static_cast<signed char>(static_cast<unsigned char>(a * b));
+}
 
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
@@ -101,10 +111,16 @@ __device__ __forceinline__ int add_rn(int a, int b) { return add(a, b); }
 __device__ __forceinline__ unsigned char add_rn(unsigned char a, unsigned char b) {
   return add(a, b);
 }
+__device__ __forceinline__ signed char add_rn(signed char a, signed char b) {
+  return add(a, b);
+}
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ int mul_rn(int a, int b) { return mul(a, b); }
 __device__ __forceinline__ unsigned char mul_rn(unsigned char a, unsigned char b) {
+  return mul(a, b);
+}
+__device__ __forceinline__ signed char mul_rn(signed char a, signed char b) {
   return mul(a, b);
 }
 
@@ -151,6 +167,11 @@ __device__ __forceinline__ unsigned char shfl_up_leaf(unsigned char v, int d) {
   return static_cast<unsigned char>(
       __shfl_up_sync(FULL_MASK, static_cast<int>(v), d));
 }
+template <>
+__device__ __forceinline__ signed char shfl_up_leaf(signed char v, int d) {
+  return static_cast<signed char>(
+      __shfl_up_sync(FULL_MASK, static_cast<int>(v), d));
+}
 template <typename T>
 __device__ __forceinline__ T shfl_down_leaf(T v, int d, int width) {
   return __shfl_down_sync(FULL_MASK, v, d, width);
@@ -159,6 +180,12 @@ template <>
 __device__ __forceinline__ unsigned char shfl_down_leaf(unsigned char v, int d,
                                                         int width) {
   return static_cast<unsigned char>(
+      __shfl_down_sync(FULL_MASK, static_cast<int>(v), d, width));
+}
+template <>
+__device__ __forceinline__ signed char shfl_down_leaf(signed char v, int d,
+                                                      int width) {
+  return static_cast<signed char>(
       __shfl_down_sync(FULL_MASK, static_cast<int>(v), d, width));
 }
 

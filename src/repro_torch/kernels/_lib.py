@@ -103,18 +103,34 @@ int rt_mapreduce_rows(void* const* x, long B, long n, void* const* out,
         "rt_mapreduce_flat": (_I, [_PP, _L, _P, _P, _PP, _P]),
         "rt_mapreduce_rows": (_I, [_PP, _L, _L, _PP, _P]),
     }),
-    # K4 matvec (form 0) and vecmat (form 1), K5 (form 2).
+    # K4 and K7 matvec (form 0) and vecmat (form 1) over B dense (n, p)
+    # matrices (B = 1: flat), K5 (form 2).
     "matvec": Family("matvec.cuh", f"""
-long rt_matvec_chunks(int form, long n, long p) {{
-  return rt::matvec::plan(form, n, p).chunks;
+long rt_matvec_chunks(int form, long B, long n, long p) {{
+  return rt::matvec::plan(form, B, n, p, 1).chunks;
 }}
-int rt_matvec(int form, const void* A, const void* x, long n, long p,
+int rt_matvec(int form, const void* A, const void* x, long B, long n, long p,
               void* partials, void* const* out, void* stream) {{
-  return rt::matvec::run<Map, Op>(form, A, x, n, p, partials,
-                                  rt::leaves(out), {_ST});
+  return rt::matvec::run_dense<Map, Op>(form, A, x, B, n, p, partials,
+                                        rt::leaves(out), {_ST});
 }}""", {
-        "rt_matvec_chunks": (_L, [_I, _L, _L]),
-        "rt_matvec": (_I, [_I, _P, _P, _L, _L, _P, _PP, _P]),
+        "rt_matvec_chunks": (_L, [_I, _L, _L, _L]),
+        "rt_matvec": (_I, [_I, _P, _P, _L, _L, _L, _P, _PP, _P]),
+    }),
+    # K9: the same forms over B quantized matrices, codes decoded by the
+    # generated Dec.
+    "qmatvec": Family("matvec.cuh", f"""
+long rt_matvec_chunks(int form, long B, long n, long p) {{
+  return rt::matvec::plan(form, B, n, p, rt::matvec::quant_vec(p)).chunks;
+}}
+int rt_qmatvec(int form, const void* q, const void* s, long block,
+               const void* x, long B, long n, long p, void* partials,
+               void* const* out, void* stream) {{
+  return rt::matvec::run_quantized<Map, Op, Dec>(
+      form, q, s, block, x, B, n, p, partials, rt::leaves(out), {_ST});
+}}""", {
+        "rt_matvec_chunks": (_L, [_I, _L, _L, _L]),
+        "rt_qmatvec": (_I, [_I, _P, _P, _L, _P, _L, _L, _L, _P, _PP, _P]),
     }),
     # K1.
     "copy": Family("copy.cuh", f"""
@@ -126,7 +142,7 @@ int rt_copy(const void* x, void* y, long nbytes, int nitem, void* stream) {{
 }
 
 _LEAF_TAGS = {torch.float32: "f32", torch.float64: "f64", torch.int32: "i32",
-                torch.uint8: "u8"}
+              torch.uint8: "u8", torch.int8: "i8"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -236,9 +252,11 @@ def map_out(what: str, f, *likes) -> tuple[list, object]:
     return [l.dtype for l in leaves], spec
 
 
-def map_unit(family: str, what: str, f, op: alg.AssocOp, *likes):
+def map_unit(family: str, what: str, f, op: alg.AssocOp, *likes,
+             quant: str | None = None):
     """(unit, output dtypes, output tree spec) of ``op`` over the map ``f``
-    of ``likes`` (pytrees of tensors).
+    of ``likes`` (pytrees of tensors); ``quant`` names the quantization
+    mode of a ``qmatvec`` unit.
 
     A wrapper asks on every call, and flattening pytrees costs more host
     time than the kernel takes at the serving path's (B,) shapes, so the
@@ -253,13 +271,14 @@ def map_unit(family: str, what: str, f, op: alg.AssocOp, *likes):
         return None
 
     sigs = tuple(sig(like) for like in likes)
-    key = (family, f, op, sigs) if isinstance(f, alg.DeviceMap) and \
-        None not in sigs else None
+    key = (family, f, op, sigs, quant) if isinstance(f, alg.DeviceMap) \
+        and None not in sigs else None
     found = _MAP_UNITS.get(key) if key else None
     if found is None:
         out_dtypes, out_spec = map_out(what, f, *likes)
         found = (unit(family, what, op, out_dtypes, f=f, in_dtypes=[
-            l.dtype for l in pytree.tree_leaves(likes)]), out_dtypes, out_spec)
+            l.dtype for l in pytree.tree_leaves(likes)], quant=quant),
+            out_dtypes, out_spec)
         if key:
             _MAP_UNITS[key] = found
     return found
@@ -269,10 +288,12 @@ _MAP_UNITS: dict[tuple, tuple] = {}
 
 
 def unit(family: str, what: str, op: alg.AssocOp | None = None,
-         dtypes=(), f: alg.DeviceMap | None = None, in_dtypes=()) -> Unit:
+         dtypes=(), f: alg.DeviceMap | None = None, in_dtypes=(),
+         quant: str | None = None) -> Unit:
     """The unit of ``family`` for ``op`` over elements of leaf ``dtypes``
     (and, for mapreduce / matvec, the map ``f`` from leaves ``in_dtypes``
-    to ``dtypes``).
+    to ``dtypes``; for qmatvec, the decode of quantization mode ``quant``,
+    ``core/operators.py``'s ``QUANT_DEVICE``).
 
     Raises NotImplementedError, naming the route, for an operator or map
     without a device form and for leaf structures or dtypes the device form
@@ -280,18 +301,18 @@ def unit(family: str, what: str, op: alg.AssocOp | None = None,
     back to the plain version.  A wrapper asks on every call, so the units
     are kept per combination.
     """
-    key = (family, op, tuple(dtypes), f, tuple(in_dtypes))
+    key = (family, op, tuple(dtypes), f, tuple(in_dtypes), quant)
     found = _UNITS.get(key)
     if found is None:
         found = _UNITS[key] = _make_unit(family, what, op, dtypes, f,
-                                         in_dtypes)
+                                         in_dtypes, quant)
     return found
 
 
 _UNITS: dict[tuple, Unit] = {}
 
 
-def _make_unit(family, what, op, dtypes, f, in_dtypes) -> Unit:
+def _make_unit(family, what, op, dtypes, f, in_dtypes, quant) -> Unit:
     gen = _Gen()
     label = family
     if op is not None:
@@ -315,6 +336,17 @@ def _make_unit(family, what, op, dtypes, f, in_dtypes) -> Unit:
             f"  }}\n}};\n")
         label = (f"{family} {f.name}({' '.join(_names(in_dtypes))}) "
                  f"{op.name} {' '.join(_names(dtypes))}")
+    if (quant is None) != (family != "qmatvec"):
+        raise ValueError(f"{what}: a qmatvec unit, and only one, takes a "
+                         f"quantization mode, got {quant!r} for {family}")
+    if quant is not None:
+        code, body = alg.QUANT_DEVICE[quant]
+        gen.parts.append(
+            f"// {quant} decode\nstruct Dec {{\n"
+            f"  using Code = {alg.DEVICE_CTYPES[code]};\n"
+            f"  __device__ static float apply(Code c) {{\n    {body}\n  }}\n"
+            f"}};\n")
+        label = f"{label} {quant}"
     fam = FAMILIES[family]
     source = (f"// Generated by repro_torch/kernels/_lib.py: {label}\n"
               f'#include "{fam.header}"\n\nnamespace {{\n\n'

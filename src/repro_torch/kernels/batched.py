@@ -1,5 +1,6 @@
-"""Batched kernels K7s (scan) and K7m (mapreduce), each with its plain
-version (``csrc/scan.cuh``, ``csrc/mapreduce.cuh``).
+"""Batched kernels K7s (scan), K7m (mapreduce), K7's GEMVs and K9's batched
+forms, each with its plain version (``csrc/scan.cuh``,
+``csrc/mapreduce.cuh``, ``csrc/matvec.cuh``).
 
 * :func:`batched_scan_cuda` -- per-row prefix scan of ``(B, n)`` leaves
   under any operator with a device form, AFFINE included (replaces
@@ -9,11 +10,25 @@ version (``csrc/scan.cuh``, ``csrc/mapreduce.cuh``).
   ``f(x)`` over ``(B, n)`` leaves -> ``(B,)``, one launch for the whole
   batch (replaces ``batched_mapreduce_pallas``).  ``f`` is a
   :class:`~repro_torch.core.operators.DeviceMap`, run inside the kernel.
-  Plain version: :func:`batched_mapreduce_plain`.
+  Plain version: :func:`batched_mapreduce_plain`.  It refuses operators
+  that do not commute; the registry reroutes those through K7s.
+* :func:`batched_matvec_cuda` / :func:`batched_vecmat_cuda` -- K7's GEMVs,
+  ``y[b, j] = op_i f(x[b, i], A[b, i, j])`` and ``z[b, i] = op_j f(A[b, i,
+  j], x[b, j])`` over ``(B, n, p)`` matrices, one launch (two when the
+  reduction axis is split) for the whole batch; rows (columns) fold in
+  order, so any operator with a device form runs (replaces
+  ``batched_matvec_pallas`` / ``batched_vecmat_pallas``).  Plain versions:
+  :func:`batched_matvec_plain` / :func:`batched_vecmat_plain`.
+* :func:`batched_matvec_quantized_cuda` /
+  :func:`batched_vecmat_quantized_cuda` -- K9 over a ``(B, n, p)``
+  :class:`~repro_torch.core.operators.Quantized` matrix (replaces
+  ``batched_matvec_quantized_pallas`` / ``batched_vecmat_quantized_pallas``).
+  Plain versions: dequantize, then the batched plain fold.
 
 Given CPU tensors a wrapper runs the plain version; given CUDA tensors it
-launches the kernel or raises.  ``launches`` counts each kernel's launches
-(K7s above one tile per row issues three CUDA launches per call).
+launches the kernel or raises.  ``launches`` counts each wrapper's calls
+that launched its kernel (K7s above one tile per row issues three CUDA
+launches per call, the GEMVs two when they split the reduction axis).
 """
 from __future__ import annotations
 
@@ -23,6 +38,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.kernels import _lib
+from repro_torch.kernels import matvec as matvec_k
 from repro_torch.kernels import ref
 from repro_torch.kernels.scan import scan_unit
 
@@ -100,3 +116,75 @@ def batched_mapreduce_cuda(f, op, xs: Pytree) -> Pytree:
 
 
 batched_mapreduce_cuda.launches = 0
+
+
+def batched_matvec_plain(f, op, A: torch.Tensor, x: torch.Tensor) -> Pytree:
+    """Plain version of K7's matvec: ``f`` on every element, then an
+    ordered pairwise fold down each batch's columns."""
+    return ref.ref_fold(op, f(x[:, :, None], A), axis=1)
+
+
+def batched_vecmat_plain(f, op, A: torch.Tensor, x: torch.Tensor) -> Pytree:
+    """Plain version of K7's vecmat: an ordered pairwise fold along each
+    batch's rows."""
+    return ref.ref_fold(op, f(A, x[:, None, :]), axis=2)
+
+
+def batched_matvec_cuda(f, op, A: torch.Tensor, x: torch.Tensor) -> Pytree:
+    """K7 matvec: ``(B, n, p)`` x ``(B, n)`` -> ``(B, p)``, B, n, p >= 1."""
+    if not A.is_cuda:
+        return batched_matvec_plain(f, op, A, x)
+    out = matvec_k.launch(matvec_k.MATVEC, "matvec@batched (cuda)", f, op,
+                          A, x, batched=True)
+    batched_matvec_cuda.launches += 1
+    return out
+
+
+def batched_vecmat_cuda(f, op, A: torch.Tensor, x: torch.Tensor) -> Pytree:
+    """K7 vecmat: ``(B, n, p)`` x ``(B, p)`` -> ``(B, n)``, B, n, p >= 1."""
+    if not A.is_cuda:
+        return batched_vecmat_plain(f, op, A, x)
+    out = matvec_k.launch(matvec_k.VECMAT, "vecmat@batched (cuda)", f, op,
+                          A, x, batched=True)
+    batched_vecmat_cuda.launches += 1
+    return out
+
+
+def batched_matvec_quantized_plain(f, op, q, x: torch.Tensor) -> Pytree:
+    """Plain version of K9's batched matvec: dequantize, then fold."""
+    return batched_matvec_plain(f, op, q.dequantize(), x)
+
+
+def batched_vecmat_quantized_plain(f, op, q, x: torch.Tensor) -> Pytree:
+    """Plain version of K9's batched vecmat: dequantize, then fold."""
+    return batched_vecmat_plain(f, op, q.dequantize(), x)
+
+
+def batched_matvec_quantized_cuda(f, op, q, x: torch.Tensor) -> Pytree:
+    """K9 batched matvec over a ``(B, n, p)`` Quantized matrix and float32
+    ``(B, n)`` vectors -> ``(B, p)``."""
+    what = "matvec@batched quantized (cuda)"
+    matvec_k.require_quantized(what, q)
+    if not q.values.is_cuda:
+        return batched_matvec_quantized_plain(f, op, q, x)
+    out = matvec_k.launch(matvec_k.MATVEC, what, f, op, q, x, batched=True)
+    batched_matvec_quantized_cuda.launches += 1
+    return out
+
+
+def batched_vecmat_quantized_cuda(f, op, q, x: torch.Tensor) -> Pytree:
+    """K9 batched vecmat over a ``(B, n, p)`` Quantized matrix and float32
+    ``(B, p)`` vectors -> ``(B, n)``."""
+    what = "vecmat@batched quantized (cuda)"
+    matvec_k.require_quantized(what, q)
+    if not q.values.is_cuda:
+        return batched_vecmat_quantized_plain(f, op, q, x)
+    out = matvec_k.launch(matvec_k.VECMAT, what, f, op, q, x, batched=True)
+    batched_vecmat_quantized_cuda.launches += 1
+    return out
+
+
+batched_matvec_cuda.launches = 0
+batched_vecmat_cuda.launches = 0
+batched_matvec_quantized_cuda.launches = 0
+batched_vecmat_quantized_cuda.launches = 0

@@ -1,5 +1,5 @@
-"""Semiring matvec / vecmat kernels K4 and K5, and their plain versions
-(``csrc/matvec.cuh``).
+"""Semiring matvec / vecmat kernels K4, K5 and K9 (flat), and their plain
+versions (``csrc/matvec.cuh``).
 
 * :func:`matvec_cuda` -- K4, ``y[j] = op_i f(x[i], A[i, j])`` over a
   row-major ``(n, p)`` matrix (replaces
@@ -11,6 +11,17 @@
   and commutative ``op`` (replaces ``matvec_packed_pallas``).  Plain
   version: :func:`matvec_packed_plain`.  :func:`uses_packed` is the route
   choice of ``matvec@flat``, as the reference's ``ops.py`` makes it.
+* :func:`matvec_quantized_cuda` / :func:`vecmat_quantized_cuda` -- K9, the
+  same forms over a :class:`~repro_torch.core.operators.Quantized` matrix:
+  int8 or fp8 codes decoded in registers, times their block's scale, f32
+  accumulation (replaces ``matvec_quantized_pallas`` /
+  ``vecmat_quantized_pallas``).  Plain versions:
+  :func:`matvec_quantized_plain` / :func:`vecmat_quantized_plain`, which
+  dequantize, then fold in order, like the reference's ``_matvec_xla``.
+
+:func:`launch` is the launcher of every form, flat and batched, dense and
+quantized; ``kernels/batched.py`` builds K7's GEMVs and K9's batched forms
+on it.
 
 ``f`` is a :class:`~repro_torch.core.operators.DeviceMap` of the (vector,
 matrix) elements in the reference's order (``TIMES`` for the ordinary
@@ -30,6 +41,7 @@ from typing import Any
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch.core import operators as alg
 from repro_torch.kernels import _lib
 from repro_torch.kernels import ref
 
@@ -65,30 +77,69 @@ def vecmat_plain(f, op, A: torch.Tensor, x: torch.Tensor | None) -> Pytree:
     return ref.ref_vecmat(f, op, A, x)
 
 
-def _launch(form, what, f, op, A, x):
-    if A.ndim != 2 or 0 in A.shape:
-        raise ValueError(f"{what}: takes a non-empty (n, p) matrix, got "
-                         f"{tuple(A.shape)}")
-    n, p = A.shape
-    if x is not None and (x.dtype != A.dtype or x.shape != (
+def launch(form, what, f, op, A, x, *, batched: bool = False) -> Pytree:
+    """One call of ``csrc/matvec.cuh``'s ``form`` over a dense tensor or a
+    :class:`~repro_torch.core.operators.Quantized` ``A`` of shape ``(n, p)``
+    (``batched``: ``(B, n, p)``, with ``B`` vectors ``x``), non-empty."""
+    quant = isinstance(A, alg.Quantized)
+    shape = tuple(A.shape)
+    if len(shape) != (3 if batched else 2) or 0 in shape:
+        raise ValueError(f"{what}: takes a non-empty "
+                         f"{'(B, n, p)' if batched else '(n, p)'} matrix, "
+                         f"got {shape}")
+    B, n, p = shape if batched else (1, *shape)
+    lead = shape[:1] if batched else ()
+    if x is not None and (x.dtype != A.dtype or tuple(x.shape) != lead + (
             (p,) if form == VECMAT else (n,))):
         raise ValueError(f"{what}: x must be a vector of A's dtype along "
                          f"the reduced axis, got {x.dtype} {tuple(x.shape)}")
-    if x is None:
-        likes = (A,)
+    tensors = [A.values, A.scales] if quant else [A]
+    if quant:
+        codes = alg.QUANT_DEVICE[A.mode][0]
+        nb = -(-n // A.block)
+        if A.values.dtype != codes or A.scales.dtype != torch.float32 or \
+                tuple(A.scales.shape) != lead + (nb, p):
+            raise ValueError(
+                f"{what}: a {A.mode} operand holds {codes} codes and float32 "
+                f"scales of shape {lead + (nb, p)}, got "
+                f"{A.values.dtype} and {A.scales.dtype} "
+                f"{tuple(A.scales.shape)}")
+        if p % 4 == 0 and (A.values.data_ptr() % 4 or
+                           A.scales.data_ptr() % 16):
+            # The kernel loads four codes and four scales at a time.
+            A = alg.Quantized(A.values.clone(), A.scales.clone(), A.block,
+                              A.mode)
+            tensors = [A.values, A.scales]
+        mat = torch.empty(0, dtype=torch.float32)   # the map sees f32
     else:
-        likes = (A, x) if form == VECMAT else (x, A)
-    unit, out_dtypes, out_spec = _lib.map_unit("matvec", what, f, op, *likes)
-    _lib.require_cuda(what, *likes)
+        mat = A
+    if x is None:
+        likes = (mat,)
+    else:
+        likes = (mat, x) if form == VECMAT else (x, mat)
+        tensors.append(x)
+    unit, out_dtypes, out_spec = _lib.map_unit(
+        "qmatvec" if quant else "matvec", what, f, op, *likes,
+        quant=A.mode if quant else None)
+    _lib.require_cuda(what, *tensors)
     lib = _lib.load(unit)
-    chunks = lib.rt_matvec_chunks(form, n, p)
-    m = n if form == VECMAT else p
-    outs = [torch.empty((m,), dtype=d, device=A.device) for d in out_dtypes]
-    partials = _lib.scratch(chunks * m, len(out_dtypes), A) if chunks > 1 \
-        else None
-    _lib.check(lib.rt_matvec(
-        form, A.data_ptr(), _lib.ptr(x), n, p, _lib.ptr(partials),
-        _lib.leaf_ptrs(outs), _lib.stream_ptr(A)), what)
+    chunks = lib.rt_matvec_chunks(form, B, n, p)
+    out_shape = lead + ((n,) if form == VECMAT else (p,))
+    dev = tensors[0].device
+    outs = [torch.empty(out_shape, dtype=d, device=dev) for d in out_dtypes]
+    partials = _lib.scratch(chunks * B * out_shape[-1], len(out_dtypes),
+                            tensors[0]) if chunks > 1 else None
+    stream = _lib.stream_ptr(tensors[0])
+    if quant:
+        err = lib.rt_qmatvec(
+            form, A.values.data_ptr(), A.scales.data_ptr(), A.block,
+            _lib.ptr(x), B, n, p, _lib.ptr(partials), _lib.leaf_ptrs(outs),
+            stream)
+    else:
+        err = lib.rt_matvec(
+            form, A.data_ptr(), _lib.ptr(x), B, n, p, _lib.ptr(partials),
+            _lib.leaf_ptrs(outs), stream)
+    _lib.check(err, what)
     return pytree.tree_unflatten(outs, out_spec)
 
 
@@ -96,7 +147,7 @@ def matvec_cuda(f, op, A: torch.Tensor, x: torch.Tensor | None) -> Pytree:
     """K4 matvec: ``y[j] = op_i f(x[i], A[i, j])`` -> ``(p,)``."""
     if not A.is_cuda:
         return matvec_plain(f, op, A, x)
-    out = _launch(MATVEC, "matvec@flat (cuda)", f, op, A, x)
+    out = launch(MATVEC, "matvec@flat (cuda)", f, op, A, x)
     matvec_cuda.launches += 1
     return out
 
@@ -105,7 +156,7 @@ def vecmat_cuda(f, op, A: torch.Tensor, x: torch.Tensor | None) -> Pytree:
     """K4 vecmat: ``z[i] = op_j f(A[i, j], x[j])`` -> ``(n,)``."""
     if not A.is_cuda:
         return vecmat_plain(f, op, A, x)
-    out = _launch(VECMAT, "vecmat@flat (cuda)", f, op, A, x)
+    out = launch(VECMAT, "vecmat@flat (cuda)", f, op, A, x)
     vecmat_cuda.launches += 1
     return out
 
@@ -130,11 +181,53 @@ def matvec_packed_cuda(f, op, A: torch.Tensor, x: torch.Tensor) -> Pytree:
     if A.ndim == 2 and A.shape[1] > PACKED_MAX_COLS:
         raise ValueError(f"{what}: takes at most {PACKED_MAX_COLS} columns, "
                          f"got {A.shape[1]}")
-    out = _launch(PACKED, what, f, op, A, x)
+    out = launch(PACKED, what, f, op, A, x)
     matvec_packed_cuda.launches += 1
+    return out
+
+
+def require_quantized(what: str, q) -> None:
+    if not isinstance(q, alg.Quantized):
+        raise TypeError(f"{what}: takes a Quantized matrix operand, got "
+                        f"{type(q).__name__}")
+
+
+def matvec_quantized_plain(f, op, q, x: torch.Tensor) -> Pytree:
+    """Plain version of K9 matvec: dequantize, then K4's plain fold."""
+    return matvec_plain(f, op, q.dequantize(), x)
+
+
+def vecmat_quantized_plain(f, op, q, x: torch.Tensor) -> Pytree:
+    """Plain version of K9 vecmat: dequantize, then K4's plain fold."""
+    return vecmat_plain(f, op, q.dequantize(), x)
+
+
+def matvec_quantized_cuda(f, op, q, x: torch.Tensor) -> Pytree:
+    """K9 matvec: ``y[j] = op_i f(x[i], deq(q)[i, j])`` -> ``(p,)``; ``x``
+    float32."""
+    what = "matvec@flat quantized (cuda)"
+    require_quantized(what, q)
+    if not q.values.is_cuda:
+        return matvec_quantized_plain(f, op, q, x)
+    out = launch(MATVEC, what, f, op, q, x)
+    matvec_quantized_cuda.launches += 1
+    return out
+
+
+def vecmat_quantized_cuda(f, op, q, x: torch.Tensor) -> Pytree:
+    """K9 vecmat: ``z[i] = op_j f(deq(q)[i, j], x[j])`` -> ``(n,)``; ``x``
+    float32."""
+    what = "vecmat@flat quantized (cuda)"
+    require_quantized(what, q)
+    if not q.values.is_cuda:
+        return vecmat_quantized_plain(f, op, q, x)
+    out = launch(VECMAT, what, f, op, q, x)
+    vecmat_quantized_cuda.launches += 1
     return out
 
 
 matvec_cuda.launches = 0
 vecmat_cuda.launches = 0
 matvec_packed_cuda.launches = 0
+matvec_quantized_cuda.launches = 0
+vecmat_quantized_cuda.launches = 0

@@ -9,18 +9,22 @@ at import that the table covers exactly the routes of the registry in
   (``_scan_xla``, ``_mapreduce_xla``, ``_batched_mapreduce_xla``,
   ``_linrec_xla``); it runs on any device.
 * ``cuda`` -- the hand-written kernels: K1 (``kernels/copy.py``), K2 and K6
-  (``kernels/scan.py``), K3 (``kernels/mapreduce.py``), K7s and K7m
-  (``kernels/batched.py``), K4 and K5 (``kernels/matvec.py``) and K8
-  (``kernels/segmented.py``), generated for whatever operator and map carry
-  a device form.  The shape handling around them (flips, axis moves, segment
+  (``kernels/scan.py``), K3 (``kernels/mapreduce.py``), K7s, K7m, K7's
+  GEMVs and K9's batched forms (``kernels/batched.py``), K4, K5 and K9's
+  flat forms (``kernels/matvec.py``) and K8 (``kernels/segmented.py``),
+  generated for whatever operator and map carry a device form.  A
+  ``Quantized`` matrix operand takes K9 on every matvec / vecmat route,
+  before the K5 route choice, as in the reference.  The shape handling around them (flips, axis moves, segment
   descriptors, the map of a segmented mapreduce) is plain tensor code here.
 
 The radix-sort family (``kernels/sort.py``) is one composition registered
 for both backends: its scan and mapreduce steps dispatch to the backend of
 its own row, so ``cuda`` runs the kernels and ``torch`` the plain versions.
 
-Validation and zero-extent guards live in the registry's dispatch, so these
-functions only see well-formed, non-empty problems through the public API.
+Validation, zero-extent guards and the reroute of non-commutative batched
+mapreduces through ``scan@batched`` live in the registry's dispatch, so
+these functions only see well-formed, non-empty problems through the public
+API.
 """
 from __future__ import annotations
 
@@ -197,12 +201,31 @@ def _batched_scan_cuda(op, xs, *, inclusive=True, reverse=False):
 
 
 # ---------------------------------------------------------------------------
-# matvec@flat / vecmat@flat (generalized semiring forms)
+# matvec / vecmat at Flat and Batched layout (generalized semiring forms),
+# over a dense or a Quantized matrix
 # ---------------------------------------------------------------------------
+
+
+def _quantized(A) -> bool:
+    return isinstance(A, alg.Quantized)
+
+
+def _matvec_torch(f, op, A, x):
+    if _quantized(A):
+        return matvec_k.matvec_quantized_plain(f, op, A, x)
+    return matvec_k.matvec_plain(f, op, A, x)
+
+
+def _vecmat_torch(f, op, A, x):
+    if _quantized(A):
+        return matvec_k.vecmat_quantized_plain(f, op, A, x)
+    return matvec_k.vecmat_plain(f, op, A, x)
 
 
 def _matvec_cuda(f, op, A, x):
     A, x = A.contiguous(), x.contiguous()
+    if _quantized(A):
+        return matvec_k.matvec_quantized_cuda(f, op, A, x)
     if matvec_k.uses_packed(A.shape[0], A.shape[1], op):
         # Tall-narrow: K5 packs row groups across the threads instead of
         # giving each column a lane (the reference's ops.py route).
@@ -211,7 +234,36 @@ def _matvec_cuda(f, op, A, x):
 
 
 def _vecmat_cuda(f, op, A, x):
-    return matvec_k.vecmat_cuda(f, op, A.contiguous(), x.contiguous())
+    A, x = A.contiguous(), x.contiguous()
+    if _quantized(A):
+        return matvec_k.vecmat_quantized_cuda(f, op, A, x)
+    return matvec_k.vecmat_cuda(f, op, A, x)
+
+
+def _batched_matvec_torch(f, op, A, x):
+    if _quantized(A):
+        return batched_k.batched_matvec_quantized_plain(f, op, A, x)
+    return batched_k.batched_matvec_plain(f, op, A, x)
+
+
+def _batched_vecmat_torch(f, op, A, x):
+    if _quantized(A):
+        return batched_k.batched_vecmat_quantized_plain(f, op, A, x)
+    return batched_k.batched_vecmat_plain(f, op, A, x)
+
+
+def _batched_matvec_cuda(f, op, A, x):
+    A, x = A.contiguous(), x.contiguous()
+    if _quantized(A):
+        return batched_k.batched_matvec_quantized_cuda(f, op, A, x)
+    return batched_k.batched_matvec_cuda(f, op, A, x)
+
+
+def _batched_vecmat_cuda(f, op, A, x):
+    A, x = A.contiguous(), x.contiguous()
+    if _quantized(A):
+        return batched_k.batched_vecmat_quantized_cuda(f, op, A, x)
+    return batched_k.batched_vecmat_cuda(f, op, A, x)
 
 
 def _batched_mapreduce_torch(f, op, xs):
@@ -259,8 +311,12 @@ IMPLS: dict[str, dict[str, Any]] = {
                        "cuda": _segmented_scan_cuda},
     "mapreduce@segmented": {"torch": _segmented_mapreduce_torch,
                             "cuda": _segmented_mapreduce_cuda},
-    "matvec@flat": {"torch": matvec_k.matvec_plain, "cuda": _matvec_cuda},
-    "vecmat@flat": {"torch": matvec_k.vecmat_plain, "cuda": _vecmat_cuda},
+    "matvec@flat": {"torch": _matvec_torch, "cuda": _matvec_cuda},
+    "vecmat@flat": {"torch": _vecmat_torch, "cuda": _vecmat_cuda},
+    "matvec@batched": {"torch": _batched_matvec_torch,
+                       "cuda": _batched_matvec_cuda},
+    "vecmat@batched": {"torch": _batched_vecmat_torch,
+                       "cuda": _batched_vecmat_cuda},
     "sort@flat": _per_backend(sort_k.sort_radix),
     "sort@segmented": _per_backend(sort_k.segmented_sort_radix),
     "sort_pairs@flat": _per_backend(sort_k.sort_pairs_radix),

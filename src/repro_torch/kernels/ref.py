@@ -146,3 +146,51 @@ def ref_batched_mapreduce(f, op, xs: Pytree) -> Pytree:
     rows = [ref_mapreduce(f, op, pytree.tree_map(lambda l: l[i], xs))
             for i in range(B)]
     return pytree.tree_map(lambda *ls: torch.stack(ls), *rows)
+
+
+def _mv_row_identity(f, op, lhs, rhs, B, extent):
+    """``(B, extent)`` identity rows of a zero-term matvec / vecmat."""
+    one = f(torch.empty((1, 1), dtype=lhs.dtype, device=rhs.device),
+            torch.empty((1, 1), dtype=rhs.dtype, device=rhs.device))
+    return op.identity(pytree.tree_map(
+        lambda l: torch.empty((B, extent), dtype=l.dtype, device=l.device),
+        one))
+
+
+def _stack_rows(rows):
+    return pytree.tree_map(lambda *ls: torch.stack(ls), *rows)
+
+
+def ref_batched_matvec(f, op, A: torch.Tensor, x: torch.Tensor) -> Pytree:
+    """Row-by-row :func:`ref_matvec` over ``(B, n, p)`` x ``(B, n)``;
+    ``B == 0`` or ``n == 0`` (zero reduction terms) yields identity rows."""
+    B, n, p = A.shape
+    if B == 0 or n == 0:
+        return _mv_row_identity(f, op, x, A, B, p)
+    return _stack_rows([ref_matvec(f, op, A[b], x[b]) for b in range(B)])
+
+
+def ref_batched_vecmat(f, op, A: torch.Tensor, x: torch.Tensor) -> Pytree:
+    """Row-by-row :func:`ref_vecmat` over ``(B, n, p)`` x ``(B, p)``."""
+    B, n, p = A.shape
+    if B == 0 or p == 0:
+        return _mv_row_identity(f, op, A, x, B, n)
+    return _stack_rows([ref_vecmat(f, op, A[b], x[b]) for b in range(B)])
+
+
+# A quantized matvec / vecmat (f = *, op = ADD) against the unquantized
+# matrix may deviate by the integrated dequantization error:
+# |sum_i x_i (A - deq)_ij| <= sum_i |x_i| eb_ij, with eb the half-step
+# bound of Quantized.error_bound().
+
+
+def ref_quantized_matvec_bound(q, x: torch.Tensor) -> torch.Tensor:
+    """Per-output atol of matvec(TIMES, ADD) against the f32 oracle."""
+    return torch.einsum("...n,...np->...p", x.to(torch.float32).abs(),
+                        q.error_bound())
+
+
+def ref_quantized_vecmat_bound(q, x: torch.Tensor) -> torch.Tensor:
+    """Per-output atol of vecmat(TIMES, ADD) against the f32 oracle."""
+    return torch.einsum("...np,...p->...n", q.error_bound(),
+                        x.to(torch.float32).abs())

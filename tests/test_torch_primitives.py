@@ -16,6 +16,8 @@ products of up to 700 factors near 1: rtol = 1e-4.  Quickstart's sequence
 ends in 1,000-term sums, 100,000-term UnitFloat8 sums and 128-step
 recurrences: rtol = 1e-4, atol = 1e-3.
 """
+import zlib
+
 import numpy as np
 import pytest
 
@@ -416,10 +418,12 @@ def test_pinned_kwarg_text_matches_reference_up_to_notes():
 
 
 def test_unsupported_layout_and_unknown_backend():
+    from repro_torch.core.layout import Segmented as TSegmented
+    offs = torch.tensor([0, 2, 4], dtype=torch.int32)
     with pytest.raises(ValueError,
-                       match=r"matvec: unsupported layout 'batched'"):
-        t_forge.matvec(t_alg.TIMES, t_alg.ADD, torch.zeros(2, 4, 4),
-                       torch.zeros(2, 4), layout=TBatched())
+                       match=r"matvec: unsupported layout 'segmented'"):
+        t_forge.matvec(t_alg.TIMES, t_alg.ADD, torch.zeros(4, 4),
+                       torch.zeros(4), layout=TSegmented(offsets=offs))
     with pytest.raises(ValueError, match=r"scan@flat: unknown backend 'tpu'"):
         t_forge.scan(t_alg.ADD, torch.zeros(4), backend="tpu")
     with pytest.raises(ValueError, match="unknown backend"):
@@ -443,6 +447,64 @@ def test_batched_zero_extent_guard_matches_reference(op_name, shape):
         assert got.shape == want.shape
         assert str(got.dtype).split(".")[-1] == str(want.dtype)
         np.testing.assert_array_equal(_np(got), np.asarray(want))
+
+
+def _reroute_operand(op_name, rng, shape):
+    """make_operand's element; for rows of thousands of quaternions or 2x2
+    matrices, elements within 1% of the identity (that still do not
+    commute), so that the products stay of size 1 and float32 rounding in
+    another association stays below 1e-5 of it."""
+    if op_name == "affine" or shape[1] < 1000:
+        return make_operand(op_name, rng, shape)
+    ident = (1, 0, 0, 0) if op_name == "quaternion_mul" else (1, 0, 0, 1)
+    return tuple(jnp.asarray(c + rng.uniform(-0.01, 0.01, shape),
+                             jnp.float32) for c in ident)
+
+
+@pytest.mark.parametrize("op_name", ["quaternion_mul", "mat2_mul", "affine"])
+def test_batched_mapreduce_reroutes_non_commutative_ops(op_name,
+                                                        monkeypatch):
+    """mapreduce@batched with an operator that does not commute scans the
+    mapped rows on scan@batched (K7s on the card) and takes each row's last
+    element, as the reference's dispatch does; K7m, which folds in no fixed
+    order, is never asked.  Held within 1e-5 of each output's size against
+    the reference's pallas-interpret and xla routes, at n = 1 and at the
+    reference's scan tile (2,048) +-1."""
+    calls = []
+    for backend in ("torch", "cuda"):
+        impl = t_ki._IMPL_REGISTRY[("scan@batched", backend)]
+
+        def spy(*args, _impl=impl, _backend=backend, **kwargs):
+            calls.append(_backend)
+            return _impl(*args, **kwargs)
+
+        monkeypatch.setitem(t_ki._IMPL_REGISTRY, ("scan@batched", backend),
+                            spy)
+
+        def refuse(*args, **kwargs):
+            raise AssertionError("mapreduce@batched reached its own impl")
+
+        monkeypatch.setitem(t_ki._IMPL_REGISTRY,
+                            ("mapreduce@batched", backend), refuse)
+    jop, top = j_alg.STD_OPS[op_name], t_alg.STD_OPS[op_name]
+    rng = np.random.default_rng(zlib.crc32(op_name.encode()))
+    for B, n in ((1, 1), (3, 7), (2, 2047), (1, 2048), (2, 2049)):
+        xs = _reroute_operand(op_name, rng, (B, n))
+        wants = [j_forge.mapreduce(lambda t: t, jop, xs, layout=JBatched(),
+                                   backend=b) for b in (PI, "xla")]
+        for backend in ("torch", "cuda"):
+            del calls[:]
+            got = t_forge.mapreduce(t_alg.IDENTITY, top,
+                                    jax.tree.map(_t, xs), layout=TBatched(),
+                                    backend=backend)
+            assert calls == [backend]
+            for want in wants:
+                for g, w in zip(got, want):
+                    g, w = _np(g), np.asarray(w)
+                    assert g.shape == w.shape == (B,)
+                    size = max(float(np.abs(w).max()), 1.0)
+                    np.testing.assert_allclose(g, w, rtol=0, atol=1e-5 * size,
+                                               err_msg=f"{op_name} {B}x{n}")
 
 
 def test_flat_scan_zero_extent_passthrough():

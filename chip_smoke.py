@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Five phases, any failure exits non-zero:
+Six phases, any failure exits non-zero:
 
 1. build -- generate the translation units of every kernel, operator, map
    and dtype combination the run's paths use (kernels/_lib.py, from each
@@ -13,14 +13,20 @@ Five phases, any failure exits non-zero:
    channel scan and its long-T path, K3 flat mapreduce, K7m batched
    mapreduce, K7s batched scan, K4 matvec and vecmat) and of the matvec
    family (K7's batched matvec and vecmat; K9, the quantized matvec and
-   vecmat, flat and batched, for int8, fp8_e4m3 and fp8_e5m2 codes) against
-   its plain PyTorch version on the card, at the serving path's shapes, at
-   ragged sizes (B = 1 and 3, n and p at the block +-1, a quantization
-   block that does not divide n, every one of the 256 fp8 codes, int8
-   leaves) and at full width: recurrentgemma-2b's decode-attention GEMVs
-   (40, 2048, 256), (8, 4096, 4096), its unembed GEMV (2560, 256000)
-   quantized at block 64; time the kernel, the plain version and one
-   PyTorch library call of the same function with CUDA events.
+   vecmat, flat and batched, for int8, fp8_e4m3 and fp8_e5m2 codes) and
+   K10 (fused attention, every GQA prefill) against its plain PyTorch
+   version on the card, at the serving path's shapes, at ragged sizes (B =
+   1 and 3, n and p at the block +-1, a quantization block that does not
+   divide n, every one of the 256 fp8 codes, int8 leaves; for K10 T = 1,
+   S and T at a tile +-1, B = 2, S != T, rows that keep no key, windows
+   that skip whole kv tiles, float32)
+   and at full width: recurrentgemma-2b's decode-attention GEMVs (40,
+   2048, 256), (8, 4096, 4096), its unembed GEMV (2560, 256000) quantized
+   at block 64, and the prefill attention of a 2,100-token prompt in
+   gemma2-27b (32 query / 16 kv heads of 128, soft cap 50, global and
+   window 4096) and recurrentgemma-2b (10 / 1 heads of 256, window 2048)
+   in bf16; time the kernel, the plain version and one PyTorch library
+   call of the same function with CUDA events.
 3. primitives -- the primitive library's own path: the public API
    (copy, scan, mapreduce, semiring matvec/vecmat, linear_recurrence,
    Segmented scan and mapreduce, sort_pairs, top_k, quickstart's sequence,
@@ -37,10 +43,12 @@ Five phases, any failure exits non-zero:
 4. serve -- serve recurrentgemma-2b at full width (26 layers, d_model 2560,
    vocab 256000, bf16 weights from a seed) through Engine.generate: 8 greedy
    requests on 4 slots, so slots recycle.  Checks every request's length and
-   ids, the prefill logits of the cuda backend against the plain torch
-   backend on the card, and that the serving run launched every kernel of
-   its path; then profiles one prefill and eight decode steps
-   (torch.profiler) for where the time goes.
+   ids, the prefill logits of the cuda backend (K10 attention) against the
+   plain torch backend (blockwise attention) on the card at 17, 1,024 and
+   2,100 tokens, and that the serving run launched every kernel of its
+   path (K10 once per attention layer of every prefill at least); then
+   profiles one prefill and eight decode steps (torch.profiler) for where
+   the time goes.
 5. sampled serve -- the same model through Engine(temperature=0.8,
    top_k=40, top_p=0.95, seed=0): the first four prompts, 16 new tokens
    each, request seeds 0-3.  Checks lengths and ids, that a second run and
@@ -49,14 +57,26 @@ Five phases, any failure exits non-zero:
    step's (4, 256000) logits, a one-request full-vocabulary run at
    temperature 1.0, and that the run launched every kernel of its path;
    then profiles one sampled decode step.
+6. serve gemma2-27b -- recurrentgemma's tensors freed, gemma2-27b at full
+   width (46 layers, d_model 4608, 32 query / 16 kv heads, d_ff 36864,
+   vocab 256000, local window 4096 alternating with global attention,
+   post-norms, 27.23 B parameters, bf16 weights from a seed) through
+   Engine.generate as in phase 4: 8 greedy requests on 4 slots of 4,096
+   positions, the same checks, K10 in all 46 layers of every prefill, the
+   peak device memory, and the same profile.
 
-The line before the card line holds {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}.  The script imports nothing of JAX or of the
-JAX package.
+The line before the card line holds {"kernels": [...]}.  A kernel's
+"launches" are those of the path its slice made the main one, named by
+"launches_path": the primitives path for K1-K9, as before, and gemma2's
+serving path for K10, which the primitives path does not run.  Beside them
+stand the launches on every path (primitives, greedy, sampled, gemma2) and
+their sum, "launches_total".  The last line is {"ok": true, "device":
+{...}}.  The script imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
 import collections
+import gc
 import json
 import os
 import re
@@ -66,6 +86,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
@@ -76,6 +97,7 @@ from repro_torch.core import operators as alg  # noqa: E402
 from repro_torch.kernels import _lib  # noqa: E402
 from repro_torch.kernels import batched as batched_k  # noqa: E402
 from repro_torch.kernels import copy as copy_k  # noqa: E402
+from repro_torch.kernels import flash_attention as flash_k  # noqa: E402
 from repro_torch.core import primitives as forge  # noqa: E402
 from repro_torch.core.layout import Batched, Segmented  # noqa: E402
 from repro_torch.kernels import mapreduce as mapreduce_k  # noqa: E402
@@ -83,6 +105,7 @@ from repro_torch.kernels import matvec as matvec_k  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import scan as scan_k  # noqa: E402
 from repro_torch.kernels import segmented as seg_k  # noqa: E402
+from repro_torch.models import blocks as BK  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.serving import sampling as SP  # noqa: E402
 from repro_torch.serving.engine import Engine, Request  # noqa: E402
@@ -90,6 +113,7 @@ from repro_torch.serving.engine import Engine, Request  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12          # float32 outside the tensor cores (same rate
                                # taken for int32 ALU operations)
+BF16_OPS_PER_S = 989e12        # dense bf16 on the tensor cores
 SEED = 0
 BATCH = 4                      # Engine slots: the flat kernels see n = 4
 CACHE_LEN = 4096
@@ -121,12 +145,19 @@ COUNTERS = {
                           "launches"),
     "K9-batched-vecmat": (batched_k.batched_vecmat_quantized_cuda,
                           "launches"),
+    "K10": (flash_k.flash_attention_gqa, "launches"),
 }
-GREEDY_PATH = ("K2", "K6", "K3", "K7m")
+GREEDY_PATH = ("K2", "K6", "K3", "K7m", "K10")
 # K4's vecmat shares matvec's source but nothing on the serving path calls
 # it: mapreduce over axis 1 is its only user.
-SAMPLED_PATH = ("K2", "K6", "K6-long", "K3", "K7m", "K7s", "K4-matvec")
-PRIMITIVES_PATH = tuple(COUNTERS)        # the library's own path runs them all
+SAMPLED_PATH = ("K2", "K6", "K6-long", "K3", "K7m", "K7s", "K4-matvec",
+                "K10")
+GEMMA2_PATH = ("K2", "K3", "K7m", "K10")   # no recurrence: no K6
+# The library's own path runs every kernel but the models' attention.
+PRIMITIVES_PATH = tuple(k for k in COUNTERS if k != "K10")
+# The path whose launches a kernel's "launches" report: its slice's main one.
+MAIN_PATH = {k: "primitives" if k in PRIMITIVES_PATH else "gemma2"
+             for k in COUNTERS}
 META = {
     "K1": ("copy", "src/repro_torch/csrc/copy.cuh",
            "src/repro/kernels/copy.py:24"),
@@ -164,6 +195,8 @@ META = {
     "K9-batched-vecmat": ("batched_vecmat_quantized",
                           "src/repro_torch/csrc/matvec.cuh",
                           "src/repro/kernels/batched.py:274"),
+    "K10": ("flash_attention", "src/repro_torch/csrc/flash_attention.cuh",
+            "src/repro/kernels/flash_attention.py:83"),
 }
 
 
@@ -199,9 +232,10 @@ def time_ms(fn, reps: int = 50) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(bytes_moved: float, ops: float) -> tuple[float, str]:
+def bound_ms(bytes_moved: float, ops: float,
+             ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -287,6 +321,8 @@ def path_units() -> list:
     for mode in alg.QUANT_MODES:                         # K9, every form
         mapped("qmatvec", alg.TIMES, alg.ADD, f32, f32, quant=mode)
     mapped("qmatvec", alg.PLUS, alg.MIN, f32, f32, quant="int8")
+    for dtype, hd in K10_UNITS:
+        units.append(flash_k.flash_unit(dtype, hd, "build"))
     return units
 
 
@@ -481,6 +517,7 @@ def phase_kernels(gen: torch.Generator) -> dict:
     check_k4(res, gen, note)
     check_k7s(res, gen, note)
     check_k7_k9(res, gen, note)
+    check_k10(res, gen, note)
     for k, r in res.items():
         if "ms" not in r:
             continue                   # K1, K5, K8: the primitives phase
@@ -488,7 +525,8 @@ def phase_kernels(gen: torch.Generator) -> dict:
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
             f"{r['bound'][0]:.6f} ms ({r['bound'][1]}); " + json.dumps(
                 {x: v for x, v in r.items() if x in (
-                    "large", "modes", "dense_mv_ms", "dense_bmm_ms")}))
+                    "large", "modes", "dense_mv_ms", "dense_bmm_ms",
+                    "shapes")}))
     return res
 
 
@@ -878,6 +916,140 @@ def check_k7_k9(res, gen, note) -> None:
             shape=f"{BIG_BATCHED} int8, block {QUANT_BLOCK} (library: "
                   f"dequantize + torch.bmm)")
     del A, q
+
+
+# K10's cases: (label, B, S, T, K, G, hd, dtype, causal, window, softcap).
+# The first three are timed (K10_TIMED), the first being the kernel's row:
+# a gemma2-27b global layer's prefill of the 2,100-token prompt; then its
+# local layers' and recurrentgemma-2b's (MQA, window 2048, which bites at
+# 2,100 but skips no tile).  The "skips tiles" cases have query tiles whose
+# window starts a whole kv tile or more after key 0.
+BF16, F32 = torch.bfloat16, torch.float32
+K10_CASES = (
+    ("gemma2-27b global", 1, 2100, 2100, 16, 2, 128, BF16, True, 0, 50.0),
+    ("gemma2-27b local", 1, 2100, 2100, 16, 2, 128, BF16, True, 4096, 50.0),
+    ("recurrentgemma-2b local", 1, 2100, 2100, 1, 10, 256, BF16, True, 2048,
+     0.0),
+    ("T = 1", 2, 1, 1, 16, 2, 128, BF16, True, 0, 50.0),
+    ("S, T at a tile -1, +1", 2, 31, 65, 16, 2, 128, BF16, True, 0, 50.0),
+    ("S, T at a tile +1, -1", 2, 33, 63, 1, 10, 256, BF16, True, 2048, 0.0),
+    ("f32, window and soft cap", 2, 65, 65, 2, 2, 128, F32, True, 7, 30.0),
+    ("f32, S > T, not causal", 1, 100, 37, 1, 3, 256, F32, False, 0, 0.0),
+    ("f32, rows that keep no key", 1, 100, 20, 2, 2, 16, F32, True, 8, 0.0),
+    ("bf16, window skips tiles", 1, 400, 400, 16, 2, 128, BF16, True, 100,
+     50.0),
+    ("bf16, window skips tiles, head_dim 256", 1, 1100, 1100, 1, 10, 256,
+     BF16, True, 256, 0.0),
+    ("f32, window skips tiles", 1, 400, 400, 2, 3, 64, F32, True, 100, 30.0),
+    ("f32, window skips tiles, not causal", 1, 200, 200, 1, 2, 32, F32,
+     False, 70, 0.0),
+)
+K10_TIMED = tuple(c[0] for c in K10_CASES[:3])
+K10_UNITS = sorted({(c[7], c[6]) for c in K10_CASES}, key=str)
+
+
+def skips_window_tiles(S: int, T: int, window: int) -> bool:
+    """Whether a query tile of K10 starts its keys past the first kv tile
+    (csrc/flash_attention.cuh: k_begin > 0): a window that ends a whole
+    tile before the tile's first query, in a tile whose rows all keep a
+    key."""
+    q0 = (S - 1) // flash_k.Q_BLOCK * flash_k.Q_BLOCK
+    return window > 0 and S - 1 < T + window - 1 and \
+        q0 - window + 1 >= flash_k.KV_BLOCK
+
+
+def attention_pairs(S: int, T: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs a mask keeps, positions from 0: what the
+    scores and p . v of this input need."""
+    qpos = np.arange(S)
+    hi = np.minimum(T - 1, qpos) if causal else np.full(S, T - 1)
+    lo = np.maximum(0, qpos - window + 1) if window else np.zeros(S, int)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def k10_bound(B, S, T, K, G, hd, dtype, causal, window):
+    """q, k, v read once (k and v per kv head), out written once; 4 hd
+    operations per kept pair (score and p . v) at the dtype's peak."""
+    size = torch.empty((), dtype=dtype).element_size()
+    nbytes = size * hd * (2 * B * S * K * G + 2 * B * T * K)
+    ops = 4 * hd * B * K * G * attention_pairs(S, T, causal, window)
+    return bound_ms(nbytes, ops, BF16_OPS_PER_S if dtype == BF16
+                    else F32_OPS_PER_S)
+
+
+def k10_row_err(got, want) -> float:
+    """The largest ||got - want|| / ||want|| over the output rows (one
+    query of one head, its hd elements)."""
+    d = (got.float() - want.float()).norm(dim=-1)
+    return float((d / want.float().norm(dim=-1).clamp_min(1e-30)).max())
+
+
+def check_k10(res, gen, note) -> None:
+    """K10 against its plain version (same kv tile, so both take the same
+    running maxima), each output row against that row's norm.  In bf16 the
+    two differ where a float32 difference in a score (sums in another
+    order) moves p or an output element across a bf16 rounding boundary.
+    One such step of an output element is at most 2^-7 of it, so a row
+    stays within 2^-7 of its norm; a p that flips by 2^-8 moves a row by
+    2^-8 p / l of a v row, far below that for random v.  float32 is held at
+    1e-5 of the row's norm (score and p . v sums in another order).  A
+    mask that wrongly keeps or drops k of the n keys a row averages moves
+    it by about sqrt(k / n) of its norm: 0.022 for one key in 2,048, three
+    times the bf16 bound."""
+    for label, B, S, T, K, G, hd, dtype, causal, window, cap in K10_CASES:
+        def rn(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+        q, k, v = rn(B, S, K, G, hd), rn(B, T, K, hd), rn(B, T, K, hd)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        got = flash_k.flash_attention_gqa(q, k, v, **kw)
+        want = ref.flash_attention_gqa_ref(q, k, v, kv_block=flash_k.KV_BLOCK,
+                                           **kw)
+        note("K10", max_err(got, want))
+        err = k10_row_err(got, want)
+        tol = 2 ** -7 if dtype == BF16 else 1e-5
+        expect(bool(torch.isfinite(got).all()) and err <= tol,
+               f"K10 {label} ({B}, {S}/{T}, {K * G}/{K} heads, {hd}) "
+               f"{str(dtype)[6:]} causal={causal} window={window} softcap="
+               f"{cap}: max row err / row norm {err:.3g} <= {tol:.3g} (max "
+               f"abs err {max_err(got, want):.3g})")
+        if label == "f32, window and soft cap":      # the (N, S, d) entry
+            q3, k3, v3 = (x.permute(0, 2, 1, 3).reshape(B * K, -1, hd)
+                          for x in (q[:, :, :, 0], k, v))
+            got3 = flash_k.flash_attention(q3, k3, v3, **kw)
+            want3 = ref.flash_attention_ref(q3, k3, v3,
+                                            kv_block=flash_k.KV_BLOCK, **kw)
+            note("K10", max_err(got3, want3))
+            err3 = k10_row_err(got3, want3)
+            expect(err3 <= tol, f"K10 (N, S, d) entry: max row err / row "
+                                f"norm {err3:.3g} <= {tol:.3g}")
+        if label not in K10_TIMED:
+            continue
+        qs = q.reshape(B, S, K * G, hd).transpose(1, 2).contiguous()
+        ks, vs = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+        timing = {
+            "ms": time_ms(lambda: flash_k.flash_attention_gqa(q, k, v, **kw),
+                          20),
+            "plain_ms": time_ms(lambda: ref.flash_attention_gqa_ref(
+                q, k, v, kv_block=flash_k.KV_BLOCK, **kw), 3),
+            # A speed baseline only: SDPA has no soft cap and no window.
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True, enable_gqa=True), 20)}
+        bound = k10_bound(B, S, T, K, G, hd, dtype, causal, window)
+        what = (f"({B}, {S}, {K * G}/{K} heads, {hd}) {str(dtype)[6:]} "
+                f"{label}"
+                + (f" softcap {cap:g}" if cap else ""))
+        if not res["K10"].get("shape"):
+            res["K10"].update(timing, bound=bound, shape=what)
+        res["K10"].setdefault("shapes", {})[label] = dict(
+            timing, bound_ms=bound[0], bound_by=bound[1])
+        del qs, ks, vs
+    del q, k, v, got, want
+    for dtype in (BF16, F32):
+        expect(any(c[7] == dtype and skips_window_tiles(c[2], c[3], c[9])
+                   for c in K10_CASES),
+               f"K10: a {str(dtype)[6:]} case skips kv tiles before its "
+               f"window")
 
 
 # ---------------------------------------------------------------------------
@@ -1629,31 +1801,51 @@ def phase_primitives(res, gen) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def load_model():
+def dense_param_count(cfg) -> int:
+    """gemma2's parameters from its config alone: per layer wq, wk, wv, wo,
+    the GeGLU MLP's three matrices and four norms; the tied embedding and
+    the final norm."""
+    d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    layer = 2 * d * H * hd + 2 * d * K * hd + 3 * d * cfg.d_ff + 4 * d
+    return cfg.n_layers * layer + cfg.vocab_size * d + d
+
+
+def load_model(name: str = "recurrentgemma-2b", tag: str = "serve",
+               n_params_want=None):
+    """The model's bf16 weights from SEED and the prompts; ``n_params_want``
+    (a function of the config), where given, must count the parameters."""
     dev = torch.device("cuda")
-    cfg = get_config("recurrentgemma-2b")
+    cfg = get_config(name)
     t0 = time.perf_counter()
     params = lm.init_params(cfg, seed=SEED, device=dev, dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in torch.utils._pytree.tree_leaves(params))
-    log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    n_params = lm.count_params(params)
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B parameters, init "
         f"{time.perf_counter() - t0:.1f} s")
+    if n_params_want is not None:
+        want = n_params_want(cfg)
+        expect(n_params == want, f"{name}: {n_params} parameters, "
+                                 f"{want} as its config counts them")
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
                for n in PROMPT_LENS]
     return cfg, params, prompts
 
 
-def phase_serve(cfg, params, prompts) -> dict:
+def phase_serve(cfg, params, prompts, path=GREEDY_PATH,
+                tag="serve") -> dict:
     dev = torch.device("cuda")
+    memory = {"weights_gb": torch.cuda.memory_allocated() / 1e9}
+    torch.cuda.reset_peak_memory_stats()
 
-    # The cuda backend against the plain torch backend on the card, on the
-    # first request's prompt and on the 1024-token one.  bf16 activations
-    # round the recurrence's f32 output, so one ulp of f32 difference can
-    # flip a bf16 rounding and move through 26 layers: held at 2e-2 of the
-    # logits' magnitude.
-    for p in (prompts[0], prompts[4]):
+    # The cuda backend (K10 attention) against the plain torch backend
+    # (blockwise attention) on the card, at 17, 1,024 and 2,100 tokens (the
+    # last past recurrentgemma's window).  bf16 activations round the
+    # recurrence's and the attention's f32 outputs, so one ulp of f32
+    # difference can flip a bf16 rounding and move through every layer:
+    # held at 2e-2 of the logits' magnitude.
+    for p in (prompts[0], prompts[4], prompts[6]):
         toks = torch.tensor([p], dtype=torch.int64, device=dev)
         logits_c, _ = lm.prefill(params, cfg, toks, cache_len=CACHE_LEN)
         with ki.use_backend("torch"):
@@ -1667,6 +1859,9 @@ def phase_serve(cfg, params, prompts) -> dict:
                f"prefill T={len(p)}: cuda vs torch backend max abs err "
                f"{err:.4g} <= 2e-2 x max|logit| {scale:.4g}; argmax "
                f"{int(logits_c.argmax())} vs {int(logits_t.argmax())}")
+        del logits_c, logits_t
+    memory["peak_prefill_checks_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
 
     eng = Engine(cfg, params, cache_len=CACHE_LEN, batch_size=BATCH,
                  device=dev)
@@ -1679,19 +1874,26 @@ def phase_serve(cfg, params, prompts) -> dict:
     wall = time.perf_counter() - t0
     launches = read_counts()
     stats = eng.last_stats
+    memory["peak_generate_gb"] = torch.cuda.max_memory_allocated() / 1e9
     for i, (o, r) in enumerate(zip(outs, reqs)):
         expect(len(o) == r.max_new_tokens and all(
             0 <= t < cfg.vocab_size for t in o),
             f"request {i} (prompt {len(r.prompt)}): {len(o)} tokens == "
             f"max_new_tokens {r.max_new_tokens}, ids in the vocabulary")
-    for k in GREEDY_PATH:
+    for k in path:
         expect(launches[k] > 0, f"{k} launched {launches[k]} times on the "
-                                f"greedy serving path")
+                                f"{tag} path")
+    attn_layers = sum(kind in BK._ATTN_KINDS for kind in cfg.layer_pattern())
+    expect(launches["K10"] >= attn_layers * len(reqs),
+           f"K10 launched {launches['K10']} times: at least once in each of "
+           f"the {attn_layers} attention layers of {len(reqs)} prefills")
     profile = profile_serving(eng, params, cfg, prompts[4])
+    memory["peak_generate_profile_gb"] = \
+        torch.cuda.max_memory_allocated() / 1e9
     prompt_tokens = sum(PROMPT_LENS)
     summary = {
-        "requests": len(reqs), "slots": BATCH, "cache_len": CACHE_LEN,
-        "prompt_tokens": prompt_tokens,
+        "model": cfg.name, "requests": len(reqs), "slots": BATCH,
+        "cache_len": CACHE_LEN, "prompt_tokens": prompt_tokens,
         "generated_tokens": stats["total_tokens"],
         "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
         "serve_s": wall,
@@ -1700,11 +1902,30 @@ def phase_serve(cfg, params, prompts) -> dict:
         "decode_steps": stats["decode_steps"],
         "loop_dispatches": stats["loop_dispatches"],
         "launches": launches,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "memory": memory,
         "profile": profile,
     }
-    log("[serve] " + json.dumps(summary))
+    log(f"[{tag}] " + json.dumps(summary))
     return summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: serve gemma2-27b FULL
+# ---------------------------------------------------------------------------
+
+
+def phase_gemma2() -> dict:
+    """gemma2-27b FULL after the recurrentgemma phases' tensors are gone:
+    54.4 GB of bf16 weights and 6.2 GB of caches on the 80 GB card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[gemma2] {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+        f"before loading")
+    cfg, params, prompts = load_model("gemma2-27b", "gemma2",
+                                      dense_param_count)
+    expect(round(lm.count_params(params) / 1e9, 2) == 27.23,
+           "gemma2-27b: 27.23 B parameters")
+    return phase_serve(cfg, params, prompts, GEMMA2_PATH, "gemma2")
 
 
 # ---------------------------------------------------------------------------
@@ -1903,6 +2124,8 @@ def main() -> int:
         cfg, params, prompts = load_model()
         serve = phase_serve(cfg, params, prompts)
         sampled = phase_sampled(cfg, params, prompts)
+        del params
+        gemma2 = phase_gemma2()
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1
@@ -1912,11 +2135,18 @@ def main() -> int:
     kernels = []
     for k, r in res.items():
         name, source, replaces = META[k]
+        paths = {"primitives": prims, "greedy": serve, "sampled": sampled,
+                 "gemma2": gemma2}
         kernels.append({
             "name": f"{k} {name}", "route": "cuda", "source": source,
-            "replaces": replaces, "launches": prims["launches"][k],
+            "replaces": replaces,
+            "launches": paths[MAIN_PATH[k]]["launches"][k],
+            "launches_path": MAIN_PATH[k],
+            "launches_total": sum(p["launches"][k] for p in paths.values()),
+            "launches_primitives": prims["launches"][k],
             "launches_greedy": serve["launches"][k],
             "launches_sampled": sampled["launches"][k],
+            "launches_gemma2": gemma2["launches"][k],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],

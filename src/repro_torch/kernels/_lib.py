@@ -1,9 +1,11 @@
 """Generate, build and load the hand-written CUDA kernels of ``csrc/``.
 
 The kernel bodies are templates in ``csrc/*.cuh`` over an element type, a
-functor ``Op`` and, for mapreduce and matvec, a map ``Map``.  A kernel
-wrapper asks for a :class:`Unit`: one translation unit for one family of
-kernels (``FAMILIES``) and one (operator, map, leaf dtypes) combination.  The
+functor ``Op`` and, for mapreduce and matvec, a map ``Map``; K10's
+``flash`` family takes no operator, only an element type and a head dim.
+A kernel wrapper asks for a :class:`Unit`: one translation unit for one
+family of kernels (``FAMILIES``) and one (operator, map, leaf dtypes)
+combination.  The
 unit is generated here from the operator's and the map's own device forms
 (``core/operators.py``): it includes the family's header, defines the element
 structs (per-leaf loads, stores and warp shuffles), the functor and the map,
@@ -40,7 +42,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-diag-suppress", "177")    # unused members of the elements
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 _PP = ctypes.POINTER(ctypes.c_void_p)     # one pointer per leaf
 
 
@@ -131,6 +133,18 @@ int rt_qmatvec(int form, const void* q, const void* s, long block,
 }}""", {
         "rt_matvec_chunks": (_L, [_I, _L, _L, _L]),
         "rt_qmatvec": (_I, [_I, _P, _P, _L, _P, _L, _L, _L, _P, _PP, _P]),
+    }),
+    # K10, one unit per (element type, head_dim): the generated part
+    # defines Elem and HD.
+    "flash": Family("flash_attention.cuh", f"""
+int rt_flash(const void* q, const void* k, const void* v, void* out, long B,
+             long S, long T, long H, long KH, int causal, long window,
+             float softcap, float scale, float empty_l, void* stream) {{
+  return rt::flash::run<Elem, HD>(q, k, v, out, B, S, T, H, KH, causal,
+                                  window, softcap, scale, empty_l, {_ST});
+}}""", {
+        "rt_flash": (_I, [_P, _P, _P, _P, _L, _L, _L, _L, _L, _I, _L, _F, _F,
+                          _F, _P]),
     }),
     # K1.
     "copy": Family("copy.cuh", f"""
@@ -289,11 +303,13 @@ _MAP_UNITS: dict[tuple, tuple] = {}
 
 def unit(family: str, what: str, op: alg.AssocOp | None = None,
          dtypes=(), f: alg.DeviceMap | None = None, in_dtypes=(),
-         quant: str | None = None) -> Unit:
+         quant: str | None = None, head_dim: int | None = None) -> Unit:
     """The unit of ``family`` for ``op`` over elements of leaf ``dtypes``
     (and, for mapreduce / matvec, the map ``f`` from leaves ``in_dtypes``
     to ``dtypes``; for qmatvec, the decode of quantization mode ``quant``,
-    ``core/operators.py``'s ``QUANT_DEVICE``).
+    ``core/operators.py``'s ``QUANT_DEVICE``; for flash, no operator, one
+    element dtype of ``FLASH_CTYPES`` and a ``head_dim`` of
+    ``FLASH_HEAD_DIMS``).
 
     Raises NotImplementedError, naming the route, for an operator or map
     without a device form and for leaf structures or dtypes the device form
@@ -301,20 +317,40 @@ def unit(family: str, what: str, op: alg.AssocOp | None = None,
     back to the plain version.  A wrapper asks on every call, so the units
     are kept per combination.
     """
-    key = (family, op, tuple(dtypes), f, tuple(in_dtypes), quant)
+    key = (family, op, tuple(dtypes), f, tuple(in_dtypes), quant, head_dim)
     found = _UNITS.get(key)
     if found is None:
         found = _UNITS[key] = _make_unit(family, what, op, dtypes, f,
-                                         in_dtypes, quant)
+                                         in_dtypes, quant, head_dim)
     return found
 
 
 _UNITS: dict[tuple, Unit] = {}
+FLASH_CTYPES = {torch.float32: "float", torch.bfloat16: "__nv_bfloat16"}
+FLASH_HEAD_DIMS = tuple(range(16, 257, 16))
 
 
-def _make_unit(family, what, op, dtypes, f, in_dtypes, quant) -> Unit:
+def _make_unit(family, what, op, dtypes, f, in_dtypes, quant,
+               head_dim) -> Unit:
     gen = _Gen()
     label = family
+    if (head_dim is None) != (family != "flash"):
+        raise ValueError(f"{what}: a flash unit, and only one, takes a "
+                         f"head_dim, got {head_dim!r} for {family}")
+    if head_dim is not None:
+        dtypes = list(dtypes)
+        if len(dtypes) != 1 or dtypes[0] not in FLASH_CTYPES:
+            raise NotImplementedError(
+                f"{what}: the cuda kernel takes "
+                f"{' or '.join(_names(FLASH_CTYPES))} q, k and v, got "
+                f"{', '.join(_names(dtypes))}")
+        if head_dim not in FLASH_HEAD_DIMS:
+            raise NotImplementedError(
+                f"{what}: the cuda kernel takes head_dim 16 to 256 in steps "
+                f"of 16, got {head_dim}")
+        gen.parts.append(f"using Elem = {FLASH_CTYPES[dtypes[0]]};\n"
+                         f"constexpr int HD = {head_dim};\n")
+        label = f"flash {_names(dtypes)[0]} head_dim {head_dim}"
     if op is not None:
         if op.device is None:
             raise NotImplementedError(

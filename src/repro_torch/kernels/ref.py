@@ -8,9 +8,11 @@ device.
 """
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 from torch.utils import _pytree as pytree
 
 from repro_torch.core import operators as ops_alg
@@ -194,3 +196,102 @@ def ref_quantized_vecmat_bound(q, x: torch.Tensor) -> torch.Tensor:
     """Per-output atol of vecmat(TIMES, ADD) against the f32 oracle."""
     return torch.einsum("...np,...p->...n", q.error_bound(),
                         x.to(torch.float32).abs())
+
+
+# ---------------------------------------------------------------------------
+# K10: fused attention
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
+                        q_block=256, kv_block=256):
+    """Plain version of K10 with the reference kernel's semantics
+    (``repro/kernels/flash_attention.py``): q (N, S, d), k and v (N, T, d)
+    -> (N, S, d) in q's dtype.
+
+    Scores are ``(q . k in float32) * (1 / sqrt(d))``, soft-capped as
+    ``softcap * tanh(s / softcap)``; a key is kept where ``kpos < T``,
+    ``qpos < S``, causal ``qpos >= kpos`` and window ``qpos - kpos <
+    window``, positions counting from 0 for q and k alike (also when
+    S != T); a dropped score is -1e30.  The online softmax runs over kv
+    tiles of ``kb = min(kv_block, round_up(T, 8))`` keys in float32, the
+    tail tile zero-padded; p rounds to v's dtype before the float32 p . v
+    product; the output is ``acc / max(l, 1e-30)``.  Query rows are
+    independent, so ``q_block`` changes no result; it is kept for the
+    reference's signature.  A row that sees no key at all (S > T + window
+    - 1) averages v over the padded tiles, as the reference kernel does.
+    """
+    del q_block
+    N, S, d = q.shape
+    T = k.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    kb = min(kv_block, _round_up(T, 8))
+    pad = _round_up(T, kb) - T
+    kp = F.pad(k, (0, 0, 0, pad))
+    vp = F.pad(v, (0, 0, 0, pad))
+    qf = q.float()
+    qpos = torch.arange(S, device=q.device)[:, None]
+    m = torch.full((N, S, 1), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((N, S, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((N, S, d), dtype=torch.float32, device=q.device)
+    for start in range(0, T + pad, kb):
+        s = torch.einsum("nsd,ntd->nst", qf,
+                         kp[:, start:start + kb].float()) * scale
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        kpos = start + torch.arange(kb, device=q.device)[None, :]
+        mask = (kpos < T) & (qpos < S)
+        if causal:
+            mask = mask & (qpos >= kpos)
+        if window:
+            mask = mask & ((qpos - kpos) < window)
+        s = torch.where(mask[None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        pv = torch.einsum("nst,ntd->nsd", p.to(v.dtype).float(),
+                          vp[:, start:start + kb].float())
+        acc = acc * alpha + pv
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+
+
+def flash_attention_gqa_ref(q, k, v, **kw):
+    """:func:`flash_attention_ref` in the model's layout: q (B, S, K, G,
+    hd), k and v (B, T, K, hd) -> (B, S, K, G, hd); query head (k, g)
+    attends to kv head k, broadcast here."""
+    B, S, K, G, hd = q.shape
+    T = k.shape[1]
+
+    def heads(x, n):        # (B, n, K, [G,] hd) -> (B K G, n, hd)
+        if x.ndim == 4:
+            x = x[:, :, :, None].expand(B, n, K, G, hd)
+        return x.permute(0, 2, 3, 1, 4).reshape(B * K * G, n, hd)
+
+    out = flash_attention_ref(heads(q, S), heads(k, T), heads(v, T), **kw)
+    return out.reshape(B, K, G, S, hd).permute(0, 3, 1, 2, 4)
+
+
+def flash_attention_bytes(N, S, T, d, dtype, q_block=256, kv_block=256):
+    """The reference's structural HBM traffic of its TPU kernel: q and out
+    once, k and v once per q block, d padded to 128 lanes."""
+    sz = torch.empty((), dtype=dtype).element_size()
+    d_pad = _round_up(d, 128)
+    nq = -(-S // min(q_block, _round_up(S, 8)))
+    q_bytes = N * S * d_pad * sz
+    kv_bytes = 2 * N * nq * _round_up(T, 8) * d_pad * sz
+    out_bytes = N * S * d_pad * sz
+    return q_bytes + kv_bytes + out_bytes
+
+
+def flash_attention_flops(N, S, T, d, causal=True):
+    """The reference's operation count: 4 N S T d, halved when causal."""
+    f = 4.0 * N * S * T * d
+    return f / 2 if causal else f

@@ -1,11 +1,15 @@
-"""Attention of the slice: local (sliding-window) GQA, prefill and decode.
+"""Attention of the port: GQA, global and sliding-window, prefill and
+decode.
 
-The port of the parts of ``repro.models.attention`` that recurrentgemma's
-local-attention layers use.  As in the reference, both attention cores are
-plain tensor code outside any kernel: ``blockwise_attention`` (the online
-softmax over KV blocks, the flash pattern) for prefill and
-``decode_attention`` for one decode step against a fixed cache.  Local
-layers keep a ring cache of ``min(cache_len, local_window)`` slots.
+The port of the GQA parts of ``repro.models.attention``.  Prefill attention
+on the cuda backend is kernel K10 (``kernels/flash_attention.py``: the
+reference's ``flash_attention_pallas`` as a hand-written CUDA kernel, in
+the models' layout); on the torch backend it is ``blockwise_attention``,
+the reference models' own XLA core (the online softmax over KV blocks, the
+flash pattern), which the CPU tests hold against the reference.  Decode
+attention is plain tensor code (``decode_attention``), as in the reference.
+Global layers keep a ``cache_len`` cache written at [0, S); local layers a
+ring of ``min(cache_len, local_window)`` slots.
 
 Layouts are the reference's: q (B, S, K, G, hd), k and v (B, T, K, hd).
 """
@@ -15,6 +19,8 @@ import math
 
 import torch
 
+from repro_torch.core import intrinsics as ki
+from repro_torch.kernels import flash_attention as flash_k
 from repro_torch.models import layers as L
 
 NEG_INF = -1e30
@@ -114,45 +120,52 @@ def init_gqa(gen, cfg, dtype=torch.float32):
     }
 
 
-def _require_local(is_local):
-    if not is_local:
-        raise NotImplementedError("global attention is not in this port yet; "
-                                  "its layers are local (sliding window)")
-
-
-def _project_qkv(params, cfg, x, positions, dtype):
+def _project_qkv(params, cfg, x, positions, dtype, is_local):
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dtype))
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(dtype))
     v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(dtype))
-    q = L.rope(q, positions, cfg.rope_theta)
-    k = L.rope(k, positions, cfg.rope_theta)
+    theta = (cfg.rope_theta_global
+             if (not is_local and cfg.rope_theta_global) else cfg.rope_theta)
+    q = L.rope(q, positions, theta)
+    k = L.rope(k, positions, theta)
     return q.reshape(q.shape[0], q.shape[1], K, H // K, hd), k, v
 
 
-def gqa_forward(params, cfg, x, positions, *, is_local, causal=True,
+def gqa_forward(params, cfg, x, *, is_local, causal=True,
                 return_cache_len=0):
-    """Full-sequence forward.  positions: (S,).  Returns (y, cache|None)."""
-    _require_local(is_local)
+    """Full-sequence forward of a sequence that starts at position 0 (K10
+    counts query and key positions from 0, so both routes take them from
+    here).  Returns (y, cache|None)."""
     dtype = x.dtype
     B, S, _ = x.shape
-    q, k, v = _project_qkv(params, cfg, x, positions, dtype)
-    out = blockwise_attention(q, k, v, qpos=positions, causal=causal,
-                              window=cfg.local_window,
-                              softcap=cfg.attn_softcap)
+    positions = torch.arange(S, device=x.device)
+    q, k, v = _project_qkv(params, cfg, x, positions, dtype, is_local)
+    window = cfg.local_window if is_local else 0
+    if ki.current_backend(q) == "cuda":
+        out = flash_k.flash_attention_gqa(q, k, v, causal=causal,
+                                          window=window,
+                                          softcap=cfg.attn_softcap)
+    else:
+        out = blockwise_attention(q, k, v, qpos=positions, causal=causal,
+                                  window=window, softcap=cfg.attn_softcap)
     out = out.reshape(B, S, cfg.n_heads, cfg.head_dim)
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dtype))
     cache = None
     if return_cache_len:
-        cache = _build_cache(k, v, return_cache_len, cfg)
+        cache = _build_cache(k, v, return_cache_len, is_local, cfg)
     return y, cache
 
 
-def _build_cache(k, v, cache_len, cfg):
-    """Build a local decode cache from prefill K/V: a ring where position t
-    sits in slot t % W and the ring holds the last W positions."""
+def _build_cache(k, v, cache_len, is_local, cfg):
+    """Build a decode cache from prefill K/V.  Local: a ring where position
+    t sits in slot t % W and the ring holds the last W positions.  Global:
+    ``cache_len`` slots, positions [0, S) written in place."""
     B, S, K, hd = k.shape
-    W = min(cache_len, cfg.local_window)
+    if not is_local and cache_len < S:
+        raise ValueError(f"global-attention cache_len={cache_len} < prefill "
+                         f"length {S}")
+    W = min(cache_len, cfg.local_window) if is_local else cache_len
     t0 = max(S - W, 0)
     slots = (t0 + torch.arange(S - t0, device=k.device)) % W
     kc = torch.zeros((B, W, K, hd), dtype=k.dtype, device=k.device)
@@ -162,10 +175,11 @@ def _build_cache(k, v, cache_len, cfg):
     return {"k": kc, "v": vc}
 
 
-def init_gqa_cache(cfg, batch, cache_len, dtype, device):
-    """Zeroed local ring cache of ``min(cache_len, local_window)`` slots."""
+def init_gqa_cache(cfg, batch, cache_len, is_local, dtype, device):
+    """Zeroed cache: a local ring of ``min(cache_len, local_window)`` slots,
+    or ``cache_len`` slots for a global layer."""
     K, hd = cfg.n_kv_heads, cfg.head_dim
-    Lc = min(cache_len, cfg.local_window)
+    Lc = min(cache_len, cfg.local_window) if is_local else cache_len
     return {"k": torch.zeros((batch, Lc, K, hd), dtype=dtype, device=device),
             "v": torch.zeros((batch, Lc, K, hd), dtype=dtype, device=device)}
 
@@ -174,7 +188,6 @@ def gqa_decode(params, cfg, x, cache, pos, *, is_local):
     """One-token decode.  x: (B,1,D); pos: (B,) per-slot positions
     (continuous batching: every row sits at its own depth in its own cache
     slot).  Returns (y, new_cache); the input cache is left as it was."""
-    _require_local(is_local)
     if pos.ndim != 1:
         raise ValueError(f"gqa_decode takes a (B,) position vector, got "
                          f"shape {tuple(pos.shape)}")
@@ -182,13 +195,17 @@ def gqa_decode(params, cfg, x, cache, pos, *, is_local):
     B = x.shape[0]
     H, hd = cfg.n_heads, cfg.head_dim
     positions = pos.to(torch.int32)[:, None]
-    q, k, v = _project_qkv(params, cfg, x, positions, dtype)
+    q, k, v = _project_qkv(params, cfg, x, positions, dtype, is_local)
     Lc = cache["k"].shape[1]
     slot = pos % Lc
     slot_idx = torch.arange(Lc, device=x.device)
     qpos = pos[:, None]
-    # Slot s holds absolute position pos - ((pos - s) mod Lc); valid if >= 0.
-    key_valid = (qpos - torch.remainder(qpos - slot_idx, Lc)) >= 0
+    if is_local:
+        # Slot s holds absolute position pos - ((pos - s) mod Lc); valid if
+        # >= 0.
+        key_valid = (qpos - torch.remainder(qpos - slot_idx, Lc)) >= 0
+    else:
+        key_valid = slot_idx <= qpos
     bidx = torch.arange(B, device=x.device)
     kc = cache["k"].clone()
     vc = cache["v"].clone()

@@ -39,14 +39,14 @@ def _init_stack(gen, spec, cfg, dtype):
     }
 
 
-def _run_stack(params, spec, cfg, h, positions, *, mode, caches=None,
+def _run_stack(params, spec, cfg, h, *, mode, caches=None,
                pos=None, cache_len=0):
     """Returns (h, new_caches); new_caches is None in train mode."""
     prefix, unit, n_units, suffix = spec
     new = {"prefix": [], "units": [], "suffix": []}
 
     def run(p, kind, c):
-        return BK.block_forward(p, kind, cfg, h, positions, mode=mode,
+        return BK.block_forward(p, kind, cfg, h, mode=mode,
                                 cache=c, pos=pos, cache_len=cache_len)
 
     def cache_of(part, i, j=None):
@@ -108,17 +108,17 @@ def prefill(params, cfg, tokens, *, cache_len):
     decode caches.  Returns (last_logits (B, vocab) float32, caches)."""
     h = L.embed(params["embed"], tokens, cfg.embed_scale,
                 cfg.activation_dtype)
-    positions = torch.arange(h.shape[1], device=h.device)
     h, caches = _run_stack(params["decoder"], _dec_spec(cfg), cfg, h,
-                           positions, mode="prefill", cache_len=cache_len)
+                           mode="prefill", cache_len=cache_len)
     h = L.rmsnorm(params["final_norm"], h[:, -1:], cfg.norm_eps)
     logits = L.unembed(params["embed"], h, cfg.final_softcap)
     return logits[:, 0], caches
 
 
 def init_caches(cfg, batch, cache_len, dtype, device):
-    """Zeroed decode caches for ``batch`` slots: attention rings and conv
-    tails in ``dtype``, recurrent states in float32."""
+    """Zeroed decode caches for ``batch`` slots: attention caches (local
+    rings, full-length global caches) and conv tails in ``dtype``,
+    recurrent states in float32."""
     prefix, unit, n_units, suffix = _dec_spec(cfg)
 
     def one(kind):
@@ -135,10 +135,8 @@ def decode_step(params, cfg, caches, tokens, pos):
     Returns (logits (B, vocab) float32, new_caches)."""
     h = L.embed(params["embed"], tokens, cfg.embed_scale,
                 cfg.activation_dtype)
-    positions = pos.to(torch.int32)[:, None]
     h, new_caches = _run_stack(params["decoder"], _dec_spec(cfg), cfg, h,
-                               positions, mode="decode", caches=caches,
-                               pos=pos)
+                               mode="decode", caches=caches, pos=pos)
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     logits = L.unembed(params["embed"], h, cfg.final_softcap)
     return logits[:, 0], new_caches

@@ -1,6 +1,7 @@
-"""The PyTorch port's recurrentgemma model against the JAX package.
+"""The PyTorch port's models (recurrentgemma-2b, gemma2-27b) against the
+JAX package.
 
-The smoke config in float32 (``dataclasses.replace(cfg, dtype="float32")``):
+The smoke configs in float32 (``dataclasses.replace(cfg, dtype="float32")``):
 parameters are numpy arrays drawn from a seed in the tree of the JAX
 ``init_params`` (its structure from ``jax.eval_shape``), handed to JAX as they
 are and to the port through ``repro_torch.convert.params_from_jax``; the
@@ -11,6 +12,8 @@ recurrence's scans differently).  One bf16 leg holds the
 prefill logits at 5e-2: activations round to bf16 at the same points in both
 packages, but a one-ulp float32 difference before a rounding point moves a
 bf16 value by 2^-8 relative, and such moves pass through every layer.
+Prompts stay at or under 512 tokens: past that the reference's
+``blockwise_attention`` misreads a ragged last KV block (ROADMAP.md).
 """
 import dataclasses
 import functools
@@ -34,11 +37,12 @@ from repro_torch.models import recurrent as TR  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 NAME = "recurrentgemma-2b"
+NAMES = ("recurrentgemma-2b", "gemma2-27b")
 
 
-def _configs(dtype):
-    return (dataclasses.replace(JC.get_config(NAME, smoke=True), dtype=dtype),
-            dataclasses.replace(TC.get_config(NAME, smoke=True), dtype=dtype))
+def _configs(dtype, name=NAME):
+    return (dataclasses.replace(JC.get_config(name, smoke=True), dtype=dtype),
+            dataclasses.replace(TC.get_config(name, smoke=True), dtype=dtype))
 
 
 def numpy_params(cfg_j, seed):
@@ -65,11 +69,21 @@ def both_params(cfg_j, cfg_t, seed, dtype):
             params_from_jax(tree, cfg_t, "cpu", dtype))
 
 
-@pytest.fixture(scope="module")
-def f32():
-    cfg_j, cfg_t = _configs("float32")
+@functools.cache
+def _f32(name):
+    cfg_j, cfg_t = _configs("float32", name)
     params_j, params_t = both_params(cfg_j, cfg_t, 0, torch.float32)
     return cfg_j, cfg_t, params_j, params_t
+
+
+@pytest.fixture(scope="module", params=NAMES)
+def f32(request):
+    return _f32(request.param)
+
+
+@pytest.fixture(scope="module")
+def rg_f32():
+    return _f32(NAME)
 
 
 def _np(x):
@@ -91,26 +105,32 @@ def _x(shape, seed):
     return np.random.default_rng(seed).normal(0, 1, shape).astype(np.float32)
 
 
-def test_config_fields_match_reference():
+@pytest.mark.parametrize("name", NAMES)
+def test_config_fields_match_reference(name):
     for smoke in (False, True):
-        cj = dataclasses.asdict(JC.get_config(NAME, smoke=smoke))
-        ct = dataclasses.asdict(TC.get_config(NAME, smoke=smoke))
+        cj = dataclasses.asdict(JC.get_config(name, smoke=smoke))
+        ct = dataclasses.asdict(TC.get_config(name, smoke=smoke))
         assert ct == cj
 
 
 def test_params_from_jax_layout_and_dtypes(f32):
+    """Units unstacked; weights in bf16; norm scales (post-norms included)
+    and the RG-LRU's lam and biases stay float32."""
     cfg_j, cfg_t, params_j, params_t = f32
     assert tlm.count_params(params_t) == sum(
         l.size for l in jax.tree.leaves(params_j))
     bf = params_from_jax(jax.tree.map(np.asarray, params_j), cfg_t, "cpu",
                          torch.bfloat16)
-    assert bf["decoder"]["units"][0][2]["attn"]["wq"].shape == \
-        params_j["decoder"]["units"][2]["attn"]["wq"].shape[1:]
-    mixer = bf["decoder"]["units"][0][0]["mixer"]
-    for key in ("lam", "bias_a", "bias_x"):
-        assert mixer[key].dtype == torch.float32
-    assert bf["final_norm"]["scale"].dtype == torch.float32
-    assert mixer["wx"].dtype == torch.bfloat16
+    j = cfg_t.unit.index("attn_local")
+    assert bf["decoder"]["units"][0][j]["attn"]["wq"].shape == \
+        params_j["decoder"]["units"][j]["attn"]["wq"].shape[1:]
+    f32_keys = ("scale", "lam", "bias_a", "bias_x")
+    for path, leaf in _shapes(bf).items():
+        want = torch.float32 if path[-1] in f32_keys else torch.bfloat16
+        assert leaf[1] == want, path
+    blocks = [b for u in bf["decoder"]["units"] for b in u]
+    assert all(("post_norm1" in b and "post_norm2" in b) == cfg_t.post_norm
+               for b in blocks)
 
 
 def _shapes(tree, path=()):
@@ -131,8 +151,8 @@ def test_init_params_structure_matches_reference(f32):
     assert _shapes(own) == _shapes(params_t)
 
 
-def test_rglru_forward_and_decode_match_reference(f32):
-    cfg_j, cfg_t, params_j, params_t = f32
+def test_rglru_forward_and_decode_match_reference(rg_f32):
+    cfg_j, cfg_t, params_j, params_t = rg_f32
     blk_j, blk_t = _unit_block(params_j, params_t, 0)
     x = _x((2, 61, cfg_j.d_model), 1)
     y_j, c_j = jax.jit(lambda p, x: JR.rglru_forward(
@@ -154,31 +174,35 @@ def test_rglru_forward_and_decode_match_reference(f32):
 
 
 @pytest.mark.parametrize("S", [5, 40])
-def test_gqa_forward_and_decode_match_reference(f32, S):
-    """S = 40 overfills the smoke window of 32: the ring wraps in prefill
-    and keeps wrapping through the decode steps."""
-    cfg_j, cfg_t, params_j, params_t = f32
-    blk_j, blk_t = _unit_block(params_j, params_t, 2)
+@pytest.mark.parametrize("name,j,is_local", [
+    ("recurrentgemma-2b", 2, True), ("gemma2-27b", 1, False)],
+    ids=["recurrentgemma-2b-local", "gemma2-27b-global"])
+def test_gqa_forward_and_decode_match_reference(name, j, is_local, S):
+    """S = 40 overfills the smoke window of 32: a local ring wraps in
+    prefill and keeps wrapping through the decode steps, while a global
+    layer's 64-slot cache keeps every position and attends to all of
+    them."""
+    cfg_j, cfg_t, params_j, params_t = _f32(name)
+    blk_j, blk_t = _unit_block(params_j, params_t, j)
     x = _x((2, S, cfg_j.d_model), 3)
     y_j, c_j = jax.jit(lambda p, x: JA.gqa_forward(
-        p, cfg_j, x, jnp.arange(S), is_local=True, return_cache_len=64))(
+        p, cfg_j, x, jnp.arange(S), is_local=is_local, return_cache_len=64))(
         blk_j["attn"], jnp.asarray(x))
     y_t, c_t = TA.gqa_forward(blk_t["attn"], cfg_t, torch.from_numpy(x),
-                              torch.arange(S), is_local=True,
-                              return_cache_len=64)
+                              is_local=is_local, return_cache_len=64)
     _close(y_t, y_j, what="gqa_forward y")
     for key in ("k", "v"):
         _close(c_t[key], c_j[key], what=f"gqa_forward cache {key}")
     pos = np.array([S, S - 3], np.int32)          # rows at their own depths
     j_decode = jax.jit(lambda p, x, c, pos: JA.gqa_decode(
-        p, cfg_j, x, c, pos, is_local=True))
+        p, cfg_j, x, c, pos, is_local=is_local))
     for step in range(3):
         x1 = _x((2, 1, cfg_j.d_model), 10 + step)
         y_j, c_j = j_decode(blk_j["attn"], jnp.asarray(x1), c_j,
                             jnp.asarray(pos + step))
         y_t, c_t = TA.gqa_decode(blk_t["attn"], cfg_t, torch.from_numpy(x1),
                                  c_t, torch.from_numpy(pos + step),
-                                 is_local=True)
+                                 is_local=is_local)
         _close(y_t, y_j, what=f"gqa_decode step {step}")
         for key in ("k", "v"):
             _close(c_t[key], c_j[key], what=f"gqa_decode cache {key}")
@@ -239,8 +263,9 @@ def test_init_caches_match_reference_shapes(f32):
         [str(w.dtype) for w in want]
 
 
-def test_prefill_bf16_matches_reference():
-    cfg_j, cfg_t = _configs("bfloat16")
+@pytest.mark.parametrize("name", NAMES)
+def test_prefill_bf16_matches_reference(name):
+    cfg_j, cfg_t = _configs("bfloat16", name)
     params_j, params_t = both_params(cfg_j, cfg_t, 1, torch.bfloat16)
     toks = np.random.default_rng(5).integers(
         0, cfg_j.vocab_size, (1, 24)).astype(np.int32)

@@ -5,9 +5,12 @@ The slice end to end: the JAX ``Engine(cfg, None, params, cache_len=64,
 batch_size=2)`` and the port's ``Engine(..., device="cpu")`` serve the same
 four ragged greedy requests (one prompt longer than the smoke window of 32,
 and more requests than slots, so slots recycle) on the float32 smoke
-recurrentgemma with the same numpy parameters.  Token streams must be
-identical; sequence log-probabilities agree within 1e-4 (float32 sums of
-per-token log-probs taken in another order).
+recurrentgemma and gemma2 (local and global attention, post-norms) with the
+same numpy parameters.  Token streams must be identical; sequence
+log-probabilities agree within 1e-4 (float32 sums of per-token log-probs
+taken in another order).  gemma2 is also served as the reference's own
+serving tests serve it (``tests/test_serving.py``: its ``init_params``
+from ``PRNGKey(0)``, ``cache_len=64``, four slots).
 """
 import ast
 import dataclasses
@@ -30,7 +33,9 @@ from repro_torch.serving import cache as TCA  # noqa: E402
 from repro_torch.serving import scheduler as TS  # noqa: E402
 from repro_torch.serving.engine import Engine as TEngine  # noqa: E402
 from repro_torch.serving.engine import Request as TRequest  # noqa: E402
-from test_torch_models import both_params  # noqa: E402
+from repro.models import lm as jlm  # noqa: E402
+from repro_torch.convert import params_from_jax  # noqa: E402
+from test_torch_models import NAMES, both_params  # noqa: E402
 
 NAME = "recurrentgemma-2b"
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -39,11 +44,11 @@ PROMPT_LENS = (5, 40, 17, 9)
 MAX_NEW = (6, 4, 8, 3)
 
 
-@pytest.fixture(scope="module")
-def served():
-    cfg_j = dataclasses.replace(JC.get_config(NAME, smoke=True),
+@pytest.fixture(scope="module", params=NAMES)
+def served(request):
+    cfg_j = dataclasses.replace(JC.get_config(request.param, smoke=True),
                                 dtype="float32")
-    cfg_t = dataclasses.replace(TC.get_config(NAME, smoke=True),
+    cfg_t = dataclasses.replace(TC.get_config(request.param, smoke=True),
                                 dtype="float32")
     params_j, params_t = both_params(cfg_j, cfg_t, 3, torch.float32)
     rng = np.random.default_rng(0)
@@ -86,6 +91,46 @@ def test_eos_stops_like_reference(served):
     assert t_eos == j_eos
     assert all(o[-1] == e and len(o) <= m
                for o, e, m in zip(t_eos, eos, MAX_NEW))
+
+
+@pytest.fixture(scope="module")
+def gemma_engines():
+    """gemma2 smoke as ``tests/test_serving.py`` builds it, in float32: the
+    reference's ``init_params(PRNGKey(0))``, four slots of 64."""
+    cfg_j = dataclasses.replace(JC.get_config("gemma2-27b", smoke=True),
+                                dtype="float32")
+    cfg_t = dataclasses.replace(TC.get_config("gemma2-27b", smoke=True),
+                                dtype="float32")
+    params_j = jlm.init_params(jax.random.PRNGKey(0), cfg_j)
+    params_t = params_from_jax(jax.tree.map(np.asarray, params_j), cfg_t,
+                               "cpu", torch.float32)
+    return (JEngine(cfg_j, None, params_j, cache_len=64, batch_size=4),
+            TEngine(cfg_t, params_t, cache_len=64, batch_size=4,
+                    device="cpu"))
+
+
+def test_gemma2_engine_streams_identical_to_reference(gemma_engines):
+    j_eng, t_eng = gemma_engines
+    prompts = ([1, 2, 3, 4], [9, 8], [5, 6, 7], list(range(10, 60)))
+    max_new = (6, 4, 5, 12)
+    j_out = j_eng.generate([JRequest(prompt=p, max_new_tokens=m)
+                            for p, m in zip(prompts, max_new)])
+    t_out = t_eng.generate([TRequest(prompt=p, max_new_tokens=m)
+                            for p, m in zip(prompts, max_new)])
+    assert [len(o) for o in t_out] == list(max_new)
+    assert t_out == j_out
+
+
+def test_gemma2_over_long_request_raises_like_reference(gemma_engines):
+    """A global-attention layer's cache must hold prompt + max_new: 60 + 8
+    tokens exceed cache_len 64 in both engines, with the same message."""
+    errors = []
+    for eng, req in zip(gemma_engines, (JRequest, TRequest)):
+        with pytest.raises(ValueError) as e:
+            eng.generate([req(prompt=list(range(60)), max_new_tokens=8)])
+        errors.append(str(e.value))
+    assert "global-attention" in errors[1]
+    assert errors[0] == errors[1]
 
 
 @pytest.mark.parametrize("counts", [[3, 0, 5, 1], [0], [4, 4]])

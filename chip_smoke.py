@@ -8,7 +8,8 @@ Six phases, any failure exits non-zero:
    and dtype combination the run's paths use (kernels/_lib.py, from each
    operator's and map's device form) and compile them with nvcc, one
    process per unit, all started together; print the time and each unit's
-   registers and spills.
+   registers and spills, and check that K10's bf16 units hold HGMMA in
+   their SASS and spill nothing.
 2. kernels -- hold each kernel of the serving paths (K2 flat scan, K6
    channel scan and its long-T path, K3 flat mapreduce, K7m batched
    mapreduce, K7s batched scan, K4 matvec and vecmat) and of the matvec
@@ -18,8 +19,9 @@ Six phases, any failure exits non-zero:
    version on the card, at the serving path's shapes, at ragged sizes (B =
    1 and 3, n and p at the block +-1, a quantization block that does not
    divide n, every one of the 256 fp8 codes, int8 leaves; for K10 T = 1,
-   S and T at a tile +-1, B = 2, S != T, rows that keep no key, windows
-   that skip whole kv tiles, float32)
+   S and T at a tile +-1, query blocks at their edge +-1, B = 2, S != T,
+   rows that keep no key, windows that skip whole kv tiles, head_dim 16
+   to 256, in bf16 (tensor-core body) and float32 (CUDA-core body))
    and at full width: recurrentgemma-2b's decode-attention GEMVs (40,
    2048, 256), (8, 4096, 4096), its unembed GEMV (2560, 256000) quantized
    at block 64, and the prefill attention of a 2,100-token prompt in
@@ -80,6 +82,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -326,6 +329,17 @@ def path_units() -> list:
     return units
 
 
+def sass_ops(lib, ops=("HGMMA", "HMMA")) -> dict:
+    """How many of each tensor-core instruction a built library's SASS
+    holds (cuobjdump -sass)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=120)
+    if out.returncode != 0:
+        raise CheckFailed(f"cuobjdump -sass {lib}: {out.stderr.strip()}")
+    return {op: len(re.findall(rf"\b{op}\b", out.stdout)) for op in ops}
+
+
 def phase_build() -> dict:
     units = path_units()
     t0 = time.perf_counter()
@@ -334,6 +348,7 @@ def phase_build() -> dict:
     log(f"[build] {len(units)} generated units in {seconds:.2f} s "
         f"({_lib.BUILD_DIR})")
     worst = {"registers": 0, "spilled_units": []}
+    spilled = {}
     for u in units:
         text = u.path.with_suffix(".log").read_text()
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
@@ -343,8 +358,20 @@ def phase_build() -> dict:
             f"{max(regs, default=0)} registers and {max(smem, default=0)} "
             f"bytes of shared memory, {spills} bytes spilled")
         worst["registers"] = max(worst["registers"], max(regs, default=0))
+        spilled[u.label] = spills
         if spills:
             worst["spilled_units"].append([u.label, spills])
+    # K10's bf16 units run the tensor-core body: their SASS must hold the
+    # warpgroup products, and none may spill.
+    for dtype, hd in K10_UNITS:
+        if dtype != BF16:
+            continue
+        u = flash_k.flash_unit(dtype, hd, "build")
+        ops = sass_ops(u.path)
+        log(f"  sass {u.label}: {ops}")
+        expect(ops["HGMMA"] > 0, f"{u.label}: SASS holds HGMMA "
+                                 f"({ops['HGMMA']} instructions)")
+        expect(spilled[u.label] == 0, f"{u.label}: ptxas reports no spills")
     return {"units": len(units), "seconds": seconds, "prebuilt": {
         u.digest for u in units}, **worst}
 
@@ -923,7 +950,12 @@ def check_k7_k9(res, gen, note) -> None:
 # a gemma2-27b global layer's prefill of the 2,100-token prompt; then its
 # local layers' and recurrentgemma-2b's (MQA, window 2048, which bites at
 # 2,100 but skips no tile).  The "skips tiles" cases have query tiles whose
-# window starts a whole kv tile or more after key 0.
+# window starts a whole kv tile or more after key 0.  bf16 runs the
+# tensor-core body (query blocks of 192 rows up to head_dim 128, 128 above)
+# and f32 the CUDA-core body (32 rows), so each edge has a case in both, and
+# the bf16 query tiles meet T = 63 and 65 at a block's edge +-1.  head_dim
+# 80 (one 64-wide box and one that TMA's zero fill pads) and 192 (three
+# boxes, the largest ring in shared memory) reach the body's other forms.
 BF16, F32 = torch.bfloat16, torch.float32
 K10_CASES = (
     ("gemma2-27b global", 1, 2100, 2100, 16, 2, 128, BF16, True, 0, 50.0),
@@ -943,17 +975,42 @@ K10_CASES = (
     ("f32, window skips tiles", 1, 400, 400, 2, 3, 64, F32, True, 100, 30.0),
     ("f32, window skips tiles, not causal", 1, 200, 200, 1, 2, 32, F32,
      False, 70, 0.0),
+    ("bf16, rows that keep no key", 1, 100, 20, 2, 2, 16, BF16, True, 8, 0.0),
+    ("bf16, rows that keep no key, head_dim 256", 1, 300, 40, 1, 2, 256,
+     BF16, True, 30, 0.0),
+    ("bf16, S > T, not causal", 1, 100, 37, 1, 3, 256, BF16, False, 0, 0.0),
+    ("bf16, window skips tiles, head_dim 64", 1, 400, 400, 2, 3, 64, BF16,
+     True, 100, 30.0),
+    ("bf16, window skips tiles, not causal, head_dim 32", 1, 200, 200, 1, 2,
+     32, BF16, False, 70, 0.0),
+    ("bf16, query tile 127 against T = 63", 1, 127, 63, 2, 2, 64, BF16, True,
+     0, 30.0),
+    ("bf16, query tile 129 against T = 65", 2, 129, 65, 2, 3, 128, BF16,
+     False, 0, 0.0),
+    ("bf16, query block 191 against T = 63", 1, 191, 63, 2, 2, 128, BF16,
+     True, 0, 50.0),
+    ("bf16, query block 193 against T = 65", 1, 193, 65, 1, 2, 128, BF16,
+     False, 0, 50.0),
+    ("bf16, query block 127 against T = 65, head_dim 256", 1, 127, 65, 1, 2,
+     256, BF16, True, 0, 0.0),
+    ("bf16, query block 129 against T = 63, head_dim 256", 1, 129, 63, 1, 2,
+     256, BF16, False, 0, 0.0),
+    ("bf16, ragged T, window and soft cap, head_dim 80", 2, 150, 203, 2, 2,
+     80, BF16, True, 90, 30.0),
+    ("bf16, ragged T, window and soft cap, head_dim 192", 1, 300, 277, 1, 3,
+     192, BF16, True, 200, 50.0),
 )
 K10_TIMED = tuple(c[0] for c in K10_CASES[:3])
 K10_UNITS = sorted({(c[7], c[6]) for c in K10_CASES}, key=str)
 
 
-def skips_window_tiles(S: int, T: int, window: int) -> bool:
-    """Whether a query tile of K10 starts its keys past the first kv tile
-    (csrc/flash_attention.cuh: k_begin > 0): a window that ends a whole
-    tile before the tile's first query, in a tile whose rows all keep a
-    key."""
-    q0 = (S - 1) // flash_k.Q_BLOCK * flash_k.Q_BLOCK
+def skips_window_tiles(S: int, T: int, hd: int, dtype, window: int) -> bool:
+    """Whether a query block of K10 starts its keys past the first kv tile
+    (csrc/flash_attention.cuh: KvRange's begin > 0): a window that ends a
+    whole tile before the block's first query, in a block whose rows all
+    keep a key."""
+    rows = _lib.load(flash_k.flash_unit(dtype, hd, "K10")).rt_flash_rows()
+    q0 = (S - 1) // rows * rows
     return window > 0 and S - 1 < T + window - 1 and \
         q0 - window + 1 >= flash_k.KV_BLOCK
 
@@ -1046,7 +1103,8 @@ def check_k10(res, gen, note) -> None:
         del qs, ks, vs
     del q, k, v, got, want
     for dtype in (BF16, F32):
-        expect(any(c[7] == dtype and skips_window_tiles(c[2], c[3], c[9])
+        expect(any(c[7] == dtype and skips_window_tiles(c[2], c[3], c[6],
+                                                        c[7], c[9])
                    for c in K10_CASES),
                f"K10: a {str(dtype)[6:]} case skips kv tiles before its "
                f"window")
@@ -2066,11 +2124,19 @@ def profile_device(label: str, fn, units: int) -> dict:
         log(f"[profile {label}] device time not measured (no device events)")
         return {"measured": False}
     busy_ms = sum(by_name.values())
+    # The port's own kernels by family (rt::flash is K10, rt::scan K2/K6/
+    # K7s, ...), whether or not they make the top eight.
+    port = collections.Counter()
+    for name, ms in by_name.items():
+        m = re.search(r"\brt::(\w+)::", name)
+        if m:
+            port[m.group(1)] += ms / units
     out = {"measured": True, "units": units,
            "wall_ms_profiled": wall_ms / units,
            "device_ms": busy_ms / units,
            "device_idle_share": 1.0 - busy_ms / wall_ms,
            "device_ops": ops / units,
+           "port_kernels_ms": dict(port),
            "top": [[name[:60], ms / units]
                    for name, ms in by_name.most_common(8)]}
     log(f"[profile {label}] " + json.dumps(out))

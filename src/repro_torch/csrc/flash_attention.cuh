@@ -1,5 +1,6 @@
 // K10: fused attention with causal, sliding-window and soft-cap masks, for
-// every GQA prefill of the models; float32 and bfloat16.
+// every GQA prefill of the models; bfloat16 on the tensor cores, float32 on
+// the CUDA cores.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention_pallas
 // (body _flash_kernel), which keeps the online softmax's running (m, l, acc)
@@ -10,38 +11,73 @@
 // kernels/ref.py::flash_attention_ref): s = (q . k in float32) * scale,
 // then softcap * tanh(s / softcap); a key counts where kpos < T, causal
 // qpos >= kpos and window qpos - kpos < window, positions from 0 for q and
-// k alike; a dropped score is -1e30; p rounds to the element type before
-// the float32 p . v product; out = acc / max(l, 1e-30).
+// k alike; a dropped score is -1e30; the running maximum moves once per kv
+// tile of BK = 64 keys; l sums the float32 p; p rounds to the element type
+// before the float32 p . v product; out = acc / max(l, 1e-30).
 //
 // Bound on this card: operations.  At gemma2-27b's prefill (32 query heads,
 // 16 kv heads, head_dim 128, T = 2,100) one layer is 36.1 GFLOP against
-// 51.6 MB of q, k, v and out: 0.037 ms at the 989 TFLOP/s bf16 tensor peak.
-// This first kernel does its products on the float32 cores (67 TFLOP/s), so
-// it cannot come near that bound; tensor cores and TMA are later work.
+// 51.6 MB of q, k, v and out: 0.0365 ms at the 989 TFLOP/s bf16 tensor peak
+// (0.0154 ms for the bytes).  Beside the products, every score takes an
+// exp2 and, soft-capped, an exp2 and a reciprocal more on the special-
+// function units, which do 16 a clock per SM.
 //
-// Design.  A block of 4 warps owns 32 query rows of one (batch, query
-// head); each warp owns 8 rows and keeps their (m, l, acc) in registers
-// (acc split over the lanes by head dimension).  The block walks kv tiles
-// of 64 keys staged in shared memory (rows padded by 4 elements so that
-// the lanes' row reads hit distinct banks); for the scores a lane takes
-// keys lane and lane + 32 against all 8 rows (q broadcast from shared
-// memory as float32), the row max and sum reduce across lanes by
-// __shfl_xor_sync, and the rounded p go through shared memory to the p . v
-// loop, where a lane owns head dimensions lane, lane + 32, ...  Query head
-// h reads kv head h / (H / KH) through its own offsets: the GQA broadcast is
-// never materialised.
+// TensorCores (bfloat16, the models' path).  One block per (batch, query
+// head, 64 G query rows): a producer warpgroup and G consumer warpgroups,
+// G = 3 up to head_dim 128 and 2 above it (the O accumulator needs 64 or
+// 128 registers a thread; setmaxnreg gives the producer 24 or 40 and each
+// consumer 160 or 232).  The producer's first thread issues TMA loads: q's
+// rows once, then K and V tiles of 64 keys into a ring of STAGES stages,
+// each stage with a full barrier for K, one for V and an empty barrier the
+// consumers arrive at.  A consumer group owns 64 query rows and, per tile:
+// S = Q K^T by wgmma.m64n64k16 (both operands K-major in shared memory);
+// the online softmax in registers in the accumulator's layout, in log2
+// units (a row's max over the quad of lanes that hold it by two shuffles,
+// maxima and sums as trees; l kept per lane and summed at the end; O's
+// rescale skipped, exactly, when no row of the warp has a new maximum);
+// then O += P V by wgmma.m64n{HDP}k16 with P's bf16 fragment taken from
+// the S accumulator's registers and V read MN-major (transposed) from shared
+// memory.  The groups interleave on their own: one's softmax runs while
+// another's products do.  The softmax, not the products, sets the pace (a
+// tile's exp2, and with the soft cap an exp2 and a reciprocal more per
+// score, on 16 special-function lanes per SM), and a third group hides more
+// of its latency.
+// The tensor maps are rank 4 over the arrays as given, (head_dim, heads,
+// length, batch), with boxes of (64, 1, rows, 1) and the 128-byte swizzle,
+// which caps a box row at 64 bf16: a row of head_dim 128 or 256 loads as 2
+// or 4 boxes, and a head_dim that is not a multiple of 64 is padded to HDP
+// with zeros by the hardware, as are key rows at or past T and query rows
+// at or past S; nothing crosses into the next batch element.  Query head h
+// reads kv head h / (H / KH) through the maps' head coordinate: the GQA
+// broadcast is never materialised.  Only tiles that hold a dropped key (the
+// causal diagonal, the window's edge, the T tail) are masked.  The soft cap's
+// tanh is 1 - 2 / (2^(2 x log2 e) + 1) from ex2.approx and rcp.approx, a few
+// float32 ulp from tanhf (tanh.approx.f32's 2^-11 would move a capped score
+// by 0.02 at softcap 50, more than the bf16 rounding of p).  The wgmma
+// instructions, whose operand lists depend on HDP, are generated per unit
+// (kernels/_lib.py: struct Wgmma).
 //
-// Tiles that are wholly masked for the block (above the causal diagonal,
-// before the window) are skipped: exact, since once a row has met a kept
-// key a dropped one has p = 0, and what a row gathered before its first
+// CudaCores (float32).  A block of 4 warps owns 32 query rows; each warp
+// owns 8 rows and keeps their (m, l, acc) in registers (acc split over the
+// lanes by head dimension); K and V tiles of 64 keys are staged in shared
+// memory, a lane takes keys lane and lane + 32 for the scores, and p goes
+// through shared memory to the p . v loop.  The float32 check's 1e-5 row
+// bound rules out TF32, and no served model runs float32 attention on the
+// card.
+//
+// Both bodies skip tiles that are wholly masked for the block (above the
+// causal diagonal, before the window): exact, since once a row has met a
+// kept key a dropped one has p = 0, and what a row gathered before its first
 // kept key is scaled by alpha = 0.  A row that keeps no key at all (S > T +
-// window - 1) gets the reference's answer: its block visits every tile,
-// p = 1 throughout, and acc is divided by the reference's padded key count
-// (`empty_l`).  Key rows at or past T are never read; they are zeros.
-// Later query tiles (more keys under a causal mask) are scheduled first.
+// window - 1) gets the reference's answer: its block visits every tile, p =
+// 1 throughout, and acc is divided by the reference's padded key count
+// (`empty_l`).  Key rows at or past T are zeros.  Later query tiles (more
+// keys under a causal mask) are scheduled first.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -49,35 +85,38 @@ namespace rt {
 namespace flash {
 namespace {
 
+constexpr int BK = 64;                   // keys per K/V tile
+constexpr float NEG_INF = -1e30f;
+
+// The block's kv range [begin, end): every key a row of q0 .. qlast keeps,
+// in whole tiles, or all keys when one of its rows keeps none.
+struct KvRange {
+  int begin, end;
+  __device__ KvRange(int q0, int qlast, int T_len, int causal, int window) {
+    begin = 0;
+    end = T_len;
+    const bool empty_row = window > 0 &&
+        static_cast<long>(qlast) >= static_cast<long>(T_len) + window - 1;
+    if (!empty_row) {
+      if (causal) end = min(T_len, qlast + 1);
+      if (window) begin = max(0, q0 - window + 1) / BK * BK;
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// CudaCores: float32.
+// ---------------------------------------------------------------------------
+
+namespace cc {
+
 constexpr int WARPS = 4;
 constexpr int ROWS = 8;                  // query rows per warp
 constexpr int BQ = WARPS * ROWS;         // query rows per block
-constexpr int BK = 64;                   // keys per shared-memory tile
-constexpr int PAD = 4;                   // elements of padding per K/V row
-constexpr float NEG_INF = -1e30f;
+constexpr int PAD = 4;                   // floats of padding per K/V row
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// Four consecutive elements of a shared-memory row as float32 (8-byte
-// aligned for bf16, 16-byte for float32).
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -92,30 +131,30 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T, int HD>
+template <int HD>
 struct Smem {
   static constexpr int KROW = HD + PAD;
   static constexpr size_t q = sizeof(float) * BQ * HD;
-  static constexpr size_t kv = sizeof(T) * BK * KROW;
+  static constexpr size_t kv = sizeof(float) * BK * KROW;
   static constexpr size_t p = sizeof(float) * BQ * BK;
   static constexpr size_t bytes = q + 2 * kv + p;
 };
 
 // q, out: (B, S, H, HD); k, v: (B, T, KH, HD); all contiguous.
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(WARPS * 32)
-attend(const T* __restrict__ q, const T* __restrict__ k,
-       const T* __restrict__ v, T* __restrict__ out, int S, int T_len, int H,
-       int KH, int nqt, int causal, int window, float softcap, float scale,
-       float empty_l) {
-  using SM = Smem<T, HD>;
+attend(const float* __restrict__ q, const float* __restrict__ k,
+       const float* __restrict__ v, float* __restrict__ out, int S,
+       int T_len, int H, int KH, int nqt, int causal, int window,
+       float softcap, float scale, float empty_l) {
+  using SM = Smem<HD>;
   constexpr int KROW = SM::KROW;
   constexpr int DI = (HD + 31) / 32;     // head dimensions per lane
-  constexpr int CH = HD * sizeof(T) / 8; // 8-byte chunks per K/V row
+  constexpr int CH = HD / 2;             // 8-byte chunks per K/V row
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);
-  T* ks = reinterpret_cast<T*>(smem + SM::q);
-  T* vs = reinterpret_cast<T*>(smem + SM::q + SM::kv);
+  float* ks = reinterpret_cast<float*>(smem + SM::q);
+  float* vs = reinterpret_cast<float*>(smem + SM::q + SM::kv);
   float* ps = reinterpret_cast<float*>(smem + SM::q + 2 * SM::kv);
 
   const int BH = gridDim.x / nqt;
@@ -126,25 +165,15 @@ attend(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const long qstride = static_cast<long>(H) * HD;
   const long kstride = static_cast<long>(KH) * HD;
-  const T* qb = q + (static_cast<long>(b) * S * H + h) * HD;
-  const T* kb = k + (static_cast<long>(b) * T_len * KH + kh) * HD;
-  const T* vb = v + (static_cast<long>(b) * T_len * KH + kh) * HD;
+  const float* qb = q + (static_cast<long>(b) * S * H + h) * HD;
+  const float* kb = k + (static_cast<long>(b) * T_len * KH + kh) * HD;
+  const float* vb = v + (static_cast<long>(b) * T_len * KH + kh) * HD;
 
   for (int e = threadIdx.x; e < BQ * HD; e += WARPS * 32) {
     const int r = e / HD, t = q0 + r;
-    qs[e] = t < S ? to_f(qb[t * qstride + e % HD]) : 0.f;
+    qs[e] = t < S ? qb[t * qstride + e % HD] : 0.f;
   }
-
-  // The block's kv range: every key a row of it keeps, or all keys when
-  // one of its rows keeps none.
-  const int qlast = min(q0 + BQ, S) - 1;
-  int k_begin = 0, k_end = T_len;
-  const bool empty_row = window > 0 &&
-      static_cast<long>(qlast) >= static_cast<long>(T_len) + window - 1;
-  if (!empty_row) {
-    if (causal) k_end = min(T_len, qlast + 1);
-    if (window) k_begin = max(0, q0 - window + 1) / BK * BK;
-  }
+  const KvRange kv(q0, min(q0 + BQ, S) - 1, T_len, causal, window);
 
   float m[ROWS], l[ROWS], acc[ROWS][DI];
 #pragma unroll
@@ -158,7 +187,7 @@ attend(const T* __restrict__ q, const T* __restrict__ k,
   float* pw = ps + warp * ROWS * BK;
   const int qrow0 = q0 + warp * ROWS;
 
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
+  for (int k0 = kv.begin; k0 < kv.end; k0 += BK) {
     __syncthreads();                     // the previous tile is consumed
     for (int e = threadIdx.x; e < BK * CH; e += WARPS * 32) {
       const int r = e / CH, c = e % CH, t = k0 + r;
@@ -176,8 +205,8 @@ attend(const T* __restrict__ q, const T* __restrict__ k,
     float s[ROWS][2];
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) s[r][0] = s[r][1] = 0.f;
-    const T* k0r = ks + lane * KROW;
-    const T* k1r = ks + (lane + 32) * KROW;
+    const float* k0r = ks + lane * KROW;
+    const float* k1r = ks + (lane + 32) * KROW;
 #pragma unroll 2
     for (int d = 0; d < HD; d += 4) {
       const float4 a = load4(k0r + d), c = load4(k1r + d);
@@ -195,7 +224,7 @@ attend(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
 
-    // Online softmax per row; rounded p to shared memory.
+    // Online softmax per row; p to shared memory.
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
       const int qp = qrow0 + r;
@@ -215,8 +244,8 @@ attend(const T* __restrict__ q, const T* __restrict__ k,
       const float alpha = expf(m[r] - m_new);
       l[r] = l[r] * alpha + warp_sum(p0 + p1);
       m[r] = m_new;
-      pw[r * BK + lane] = to_f(from_f<T>(p0));
-      pw[r * BK + lane + 32] = to_f(from_f<T>(p1));
+      pw[r * BK + lane] = p0;
+      pw[r * BK + lane + 32] = p1;
 #pragma unroll
       for (int i = 0; i < DI; ++i) acc[r][i] *= alpha;
     }
@@ -230,12 +259,12 @@ attend(const T* __restrict__ q, const T* __restrict__ k,
       for (int r = 0; r < ROWS; ++r) pr[r] = load4(pw + r * BK + j);
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
-        const T* vrow = vs + (j + jj) * KROW;
+        const float* vrow = vs + (j + jj) * KROW;
 #pragma unroll
         for (int i = 0; i < DI; ++i) {
           const int d = lane + 32 * i;
           if (HD % 32 != 0 && d >= HD) continue;
-          const float vd = to_f(vrow[d]);
+          const float vd = vrow[d];
 #pragma unroll
           for (int r = 0; r < ROWS; ++r) {
             const float pj = jj == 0 ? pr[r].x : jj == 1 ? pr[r].y
@@ -247,7 +276,7 @@ attend(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* ob = out + (static_cast<long>(b) * S * H + h) * HD;
+  float* ob = out + (static_cast<long>(b) * S * H + h) * HD;
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
     const int qp = qrow0 + r;
@@ -257,12 +286,512 @@ attend(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < DI; ++i) {
       const int d = lane + 32 * i;
       if (HD % 32 != 0 && d >= HD) continue;
-      ob[qp * qstride + d] = from_f<T>(acc[r][i] / lr);
+      ob[qp * qstride + d] = acc[r][i] / lr;
     }
   }
 }
 
-template <typename T, int HD>
+}  // namespace cc
+
+template <int HD>
+struct CudaCores {
+  using Elem = float;
+  static constexpr int BQ = cc::BQ;
+
+  static cudaError_t run(const void* q, const void* k, const void* v,
+                         void* out, long B, long S, long T_len, long H,
+                         long KH, int causal, long window, float softcap,
+                         float scale, float empty_l, cudaStream_t stream) {
+    const long nqt = (S + BQ - 1) / BQ;
+    const long blocks = nqt * B * H;
+    if (blocks > INT_MAX) return cudaErrorInvalidValue;
+    constexpr size_t smem = cc::Smem<HD>::bytes;
+    static bool configured = false;
+    if (!configured) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          cc::attend<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (e != cudaSuccess) return e;
+      configured = true;
+    }
+    cc::attend<HD><<<static_cast<unsigned>(blocks), cc::WARPS * 32, smem,
+                     stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out),
+        static_cast<int>(S), static_cast<int>(T_len), static_cast<int>(H),
+        static_cast<int>(KH), static_cast<int>(nqt), causal,
+        static_cast<int>(window), softcap, scale, empty_l);
+    return cudaGetLastError();
+  }
+};
+
+// ---------------------------------------------------------------------------
+// TensorCores: bfloat16 by wgmma on a TMA ring.
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr uint32_t ROW_BYTES = 128;      // one swizzled box row: 64 bf16
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int HD>
+struct Shape {
+  // Consumer groups of 64 query rows: three where a thread's registers
+  // hold O at 160 a thread, two (at 232) for wider rows.
+  static constexpr int GROUPS = HD <= 128 ? 3 : 2;
+  static constexpr int BQ = 64 * GROUPS;             // query rows per block
+  static constexpr int THREADS = 128 * (GROUPS + 1);
+  static constexpr int HDP = (HD + 63) / 64 * 64;   // whole 64-wide boxes
+  static constexpr int BOXES = HDP / 64;
+  static constexpr int STAGES = HDP > 192 ? 2 : 3;
+  static constexpr uint32_t Q_BOX = BQ * ROW_BYTES;
+  static constexpr uint32_t KV_BOX = BK * ROW_BYTES;
+  static constexpr uint32_t Q_BYTES = BOXES * Q_BOX;
+  static constexpr uint32_t KV_BYTES = BOXES * KV_BOX;   // K or V of a tile
+  // The 128-byte swizzle repeats every 1,024 bytes, so every box starts on
+  // a 1,024-byte boundary; the slack aligns the dynamic base.
+  static constexpr size_t SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+// Wait until the barrier's phase of this parity has completed.  A wait
+// that lasts seconds means a lost arrival: trap rather than hang the card.
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  long long start = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (start == 0) start = clock64();
+    else if (clock64() - start > (1ll << 33)) __trap();
+  }
+}
+
+// One box of a rank-4 tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor with the 128-byte swizzle: start
+// address, leading and stride byte offsets, all in 16-byte units.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3fff)
+       | static_cast<uint64_t>((lbo >> 4) & 0x3fff) << 16
+       | static_cast<uint64_t>((sbo >> 4) & 0x3fff) << 32
+       | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keep the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma's issue and wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// S = Q K^T for one warpgroup's 64 rows against a tile of 64 keys.  Both
+// operands are K-major boxes of 64 columns: the k-th 16 columns of a row
+// sit 32 k bytes into its 128-byte box row (the swizzle is applied to the
+// address), 8-row groups 1,024 bytes apart.
+template <typename W, int HD>
+__device__ __forceinline__ void issue_qk(float (&sc)[32], uint32_t qa,
+                                         uint32_t kt) {
+  using SH = Shape<HD>;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;
+    W::qk(sc, desc(qa + (kk / 4) * SH::Q_BOX + off, 16, 1024),
+          desc(kt + (kk / 4) * SH::KV_BOX + off, 16, 1024), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O += P V: P from registers; V's rows are keys, its 64-wide boxes of head
+// dimensions KV_BOX apart (the leading offset), 8-key groups 1,024 bytes
+// apart.
+template <typename W, int HDP>
+__device__ __forceinline__ void issue_pv(float (&o)[HDP / 2],
+                                         const uint32_t (&pa)[4][4],
+                                         uint32_t vt) {
+  fence_regs(o);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    W::pv(o, pa[kk], desc(vt + kk * 16 * ROW_BYTES, BK * ROW_BYTES, 1024));
+  wgmma_commit();
+}
+
+// The online softmax of a lane's two rows, in log2 units: a score s
+// becomes s log2(e), so p = 2^(x - m) and alpha = 2^(m_old - m_new).
+// Register 4 j + 2 e + t of a tile holds row row[e], key k0 + 8 j + col + t.
+struct Softmax {
+  int row[2], col, lo[2], hi[2];         // a row keeps keys lo .. hi
+  bool cap;
+  float lin, exp_k, cap2, neg2cap2;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  __device__ Softmax(int r0, int c, int T, int causal, int window,
+                     float softcap, float scale)
+      : row{r0, r0 + 8}, col(c), cap(softcap != 0.f), lin(scale * LOG2E),
+        exp_k(cap ? 2.f * LOG2E * scale / softcap : 0.f),
+        cap2(softcap * LOG2E), neg2cap2(-2.f * softcap * LOG2E) {
+    for (int e = 0; e < 2; ++e) {
+      lo[e] = window ? row[e] - window + 1 : -(1 << 30);
+      hi[e] = causal ? min(T - 1, row[e]) : T - 1;
+    }
+  }
+
+  // Scores (f32 products) to p in place; alpha per row.
+  __device__ __forceinline__ void tile(float (&sc)[32], int k0, bool mask,
+                                       float (&alpha)[2]) {
+    if (cap) {
+      // softcap tanh(u) = softcap (1 - 2 / (e^(2 u) + 1)).
+#pragma unroll
+      for (int r = 0; r < 32; ++r)
+        sc[r] = fmaf(neg2cap2, rcp(ex2(sc[r] * exp_k) + 1.f), cap2);
+    } else {
+#pragma unroll
+      for (int r = 0; r < 32; ++r) sc[r] *= lin;
+    }
+    if (mask) {
+      // Key k0 + col + c of register 4 j + 2 e + t has c = 8 j + t.
+      const int lo0 = lo[0] - k0 - col, hi0 = hi[0] - k0 - col;
+      const int lo1 = lo[1] - k0 - col, hi1 = hi[1] - k0 - col;
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {
+        const int c = 8 * (r / 4) + r % 2;
+        const bool keep = (r / 2) % 2 ? c >= lo1 && c <= hi1
+                                      : c >= lo0 && c <= hi0;
+        sc[r] = keep ? sc[r] : NEG_INF;
+      }
+    }
+    // Row maxima and sums as trees, both rows at once: short chains.
+    float mx[2][8], sum[2][8];
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        mx[e][j] = fmaxf(sc[4 * j + 2 * e], sc[4 * j + 2 * e + 1]);
+#pragma unroll
+    for (int w = 4; w > 0; w /= 2)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int j = 0; j < w; ++j) mx[e][j] = fmaxf(mx[e][j], mx[e][j + w]);
+    float m_new[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float x = fmaxf(mx[e][0], __shfl_xor_sync(FULL_MASK, mx[e][0], 1));
+      x = fmaxf(x, __shfl_xor_sync(FULL_MASK, x, 2));
+      m_new[e] = fmaxf(m[e], x);
+      alpha[e] = ex2(m[e] - m_new[e]);
+      m[e] = m_new[e];
+    }
+#pragma unroll
+    for (int r = 0; r < 32; ++r) sc[r] = ex2(sc[r] - m_new[(r / 2) % 2]);
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        sum[e][j] = sc[4 * j + 2 * e] + sc[4 * j + 2 * e + 1];
+#pragma unroll
+    for (int w = 4; w > 0; w /= 2)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int j = 0; j < w; ++j) sum[e][j] += sum[e][j + w];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) l[e] = l[e] * alpha[e] + sum[e][0];
+  }
+};
+
+// p's bf16 A fragments: k-step kk covers keys 16 kk .. 16 kk + 15, which
+// are the registers 8 kk .. 8 kk + 7 in the order the A operand takes them.
+__device__ __forceinline__ void pack_p(const float (&p)[32],
+                                       uint32_t (&pa)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+      pa[kk][x] = pack_bf16(p[8 * kk + 2 * x], p[8 * kk + 2 * x + 1]);
+}
+
+// O *= alpha, per row; skipped, exactly, when no row of the warp has a
+// new maximum.
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N],
+                                        const float (&alpha)[2]) {
+  if (!__any_sync(FULL_MASK, alpha[0] != 1.f || alpha[1] != 1.f)) return;
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    o[4 * j + 0] *= alpha[0];
+    o[4 * j + 1] *= alpha[0];
+    o[4 * j + 2] *= alpha[1];
+    o[4 * j + 3] *= alpha[1];
+  }
+}
+
+// q, out: (B, S, H, HD); k, v: (B, T, KH, HD), through the tensor maps.
+template <int HD, typename W>
+__global__ void __launch_bounds__(Shape<HD>::THREADS, 1)
+attend(const __grid_constant__ CUtensorMap qmap,
+       const __grid_constant__ CUtensorMap kmap,
+       const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* out, int S,
+       int T_len, int H, int KH, int nqt, int causal, int window,
+       float softcap, float scale, float empty_l) {
+  using SH = Shape<HD>;
+  constexpr int HDP = SH::HDP, STAGES = SH::STAGES;
+  static_assert(W::N == HDP, "the unit's P . V wgmma spans the padded row");
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 3 * STAGES];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t skv = sq + SH::Q_BYTES;     // stage s: K, then V
+  const uint32_t bar_q = smem_u32(&bars[0]);
+  auto full_k = [&](int s) { return smem_u32(&bars[1 + s]); };
+  auto full_v = [&](int s) { return smem_u32(&bars[1 + STAGES + s]); };
+  auto empty = [&](int s) { return smem_u32(&bars[1 + 2 * STAGES + s]); };
+  auto k_tile = [&](int s) { return skv + 2 * s * SH::KV_BYTES; };
+  auto v_tile = [&](int s) { return skv + (2 * s + 1) * SH::KV_BYTES; };
+
+  const int BH = gridDim.x / nqt;
+  const int bh = blockIdx.x % BH;
+  const int qt = nqt - 1 - static_cast<int>(blockIdx.x / BH);
+  const int b = bh / H, h = bh % H, kh = h / (H / KH);
+  constexpr int BQ = SH::BQ;
+  const int q0 = qt * BQ;
+  const KvRange kv(q0, min(q0 + BQ, S) - 1, T_len, causal, window);
+  const int tiles = (kv.end - kv.begin + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    bar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      bar_init(full_k(s), 1);
+      bar_init(full_v(s), 1);
+      bar_init(empty(s), SH::GROUPS);    // one arrival per consumer group
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int group = threadIdx.x / 128;
+  if (group == 0) {
+    // Producer.
+    if constexpr (SH::GROUPS == 3)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    else
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      bar_expect(bar_q, SH::Q_BYTES);
+      for (int j = 0; j < SH::BOXES; ++j)
+        tma_load(sq + j * SH::Q_BOX, &qmap, bar_q, 64 * j, h, q0, b);
+      for (int i = 0; i < tiles; ++i) {
+        const int s = i % STAGES, k0 = kv.begin + i * BK;
+        bar_wait(empty(s), ((i / STAGES) & 1) ^ 1);
+        bar_expect(full_k(s), SH::KV_BYTES);
+        for (int j = 0; j < SH::BOXES; ++j)
+          tma_load(k_tile(s) + j * SH::KV_BOX, &kmap, full_k(s), 64 * j, kh,
+                   k0, b);
+        bar_expect(full_v(s), SH::KV_BYTES);
+        for (int j = 0; j < SH::BOXES; ++j)
+          tma_load(v_tile(s) + j * SH::KV_BOX, &vmap, full_v(s), 64 * j, kh,
+                   k0, b);
+      }
+    }
+  } else {
+    // Consumers: group g owns query rows q0 + 64 (g - 1) .. + 63.
+    if constexpr (SH::GROUPS == 3)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 160;\n");
+    else
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int rlo = q0 + 64 * (group - 1);
+    Softmax sm(rlo + 16 * warp + lane / 4, 2 * (lane % 4), T_len, causal,
+               window, softcap, scale);
+    const uint32_t qa = sq + (group - 1) * 64 * ROW_BYTES;
+
+    float o[HDP / 2];
+#pragma unroll
+    for (int i = 0; i < HDP / 2; ++i) o[i] = 0.f;
+    bar_wait(bar_q, 0);
+    for (int i = 0; i < tiles; ++i) {
+      const int s = i % STAGES, k0 = kv.begin + i * BK;
+      const uint32_t parity = (i / STAGES) & 1;
+      float sc[32], alpha[2];
+      uint32_t pa[4][4];
+      bar_wait(full_k(s), parity);
+      issue_qk<W, HD>(sc, qa, k_tile(s));
+      wgmma_wait();
+      fence_regs(sc);
+      // Only tiles that hold a dropped key for one of the group's rows
+      // are masked: the causal diagonal, the window's edge, the T tail.
+      sm.tile(sc, k0, k0 + BK > T_len || (causal && k0 + BK - 1 > rlo) ||
+                          (window && k0 <= rlo + 63 - window), alpha);
+      pack_p(sc, pa);
+      rescale(o, alpha);
+      bar_wait(full_v(s), parity);
+      issue_pv<W, HDP>(o, pa, v_tile(s));
+      wgmma_wait();
+      fence_regs(o);
+      if (tid == 0) bar_arrive(empty(s));
+    }
+
+    // Epilogue: l summed over the quad; rows at or past S are not stored.
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float sum = sm.l[e];
+      sum += __shfl_xor_sync(FULL_MASK, sum, 1);
+      sum += __shfl_xor_sync(FULL_MASK, sum, 2);
+      const float inv =
+          1.f / (sm.m[e] == NEG_INF ? empty_l : fmaxf(sum, 1e-30f));
+      if (sm.row[e] >= S) continue;
+      __nv_bfloat16* orow =
+          out + ((static_cast<long>(b) * S + sm.row[e]) * H + h) * HD;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j + sm.col) =
+            pack_bf16(o[4 * j + 2 * e] * inv, o[4 * j + 2 * e + 1] * inv);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime, so that the unit
+// links no libcuda.
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+        ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// The map of a contiguous (B, length, heads, HD) bf16 array, in boxes of
+// (64, 1, rows, 1).
+inline bool encode(CUtensorMap* map, const void* p, long B, long len,
+                   long heads, int hd, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(len),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t row = 2ull * hd;
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * len};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p),
+            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace tc
+
+template <int HD, typename W>
+struct TensorCores {
+  using Elem = __nv_bfloat16;
+  static constexpr int BQ = tc::Shape<HD>::BQ;
+
+  static cudaError_t run(const void* q, const void* k, const void* v,
+                         void* out, long B, long S, long T_len, long H,
+                         long KH, int causal, long window, float softcap,
+                         float scale, float empty_l, cudaStream_t stream) {
+    const long nqt = (S + BQ - 1) / BQ;
+    const long blocks = nqt * B * H;
+    if (blocks > INT_MAX) return cudaErrorInvalidValue;
+    CUtensorMap qmap, kmap, vmap;
+    if (!tc::encode(&qmap, q, B, S, H, HD, BQ) ||
+        !tc::encode(&kmap, k, B, T_len, KH, HD, BK) ||
+        !tc::encode(&vmap, v, B, T_len, KH, HD, BK))
+      return cudaErrorInvalidValue;
+    constexpr size_t smem = tc::Shape<HD>::SMEM;
+    static bool configured = false;
+    if (!configured) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          tc::attend<HD, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (e != cudaSuccess) return e;
+      configured = true;
+    }
+    tc::attend<HD, W><<<static_cast<unsigned>(blocks), tc::Shape<HD>::THREADS, smem,
+                        stream>>>(
+        qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out),
+        static_cast<int>(S), static_cast<int>(T_len), static_cast<int>(H),
+        static_cast<int>(KH), static_cast<int>(nqt), causal,
+        static_cast<int>(window), softcap, scale, empty_l);
+    return cudaGetLastError();
+  }
+};
+
+// The checks both bodies share, then the body.
+template <typename Body, int HD>
 cudaError_t run(const void* q, const void* k, const void* v, void* out,
                 long B, long S, long T_len, long H, long KH, int causal,
                 long window, float softcap, float scale, float empty_l,
@@ -271,25 +800,8 @@ cudaError_t run(const void* q, const void* k, const void* v, void* out,
   if (B < 1 || S < 1 || T_len < 1 || KH < 1 || H % KH != 0 ||
       S > INT_MAX || T_len > INT_MAX || window < 0 || window > INT_MAX)
     return cudaErrorInvalidValue;
-  const long nqt = (S + BQ - 1) / BQ;
-  const long blocks = nqt * B * H;
-  if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  constexpr size_t smem = Smem<T, HD>::bytes;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        attend<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
-  attend<T, HD><<<static_cast<unsigned>(blocks), WARPS * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), static_cast<int>(S),
-      static_cast<int>(T_len), static_cast<int>(H), static_cast<int>(KH),
-      static_cast<int>(nqt), causal, static_cast<int>(window), softcap, scale,
-      empty_l);
-  return cudaGetLastError();
+  return Body::run(q, k, v, out, B, S, T_len, H, KH, causal, window, softcap,
+                   scale, empty_l, stream);
 }
 
 }  // namespace

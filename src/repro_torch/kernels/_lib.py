@@ -2,7 +2,8 @@
 
 The kernel bodies are templates in ``csrc/*.cuh`` over an element type, a
 functor ``Op`` and, for mapreduce and matvec, a map ``Map``; K10's
-``flash`` family takes no operator, only an element type and a head dim.
+``flash`` family takes no operator, only an element type, a head dim and
+the body the wrapper runs for that type.
 A kernel wrapper asks for a :class:`Unit`: one translation unit for one
 family of kernels (``FAMILIES``) and one (operator, map, leaf dtypes)
 combination.  The
@@ -135,14 +136,20 @@ int rt_qmatvec(int form, const void* q, const void* s, long block,
         "rt_qmatvec": (_I, [_I, _P, _P, _L, _P, _L, _L, _L, _P, _PP, _P]),
     }),
     # K10, one unit per (element type, head_dim): the generated part
-    # defines Elem and HD.
+    # defines Elem, HD and the Body its element type runs (for the tensor
+    # cores with the unit's wgmma instructions); a body that reads another
+    # element type does not compile.
     "flash": Family("flash_attention.cuh", f"""
+static_assert(std::is_same<Body::Elem, Elem>::value,
+              "the body reads the unit's element type");
+int rt_flash_rows() {{ return Body::BQ; }}
 int rt_flash(const void* q, const void* k, const void* v, void* out, long B,
              long S, long T, long H, long KH, int causal, long window,
              float softcap, float scale, float empty_l, void* stream) {{
-  return rt::flash::run<Elem, HD>(q, k, v, out, B, S, T, H, KH, causal,
+  return rt::flash::run<Body, HD>(q, k, v, out, B, S, T, H, KH, causal,
                                   window, softcap, scale, empty_l, {_ST});
 }}""", {
+        "rt_flash_rows": (_I, []),
         "rt_flash": (_I, [_P, _P, _P, _P, _L, _L, _L, _L, _L, _I, _L, _F, _F,
                           _F, _P]),
     }),
@@ -303,13 +310,15 @@ _MAP_UNITS: dict[tuple, tuple] = {}
 
 def unit(family: str, what: str, op: alg.AssocOp | None = None,
          dtypes=(), f: alg.DeviceMap | None = None, in_dtypes=(),
-         quant: str | None = None, head_dim: int | None = None) -> Unit:
+         quant: str | None = None, head_dim: int | None = None,
+         body: str | None = None) -> Unit:
     """The unit of ``family`` for ``op`` over elements of leaf ``dtypes``
     (and, for mapreduce / matvec, the map ``f`` from leaves ``in_dtypes``
     to ``dtypes``; for qmatvec, the decode of quantization mode ``quant``,
     ``core/operators.py``'s ``QUANT_DEVICE``; for flash, no operator, one
-    element dtype of ``FLASH_CTYPES`` and a ``head_dim`` of
-    ``FLASH_HEAD_DIMS``).
+    element dtype of ``FLASH_CTYPES``, a ``head_dim`` of
+    ``FLASH_HEAD_DIMS`` and the kernel ``body`` of ``FLASH_BODIES`` that
+    the caller picked for the dtype).
 
     Raises NotImplementedError, naming the route, for an operator or map
     without a device form and for leaf structures or dtypes the device form
@@ -317,21 +326,63 @@ def unit(family: str, what: str, op: alg.AssocOp | None = None,
     back to the plain version.  A wrapper asks on every call, so the units
     are kept per combination.
     """
-    key = (family, op, tuple(dtypes), f, tuple(in_dtypes), quant, head_dim)
+    key = (family, op, tuple(dtypes), f, tuple(in_dtypes), quant, head_dim,
+           body)
     found = _UNITS.get(key)
     if found is None:
         found = _UNITS[key] = _make_unit(family, what, op, dtypes, f,
-                                         in_dtypes, quant, head_dim)
+                                         in_dtypes, quant, head_dim, body)
     return found
 
 
 _UNITS: dict[tuple, Unit] = {}
 FLASH_CTYPES = {torch.float32: "float", torch.bfloat16: "__nv_bfloat16"}
 FLASH_HEAD_DIMS = tuple(range(16, 257, 16))
+FLASH_BODIES = ("CudaCores", "TensorCores")
+
+
+def _wgmma(head_dim: int) -> str:
+    """The tensor-core body's two wgmma forms for ``head_dim``, whose
+    operand lists (one register per accumulator element) the header cannot
+    spell: S = Q K^T at m64n64k16 from shared memory, and O += P V at
+    m64n{N}k16 over the row padded to whole 64-wide boxes, P from registers,
+    V transposed."""
+    n = -(-head_dim // 64) * 64
+
+    def outs(count):
+        return ", ".join(f'"+f"(d[{i}])' for i in range(count))
+
+    def regs(first, count):
+        return ", ".join(f"%{first + i}" for i in range(count))
+
+    return (
+        "struct Wgmma {\n"
+        f"  static constexpr int N = {n};\n"
+        "  __device__ static void qk(float (&d)[32], uint64_t a, uint64_t b,\n"
+        "                            int accumulate) {\n"
+        '    asm volatile("{\\n.reg .pred p;\\nsetp.ne.b32 p, %34, 0;\\n"\n'
+        '        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "\n'
+        f'        "{{{regs(0, 32)}}}, %32, %33, p, 1, 1, 0, 0;\\n}}\\n"\n'
+        f"        : {outs(32)}\n"
+        '        : "l"(a), "l"(b), "r"(accumulate));\n'
+        "  }\n"
+        f"  __device__ static void pv(float (&d)[{n // 2}], "
+        "const uint32_t (&a)[4],\n"
+        "                            uint64_t b) {\n"
+        f'    asm volatile("{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{n // 2 + 5}, 0;'
+        '\\n"\n'
+        f'        "wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 "\n'
+        f'        "{{{regs(0, n // 2)}}}, {{{regs(n // 2, 4)}}}, %{n // 2 + 4}, '
+        'p, 1, 1, 1;\\n}\\n"\n'
+        f"        : {outs(n // 2)}\n"
+        '        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), '
+        '"r"(1));\n'
+        "  }\n"
+        "};\n")
 
 
 def _make_unit(family, what, op, dtypes, f, in_dtypes, quant,
-               head_dim) -> Unit:
+               head_dim, body) -> Unit:
     gen = _Gen()
     label = family
     if (head_dim is None) != (family != "flash"):
@@ -348,8 +399,16 @@ def _make_unit(family, what, op, dtypes, f, in_dtypes, quant,
             raise NotImplementedError(
                 f"{what}: the cuda kernel takes head_dim 16 to 256 in steps "
                 f"of 16, got {head_dim}")
+        if body not in FLASH_BODIES:
+            raise ValueError(f"{what}: a flash unit's body is one of "
+                             f"{FLASH_BODIES}, got {body!r}")
         gen.parts.append(f"using Elem = {FLASH_CTYPES[dtypes[0]]};\n"
                          f"constexpr int HD = {head_dim};\n")
+        if body == "TensorCores":
+            gen.parts.append(_wgmma(head_dim))
+            gen.parts.append("using Body = rt::flash::TensorCores<HD, Wgmma>;\n")
+        else:
+            gen.parts.append("using Body = rt::flash::CudaCores<HD>;\n")
         label = f"flash {_names(dtypes)[0]} head_dim {head_dim}"
     if op is not None:
         if op.device is None:

@@ -7,7 +7,7 @@
   signature it keeps);
 * :func:`flash_attention_gqa` -- the same kernel in the models' layout, q
   (B, S, K, G, hd) and k, v (B, T, K, hd): query head (k, g) reads kv
-  head k through the kernel's offsets, never a broadcast copy.  Every GQA
+  head k in the kernel, never a broadcast copy.  Every GQA
   prefill of ``models/attention.py`` runs it on the cuda backend.
 
 Plain versions: ``kernels/ref.py``'s :func:`~repro_torch.kernels.ref.
@@ -18,9 +18,14 @@ version; given CUDA tensors it launches the kernel or raises.
 ``flash_attention_gqa.launches`` counts the kernel's launches through either
 entry.  The kernel takes head_dim 16 to 256 in steps of 16.
 
+The element type picks the kernel's body (:data:`BODIES`): bfloat16 runs
+on the tensor cores (wgmma on a TMA ring), float32 on the CUDA cores,
+whose 1e-5 bound rules out TF32.  That is a dispatch by dtype, not a
+fallback: either body launches or raises.
+
 ``q_block`` and ``kv_block`` are the plain version's tiles.  ``q_block``
 changes no result; ``kv_block`` sets the key tiles whose running maxima
-the softmax rounds at, and the kernel's are fixed at :data:`KV_BLOCK`
+the softmax rounds at, and both bodies' are fixed at :data:`KV_BLOCK`
 keys, so on the card any other ``kv_block`` raises.
 """
 from __future__ import annotations
@@ -33,13 +38,19 @@ from repro_torch.core import intrinsics as ki
 from repro_torch.kernels import _lib
 from repro_torch.kernels import ref
 
-Q_BLOCK = 32        # the kernel's query rows per block (csrc: BQ)
-KV_BLOCK = 64       # its keys per shared-memory tile (csrc: BK)
+Q_BLOCK = 256       # the plain version's default query tile: no result
+                    # depends on it
+KV_BLOCK = 64       # keys per K/V tile of either body (csrc: BK)
+# The body each element type runs in csrc/flash_attention.cuh (a unit's
+# rt_flash_rows() gives the body's query rows per block).
+BODIES = {torch.bfloat16: "TensorCores", torch.float32: "CudaCores"}
 
 
 def flash_unit(dtype: torch.dtype, head_dim: int, what: str) -> _lib.Unit:
-    """The generated unit of K10 for ``dtype`` elements of ``head_dim``."""
-    return _lib.unit("flash", what, dtypes=[dtype], head_dim=head_dim)
+    """The generated unit of K10 for ``dtype`` elements of ``head_dim``,
+    with the body :data:`BODIES` gives the dtype."""
+    return _lib.unit("flash", what, dtypes=[dtype], head_dim=head_dim,
+                     body=BODIES.get(dtype))
 
 
 def _on_card(q: torch.Tensor) -> bool:

@@ -128,9 +128,16 @@ def _route(form, f, op, A, x, layout, backend):
     return fn(f, op, A, x, layout=layout, backend=backend)
 
 
-def _ref_route(form, f, op, A, x, layout, backend):
+def _ref_route(form, f, op, A, x, layout, backend, jit=False):
+    """The reference's route; with ``jit``, compiled as one program instead
+    of op by op (its xla route compiles dozens of small ops eagerly), for
+    the tests held to a tolerance: XLA may fuse a multiply-add and move a
+    bit."""
     fn = j_forge.matvec if form == "matvec" else j_forge.vecmat
-    return fn(f, op, A, x, layout=layout, backend=backend)
+    if not jit:
+        return fn(f, op, A, x, layout=layout, backend=backend)
+    return jax.jit(lambda a, v: fn(f, op, a, v, layout=layout,
+                                   backend=backend))(A, x)
 
 
 @pytest.mark.parametrize("form", ["matvec", "vecmat"])
@@ -151,7 +158,7 @@ def test_batched_gemv_conformance(case, form):
                   else t_ref.ref_batched_vecmat)(tf, top, _t(A), _t(x))
         for jb in REF_BACKENDS:
             want = _ref_route(form, jf, jop, jnp.asarray(A), jnp.asarray(x),
-                              JBatched(), jb)
+                              JBatched(), jb, jit=True)
             for tb in PORT_BACKENDS:
                 got = _route(form, tf, top, _t(A), _t(x), TBatched(), tb)
                 _assert_close(got, want, scale, case == "min",
@@ -235,7 +242,8 @@ def test_quantized_gemv_conformance(mode, form, layout):
         bound = (t_ref.ref_quantized_matvec_bound if form == "matvec"
                  else t_ref.ref_quantized_vecmat_bound)(tq, xt)
         for jb in REF_BACKENDS:
-            want = _ref_route(form, jf, j_alg.ADD, jq, jnp.asarray(x), jl, jb)
+            want = _ref_route(form, jf, j_alg.ADD, jq, jnp.asarray(x), jl, jb,
+                              jit=True)
             for tb in PORT_BACKENDS:
                 got = _route(form, t_alg.TIMES, t_alg.ADD, tq, xt, tl, tb)
                 _assert_close(got, want, scale, False, f"{err} {tb}/{jb}")

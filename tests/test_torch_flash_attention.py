@@ -165,13 +165,30 @@ def test_cost_counts_match_reference():
 
 def test_flash_units_carry_dtype_and_head_dim():
     """The generated unit (no nvcc needed to generate it) names its element
-    type and head_dim; what the kernel does not take raises before any
-    build."""
+    type and head_dim and selects its dtype's body: bf16 the tensor cores,
+    with the unit's wgmma forms (P V over the row padded to whole 64-wide
+    boxes), f32 the CUDA cores, and a body that reads another element type
+    than the unit's fails to compile; what the kernel does not take raises
+    before any build."""
     u = flash_k.flash_unit(torch.bfloat16, 128, "test")
     assert "using Elem = __nv_bfloat16;" in u.source
+    assert "static_assert(std::is_same<Body::Elem, Elem>::value" in u.source
     assert "constexpr int HD = 128;" in u.source
-    assert u.digest != flash_k.flash_unit(torch.float32, 128, "test").digest
+    assert "using Body = rt::flash::TensorCores<HD, Wgmma>;" in u.source
+    assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in u.source
+    assert "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16" in u.source
+    f32 = flash_k.flash_unit(torch.float32, 128, "test")
+    assert "using Body = rt::flash::CudaCores<HD>;" in f32.source
+    assert "wgmma" not in f32.source and "TensorCores" not in f32.source
+    assert "m64n128k16" in flash_k.flash_unit(torch.bfloat16, 80,
+                                              "test").source
+    assert "m64n256k16" in flash_k.flash_unit(torch.bfloat16, 256,
+                                              "test").source
+    assert u.digest != f32.digest
     assert u.digest != flash_k.flash_unit(torch.bfloat16, 256, "test").digest
+    with pytest.raises(ValueError, match="body is one of"):
+        _lib.unit("flash", "test", dtypes=[torch.float32], head_dim=64,
+                  body="Scalar")
     with pytest.raises(NotImplementedError, match="head_dim 16 to 256"):
         flash_k.flash_unit(torch.float32, 24, "test")
     with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
@@ -188,18 +205,25 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-def test_k10_launches_and_matches_plain_version_on_the_card(cuda_device):
+@pytest.mark.parametrize("S,T,K,G,hd,window,softcap", [
+    (130, 130, 4, 2, 128, 50, 50.0),
+    (300, 40, 1, 2, 256, 30, 0.0),    # rows 69.. keep no key
+])
+def test_k10_launches_and_matches_plain_version_on_the_card(
+        cuda_device, S, T, K, G, hd, window, softcap):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
-    q = torch.randn(1, 130, 4, 2, 128, generator=gen, device=cuda_device,
+    q = torch.randn(1, S, K, G, hd, generator=gen, device=cuda_device,
                     dtype=torch.bfloat16)
-    k = torch.randn(1, 130, 4, 128, generator=gen, device=cuda_device,
+    k = torch.randn(1, T, K, hd, generator=gen, device=cuda_device,
                     dtype=torch.bfloat16)
-    v = torch.randn(1, 130, 4, 128, generator=gen, device=cuda_device,
+    v = torch.randn(1, T, K, hd, generator=gen, device=cuda_device,
                     dtype=torch.bfloat16)
     before = flash_k.flash_attention_gqa.launches
-    got = flash_k.flash_attention_gqa(q, k, v, window=50, softcap=50.0)
+    got = flash_k.flash_attention_gqa(q, k, v, window=window,
+                                      softcap=softcap)
     assert flash_k.flash_attention_gqa.launches == before + 1
-    want = ref.flash_attention_gqa_ref(q, k, v, window=50, softcap=50.0,
+    want = ref.flash_attention_gqa_ref(q, k, v, window=window,
+                                       softcap=softcap,
                                        kv_block=flash_k.KV_BLOCK)
     # Each output row within one bf16 step (2^-7) of its own norm.
     d = (got.float() - want.float()).norm(dim=-1)

@@ -490,8 +490,10 @@ def test_batched_mapreduce_reroutes_non_commutative_ops(op_name,
     rng = np.random.default_rng(zlib.crc32(op_name.encode()))
     for B, n in ((1, 1), (3, 7), (2, 2047), (1, 2048), (2, 2049)):
         xs = _reroute_operand(op_name, rng, (B, n))
-        wants = [j_forge.mapreduce(lambda t: t, jop, xs, layout=JBatched(),
-                                   backend=b) for b in (PI, "xla")]
+        # Each reference route jitted: compiled once per shape, not op by op.
+        wants = [jax.jit(lambda x, b=b: j_forge.mapreduce(
+            lambda t: t, jop, x, layout=JBatched(), backend=b))(xs)
+            for b in (PI, "xla")]
         for backend in ("torch", "cuda"):
             del calls[:]
             got = t_forge.mapreduce(t_alg.IDENTITY, top,
@@ -734,8 +736,11 @@ def _quickstart(forge, alg, Segmented, Batched, arr, masked, backend):
 def test_quickstart_sequence_matches_reference():
     from repro.core.layout import Segmented as JSegmented
     from repro_torch.core.layout import Segmented as TSegmented
-    want = _quickstart(j_forge, j_alg, JSegmented, JBatched, jnp.asarray,
-                       lambda t: jnp.where(t[1] != 0, t[0], 0.0), "xla")
+    # The reference's sequence as one jitted program: the same calls on the
+    # same inputs, compiled once (seconds) instead of op by op (a minute).
+    want = jax.jit(lambda: _quickstart(
+        j_forge, j_alg, JSegmented, JBatched, jnp.asarray,
+        lambda t: jnp.where(t[1] != 0, t[0], 0.0), "xla"))()
     for backend in ("torch", "cuda"):
         got = _quickstart(t_forge, t_alg, TSegmented, TBatched,
                           lambda a: torch.from_numpy(np.array(a)),

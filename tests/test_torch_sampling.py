@@ -84,8 +84,16 @@ def test_gumbel_within_two_ulps():
     assert (np.abs(got - want) <= 2 * ulp).all()
 
 
+# The reference's sampler jitted, as its engine runs it (inside the jitted
+# admission and decode loop of serving/strategies/base.py), so the exact-id
+# tests hold the port to the reference's real path; compiled once per
+# setting instead of op by op.
+_J_SAMPLE = jax.jit(JSP.sample_tokens, static_argnames=(
+    "temperature", "top_k", "top_p", "top_p_candidates"))
+
+
 def _sample_both(logits, seeds, steps, **kw):
-    want = JSP.sample_tokens(
+    want = _J_SAMPLE(
         jax.random.PRNGKey(0), jnp.asarray(logits), jnp.asarray(seeds),
         jnp.asarray(steps), top_p_candidates=64, **kw)
     got = SP.sample_tokens(

@@ -28,7 +28,15 @@ Six phases, any failure exits non-zero:
    gemma2-27b (32 query / 16 kv heads of 128, soft cap 50, global and
    window 4096) and recurrentgemma-2b (10 / 1 heads of 256, window 2048)
    in bf16; time the kernel, the plain version and one PyTorch library
-   call of the same function with CUDA events.
+   call of the same function with CUDA events (K2, K3, K7m and K7s in
+   turns with the library call, the median of 7 rounds).  K3 and K7s are
+   held on both sides of their small forms' limits (K3 n = 2,047 / 2,048
+   / 2,049: one block in one launch, or the multi-block form; K7s a tile
+   of 2,048 and one more: the single-tile form, or the three-phase one),
+   with the form each call took; their public calls are timed beside
+   them; and the "[host]" line gives the host microseconds of each stage
+   of one K3 call at (4,) and one K7s call at (4, 64), in the wrappers'
+   earlier form and now.
 3. primitives -- the primitive library's own path: the public API
    (copy, scan, mapreduce, semiring matvec/vecmat, linear_recurrence,
    Segmented scan and mapreduce, sort_pairs, top_k, quickstart's sequence,
@@ -48,9 +56,10 @@ Six phases, any failure exits non-zero:
    ids, the prefill logits of the cuda backend (K10 attention) against the
    plain torch backend (blockwise attention) on the card at 17, 1,024 and
    2,100 tokens, and that the serving run launched every kernel of its
-   path (K10 once per attention layer of every prefill at least); then
-   profiles one prefill and eight decode steps (torch.profiler) for where
-   the time goes.
+   path (K10 once per attention layer of every prefill at least, every
+   K3 launch on its small form); then profiles one prefill and eight
+   decode steps (torch.profiler) for where the time goes, and the decode
+   loop's predicate: one K3 launch a call and no memset on the device.
 5. sampled serve -- the same model through Engine(temperature=0.8,
    top_k=40, top_p=0.95, seed=0): the first four prompts, 16 new tokens
    each, request seeds 0-3.  Checks lengths and ids, that a second run and
@@ -72,17 +81,22 @@ The line before the card line holds {"kernels": [...]}.  A kernel's
 "launches_path": the primitives path for K1-K9, as before, and gemma2's
 serving path for K10, which the primitives path does not run.  Beside them
 stand the launches on every path (primitives, greedy, sampled, gemma2) and
-their sum, "launches_total".  The last line is {"ok": true, "device":
+their sum, "launches_total"; K3's and K7s's rows add their small
+form's launches per path ("launches_small", "launches_single-tile") and
+the public call's time at the same shape ("public_ms").  The last line is
+{"ok": true, "device":
 {...}}.  The script imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
 import collections
+import ctypes
 import gc
 import json
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -102,7 +116,7 @@ from repro_torch.kernels import batched as batched_k  # noqa: E402
 from repro_torch.kernels import copy as copy_k  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_k  # noqa: E402
 from repro_torch.core import primitives as forge  # noqa: E402
-from repro_torch.core.layout import Batched, Segmented  # noqa: E402
+from repro_torch.core.layout import Batched, Flat, Segmented  # noqa: E402
 from repro_torch.kernels import mapreduce as mapreduce_k  # noqa: E402
 from repro_torch.kernels import matvec as matvec_k  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
@@ -203,13 +217,22 @@ META = {
 }
 
 
+# The small forms' launches, counted again among their kernel's: K3's
+# single block (n <= 2,048) and K7s's single tile (n <= one tile a row).
+FORMS = {
+    "K3 small": (mapreduce_k.mapreduce_1d_cuda, "small_launches"),
+    "K7s single-tile": (batched_k.batched_scan_cuda, "single_tile_launches"),
+}
+
+
 def reset_counts() -> None:
-    for obj, attr in COUNTERS.values():
+    for obj, attr in (*COUNTERS.values(), *FORMS.values()):
         setattr(obj, attr, 0)
 
 
 def read_counts() -> dict:
-    return {k: getattr(obj, attr) for k, (obj, attr) in COUNTERS.items()}
+    return {k: getattr(obj, attr)
+            for k, (obj, attr) in (*COUNTERS.items(), *FORMS.items())}
 
 
 class CheckFailed(Exception):
@@ -233,6 +256,19 @@ def time_ms(fn, reps: int = 50) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_turns(fns: dict, rounds: int = 7, reps: int = 200) -> dict:
+    """Milliseconds per call of each of ``fns`` at the serving path's tiny
+    shapes, whose time is the host's and drifts within a run: ``rounds``
+    rounds of ``reps`` back-to-back calls of each (time_ms), in turns, the
+    order reversed every other round; the median round of each.  A kernel
+    and its library call so see the same moments of the host."""
+    times = {k: [] for k in fns}
+    for r in range(rounds):
+        for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            times[k].append(time_ms(fns[k], reps))
+    return {k: statistics.median(v) for k, v in times.items()}
 
 
 def bound_ms(bytes_moved: float, ops: float,
@@ -417,10 +453,10 @@ def phase_kernels(gen: torch.Generator) -> dict:
         expect(err <= 1e-5 * scale, f"K2 scan AFFINE f32 n={n}: max abs err "
                                     f"{err:.3g} <= 1e-5 x {scale:.3g}")
     x = ints(BATCH)
-    res["K2"]["ms"] = time_ms(lambda: scan_k.scan_1d_cuda(alg.ADD, x))
+    res["K2"].update(time_turns({
+        "ms": lambda: scan_k.scan_1d_cuda(alg.ADD, x),
+        "library_ms": lambda: torch.cumsum(x, 0, dtype=torch.int32)}))
     res["K2"]["plain_ms"] = time_ms(lambda: scan_k.scan_1d_plain(alg.ADD, x))
-    res["K2"]["library_ms"] = time_ms(
-        lambda: torch.cumsum(x, 0, dtype=torch.int32))
     res["K2"]["bound"] = bound_ms(2 * 4 * BATCH, BATCH)
     res["K2"]["shape"] = f"({BATCH},) int32 ADD"
     big = ints(1 << 24)
@@ -474,41 +510,55 @@ def phase_kernels(gen: torch.Generator) -> dict:
         "bound_ms": bound_ms(4 * 4 * 8 * 2048 * 2560, 3 * 8 * 2048 * 2560)[0]}
 
     # -- K3: flat mapreduce.  MAX over int32 is bit-exact; the masked ADD leg
-    # is f32 in another fold order, held at 1e-5 relative.
+    # is f32 in another fold order, held at 1e-5 relative.  Up to one
+    # block's 2,048 elements the small form runs, above it the multi-block
+    # one; the counter says which ran.
     block = 256 * 8
-    for n in (BATCH, 8, 1, block + 1, 1 << 24):
+    k3 = mapreduce_k.mapreduce_1d_cuda
+
+    def k3_form(fn):
+        small = k3.small_launches
+        out = fn()
+        return out, "small" if k3.small_launches > small else "multi-block"
+
+    for n in (BATCH, 8, 1, block - 1, block, block + 1, 1 << 24):
         x = ints(n)
-        got = mapreduce_k.mapreduce_1d_cuda(alg.IDENTITY, alg.MAX, x)
+        got, form = k3_form(lambda: k3(alg.IDENTITY, alg.MAX, x))
         want = mapreduce_k.mapreduce_1d_plain(alg.IDENTITY, alg.MAX, x)
         err = max_err(got, want)
         note("K3", err)
-        expect(err == 0 and int(got) == int(x.max()),
-               f"K3 MAX int32 n={n}: bit-exact")
-    v = torch.randn(1 << 20, generator=gen, device=dev)
-    m = (torch.rand(1 << 20, generator=gen, device=dev) > 0.5).int()
-    got = mapreduce_k.mapreduce_1d_cuda(alg.masked_select(0.0), alg.ADD, (v, m))
-    want = mapreduce_k.mapreduce_1d_plain(alg.masked_select(0.0), alg.ADD,
-                                          (v, m))
-    err = max_err(got, want)
-    scale = float(v.abs().sum())
-    expect(err <= 1e-5 * scale, f"K3 masked ADD f32 n=2^20: max abs err "
-                                f"{err:.3g} <= 1e-5 x sum|v| {scale:.3g}")
+        expect(err == 0 and int(got) == int(x.max()) and form == (
+            "small" if n <= block else "multi-block"),
+            f"K3 MAX int32 n={n}: bit-exact, {form} form")
+    for n in (1000, 1 << 20):
+        v = torch.randn(n, generator=gen, device=dev)
+        m = (torch.rand(n, generator=gen, device=dev) > 0.5).int()
+        got, form = k3_form(lambda: k3(alg.masked_select(0.0), alg.ADD,
+                                       (v, m)))
+        want = mapreduce_k.mapreduce_1d_plain(alg.masked_select(0.0),
+                                              alg.ADD, (v, m))
+        err = max_err(got, want)
+        scale = float(v.abs().sum())
+        expect(err <= 1e-5 * scale, f"K3 masked ADD f32 n={n}, {form} form: "
+                                    f"max abs err {err:.3g} <= 1e-5 x sum|v| "
+                                    f"{scale:.3g}")
     x = (torch.rand(BATCH, generator=gen, device=dev) > 0.5).int()
-    res["K3"]["ms"] = time_ms(
-        lambda: mapreduce_k.mapreduce_1d_cuda(alg.IDENTITY, alg.MAX, x))
+    res["K3"].update(time_turns({
+        "ms": lambda: mapreduce_k.mapreduce_1d_cuda(alg.IDENTITY, alg.MAX, x),
+        "library_ms": lambda: torch.amax(x),
+        "public_ms": lambda: forge.mapreduce(alg.IDENTITY, alg.MAX, x)}))
     res["K3"]["plain_ms"] = time_ms(
         lambda: mapreduce_k.mapreduce_1d_plain(alg.IDENTITY, alg.MAX, x))
-    res["K3"]["library_ms"] = time_ms(lambda: torch.amax(x))
     res["K3"]["bound"] = bound_ms(4 * BATCH + 4, BATCH)
     res["K3"]["shape"] = f"({BATCH},) int32 MAX"
     big = ints(1 << 24)
     res["K3"]["large"] = {
-        "n": 1 << 24,
-        "ms": time_ms(lambda: mapreduce_k.mapreduce_1d_cuda(
-            alg.IDENTITY, alg.MAX, big), 20),
+        "n": 1 << 24, **time_turns({
+            "ms": lambda: mapreduce_k.mapreduce_1d_cuda(alg.IDENTITY,
+                                                        alg.MAX, big),
+            "library_ms": lambda: torch.amax(big)}, reps=20),
         "plain_ms": time_ms(lambda: mapreduce_k.mapreduce_1d_plain(
             alg.IDENTITY, alg.MAX, big), 3),
-        "library_ms": time_ms(lambda: torch.amax(big), 20),
         "bound_ms": bound_ms(4 * (1 << 24), 1 << 24)[0]}
 
     # -- K7m: batched masked mapreduce (per-slot sequence scores).  f32 sums
@@ -531,18 +581,20 @@ def phase_kernels(gen: torch.Generator) -> dict:
         expect(err <= 1e-5 * scale, f"K7m masked ADD f32 ({B},{n}): max abs "
                                     f"err {err:.3g} <= 1e-5 x {scale:.3g}")
     lp, mask = scores(BATCH, CACHE_LEN)
-    res["K7m"]["ms"] = time_ms(lambda: batched_k.batched_mapreduce_cuda(
-        masked, alg.ADD, (lp, mask)))
+    res["K7m"].update(time_turns({
+        "ms": lambda: batched_k.batched_mapreduce_cuda(masked, alg.ADD,
+                                                       (lp, mask)),
+        "library_ms": lambda: torch.sum(torch.where(mask != 0, lp, 0.0),
+                                        dim=1)}))
     res["K7m"]["plain_ms"] = time_ms(lambda: batched_k.batched_mapreduce_plain(
         masked, alg.ADD, (lp, mask)))
-    res["K7m"]["library_ms"] = time_ms(
-        lambda: torch.sum(torch.where(mask != 0, lp, 0.0), dim=1))
     res["K7m"]["bound"] = bound_ms(8 * BATCH * CACHE_LEN + 4 * BATCH,
                                    BATCH * CACHE_LEN)
     res["K7m"]["shape"] = f"({BATCH}, {CACHE_LEN}) f32 masked ADD"
     check_k6_long(res, gen, note)
     check_k4(res, gen, note)
     check_k7s(res, gen, note)
+    host_stages(gen)
     check_k7_k9(res, gen, note)
     check_k10(res, gen, note)
     for k, r in res.items():
@@ -553,7 +605,7 @@ def phase_kernels(gen: torch.Generator) -> dict:
             f"{r['bound'][0]:.6f} ms ({r['bound'][1]}); " + json.dumps(
                 {x: v for x, v in r.items() if x in (
                     "large", "modes", "dense_mv_ms", "dense_bmm_ms",
-                    "shapes")}))
+                    "shapes", "public_ms")}))
     return res
 
 
@@ -709,18 +761,44 @@ def check_k4(res, gen, note) -> None:
 
 def check_k7s(res, gen, note) -> None:
     """K7s: integer ADD bit-exact; the nucleus scan of probability rows
-    (prefixes below 1) held at 1e-6 at (4, 64) and 1e-5 at 65,536 terms."""
+    (prefixes below 1) held at 1e-6 at (4, 64) and 1e-5 at 65,536 terms;
+    AFFINE within 1e-6 of the output's size on both sides of the tile
+    (2,048 4-byte elements, 2,048 8-byte pairs), where the single-tile form
+    gives way to the three-phase one; the counter says which ran."""
+    k7s = batched_k.batched_scan_cuda
+    tile = _lib.load(scan_k.scan_unit("K7s", alg.ADD, [torch.empty(
+        0, dtype=torch.int32)])).rt_tile()
+
+    def k7s_form(fn, n):
+        single = k7s.single_tile_launches
+        out = fn()
+        form = "single-tile" if k7s.single_tile_launches > single else \
+            "three-phase"
+        expect(form == ("single-tile" if n <= tile else "three-phase"),
+               f"K7s n={n} takes the {form} form (tile {tile})")
+        return out
+
     for B, n in ((4, 64), (4, 40), (3, 2049), (2, 2048), (1, 1), (64, 65536)):
         x = torch.randint(-100, 100, (B, n), generator=gen, device="cuda",
                           dtype=torch.int32)
         for inclusive in (True, False):
-            err = max_err(batched_k.batched_scan_cuda(alg.ADD, x,
-                                                      inclusive=inclusive),
+            err = max_err(k7s_form(lambda: k7s(alg.ADD, x,
+                                               inclusive=inclusive), n),
                           batched_k.batched_scan_plain(alg.ADD, x,
                                                        inclusive=inclusive))
             note("K7s", err)
             expect(err == 0, f"K7s ADD int32 ({B},{n}) inclusive="
                              f"{inclusive}: bit-exact")
+    for B, n in ((4, 64), (3, tile), (3, tile + 1)):
+        a = torch.empty(B, n, device="cuda").uniform_(0.9, 1.0, generator=gen)
+        b = torch.empty(B, n, device="cuda").uniform_(-1, 1, generator=gen)
+        got = k7s_form(lambda: k7s(alg.AFFINE, (a, b)), n)
+        want = batched_k.batched_scan_plain(alg.AFFINE, (a, b))
+        err = max_err(got, want)
+        note("K7s", err)
+        scale = max(float(want[1].abs().max()), 1.0)
+        expect(err <= 1e-6 * scale, f"K7s AFFINE f32 ({B},{n}): max abs err "
+                                    f"{err:.3g} <= 1e-6 x {scale:.3g}")
     probs = {}
     for (B, n), tol in (((BATCH, 64), 1e-6), ((64, 65536), 1e-5)):
         p = torch.softmax(torch.randn(B, n, generator=gen, device="cuda"), 1)
@@ -731,22 +809,147 @@ def check_k7s(res, gen, note) -> None:
         note("K7s", err)
         expect(err <= tol, f"K7s ADD f32 probabilities ({B},{n}) exclusive: "
                            f"max abs err {err:.3g} <= {tol}")
-    for n, key in ((64, None), (65536, "large")):
-        p = probs[n]
-        B = p.shape[0]
-        timing = dict(
-            ms=time_ms(lambda: batched_k.batched_scan_cuda(
-                alg.ADD, p, inclusive=False)),
-            plain_ms=time_ms(lambda: batched_k.batched_scan_plain(
-                alg.ADD, p, inclusive=False), 3),
-            library_ms=time_ms(lambda: torch.cumsum(p, dim=1)))
-        if key is None:
-            res["K7s"].update(timing, bound=bound_ms(2 * 4 * B * n, B * n),
-                              shape=f"({B}, {n}) f32 ADD exclusive")
-        else:
-            res["K7s"]["large"] = dict(
-                timing, shape=f"({B}, {n}) f32 ADD exclusive",
-                bound_ms=bound_ms(2 * 4 * B * n, B * n)[0])
+    p = probs[64]
+    B, n = p.shape
+    res["K7s"].update(time_turns({
+        "ms": lambda: batched_k.batched_scan_cuda(alg.ADD, p,
+                                                  inclusive=False),
+        "library_ms": lambda: torch.cumsum(p, dim=1),
+        "public_ms": lambda: forge.scan(alg.ADD, p, inclusive=False,
+                                        layout=Batched())}),
+        plain_ms=time_ms(lambda: batched_k.batched_scan_plain(
+            alg.ADD, p, inclusive=False), 3),
+        bound=bound_ms(2 * 4 * B * n, B * n),
+        shape=f"({B}, {n}) f32 ADD exclusive")
+    p = probs[65536]
+    B, n = p.shape
+    res["K7s"]["large"] = dict(
+        time_turns({
+            "ms": lambda: batched_k.batched_scan_cuda(alg.ADD, p,
+                                                      inclusive=False),
+            "library_ms": lambda: torch.cumsum(p, dim=1)}, reps=20),
+        plain_ms=time_ms(lambda: batched_k.batched_scan_plain(
+            alg.ADD, p, inclusive=False), 3),
+        shape=f"({B}, {n}) f32 ADD exclusive",
+        bound_ms=bound_ms(2 * 4 * B * n, B * n)[0])
+
+
+def host_us(fn, reps: int = 10**4) -> float:
+    """Mean host microseconds of ``fn`` over ``reps`` calls
+    (time.perf_counter_ns), after 100 warm-up calls."""
+    for _ in range(100):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter_ns()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps / 1e3
+
+
+def host_stages(gen) -> dict:
+    """Host microseconds of each stage of one K3 call at (4,) int32 MAX and
+    one K7s call at (4, 64) f32 ADD exclusive: [before, after], where
+    "before" re-times the calls the wrappers made at that stage before the
+    launch plan and the small forms (a pytree walk, the equality-keyed unit
+    lookup, a ctypes call for the grid or tile, three allocations, two
+    ctypes pointer arrays, current_stream(dev), memset and launch through
+    the array entry, unflatten) and "after" the wrapper's calls now.  Then
+    the whole wrapper, the public call and the library call, as they are
+    now."""
+    dev = torch.device("cuda")
+    pt = torch.utils._pytree
+
+    def old_arrays(*lists):           # the earlier leaf_ptrs, per list
+        return [(ctypes.c_void_p * 5)(*[t.data_ptr() for t in ts],
+                                      *([None] * (5 - len(ts))))
+                for ts in lists]
+
+    x = (torch.rand(BATCH, generator=gen, device=dev) > 0.5).int()
+    f, op, what = alg.IDENTITY, alg.MAX, "mapreduce@flat (cuda)"
+    plan = _lib.plan("mapreduce", what, op, x, f)
+    lib = plan.load()
+    out = x.new_empty(())
+    partials, ticket = _lib.scratch(1, 1, x), x.new_empty(1)
+    arrays = old_arrays([x], [out])
+    st = _lib.stream_ptr(x)
+    k3 = {
+        "walk": [host_us(lambda: pt.tree_leaves(x)),
+                 host_us(lambda: isinstance(x, torch.Tensor))],
+        "unit lookup / plan": [
+            host_us(lambda: _lib.map_unit("mapreduce", what, f, op, x)),
+            host_us(lambda: _lib.plan("mapreduce", what, op, x, f))],
+        "grid ctypes call / plan.limit": [
+            host_us(lambda: lib.rt_mapreduce_flat_grid(BATCH)),
+            host_us(lambda: BATCH <= plan.limit)],
+        "allocations": [
+            host_us(lambda: (_lib.scratch(1, 1, x), torch.empty(
+                1, dtype=torch.int32, device=dev), torch.empty(
+                (), dtype=torch.int32, device=dev))),
+            host_us(lambda: x.new_empty((), dtype=torch.int32))],
+        "pointers": [host_us(lambda: old_arrays([x], [out])),
+                     host_us(lambda: (_lib.ptrs([x]), _lib.ptrs([out])))],
+        "stream": [host_us(lambda: torch.cuda.current_stream(dev).cuda_stream),
+                   host_us(lambda: _lib.stream_ptr(x))],
+        "C call": [host_us(lambda: lib.rt_mapreduce_flat(
+            arrays[0], BATCH, partials.data_ptr(), ticket.data_ptr(),
+            arrays[1], st)), host_us(lambda: lib.rt_mapreduce_small(
+                x.data_ptr(), out.data_ptr(), BATCH, st))],
+        "unflatten": [host_us(lambda: pt.tree_unflatten([out],
+                                                        plan.out_spec)),
+                      host_us(lambda: plan.outputs([out]))],
+        "wrapper": host_us(lambda: mapreduce_k.mapreduce_1d_cuda(f, op, x)),
+        "public": host_us(lambda: forge.mapreduce(f, op, x)),
+        "amax": host_us(lambda: torch.amax(x)),
+    }
+
+    p = torch.softmax(torch.randn(BATCH, 64, generator=gen, device=dev), 1)
+    swhat = "scan@batched (cuda)"
+    splan = _lib.plan("scan", swhat, alg.ADD, p)
+    slib = splan.load()
+    pout = torch.empty_like(p)
+    sarrays = old_arrays([p], [pout])
+    k7s = {
+        "walk": [host_us(lambda: pt.tree_flatten(p)),
+                 host_us(lambda: isinstance(p, torch.Tensor))],
+        "unit lookup / plan": [
+            host_us(lambda: scan_k.scan_unit(swhat, alg.ADD, [p])),
+            host_us(lambda: _lib.plan("scan", swhat, alg.ADD, p))],
+        "tile ctypes call / plan.limit": [
+            host_us(lambda: slib.rt_tile()),
+            host_us(lambda: 64 <= splan.limit)],
+        "allocations": [host_us(lambda: [torch.empty_like(p)])] * 2,
+        "pointers": [host_us(lambda: old_arrays([p], [pout])),
+                     host_us(lambda: (_lib.ptrs([p]), _lib.ptrs([pout])))],
+        "stream": [host_us(lambda: torch.cuda.current_stream(dev).cuda_stream),
+                   host_us(lambda: _lib.stream_ptr(p))],
+        "C call": [host_us(lambda: slib.rt_scan_rows(
+            sarrays[0], sarrays[1], BATCH, 64, 0, None, st)),
+            host_us(lambda: slib.rt_scan_tile(
+                p.data_ptr(), pout.data_ptr(), BATCH, 64, 0, st))],
+        "unflatten": [host_us(lambda: pt.tree_unflatten(
+            [pout], pt.tree_flatten(p)[1])),
+            host_us(lambda: splan.outputs([pout]))],
+        "wrapper": host_us(lambda: batched_k.batched_scan_cuda(
+            alg.ADD, p, inclusive=False)),
+        "public": host_us(lambda: forge.scan(alg.ADD, p, inclusive=False,
+                                             layout=Batched())),
+        "cumsum": host_us(lambda: torch.cumsum(p, dim=1)),
+    }
+    # The raw stream is the current one, on the default stream and inside
+    # a stream scope.
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        on_side = _lib.stream_ptr(x) == side.cuda_stream
+    expect(on_side and _lib.stream_ptr(x) ==
+           torch.cuda.current_stream().cuda_stream,
+           "the wrappers' stream is torch's current stream, also in a "
+           "torch.cuda.stream scope")
+    stages = {"K3 (4,) int32 MAX": k3, "K7s (4, 64) f32 ADD exclusive": k7s}
+    log("[host] us per call, stage: [earlier form, now]; " +
+        json.dumps(stages))
+    return stages
 
 
 # ---------------------------------------------------------------------------
@@ -1941,6 +2144,10 @@ def phase_serve(cfg, params, prompts, path=GREEDY_PATH,
     for k in path:
         expect(launches[k] > 0, f"{k} launched {launches[k]} times on the "
                                 f"{tag} path")
+    expect(launches["K3 small"] == launches["K3"],
+           f"all {launches['K3']} K3 launches of the {tag} path (the "
+           f"decode loop's all-done predicate over {BATCH} slots) took the "
+           f"small form")
     attn_layers = sum(kind in BK._ATTN_KINDS for kind in cfg.layer_pattern())
     expect(launches["K10"] >= attn_layers * len(reqs),
            f"K10 launched {launches['K10']} times: at least once in each of "
@@ -2115,11 +2322,12 @@ def profile_device(label: str, fn, units: int) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = collections.Counter()
-    ops = 0
+    ops = memsets = 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] += e.time_range.elapsed_us() / 1e3
             ops += 1
+            memsets += e.name.startswith("Memset")
     if not ops:
         log(f"[profile {label}] device time not measured (no device events)")
         return {"measured": False}
@@ -2135,7 +2343,7 @@ def profile_device(label: str, fn, units: int) -> dict:
            "wall_ms_profiled": wall_ms / units,
            "device_ms": busy_ms / units,
            "device_idle_share": 1.0 - busy_ms / wall_ms,
-           "device_ops": ops / units,
+           "device_ops": ops / units, "memsets": memsets / units,
            "port_kernels_ms": dict(port),
            "top": [[name[:60], ms / units]
                    for name, ms in by_name.most_common(8)]}
@@ -2163,7 +2371,28 @@ def profile_serving(eng, params, cfg, prompt, steps: int = 8) -> dict:
     if ran != [steps]:
         raise CheckFailed(f"the profiled decode loop ran {ran} steps, not "
                           f"{steps}")
+    check_predicate(state)
     return {"prefill": prefill, "decode_step": decode}
+
+
+def check_predicate(state) -> None:
+    """The decode loop's predicate as the engine calls it, on the engine's
+    flags: one launch of the small form a call (the counter), and on the
+    device nothing else: K3's kernel, no memset.  torch.profiler may miss
+    an event at the edge of its window, so at most one operation a call."""
+    x = state["active"].to(torch.int32)
+    calls, small = 10, mapreduce_k.mapreduce_1d_cuda.small_launches
+    ops = profile_device("predicate", lambda: [forge.mapreduce(
+        alg.IDENTITY, alg.MAX, x, layout=Flat()) for _ in range(calls)],
+        calls)
+    small = mapreduce_k.mapreduce_1d_cuda.small_launches - small
+    expect(small == calls and ops["measured"] and ops["device_ops"] <= 1
+           and ops["memsets"] == 0
+           and list(ops["port_kernels_ms"]) == ["mapreduce"],
+           f"the serving predicate at ({BATCH},): {small} small-form "
+           f"launches in {calls} calls; on the device "
+           f"{ops.get('device_ops')} operations and {ops.get('memsets')} "
+           f"memsets a call, all K3's")
 
 
 def card_line() -> str:
@@ -2217,6 +2446,12 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
             "shape": r["shape"]})
+        if "public_ms" in r:            # the public call at the same shape
+            kernels[-1]["public_ms"] = r["public_ms"]
+        for form in FORMS:              # the small form's share, per path
+            if form.startswith(f"{k} "):
+                kernels[-1]["launches_" + form.split()[1]] = {
+                    path: p["launches"][form] for path, p in paths.items()}
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

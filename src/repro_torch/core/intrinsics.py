@@ -105,13 +105,22 @@ def use_backend(backend: str):
         _BACKEND_SCOPE.stack.pop()
 
 
+def _leaves(data) -> list:
+    """``data``'s leaves; a bare tensor is its own, with no pytree walk."""
+    return [data] if isinstance(data, torch.Tensor) else \
+        pytree.tree_leaves(data)
+
+
 def current_backend(data=None) -> str:
     """The backend dispatch uses when no explicit ``backend=`` is passed:
     the innermost use_backend() scope, else ``cuda`` when ``data``'s leaves
     lie on a CUDA device, else ``torch``."""
+    return _backend_of(_leaves(data))
+
+
+def _backend_of(leaves: list) -> str:
     if _BACKEND_SCOPE.stack:
         return _BACKEND_SCOPE.stack[-1]
-    leaves = pytree.tree_leaves(data)
     if leaves and isinstance(leaves[0], torch.Tensor) and leaves[0].is_cuda:
         return "cuda"
     return "torch"
@@ -214,19 +223,17 @@ def get_route(primitive: str, kind: str) -> RouteDef:
 # -- shared zero-extent guards (single implementations, wired by name) ------
 
 
-def _zg_passthrough(route, args, kwargs):
+def _zg_passthrough(route, args, kwargs, leaves):
     """Any zero extent in the data: the input already is the output."""
-    data = args[route.data_arg]
-    lead = pytree.tree_leaves(data)[0]
-    if any(d == 0 for d in lead.shape):
-        return True, data
+    if 0 in leaves[0].shape:
+        return True, args[route.data_arg]
     return False, None
 
 
-def _zg_batched_reduce_identity(route, args, kwargs):
+def _zg_batched_reduce_identity(route, args, kwargs, leaves):
     """(B, 0) rows / B == 0: reducing zero elements yields identity rows."""
     f, op, xs = args[0], args[1], args[2]
-    B, n = pytree.tree_leaves(xs)[0].shape
+    B, n = leaves[0].shape
     if B and n:
         return False, None
     one = f(pytree.tree_map(lambda l: l[:1, :0], xs))   # mapped dtypes only
@@ -234,10 +241,10 @@ def _zg_batched_reduce_identity(route, args, kwargs):
         lambda l: torch.empty((B,), dtype=l.dtype, device=l.device), one))
 
 
-def _zg_segmented_reduce_identity(route, args, kwargs):
+def _zg_segmented_reduce_identity(route, args, kwargs, leaves):
     """Zero-length stream: every declared segment reduces to identity."""
     f, op, xs = args[0], args[1], args[2]
-    if pytree.tree_leaves(xs)[0].shape[0] != 0:
+    if leaves[0].shape[0] != 0:
         return False, None
     offsets = kwargs.get("offsets")
     ns = (kwargs.get("num_segments") if offsets is None
@@ -248,7 +255,7 @@ def _zg_segmented_reduce_identity(route, args, kwargs):
                               device=l.device), vals))
 
 
-def _zg_batched_mv_identity(route, args, kwargs):
+def _zg_batched_mv_identity(route, args, kwargs, leaves):
     """(B, n, p) with any zero extent: identity rows of the output extent."""
     f, op, A, x = args[0], args[1], args[2], args[3]
     B, n, p = A.shape
@@ -277,7 +284,7 @@ _ZERO_GUARDS = {
 # -- the dispatch pipeline --------------------------------------------------
 
 
-def _validate(route: RouteDef, layout, args, kwargs):
+def _validate(route: RouteDef, layout, args, kwargs, leaves):
     where = route.key
     for name, required in route.fixed_kwargs:
         if name in kwargs:
@@ -296,7 +303,8 @@ def _validate(route: RouteDef, layout, args, kwargs):
                 f"{where}: the flags descriptor needs Segmented("
                 f"num_segments=...) -- the output extent is static")
     for idx, rank in route.arg_ranks:
-        for leaf in pytree.tree_leaves(args[idx]):
+        for leaf in leaves if idx == route.data_arg else \
+                _leaves(args[idx]):
             if leaf.ndim != rank:
                 raise ValueError(
                     f"{where}: argument {idx} expects rank-{rank} leaves "
@@ -315,18 +323,21 @@ def dispatch(primitive: str, layout, backend: str | None,
              args: tuple, kwargs: dict):
     """Resolve and call one (primitive, layout, backend) route: validation,
     layout-descriptor injection, zero-extent guard, non-commutative reroute,
-    then the backend's implementation."""
+    then the backend's implementation.  The data's leaves are walked once,
+    here, and serve every step."""
     layout = lay.as_layout(layout)
     route = get_route(primitive, layout.kind)
+    leaves = _leaves(args[route.data_arg])
     kwargs = dict(kwargs)
-    _validate(route, layout, args, kwargs)
+    _validate(route, layout, args, kwargs, leaves)
     if route.needs_descriptor:
         kwargs["flags"] = layout.flags
         kwargs["offsets"] = layout.offsets
         if route.needs_num_segments:
             kwargs["num_segments"] = layout.num_segments
     if route.zero_extent is not None:
-        handled, result = _ZERO_GUARDS[route.zero_extent](route, args, kwargs)
+        handled, result = _ZERO_GUARDS[route.zero_extent](route, args, kwargs,
+                                                          leaves)
         if handled:
             return result
     if route.noncomm_route is not None and not getattr(
@@ -339,7 +350,7 @@ def dispatch(primitive: str, layout, backend: str | None,
         incl = resolve_impl(route.noncomm_route, backend, vals)(
             op, vals, inclusive=True)
         return pytree.tree_map(lambda l: l[:, -1], incl)
-    impl = resolve_impl(route.key, backend, args[route.data_arg])
+    impl = resolve_impl(route.key, backend or _backend_of(leaves))
     return impl(*args, **kwargs)
 
 

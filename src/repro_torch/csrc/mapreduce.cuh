@@ -16,8 +16,13 @@
 // single-launch completion: each block writes its partial, fences, and takes
 // an atomic ticket, and the block that draws the last ticket folds the
 // partials through L2.  The grid is capped at two blocks per SM, so the
-// partials stay a few hundred elements.  K7m: one block per row, the same
-// block reduction; rows are independent, so no cross-block completion.
+// partials stay a few hundred elements.  K3's small form, for n <= SMALL
+// (one block's THREADS x ITEMS_PER_THREAD, the serving path's (B,) flags):
+// one block reduces and stores the result, one launch with no memset, no
+// ticket and no partials; at these sizes the host's launch, not the device,
+// takes the time.  K7m: one block per row, the same block reduction; rows
+// are independent, so no cross-block completion (K3's small form is its
+// kernel with one row).
 // Commutative operators only, as the reference asserts (mapreduce.py:89):
 // blocks and lanes finish in any order.
 #pragma once
@@ -31,6 +36,7 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int ITEMS_PER_THREAD = 8;
 constexpr int MAX_BLOCKS = 2 * 132;
+constexpr long SMALL = THREADS * ITEMS_PER_THREAD;  // grid_for(n) == 1
 
 long grid_for(long n) {
   const long want = (n + THREADS * ITEMS_PER_THREAD - 1) / (THREADS * ITEMS_PER_THREAD);
@@ -96,6 +102,18 @@ cudaError_t flat(Leaves x, long n, void* partials, void* ticket, Leaves out,
     flat_kernel<Map, Op><<<static_cast<unsigned>(grid), THREADS, 0, stream>>>(
         x, n, static_cast<typename Op::E*>(partials),
         static_cast<unsigned*>(ticket), out);
+    return cudaGetLastError();
+  }
+}
+
+// K3's small form, n <= SMALL: one block, one launch, nothing to clear.
+template <typename Map, typename Op>
+cudaError_t small(Leaves x, long n, Leaves out, cudaStream_t stream) {
+  if constexpr (!Op::COMMUTATIVE) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (n <= 0 || n > SMALL) return cudaErrorInvalidValue;
+    rows_kernel<Map, Op><<<1, THREADS, 0, stream>>>(x, n, out);
     return cudaGetLastError();
   }
 }

@@ -15,8 +15,9 @@
 // rescan), exact for non-commutative operators, with the row on grid axis y.
 // It moves 3 n element bytes instead of 2 n.  A row of n <= one tile (the
 // serving path's (B,) count scan, the sampling path's (4, 64) nucleus scan)
-// is a single launch with no carry.  The single-pass decoupled lookback is
-// the later performance step.
+// is a single launch with no carry, with an entry of its own (single_tile)
+// that takes no scratch.  The single-pass decoupled lookback is the later
+// performance step.
 //
 // K6 replaces: src/repro/kernels/scan.py::scan_channel_pallas (body
 // _chan_kernel), which puts channels on the TPU's 128 lanes and walks T
@@ -128,6 +129,15 @@ cudaError_t rows(Leaves x, Leaves y, long rows, long n, bool inclusive,
                  void* scratch, cudaStream_t stream) {
   if (rows <= 0 || n <= 0 || rows > 65535) return cudaErrorInvalidValue;
   return tile::launch_scan_rows<Op>(x, y, rows, n, inclusive, scratch, stream);
+}
+
+// K7s's single-tile form: rows of n <= one tile, one launch, no scratch.
+template <typename Op>
+cudaError_t single_tile(Leaves x, Leaves y, long rows, long n, bool inclusive,
+                        cudaStream_t stream) {
+  if (rows <= 0 || n <= 0 || rows > 65535 || n > tile::Tile<typename Op::E>::SIZE)
+    return cudaErrorInvalidValue;
+  return tile::launch_scan_rows<Op>(x, y, rows, n, inclusive, nullptr, stream);
 }
 
 // K6.  A null `scratch` takes the serial route, a non-null one the long-T

@@ -48,13 +48,30 @@ _PP = ctypes.POINTER(ctypes.c_void_p)     # one pointer per leaf
 
 
 @dataclasses.dataclass(frozen=True)
+class LeafEntry:
+    """A C entry that takes one pointer per leaf as a scalar argument
+    (the input element's leaves, then the output's), then ``params``: the
+    small forms' entries, whose host call a ctypes array per leaf list
+    would outweigh.  ``call`` runs with them gathered into the
+    ``rt::Leaves`` ``x`` and ``y``."""
+
+    params: str
+    argtypes: list      # ctypes of ``params``
+    call: str
+
+
+@dataclasses.dataclass(frozen=True)
 class Family:
     """One kernel header and the C entry points a unit of it exports.  The
-    entries name the unit's generated ``Op`` and ``Map``."""
+    entries name the unit's generated ``Op`` and ``Map``.  ``limit`` names
+    the entry of no argument whose answer a :class:`Plan` asks once: the
+    largest extent of the family's small form."""
 
     header: str
     entries: str
     signatures: dict    # C name -> (restype, argtypes)
+    leaf_entries: dict = dataclasses.field(default_factory=dict)
+    limit: str | None = None
 
 
 _ST = "static_cast<cudaStream_t>(stream)"
@@ -77,7 +94,12 @@ int rt_scan_channel(void* const* x, void* const* y, long B, long T, long C,
         "rt_scan_rows": (_I, [_PP, _PP, _L, _L, _I, _P, _P]),
         "rt_scan_channel_chunk": (_I, []),
         "rt_scan_channel": (_I, [_PP, _PP, _L, _L, _L, _I, _I, _P, _P]),
-    }),
+    }, {
+        # K7s, rows of n <= one tile.
+        "rt_scan_tile": LeafEntry(
+            "long rows, long n, int inclusive, void* stream", [_L, _L, _I, _P],
+            f"rt::scan::single_tile<Op>(x, y, rows, n, inclusive != 0, {_ST})"),
+    }, "rt_tile"),
     # K8 over a segmented lift.
     "segscan": Family("segmented.cuh", f"""
 int rt_tile() {{ return rt::tile::Tile<Op::E>::SIZE; }}
@@ -89,8 +111,9 @@ int rt_segscan(void* const* x, void* const* y, long n, int inclusive,
         "rt_tile": (_I, []),
         "rt_segscan": (_I, [_PP, _PP, _L, _I, _P, _P]),
     }),
-    # K3 (flat) and K7m (rows).
+    # K3 (flat: the small form and the multi-block one) and K7m (rows).
     "mapreduce": Family("mapreduce.cuh", f"""
+long rt_mapreduce_small_max() {{ return rt::mapreduce::SMALL; }}
 long rt_mapreduce_flat_grid(long n) {{ return rt::mapreduce::grid_for(n); }}
 int rt_mapreduce_flat(void* const* x, long n, void* partials, void* ticket,
                       void* const* out, void* stream) {{
@@ -102,10 +125,15 @@ int rt_mapreduce_rows(void* const* x, long B, long n, void* const* out,
   return rt::mapreduce::rows<Map, Op>(rt::leaves(x), B, n, rt::leaves(out),
                                       {_ST});
 }}""", {
+        "rt_mapreduce_small_max": (_L, []),
         "rt_mapreduce_flat_grid": (_L, [_L]),
         "rt_mapreduce_flat": (_I, [_PP, _L, _P, _P, _PP, _P]),
         "rt_mapreduce_rows": (_I, [_PP, _L, _L, _PP, _P]),
-    }),
+    }, {
+        "rt_mapreduce_small": LeafEntry(
+            "long n, void* stream", [_L, _P],
+            f"rt::mapreduce::small<Map, Op>(x, n, y, {_ST})"),
+    }, "rt_mapreduce_small_max"),
     # K4 and K7 matvec (form 0) and vecmat (form 1) over B dense (n, p)
     # matrices (B = 1: flat), K5 (form 2).
     "matvec": Family("matvec.cuh", f"""
@@ -174,6 +202,7 @@ class Unit:
     family: str
     label: str
     source: str
+    leaves: tuple = (0, 0)   # input and output leaves of the leaf entries
 
     @functools.cached_property
     def digest(self) -> str:
@@ -306,6 +335,80 @@ def map_unit(family: str, what: str, f, op: alg.AssocOp, *likes,
 
 
 _MAP_UNITS: dict[tuple, tuple] = {}
+
+
+class Plan:
+    """One family's launch for one (operator, map, leaf dtypes), resolved
+    once (:func:`plan`): the unit, the output element's dtypes and tree
+    spec and, from the first launch on, the loaded library and its
+    ``limit``.  It holds ``op`` and ``f``, so their ids, which key it,
+    cannot be reused while it lives."""
+
+    __slots__ = ("unit", "op", "f", "out_dtypes", "out_spec", "bare_out",
+                 "lib", "limit")
+
+    def __init__(self, unit: Unit, op, f, out_dtypes, out_spec):
+        self.unit, self.op, self.f = unit, op, f
+        self.out_dtypes, self.out_spec = out_dtypes, out_spec
+        self.bare_out = out_spec.is_leaf()     # one tensor, no unflatten
+        self.lib: ctypes.CDLL | None = None
+        self.limit = 0
+
+    def load(self) -> ctypes.CDLL:
+        """The unit's library, built and loaded at the first call, which
+        also asks the family's limit once."""
+        if self.lib is None:
+            lib = load(self.unit)
+            limit = FAMILIES[self.unit.family].limit
+            self.limit = getattr(lib, limit)() if limit else 0
+            self.lib = lib
+        return self.lib
+
+    def outputs(self, outs: list):
+        return outs[0] if self.bare_out else pytree.tree_unflatten(
+            outs, self.out_spec)
+
+
+def plan(family: str, what: str, op: alg.AssocOp, xs, f=None) -> Plan:
+    """The launch plan of ``family`` for ``op`` over the leaves of ``xs``
+    (and, for mapreduce, the map ``f``); the output element is ``f``'s, or
+    ``xs``'s own without a map.
+
+    Kept per (family, id(op), id(f), leaf dtypes) where ``xs`` is a tensor
+    or a flat tuple of tensors, so a call neither walks a pytree nor hashes
+    the frozen operator dataclasses.  A miss resolves the unit by equality
+    (:func:`map_unit`, :func:`unit`): an equal but distinct operator finds
+    the same unit and builds nothing new.  Raises as they do, before
+    anything is built."""
+    key = (family, id(op), id(f), xs.dtype if isinstance(xs, torch.Tensor)
+           else _sig(xs))
+    found = _PLANS.get(key)
+    return found if found is not None else _make_plan(key, family, what, op,
+                                                      xs, f)
+
+
+def _sig(xs):
+    """The leaf dtypes of a flat tuple of tensors; None for another pytree,
+    whose plan is made anew on every call."""
+    if type(xs) is tuple and all(isinstance(l, torch.Tensor) for l in xs):
+        return tuple(l.dtype for l in xs)
+    return None
+
+
+def _make_plan(key, family, what, op, xs, f) -> Plan:
+    if f is not None:
+        u, out_dtypes, out_spec = map_unit(family, what, f, op, xs)
+    else:
+        leaves, out_spec = pytree.tree_flatten(xs)
+        out_dtypes = [l.dtype for l in leaves]
+        u = unit(family, what, op, out_dtypes)
+    found = Plan(u, op, f, out_dtypes, out_spec)
+    if key[-1] is not None:
+        _PLANS[key] = found
+    return found
+
+
+_PLANS: dict[tuple, Plan] = {}
 
 
 def unit(family: str, what: str, op: alg.AssocOp | None = None,
@@ -443,12 +546,25 @@ def _make_unit(family, what, op, dtypes, f, in_dtypes, quant,
             f"}};\n")
         label = f"{label} {quant}"
     fam = FAMILIES[family]
+    leaves = (len(in_dtypes) if f is not None else len(dtypes), len(dtypes))
+    entries = fam.entries + "".join(
+        _leaf_entry(name, e, *leaves) for name, e in fam.leaf_entries.items())
     source = (f"// Generated by repro_torch/kernels/_lib.py: {label}\n"
               f'#include "{fam.header}"\n\nnamespace {{\n\n'
               + "\n".join(gen.parts)
-              + f'\n}}  // namespace\n\nextern "C" {{\n{fam.entries}\n\n'
+              + f'\n}}  // namespace\n\nextern "C" {{\n{entries}\n\n'
               f'}}  // extern "C"\n')
-    return Unit(family, label, source)
+    return Unit(family, label, source, leaves if fam.leaf_entries else (0, 0))
+
+
+def _leaf_entry(name: str, e: LeafEntry, k_in: int, k_out: int) -> str:
+    xs = [f"x{i}" for i in range(k_in)]
+    ys = [f"y{i}" for i in range(k_out)]
+    params = ", ".join(f"void* {p}" for p in xs + ys)
+    return (f"\nint {name}({params}, {e.params}) {{\n"
+            f"  const rt::Leaves x{{{{{', '.join(xs)}}}}};\n"
+            f"  const rt::Leaves y{{{{{', '.join(ys)}}}}};\n"
+            f"  return {e.call};\n}}")
 
 
 def _nvcc() -> str:
@@ -508,7 +624,11 @@ def load(u: Unit) -> ctypes.CDLL:
     lib = _LOADED.get(u.digest)
     if lib is None:
         lib = ctypes.CDLL(str(build([u])[u.digest]))
-        for name, (restype, argtypes) in FAMILIES[u.family].signatures.items():
+        fam = FAMILIES[u.family]
+        pointers = [_P] * sum(u.leaves)
+        for name, (restype, argtypes) in (*fam.signatures.items(), *(
+                (name, (_I, pointers + e.argtypes))
+                for name, e in fam.leaf_entries.items())):
             fn = getattr(lib, name)
             fn.restype = restype
             fn.argtypes = argtypes
@@ -524,15 +644,21 @@ def check(code: int, what: str) -> None:
 
 
 def stream_ptr(t: torch.Tensor) -> int:
-    """The current stream of ``t``'s device, as the C functions take it."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current stream of ``t``'s device, as the C functions take it.
+
+    The private call returns what ``torch.cuda.current_stream(t.device)
+    .cuda_stream`` does, without building a Stream object: 0.10 against
+    7.28 us a call on the H100's host (PERF.md, the host stages), more
+    than the 2 us for which the port takes a private API over a public
+    one."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def require_cuda(what: str, *tensors: torch.Tensor) -> None:
     """Check device and contiguity before a pointer reaches C."""
-    dev = tensors[0].device
+    first = tensors[0]
     for t in tensors:
-        if t.device != dev or not t.is_cuda:
+        if not t.is_cuda or (t is not first and t.device != first.device):
             raise ValueError(f"{what}: all operands must be on one CUDA "
                              f"device, got {[str(x.device) for x in tensors]}")
         if not t.is_contiguous():
@@ -543,11 +669,18 @@ def ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
 
+def ptrs(tensors) -> list[int]:
+    """One pointer per leaf, for a :class:`LeafEntry`'s scalar arguments."""
+    return [t.data_ptr() for t in tensors]
+
+
+_LEAF_ARRAY = ctypes.c_void_p * alg.MAX_DEVICE_LEAVES
+
+
 def leaf_ptrs(tensors) -> ctypes.Array:
-    """The C ``void* const*`` of up to five leaves (None leaves stay null)."""
-    ptrs = [ptr(t) for t in tensors]
-    return (ctypes.c_void_p * alg.MAX_DEVICE_LEAVES)(
-        *ptrs, *([None] * (alg.MAX_DEVICE_LEAVES - len(ptrs))))
+    """The C ``void* const*`` of up to five leaves (None leaves and the
+    slots past the last stay null)."""
+    return _LEAF_ARRAY(*[ptr(t) for t in tensors])
 
 
 def scratch(elements: int, leaves: int, like: torch.Tensor) -> torch.Tensor:

@@ -29,6 +29,9 @@ Given CPU tensors a wrapper runs the plain version; given CUDA tensors it
 launches the kernel or raises.  ``launches`` counts each wrapper's calls
 that launched its kernel (K7s above one tile per row issues three CUDA
 launches per call, the GEMVs two when they split the reduction axis).
+K7s's rows of at most one tile (the sampling path's (4, 64) nucleus scan)
+take its single-tile form: one launch, one allocation (the output), the
+pointers as scalar arguments, counted again in ``single_tile_launches``.
 """
 from __future__ import annotations
 
@@ -40,7 +43,6 @@ from torch.utils import _pytree as pytree
 from repro_torch.kernels import _lib
 from repro_torch.kernels import matvec as matvec_k
 from repro_torch.kernels import ref
-from repro_torch.kernels.scan import scan_unit
 
 Pytree = Any
 
@@ -53,33 +55,39 @@ def batched_scan_plain(op, xs: Pytree, *, inclusive: bool = True) -> Pytree:
 def batched_scan_cuda(op, xs: Pytree, *, inclusive: bool = True) -> Pytree:
     """K7s: inclusive/exclusive scan along axis 1 of ``(B, n)`` leaves,
     independent per row, B, n >= 1."""
-    leaves, spec = pytree.tree_flatten(xs)
-    if not leaves[0].is_cuda:
+    leaves = (xs,) if isinstance(xs, torch.Tensor) else pytree.tree_leaves(xs)
+    x = leaves[0]
+    if not x.is_cuda:
         return batched_scan_plain(op, xs, inclusive=inclusive)
     what = "scan@batched (cuda)"
-    unit = scan_unit(what, op, leaves)
-    shape = leaves[0].shape
-    if any(l.shape != shape for l in leaves) or len(shape) != 2 \
-            or 0 in shape:
+    plan = _lib.plan("scan", what, op, xs)
+    shape = x.shape
+    if len(shape) != 2 or 0 in shape or len(leaves) > 1 and any(
+            l.shape != shape for l in leaves):
         raise ValueError(f"{what}: takes non-empty (B, n) leaves of one "
                          f"shape, got {[tuple(l.shape) for l in leaves]}")
     _lib.require_cuda(what, *leaves)
     B, n = shape
     if B > 65535:
         raise ValueError(f"{what}: B = {B} exceeds the grid's 65535 rows")
-    lib = _lib.load(unit)
+    lib = plan.lib or plan.load()
     outs = [torch.empty_like(l) for l in leaves]
-    tiles = -(-n // lib.rt_tile())
-    scratch = _lib.scratch(B * tiles, len(leaves), leaves[0]) if tiles > 1 \
-        else None
-    _lib.check(lib.rt_scan_rows(
-        _lib.leaf_ptrs(leaves), _lib.leaf_ptrs(outs), B, n, int(inclusive),
-        _lib.ptr(scratch), _lib.stream_ptr(leaves[0])), what)
+    if n <= plan.limit:
+        _lib.check(lib.rt_scan_tile(
+            *_lib.ptrs((*leaves, *outs)), B, n, int(inclusive),
+            _lib.stream_ptr(x)), what)
+        batched_scan_cuda.single_tile_launches += 1
+    else:
+        scratch = _lib.scratch(B * -(-n // plan.limit), len(leaves), x)
+        _lib.check(lib.rt_scan_rows(
+            _lib.leaf_ptrs(leaves), _lib.leaf_ptrs(outs), B, n,
+            int(inclusive), scratch.data_ptr(), _lib.stream_ptr(x)), what)
     batched_scan_cuda.launches += 1
-    return pytree.tree_unflatten(outs, spec)
+    return plan.outputs(outs)
 
 
 batched_scan_cuda.launches = 0
+batched_scan_cuda.single_tile_launches = 0
 
 
 def batched_mapreduce_plain(f, op, xs: Pytree) -> Pytree:

@@ -8,8 +8,15 @@ runs inside the kernel and may change the type (UnitFloat8 decodes uint8 to
 f32), and the accumulator carries the mapped type.  Plain version:
 :func:`mapreduce_1d_plain`.
 
+Two forms: up to one block's extent (the plan's ``limit``, 2,048), the
+small form -- one block, one launch, one allocation (the output), the
+pointers as scalar arguments; above it, the multi-block form with its
+partials and the atomic ticket cleared by a memset.  The serving path's
+all-done predicate, at n = the engine's slots, always takes the small form.
+
 Given CPU tensors the wrapper runs the plain version; given CUDA tensors it
-launches the kernel or raises.  ``launches`` counts the kernel's launches.
+launches the kernel or raises.  ``launches`` counts the kernel's launches,
+``small_launches`` those of the small form among them.
 """
 from __future__ import annotations
 
@@ -32,32 +39,39 @@ def mapreduce_1d_plain(f, op, xs: Pytree) -> Pytree:
 def mapreduce_1d_cuda(f, op, xs: Pytree) -> Pytree:
     """K3: op-reduce of ``f(x)`` over flat ``(n,)`` leaves -> 0-dim
     tensors."""
-    leaves = pytree.tree_leaves(xs)
-    if not leaves[0].is_cuda:
+    leaves = (xs,) if isinstance(xs, torch.Tensor) else pytree.tree_leaves(xs)
+    x = leaves[0]
+    if not x.is_cuda:
         return mapreduce_1d_plain(f, op, xs)
     what = "mapreduce@flat (cuda)"
     if not op.commutative:
         raise ValueError(f"{what}: requires a commutative operator, got "
                          f"{op.name!r}")
-    unit, out_dtypes, out_spec = _lib.map_unit("mapreduce", what, f, op, xs)
-    shape = leaves[0].shape
-    if any(l.shape != shape for l in leaves) or len(shape) != 1 \
-            or shape[0] == 0:
+    plan = _lib.plan("mapreduce", what, op, xs, f)
+    shape = x.shape
+    if len(shape) != 1 or shape[0] == 0 or len(leaves) > 1 and any(
+            l.shape != shape for l in leaves):
         raise ValueError(f"{what}: takes non-empty (n,) leaves of one shape, "
                          f"got {[tuple(l.shape) for l in leaves]}")
     _lib.require_cuda(what, *leaves)
-    lib = _lib.load(unit)
+    lib = plan.lib or plan.load()
     n = shape[0]
-    dev = leaves[0].device
-    partials = _lib.scratch(lib.rt_mapreduce_flat_grid(n), len(out_dtypes),
-                            leaves[0])
-    ticket = torch.empty(1, dtype=torch.int32, device=dev)
-    outs = [torch.empty((), dtype=d, device=dev) for d in out_dtypes]
-    _lib.check(lib.rt_mapreduce_flat(
-        _lib.leaf_ptrs(leaves), n, partials.data_ptr(), ticket.data_ptr(),
-        _lib.leaf_ptrs(outs), _lib.stream_ptr(leaves[0])), what)
+    outs = [x.new_empty((), dtype=d) for d in plan.out_dtypes]
+    if n <= plan.limit:
+        _lib.check(lib.rt_mapreduce_small(
+            *_lib.ptrs((*leaves, *outs)), n, _lib.stream_ptr(x)), what)
+        mapreduce_1d_cuda.small_launches += 1
+    else:
+        partials = _lib.scratch(lib.rt_mapreduce_flat_grid(n),
+                                len(outs), x)
+        ticket = x.new_empty(1, dtype=torch.int32)
+        _lib.check(lib.rt_mapreduce_flat(
+            _lib.leaf_ptrs(leaves), n, partials.data_ptr(),
+            ticket.data_ptr(), _lib.leaf_ptrs(outs), _lib.stream_ptr(x)),
+            what)
     mapreduce_1d_cuda.launches += 1
-    return pytree.tree_unflatten(outs, out_spec)
+    return plan.outputs(outs)
 
 
 mapreduce_1d_cuda.launches = 0
+mapreduce_1d_cuda.small_launches = 0

@@ -170,7 +170,10 @@ def _mapreduce_torch(f, op, xs, *, axis=None):
 
 def _mapreduce_cuda(f, op, xs, *, axis=None):
     if axis is None:
-        flat = pytree.tree_map(lambda l: l.reshape(-1), xs)
+        if isinstance(xs, torch.Tensor):     # the serving path's flags
+            flat = xs if xs.dim() == 1 else xs.reshape(-1)
+        else:
+            flat = pytree.tree_map(lambda l: l.reshape(-1), xs)
         return mapreduce_k.mapreduce_1d_cuda(f, op, flat)
     if isinstance(xs, torch.Tensor) and xs.ndim == 2 and -2 <= axis < 2:
         # The reference's route (paper section V-A): a 2-D reduction over
@@ -193,6 +196,9 @@ def _batched_scan_torch(op, xs, *, inclusive=True, reverse=False):
 
 
 def _batched_scan_cuda(op, xs, *, inclusive=True, reverse=False):
+    if not reverse and isinstance(xs, torch.Tensor):   # the nucleus scan
+        return batched_k.batched_scan_cuda(op, xs.contiguous(),
+                                           inclusive=inclusive)
     flip = (lambda l: torch.flip(l, (1,))) if reverse else \
         (lambda l: l.contiguous())
     out = batched_k.batched_scan_cuda(op, pytree.tree_map(flip, xs),

@@ -410,3 +410,31 @@ def test_k7_k9_kernels_match_plain_versions_on_the_card(cuda_device):
             matvec_k.vecmat_quantized_cuda(t_alg.TIMES, t_alg.ADD, q0, z[0]),
             matvec_k.vecmat_quantized_plain(t_alg.TIMES, t_alg.ADD, q0, z[0]),
             rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_k7s_single_tile_form_matches_plain_version_on_the_card(cuda_device):
+    """K7s on both sides of one tile (2,048 elements a row for 4- and
+    8-byte elements): int32 ADD bit-exact, AFFINE within 1e-6 of the
+    output's size; the counter says which form ran."""
+    k7s = batched_k.batched_scan_cuda
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    for n in (1, 64, 2047, 2048, 2049):
+        x = torch.randint(-100, 100, (3, n), generator=gen,
+                          device=cuda_device, dtype=torch.int32)
+        single = k7s.single_tile_launches
+        for inclusive in (True, False):
+            assert torch.equal(
+                k7s(t_alg.ADD, x, inclusive=inclusive),
+                batched_k.batched_scan_plain(t_alg.ADD, x,
+                                             inclusive=inclusive))
+        assert (k7s.single_tile_launches - single) == (2 if n <= 2048 else 0)
+        a = torch.empty(3, n, device=cuda_device).uniform_(0.9, 1.0,
+                                                           generator=gen)
+        b = torch.empty(3, n, device=cuda_device).uniform_(-1, 1,
+                                                           generator=gen)
+        got = k7s(t_alg.AFFINE, (a, b))
+        want = batched_k.batched_scan_plain(t_alg.AFFINE, (a, b))
+        scale = max(float(want[1].abs().max()), 1.0)
+        for g, w in zip(got, want):
+            assert float((g - w).abs().max()) <= 1e-6 * scale

@@ -16,6 +16,9 @@ products of up to 700 factors near 1: rtol = 1e-4.  Quickstart's sequence
 ends in 1,000-term sums, 100,000-term UnitFloat8 sums and 128-step
 recurrences: rtol = 1e-4, atol = 1e-3.
 """
+import dataclasses
+import gc
+import weakref
 import zlib
 
 import numpy as np
@@ -33,6 +36,7 @@ from repro_torch.core import intrinsics as t_ki  # noqa: E402
 from repro_torch.core import operators as t_alg  # noqa: E402
 from repro_torch.core import primitives as t_forge  # noqa: E402
 from repro_torch.core.layout import Batched as TBatched  # noqa: E402
+from repro_torch.core.layout import Segmented as TSegmented  # noqa: E402
 from repro_torch.kernels import _lib  # noqa: E402
 from repro_torch.kernels import batched as batched_k  # noqa: E402
 from repro_torch.kernels import copy as copy_k  # noqa: E402
@@ -558,6 +562,132 @@ def test_kernel_sources_are_listed_and_annotated():
 
 
 # ---------------------------------------------------------------------------
+# The host path: launch plans, the small forms' entries, one dispatch walk
+# ---------------------------------------------------------------------------
+
+
+def test_launch_plan_finds_an_equal_operator_s_unit():
+    """A plan is kept per operator identity; a distinct but equal operator
+    gets its own plan over the same unit, another operator another unit."""
+    x = torch.zeros(4, dtype=torch.int32)
+    what = "mapreduce@flat (cuda)"
+    plan = _lib.plan("mapreduce", what, t_alg.MAX, x, t_alg.IDENTITY)
+    assert _lib.plan("mapreduce", what, t_alg.MAX, x, t_alg.IDENTITY) is plan
+    twin = dataclasses.replace(t_alg.MAX)
+    assert twin == t_alg.MAX and twin is not t_alg.MAX
+    other = _lib.plan("mapreduce", what, twin, x, t_alg.IDENTITY)
+    assert other is not plan and other.unit is plan.unit
+    low = _lib.plan("mapreduce", what, t_alg.MIN, x, t_alg.IDENTITY)
+    assert low is not plan and low.unit.digest != plan.unit.digest
+    assert plan.out_dtypes == [torch.int32] and plan.bare_out
+    scan = _lib.plan("scan", "scan@batched (cuda)", t_alg.AFFINE,
+                     (torch.zeros(2, 3), torch.zeros(2, 3)))
+    assert scan.unit is scan_k.scan_unit("x", t_alg.AFFINE,
+                                         [torch.zeros(1)] * 2)
+    assert not scan.bare_out and scan.lib is None   # nothing built on a CPU
+
+
+def test_launch_plan_keeps_its_operator_alive():
+    """The plan's key holds the operator's id; the plan holds the operator,
+    so the id cannot pass to another object."""
+    op = dataclasses.replace(t_alg.ADD)
+    alive = weakref.ref(op)
+    plan = _lib.plan("scan", "scan@batched (cuda)", op,
+                     torch.zeros(2, 3, dtype=torch.int32))
+    del op
+    gc.collect()
+    assert alive() is plan.op
+
+
+@pytest.mark.parametrize("family,op,f,dtypes,signature", [
+    ("mapreduce", "MAX", "IDENTITY", [torch.int32],
+     "int rt_mapreduce_small(void* x0, void* y0, long n, void* stream)"),
+    ("mapreduce", "ADD", "masked", [torch.float32, torch.int32],
+     "int rt_mapreduce_small(void* x0, void* x1, void* y0, long n, "),
+    ("scan", "ADD", None, [torch.float32],
+     "int rt_scan_tile(void* x0, void* y0, long rows, long n, int inclusive"),
+    ("scan", "AFFINE", None, [torch.float32] * 2,
+     "int rt_scan_tile(void* x0, void* x1, void* y0, void* y1, long rows, "),
+])
+def test_generated_units_hold_the_small_entries(family, op, f, dtypes,
+                                                signature):
+    """The small forms' entries take one pointer per leaf as a scalar
+    argument; each family's limit is an entry of the unit."""
+    op = getattr(t_alg, op)
+    likes = tuple(torch.empty(0, dtype=d) for d in dtypes)
+    if f is None:
+        unit = _lib.unit(family, "x", op, dtypes)
+    else:
+        f = t_alg.masked_select(0.0) if f == "masked" else t_alg.IDENTITY
+        unit = _lib.map_unit(family, "x", f, op,
+                             likes if len(likes) > 1 else likes[0])[0]
+    fam = _lib.FAMILIES[family]
+    assert signature in unit.source
+    assert f" {fam.limit}(" in unit.source
+    for entry in (*fam.signatures, *fam.leaf_entries):
+        assert f" {entry}(" in unit.source
+    assert unit.leaves == (len(dtypes), 1 if f is not None else len(dtypes))
+    call = "rt::mapreduce::small<Map, Op>(x, n, y" if family == "mapreduce" \
+        else "rt::scan::single_tile<Op>(x, y, rows, n"
+    assert call in unit.source
+
+
+DISPATCH_ERRORS = [
+    (lambda: t_forge.mapreduce(t_alg.IDENTITY, t_alg.ADD,
+                               (torch.zeros(2, 4), torch.zeros(4)),
+                               layout=TBatched()),
+     ValueError, r"^mapreduce@batched: argument 2 expects rank-2 leaves for "
+                 r"the Batched\(\) layout, got shape \(4,\)$"),
+    (lambda: t_forge.scan(t_alg.AFFINE, (torch.zeros(2, 4), torch.zeros(4)),
+                          layout=TBatched()),
+     ValueError, r"^scan@batched: argument 1 expects rank-2 leaves"),
+    (lambda: t_forge.scan(t_alg.ADD, torch.zeros(2, 4), axis=1,
+                          layout=TBatched(), backend="cuda"),
+     ValueError, r"^scan@batched: axis= is pinned by the Batched\(\) layout"),
+    (lambda: t_forge.mapreduce(t_alg.IDENTITY, t_alg.AFFINE,
+                               (torch.ones(8), torch.ones(8)),
+                               backend="cuda"),
+     ValueError, r"^mapreduce@flat: requires a commutative operator, got "
+                 r"'affine'"),
+    (lambda: t_forge.mapreduce(t_alg.IDENTITY, t_alg.ADD, torch.ones(8),
+                               layout=TSegmented(
+                                   flags=torch.zeros(8, dtype=torch.int32))),
+     ValueError, r"^mapreduce@segmented: the flags descriptor needs "
+                 r"Segmented\(num_segments=...\)"),
+    (lambda: t_forge.scan(t_alg.ADD, torch.zeros(4), backend="tpu"),
+     ValueError, r"^scan@flat: unknown backend 'tpu'"),
+    (lambda: t_forge.scan(t_alg.ADD, torch.zeros(4), layout="flat"),
+     TypeError, r"^layout= must be a Layout descriptor"),
+]
+
+
+@pytest.mark.parametrize("case", range(len(DISPATCH_ERRORS)))
+def test_dispatch_raises_each_validation_error(case):
+    """The dispatch walks the data's leaves once; every check still sees
+    every leaf and raises as before, on bare tensors and pytrees alike."""
+    call, kind, pattern = DISPATCH_ERRORS[case]
+    with pytest.raises(kind, match=pattern):
+        call()
+
+
+def test_dispatch_guards_and_backend_see_pytree_leaves():
+    """The zero-extent guard and the backend choice read the one walk."""
+    xs = (torch.zeros(0, 5), torch.zeros(0, 5))
+    assert t_forge.scan(t_alg.AFFINE, xs, layout=TBatched()) is xs
+    got = t_forge.mapreduce(t_alg.IDENTITY, t_alg.MAX,
+                            torch.zeros(3, 0, dtype=torch.int32),
+                            layout=TBatched())
+    assert torch.equal(got, torch.full((3,), torch.iinfo(torch.int32).min,
+                                       dtype=torch.int32))
+    v = torch.arange(6.0)
+    assert float(t_forge.mapreduce(t_alg.masked_select(0.0), t_alg.ADD,
+                                   (v, (v > 2).int()))) == 12.0
+    assert t_ki.current_backend((v, v)) == "torch"
+    assert t_ki.resolve_impl("scan@flat", data=(v,)) is \
+        t_ki.resolve_impl("scan@flat", "torch")
+
+
+# ---------------------------------------------------------------------------
 # On the card: each kernel against its plain version (skips without one)
 # ---------------------------------------------------------------------------
 
@@ -590,6 +720,28 @@ def test_kernels_match_plain_versions_on_the_card(cuda_device):
         batched_k.batched_mapreduce_cuda(masked, t_alg.ADD, (v, m)),
         batched_k.batched_mapreduce_plain(masked, t_alg.ADD, (v, m)),
         rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_k3_small_form_matches_plain_version_on_the_card(cuda_device):
+    """K3 on both sides of its small form's limit (one block's 2,048
+    elements): int32 MAX bit-exact, f32 masked ADD within 1e-5 of sum |v|;
+    the counter says which form ran."""
+    k3 = mapreduce_k.mapreduce_1d_cuda
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    for n in (1, 4, 2047, 2048, 2049):
+        x = torch.randint(-2**31, 2**31 - 1, (n,), generator=gen,
+                          device=cuda_device, dtype=torch.int32)
+        small = k3.small_launches
+        got = k3(t_alg.IDENTITY, t_alg.MAX, x)
+        assert (k3.small_launches > small) == (n <= 2048)
+        assert got.shape == () and int(got) == int(x.max())
+        v = torch.randn(n, generator=gen, device=cuda_device)
+        m = (torch.rand(n, generator=gen, device=cuda_device) > 0.5).int()
+        masked = t_alg.masked_select(0.0)
+        got = k3(masked, t_alg.ADD, (v, m))
+        want = mapreduce_k.mapreduce_1d_plain(masked, t_alg.ADD, (v, m))
+        assert abs(float(got) - float(want)) <= 1e-5 * float(v.abs().sum())
 
 
 @pytest.mark.cuda

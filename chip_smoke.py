@@ -36,7 +36,15 @@ Six phases, any failure exits non-zero:
    with the form each call took; their public calls are timed beside
    them; and the "[host]" line gives the host microseconds of each stage
    of one K3 call at (4,) and one K7s call at (4, 64), in the wrappers'
-   earlier form and now.
+   earlier form and now.  Every GEMV form (K4's short, chunked and
+   row-wide forms, the tall-narrow vecmat, K5's flat stream) is held
+   against its plain version with 16-byte and with one-element loads (p %
+   4 != 0; A 4-byte but not 16-byte aligned) at edges such as (1, p), (n,
+   1), (3, 5000) and (5000, 3): int32 TIMES over ADD / MAX / MIN
+   bit-exact, the AFFINE fold in order, f64; each call's form (kind and
+   load width, by the launcher's counter) must be the host's rule's.  The
+   "[host] GEMV" line gives the host microseconds of each stage of a K4
+   call at (1000, 10000) and a K5 call at (10^6, 10).
 3. primitives -- the primitive library's own path: the public API
    (copy, scan, mapreduce, semiring matvec/vecmat, linear_recurrence,
    Segmented scan and mapreduce, sort_pairs, top_k, quickstart's sequence,
@@ -49,7 +57,8 @@ Six phases, any failure exits non-zero:
    checks its outputs, holds K1 copy, K5 packed matvec and K8 segmented
    scan and every kernel the generated functors re-instantiate against
    their plain versions, and times each call beside its bound and library
-   call.
+   call (the Table V/VI GEMVs in turns with torch.mv, with each call's
+   launches and GEMV form; every GEMV wrapper call must be one launch).
 4. serve -- serve recurrentgemma-2b at full width (26 layers, d_model 2560,
    vocab 256000, bf16 weights from a seed) through Engine.generate: 8 greedy
    requests on 4 slots, so slots recycle.  Checks every request's length and
@@ -93,6 +102,7 @@ import collections
 import ctypes
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -228,11 +238,15 @@ FORMS = {
 def reset_counts() -> None:
     for obj, attr in (*COUNTERS.values(), *FORMS.values()):
         setattr(obj, attr, 0)
+    matvec_k.form_launches.clear()
 
 
 def read_counts() -> dict:
-    return {k: getattr(obj, attr)
-            for k, (obj, attr) in (*COUNTERS.items(), *FORMS.items())}
+    """Every counter: the kernels', their small forms', and the GEMV
+    launches by kind and load width ("GEMV columns/4", "GEMV tall/1")."""
+    return {**{k: getattr(obj, attr)
+               for k, (obj, attr) in (*COUNTERS.items(), *FORMS.items())},
+            **{f"GEMV {k}": v for k, v in matvec_k.form_launches.items()}}
 
 
 class CheckFailed(Exception):
@@ -353,10 +367,12 @@ def path_units() -> list:
         mapped("matvec", alg.TIMES, op, i32, i32)
     mapped("matvec", alg.IDENTITY, alg.ADD, i32)
     mapped("matvec", PAIR, alg.AFFINE, f32, f32)
+    mapped("matvec", PAIR, alg.AFFINE, i32, i32)
     # K7 over ADD/TIMES and MIN/PLUS shares the flat units above.
     mapped("matvec", SHEAR, alg.MAT2_MUL, f32, f32)
     mapped("matvec", SHEAR_VM, alg.MAT2_MUL, f32, f32)
     mapped("matvec", alg.TIMES, alg.ADD, torch.int8, torch.int8)
+    mapped("matvec", alg.TIMES, alg.ADD, f64, f64)
     for mode in alg.QUANT_MODES:                         # K9, every form
         mapped("qmatvec", alg.TIMES, alg.ADD, f32, f32, quant=mode)
     mapped("qmatvec", alg.PLUS, alg.MIN, f32, f32, quant="int8")
@@ -593,8 +609,10 @@ def phase_kernels(gen: torch.Generator) -> dict:
     res["K7m"]["shape"] = f"({BATCH}, {CACHE_LEN}) f32 masked ADD"
     check_k6_long(res, gen, note)
     check_k4(res, gen, note)
+    check_gemv_forms(gen, note)
     check_k7s(res, gen, note)
     host_stages(gen)
+    host_stages_gemv(gen)
     check_k7_k9(res, gen, note)
     check_k10(res, gen, note)
     for k, r in res.items():
@@ -757,6 +775,163 @@ def check_k4(res, gen, note) -> None:
         else:
             res[k]["large"] = dict(timing, bound_ms=bound[0],
                                    shape="(8192, 8192) f32 times/ADD")
+
+
+def gemv_form(fn):
+    """``fn()``'s output and the GEMV kind and load width its one launch
+    took (matvec_k.form_launches)."""
+    before = dict(matvec_k.form_launches)
+    out = fn()
+    forms = [k for k, v in matvec_k.form_launches.items()
+             if v != before.get(k, 0)]
+    if len(forms) != 1 or matvec_k.form_launches[forms[0]] != \
+            before.get(forms[0], 0) + 1:
+        raise CheckFailed(f"one GEMV launch expected, got {forms}")
+    return out, forms[0]
+
+
+def expected_form(form: str, A: torch.Tensor) -> str:
+    """The kind and load width the host must choose: 16-byte loads of
+    4-byte leaves of a 16-byte aligned A (with p % 4 == 0, except for the
+    flat-stream kinds), else one element a load."""
+    p = A.shape[-1]
+    kind = {"packed": "packed", "matvec": "columns"}.get(
+        form, "tall" if p <= matvec_k.PACKED_MAX_COLS else "rows")
+    wide = A.element_size() == 4 and A.data_ptr() % 16 == 0 and (
+        p % 4 == 0 or kind in ("packed", "tall"))
+    return f"{kind}/{4 if wide else 1}"
+
+
+def check_gemv_forms(gen, note) -> None:
+    """Every GEMV form against its plain version, with the form each call
+    took checked against the host's rule: the short matvec (a few rows,
+    each thread walks all of them), the chunked matvec and vecmat (the
+    last block folds the partials), one warp to a whole block a row, the
+    tall-narrow vecmat and K5's flat stream, each with 16-byte and with
+    one-element loads (p % 4 != 0, and A 4-byte but not 16-byte aligned: a
+    view one element into its buffer), at edges (1, p), (n, 1), (3, 5000),
+    (5000, 3).  int32 TIMES over ADD / MAX / MIN bit-exact; the AFFINE fold
+    of (x, a) pairs, an operator that does not commute, in order on each
+    form, flat and batched: over int32 bit-exact, where odd multipliers and
+    wrapping products keep every row's (column's) term in every output, so
+    a chunk or row group folded out of order or left out changes it; and
+    over f32 within 1e-4, the multipliers near 1; f64 ADD over TIMES within
+    1e-12 of sum |x| |a| per output."""
+    shapes = ((3, 5000), (5000, 3), (1, 4096), (1, 37), (4096, 1), (1, 1),
+              (10, 100000), (100000, 10), (1000, 37), (2049, 64), (2048, 65),
+              (600, 1), (10000, 1000), (1000, 10000))
+    forms_seen = collections.Counter()
+
+    def run(k, form, fn, plain, A, x, op, what):
+        got, took = gemv_form(lambda: fn(alg.TIMES, op, A, x))
+        want = expected_form(form, A)
+        err = max_err(got, plain(alg.TIMES, op, A, x))
+        note(k, err)
+        forms_seen[took] += 1
+        expect(err == 0 and took == want,
+               f"{k} times/{op.name} int32 {what}: {took} (want {want}), "
+               f"bit-exact")
+
+    for n, p in shapes:
+        buf = torch.randint(-9, 10, (n * p + 4,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        xv = torch.randint(-9, 10, (n,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+        xz = torch.randint(-9, 10, (p,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+        for tag, A in (("aligned", buf[:n * p].view(n, p)),
+                       ("at +4 bytes", buf[1:1 + n * p].view(n, p))):
+            ops = (alg.ADD, alg.MAX, alg.MIN) if tag == "aligned" else \
+                (alg.ADD,)
+            for op in ops:
+                what = f"({n}, {p}) {tag}"
+                run("K4-matvec", "matvec", matvec_k.matvec_cuda,
+                    matvec_k.matvec_plain, A, xv, op, what)
+                run("K4-vecmat", "vecmat", matvec_k.vecmat_cuda,
+                    matvec_k.vecmat_plain, A, xz, op, what)
+                if p <= matvec_k.PACKED_MAX_COLS:
+                    run("K5", "packed", matvec_k.matvec_packed_cuda,
+                        matvec_k.matvec_packed_plain, A, xv, op, what)
+        odd = odd_ints(gen, n * p + 4)
+        for tag, A in (("aligned", odd[:n * p].view(n, p)),
+                       ("at +4 bytes", odd[1:1 + n * p].view(n, p))):
+            affine_int32(gen, note, forms_seen, A, f"({n}, {p}) {tag}")
+        # matvec's multiplier is x, vecmat's is a: each near 1, so early
+        # terms keep their weight in the f32 sum.
+        Af = torch.empty(n, p, device="cuda").uniform_(0.9, 1.1, generator=gen)
+        for k, form, fn, plain, m, A in (
+                ("K4-matvec", "matvec", matvec_k.matvec_cuda,
+                 matvec_k.matvec_plain, n, Af - 1.0),
+                ("K4-vecmat", "vecmat", matvec_k.vecmat_cuda,
+                 matvec_k.vecmat_plain, p, Af)):
+            xf = torch.empty(m, device="cuda").uniform_(
+                *((0.9, 1.1) if form == "matvec" else (-0.1, 0.1)),
+                generator=gen)
+            got, took = gemv_form(lambda: fn(PAIR, alg.AFFINE, A, xf))
+            want = plain(PAIR, alg.AFFINE, A, xf)
+            err = rel_err(got, want, 1 + want[1].abs().double())
+            note(k, err)
+            forms_seen[took] += 1
+            expect(err <= 1e-4, f"{k} AFFINE fold of (x, a) pairs ({n}, {p}) "
+                                f"on {took}, in order: err {err:.3g} <= 1e-4")
+        if n * p <= 10**6:
+            Ad = torch.randn(n, p, generator=gen, device="cuda",
+                             dtype=torch.float64)
+            for k, form, fn, plain, m, mv in (
+                    ("K4-matvec", "matvec", matvec_k.matvec_cuda,
+                     matvec_k.matvec_plain, n, True),
+                    ("K4-vecmat", "vecmat", matvec_k.vecmat_cuda,
+                     matvec_k.vecmat_plain, p, False)):
+                xd = torch.randn(m, generator=gen, device="cuda",
+                                 dtype=torch.float64)
+                got, took = gemv_form(lambda: fn(alg.TIMES, alg.ADD, Ad, xd))
+                err = rel_err(got, plain(alg.TIMES, alg.ADD, Ad, xd),
+                              gemv_scale(Ad, xd, mv) + 1e-300)
+                note(k, err)
+                forms_seen[took] += 1
+                expect(err <= 1e-12 and took == expected_form(form, Ad),
+                       f"{k} ADD over TIMES f64 ({n}, {p}) on {took}: err "
+                       f"{err:.3g} <= 1e-12 of sum|x||a| per output")
+    for shape in ((2, 10000, 64), (2, 64, 50000), (3, 5000, 10)):
+        odd = odd_ints(gen, math.prod(shape))
+        affine_int32(gen, note, forms_seen, odd.view(shape),
+                     f"{shape} batched")
+    kinds = {f"{k}/{w}" for k in matvec_k.KIND_NAMES for w in (1, 4)}
+    expect(kinds <= set(forms_seen), f"every GEMV kind ran with both load "
+                                     f"widths: {dict(forms_seen)}")
+
+
+def odd_ints(gen, count: int) -> torch.Tensor:
+    """``count`` odd int32 values over the whole range, on the card: units
+    modulo 2^32, so no product of them wraps to 0."""
+    return torch.randint(0, 2**31 - 1, (count,), generator=gen,
+                         device="cuda", dtype=torch.int32) | 1
+
+
+def affine_int32(gen, note, forms_seen, A, what) -> None:
+    """The matvec and the vecmat of int32 AFFINE (x, a) pairs over ``A``
+    ((n, p), or (B, n, p) for K7) and odd vectors, bit-exact against the
+    plain version, on the form the host's rule picks."""
+    batched = A.ndim == 3
+    for k, form, fn, plain, m in (
+            ("K7-matvec" if batched else "K4-matvec", "matvec",
+             batched_k.batched_matvec_cuda if batched else
+             matvec_k.matvec_cuda, batched_k.batched_matvec_plain if batched
+             else matvec_k.matvec_plain, A.shape[-2]),
+            ("K7-vecmat" if batched else "K4-vecmat", "vecmat",
+             batched_k.batched_vecmat_cuda if batched else
+             matvec_k.vecmat_cuda, batched_k.batched_vecmat_plain if batched
+             else matvec_k.vecmat_plain, A.shape[-1])):
+        xo = odd_ints(gen, A.shape[0] * m if batched else m).view(
+            *A.shape[:-2], m)
+        got, took = gemv_form(lambda: fn(PAIR, alg.AFFINE, A, xo))
+        err = max_err(got, plain(PAIR, alg.AFFINE, A, xo))
+        note(k, err)
+        forms_seen[took] += 1
+        want = expected_form(form, A)
+        expect(err == 0 and took == want,
+               f"{k} AFFINE fold of int32 (x, a) pairs {what} on {took} "
+               f"(want {want}), in order: bit-exact")
 
 
 def check_k7s(res, gen, note) -> None:
@@ -949,6 +1124,54 @@ def host_stages(gen) -> dict:
     stages = {"K3 (4,) int32 MAX": k3, "K7s (4, 64) f32 ADD exclusive": k7s}
     log("[host] us per call, stage: [earlier form, now]; " +
         json.dumps(stages))
+    return stages
+
+
+def host_stages_gemv(gen) -> dict:
+    """Host microseconds of each stage of a K4 matvec call at (1000, 10000)
+    (chunked: seven chunks of rows) and a K5 call at (10^6, 10), f32 ADD
+    over TIMES, as kernels/matvec.py's launch makes them: resolve (the
+    resolved call's lookup and the checks of x and the operands), the one
+    allocation, the stream, the workspace, the C call (the launch), the
+    count; then the wrapper, the public call and torch.mv.  300 calls a
+    stage, so the launch queue never fills and the device's time stays out
+    of the host's."""
+    stages = {}
+    for label, (n, p), form, wrap in (
+            ("K4 matvec (1000, 10000) f32", (1000, 10000), matvec_k.MATVEC,
+             matvec_k.matvec_cuda),
+            ("K5 (10^6, 10) f32", (10**6, 10), matvec_k.PACKED,
+             matvec_k.matvec_packed_cuda)):
+        A = torch.empty(n, p, device="cuda").uniform_(-1, 1, generator=gen)
+        x = torch.empty(n, device="cuda").uniform_(-1, 1, generator=gen)
+        f, op = alg.TIMES, alg.ADD
+        wrap(f, op, A, x)
+        call = matvec_k.resolve(form, label, f, op, A, x)
+        lib, st = call.plan.lib, _lib.stream_ptr(A)
+        out = torch.empty_like(call.template)
+        w = matvec_k.workspace(A, st, call.grid_x, call.partial_bytes)
+        cp, pp = w.counters.data_ptr(), w.partials.data_ptr()
+        reps = 300
+        stages[label] = {
+            "geometry": list(call.geo),
+            "resolve": host_us(lambda: matvec_k.resolve(form, label, f, op,
+                                                        A, x), reps),
+            "allocation": host_us(lambda: torch.empty_like(call.template),
+                                  reps),
+            "stream": host_us(lambda: _lib.stream_ptr(A), reps),
+            "workspace": host_us(lambda: matvec_k.workspace(
+                A, st, call.grid_x, call.partial_bytes), reps),
+            "C call": host_us(lambda: lib.rt_gemv(
+                x.data_ptr(), A.data_ptr(), out.data_ptr(), call.geo_ptr, cp,
+                pp, st), reps),
+            "count": host_us(lambda: matvec_k.form_launches.get(call.name, 0),
+                             reps),
+            "wrapper": host_us(lambda: wrap(f, op, A, x), reps),
+            "public": host_us(lambda: forge.matvec(f, op, A, x), reps),
+            "torch.mv": host_us(lambda: torch.mv(A.t(), x), reps),
+        }
+        del A
+    log("[host] GEMV us per call, stage: " + json.dumps(stages))
     return stages
 
 
@@ -1505,8 +1728,8 @@ def drive_primitives(d) -> tuple[dict, dict]:
         before = read_counts()
         o[name] = fn()
         after = read_counts()
-        per_call[name] = {k: after[k] - before[k] for k in after
-                          if after[k] != before[k]}
+        per_call[name] = {k: after[k] - before.get(k, 0) for k in after
+                          if after[k] != before.get(k, 0)}
 
     x8 = d[f"x{N_PAPER}"]
     run("copy", lambda: forge.copy(x8))
@@ -1831,14 +2054,18 @@ def check_new_kernels(res, d, gen, note) -> None:
             expect(err == 0, f"K5 times/{op.name} int32 ({n}, {p}): "
                              f"bit-exact")
     res["K5"].update(
-        ms=time_ms(lambda: matvec_k.matvec_packed_cuda(alg.TIMES, alg.ADD, A,
-                                                       xv)),
+        time_turns({
+            "ms": lambda: matvec_k.matvec_packed_cuda(alg.TIMES, alg.ADD, A,
+                                                      xv),
+            "library_ms": lambda: torch.mv(A.t(), xv),
+            "public_ms": lambda: forge.semiring_matvec(alg.ARITHMETIC, A,
+                                                       xv),
+            "k4_ms": lambda: matvec_k.matvec_cuda(alg.TIMES, alg.ADD, A,
+                                                  xv)}),
         plain_ms=time_ms(lambda: matvec_k.matvec_packed_plain(
             alg.TIMES, alg.ADD, A, xv), 5),
-        library_ms=time_ms(lambda: torch.mv(A.t(), xv)),
         bound=bound_ms(4 * (10**6 * 10 + 10**6 + 10), 2 * 10**6 * 10),
-        shape="(10^6, 10) f32 ARITHMETIC",
-        k4_ms=time_ms(lambda: matvec_k.matvec_cuda(alg.TIMES, alg.ADD, A, xv)))
+        shape="(10^6, 10) f32 ARITHMETIC")
 
     flags8 = seg_k.offsets_to_flags(d["offs8"], N_PAPER)
     for inclusive in (True, False):
@@ -1896,17 +2123,31 @@ def check_new_kernels(res, d, gen, note) -> None:
                                 f", in order: err {err:.3g} <= 1e-4")
 
 
-def paper_timings(d) -> list:
+def paper_timings(d, res) -> list:
     """The paper's tables through the public API: ms beside the bound and
-    the library call (None where no single PyTorch call computes it)."""
+    the library call (None where no single PyTorch call computes it).  The
+    GEMV rows of Tables V and VI are timed in turns with torch.mv, and
+    carry the launches and the GEMV form of one call by the wrappers'
+    counters; the worst ratio of each kernel's rows goes to its entry of
+    ``res`` ("paper_worst")."""
     rows = []
 
-    def row(what, fn, nbytes, ops, library=None, lib_name=None, reps=10):
+    def row(what, fn, nbytes, ops, library=None, lib_name=None, reps=10,
+            turns=False):
         bound = bound_ms(nbytes, ops)
-        rows.append({"what": what, "ms": time_ms(fn, reps),
-                     "bound_ms": bound[0], "bound_by": bound[1],
-                     "library": lib_name,
-                     "library_ms": time_ms(library, reps) if library else None})
+        if turns:
+            before = read_counts()
+            fn()
+            after = read_counts()
+            t = time_turns({"ms": fn, "library_ms": library}, reps=reps)
+            rows.append({"what": what, **t, "ratio": t["ms"] / t["library_ms"],
+                         "launches": {k: after[k] - before.get(k, 0) for k in after
+                                      if after[k] != before.get(k, 0)}})
+        else:
+            rows.append({"what": what, "ms": time_ms(fn, reps),
+                         "library_ms": time_ms(library, reps) if library
+                         else None})
+        rows[-1].update(bound_ms=bound[0], bound_by=bound[1], library=lib_name)
         log(f"[paper] {json.dumps(rows[-1])}")
 
     x8 = d[f"x{N_PAPER}"]
@@ -1931,14 +2172,21 @@ def paper_timings(d) -> list:
         lambda: torch.sum(alg.unitfloat8_decode(d["u8"])),
         "torch.sum(decode(u)), two calls")
     for (n, p), (A, xv, xz) in d["mv"].items():
+        reps = 20 if n * p > 10**7 else 200
         row(f"matvec ARITHMETIC f32 ({n}, {p}) (Table V)",
             lambda: forge.semiring_matvec(alg.ARITHMETIC, A, xv),
             4 * (n * p + n + p), 2 * n * p, lambda: torch.mv(A.t(), xv),
-            "torch.mv(A.t(), x)")
+            "torch.mv(A.t(), x)", reps, turns=True)
         row(f"vecmat ARITHMETIC f32 ({n}, {p}) (Table VI)",
             lambda: forge.semiring_vecmat(alg.ARITHMETIC, A, xz),
             4 * (n * p + n + p), 2 * n * p, lambda: torch.mv(A, xz),
-            "torch.mv(A, x)")
+            "torch.mv(A, x)", reps, turns=True)
+    for r in rows:
+        for k in ("K4-matvec", "K4-vecmat", "K5"):
+            if r.get("launches", {}).get(k) and r["ratio"] > res[k].get(
+                    "paper_worst", {}).get("ratio", 0):
+                res[k]["paper_worst"] = {x: r[x] for x in (
+                    "what", "ms", "library_ms", "ratio", "bound_ms")}
     A, xv, xz = d["mv"][(10**4, 10**4)]
     nb = 4 * (10**8 + 2 * 10**4)
     row("matvec TROPICAL_MIN_PLUS f32 (1e4, 1e4)",
@@ -2038,6 +2286,15 @@ def phase_primitives(res, gen) -> dict:
     wall = time.perf_counter() - t0
     launches = read_counts()
     log("[primitives] launches per call: " + json.dumps(per_call))
+    # Every GEMV wrapper call (K4, K5, K7's GEMVs, K9) is one launch.
+    gemv_kernels = [k for k in COUNTERS if k.startswith(("K4", "K5", "K7-",
+                                                         "K9"))]
+    for name, calls in per_call.items():
+        gemv = sum(v for k, v in calls.items() if k.startswith("GEMV "))
+        wrapped = sum(calls.get(k, 0) for k in gemv_kernels)
+        if gemv or wrapped:
+            expect(gemv == wrapped, f"{name}: {wrapped} GEMV wrapper calls, "
+                                    f"{gemv} launches")
     for k in PRIMITIVES_PATH:
         expect(launches[k] > 0, f"{k} launched {launches[k]} times on the "
                                 f"primitives path")
@@ -2045,7 +2302,7 @@ def phase_primitives(res, gen) -> dict:
     check_gemvs(o, d, per_call)
     del o
     check_new_kernels(res, d, gen, note)
-    rows = paper_timings(d)
+    rows = paper_timings(d, res)
     for k in ("K1", "K5", "K8"):          # K7 and K9: the kernels phase
         r = res[k]
         log(f"[kernels] {k} {r['shape']}: {r['ms']:.4f} ms, plain "
@@ -2446,8 +2703,9 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
             "shape": r["shape"]})
-        if "public_ms" in r:            # the public call at the same shape
-            kernels[-1]["public_ms"] = r["public_ms"]
+        for extra in ("public_ms", "paper_worst"):
+            if extra in r:   # the public call at the same shape; the worst
+                kernels[-1][extra] = r[extra]    # Table V/VI row's ratio
         for form in FORMS:              # the small form's share, per path
             if form.startswith(f"{k} "):
                 kernels[-1]["launches_" + form.split()[1]] = {

@@ -27,52 +27,65 @@
 // batched_matvec_quantized_pallas and ::batched_vecmat_quantized_pallas.
 //
 // Bound on this card: memory, one read of A (plus x) and one write of the
-// output: at the radix histogram (1,024,000 x 256) int32 1.05 GB, 0.31 ms; at
-// K5's (10^6, 10) f32 44 MB, 0.013 ms, where two launches and the wrapper
-// are the cost; K9 at the unembed GEMV (2560, 256000) int8 with block 64
-// reads 655 MB of codes and 41 MB of scales, 0.21 ms.  Hopper has no
-// sequential grid to carry the accumulator, so every form is two-phase:
-//   1. The grid is (B x output tiles, chunks of the reduction axis): the
-//      batch folds into grid x, so B > 65,535 launches.  Each block folds
-//      its chunk into one partial per output element, in registers, then
-//      combines its thread groups' partials in group order through shared
-//      memory, and writes (chunks, B x outputs) partials (or the output
-//      itself when there is one chunk).  The chunk count gives about four
-//      blocks per SM over the whole batch; at large B x outputs it is one,
-//      and the form is one launch.  Offsets are 64-bit (B n p passes 2^31).
-//   2. A second launch folds the partials: in chunk order, one thread per
-//      output, or, for a commutative op over many chunks, one block per
-//      output.
-// K4 matvec: a block has tc columns (32, or the next power of two >= p) and
-// 256 / tc row groups.  A commutative op interleaves the rows over the
-// groups (group g folds rows g, g + groups, ...), so a warp reads 128
-// contiguous bytes at every step, also for p = 4; an op that does not
-// commute gives each group a contiguous run of rows, so the fold stays in
-// row order.  K4 vecmat: groups of g lanes (32, or the next power of two
-// >= p) share a row; a commutative op strides the lanes over the chunk's
-// columns and reduces by a shuffle tree; an op that does not commute gives
-// each lane a contiguous run of columns and reduces by an ordered shuffle
-// tree (distances 1, 2, 4, ...).
-// K5: the matrix is read as the flat stream of n p elements, so a block's
-// loads are whole 128-byte lines whatever p is.  A block uses the first
-// W = (256 / p) p threads; thread t always holds column t % p of row group
-// t / p, and steps W elements (W / p rows) at a time.  The g = W / p group
-// partials of a column fold in shared memory.  Commutative operators only,
-// as in the reference: groups interleave the rows.
+// output: at the paper's Table V/VI shapes of 10^7 f32 elements 40 MB,
+// 0.012 ms (and the matrix fits the 50 MB L2, so back-to-back calls read
+// it faster than that); at (10^4, 10^4) 400 MB, 0.119 ms; at the radix
+// histogram (1,024,000 x 256) int32 1.05 GB, 0.31 ms; K9 at the unembed
+// GEMV (2560, 256000) int8 with block 64 reads 655 MB of codes and 41 MB of
+// scales, 0.21 ms.  Below 0.1 ms a call's time is the host's unless the
+// launch is lean, so the host plans every launch (kernels/matvec.py:
+// geometry) and passes it in; every form is one launch.
+//
+// Four kinds of launch, each a grid of (B x output tiles, chunks of the
+// reduction axis) blocks of 256 threads:
+//   COLUMNS (matvec, K4 / K7 / K9): a block has tc column threads, each
+//     holding VEC adjacent columns, and 256 / tc row groups.  A commutative
+//     op interleaves the rows over the groups, so a warp reads contiguous
+//     lines at every step; an op that does not commute gives each group a
+//     contiguous run of rows, so the fold stays in row order.  Few rows
+//     (the short matvec, n = 10): one group, one chunk, each thread walks
+//     all n rows of its columns and stores its output, no barrier at all.
+//   ROWS (vecmat over p > 64, K4 / K7 / K9): `lanes` threads share a row (a
+//     power of two up to the whole block), striding over its columns for a
+//     commutative op, or each a contiguous run in column order; the lanes
+//     combine by an (ordered) shuffle tree, then warp totals in order
+//     through shared memory.
+//   PACKED (K5, matvec, p <= 64, commutative, flat dense): the matrix is
+//     read as the flat stream of n p elements, VEC at a time.  A step is S
+//     elements, a multiple of p and of VEC, so thread t's VEC elements always
+//     sit in the same columns (VEC t + u) % p, whatever p is, and its row
+//     advances by S / p each step.  The block folds its per-thread
+//     accumulators by column in shared memory.
+//   TALL (vecmat over p <= 64, dense): a block copies its R rows, one
+//     contiguous stream of R p elements, into shared memory with coalesced
+//     VEC-wide loads, then thread r folds row r in column order, so any
+//     operator keeps its order.
+// Wide loads: VEC = 4 four-byte elements (16 bytes) per load where the host
+// found A 16-byte aligned (and p % 4 == 0 for COLUMNS and ROWS), else
+// VEC = 1; the host's choice, counted per form.
+// Chunks: where one pass over the reduction axis would leave the card idle
+// (few outputs, a long axis), it is cut into chunks over grid y.  Each block
+// writes its partials to the stream's workspace, fences, and takes a ticket
+// from its output tile's counter; the block that draws the last ticket
+// folds the tile's partials in chunk order (through L2) into the output and
+// resets the counter to 0 for the next launch on the stream.  No memset, no
+// second launch; one workspace (counters, partials) per stream, so launches
+// on two streams never share a counter.
 // K9: the matrix operand loads a code (int8_t or uint8_t), decodes it to the
 // bits of the reference's field decode with integer operations (the fp8
 // fields moved into float32's positions and rebiased by a power of two;
 // no hardware fp8 conversion: the reference decodes every code as finite,
 // e4m3 0x7F as 480) and multiplies it by its block's scale in f32, rounded
-// on its own; only that value reaches the map.  A matvec thread walks down one column and keeps the
-// column's scale in a register for `block` rows; vecmat lanes of one row
-// read the row's scale row beside the codes.  Every row reads its own
-// scale, so a chunk may cut a quantization block (the reference's row tile
-// had to be a multiple of `block`: a TPU tiling rule).
+// on its own; only that value reaches the map.  A matvec thread walks down
+// one column and keeps the column's scale in a register for `block` rows;
+// vecmat lanes of one row read the row's scale row beside the codes.  Every
+// row reads its own scale, so a chunk may cut a quantization block (the
+// reference's row tile had to be a multiple of `block`: a TPU tiling rule).
 #pragma once
 
 #include "common.cuh"
 
+#include <cstring>
 #include <type_traits>
 
 namespace rt {
@@ -80,21 +93,35 @@ namespace matvec {
 namespace {
 
 constexpr int THREADS = 256;
-constexpr long TARGET_BLOCKS = 4 * 132;
 constexpr long MAX_GRID_X = 2147483647;
 constexpr long MAX_GRID_Y = 65535;
-// From this many chunks on, a commutative op folds each output's partials
-// with a whole block; below it, one thread per output.
-constexpr long BLOCK_FOLD_CHUNKS = 32;
+constexpr int PACKED_MAX_COLS = 64;
+// TALL's shared tile: R p elements of at most this many bytes.
+constexpr int TALL_BYTES = 16384;
+
+enum Kind { COLUMNS = 0, ROWS = 1, PACKED = 2, TALL = 3 };
+
+// The launch the host planned (kernels/matvec.py: geometry), nine longs.
+// width: COLUMNS column threads per block, ROWS lanes per row, PACKED
+// active threads (S / vec), TALL rows per block.  per_chunk: the reduction
+// extent of one chunk (rows, columns, or PACKED's flat elements).
+struct Geometry {
+  long kind, vec, width, B, n, p, tiles, chunks, per_chunk;
+};
 
 __host__ __device__ inline long cdiv(long a, long b) { return (a + b - 1) / b; }
-long clampl(long v, long lo, long hi) { return v < lo ? lo : (v > hi ? hi : v); }
 
-// The narrowest power of two >= m, capped at one warp.
-int group_width(long m) {
-  int w = 1;
-  while (w < 32 && w < m) w <<= 1;
-  return w;
+// VEC adjacent elements, loaded as one 16-byte (VEC = 4) or plain word.
+template <typename T, int VEC>
+struct alignas(sizeof(T) * VEC) Pack {
+  T v[VEC];
+};
+
+// Wide loads only of 4-byte leaves, and only where the partials of VEC
+// columns fit the blocks' shared memory.
+template <typename T, typename E>
+constexpr bool wide_ok() {
+  return sizeof(T) == 4 && sizeof(E) <= 16;
 }
 
 // ---------------------------------------------------------------------------
@@ -106,25 +133,36 @@ int group_width(long m) {
 // on any.
 // ---------------------------------------------------------------------------
 
-template <typename T>
+template <typename T, int W>
 struct Dense {
   using V = T;
-  static constexpr int VEC = 1;
+  static constexpr int VEC = W;
+  using Word = Pack<T, W>;
   const T* a;
   long n, p;
 
   struct Column {
-    using Raw = T;
+    using Raw = Word;
     const T* c;
     long p;
-    __device__ T raw(long i) const { return c[i * p]; }
-    __device__ void decode(long, T r, T (&v)[1]) { v[0] = r; }
+    __device__ Raw raw(long i) const {
+      return *reinterpret_cast<const Word*>(c + i * p);
+    }
+    __device__ void decode(long, const Raw& r, T (&v)[W]) {
+#pragma unroll
+      for (int u = 0; u < W; ++u) v[u] = r.v[u];
+    }
   };
   struct Row {
-    using Raw = T;
+    using Raw = Word;
     const T* r;
-    __device__ T raw(long j) const { return r[j]; }
-    __device__ void decode(T w, T (&v)[1]) const { v[0] = w; }
+    __device__ Raw raw(long j) const {
+      return *reinterpret_cast<const Word*>(r + j);
+    }
+    __device__ void decode(const Raw& w, T (&v)[W]) const {
+#pragma unroll
+      for (int u = 0; u < W; ++u) v[u] = w.v[u];
+    }
   };
   __device__ Column column(long b, long j) const {
     return Column{a + b * n * p + j, p};
@@ -215,27 +253,45 @@ struct Quantized {
   }
 };
 
-// The map's input for matrix element `a` at row i (matvec: In = (x[i], a))
-// or column j (vecmat: In = (a, x[j])); `xb` is the batch's vector.
-// One-leaf In: the matrix element alone.
-template <typename In, typename V>
-__device__ __forceinline__ In mv_element(const void* xb, V a, long i) {
+// The map's input for matrix element `a` beside the vector's element `xv`:
+// matvec In = (x[i], a), vecmat In = (a, x[j]); one-leaf In: `a` alone.
+template <typename In, typename V, typename X>
+__device__ __forceinline__ In mv_element(X xv, V a) {
   In e;
   if constexpr (In::LEAVES == 1) {
     e.v0 = a;
   } else {
-    e.v0 = static_cast<const typename In::T0*>(xb)[i];
+    e.v0 = xv;
     e.v1 = a;
   }
   return e;
 }
 
-template <typename In, typename V>
-__device__ __forceinline__ In vm_element(V a, const void* xb, long j) {
+template <typename In, typename V, typename X>
+__device__ __forceinline__ In vm_element(V a, X xv) {
   In e;
   e.v0 = a;
-  if constexpr (In::LEAVES == 2) e.v1 = static_cast<const typename In::T1*>(xb)[j];
+  if constexpr (In::LEAVES == 2) e.v1 = xv;
   return e;
+}
+
+// matvec's vector leaf (In's first of two) and matrix leaf (its last);
+// with one leaf there is no vector, and the vector type is a placeholder.
+template <typename In, int LEAVES = In::LEAVES>
+struct Leaf {
+  using X = typename In::T0;
+  using A = typename In::T1;
+};
+template <typename In>
+struct Leaf<In, 1> {
+  using X = char;
+  using A = typename In::T0;
+};
+
+// Element k of the vector xb, or nothing when the map takes no vector.
+template <typename X>
+__device__ __forceinline__ X vec_at(const void* xb, long k) {
+  return xb == nullptr ? X{} : static_cast<const X*>(xb)[k];
 }
 
 // Batch b's vector: x + b * len elements of the vector's leaf type.
@@ -244,16 +300,6 @@ __device__ __forceinline__ const void* batch_vector(const void* x, long b,
                                                     long len) {
   return x == nullptr ? nullptr : static_cast<const T*>(x) + b * len;
 }
-
-// matvec's matrix leaf type: the last leaf of In.
-template <typename In, int LEAVES = In::LEAVES>
-struct MatrixLeaf {
-  using T = typename In::T1;
-};
-template <typename In>
-struct MatrixLeaf<In, 1> {
-  using T = typename In::T0;
-};
 
 // Fold rows i, i + step, ... < end of one thread's VEC columns into acc, in
 // row order.  Four rows at a time: their matrix loads all issue before the
@@ -264,82 +310,125 @@ __device__ __forceinline__ void fold_rows(Col& c, const void* xb, long i,
                                           long end, long step,
                                           typename Op::E (&acc)[VEC]) {
   using In = typename Map::In;
-  using V = typename MatrixLeaf<In>::T;
+  using V = typename Leaf<In>::A;
+  using X = typename Leaf<In>::X;
   constexpr int U = 4;
   for (; i + (U - 1) * step < end; i += U * step) {
     typename Col::Raw raw[U];
+    X xv[U];
 #pragma unroll
     for (int k = 0; k < U; ++k) raw[k] = c.raw(i + k * step);
+#pragma unroll
+    for (int k = 0; k < U; ++k) xv[k] = vec_at<X>(xb, i + k * step);
 #pragma unroll
     for (int k = 0; k < U; ++k) {
       V a[VEC];
       c.decode(i + k * step, raw[k], a);
 #pragma unroll
       for (int u = 0; u < VEC; ++u)
-        acc[u] = Op::combine(
-            acc[u], Map::apply(mv_element<In>(xb, a[u], i + k * step)));
+        acc[u] = Op::combine(acc[u], Map::apply(mv_element<In>(xv[k], a[u])));
     }
   }
   for (; i < end; i += step) {
     V a[VEC];
     c.decode(i, c.raw(i), a);
+    const X xv = vec_at<X>(xb, i);
 #pragma unroll
     for (int u = 0; u < VEC; ++u)
-      acc[u] = Op::combine(acc[u], Map::apply(mv_element<In>(xb, a[u], i)));
+      acc[u] = Op::combine(acc[u], Map::apply(mv_element<In>(xv, a[u])));
   }
 }
 
-struct Plan {
-  int width;       // columns per block (matvec), lanes per row (vecmat)
-  long tiles;      // output tiles per batch; grid x = B * tiles
-  long chunks;     // grid y: chunks of the reduction axis
-  long per_chunk;  // reduction-axis extent of one chunk
-};
-
 // ---------------------------------------------------------------------------
-// K4 / K7 / K9 matvec
+// Chunks: the last block of an output tile folds the tile's partials.
 // ---------------------------------------------------------------------------
 
-Plan matvec_plan(long B, long n, long p, int vec) {
-  Plan pl;
-  pl.width = group_width(cdiv(p, vec));
-  pl.tiles = cdiv(p, pl.width * vec);
-  const long groups = THREADS / pl.width;
-  // At least 8 rows per thread group in a chunk.
-  long chunks = clampl(cdiv(TARGET_BLOCKS, B * pl.tiles), 1,
-                       clampl(n / (8 * groups), 1, MAX_GRID_Y));
-  pl.per_chunk = cdiv(n, chunks);
-  pl.chunks = cdiv(n, pl.per_chunk);
-  return pl;
+// After this block wrote its partials (every writer fenced), whether it drew
+// the last of its tile's `chunks` tickets; every thread must call it.  The
+// last block finds its counter at `chunks` and resets it to 0 for the next
+// launch on this stream.
+__device__ __forceinline__ bool last_of_tile(unsigned* counters,
+                                             bool* flag) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned ticket = atomicAdd(counters + blockIdx.x, 1u);
+    *flag = ticket == gridDim.y - 1;
+    if (*flag) counters[blockIdx.x] = 0;
+  }
+  __syncthreads();
+  if (*flag) __threadfence();
+  return *flag;
 }
+
+// Fold the K chunks' partials (k, base + o), o < R <= THREADS, of an output
+// tile into out[base + o], in chunk order, with the whole block: R2 (the
+// power of two >= R) columns by THREADS / R2 groups, as COLUMNS folds rows,
+// then the groups in order through `smem` (THREADS elements).
+template <typename Op>
+__device__ void fold_chunks(const typename Op::E* partials, long K, long m,
+                            long base, int R, Leaves out,
+                            typename Op::E* smem) {
+  using E = typename Op::E;
+  int R2 = 1;
+  while (R2 < R) R2 <<= 1;
+  const int groups = THREADS / R2;
+  const int o = threadIdx.x & (R2 - 1);
+  const int grp = threadIdx.x / R2;
+  E v = Op::identity();
+  if (o < R) {
+    const E* col = partials + base + o;
+    if constexpr (Op::COMMUTATIVE) {
+#pragma unroll 4
+      for (long k = grp; k < K; k += groups)
+        v = Op::combine(v, load_cg(col + k * m));
+    } else {
+      const long len = cdiv(K, groups);
+      const long k1 = (grp + 1) * len < K ? (grp + 1) * len : K;
+#pragma unroll 4
+      for (long k = grp * len; k < k1; ++k)
+        v = Op::combine(v, load_cg(col + k * m));
+    }
+  }
+  smem[threadIdx.x] = v;
+  __syncthreads();
+  if (grp == 0 && o < R) {
+    for (int g = 1; g < groups; ++g) v = Op::combine(v, smem[g * R2 + o]);
+    v.store(out, base + o);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// COLUMNS: K4 / K7 / K9 matvec
+// ---------------------------------------------------------------------------
 
 template <typename Map, typename Op, typename Mat>
 __global__ void __launch_bounds__(THREADS)
-matvec_partials(Mat M, const void* x, long B, long tiles, int tc,
-                long per_chunk, typename Op::E* partials, Leaves out,
-                bool direct) {
+matvec_columns(Mat M, const void* x, Geometry g, typename Op::E* partials,
+               unsigned* counters, Leaves out) {
   using E = typename Op::E;
   using In = typename Map::In;
   using V = typename Mat::V;
   constexpr int VEC = Mat::VEC;
-  static_assert(std::is_same<typename MatrixLeaf<In>::T, V>::value,
+  static_assert(std::is_same<typename Leaf<In>::A, V>::value,
                 "the map's matrix leaf is the operand's element type");
   __shared__ E part[THREADS * VEC];
+  __shared__ bool last;
   const long n = M.n, p = M.p;
-  const long b = blockIdx.x / tiles;
-  const long tile = blockIdx.x - b * tiles;
+  const int tc = static_cast<int>(g.width);
+  const long b = blockIdx.x / g.tiles;
+  const long tile = blockIdx.x - b * g.tiles;
   const int col = threadIdx.x & (tc - 1);
   const int grp = threadIdx.x / tc;
   const int groups = THREADS / tc;
   const long j = (tile * tc + col) * VEC;  // the first of VEC columns
-  const long r0 = static_cast<long>(blockIdx.y) * per_chunk;
-  const long r1 = r0 + per_chunk < n ? r0 + per_chunk : n;
+  const long r0 = static_cast<long>(blockIdx.y) * g.per_chunk;
+  const long r1 = r0 + g.per_chunk < n ? r0 + g.per_chunk : n;
   E acc[VEC];
 #pragma unroll
   for (int u = 0; u < VEC; ++u) acc[u] = Op::identity();
   if (j < p) {
     auto c = M.column(b, j);
-    const void* xb = batch_vector<typename In::T0>(x, b, n);
+    const void* xb = batch_vector<typename Leaf<In>::X>(x, b, n);
     if constexpr (Op::COMMUTATIVE) {
       fold_rows<Map, Op, VEC>(c, xb, r0 + grp, r1, groups, acc);
     } else {
@@ -349,271 +438,399 @@ matvec_partials(Mat M, const void* x, long B, long tiles, int tc,
                               acc);
     }
   }
+  if (groups > 1) {  // combine the row groups in group order
 #pragma unroll
-  for (int u = 0; u < VEC; ++u) part[threadIdx.x * VEC + u] = acc[u];
-  __syncthreads();
-  if (grp == 0 && j < p) {
+    for (int u = 0; u < VEC; ++u) part[threadIdx.x * VEC + u] = acc[u];
+    __syncthreads();
+    if (grp == 0 && j < p) {
 #pragma unroll
-    for (int u = 0; u < VEC; ++u) {
-      E v = part[col * VEC + u];
-      for (int g = 1; g < groups; ++g)
-        v = Op::combine(v, part[(g * tc + col) * VEC + u]);
-      if (direct)
-        v.store(out, b * p + j + u);
-      else
-        partials[static_cast<long>(blockIdx.y) * B * p + b * p + j + u] = v;
+      for (int u = 0; u < VEC; ++u)
+        for (int k = 1; k < groups; ++k)
+          acc[u] = Op::combine(acc[u], part[(k * tc + col) * VEC + u]);
     }
   }
+  const long m = g.B * p;
+  if (g.chunks == 1) {
+    if (grp == 0 && j < p) {
+#pragma unroll
+      for (int u = 0; u < VEC; ++u) acc[u].store(out, b * p + j + u);
+    }
+    return;
+  }
+  if (grp == 0 && j < p) {
+#pragma unroll
+    for (int u = 0; u < VEC; ++u)
+      partials[static_cast<long>(blockIdx.y) * m + b * p + j + u] = acc[u];
+    __threadfence();  // publish the partials before the ticket
+  }
+  if (!last_of_tile(counters, &last)) return;
+  const long first = tile * tc * VEC;
+  fold_chunks<Op>(partials, gridDim.y, m, b * p + first,
+                  static_cast<int>(p - first < tc * VEC ? p - first : tc * VEC),
+                  out, part);
 }
 
 // ---------------------------------------------------------------------------
-// K4 / K7 / K9 vecmat
+// ROWS: K4 / K7 / K9 vecmat
 // ---------------------------------------------------------------------------
-
-Plan vecmat_plan(long B, long n, long p, int vec) {
-  Plan pl;
-  pl.width = group_width(cdiv(p, vec));
-  pl.tiles = cdiv(n, THREADS / pl.width);
-  const long step = static_cast<long>(pl.width) * vec;  // a row's lanes
-  long chunks = clampl(cdiv(TARGET_BLOCKS, B * pl.tiles), 1,
-                       clampl(p / (8 * step), 1, MAX_GRID_Y));
-  pl.per_chunk = cdiv(cdiv(p, chunks), step) * step;
-  pl.chunks = cdiv(p, pl.per_chunk);
-  return pl;
-}
 
 template <typename Map, typename Op, typename Mat>
 __global__ void __launch_bounds__(THREADS)
-vecmat_partials(Mat M, const void* x, long B, long tiles, int g,
-                long per_chunk, typename Op::E* partials, Leaves out,
-                bool direct) {
+vecmat_rows(Mat M, const void* x, Geometry g, typename Op::E* partials,
+            unsigned* counters, Leaves out) {
   using E = typename Op::E;
   using In = typename Map::In;
   using V = typename Mat::V;
+  using X = typename Leaf<In>::X;
   constexpr int VEC = Mat::VEC;
   static_assert(std::is_same<typename In::T0, V>::value,
                 "the map's matrix leaf is the operand's element type");
+  __shared__ E part[THREADS];
+  __shared__ bool last;
   const long n = M.n, p = M.p;
-  const long b = blockIdx.x / tiles;
-  const long tile = blockIdx.x - b * tiles;
-  const int lane = threadIdx.x & (g - 1);
-  const long i = tile * (THREADS / g) + threadIdx.x / g;
-  const long c0 = static_cast<long>(blockIdx.y) * per_chunk;
-  const long c1 = c0 + per_chunk < p ? c0 + per_chunk : p;
+  const int lanes = static_cast<int>(g.width);
+  const int rows = THREADS / lanes;        // rows per block
+  const long b = blockIdx.x / g.tiles;
+  const long tile = blockIdx.x - b * g.tiles;
+  const int lane = threadIdx.x & (lanes - 1);
+  const long i = tile * rows + threadIdx.x / lanes;
+  const long c0 = static_cast<long>(blockIdx.y) * g.per_chunk;
+  const long c1 = c0 + g.per_chunk < p ? c0 + g.per_chunk : p;
   E acc = Op::identity();
   if (i < n) {
     const auto r = M.row(b, i);
-    const void* xb = batch_vector<typename MatrixLeaf<In>::T>(x, b, p);
+    const void* xb = batch_vector<X>(x, b, p);
     V a[VEC];
     // Chunk bounds and lane runs are whole multiples of VEC (p % VEC == 0).
-    // (Issuing four steps' loads before decoding, as matvec's fold_rows
-    // does, measured 7-13% slower on the f32 GEMV here.)
     if constexpr (Op::COMMUTATIVE) {
 #pragma unroll 4
-      for (long c = c0 + lane * VEC; c < c1; c += g * VEC) {
+      for (long c = c0 + lane * VEC; c < c1; c += lanes * VEC) {
         r.decode(r.raw(c), a);
 #pragma unroll
         for (int u = 0; u < VEC; ++u)
-          acc = Op::combine(acc, Map::apply(vm_element<In>(a[u], xb, c + u)));
+          acc = Op::combine(
+              acc, Map::apply(vm_element<In>(a[u], vec_at<X>(xb, c + u))));
       }
     } else {
-      const long len = cdiv(cdiv(c1 - c0, VEC), g) * VEC;
+      const long len = cdiv(cdiv(c1 - c0, VEC), lanes) * VEC;
       const long l0 = c0 + lane * len;
       const long l1 = l0 + len < c1 ? l0 + len : c1;
       for (long c = l0; c < l1; c += VEC) {
         r.decode(r.raw(c), a);
 #pragma unroll
         for (int u = 0; u < VEC; ++u)
-          acc = Op::combine(acc, Map::apply(vm_element<In>(a[u], xb, c + u)));
+          acc = Op::combine(
+              acc, Map::apply(vm_element<In>(a[u], vec_at<X>(xb, c + u))));
       }
     }
   }
   // Every lane of the warp takes part in the shuffles, in or out of range.
+  const int width = lanes < 32 ? lanes : 32;
   if constexpr (Op::COMMUTATIVE) {
-    for (int d = g / 2; d > 0; d >>= 1)
-      acc = Op::combine(acc, E::shfl_down(acc, d, g));
+    for (int d = width / 2; d > 0; d >>= 1)
+      acc = Op::combine(acc, E::shfl_down(acc, d, width));
   } else {
     // Lane l ends holding lanes l .. l + 2d - 1 in order (l a multiple of
-    // 2d); lane 0 holds the whole row chunk.
-    for (int d = 1; d < g; d <<= 1)
-      acc = Op::combine(acc, E::shfl_down(acc, d, g));
+    // 2d); lane 0 holds the warp's part of the row chunk.
+    for (int d = 1; d < width; d <<= 1)
+      acc = Op::combine(acc, E::shfl_down(acc, d, width));
+  }
+  if (lanes > 32) {  // a row spans lanes / 32 warps: their totals in order
+    if ((threadIdx.x & 31) == 0) part[threadIdx.x / 32] = acc;
+    __syncthreads();
+    if (lane == 0)
+      for (int w = 1; w < lanes / 32; ++w)
+        acc = Op::combine(acc, part[threadIdx.x / 32 + w]);
+    __syncthreads();  // part is reused by the chunk fold
+  }
+  const long m = g.B * n;
+  if (g.chunks == 1) {
+    if (lane == 0 && i < n) acc.store(out, b * n + i);
+    return;
   }
   if (lane == 0 && i < n) {
-    if (direct)
-      acc.store(out, b * n + i);
-    else
-      partials[static_cast<long>(blockIdx.y) * B * n + b * n + i] = acc;
+    partials[static_cast<long>(blockIdx.y) * m + b * n + i] = acc;
+    __threadfence();
   }
+  if (!last_of_tile(counters, &last)) return;
+  const long first = tile * rows;
+  fold_chunks<Op>(partials, gridDim.y, m, b * n + first,
+                  static_cast<int>(n - first < rows ? n - first : rows), out,
+                  part);
 }
 
 // ---------------------------------------------------------------------------
-// K5 packed matvec (flat, dense)
+// PACKED: K5, the tall-narrow matvec over the flat stream (dense, B = 1,
+// commutative)
 // ---------------------------------------------------------------------------
 
-Plan packed_plan(long n, long p) {
-  Plan pl;
-  pl.width = static_cast<int>((THREADS / p) * p);  // active threads
-  pl.tiles = 1;
-  const long groups = THREADS / p;
-  long chunks = clampl(TARGET_BLOCKS, 1,
-                       clampl(n / (8 * groups), 1, MAX_GRID_Y));
-  pl.per_chunk = cdiv(n, chunks);
-  pl.chunks = cdiv(n, pl.per_chunk);
-  return pl;
-}
-
-template <typename Map, typename Op, typename Mat>
+template <typename Map, typename Op, typename T, int VEC>
 __global__ void __launch_bounds__(THREADS)
-packed_partials(Mat M, const void* x, int w, long per_chunk,
-                typename Op::E* partials, Leaves out, bool direct) {
+packed_stream(const T* a, const void* x, Geometry g, typename Op::E* partials,
+              unsigned* counters, Leaves out) {
   using E = typename Op::E;
-  __shared__ E part[THREADS];
-  const long n = M.n, p = M.p;
+  using In = typename Map::In;
+  using X = typename Leaf<In>::X;
+  using Word = Pack<T, VEC>;
+  __shared__ E sm[THREADS * VEC];
+  __shared__ E fold[THREADS];
+  __shared__ bool last;
+  const long p = g.p;
+  const long S = g.width * VEC;          // elements per step, a multiple of p
+  const long total = g.n * p;
+  const long e0 = static_cast<long>(blockIdx.y) * g.per_chunk;
+  const long e1 = e0 + g.per_chunk < total ? e0 + g.per_chunk : total;
   const int t = threadIdx.x;
-  const long groups = w / p;
-  const long r0 = static_cast<long>(blockIdx.y) * per_chunk;
-  const long r1 = r0 + per_chunk < n ? r0 + per_chunk : n;
-  E acc = Op::identity();
-  if (t < w) {
-    auto c = M.column(0, t % p);
-    E accs[1] = {acc};
-    fold_rows<Map, Op, 1>(c, x, r0 + t / p, r1, groups, accs);
-    acc = accs[0];
+  E acc[VEC];
+#pragma unroll
+  for (int u = 0; u < VEC; ++u) acc[u] = Op::identity();
+  if (t < g.width) {
+    const long off = static_cast<long>(VEC) * t;
+    const long drow = S / p;
+    long row[VEC];                         // row of element e + u
+#pragma unroll
+    for (int u = 0; u < VEC; ++u) row[u] = e0 / p + (off + u) / p;
+    long e = e0 + off;
+    constexpr int U = 4;
+    for (; e + (U - 1) * S + VEC <= e1; e += U * S) {
+      Word w[U];
+#pragma unroll
+      for (int k = 0; k < U; ++k)
+        w[k] = *reinterpret_cast<const Word*>(a + e + k * S);
+#pragma unroll
+      for (int k = 0; k < U; ++k) {
+#pragma unroll
+        for (int u = 0; u < VEC; ++u) {
+          acc[u] = Op::combine(acc[u], Map::apply(mv_element<In>(
+              vec_at<X>(x, row[u]), w[k].v[u])));
+          row[u] += drow;
+        }
+      }
+    }
+    for (; e + VEC <= e1; e += S) {
+      const Word w = *reinterpret_cast<const Word*>(a + e);
+#pragma unroll
+      for (int u = 0; u < VEC; ++u) {
+        acc[u] = Op::combine(acc[u], Map::apply(mv_element<In>(
+            vec_at<X>(x, row[u]), w.v[u])));
+        row[u] += drow;
+      }
+    }
+    // The stream's last partial word: its elements one at a time.
+#pragma unroll
+    for (int u = 0; u < VEC; ++u)
+      if (e + u < e1)
+        acc[u] = Op::combine(acc[u], Map::apply(mv_element<In>(
+            vec_at<X>(x, row[u]), a[e + u])));
   }
-  part[t] = acc;
+  // Entry s of the step is column s % p.  Thread (column j, part q) folds
+  // entries j + p (q + Q k), then thread j the Q parts.
+#pragma unroll
+  for (int u = 0; u < VEC; ++u) sm[VEC * t + u] = acc[u];
+  __syncthreads();
+  const int Q = THREADS / static_cast<int>(p);
+  E v = Op::identity();
+  if (t < Q * p) {
+    for (long s = t; s < S; s += static_cast<long>(Q) * p)
+      v = Op::combine(v, sm[s]);
+  }
+  fold[t] = v;
   __syncthreads();
   if (t < p) {
-    E v = part[t];
-    for (long g = 1; g < groups; ++g) v = Op::combine(v, part[g * p + t]);
-    if (direct)
+    for (int q = 1; q < Q; ++q) v = Op::combine(v, fold[q * p + t]);
+    if (g.chunks == 1) {
       v.store(out, t);
-    else
-      partials[static_cast<long>(blockIdx.y) * p + t] = v;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Phase 2 of every form: fold the (chunks, m) partials.  In chunk order, one
-// thread per output; for a commutative op over many chunks one block per
-// output, its threads striding over the chunks, so few outputs of many
-// chunks (K5's p columns) do not wait on one thread's chain of loads.
-// ---------------------------------------------------------------------------
-
-template <typename Op>
-__global__ void __launch_bounds__(THREADS)
-fold_partials(const typename Op::E* partials, long chunks, long m,
-              Leaves out) {
-  using E = typename Op::E;
-  const long j = static_cast<long>(blockIdx.x) * THREADS + threadIdx.x;
-  if (j >= m) return;
-  E v = partials[j];
-#pragma unroll 8
-  for (long k = 1; k < chunks; ++k) v = Op::combine(v, partials[k * m + j]);
-  v.store(out, j);
-}
-
-template <typename Op>
-__global__ void __launch_bounds__(THREADS)
-fold_partials_commutative(const typename Op::E* partials, long chunks, long m,
-                          Leaves out) {
-  using E = typename Op::E;
-  __shared__ E warp_smem[THREADS / 32];
-  const long j = blockIdx.x;
-  E v = Op::identity();
-  for (long k = threadIdx.x; k < chunks; k += THREADS)
-    v = Op::combine(v, partials[k * m + j]);
-  v = block_reduce_commutative<Op, THREADS>(v, warp_smem);
-  if (threadIdx.x == 0) v.store(out, j);
-}
-
-enum Form { MATVEC = 0, VECMAT = 1, PACKED = 2 };
-
-// `vec`: the operand's columns per load (Mat::VEC).
-Plan plan(int form, long B, long n, long p, int vec) {
-  return form == MATVEC ? matvec_plan(B, n, p, vec)
-                        : (form == VECMAT ? vecmat_plan(B, n, p, vec)
-                                          : packed_plan(n, p));
-}
-
-// A quantized operand loads four codes at a time where p allows it.
-int quant_vec(long p) { return p % 4 == 0 ? 4 : 1; }
-
-// `partials` holds plan(...).chunks * B * outputs elements of Op::E when
-// chunks > 1 (unused otherwise); `x` (B vectors) is read only when Map::In
-// has two leaves.  The outputs are (B, outputs), row-major.
-template <typename Map, typename Op, typename Mat>
-cudaError_t run(int form, const Mat& M, const void* x, long B,
-                void* partials, Leaves out, cudaStream_t stream) {
-  using E = typename Op::E;
-  const long n = M.n, p = M.p;
-  if (B <= 0 || n <= 0 || p <= 0 || (Map::In::LEAVES == 2 && x == nullptr) ||
-      (form == PACKED && (B != 1 || Mat::VEC != 1)) || p % Mat::VEC != 0)
-    return cudaErrorInvalidValue;
-  const Plan pl = plan(form, B, n, p, Mat::VEC);
-  if (B * pl.tiles > MAX_GRID_X) return cudaErrorInvalidValue;
-  const long m = B * (form == VECMAT ? n : p);  // outputs
-  const bool direct = pl.chunks == 1;
-  E* part = static_cast<E*>(partials);
-  const dim3 grid(static_cast<unsigned>(B * pl.tiles),
-                  static_cast<unsigned>(pl.chunks));
-  if (form == MATVEC) {
-    matvec_partials<Map, Op, Mat><<<grid, THREADS, 0, stream>>>(
-        M, x, B, pl.tiles, pl.width, pl.per_chunk, part, out, direct);
-  } else if (form == VECMAT) {
-    vecmat_partials<Map, Op, Mat><<<grid, THREADS, 0, stream>>>(
-        M, x, B, pl.tiles, pl.width, pl.per_chunk, part, out, direct);
-  } else {
-    if constexpr (!Op::COMMUTATIVE || Mat::VEC != 1) {
-      return cudaErrorInvalidValue;
     } else {
-      if (p > 64 || Map::In::LEAVES != 2) return cudaErrorInvalidValue;
-      packed_partials<Map, Op, Mat><<<grid, THREADS, 0, stream>>>(
-          M, x, pl.width, pl.per_chunk, part, out, direct);
+      partials[static_cast<long>(blockIdx.y) * p + t] = v;
+      __threadfence();
     }
   }
-  if (direct) return cudaGetLastError();
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  if (Op::COMMUTATIVE && pl.chunks >= BLOCK_FOLD_CHUNKS) {
-    fold_partials_commutative<Op><<<static_cast<unsigned>(m), THREADS, 0,
-                                     stream>>>(part, pl.chunks, m, out);
-  } else {
-    fold_partials<Op><<<static_cast<unsigned>(cdiv(m, THREADS)), THREADS, 0,
-                         stream>>>(part, pl.chunks, m, out);
+  if (g.chunks == 1) return;
+  if (!last_of_tile(counters, &last)) return;
+  fold_chunks<Op>(partials, gridDim.y, p, 0, static_cast<int>(p), out, fold);
+}
+
+// ---------------------------------------------------------------------------
+// TALL: vecmat over p <= 64 columns (dense): a block's rows through shared
+// memory, each row folded by one thread in column order
+// ---------------------------------------------------------------------------
+
+template <typename Map, typename Op, typename T, int VEC>
+__global__ void __launch_bounds__(THREADS)
+vecmat_tall(const T* a, const void* x, Geometry g, Leaves out) {
+  using E = typename Op::E;
+  using In = typename Map::In;
+  using X = typename Leaf<In>::X;
+  using Word = Pack<T, VEC>;
+  __shared__ Word tile[TALL_BYTES / sizeof(Word)];
+  T* el = reinterpret_cast<T*>(tile);
+  const long p = g.p;
+  const long R = g.width;                  // rows per block, a multiple of 4
+  const long r0 = static_cast<long>(blockIdx.x) * R;
+  const long rows_total = g.B * g.n;
+  const long r1 = r0 + R < rows_total ? r0 + R : rows_total;
+  const long count = (r1 - r0) * p;
+  const T* src = a + r0 * p;               // 16-byte aligned when VEC = 4
+  const long words = count / VEC;
+  for (long k = threadIdx.x; k < words; k += THREADS)
+    tile[k] = reinterpret_cast<const Word*>(src)[k];
+  for (long k = words * VEC + threadIdx.x; k < count; k += THREADS)
+    el[k] = src[k];
+  __syncthreads();
+  const long r = r0 + threadIdx.x;
+  if (r < r1) {
+    const long b = r / g.n;
+    const void* xb = batch_vector<X>(x, b, p);
+    const T* row = el + static_cast<long>(threadIdx.x) * p;
+    E acc = Op::identity();
+    for (long j = 0; j < p; ++j)
+      acc = Op::combine(acc, Map::apply(vm_element<In>(row[j],
+                                                       vec_at<X>(xb, j))));
+    acc.store(out, r);
   }
+}
+
+// ---------------------------------------------------------------------------
+// Launch
+// ---------------------------------------------------------------------------
+
+// The planned grid, or an error for a geometry the kernels do not take.
+inline cudaError_t grid_of(const Geometry& g, dim3* grid) {
+  if (g.B <= 0 || g.n <= 0 || g.p <= 0 || g.tiles <= 0 || g.chunks <= 0 ||
+      g.chunks > MAX_GRID_Y || g.tiles > MAX_GRID_X || g.per_chunk < 0 ||
+      (g.vec != 1 && g.vec != 4) || g.width <= 0 || g.width > THREADS ||
+      (g.kind != PACKED && g.kind != TALL && (g.width & (g.width - 1))) ||
+      (g.kind != PACKED && g.kind != TALL && g.p % g.vec != 0))
+    return cudaErrorInvalidValue;
+  // TALL's tiles run over all B n rows; the other kinds have B x tiles.
+  const long x = g.kind == TALL ? g.tiles : g.B * g.tiles;
+  if (x > MAX_GRID_X) return cudaErrorInvalidValue;
+  *grid = dim3(static_cast<unsigned>(x), static_cast<unsigned>(g.chunks));
+  return cudaSuccess;
+}
+
+template <typename Map, typename Op, typename Mat>
+cudaError_t launch_mat(const Geometry& g, const Mat& M, const void* x,
+                       void* counters, void* partials, Leaves out,
+                       cudaStream_t stream) {
+  using E = typename Op::E;
+  dim3 grid;
+  cudaError_t err = grid_of(g, &grid);
+  if (err != cudaSuccess) return err;
+  if ((Map::In::LEAVES == 2 && x == nullptr) ||
+      (g.chunks > 1 && (counters == nullptr || partials == nullptr)) ||
+      (g.kind == COLUMNS ? g.tiles != cdiv(cdiv(g.p, g.vec), g.width) ||
+                               (g.chunks > 1 && g.width * g.vec > THREADS)
+                         : g.tiles != cdiv(g.n, THREADS / g.width)))
+    return cudaErrorInvalidValue;
+  E* part = static_cast<E*>(partials);
+  unsigned* count = static_cast<unsigned*>(counters);
+  if (g.kind == COLUMNS)
+    matvec_columns<Map, Op, Mat><<<grid, THREADS, 0, stream>>>(
+        M, x, g, part, count, out);
+  else if (g.kind == ROWS)
+    vecmat_rows<Map, Op, Mat><<<grid, THREADS, 0, stream>>>(
+        M, x, g, part, count, out);
+  else
+    return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
 
-// A dense matrix of the map's leaf type (x and A share one dtype).
+template <typename Map, typename Op, typename T, int VEC>
+cudaError_t launch_stream(const Geometry& g, const T* a, const void* x,
+                          void* counters, void* partials, Leaves out,
+                          cudaStream_t stream) {
+  using E = typename Op::E;
+  dim3 grid;
+  cudaError_t err = grid_of(g, &grid);
+  if (err != cudaSuccess) return err;
+  if (g.kind == TALL) {
+    if (g.chunks != 1 || g.width % 4 != 0 ||
+        g.width * g.p * static_cast<long>(sizeof(T)) > TALL_BYTES ||
+        g.tiles != cdiv(g.B * g.n, g.width) || g.p > PACKED_MAX_COLS)
+      return cudaErrorInvalidValue;
+    vecmat_tall<Map, Op, T, VEC><<<grid, THREADS, 0, stream>>>(a, x, g, out);
+    return cudaGetLastError();
+  }
+  if constexpr (!Op::COMMUTATIVE || Map::In::LEAVES != 2) {
+    return cudaErrorInvalidValue;
+  } else {
+    const long S = g.width * VEC;
+    if (g.B != 1 || g.tiles != 1 || g.p > PACKED_MAX_COLS || S % g.p != 0 ||
+        g.per_chunk % S != 0 || x == nullptr ||
+        (g.chunks > 1 && (counters == nullptr || partials == nullptr)))
+      return cudaErrorInvalidValue;
+    packed_stream<Map, Op, T, VEC><<<grid, THREADS, 0, stream>>>(
+        a, x, g, static_cast<E*>(partials), static_cast<unsigned*>(counters),
+        out);
+    return cudaGetLastError();
+  }
+}
+
+// A dense matrix of the map's leaf type (x and A share one dtype).  `in`
+// holds In's leaves in the map's order: (x, A) for COLUMNS and PACKED,
+// (A, x) for ROWS and TALL, (A) alone without a vector.  `geo` points at
+// the nine longs of a Geometry; `counters` (one zero word per grid-x tile)
+// and `partials` (chunks x outputs elements of Op::E) are the stream's
+// workspace, read only when chunks > 1.
 template <typename Map, typename Op>
-cudaError_t run_dense(int form, const void* A, const void* x, long B, long n,
-                      long p, void* partials, Leaves out,
-                      cudaStream_t stream) {
-  using T = typename MatrixLeaf<typename Map::In>::T;
-  return run<Map, Op>(form, Dense<T>{static_cast<const T*>(A), n, p}, x, B,
-                      partials, out, stream);
+cudaError_t run_dense(const Leaves& in, const Leaves& out, const void* geo,
+                      void* counters, void* partials, cudaStream_t stream) {
+  using In = typename Map::In;
+  using T = typename Leaf<In>::A;
+  using E = typename Op::E;
+  static_assert(std::is_same<typename In::T0, T>::value,
+                "x and A share one dtype");
+  Geometry g;
+  std::memcpy(&g, geo, sizeof g);
+  const bool matvec_order = g.kind == COLUMNS || g.kind == PACKED;
+  const T* A = static_cast<const T*>(
+      In::LEAVES == 2 && matvec_order ? in.p[1] : in.p[0]);
+  const void* x = In::LEAVES == 2 ? in.p[matvec_order ? 0 : 1] : nullptr;
+  if (g.vec == 4) {
+    if constexpr (wide_ok<T, E>()) {
+      if (reinterpret_cast<unsigned long>(A) % 16)
+        return cudaErrorInvalidValue;
+      if (g.kind == COLUMNS || g.kind == ROWS)
+        return launch_mat<Map, Op>(g, Dense<T, 4>{A, g.n, g.p}, x, counters,
+                                   partials, out, stream);
+      return launch_stream<Map, Op, T, 4>(g, A, x, counters, partials, out,
+                                          stream);
+    } else {
+      return cudaErrorInvalidValue;
+    }
+  }
+  if (g.kind == COLUMNS || g.kind == ROWS)
+    return launch_mat<Map, Op>(g, Dense<T, 1>{A, g.n, g.p}, x, counters,
+                               partials, out, stream);
+  return launch_stream<Map, Op, T, 1>(g, A, x, counters, partials, out,
+                                      stream);
 }
 
 // A quantized matrix: codes of Dec::Code, f32 scales, one per `block` rows;
-// four codes a load where quant_vec(p) says so (the caller aligns codes to 4
-// and scales to 16 bytes).
+// four codes a load where the geometry's vec says so (p % 4 == 0; the
+// caller aligns codes to 4 and scales to 16 bytes).  COLUMNS and ROWS only.
 template <typename Map, typename Op, typename Dec>
-cudaError_t run_quantized(int form, const void* q, const void* s, long block,
-                          const void* x, long B, long n, long p,
+cudaError_t run_quantized(const void* geo, const void* q, const void* s,
+                          long block, const void* x, void* counters,
                           void* partials, Leaves out, cudaStream_t stream) {
   using Code = typename Dec::Code;
-  if (block <= 0 || form == PACKED) return cudaErrorInvalidValue;
+  Geometry g;
+  std::memcpy(&g, geo, sizeof g);
+  if (block <= 0 || (g.kind != COLUMNS && g.kind != ROWS))
+    return cudaErrorInvalidValue;
   const Code* codes = static_cast<const Code*>(q);
   const float* scales = static_cast<const float*>(s);
-  if (quant_vec(p) == 4) {
+  const long nb = cdiv(g.n, block);
+  if (g.vec == 4) {
     if (reinterpret_cast<unsigned long>(q) % 4 ||
         reinterpret_cast<unsigned long>(s) % 16)
       return cudaErrorInvalidValue;
-    const Quantized<Dec, 4> M{codes, scales, n, p, block, cdiv(n, block)};
-    return run<Map, Op>(form, M, x, B, partials, out, stream);
+    const Quantized<Dec, 4> M{codes, scales, g.n, g.p, block, nb};
+    return launch_mat<Map, Op>(g, M, x, counters, partials, out, stream);
   }
-  const Quantized<Dec, 1> M{codes, scales, n, p, block, cdiv(n, block)};
-  return run<Map, Op>(form, M, x, B, partials, out, stream);
+  const Quantized<Dec, 1> M{codes, scales, g.n, g.p, block, nb};
+  return launch_mat<Map, Op>(g, M, x, counters, partials, out, stream);
 }
 
 }  // namespace

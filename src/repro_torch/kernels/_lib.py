@@ -134,34 +134,28 @@ int rt_mapreduce_rows(void* const* x, long B, long n, void* const* out,
             "long n, void* stream", [_L, _P],
             f"rt::mapreduce::small<Map, Op>(x, n, y, {_ST})"),
     }, "rt_mapreduce_small_max"),
-    # K4 and K7 matvec (form 0) and vecmat (form 1) over B dense (n, p)
-    # matrices (B = 1: flat), K5 (form 2).
-    "matvec": Family("matvec.cuh", f"""
-long rt_matvec_chunks(int form, long B, long n, long p) {{
-  return rt::matvec::plan(form, B, n, p, 1).chunks;
-}}
-int rt_matvec(int form, const void* A, const void* x, long B, long n, long p,
-              void* partials, void* const* out, void* stream) {{
-  return rt::matvec::run_dense<Map, Op>(form, A, x, B, n, p, partials,
-                                        rt::leaves(out), {_ST});
-}}""", {
-        "rt_matvec_chunks": (_L, [_I, _L, _L, _L]),
-        "rt_matvec": (_I, [_I, _P, _P, _L, _L, _L, _P, _PP, _P]),
+    # K4, K5 and K7 over B dense (n, p) matrices (B = 1: flat): one entry for
+    # every kind of launch, its geometry planned by the host
+    # (kernels/matvec.py: geometry); the input leaves are the map's, in its
+    # order ((x, A) for a matvec, (A, x) for a vecmat, A alone without a
+    # vector).
+    "matvec": Family("matvec.cuh", "", {}, {
+        "rt_gemv": LeafEntry(
+            "const void* geo, void* counters, void* partials, void* stream",
+            [_P, _P, _P, _P],
+            "rt::matvec::run_dense<Map, Op>(x, y, geo, counters, partials, "
+            f"{_ST})"),
     }),
     # K9: the same forms over B quantized matrices, codes decoded by the
     # generated Dec.
     "qmatvec": Family("matvec.cuh", f"""
-long rt_matvec_chunks(int form, long B, long n, long p) {{
-  return rt::matvec::plan(form, B, n, p, rt::matvec::quant_vec(p)).chunks;
-}}
-int rt_qmatvec(int form, const void* q, const void* s, long block,
-               const void* x, long B, long n, long p, void* partials,
+int rt_qmatvec(const void* geo, const void* q, const void* s, long block,
+               const void* x, void* counters, void* partials,
                void* const* out, void* stream) {{
   return rt::matvec::run_quantized<Map, Op, Dec>(
-      form, q, s, block, x, B, n, p, partials, rt::leaves(out), {_ST});
+      geo, q, s, block, x, counters, partials, rt::leaves(out), {_ST});
 }}""", {
-        "rt_matvec_chunks": (_L, [_I, _L, _L, _L]),
-        "rt_qmatvec": (_I, [_I, _P, _P, _L, _P, _L, _L, _L, _P, _PP, _P]),
+        "rt_qmatvec": (_I, [_P, _P, _P, _L, _P, _P, _P, _PP, _P]),
     }),
     # K10, one unit per (element type, head_dim): the generated part
     # defines Elem, HD and the Body its element type runs (for the tensor
@@ -369,19 +363,23 @@ class Plan:
             outs, self.out_spec)
 
 
-def plan(family: str, what: str, op: alg.AssocOp, xs, f=None) -> Plan:
+def plan(family: str, what: str, op: alg.AssocOp, xs, f=None, *,
+         spread: bool = False, quant: str | None = None) -> Plan:
     """The launch plan of ``family`` for ``op`` over the leaves of ``xs``
-    (and, for mapreduce, the map ``f``); the output element is ``f``'s, or
-    ``xs``'s own without a map.
+    (and, for mapreduce and the GEMVs, the map ``f``); the output element
+    is ``f``'s, or ``xs``'s own without a map.  ``spread``: ``xs`` is the
+    tuple of ``f``'s arguments (a GEMV's vector and matrix likes) rather
+    than its one argument; ``quant`` names a ``qmatvec`` unit's
+    quantization mode.
 
-    Kept per (family, id(op), id(f), leaf dtypes) where ``xs`` is a tensor
-    or a flat tuple of tensors, so a call neither walks a pytree nor hashes
-    the frozen operator dataclasses.  A miss resolves the unit by equality
-    (:func:`map_unit`, :func:`unit`): an equal but distinct operator finds
-    the same unit and builds nothing new.  Raises as they do, before
-    anything is built."""
+    Kept per (family, id(op), id(f), leaf dtypes, spread, quant) where
+    ``xs`` is a tensor or a flat tuple of tensors, so a call neither walks
+    a pytree nor hashes the frozen operator dataclasses.  A miss resolves
+    the unit by equality (:func:`map_unit`, :func:`unit`): an equal but
+    distinct operator finds the same unit and builds nothing new.  Raises
+    as they do, before anything is built."""
     key = (family, id(op), id(f), xs.dtype if isinstance(xs, torch.Tensor)
-           else _sig(xs))
+           else _sig(xs), spread, quant)
     found = _PLANS.get(key)
     return found if found is not None else _make_plan(key, family, what, op,
                                                       xs, f)
@@ -396,14 +394,17 @@ def _sig(xs):
 
 
 def _make_plan(key, family, what, op, xs, f) -> Plan:
+    spread, quant = key[-2:]
     if f is not None:
-        u, out_dtypes, out_spec = map_unit(family, what, f, op, xs)
+        u, out_dtypes, out_spec = map_unit(family, what, f, op,
+                                           *(xs if spread else (xs,)),
+                                           quant=quant)
     else:
         leaves, out_spec = pytree.tree_flatten(xs)
         out_dtypes = [l.dtype for l in leaves]
         u = unit(family, what, op, out_dtypes)
     found = Plan(u, op, f, out_dtypes, out_spec)
-    if key[-1] is not None:
+    if key[3] is not None:
         _PLANS[key] = found
     return found
 

@@ -14,8 +14,8 @@ forms, each with its plain version (``csrc/scan.cuh``,
   that do not commute; the registry reroutes those through K7s.
 * :func:`batched_matvec_cuda` / :func:`batched_vecmat_cuda` -- K7's GEMVs,
   ``y[b, j] = op_i f(x[b, i], A[b, i, j])`` and ``z[b, i] = op_j f(A[b, i,
-  j], x[b, j])`` over ``(B, n, p)`` matrices, one launch (two when the
-  reduction axis is split) for the whole batch; rows (columns) fold in
+  j], x[b, j])`` over ``(B, n, p)`` matrices, one launch for the whole
+  batch (``matvec.launch``); rows (columns) fold in
   order, so any operator with a device form runs (replaces
   ``batched_matvec_pallas`` / ``batched_vecmat_pallas``).  Plain versions:
   :func:`batched_matvec_plain` / :func:`batched_vecmat_plain`.
@@ -28,7 +28,7 @@ forms, each with its plain version (``csrc/scan.cuh``,
 Given CPU tensors a wrapper runs the plain version; given CUDA tensors it
 launches the kernel or raises.  ``launches`` counts each wrapper's calls
 that launched its kernel (K7s above one tile per row issues three CUDA
-launches per call, the GEMVs two when they split the reduction axis).
+launches per call).
 K7s's rows of at most one tile (the sampling path's (4, 64) nucleus scan)
 take its single-tile form: one launch, one allocation (the output), the
 pointers as scalar arguments, counted again in ``single_tile_launches``.

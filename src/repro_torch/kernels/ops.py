@@ -229,21 +229,23 @@ def _vecmat_torch(f, op, A, x):
 
 
 def _matvec_cuda(f, op, A, x):
-    A, x = A.contiguous(), x.contiguous()
     if _quantized(A):
-        return matvec_k.matvec_quantized_cuda(f, op, A, x)
-    if matvec_k.uses_packed(A.shape[0], A.shape[1], op):
-        # Tall-narrow: K5 packs row groups across the threads instead of
-        # giving each column a lane (the reference's ops.py route).
-        return matvec_k.matvec_packed_cuda(f, op, A, x)
-    return matvec_k.matvec_cuda(f, op, A, x)
+        return matvec_k.matvec_quantized_cuda(f, op, A.contiguous(),
+                                              x.contiguous())
+    n, p = A.shape
+    if matvec_k.uses_packed(n, p, op):
+        # Tall-narrow: K5 reads the matrix as one flat stream instead of
+        # giving each column a thread (the reference's ops.py route).
+        return matvec_k.matvec_packed_cuda(f, op, A.contiguous(),
+                                           x.contiguous())
+    return matvec_k.matvec_cuda(f, op, A.contiguous(), x.contiguous())
 
 
 def _vecmat_cuda(f, op, A, x):
-    A, x = A.contiguous(), x.contiguous()
     if _quantized(A):
-        return matvec_k.vecmat_quantized_cuda(f, op, A, x)
-    return matvec_k.vecmat_cuda(f, op, A, x)
+        return matvec_k.vecmat_quantized_cuda(f, op, A.contiguous(),
+                                              x.contiguous())
+    return matvec_k.vecmat_cuda(f, op, A.contiguous(), x.contiguous())
 
 
 def _batched_matvec_torch(f, op, A, x):

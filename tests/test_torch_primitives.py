@@ -792,6 +792,197 @@ def test_k5_route_choice_follows_the_reference():
     assert not matvec_k.uses_packed(512, 64, t_alg.AFFINE)
 
 
+# ---------------------------------------------------------------------------
+# The GEMV host plan (kernels/matvec.py): the kind and width of each launch,
+# its geometry, the one allocation, the plan and the stream's workspace
+# ---------------------------------------------------------------------------
+
+MV = matvec_k
+H100_SMS = 132                # the multiprocessors of an H100 SXM
+
+
+@pytest.mark.parametrize("form,p,wide,aligned,want", [
+    (MV.MATVEC, 10**6, True, True, (MV.COLUMNS, 4)),
+    (MV.MATVEC, 10**6 + 2, True, True, (MV.COLUMNS, 1)),    # p % 4
+    (MV.MATVEC, 4096, True, False, (MV.COLUMNS, 1)),        # misaligned A
+    (MV.MATVEC, 4096, False, True, (MV.COLUMNS, 1)),        # f64, wide E
+    (MV.VECMAT, 65, True, True, (MV.ROWS, 1)),
+    (MV.VECMAT, 1000, True, True, (MV.ROWS, 4)),
+    (MV.VECMAT, 64, True, True, (MV.TALL, 4)),
+    (MV.VECMAT, 10, True, True, (MV.TALL, 4)),              # stream: any p
+    (MV.VECMAT, 10, True, False, (MV.TALL, 1)),
+    (MV.PACKED, 10, True, True, (MV.PACKED_STREAM, 4)),
+    (MV.PACKED, 33, True, False, (MV.PACKED_STREAM, 1)),
+])
+def test_gemv_kind_and_load_width(form, p, wide, aligned, want):
+    """Which launch a shape takes: a matvec COLUMNS, K5 its flat stream, a
+    vecmat TALL up to 64 columns and ROWS above; 16-byte loads where the
+    plan allows them and A is 16-byte aligned, with p % 4 == 0 where loads
+    start at every row."""
+    kind = MV.launch_kind(form, p)
+    assert (kind, MV.load_width(kind, p, wide, aligned)) == want
+
+
+@pytest.mark.parametrize("kind,B,n,p,vec,want", [
+    # The short matvec: one row group, one chunk, a thread walks all rows.
+    (MV.COLUMNS, 1, 10, 10**6, 4, dict(width=256, chunks=1)),
+    (MV.COLUMNS, 1, 1000, 10**4, 4, dict(width=32, chunks=7)),
+    (MV.COLUMNS, 1, 10**4, 10**3, 4, dict(width=32, chunks=68)),
+    (MV.ROWS, 1, 10**3, 10**4, 4, dict(width=256, chunks=1)),  # block a row
+    (MV.ROWS, 1, 10**4, 10**3, 4, dict(width=16, chunks=1)),
+    (MV.ROWS, 1, 10, 10**6, 4, dict(width=256, chunks=52)),
+    (MV.ROWS, 40, 2048, 256, 4, dict(width=8, chunks=1)),
+    (MV.TALL, 1, 10**6, 10, 4, dict(width=256, tiles=3907, chunks=1)),
+    (MV.TALL, 3, 5, 64, 4, dict(width=64, tiles=1)),
+    (MV.PACKED_STREAM, 1, 10**6, 10, 4, dict(width=255, chunks=516)),
+    (MV.PACKED_STREAM, 1, 600, 1, 4, dict(width=256, chunks=1)),
+])
+def test_gemv_geometry_at_the_paper_s_shapes(kind, B, n, p, vec, want):
+    """The planned launches of the paper's Table V/VI shapes and the
+    model's: few rows take one pass, few outputs chunk the reduction."""
+    geo = dict(zip(("kind", "vec", "width", "B", "n", "p", "tiles", "chunks",
+                    "per_chunk"), MV.geometry(kind, B, n, p, vec,
+                                              sms=H100_SMS)))
+    assert {k: geo[k] for k in want} == want
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_gemv_geometry_covers_the_reduction_within_the_grid(seed):
+    """At random shapes every kind's chunks cover the reduction axis once,
+    within the grid's limits and the kernels' shared memory."""
+    rng = np.random.default_rng(seed)
+    for _ in range(200):
+        B = int(rng.choice([1, 1, 3, 40]))
+        n, p = (int(v) for v in 10 ** rng.uniform(0, 6, 2))
+        vec = int(rng.choice([1, 4]))
+        itemsize = int(rng.choice([1, 4, 8]))
+        sms = int(rng.choice([H100_SMS, 114, 1]))
+        for kind in (MV.COLUMNS, MV.ROWS, MV.PACKED_STREAM, MV.TALL):
+            if kind in (MV.COLUMNS, MV.ROWS) and p % vec or \
+                    kind in (MV.PACKED_STREAM, MV.TALL) and p > 64 or \
+                    kind == MV.PACKED_STREAM and B > 1:
+                continue
+            _, v, width, _, _, _, tiles, chunks, per = MV.geometry(
+                kind, B, n, p, vec, sms=sms, itemsize=itemsize)
+            assert v == vec and 1 <= width <= MV.THREADS and tiles >= 1
+            assert 1 <= chunks <= MV.MAX_GRID_Y
+            if kind == MV.COLUMNS:
+                assert width & (width - 1) == 0
+                assert tiles * width * vec >= p
+                assert (chunks - 1) * per < n <= chunks * per
+                assert chunks == 1 or width * vec <= MV.THREADS
+            elif kind == MV.ROWS:
+                assert width & (width - 1) == 0 and per % (width * vec) == 0
+                assert tiles * (MV.THREADS // width) >= n
+                assert (chunks - 1) * per < p <= chunks * per
+            elif kind == MV.PACKED_STREAM:
+                S = width * vec
+                assert S % p == 0 and S % vec == 0 and per % S == 0
+                assert (chunks - 1) * per < n * p <= chunks * per
+            else:
+                assert width % 4 == 0 and chunks == 1
+                assert width * p * itemsize <= MV.TALL_BYTES
+                assert tiles * width >= B * n
+
+
+def test_gemv_outputs_share_one_allocation():
+    """A call allocates its outputs once: one tensor for one leaf; views of
+    one byte buffer, each leaf at a 16-byte boundary, for several."""
+    like = torch.zeros(3)
+    (one,) = MV.outputs(like, [torch.int32], (5,))
+    assert one.shape == (5,) and one.dtype == torch.int32
+    outs = MV.outputs(like, [torch.float32, torch.int8, torch.float64], (7,))
+    assert [o.dtype for o in outs] == [torch.float32, torch.int8,
+                                       torch.float64]
+    assert all(o.shape == (7,) and o.is_contiguous() for o in outs)
+    base = outs[0].untyped_storage().data_ptr()
+    assert all(o.untyped_storage().data_ptr() == base for o in outs)
+    assert all((o.data_ptr() - base) % 16 == 0 for o in outs)
+    ends = sorted((o.data_ptr(), o.data_ptr() + o.nbytes) for o in outs)
+    assert all(a[1] <= b[0] for a, b in zip(ends, ends[1:]))   # disjoint
+    assert MV.element_bytes([torch.float32]) == 4
+    assert MV.element_bytes([torch.float64, torch.int32]) == 16
+    assert MV.element_bytes([torch.int8, torch.float32, torch.int8]) == 12
+
+
+def test_gemv_plan_is_reused_across_calls_and_not_across_dtypes():
+    """A GEMV's plan is ``_lib.plan``'s, kept per (family, operator, map,
+    the dtype of each of the map's arguments, quantization mode): the same
+    call finds it again; another dtype, arity or mode gets its own."""
+    what = "matvec@flat (cuda)"
+    f32 = torch.zeros(4, 4)
+
+    def gemv(f, op, likes, quant=None, family="matvec"):
+        return _lib.plan(family, what, op, likes, f, spread=True, quant=quant)
+
+    plan = gemv(t_alg.TIMES, t_alg.ADD, (f32, f32))
+    assert gemv(t_alg.TIMES, t_alg.ADD, (f32, f32)) is plan
+    assert plan.out_dtypes == [torch.float32] and plan.lib is None
+    f64 = f32.double()
+    other = gemv(t_alg.TIMES, t_alg.ADD, (f64, f64))
+    assert other is not plan and other.unit.digest != plan.unit.digest
+    assert other.out_dtypes == [torch.float64]
+    ints = torch.zeros(4, 4, dtype=torch.int32)
+    axis = gemv(t_alg.IDENTITY, t_alg.ADD, (ints,))
+    assert axis is not plan and axis.unit.leaves == (1, 1)
+    pair = gemv(PAIR, t_alg.AFFINE, (f32, f32))
+    assert pair.out_dtypes == [torch.float32] * 2
+    assert "int rt_gemv(void* x0, void* x1, void* y0, void* y1, " \
+        "const void* geo" in pair.unit.source
+    int8 = gemv(t_alg.TIMES, t_alg.ADD, (f32, f32), "int8", "qmatvec")
+    assert int8 is not plan and gemv(t_alg.TIMES, t_alg.ADD, (f32, f32),
+                                     "int8", "qmatvec") is int8
+    assert gemv(t_alg.TIMES, t_alg.ADD, (f32, f32), "fp8_e4m3",
+                "qmatvec") is not int8
+
+
+def test_gemv_call_checks_the_vector_before_keeping_anything():
+    """A call whose vector has the wrong dtype or length raises before a
+    launch or a plan is kept, so it leaves nothing behind for the calls
+    after it: the next valid call's plan reads vector and matrix of its own
+    dtype."""
+    what = "matvec@flat (cuda)"
+    A = torch.zeros(6, 5)
+    calls, plans = dict(MV._CALLS), dict(_lib._PLANS)
+    for x in (torch.zeros(6, dtype=torch.float64), torch.zeros(5)):
+        with pytest.raises(ValueError, match="x must be a vector of A's "
+                                             "dtype along the reduced axis"):
+            MV.resolve(MV.MATVEC, what, t_alg.TIMES, t_alg.ADD, A, x)
+    with pytest.raises(ValueError, match="x must be a vector of float32"):
+        MV.resolve(MV.VECMAT, what, t_alg.TIMES, t_alg.ADD,
+                   t_alg.quantize(torch.ones(8, 4), block=4),
+                   torch.zeros(4, dtype=torch.float64))
+    assert MV._CALLS == calls and _lib._PLANS == plans
+    # A valid call on CPU tensors is refused too, before anything is kept.
+    with pytest.raises(ValueError, match="one CUDA device"):
+        MV.resolve(MV.MATVEC, what, t_alg.TIMES, t_alg.ADD, A, torch.zeros(6))
+    assert MV._CALLS == calls and _lib._PLANS == plans
+    plan = _lib.plan("matvec", what, t_alg.ADD, (torch.zeros(6), A),
+                     t_alg.TIMES, spread=True)
+    assert plan.unit is _lib.unit("matvec", what, t_alg.ADD, [torch.float32],
+                                  f=t_alg.TIMES,
+                                  in_dtypes=[torch.float32] * 2)
+
+
+def test_gemv_workspace_is_kept_per_stream_and_grows():
+    """A chunked launch's counters (zeroed once) and partials are the
+    stream's own: found again, grown when a launch needs more, never
+    shared with another stream."""
+    like = torch.zeros(1)
+    MV._WORKSPACES.clear()
+    w = MV.workspace(like, 7, 10, 100)
+    assert int(w.counters.count_nonzero()) == 0
+    assert w.counters.numel() >= 10 and w.partials.numel() >= 100
+    counters, partials = w.counters, w.partials
+    assert MV.workspace(like, 7, 5, 50) is w and w.counters is counters \
+        and w.partials is partials
+    grown = MV.workspace(like, 7, 5000, 5 << 20)
+    assert grown is w and w.counters.numel() >= 5000 and \
+        w.partials.numel() >= 5 << 20
+    assert MV.workspace(like, 8, 10, 100) is not w
+    MV._WORKSPACES.clear()
+
+
 PAIR = t_alg.DeviceMap("pair", lambda u, v: (u, v), "return x;")
 
 

@@ -11,7 +11,8 @@ Six phases, any failure exits non-zero:
    registers and spills, and check that K10's bf16 units hold HGMMA in
    their SASS and spill nothing.
 2. kernels -- hold each kernel of the serving paths (K2 flat scan, K6
-   channel scan and its long-T path, K3 flat mapreduce, K7m batched
+   channel scan's channel-tile route and its long-T path, K3 flat
+   mapreduce, K7m batched
    mapreduce, K7s batched scan, K4 matvec and vecmat) and of the matvec
    family (K7's batched matvec and vecmat; K9, the quantized matvec and
    vecmat, flat and batched, for int8, fp8_e4m3 and fp8_e5m2 codes) and
@@ -29,7 +30,13 @@ Six phases, any failure exits non-zero:
    window 4096) and recurrentgemma-2b (10 / 1 heads of 256, window 2048)
    in bf16; time the kernel, the plain version and one PyTorch library
    call of the same function with CUDA events (K2, K3, K7m and K7s in
-   turns with the library call, the median of 7 rounds).  K3 and K7s are
+   turns with the library call, the median of 7 rounds).  K2 is one
+   launch at every n (a tile, or the single-pass lookback above it):
+   int32 ADD and int32 AFFINE with odd multipliers bit-exact from n = 1
+   to 2^24 on each side of both tile sizes, and the same call 1,000 times
+   on one stream.  K6's channel-tile route at the RG-LRU's shapes: int32
+   AFFINE bit-exact, f32 AFFINE within 1e-5 x max|h| of a float64 walk,
+   device ms by torch.profiler beside the bound.  K3 and K7s are
    held on both sides of their small forms' limits (K3 n = 2,047 / 2,048
    / 2,049: one block in one launch, or the multi-block form; K7s a tile
    of 2,048 and one more: the single-tile form, or the three-phase one),
@@ -57,8 +64,9 @@ Six phases, any failure exits non-zero:
    checks its outputs, holds K1 copy, K5 packed matvec and K8 segmented
    scan and every kernel the generated functors re-instantiate against
    their plain versions, and times each call beside its bound and library
-   call (the Table V/VI GEMVs in turns with torch.mv, with each call's
-   launches and GEMV form; every GEMV wrapper call must be one launch).
+   call (the Table IV scans in turns with torch.cumsum and the Table V/VI
+   GEMVs in turns with torch.mv, with each call's launches and GEMV form;
+   every scan and GEMV wrapper call must be one launch).
 4. serve -- serve recurrentgemma-2b at full width (26 layers, d_model 2560,
    vocab 256000, bf16 weights from a seed) through Engine.generate: 8 greedy
    requests on 4 slots, so slots recycle.  Checks every request's length and
@@ -66,7 +74,8 @@ Six phases, any failure exits non-zero:
    plain torch backend (blockwise attention) on the card at 17, 1,024 and
    2,100 tokens, and that the serving run launched every kernel of its
    path (K10 once per attention layer of every prefill at least, every
-   K3 launch on its small form); then profiles one prefill and eight
+   K3 launch on its small form); then profiles one prefill (its device
+   ms and K6's share) and eight
    decode steps (torch.profiler) for where the time goes, and the decode
    loop's predicate: one K3 launch a call and no memset on the device.
 5. sampled serve -- the same model through Engine(temperature=0.8,
@@ -151,7 +160,7 @@ SAMPLED_NEW = 16
 N_SORT = BATCH * 256000            # the sampled top-k's flat (B V,) stream
 
 # Each kernel's launch counter: (wrapper, attribute).  K6's wrapper counts
-# its serial route and its long-T path apart.
+# its channel-tile route and its long-T path apart.
 COUNTERS = {
     "K1": (copy_k.copy_cuda, "launches"),
     "K2": (scan_k.scan_1d_cuda, "launches"),
@@ -344,6 +353,7 @@ def path_units() -> list:
                                [f32] * LEAVES.get(op.name, 1)))
     for op in (alg.ADD, alg.MAX, alg.MIN, alg.MUL):
         units.append(_lib.unit("scan", "build", op, [i32]))
+    units.append(_lib.unit("scan", "build", alg.AFFINE, [i32, i32]))
     units.append(_lib.unit("scan", "build", alg.ADD, [f64]))
     for op, dts in ((alg.ADD, [f32]), (alg.ADD, [i32]), (alg.MAX, [f32]),
                     (alg.QUATERNION_MUL, [f32] * 4)):
@@ -444,86 +454,8 @@ def phase_kernels(gen: torch.Generator) -> dict:
     def note(k, err):
         res[k]["max_abs_err"] = max(res[k]["max_abs_err"], err)
 
-    # -- K2: flat scan.  Integer ADD must be bit-exact; the AFFINE leg is
-    # f32 through the multi-block path, held at 1e-5 relative to the
-    # output's magnitude because the log-step plain scan folds in another
-    # order.
-    tile = _lib.load(scan_k.scan_unit("K2", alg.ADD, [ints(1)])).rt_tile()
-    for n in (BATCH, 8, 1, tile + 1, 1 << 24):
-        x = ints(n)
-        for inclusive in (True, False):
-            got = scan_k.scan_1d_cuda(alg.ADD, x, inclusive=inclusive)
-            want = scan_k.scan_1d_plain(alg.ADD, x, inclusive=inclusive)
-            err = max_err(got, want)
-            note("K2", err)
-            expect(err == 0, f"K2 scan ADD int32 n={n} inclusive="
-                             f"{inclusive}: bit-exact")
-    for n in (tile + 1, 3 * tile + 7):
-        a = torch.empty(n, device=dev).uniform_(0.9, 1.0, generator=gen)
-        b = torch.empty(n, device=dev).uniform_(-1, 1, generator=gen)
-        got = scan_k.scan_1d_cuda(alg.AFFINE, (a, b))
-        want = scan_k.scan_1d_plain(alg.AFFINE, (a, b))
-        err = max_err(got, want)
-        note("K2", err)
-        scale = max(float(want[1].abs().max()), 1.0)
-        expect(err <= 1e-5 * scale, f"K2 scan AFFINE f32 n={n}: max abs err "
-                                    f"{err:.3g} <= 1e-5 x {scale:.3g}")
-    x = ints(BATCH)
-    res["K2"].update(time_turns({
-        "ms": lambda: scan_k.scan_1d_cuda(alg.ADD, x),
-        "library_ms": lambda: torch.cumsum(x, 0, dtype=torch.int32)}))
-    res["K2"]["plain_ms"] = time_ms(lambda: scan_k.scan_1d_plain(alg.ADD, x))
-    res["K2"]["bound"] = bound_ms(2 * 4 * BATCH, BATCH)
-    res["K2"]["shape"] = f"({BATCH},) int32 ADD"
-    big = ints(1 << 24)
-    res["K2"]["large"] = {
-        "n": 1 << 24,
-        "ms": time_ms(lambda: scan_k.scan_1d_cuda(alg.ADD, big), 20),
-        "plain_ms": time_ms(lambda: scan_k.scan_1d_plain(alg.ADD, big), 3),
-        "library_ms": time_ms(
-            lambda: torch.cumsum(big, 0, dtype=torch.int32), 20),
-        "bound_ms": bound_ms(2 * 4 * (1 << 24), 1 << 24)[0]}
-
-    # -- K6: channel scan (the RG-LRU recurrence).  The plain version walks
-    # T in the kernel's order with the kernel's rounding (no fused
-    # multiply-add): bit-equal at the RG-LRU's own shapes (B C >= 2560, the
-    # serial route), 1e-6 elsewhere.
-    def affine_bt(B, T, C):
-        a = torch.empty(B, T, C, device=dev).uniform_(0.9, 0.999,
-                                                      generator=gen)
-        b = torch.empty(B, T, C, device=dev).uniform_(-1, 1, generator=gen)
-        return a, b
-
-    for (B, T, C), inclusive, reverse in (
-            ((1, 1024, 2560), True, False), ((8, 2048, 2560), True, False),
-            ((2, 61, 130), True, True), ((2, 61, 130), False, False),
-            ((3, 1, 1), False, True)):
-        ab = affine_bt(B, T, C)
-        got = scan_k.scan_channel_cuda(alg.AFFINE, ab, inclusive=inclusive,
-                                       reverse=reverse)
-        want = scan_k.scan_channel_plain(alg.AFFINE, ab, inclusive=inclusive,
-                                         reverse=reverse)
-        err = max_err(got, want)
-        note("K6", err)
-        tol = 0.0 if C == 2560 else 1e-6
-        expect(not scan_k.uses_long_t(B, T, C) and err <= tol,
-               f"K6 AFFINE f32 ({B},{T},{C}) inclusive={inclusive} reverse="
-               f"{reverse}: serial route, max abs err {err:.3g} <= {tol}")
-    ab = affine_bt(1, 1024, 2560)
-    res["K6"]["ms"] = time_ms(lambda: scan_k.scan_channel_cuda(alg.AFFINE, ab))
-    res["K6"]["plain_ms"] = time_ms(
-        lambda: scan_k.scan_channel_plain(alg.AFFINE, ab), 3)
-    res["K6"]["library_ms"] = None      # no PyTorch call scans AFFINE pairs
-    elems = 1 * 1024 * 2560
-    res["K6"]["bound"] = bound_ms(4 * 4 * elems, 3 * elems)
-    res["K6"]["shape"] = "(1, 1024, 2560) f32 AFFINE"
-    ab8 = affine_bt(8, 2048, 2560)
-    res["K6"]["large"] = {
-        "shape": [8, 2048, 2560],
-        "ms": time_ms(lambda: scan_k.scan_channel_cuda(alg.AFFINE, ab8), 10),
-        "plain_ms": time_ms(
-            lambda: scan_k.scan_channel_plain(alg.AFFINE, ab8), 1),
-        "bound_ms": bound_ms(4 * 4 * 8 * 2048 * 2560, 3 * 8 * 2048 * 2560)[0]}
+    check_k2(res, gen, note)
+    check_k6(res, gen, note)
 
     # -- K3: flat mapreduce.  MAX over int32 is bit-exact; the masked ADD leg
     # is f32 in another fold order, held at 1e-5 relative.  Up to one
@@ -623,8 +555,186 @@ def phase_kernels(gen: torch.Generator) -> dict:
             f"{r['bound'][0]:.6f} ms ({r['bound'][1]}); " + json.dumps(
                 {x: v for x, v in r.items() if x in (
                     "large", "modes", "dense_mv_ms", "dense_bmm_ms",
-                    "shapes", "public_ms")}))
+                    "shapes", "public_ms", "device_ms")}))
     return res
+
+
+def device_ms(fn, calls: int = 5) -> tuple[float, float]:
+    """Device milliseconds and device operations a call of ``fn``
+    (torch.profiler: the sum of its kernels' times, and their count), after
+    a warm-up call: a kernel's own time where the host's launch takes
+    longer than the kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ops = [e.time_range.elapsed_us() for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(ops) / calls / 1e3, len(ops) / calls
+
+
+def one_launch(k: str, fn):
+    """``fn()``'s result, checked to launch kernel ``k`` exactly once."""
+    obj, attr = COUNTERS[k]
+    before = getattr(obj, attr)
+    out = fn()
+    launched = getattr(obj, attr) - before
+    if launched != 1:
+        raise CheckFailed(f"{k}: a call launched {launched} times, not once")
+    return out
+
+
+def check_k2(res, gen, note) -> None:
+    """K2: every n is one launch -- one tile up to the single-tile limit,
+    the decoupled lookback above it.  int32 ADD and int32 AFFINE with odd
+    multipliers (wrapping products: every element reaches every later
+    output, so a misordered or dropped tile shows) bit-exact at n = 1, 4,
+    the limit and one past, a lookback tile and one past, 3 tiles + 7,
+    10^6 + 3 and 2^24, inclusive and exclusive; f32 AFFINE within 1e-5 of
+    the output's size and QUATERNION_MUL within 1e-3 (products of up to
+    10^6 factors); then the same call 1,000 times on one stream, each
+    result compared on the card, so that a ticket not reset or a stale
+    flag shows."""
+    dev = torch.device("cuda")
+    k2 = scan_k.scan_1d_cuda
+    lib = _lib.load(scan_k.scan_unit("K2", alg.ADD, [torch.empty(
+        0, dtype=torch.int32)]))
+    tile, lb = lib.rt_tile(), lib.rt_lookback_tile()
+    for n in (1, BATCH, tile, tile + 1, lb, lb + 1, 3 * lb + 7, 10**6 + 3,
+              1 << 24):
+        x = torch.randint(-100, 100, (n,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        a = odd_ints(gen, n)
+        b = torch.randint(-2**31, 2**31 - 1, (n,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        for inclusive in (True, False):
+            err = max(max_err(one_launch("K2", lambda: k2(
+                alg.ADD, x, inclusive=inclusive)), scan_k.scan_1d_plain(
+                alg.ADD, x, inclusive=inclusive)),
+                max_err(one_launch("K2", lambda: k2(
+                    alg.AFFINE, (a, b), inclusive=inclusive)),
+                    scan_k.scan_1d_plain(alg.AFFINE, (a, b),
+                                         inclusive=inclusive)))
+            note("K2", err)
+            expect(err == 0, f"K2 n={n} inclusive={inclusive}: ADD and "
+                             f"AFFINE (odd multipliers) int32 bit-exact, "
+                             f"one launch")
+    for n in (tile + 1, 3 * lb + 7):
+        a = torch.empty(n, device=dev).uniform_(0.9, 1.0, generator=gen)
+        b = torch.empty(n, device=dev).uniform_(-1, 1, generator=gen)
+        want = scan_k.scan_1d_plain(alg.AFFINE, (a, b))
+        err = max_err(k2(alg.AFFINE, (a, b)), want)
+        note("K2", err)
+        scale = max(float(want[1].abs().max()), 1.0)
+        expect(err <= 1e-5 * scale, f"K2 scan AFFINE f32 n={n}: max abs err "
+                                    f"{err:.3g} <= 1e-5 x {scale:.3g}")
+    for n in (3 * lb + 7, 10**6 + 3):
+        q = unit_quaternions(gen, n)
+        err = max_err(k2(alg.QUATERNION_MUL, q),
+                      scan_k.scan_1d_plain(alg.QUATERNION_MUL, q))
+        expect(err <= 1e-3, f"K2 QUATERNION_MUL n={n} (unit quaternions): "
+                            f"max abs err {err:.3g} <= 1e-3")
+    x = torch.randint(-100, 100, (10**6 + 3,), generator=gen, device=dev,
+                      dtype=torch.int32)
+    want = [scan_k.scan_1d_plain(alg.ADD, x, inclusive=i)
+            for i in (True, False)]
+    wrong = torch.zeros((), dtype=torch.int64, device=dev)
+    for i in range(1000):
+        wrong += (k2(alg.ADD, x, inclusive=i % 2 == 0) != want[i % 2]).sum()
+    expect(int(wrong) == 0, f"K2 n=10^6+3, 1,000 calls in a row on one "
+                            f"stream (inclusive and exclusive in turn): "
+                            f"{int(wrong)} wrong elements")
+    ms, ops = device_ms(lambda: k2(alg.ADD, x))
+    expect(ops == 1, f"K2 n=10^6+3: {ops} device operations a call (one "
+                     f"kernel, no memset), {ms * 1e3:.2f} us")
+    x = torch.randint(-100, 100, (BATCH,), generator=gen, device=dev,
+                      dtype=torch.int32)
+    res["K2"].update(time_turns({
+        "ms": lambda: k2(alg.ADD, x),
+        "library_ms": lambda: torch.cumsum(x, 0, dtype=torch.int32),
+        "public_ms": lambda: forge.scan(alg.ADD, x)}))
+    res["K2"]["plain_ms"] = time_ms(lambda: scan_k.scan_1d_plain(alg.ADD, x))
+    res["K2"]["bound"] = bound_ms(2 * 4 * BATCH, BATCH)
+    res["K2"]["shape"] = f"({BATCH},) int32 ADD"
+    big = torch.randint(-100, 100, (1 << 24,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    res["K2"]["large"] = {
+        "n": 1 << 24, **time_turns({
+            "ms": lambda: k2(alg.ADD, big),
+            "library_ms": lambda: torch.cumsum(big, 0, dtype=torch.int32)},
+            reps=20),
+        "plain_ms": time_ms(lambda: scan_k.scan_1d_plain(alg.ADD, big), 3),
+        "bound_ms": bound_ms(2 * 4 * (1 << 24), 1 << 24)[0]}
+
+
+# K6 at the RG-LRU's shapes (B, T, 2560): the serve phase's prompts of 17,
+# 1,024 and 2,100 tokens, and 8 sequences of 2,048.
+K6_SHAPES = ((1, 17, 2560), (1, 1024, 2560), (1, 2100, 2560),
+             (8, 2048, 2560))
+
+
+def check_k6(res, gen, note) -> None:
+    """K6's channel-tile route, which reassociates as the reference's
+    kernel does (runs of a chunk, then the carry).  int32 AFFINE with odd
+    multipliers bit-exact against the plain serial walk, and f32 AFFINE
+    within 1e-5 x max|h| of a float64 walk (the f32 plain walk's own error
+    beside it), at the RG-LRU's shapes; (2, 61, 130) in each direction and
+    form, (3, 1, 1), and shapes whose T spans four chunks (256 steps of
+    an 8-byte element), forward and reverse.  Every call is one launch of
+    the channel-tile route, none of the long-T path."""
+    dev = torch.device("cuda")
+    k6 = scan_k.scan_channel_cuda
+    cases = [(shape, True, False) for shape in K6_SHAPES] + [
+        ((2, 61, 130), inc, rev) for inc in (True, False)
+        for rev in (False, True)] + [
+        ((3, 1, 1), False, True), ((1, 1000, 2560), True, True),
+        ((2, 1000, 600), False, False), ((2, 1000, 600), True, True)]
+    for (B, T, C), inclusive, reverse in cases:
+        kw = dict(inclusive=inclusive, reverse=reverse)
+        long_t = k6.long_t_launches
+        a = odd_ints(gen, B * T * C).view(B, T, C)
+        b = torch.randint(-2**31, 2**31 - 1, (B, T, C), generator=gen,
+                          device=dev, dtype=torch.int32)
+        err = max_err(one_launch("K6", lambda: k6(alg.AFFINE, (a, b), **kw)),
+                      scan_k.scan_channel_plain(alg.AFFINE, (a, b), **kw))
+        note("K6", err)
+        af = torch.empty(B, T, C, device=dev).uniform_(0.9, 0.999,
+                                                       generator=gen)
+        bf = torch.empty(B, T, C, device=dev).uniform_(-1, 1, generator=gen)
+        got = one_launch("K6", lambda: k6(alg.AFFINE, (af, bf), **kw))
+        walk = scan_k.scan_channel_plain(alg.AFFINE, (af.double(),
+                                                      bf.double()), **kw)
+        plain_err = max_err(scan_k.scan_channel_plain(alg.AFFINE, (af, bf),
+                                                      **kw), walk)
+        ferr = max_err(got, walk)
+        scale = float(walk[1].abs().max())
+        expect(err == 0 and ferr <= 1e-5 * scale and
+               k6.long_t_launches == long_t,
+               f"K6 ({B},{T},{C}) inclusive={inclusive} reverse={reverse}, "
+               f"channel-tile route: int32 AFFINE bit-exact; f32 AFFINE max "
+               f"abs err {ferr:.3g} <= 1e-5 x max|h| {scale:.3g} of the f64 "
+               f"walk (the f32 plain walk's: {plain_err:.3g})")
+    res["K6"]["shapes"] = {}
+    for B, T, C in K6_SHAPES:
+        a = torch.empty(B, T, C, device=dev).uniform_(0.9, 0.999,
+                                                      generator=gen)
+        b = torch.empty(B, T, C, device=dev).uniform_(-1, 1, generator=gen)
+        elems = B * T * C
+        row = {"ms": time_ms(lambda: k6(alg.AFFINE, (a, b))),
+               "device_ms": device_ms(lambda: k6(alg.AFFINE, (a, b)))[0],
+               "bound_ms": bound_ms(4 * 4 * elems, 3 * elems)[0]}
+        res["K6"]["shapes"][f"({B}, {T}, {C})"] = row
+        if (B, T, C) == (1, 1024, 2560):
+            res["K6"].update(
+                ms=row["ms"], device_ms=row["device_ms"],
+                plain_ms=time_ms(lambda: scan_k.scan_channel_plain(
+                    alg.AFFINE, (a, b)), 3),
+                library_ms=None,    # no PyTorch call scans AFFINE pairs
+                bound=bound_ms(4 * 4 * elems, 3 * elems),
+                shape="(1, 1024, 2560) f32 AFFINE")
 
 
 def onehot_digits(gen, n: int, buckets: int) -> torch.Tensor:
@@ -1149,7 +1259,7 @@ def host_stages_gemv(gen) -> dict:
         call = matvec_k.resolve(form, label, f, op, A, x)
         lib, st = call.plan.lib, _lib.stream_ptr(A)
         out = torch.empty_like(call.template)
-        w = matvec_k.workspace(A, st, call.grid_x, call.partial_bytes)
+        w = _lib.workspace(A, st, call.grid_x, call.partial_bytes)
         cp, pp = w.counters.data_ptr(), w.partials.data_ptr()
         reps = 300
         stages[label] = {
@@ -1159,7 +1269,7 @@ def host_stages_gemv(gen) -> dict:
             "allocation": host_us(lambda: torch.empty_like(call.template),
                                   reps),
             "stream": host_us(lambda: _lib.stream_ptr(A), reps),
-            "workspace": host_us(lambda: matvec_k.workspace(
+            "workspace": host_us(lambda: _lib.workspace(
                 A, st, call.grid_x, call.partial_bytes), reps),
             "C call": host_us(lambda: lib.rt_gemv(
                 x.data_ptr(), A.data_ptr(), out.data_ptr(), call.geo_ptr, cp,
@@ -2157,10 +2267,13 @@ def paper_timings(d, res) -> list:
         x = d[f"x{n}"]
         row(f"scan ADD f32 {n:.0e} (Table IV)", lambda: forge.scan(alg.ADD, x),
             8 * n, n, lambda: torch.cumsum(x, 0), "torch.cumsum",
-            3 if n > N_PAPER else 10)
+            3 if n > N_PAPER else 10, turns=True)
     row("scan ADD f64 1e8 (Table IV)", lambda: forge.scan(alg.ADD, d["x64"]),
         16 * N_PAPER, N_PAPER, lambda: torch.cumsum(d["x64"], 0),
-        "torch.cumsum")
+        "torch.cumsum", turns=True)
+    for r in rows[1:]:             # K2: one launch a call at every n
+        expect(r["launches"] == {"K2": 1}, f"{r['what']}: one K2 launch a "
+                                           f"call, {r['launches']}")
     row("scan QUATERNION_MUL f32 1e7", lambda: forge.scan(
         alg.QUATERNION_MUL, d["q7"]), 32 * 10**7, 28 * 10**7)
     row("mapreduce ADD f32 1e8 (Table III)", lambda: forge.mapreduce(
@@ -2410,6 +2523,9 @@ def phase_serve(cfg, params, prompts, path=GREEDY_PATH,
            f"K10 launched {launches['K10']} times: at least once in each of "
            f"the {attn_layers} attention layers of {len(reqs)} prefills")
     profile = profile_serving(eng, params, cfg, prompts[4])
+    if profile["prefill"]["measured"]:
+        log(f"[{tag}] prefill T={PROMPT_LENS[4]}: {profile['prefill']['device_ms']:.3f} "
+            f"device ms, K6 {profile['prefill']['k6_ms']:.4f} ms of it")
     memory["peak_generate_profile_gb"] = \
         torch.cuda.max_memory_allocated() / 1e9
     prompt_tokens = sum(PROMPT_LENS)
@@ -2599,6 +2715,9 @@ def profile_device(label: str, fn, units: int) -> dict:
     out = {"measured": True, "units": units,
            "wall_ms_profiled": wall_ms / units,
            "device_ms": busy_ms / units,
+           # K6's channel-tile route (the RG-LRU's recurrence).
+           "k6_ms": sum(ms for name, ms in by_name.items()
+                        if "scan_channel_tiles" in name) / units,
            "device_idle_share": 1.0 - busy_ms / wall_ms,
            "device_ops": ops / units, "memsets": memsets / units,
            "port_kernels_ms": dict(port),
@@ -2703,9 +2822,11 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
             "shape": r["shape"]})
-        for extra in ("public_ms", "paper_worst"):
+        for extra in ("public_ms", "paper_worst", "device_ms"):
             if extra in r:   # the public call at the same shape; the worst
-                kernels[-1][extra] = r[extra]    # Table V/VI row's ratio
+                kernels[-1][extra] = r[extra]    # Table V/VI row's ratio;
+                # the kernel alone (torch.profiler) where the host's launch
+                # takes longer
         for form in FORMS:              # the small form's share, per path
             if form.startswith(f"{k} "):
                 kernels[-1]["launches_" + form.split()[1]] = {

@@ -239,8 +239,8 @@ TROPICAL_MAX = MAX   # (max, +) semiring
 # h_t = a_t * h_{t-1} + b_t.  Elements are pairs (a, b) representing
 # x -> a*x + b, composed left to right: (g1 . g2)(x) = g2(g1(x)).
 # NON-commutative.  The device form rounds every product and sum on its own
-# (no fused multiply-add), so K6's serial route equals the plain version
-# bit for bit.
+# (no fused multiply-add), as torch does, so a kernel that combines in the
+# plain version's order gives its bits.
 
 
 def _affine_combine(p, q):

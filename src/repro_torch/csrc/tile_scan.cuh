@@ -1,9 +1,12 @@
 // Block-tile prefix scan and the three-phase, row-batched scan built on it.
 //
-// Shared by K2 (scan.cuh: one row), K7s (scan.cuh: B rows), the carry phase
-// of K6's long-T path (scan.cuh: one row per channel) and K8 (segmented.cuh:
-// one row under the segmented lift).  Every combine keeps element order, so
-// non-commutative operators hold and integer ADD is bit-exact.
+// The tile helpers (load_tile, scan_tile_regs, store_tile) serve K2's
+// single pass (lookback.cuh) and every scan below.  The three-phase scan
+// serves K2's and K7s's rows of one tile (scan.cuh: single_tile), K7s's
+// longer rows (scan.cuh: B rows), the carry phase of K6's long-T path
+// (scan.cuh: one row per channel) and K8 (segmented.cuh: one row under the
+// segmented lift).  Every combine keeps element order, so non-commutative
+// operators hold and integer ADD is bit-exact.
 //
 // A scan of `rows` independent rows of n elements (row r is elements
 // r n .. r n + n - 1 of each leaf), grid (tiles, rows):
@@ -15,12 +18,14 @@
 // a single launch of phase 3 with no carry.
 //
 // Inside a block: each thread loads ITEMS contiguous elements (through
-// shared memory, so the global loads coalesce), scans them serially in
-// registers, then the thread aggregates go through a warp shuffle scan that
-// combines the lower lane's value on the left, then the warp totals through
-// shared memory.  ITEMS shrinks as the element grows (8 for 4- and 8-byte
-// elements, 4 for a quaternion, 1 for a 40-byte one), so the tile's shared
-// memory stays at most 16 KB and the registers bounded.
+// shared memory, so the global loads coalesce; a pad slot every 32
+// elements keeps the transposition free of bank conflicts), scans them
+// serially in registers, then the thread aggregates go through a warp
+// shuffle scan that combines the lower lane's value on the left, then the
+// warp totals through shared memory.  ITEMS shrinks as the element grows
+// (8 for 4- and 8-byte elements, 4 for a quaternion, 1 for a 40-byte one),
+// so the tile's shared memory stays near 16 KB and the registers bounded;
+// the lookback takes twice as many (Lookback<E>).
 #pragma once
 
 #include "common.cuh"
@@ -40,40 +45,45 @@ template <typename E> struct Tile {
   static constexpr int SIZE = THREADS * ITEMS;
 };
 
-template <typename E> struct TileSmem {
-  E items[Tile<E>::SIZE];
+// The shared-memory slot of a tile's element k: one pad slot after every
+// 32 elements, so that the 32 threads of a warp, reading or writing their
+// ITEMS contiguous elements at the same j, meet 32 different banks (4-byte
+// elements; without the pad, ITEMS-way conflicts).
+__device__ __forceinline__ int slot(int k) { return k + (k >> 5); }
+
+// A tile's shared memory, for ITEMS elements a thread (Tile's by default).
+template <typename E, int ITEMS = Tile<E>::ITEMS> struct TileSmem {
+  E items[THREADS * ITEMS + THREADS * ITEMS / 32];
   E warp_excl[WARPS];
   E total;
 };
 
 // Coalesced load of one tile into `r` (ITEMS contiguous elements per thread);
 // out-of-range slots hold the identity.
-template <typename Op, typename Load>
-__device__ void load_tile(TileSmem<typename Op::E>& s,
-                          typename Op::E (&r)[Tile<typename Op::E>::ITEMS],
-                          long base, long n, Load load) {
-  constexpr int ITEMS = Tile<typename Op::E>::ITEMS;
+template <typename Op, int ITEMS, typename Load>
+__device__ void load_tile(TileSmem<typename Op::E, ITEMS>& s,
+                          typename Op::E (&r)[ITEMS], long base, long n,
+                          Load load) {
 #pragma unroll
   for (int j = 0; j < ITEMS; ++j) {
     const int k = j * THREADS + threadIdx.x;
-    s.items[k] = base + k < n ? load(base + k) : Op::identity();
+    s.items[slot(k)] = base + k < n ? load(base + k) : Op::identity();
   }
   __syncthreads();
 #pragma unroll
-  for (int j = 0; j < ITEMS; ++j) r[j] = s.items[threadIdx.x * ITEMS + j];
+  for (int j = 0; j < ITEMS; ++j) r[j] = s.items[slot(threadIdx.x * ITEMS + j)];
   __syncthreads();
 }
 
 // Scan the tile held in registers.  On return r[j] is the inclusive (or
 // exclusive) prefix of the tile's elements, each with `carry` combined on its
 // left; the function returns the tile's own total (without the carry).
-template <typename Op>
-__device__ typename Op::E scan_tile_regs(
-    TileSmem<typename Op::E>& s,
-    typename Op::E (&r)[Tile<typename Op::E>::ITEMS], typename Op::E carry,
-    bool inclusive) {
+template <typename Op, int ITEMS>
+__device__ typename Op::E scan_tile_regs(TileSmem<typename Op::E, ITEMS>& s,
+                                         typename Op::E (&r)[ITEMS],
+                                         typename Op::E carry,
+                                         bool inclusive) {
   using E = typename Op::E;
-  constexpr int ITEMS = Tile<E>::ITEMS;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   // 1. serial inclusive scan of the thread's own items.
@@ -120,17 +130,16 @@ __device__ typename Op::E scan_tile_regs(
 }
 
 // Coalesced store of the tile in `r`.
-template <typename E, typename Store>
-__device__ void store_tile(TileSmem<E>& s, E (&r)[Tile<E>::ITEMS], long base,
+template <typename E, int ITEMS, typename Store>
+__device__ void store_tile(TileSmem<E, ITEMS>& s, E (&r)[ITEMS], long base,
                            long n, Store store) {
-  constexpr int ITEMS = Tile<E>::ITEMS;
 #pragma unroll
-  for (int j = 0; j < ITEMS; ++j) s.items[threadIdx.x * ITEMS + j] = r[j];
+  for (int j = 0; j < ITEMS; ++j) s.items[slot(threadIdx.x * ITEMS + j)] = r[j];
   __syncthreads();
 #pragma unroll
   for (int j = 0; j < ITEMS; ++j) {
     const int k = j * THREADS + threadIdx.x;
-    if (base + k < n) store(base + k, s.items[k]);
+    if (base + k < n) store(base + k, s.items[slot(k)]);
   }
   __syncthreads();
 }

@@ -27,6 +27,7 @@ import ctypes
 import dataclasses
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -76,29 +77,39 @@ class Family:
 
 _ST = "static_cast<cudaStream_t>(stream)"
 FAMILIES = {
-    # K2 (rows = 1), K7s (rows = B) and K6 (serial route and long-T path).
+    # K2 (one tile: rt_scan_tile; above: the lookback), K7s (rows = B) and
+    # K6 (the channel-tile route and the long-T path).
     "scan": Family("scan.cuh", f"""
 int rt_tile() {{ return rt::tile::Tile<Op::E>::SIZE; }}
+long rt_lookback_tile() {{ return rt::lookback::Lookback<Op::E>::SIZE; }}
 int rt_scan_rows(void* const* x, void* const* y, long rows, long n,
                  int inclusive, void* scratch, void* stream) {{
   return rt::scan::rows<Op>(rt::leaves(x), rt::leaves(y), rows, n,
                             inclusive != 0, scratch, {_ST});
 }}
-int rt_scan_channel_chunk() {{ return rt::scan::CHUNK; }}
-int rt_scan_channel(void* const* x, void* const* y, long B, long T, long C,
-                    int inclusive, int reverse, void* scratch, void* stream) {{
-  return rt::scan::channel<Op>(rt::leaves(x), rt::leaves(y), B, T, C,
-                               inclusive != 0, reverse != 0, scratch, {_ST});
-}}""", {
+int rt_scan_channel_chunk() {{ return rt::scan::CHUNK; }}""", {
         "rt_tile": (_I, []),
+        "rt_lookback_tile": (_L, []),
         "rt_scan_rows": (_I, [_PP, _PP, _L, _L, _I, _P, _P]),
         "rt_scan_channel_chunk": (_I, []),
-        "rt_scan_channel": (_I, [_PP, _PP, _L, _L, _L, _I, _I, _P, _P]),
     }, {
-        # K7s, rows of n <= one tile.
+        # K2 and K7s, rows of n <= one tile.
         "rt_scan_tile": LeafEntry(
             "long rows, long n, int inclusive, void* stream", [_L, _L, _I, _P],
             f"rt::scan::single_tile<Op>(x, y, rows, n, inclusive != 0, {_ST})"),
+        # K2 above one tile, its statuses in the stream's workspace.
+        "rt_scan_lookback": LeafEntry(
+            "long n, int inclusive, void* counters, void* flags, "
+            "void* values, unsigned epoch, void* stream",
+            [_L, _I, _P, _P, _P, ctypes.c_uint, _P],
+            "rt::lookback::scan<Op>(x, y, n, inclusive != 0, counters, flags, "
+            f"values, epoch, {_ST})"),
+        # K6.
+        "rt_scan_channel": LeafEntry(
+            "long B, long T, long C, int inclusive, int reverse, "
+            "void* scratch, void* stream", [_L, _L, _L, _I, _I, _P, _P],
+            "rt::scan::channel<Op>(x, y, B, T, C, inclusive != 0, "
+            f"reverse != 0, scratch, {_ST})"),
     }, "rt_tile"),
     # K8 over a segmented lift.
     "segscan": Family("segmented.cuh", f"""
@@ -333,18 +344,19 @@ _MAP_UNITS: dict[tuple, tuple] = {}
 
 class Plan:
     """One family's launch for one (operator, map, leaf dtypes), resolved
-    once (:func:`plan`): the unit, the output element's dtypes and tree
-    spec and, from the first launch on, the loaded library and its
-    ``limit``.  It holds ``op`` and ``f``, so their ids, which key it,
-    cannot be reused while it lives."""
+    once (:func:`plan`): the unit, the output element's dtypes, tree spec
+    and size in bytes and, from the first launch on, the loaded library
+    and its ``limit``.  It holds ``op`` and ``f``, so their ids, which key
+    it, cannot be reused while it lives."""
 
     __slots__ = ("unit", "op", "f", "out_dtypes", "out_spec", "bare_out",
-                 "lib", "limit")
+                 "elem_bytes", "lib", "limit")
 
     def __init__(self, unit: Unit, op, f, out_dtypes, out_spec):
         self.unit, self.op, self.f = unit, op, f
         self.out_dtypes, self.out_spec = out_dtypes, out_spec
         self.bare_out = out_spec.is_leaf()     # one tensor, no unflatten
+        self.elem_bytes = element_bytes(out_dtypes)
         self.lib: ctypes.CDLL | None = None
         self.limit = 0
 
@@ -689,3 +701,90 @@ def scratch(elements: int, leaves: int, like: torch.Tensor) -> torch.Tensor:
     ``like``'s device: 8 bytes a leaf covers every element struct."""
     return torch.empty(8 * leaves * elements, dtype=torch.uint8,
                        device=like.device)
+
+
+def element_bytes(dtypes) -> int:
+    """sizeof of the generated element struct of leaves ``dtypes``: each
+    leaf at its natural alignment, the whole padded to the largest."""
+    off, align = 0, 1
+    for d in dtypes:
+        size = d.itemsize
+        off = -(-off // size) * size + size
+        align = max(align, size)
+    return -(-off // align) * align
+
+
+def outputs(like: torch.Tensor, dtypes, shape) -> list[torch.Tensor]:
+    """The output leaves of ``dtypes`` and ``shape`` on ``like``'s device,
+    in one allocation: one tensor, or views of one byte buffer, each leaf
+    at a 16-byte boundary."""
+    if len(dtypes) == 1:
+        return [like.new_empty(shape, dtype=dtypes[0])]
+    count = math.prod(shape)
+    sizes = [count * d.itemsize for d in dtypes]
+    offs = [0]
+    for s in sizes[:-1]:
+        offs.append(offs[-1] + -(-s // 16) * 16)
+    buf = like.new_empty(offs[-1] + sizes[-1], dtype=torch.uint8)
+    return [buf[o:o + s].view(d).view(shape)
+            for o, s, d in zip(offs, sizes, dtypes)]
+
+
+# A lookback flag holds epoch << 2 | state (csrc/lookback.cuh: EPOCH_MAX).
+EPOCH_MAX = (1 << 30) - 1
+
+
+class Workspace:
+    """One stream's memory for the launches whose blocks meet through it,
+    grown on demand and never shared with another stream, whose launches
+    could overlap.  Launches on one stream run one after another, so the
+    GEMVs (kernels/matvec.py) and K2's lookback share it:
+
+    * ``counters`` -- int32 words, 0 at rest: a launch takes words from 0
+      (a chunked GEMV one a grid-x block, the lookback its ticket) and its
+      last block sets them back to 0;
+    * ``partials`` -- bytes a launch writes before it reads them (a chunked
+      GEMV's partials, the lookback's tile values);
+    * ``flags`` -- the lookback's int32 tile flags, tagged with ``epoch``,
+      the epoch of the stream's last lookback launch (:meth:`next_epoch`).
+    """
+
+    __slots__ = ("counters", "partials", "flags", "epoch")
+
+    def __init__(self):
+        self.counters = self.partials = self.flags = None
+        self.epoch = 0
+
+    def next_epoch(self) -> int:
+        """The epoch of the next lookback launch on this stream: 1, 2, ...,
+        EPOCH_MAX, then 1 again over flags zeroed anew, so no flag of an
+        earlier launch reads as this one's."""
+        if self.epoch == EPOCH_MAX:
+            self.flags.zero_()
+            self.epoch = 0
+        self.epoch += 1
+        return self.epoch
+
+
+_WORKSPACES: dict[tuple[int, int], Workspace] = {}
+
+
+def workspace(like: torch.Tensor, stream: int, counters: int,
+              partial_bytes: int, flags: int = 0) -> Workspace:
+    """The workspace of ``stream`` on ``like``'s device, with at least
+    ``counters`` zero words, ``partial_bytes`` bytes of partials and
+    ``flags`` lookback flags."""
+    key = (like.get_device(), stream)
+    w = _WORKSPACES.get(key)
+    if w is None:
+        w = _WORKSPACES[key] = Workspace()
+    if w.counters is None or w.counters.numel() < counters:
+        # Zeroed once, on this stream, before any launch that uses it.
+        w.counters = like.new_zeros(max(counters, 1024), dtype=torch.int32)
+    if w.partials is None or w.partials.numel() < partial_bytes:
+        w.partials = like.new_empty(max(partial_bytes, 1 << 20),
+                                    dtype=torch.uint8)
+    if flags and (w.flags is None or w.flags.numel() < flags):
+        # Zero reads as unset under every epoch.
+        w.flags = like.new_zeros(max(flags, 1024), dtype=torch.int32)
+    return w

@@ -27,7 +27,7 @@ on it.  Every call is one CUDA launch.  The host plans it:
 ``PACKED`` for K5), the load width (16-byte loads of 4-byte leaves where
 ``A`` is 16-byte aligned, else one element a load) and the chunks of the
 reduction axis; a chunked launch keeps its partials and tickets in the
-stream's workspace (:func:`workspace`), and its last block folds them.
+stream's workspace (``_lib.workspace``), and its last block folds them.
 :func:`resolve` keeps each call's launch (its ``_lib.plan`` -- the unit,
 the output's dtypes and the loaded library -- and its geometry), so a call
 allocates once (its outputs) and makes one ctypes call.
@@ -184,17 +184,6 @@ def geometry(kind: int, B: int, n: int, p: int, vec: int, *, sms: int,
 _GEO_ARRAY = ctypes.c_long * 9
 
 
-def element_bytes(dtypes) -> int:
-    """sizeof of the generated element struct of leaves ``dtypes``: each
-    leaf at its natural alignment, the whole padded to the largest."""
-    off, align = 0, 1
-    for d in dtypes:
-        size = d.itemsize
-        off = _cdiv(off, size) * size + size
-        align = max(align, size)
-    return _cdiv(off, align) * align
-
-
 def sms(device: int) -> int:
     """The streaming multiprocessors of CUDA ``device``, asked once."""
     found = _SMS.get(device)
@@ -205,54 +194,6 @@ def sms(device: int) -> int:
 
 
 _SMS: dict[int, int] = {}
-
-
-class Workspace:
-    """One stream's counters (one zero word per grid-x block of a chunked
-    launch; the last block of a tile resets its own) and partials, grown
-    on demand and never shared with another stream, whose launches could
-    overlap."""
-
-    __slots__ = ("counters", "partials")
-
-    def __init__(self):
-        self.counters = self.partials = None
-
-
-_WORKSPACES: dict[tuple[int, int], Workspace] = {}
-
-
-def workspace(like: torch.Tensor, stream: int, counters: int,
-              partial_bytes: int) -> Workspace:
-    """The workspace of ``stream`` on ``like``'s device, with at least
-    ``counters`` zero words and ``partial_bytes`` bytes of partials."""
-    key = (like.get_device(), stream)
-    w = _WORKSPACES.get(key)
-    if w is None:
-        w = _WORKSPACES[key] = Workspace()
-    if w.counters is None or w.counters.numel() < counters:
-        # Zeroed once, on this stream, before any launch that uses it.
-        w.counters = like.new_zeros(max(counters, 1024), dtype=torch.int32)
-    if w.partials is None or w.partials.numel() < partial_bytes:
-        w.partials = like.new_empty(max(partial_bytes, 1 << 20),
-                                    dtype=torch.uint8)
-    return w
-
-
-def outputs(like: torch.Tensor, dtypes, shape) -> list[torch.Tensor]:
-    """The output leaves of ``dtypes`` and ``shape`` on ``like``'s device,
-    in one allocation: one tensor, or views of one byte buffer, each leaf
-    at a 16-byte boundary."""
-    if len(dtypes) == 1:
-        return [like.new_empty(shape, dtype=dtypes[0])]
-    count = math.prod(shape)
-    sizes = [count * d.itemsize for d in dtypes]
-    offs = [0]
-    for s in sizes[:-1]:
-        offs.append(offs[-1] + _cdiv(s, 16) * 16)
-    buf = like.new_empty(offs[-1] + sizes[-1], dtype=torch.uint8)
-    return [buf[o:o + s].view(d).view(shape)
-            for o, s, d in zip(offs, sizes, dtypes)]
 
 
 form_launches: dict[str, int] = {}
@@ -284,11 +225,11 @@ def launch(form, what, f, op, A, x, *, batched: bool = False) -> Pytree:
     lib = plan.lib or plan.load()
     M = A if call.quant is None else A.values
     outs = [torch.empty_like(call.template)] if call.template is not None \
-        else outputs(M, plan.out_dtypes, call.out_shape)
+        else _lib.outputs(M, plan.out_dtypes, call.out_shape)
     stream = _lib.stream_ptr(M)
     counters = partials = None
     if call.partial_bytes:
-        w = workspace(M, stream, call.grid_x, call.partial_bytes)
+        w = _lib.workspace(M, stream, call.grid_x, call.partial_bytes)
         counters, partials = w.counters.data_ptr(), w.partials.data_ptr()
     if call.quant is None:
         ins = (A.data_ptr(),) if x is None else (
@@ -384,7 +325,7 @@ def _make_call(key, form, what, f, op, A, x, batched) -> _Call:
         _lib.require_cuda(what, A, *(() if x is None else (x,)))
         c.plan = _lib.plan("matvec", what, op, (A,) if x is None else (
             (A, x) if form == VECMAT else (x, A)), f, spread=True)
-        elem_bytes = element_bytes(c.plan.out_dtypes)
+        elem_bytes = c.plan.elem_bytes
         kind = launch_kind(form, p)
         vec = load_width(kind, p, A.element_size() == 4 and elem_bytes <= 16,
                          aligned)
@@ -402,7 +343,7 @@ def _make_call(key, form, what, f, op, A, x, batched) -> _Call:
         c.plan = _lib.plan("qmatvec", what, op, (_F32,) if x is None else (
             (_F32, x) if form == VECMAT else (x, _F32)), f, spread=True,
             quant=quant)
-        elem_bytes = element_bytes(c.plan.out_dtypes)
+        elem_bytes = c.plan.elem_bytes
         kind = COLUMNS if form == MATVEC else ROWS
         vec = WIDE if p % 4 == 0 else 1
         c.realign = vec == WIDE and not aligned

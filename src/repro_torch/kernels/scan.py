@@ -1,21 +1,23 @@
 """Scan kernels K2 (flat) and K6 (channel), each with its plain version.
 
 * :func:`scan_1d_cuda` -- prefix scan of flat ``(n,)`` leaves under any
-  operator with a device form, commutative or not (``csrc/scan.cuh``; replaces
-  ``repro/kernels/scan.py::scan_1d_pallas``).  Plain version:
-  :func:`scan_1d_plain`.
+  operator with a device form, commutative or not (``csrc/scan.cuh``,
+  ``csrc/lookback.cuh``; replaces ``repro/kernels/scan.py::scan_1d_pallas``).
+  One launch a call: one tile (n <= ``plan.limit``), or the single-pass
+  decoupled lookback, whose ticket and tile statuses live in the stream's
+  workspace (``_lib.workspace``).  Plain version: :func:`scan_1d_plain`.
 * :func:`scan_channel_cuda` -- scan along axis 1 of ``(B, T, C)`` leaves,
-  independent per (b, c), forward or reverse (``csrc/scan.cuh``;
-  replaces ``scan_channel_pallas``).  It carries ``linear_recurrence`` on
-  the serial route (one thread per channel) and the radix sort's rank scan
-  on the long-T path (T spread over blocks; see :func:`uses_long_t`).
-  Plain version: :func:`scan_channel_plain`, the same serial walk over T.
+  independent per (b, c), forward or reverse (``csrc/scan.cuh``; replaces
+  ``scan_channel_pallas``).  It carries ``linear_recurrence`` on the
+  channel-tile route (a block per b and 16 channels, T walked in chunks
+  with a carry) and the radix sort's rank scan on the long-T path (T
+  spread over blocks; see :func:`uses_long_t`).  Plain version:
+  :func:`scan_channel_plain`, a serial walk over T.
 
 A wrapper given CPU tensors runs the plain version.  Given CUDA tensors it
 launches the kernel or raises.  ``launches`` on each wrapper counts the calls
-that launched its kernel (K2 above one tile issues three CUDA launches per
-call: reduce, scan of the totals, rescan); K6 counts its long-T path apart,
-in ``long_t_launches``.
+that launched its kernel; K6 counts its long-T path apart, in
+``long_t_launches``.
 """
 from __future__ import annotations
 
@@ -30,12 +32,17 @@ from repro_torch.kernels import ref
 Pytree = Any
 
 
-def _check_leaves(what, leaves, ndim):
+def _leaves(what, xs, ndim):
+    """The leaves of ``xs``, checked: non-empty, one rank-``ndim`` shape,
+    contiguous on one CUDA device."""
+    leaves = (xs,) if isinstance(xs, torch.Tensor) else pytree.tree_leaves(xs)
     shape = leaves[0].shape
-    if any(l.shape != shape or l.ndim != ndim for l in leaves):
-        raise ValueError(f"{what}: leaves must share one rank-{ndim} shape, "
-                         f"got {[tuple(l.shape) for l in leaves]}")
+    if len(shape) != ndim or 0 in shape or len(leaves) > 1 and any(
+            l.shape != shape for l in leaves):
+        raise ValueError(f"{what}: leaves must share one non-empty rank-"
+                         f"{ndim} shape, got {[tuple(l.shape) for l in leaves]}")
     _lib.require_cuda(what, *leaves)
+    return leaves
 
 
 def scan_unit(what, op, leaves) -> _lib.Unit:
@@ -55,23 +62,31 @@ def scan_1d_plain(op, xs: Pytree, *, inclusive: bool = True) -> Pytree:
 
 def scan_1d_cuda(op, xs: Pytree, *, inclusive: bool = True) -> Pytree:
     """K2: inclusive/exclusive scan over flat ``(n,)`` leaves, n >= 1."""
-    leaves, spec = pytree.tree_flatten(xs)
-    if not leaves[0].is_cuda:
+    x = xs if isinstance(xs, torch.Tensor) else pytree.tree_leaves(xs)[0]
+    if not x.is_cuda:
         return scan_1d_plain(op, xs, inclusive=inclusive)
     what = "scan@flat (cuda)"
-    unit = scan_unit(what, op, leaves)
-    _check_leaves(what, leaves, 1)
-    lib = _lib.load(unit)
-    n = leaves[0].shape[0]
+    leaves = _leaves(what, xs, 1)
+    plan = _lib.plan("scan", what, op, xs)
+    lib = plan.lib or plan.load()
+    n = x.shape[0]
     outs = [torch.empty_like(l) for l in leaves]
-    tiles = -(-n // lib.rt_tile())
-    scratch = _lib.scratch(tiles, len(leaves), leaves[0]) if tiles > 1 \
-        else None
-    _lib.check(lib.rt_scan_rows(
-        _lib.leaf_ptrs(leaves), _lib.leaf_ptrs(outs), 1, n, int(inclusive),
-        _lib.ptr(scratch), _lib.stream_ptr(leaves[0])), what)
+    stream = _lib.stream_ptr(x)
+    ptrs = _lib.ptrs((*leaves, *outs))
+    if n <= plan.limit:
+        rc = lib.rt_scan_tile(*ptrs, 1, n, int(inclusive), stream)
+    else:
+        # At most one status a limit's elements: the lookback's tiles are
+        # no smaller.  A status: two flag words and two values.
+        tiles = -(-n // plan.limit)
+        w = _lib.workspace(x, stream, 1, 2 * tiles * plan.elem_bytes,
+                           2 * tiles)
+        rc = lib.rt_scan_lookback(
+            *ptrs, n, int(inclusive), w.counters.data_ptr(),
+            w.flags.data_ptr(), w.partials.data_ptr(), w.next_epoch(), stream)
+    _lib.check(rc, what)
     scan_1d_cuda.launches += 1
-    return pytree.tree_unflatten(outs, spec)
+    return plan.outputs(outs)
 
 
 scan_1d_cuda.launches = 0
@@ -81,14 +96,12 @@ scan_1d_cuda.launches = 0
 # K6: channel scan along axis 1 of (B, T, C)
 # ---------------------------------------------------------------------------
 
-# The long-T path takes over when the serial route's B * C threads are too
-# few to fill the card.  At B * C <= 1024 the serial route runs at most 8
-# blocks of 128 threads (8 of 132 SMs), each thread waiting out T load
-# latencies; the radix sort's rank scans (256 and 4 channels, T = B V) are
-# far below it.  The RG-LRU's recurrence, at B * C >= 2560, stays above it
-# on the serial route, which keeps AFFINE bit-equal to the plain version
-# (the long path reassociates float combines at chunk boundaries).  Below
-# LONG_T_MIN_STEPS (two chunks of the long path) there is little to spread.
+# The long-T path takes over when few channels meet a long T.  At B * C <=
+# 1024 the channel-tile route runs at most 64 blocks (of 132 SMs), each
+# walking all of T; the radix sort's rank scans (256 and 4 channels, T =
+# B V) are far below it.  The RG-LRU's recurrence, at B * C >= 2560, stays
+# above it on the channel-tile route.  Below LONG_T_MIN_STEPS (two chunks
+# of the long path) there is little to spread.
 LONG_T_MAX_CHANNELS = 1024
 LONG_T_MIN_STEPS = 128
 
@@ -100,8 +113,8 @@ def uses_long_t(B: int, T: int, C: int) -> bool:
 
 def scan_channel_plain(op, xs: Pytree, *, inclusive: bool = True,
                        reverse: bool = False) -> Pytree:
-    """Plain version of K6: the kernel's serial walk over T, vectorized
-    over (B, C), with the same combine order (carry on the left)."""
+    """Plain version of K6: the serial walk over T, vectorized over (B, C),
+    the carry on the left."""
     leaves, spec = pytree.tree_flatten(xs)
     T = leaves[0].shape[1]
     outs = [torch.empty_like(l) for l in leaves]
@@ -122,31 +135,30 @@ def scan_channel_cuda(op, xs: Pytree, *, inclusive: bool = True,
     """K6: scan along axis 1 of ``(B, T, C)`` leaves, independent per
     (b, c); ``reverse`` walks T from the end.  :func:`uses_long_t` picks
     the route from the shape."""
-    leaves, spec = pytree.tree_flatten(xs)
-    if not leaves[0].is_cuda:
+    x = xs if isinstance(xs, torch.Tensor) else pytree.tree_leaves(xs)[0]
+    if not x.is_cuda:
         return scan_channel_plain(op, xs, inclusive=inclusive, reverse=reverse)
     what = "scan along T of (B, T, C) (cuda)"
-    unit = scan_unit(what, op, leaves)
-    _check_leaves(what, leaves, 3)
-    B, T, C = leaves[0].shape
+    leaves = _leaves(what, xs, 3)
+    plan = _lib.plan("scan", what, op, xs)
+    B, T, C = x.shape
     if B > 65535:
         raise ValueError(f"{what}: B = {B} exceeds the grid's 65535 rows")
-    lib = _lib.load(unit)
+    lib = plan.lib or plan.load()
     long_t = uses_long_t(B, T, C)
     outs = [torch.empty_like(l) for l in leaves]
-    chunks = -(-T // lib.rt_scan_channel_chunk())
-    scratch = _lib.scratch(B * C * chunks, len(leaves), leaves[0]) \
-        if long_t else None
+    scratch = _lib.scratch(B * C * -(-T // lib.rt_scan_channel_chunk()),
+                           len(leaves), x) if long_t else None
     _lib.check(lib.rt_scan_channel(
-        _lib.leaf_ptrs(leaves), _lib.leaf_ptrs(outs), B, T, C, int(inclusive),
-        int(reverse), _lib.ptr(scratch), _lib.stream_ptr(leaves[0])), what)
+        *_lib.ptrs((*leaves, *outs)), B, T, C, int(inclusive), int(reverse),
+        _lib.ptr(scratch), _lib.stream_ptr(x)), what)
     if long_t:
         scan_channel_cuda.long_t_launches += 1
     else:
         scan_channel_cuda.launches += 1
-    return pytree.tree_unflatten(outs, spec)
+    return plan.outputs(outs)
 
 
-# Launches of the serial route and of the long-T path, counted apart.
+# Launches of the channel-tile route and of the long-T path, counted apart.
 scan_channel_cuda.launches = 0
 scan_channel_cuda.long_t_launches = 0

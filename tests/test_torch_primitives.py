@@ -321,9 +321,10 @@ def test_k7s_zero_extent_passthrough_matches_reference(shape):
 # ---------------------------------------------------------------------------
 
 
-def test_k6_long_t_threshold_keeps_the_recurrence_on_the_serial_route():
-    # RG-LRU prefill and decode (C = 2560) stay on the serial route ...
-    for B, T in ((1, 1024), (4, 1), (1, 1 << 20), (8, 2048)):
+def test_k6_long_t_threshold_keeps_the_recurrence_on_the_channel_tile_route():
+    # RG-LRU prefill and decode (C = 2560) take the channel-tile route ...
+    for B, T in ((1, 17), (1, 1024), (1, 2100), (4, 1), (1, 1 << 20),
+                 (8, 2048)):
         assert not scan_k.uses_long_t(B, T, 2560)
     # ... the radix sort's rank scans (1, B V, 2^d) take the long-T path.
     for C in (256, 16, 4):
@@ -553,9 +554,9 @@ def test_kernel_sources_are_listed_and_annotated():
     headers = {p.name for p in _lib.CSRC.glob("*.cuh")}
     built = {fam.header for fam in _lib.FAMILIES.values()}
     assert built <= headers
-    assert headers - built == {"common.cuh", "tile_scan.cuh"}
+    assert headers - built == {"common.cuh", "tile_scan.cuh", "lookback.cuh"}
     assert "matvec.cuh" in built
-    for name in built:
+    for name in built | {"lookback.cuh"}:
         text = (_lib.CSRC / name).read_text()
         assert "eplaces: src/repro/kernels/" in text
         assert "Bound on this card:" in text
@@ -708,11 +709,14 @@ def test_kernels_match_plain_versions_on_the_card(cuda_device):
                        scan_k.scan_1d_plain(t_alg.ADD, x))
     assert int(mapreduce_k.mapreduce_1d_cuda(t_alg.IDENTITY, t_alg.MAX, x)) \
         == int(x.max())
+    # K6 reassociates as the reference does: f32 AFFINE within 1e-5 of
+    # max|h| of a float64 walk.
     a = torch.rand(2, 50, 300, generator=gen, device=cuda_device)
     b = torch.randn(2, 50, 300, generator=gen, device=cuda_device)
-    for got, want in zip(scan_k.scan_channel_cuda(t_alg.AFFINE, (a, b)),
-                         scan_k.scan_channel_plain(t_alg.AFFINE, (a, b))):
-        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    want = scan_k.scan_channel_plain(t_alg.AFFINE, (a.double(), b.double()))
+    scale = float(want[1].abs().max())
+    for got, w in zip(scan_k.scan_channel_cuda(t_alg.AFFINE, (a, b)), want):
+        assert float((got.double() - w).abs().max()) <= 1e-5 * scale
     v = b[0, :4, :70].contiguous()
     m = (torch.rand(4, 70, generator=gen, device=cuda_device) > 0.5).int()
     masked = t_alg.masked_select(0.0)
@@ -889,9 +893,9 @@ def test_gemv_outputs_share_one_allocation():
     """A call allocates its outputs once: one tensor for one leaf; views of
     one byte buffer, each leaf at a 16-byte boundary, for several."""
     like = torch.zeros(3)
-    (one,) = MV.outputs(like, [torch.int32], (5,))
+    (one,) = _lib.outputs(like, [torch.int32], (5,))
     assert one.shape == (5,) and one.dtype == torch.int32
-    outs = MV.outputs(like, [torch.float32, torch.int8, torch.float64], (7,))
+    outs = _lib.outputs(like, [torch.float32, torch.int8, torch.float64], (7,))
     assert [o.dtype for o in outs] == [torch.float32, torch.int8,
                                        torch.float64]
     assert all(o.shape == (7,) and o.is_contiguous() for o in outs)
@@ -900,9 +904,9 @@ def test_gemv_outputs_share_one_allocation():
     assert all((o.data_ptr() - base) % 16 == 0 for o in outs)
     ends = sorted((o.data_ptr(), o.data_ptr() + o.nbytes) for o in outs)
     assert all(a[1] <= b[0] for a, b in zip(ends, ends[1:]))   # disjoint
-    assert MV.element_bytes([torch.float32]) == 4
-    assert MV.element_bytes([torch.float64, torch.int32]) == 16
-    assert MV.element_bytes([torch.int8, torch.float32, torch.int8]) == 12
+    assert _lib.element_bytes([torch.float32]) == 4
+    assert _lib.element_bytes([torch.float64, torch.int32]) == 16
+    assert _lib.element_bytes([torch.int8, torch.float32, torch.int8]) == 12
 
 
 def test_gemv_plan_is_reused_across_calls_and_not_across_dtypes():
@@ -965,22 +969,147 @@ def test_gemv_call_checks_the_vector_before_keeping_anything():
 
 
 def test_gemv_workspace_is_kept_per_stream_and_grows():
-    """A chunked launch's counters (zeroed once) and partials are the
-    stream's own: found again, grown when a launch needs more, never
-    shared with another stream."""
+    """A stream's workspace -- the counters (zeroed once) and partials of
+    a chunked GEMV, and K2's lookback flags -- is the stream's own: found
+    again, grown when a launch needs more, never shared with another
+    stream.  The flags carry an epoch a launch: zero is unset under every
+    epoch, and when the epoch wraps the flags are zeroed anew."""
     like = torch.zeros(1)
-    MV._WORKSPACES.clear()
-    w = MV.workspace(like, 7, 10, 100)
-    assert int(w.counters.count_nonzero()) == 0
+    _lib._WORKSPACES.clear()
+    w = _lib.workspace(like, 7, 10, 100)
+    assert int(w.counters.count_nonzero()) == 0 and w.flags is None
     assert w.counters.numel() >= 10 and w.partials.numel() >= 100
     counters, partials = w.counters, w.partials
-    assert MV.workspace(like, 7, 5, 50) is w and w.counters is counters \
+    assert _lib.workspace(like, 7, 5, 50) is w and w.counters is counters \
         and w.partials is partials
-    grown = MV.workspace(like, 7, 5000, 5 << 20)
+    grown = _lib.workspace(like, 7, 5000, 5 << 20)
     assert grown is w and w.counters.numel() >= 5000 and \
         w.partials.numel() >= 5 << 20
-    assert MV.workspace(like, 8, 10, 100) is not w
-    MV._WORKSPACES.clear()
+    assert _lib.workspace(like, 8, 10, 100) is not w
+    # K2's lookback asks the same workspace for its flags.
+    assert _lib.workspace(like, 7, 1, 64, 3000) is w
+    assert w.flags.numel() >= 3000 and int(w.flags.count_nonzero()) == 0
+    assert [w.next_epoch() for _ in range(3)] == [1, 2, 3]
+    w.flags.fill_(5)
+    w.epoch = _lib.EPOCH_MAX
+    assert w.next_epoch() == 1 and int(w.flags.count_nonzero()) == 0
+    _lib._WORKSPACES.clear()
+
+
+# ---------------------------------------------------------------------------
+# K2's and K6's host path, driven on the CPU: tensors that say they are on
+# the card, and a stand-in library that records each entry it is called at
+# ---------------------------------------------------------------------------
+
+
+class _OnCard(torch.Tensor):
+    @property
+    def is_cuda(self):
+        return True
+
+
+def _on_card(t):
+    return t.as_subclass(_OnCard)
+
+
+class _Entries:
+    """A loaded unit's stand-in: the limits the wrappers ask, and a record
+    of every launch entry called, by name and arguments."""
+
+    def __init__(self):
+        self.calls, self.loaded = [], []
+
+    def rt_tile(self):
+        return 2048
+
+    def rt_scan_channel_chunk(self):
+        return 64
+
+    def __getattr__(self, name):
+        if not name.startswith("rt_"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+@pytest.fixture
+def card_entries(monkeypatch):
+    lib = _Entries()
+    monkeypatch.setattr(_lib, "load", lambda u: lib.loaded.append(u) or lib)
+    monkeypatch.setattr(_lib, "stream_ptr", lambda t: 7)
+    monkeypatch.setattr(_lib, "_PLANS", {})
+    monkeypatch.setattr(_lib, "_WORKSPACES", {})
+    for w, attr in ((scan_k.scan_1d_cuda, "launches"),
+                    (scan_k.scan_channel_cuda, "launches"),
+                    (scan_k.scan_channel_cuda, "long_t_launches")):
+        monkeypatch.setattr(w, attr, 0)
+    return lib
+
+
+def test_k2_plan_is_reused_across_calls_and_not_across_dtypes(card_entries):
+    """K2 keeps one plan per (operator, leaf dtypes): a second call loads
+    nothing and looks nothing up, another dtype gets its own.  Every call is
+    one entry call: the single tile up to the plan's limit, the lookback
+    above it, with its ticket, flags and values in the stream's workspace
+    (the GEMVs' too) and a new epoch each launch."""
+    lib = card_entries
+    x = _on_card(torch.arange(2048, dtype=torch.int32))
+    for _ in range(2):
+        scan_k.scan_1d_cuda(t_alg.ADD, x)
+    (plan,) = _lib._PLANS.values()
+    assert plan.limit == 2048 and len(lib.loaded) == 1
+    scan_k.scan_1d_cuda(t_alg.ADD, x.float())
+    assert len(_lib._PLANS) == 2 and len(lib.loaded) == 2
+    big = _on_card(torch.arange(10**6 + 3, dtype=torch.int32))
+    for _ in range(2):
+        scan_k.scan_1d_cuda(t_alg.ADD, big, inclusive=False)
+    assert [c[0] for c in lib.calls] == ["rt_scan_tile"] * 3 + \
+        ["rt_scan_lookback"] * 2
+    assert scan_k.scan_1d_cuda.launches == 5 and len(lib.loaded) == 2
+    w = _lib.workspace(big, 7, 1, 0)
+    for epoch, (_, args) in enumerate(lib.calls[3:], 1):
+        assert args[2:] == (10**6 + 3, 0, w.counters.data_ptr(),
+                            w.flags.data_ptr(), w.partials.data_ptr(), epoch,
+                            7)
+    tiles = -(-(10**6 + 3) // 2048)
+    assert w.flags.numel() >= 2 * tiles and w.partials.numel() >= 2 * 4 * tiles
+
+
+def test_k2_call_with_mismatched_leaves_raises_before_anything_is_kept(
+        card_entries):
+    """A call whose leaves do not share one non-empty (n,) shape raises
+    before a plan, a workspace, an epoch or a launch is kept; a valid call
+    afterwards runs as if it were the first."""
+    lib = card_entries
+    a = _on_card(torch.ones(5000))
+    for b in (_on_card(torch.ones(4999)), _on_card(torch.ones(5000, 1)),
+              _on_card(torch.ones(0))):
+        with pytest.raises(ValueError, match="one non-empty rank-1 shape"):
+            scan_k.scan_1d_cuda(t_alg.AFFINE, (a, b) if b.numel() else b)
+    assert _lib._PLANS == {} and _lib._WORKSPACES == {} and lib.calls == []
+    assert scan_k.scan_1d_cuda.launches == 0
+    ga, gb = scan_k.scan_1d_cuda(t_alg.AFFINE, (a, _on_card(torch.ones(5000))))
+    assert ga.shape == gb.shape == (5000,) and ga.dtype == torch.float32
+    (name, args), = lib.calls
+    assert name == "rt_scan_lookback" and args[-2] == 1
+
+
+@pytest.mark.parametrize("shape,long_t", [
+    ((1, 17, 2560), False), ((1, 1024, 2560), False), ((1, 2100, 2560), False),
+    ((8, 2048, 2560), False), ((2, 61, 130), False),
+    ((1, 5_000, 256), True), ((1, 5_000, 4), True)])
+def test_k6_route_at_the_recurrence_s_and_the_sort_s_shapes(card_entries,
+                                                            shape, long_t):
+    """The RG-LRU's scans take the channel-tile route (no scratch, counted
+    in ``launches``); the radix sort's rank scans the long-T path (scratch
+    of B C cdiv(T, 64) elements, counted apart)."""
+    x = _on_card(torch.zeros(shape, dtype=torch.int32))
+    scan_k.scan_channel_cuda(t_alg.ADD, x, inclusive=False)
+    (name, args), = card_entries.calls
+    B, T, C = shape
+    assert name == "rt_scan_channel" and args[2:7] == (B, T, C, 0, 0)
+    assert (args[7] is not None) == long_t
+    k6 = scan_k.scan_channel_cuda
+    assert (k6.launches, k6.long_t_launches) == ((0, 1) if long_t else (1, 0))
 
 
 PAIR = t_alg.DeviceMap("pair", lambda u, v: (u, v), "return x;")

@@ -25,7 +25,9 @@ Six phases, any failure exits non-zero:
    to 256, in bf16 (tensor-core body) and float32 (CUDA-core body))
    and at full width: recurrentgemma-2b's decode-attention GEMVs (40,
    2048, 256), (8, 4096, 4096), its unembed GEMV (2560, 256000) quantized
-   at block 64, and the prefill attention of a 2,100-token prompt in
+   at block 64 (K7's wrapper and public call in turns with torch.bmm,
+   every GEMV's device time by torch.profiler), and the prefill attention
+   of a 2,100-token prompt in
    gemma2-27b (32 query / 16 kv heads of 128, soft cap 50, global and
    window 4096) and recurrentgemma-2b (10 / 1 heads of 256, window 2048)
    in bf16; time the kernel, the plain version and one PyTorch library
@@ -49,7 +51,14 @@ Six phases, any failure exits non-zero:
    4 != 0; A 4-byte but not 16-byte aligned) at edges such as (1, p), (n,
    1), (3, 5000) and (5000, 3): int32 TIMES over ADD / MAX / MIN
    bit-exact, the AFFINE fold in order, f64; each call's form (kind and
-   load width, by the launcher's counter) must be the host's rule's.  The
+   load width, by the launcher's counter) must be the host's rule's.  K9's
+   kinds (COLUMNS, STRIPS) in each load width (16, 4, 1 codes) at ragged
+   shapes, blocks of 16 to 128 rows, B = 1..3 and operands whose codes lie
+   1-15 bytes or whose scales lie 4 bytes off their alignment (no copy
+   allocated): ADD over TIMES within 1e-5, MIN over PLUS bit-exact; the
+   order of every quantized and K7 fold through D4 matrices (signed
+   permutations under MAT2_MUL, exact at any length) bit-exact at shapes
+   of several chunks; all 256 codes of each mode through both kinds.  The
    "[host] GEMV" line gives the host microseconds of each stage of a K4
    call at (1000, 10000) and a K5 call at (10^6, 10).
 3. primitives -- the primitive library's own path: the public API
@@ -335,6 +344,47 @@ SHEAR_VM = alg.DeviceMap(
     "Out r; r.v0 = __fadd_rn(1.0f, __fmul_rn(0.0f, x.v0)); "
     "r.v1 = rt::mul_rn(x.v0, x.v1); r.v2 = __fmul_rn(0.0f, x.v0); "
     "r.v3 = r.v0; return r;")
+
+
+def _d4(x, a):
+    """The element of the dihedral group of order 8 that the integer x a
+    picks (x a mod 8: a rotation by 90 (x a mod 4) degrees, reflected when
+    bit 2 is set), as MAT2_MUL's (m00, m01, m10, m11)."""
+    i = (x * a).to(torch.int32) & 7
+    one = torch.ones_like(i, dtype=torch.float32)
+    c = torch.where(i & 1 != 0, 0 * one, torch.where(i & 2 != 0, -one, one))
+    s = torch.where(i & 1 != 0, torch.where(i & 2 != 0, -one, one), 0 * one)
+    refl = i & 4 != 0
+    return c, torch.where(refl, s, -s), s, torch.where(refl, -c, c)
+
+
+# Signed permutation matrices under MAT2_MUL: a group that does not commute
+# and whose products keep entries in {-1, 0, 1}, so a fold of any length is
+# exact and a fold in another order gives another matrix (7 times in 8).
+# x a must be an integer (small integers, power-of-two scales); the product
+# is symmetric, so one map serves matvec's f(x, a) and vecmat's f(a, x).
+D4 = alg.DeviceMap(
+    "d4", _d4,
+    "const int i = static_cast<int>(__fmul_rn(x.v0, x.v1)) & 7; "
+    "const float c = (i & 1) ? 0.0f : ((i & 2) ? -1.0f : 1.0f); "
+    "const float s = (i & 1) ? ((i & 2) ? -1.0f : 1.0f) : 0.0f; "
+    "Out r; r.v0 = c; r.v2 = s; "
+    "if (i & 4) { r.v1 = s; r.v3 = -c; } else { r.v1 = -s; r.v3 = c; } "
+    "return r;")
+# K7's GEMVs and K9's four forms: (kernel, wrapper, plain version, the
+# shear map of its form or whether it is a matvec, batched).
+K7_FORMS = (("K7-matvec", batched_k.batched_matvec_cuda,
+             batched_k.batched_matvec_plain, SHEAR, True),
+            ("K7-vecmat", batched_k.batched_vecmat_cuda,
+             batched_k.batched_vecmat_plain, SHEAR_VM, False))
+K9_FORMS = (("K9-matvec", matvec_k.matvec_quantized_cuda,
+             matvec_k.matvec_quantized_plain, True, False),
+            ("K9-vecmat", matvec_k.vecmat_quantized_cuda,
+             matvec_k.vecmat_quantized_plain, False, False),
+            ("K9-batched-matvec", batched_k.batched_matvec_quantized_cuda,
+             batched_k.batched_matvec_quantized_plain, True, True),
+            ("K9-batched-vecmat", batched_k.batched_vecmat_quantized_cuda,
+             batched_k.batched_vecmat_quantized_plain, False, True))
 QUANT_BLOCK = 64
 UNEMBED = (2560, 256000)           # recurrentgemma-2b's unembed GEMV
 ATTN = (40, 2048, 256)             # 4 slots x 10 heads, 2,048-token window
@@ -381,11 +431,13 @@ def path_units() -> list:
     # K7 over ADD/TIMES and MIN/PLUS shares the flat units above.
     mapped("matvec", SHEAR, alg.MAT2_MUL, f32, f32)
     mapped("matvec", SHEAR_VM, alg.MAT2_MUL, f32, f32)
+    mapped("matvec", D4, alg.MAT2_MUL, f32, f32)
     mapped("matvec", alg.TIMES, alg.ADD, torch.int8, torch.int8)
     mapped("matvec", alg.TIMES, alg.ADD, f64, f64)
     for mode in alg.QUANT_MODES:                         # K9, every form
         mapped("qmatvec", alg.TIMES, alg.ADD, f32, f32, quant=mode)
     mapped("qmatvec", alg.PLUS, alg.MIN, f32, f32, quant="int8")
+    mapped("qmatvec", D4, alg.MAT2_MUL, f32, f32, quant="int8")
     for dtype, hd in K10_UNITS:
         units.append(flash_k.flash_unit(dtype, hd, "build"))
     return units
@@ -555,7 +607,7 @@ def phase_kernels(gen: torch.Generator) -> dict:
             f"{r['bound'][0]:.6f} ms ({r['bound'][1]}); " + json.dumps(
                 {x: v for x, v in r.items() if x in (
                     "large", "modes", "dense_mv_ms", "dense_bmm_ms",
-                    "shapes", "public_ms", "device_ms")}))
+                    "shapes", "public_ms", "device_ms", "public_ratio")}))
     return res
 
 
@@ -574,6 +626,18 @@ def device_ms(fn, calls: int = 5) -> tuple[float, float]:
     ops = [e.time_range.elapsed_us() for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     return sum(ops) / calls / 1e3, len(ops) / calls
+
+
+def launch_ms(fn) -> float | None:
+    """Device milliseconds of one kernel of ``fn``, a call that launches
+    one (torch.profiler over 10 calls: their kernels' mean time, so an
+    event the profiler drops at its window's edge does not count; a window
+    that kept none is taken again, up to three times, then None)."""
+    for _ in range(3):
+        ms, ops = device_ms(fn, 10)
+        if ops:
+            return ms / ops
+    return None
 
 
 def one_launch(k: str, fn):
@@ -647,7 +711,13 @@ def check_k2(res, gen, note) -> None:
     expect(int(wrong) == 0, f"K2 n=10^6+3, 1,000 calls in a row on one "
                             f"stream (inclusive and exclusive in turn): "
                             f"{int(wrong)} wrong elements")
-    ms, ops = device_ms(lambda: k2(alg.ADD, x))
+    # torch.profiler may drop an event at its window's edge (4 of 5 kernels
+    # seen, once in 16 runs): a window that saw fewer than one a call is
+    # taken again, at most three times; more than one always fails.
+    for _ in range(3):
+        ms, ops = device_ms(lambda: k2(alg.ADD, x))
+        if ops >= 1:
+            break
     expect(ops == 1, f"K2 n=10^6+3: {ops} device operations a call (one "
                      f"kernel, no memset), {ms * 1e3:.2f} us")
     x = torch.randint(-100, 100, (BATCH,), generator=gen, device=dev,
@@ -1006,7 +1076,8 @@ def check_gemv_forms(gen, note) -> None:
         odd = odd_ints(gen, math.prod(shape))
         affine_int32(gen, note, forms_seen, odd.view(shape),
                      f"{shape} batched")
-    kinds = {f"{k}/{w}" for k in matvec_k.KIND_NAMES for w in (1, 4)}
+    kinds = {f"{k}/{w}" for k in ("columns", "rows", "packed", "tall")
+             for w in (1, 4)}
     expect(kinds <= set(forms_seen), f"every GEMV kind ran with both load "
                                      f"widths: {dict(forms_seen)}")
 
@@ -1322,18 +1393,188 @@ def check_gemv(k, note, got, want, scale, what, exact=False) -> None:
                             f"{rel:.3g} <= 1e-5 of sum|x||a| per output")
 
 
-def check_k7_k9(res, gen, note) -> None:
-    """K7's GEMVs and K9 against their plain versions: ragged sizes, every
-    operator kind (ADD over TIMES within 1e-5 of sum |x||a|, MIN over PLUS
-    bit-exact, MAT2_MUL's ordered fold of shears), int8 leaves, every fp8
-    code, then the full-width shapes, timed."""
+def expected_qform(form: str, q) -> str:
+    """The kind and load width the host must choose for a quantized
+    operand: COLUMNS for a matvec, STRIPS for a vecmat; 16 codes a load
+    where codes and scales are 16-byte aligned and p % 16 == 0, 4 where the
+    codes are 4-byte and the scales 16-byte aligned and p % 4 == 0, else
+    one."""
+    p = q.values.shape[-1]
+    codes, scales = q.values.data_ptr(), q.scales.data_ptr()
+    width = 1
+    if scales % 16 == 0 and codes % 16 == 0 and p % 16 == 0:
+        width = 16
+    elif scales % 16 == 0 and codes % 4 == 0 and p % 4 == 0:
+        width = 4
+    return f"{'columns' if form == 'matvec' else 'strips'}/{width}"
+
+
+def place_quantized(q, code_offset: int = 0, scale_offset: int = 0):
+    """``q``'s codes and scales copied into buffers at ``code_offset``
+    bytes and ``scale_offset`` floats past an aligned start, so that the
+    operand lies misaligned on the card."""
+    v = torch.empty(q.values.numel() + 16, dtype=q.values.dtype,
+                    device="cuda")
+    s = torch.empty(q.scales.numel() + 4, device="cuda")
+    values = v[code_offset:code_offset + q.values.numel()].view(
+        q.values.shape)
+    scales = s[scale_offset:scale_offset + q.scales.numel()].view(
+        q.scales.shape)
+    values.copy_(q.values)
+    scales.copy_(q.scales)
+    return alg.Quantized(values, scales, q.block, q.mode)
+
+
+def check_k9_forms(gen, note, qforms) -> None:
+    """Every K9 form, kind and load width against its plain version: ragged
+    shapes (n not a multiple of the block, n < block, p % 16 != 0, p < 16),
+    blocks 16 / 32 / 64 / 128, B = 1..3, and operands whose codes lie 1-15
+    bytes or whose scales lie 4 bytes off their alignment (a narrower load,
+    and no copy: the call's peak allocation stays below the codes' size).
+    ADD over TIMES within 1e-5 of sum |x||a| per output, MIN over PLUS
+    bit-exact; each call one launch, on the host's kind and width."""
+    seen = collections.Counter()
+    # The stream's workspace at its largest first, so that a call's
+    # allocations are its output alone.
+    like = torch.empty(1, device="cuda")
+    _lib.workspace(like, _lib.stream_ptr(like), 1 << 16, 1 << 26)
+
+    def run(k, fn, plain, q, x, form, what, no_copy=False):
+        scale = gemv_scale(q.dequantize(), x, form == "matvec")
+        want = expected_qform(form, q)
+        for f, op, exact in ((alg.TIMES, alg.ADD, False),
+                             (alg.PLUS, alg.MIN, True)):
+            if exact and q.mode != "int8":
+                continue
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            got, took = gemv_form(lambda: fn(f, op, q, x))
+            torch.cuda.synchronize()
+            extra = torch.cuda.max_memory_allocated() - base
+            seen[took] += 1
+            expect(took == want and (not no_copy or extra < q.values.nbytes),
+                   f"{k} {f.name}/{op.name} {what}: on {took} (want "
+                   f"{want}), {extra} bytes allocated")
+            check_gemv(k, note, got, plain(f, op, q, x), None if exact
+                       else scale, f"{f.name}/{op.name} {what} on {took}",
+                       exact)
+
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device="cuda")
 
-    bmv = (("K7-matvec", batched_k.batched_matvec_cuda,
-            batched_k.batched_matvec_plain, SHEAR, True),
-           ("K7-vecmat", batched_k.batched_vecmat_cuda,
-            batched_k.batched_vecmat_plain, SHEAR_VM, False))
+    shapes = ((1, 63, 33, 64), (3, 65, 31, 64), (3, 200, 5, 64),
+              (1, 1, 1, 16), (3, 17, 40, 16), (1, 300, 3000, 64),
+              (2, 100, 48, 32), (1, 129, 16, 128), (2, 40, 4096, 16),
+              (3, 64, 1008, 64), (1, 33, 7, 32), (2, 300, 160, 128),
+              (1, 5000, 64, 64), (1, 64, 100000, 64))
+    for B, n, p, block in shapes:
+        A = randn(B, n, p)
+        for mode in alg.QUANT_MODES:
+            qb = alg.quantize(A, mode=mode, block=block)
+            qf = alg.quantize(A[0], mode=mode, block=block)
+            for k, fn, plain, mv, batched in qforms:
+                q = qb if batched else qf
+                x = randn(*((B,) if batched else ()), n if mv else p)
+                run(k, fn, plain, q, x, "matvec" if mv else "vecmat",
+                    f"{mode} {tuple(q.shape)} block {block}")
+    # Misaligned operands: the codes 1-15 bytes off, the scales 4 bytes off.
+    for B, n, p, block, offsets in (
+            (1, 300, 3000, 64, ((1, 0), (4, 0), (8, 0), (15, 0), (0, 1))),
+            (2, 130, 512, 32, ((3, 0), (12, 0), (0, 1), (5, 1)))):
+        A = randn(B, n, p)
+        for mode in ("int8", "fp8_e4m3"):
+            qs = {False: alg.quantize(A[0], mode=mode, block=block),
+                  True: alg.quantize(A, mode=mode, block=block)}
+            for co, so in offsets:
+                for k, fn, plain, mv, batched in qforms:
+                    q = place_quantized(qs[batched], co, so)
+                    x = randn(*((B,) if batched else ()), n if mv else p)
+                    run(k, fn, plain, q, x, "matvec" if mv else "vecmat",
+                        f"{mode} {tuple(q.shape)} block {block}, codes "
+                        f"+{co} bytes, scales +{4 * so} bytes", no_copy=True)
+    forms = {f"{kind}/{w}" for kind in ("columns", "strips")
+             for w in (1, 4, 16)}
+    expect(forms <= set(seen), f"every K9 kind ran with every load width: "
+                               f"{dict(seen)}")
+
+
+def ordered_quantized(gen, shape, block):
+    """An int8 operand whose dequantized values are exact integers: codes
+    in [-127, 127], scales 1, 2 or 4."""
+    values = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                           dtype=torch.int32).to(torch.int8)
+    nb = -(-shape[-2] // block)
+    scales = torch.pow(2.0, torch.randint(
+        0, 3, (*shape[:-2], nb, shape[-1]), generator=gen,
+        device="cuda").float())
+    return alg.Quantized(values, scales, block, "int8")
+
+
+def check_ordered_folds(gen, note, qforms, bmv) -> None:
+    """The order of every fold: MAT2_MUL over D4, the signed permutation
+    matrices that x a picks, an operator that does not commute, whose
+    folds are exact at any length.  Bit-exact against the plain version on
+    every K9 form (int8 codes, power-of-two scales, integer x) and on K7's
+    dense forms (integer-valued f32), at shapes that take several chunks
+    (the last block folds them in chunk order) and one, in each load
+    width."""
+    def ints(*shape):
+        return torch.randint(-3, 4, shape, generator=gen,
+                             device="cuda").float()
+
+    chunked = set()
+    for B, n, p, block in ((1, 5000, 64, 64), (1, 64, 100000, 64),
+                           (2, 3000, 48, 32), (2, 128, 20000, 128),
+                           (3, 65, 31, 16), (1, 1000, 1000, 64)):
+        qb = ordered_quantized(gen, (B, n, p), block)
+        qf = alg.Quantized(qb.values[0], qb.scales[0], block, "int8")
+        for co in (0, 4, 1):
+            for k, fn, plain, mv, batched in qforms:
+                q = qb if batched else qf
+                if co:
+                    q = place_quantized(q, co)
+                x = ints(*((B,) if batched else ()), n if mv else p)
+                call = matvec_k.resolve(
+                    matvec_k.MATVEC if mv else matvec_k.VECMAT, "order", D4,
+                    alg.MAT2_MUL, q, x, batched)
+                got, took = gemv_form(lambda: fn(D4, alg.MAT2_MUL, q, x))
+                if call.geo[7] > 1:
+                    chunked.add(took)
+                check_gemv(k, note, got, plain(D4, alg.MAT2_MUL, q, x), None,
+                           f"d4/mat2_mul {tuple(q.shape)} block {block} codes "
+                           f"+{co} on {took}, {call.geo[7]} chunks, in order",
+                           exact=True)
+    for shape in ((2, 10000, 64), (2, 64, 50000), (40, 2048, 256),
+                  (3, 1000, 5), (1, 3, 3000)):
+        A = ints(*shape)
+        for k, fn, plain, _, mv in bmv:
+            x = ints(shape[0], shape[1] if mv else shape[2])
+            call = matvec_k.resolve(matvec_k.MATVEC if mv else matvec_k.VECMAT,
+                                    "order", D4, alg.MAT2_MUL, A, x, True)
+            got, took = gemv_form(lambda: fn(D4, alg.MAT2_MUL, A, x))
+            if call.geo[7] > 1:
+                chunked.add(took)
+            check_gemv(k, note, got, plain(D4, alg.MAT2_MUL, A, x), None,
+                       f"d4/mat2_mul f32 {shape} on {took}, {call.geo[7]} "
+                       f"chunks, in order", exact=True)
+    expect({"columns/16", "strips/16", "columns/4", "rows/4"} <= chunked,
+           f"the ordered folds met chunked launches of every wide kind: "
+           f"{sorted(chunked)}")
+
+
+def check_k7_k9(res, gen, note) -> None:
+    """K7's GEMVs and K9 against their plain versions: ragged sizes, every
+    operator kind (ADD over TIMES within 1e-5 of sum |x||a|, MIN over PLUS
+    bit-exact, MAT2_MUL's fold of shears), int8 leaves, every K9 kind and
+    load width (check_k9_forms), the order of every fold
+    (check_ordered_folds), every code of each mode, then the full-width
+    shapes, timed: K7's wrapper and public call in turns with torch.bmm,
+    and every form's device time (torch.profiler)."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    bmv = K7_FORMS
     for B, n, p in ((1, 1, 1), (3, 65, 33), (1, 255, 257), (3, 1000, 5),
                     (2, 7, 3000), (3, 64, 31)):
         A = randn(B, n, p)
@@ -1360,51 +1601,47 @@ def check_k7_k9(res, gen, note) -> None:
                                              A8[0, :, 0].contiguous())),
            "K4 matvec times/add int8 (100, 40): bit-exact")
 
-    qforms = (("K9-matvec", matvec_k.matvec_quantized_cuda,
-               matvec_k.matvec_quantized_plain, True, False),
-              ("K9-vecmat", matvec_k.vecmat_quantized_cuda,
-               matvec_k.vecmat_quantized_plain, False, False),
-              ("K9-batched-matvec", batched_k.batched_matvec_quantized_cuda,
-               batched_k.batched_matvec_quantized_plain, True, True),
-              ("K9-batched-vecmat", batched_k.batched_vecmat_quantized_cuda,
-               batched_k.batched_vecmat_quantized_plain, False, True))
-    for B, n, p, block in ((1, 63, 33, 64), (3, 65, 31, 64), (3, 200, 5, 64),
-                           (1, 1, 1, 16), (3, 17, 40, 16), (1, 300, 3000, 64)):
-        A = randn(B, n, p)
-        for mode in alg.QUANT_MODES:
-            qb = alg.quantize(A, mode=mode, block=block)
-            qf = alg.quantize(A[0], mode=mode, block=block)
-            for k, fn, plain, mv, batched in qforms:
-                q = qb if batched else qf
-                x = randn(*((B,) if batched else ()), n if mv else p)
-                scale = gemv_scale(q.dequantize(), x, mv)
-                what = f"{mode} {tuple(q.shape)} block {block}"
-                check_gemv(k, note, fn(alg.TIMES, alg.ADD, q, x),
-                           plain(alg.TIMES, alg.ADD, q, x), scale,
-                           f"times/add {what}")
-                if mode == "int8":
-                    check_gemv(k, note, fn(alg.PLUS, alg.MIN, q, x),
-                               plain(alg.PLUS, alg.MIN, q, x), None,
-                               f"plus/min {what}", exact=True)
-    # Every code of each mode through the device decode: a (256, 1) operand
-    # of all codes, scale 1, against x = 1.
+    qforms = K9_FORMS
+    check_k9_forms(gen, note, qforms)
+    check_ordered_folds(gen, note, qforms, bmv)
+    # Every code of each mode through the device decode, scale 1, x = e_0:
+    # a (256, 1) operand (STRIPS, one code a load), a (256, 16) one whose
+    # row i holds code i (STRIPS, 16 codes a load) and its transpose
+    # (COLUMNS, 16 codes a load).
     for mode in alg.QUANT_MODES:
         codes = torch.arange(256, dtype=torch.int32, device="cuda").to(
-            alg.QUANT_DEVICE[mode][0])[:, None]
-        q = alg.Quantized(codes, torch.ones(16, 1, device="cuda"), 16, mode)
-        got = matvec_k.vecmat_quantized_cuda(alg.TIMES, alg.ADD, q,
-                                             torch.ones(1, device="cuda"))
-        expect(torch.equal(got, q.decoded()[:, 0]) and (
-            mode != "fp8_e4m3" or float(got[0x7F]) == 480.0),
-            f"K9-vecmat {mode}: all 256 codes decode as the codec does "
-            f"(e4m3 0x7F to 480)")
+            alg.QUANT_DEVICE[mode][0])
+        want = alg.Quantized(codes[:, None], torch.ones(16, 1, device="cuda"),
+                             16, mode).decoded()[:, 0]
+        e0 = torch.zeros(16, device="cuda")
+        e0[0] = 1.0
+        cases = (
+            ("K9-vecmat", matvec_k.vecmat_quantized_cuda, alg.Quantized(
+                codes[:, None].contiguous(), torch.ones(16, 1, device="cuda"),
+                16, mode), torch.ones(1, device="cuda"), "strips/1"),
+            ("K9-vecmat", matvec_k.vecmat_quantized_cuda, alg.Quantized(
+                codes[:, None].expand(256, 16).contiguous(),
+                torch.ones(16, 16, device="cuda"), 16, mode), e0,
+             "strips/16"),
+            ("K9-matvec", matvec_k.matvec_quantized_cuda, alg.Quantized(
+                codes[None, :].expand(16, 256).contiguous(),
+                torch.ones(1, 256, device="cuda"), 16, mode), e0,
+             "columns/16"))
+        for k, fn, q, x, form in cases:
+            got, took = gemv_form(lambda: fn(alg.TIMES, alg.ADD, q, x))
+            expect(torch.equal(got, want) and took == form and (
+                mode != "fp8_e4m3" or float(got[0x7F]) == 480.0),
+                f"{k} {mode} {tuple(q.shape)} on {took} (want {form}): all "
+                f"256 codes decode as the codec does (e4m3 0x7F to 480)")
 
     # -- Full width.  K7: recurrentgemma-2b's decode-attention GEMVs (4 slots
     # x 10 heads against the 2,048-token window at head_dim 256) and
     # (8, 4096, 4096); library: one torch.bmm.
+    bat = Batched()
     for k, fn, plain, _, mv in bmv:
         lib = (lambda A, x: torch.bmm(x[:, None, :], A)) if mv else \
             (lambda A, x: torch.bmm(A, x[:, :, None]))
+        public = forge.matvec if mv else forge.vecmat
         for shape, key in ((ATTN, None), (BIG_BATCHED, "large")):
             B, n, p = shape
             A = randn(*shape)
@@ -1412,10 +1649,16 @@ def check_k7_k9(res, gen, note) -> None:
             check_gemv(k, note, fn(alg.TIMES, alg.ADD, A, x),
                        plain(alg.TIMES, alg.ADD, A, x), gemv_scale(A, x, mv),
                        f"times/add f32 {shape}")
-            timing = dict(
-                ms=time_ms(lambda: fn(alg.TIMES, alg.ADD, A, x), 20),
+            timing = time_turns({
+                "ms": lambda: fn(alg.TIMES, alg.ADD, A, x),
+                "public_ms": lambda: public(alg.TIMES, alg.ADD, A, x,
+                                            layout=bat),
+                "library_ms": lambda: lib(A, x)},
+                reps=100 if key is None else 20)
+            timing.update(
                 plain_ms=time_ms(lambda: plain(alg.TIMES, alg.ADD, A, x), 3),
-                library_ms=time_ms(lambda: lib(A, x), 20))
+                device_ms=launch_ms(lambda: fn(alg.TIMES, alg.ADD, A, x)),
+                public_ratio=timing["public_ms"] / timing["library_ms"])
             bound = bound_ms(4 * (B * n * p + B * n + B * p), 2 * B * n * p)
             what = f"{shape} f32 ARITHMETIC"
             if key is None:
@@ -1440,12 +1683,15 @@ def check_k7_k9(res, gen, note) -> None:
             ms = time_ms(lambda: fn(alg.TIMES, alg.ADD, q, x), 20)
             bound = bound_ms(quant_bytes(n, p), QUANT_OPS[mode] * n * p)
             res[k].setdefault("modes", {})[mode] = {
-                "ms": ms, "bound_ms": bound[0], "library_ms": time_ms(
+                "ms": ms, "bound_ms": bound[0], "bound_by": bound[1],
+                "device_ms": launch_ms(lambda: fn(alg.TIMES, alg.ADD, q, x)),
+                "library_ms": time_ms(
                     lambda: torch.mv(q.dequantize().t() if mv else
                                      q.dequantize(), x), 5)}
             if mode == "int8":
                 res[k].update(
                     ms=ms, bound=bound,
+                    device_ms=res[k]["modes"][mode]["device_ms"],
                     plain_ms=time_ms(lambda: plain(alg.TIMES, alg.ADD, q, x),
                                      2),
                     library_ms=res[k]["modes"][mode]["library_ms"],
@@ -1470,6 +1716,7 @@ def check_k7_k9(res, gen, note) -> None:
             (lambda: torch.bmm(q.dequantize(), x[:, :, None]))
         res[k].update(
             ms=time_ms(lambda: fn(alg.TIMES, alg.ADD, q, x), 20),
+            device_ms=launch_ms(lambda: fn(alg.TIMES, alg.ADD, q, x)),
             plain_ms=time_ms(lambda: plain(alg.TIMES, alg.ADD, q, x), 3),
             library_ms=time_ms(lib, 10),
             dense_bmm_ms=time_ms(
@@ -2754,14 +3001,21 @@ def profile_serving(eng, params, cfg, prompt, steps: int = 8) -> dict:
 def check_predicate(state) -> None:
     """The decode loop's predicate as the engine calls it, on the engine's
     flags: one launch of the small form a call (the counter), and on the
-    device nothing else: K3's kernel, no memset.  torch.profiler may miss
-    an event at the edge of its window, so at most one operation a call."""
+    device nothing else: K3's kernel, no memset.  torch.profiler misses
+    events at the edge of its window (3 to 10 of 10 calls' kernels seen,
+    once none), so 100 calls a window, a window profiled again (at most
+    three) when it saw no device event, and at most one operation a
+    call."""
     x = state["active"].to(torch.int32)
-    calls, small = 10, mapreduce_k.mapreduce_1d_cuda.small_launches
-    ops = profile_device("predicate", lambda: [forge.mapreduce(
-        alg.IDENTITY, alg.MAX, x, layout=Flat()) for _ in range(calls)],
-        calls)
+    calls, small = 100, mapreduce_k.mapreduce_1d_cuda.small_launches
+    for windows in range(1, 4):
+        ops = profile_device("predicate", lambda: [forge.mapreduce(
+            alg.IDENTITY, alg.MAX, x, layout=Flat()) for _ in range(calls)],
+            calls)
+        if ops["measured"]:
+            break
     small = mapreduce_k.mapreduce_1d_cuda.small_launches - small
+    calls *= windows
     expect(small == calls and ops["measured"] and ops["device_ops"] <= 1
            and ops["memsets"] == 0
            and list(ops["port_kernels_ms"]) == ["mapreduce"],

@@ -10,6 +10,7 @@
 //     static E load(const rt::Leaves&, long i);
 //     void store(const rt::Leaves&, long i) const;  // skips null leaves
 //     static E shfl_up(E, int d);  static E shfl_down(E, int d, int width);
+//     static E shfl_xor(E, int m);
 //   };
 //   struct Op  { using E = ...; static constexpr bool COMMUTATIVE;
 //                static E identity(); static E combine(const E&, const E&); };
@@ -187,6 +188,22 @@ __device__ __forceinline__ signed char shfl_down_leaf(signed char v, int d,
                                                       int width) {
   return static_cast<signed char>(
       __shfl_down_sync(FULL_MASK, static_cast<int>(v), d, width));
+}
+
+template <typename T>
+__device__ __forceinline__ T shfl_xor_leaf(T v, int m) {
+  return __shfl_xor_sync(FULL_MASK, v, m);
+}
+template <>
+__device__ __forceinline__ unsigned char shfl_xor_leaf(unsigned char v,
+                                                       int m) {
+  return static_cast<unsigned char>(
+      __shfl_xor_sync(FULL_MASK, static_cast<int>(v), m));
+}
+template <>
+__device__ __forceinline__ signed char shfl_xor_leaf(signed char v, int m) {
+  return static_cast<signed char>(
+      __shfl_xor_sync(FULL_MASK, static_cast<int>(v), m));
 }
 
 // An element read through L2 only (ld.global.cg), never from a stale L1

@@ -36,20 +36,35 @@
 // launch is lean, so the host plans every launch (kernels/matvec.py:
 // geometry) and passes it in; every form is one launch.
 //
-// Four kinds of launch, each a grid of (B x output tiles, chunks of the
+// Five kinds of launch, each a grid of (B x output tiles, chunks of the
 // reduction axis) blocks of 256 threads:
 //   COLUMNS (matvec, K4 / K7 / K9): a block has tc column threads, each
-//     holding VEC adjacent columns, and 256 / tc row groups.  A commutative
-//     op interleaves the rows over the groups, so a warp reads contiguous
-//     lines at every step; an op that does not commute gives each group a
-//     contiguous run of rows, so the fold stays in row order.  Few rows
-//     (the short matvec, n = 10): one group, one chunk, each thread walks
-//     all n rows of its columns and stores its output, no barrier at all.
-//   ROWS (vecmat over p > 64, K4 / K7 / K9): `lanes` threads share a row (a
-//     power of two up to the whole block), striding over its columns for a
-//     commutative op, or each a contiguous run in column order; the lanes
+//     holding VEC adjacent columns, and 256 / tc row groups.  A dense
+//     matrix under a commutative op interleaves the rows over the groups,
+//     so the block's warps stay on nearby rows; an op that does not commute,
+//     and every quantized matrix, gives each group a contiguous run of rows
+//     (a quantized column thread then loads its scales once per
+//     quantization block it meets, not once per row group).  Few rows (the
+//     short matvec, n = 10): one group, one chunk, each thread walks all n
+//     rows of its columns and stores its output, no barrier at all.
+//   ROWS (vecmat over p > 64, dense, K4 / K7): `lanes` threads share a row
+//     (a power of two up to the whole block), striding over its columns for
+//     a commutative op, or each a contiguous run in column order; the lanes
 //     combine by an (ordered) shuffle tree, then warp totals in order
 //     through shared memory.
+//   STRIPS (vecmat over a quantized matrix, K9): a block owns a strip of
+//     at most STRIP_MAX rows that never leaves one quantization block of
+//     one batch, over a chunk of columns.  Each of its eight warps walks
+//     one contiguous run of the chunk, whatever the op, 32 lanes x VEC
+//     columns a step.  At each step a lane loads its VEC columns' scales
+//     and x once and applies them to every row of the strip, so every
+//     scale leaves memory once per strip and chunk (B nb p floats over a
+//     launch), not once per row (B n p).  The rows go eight at a time,
+//     eight code loads in flight a lane: each lane folds its VEC columns
+//     of a row in order, the warp folds the eight rows across its lanes
+//     in lane order by an ordered reduce-scatter (fold_eight), and lanes
+//     0 .. 7 add the rows' totals to the warp's in shared memory; the
+//     warps combine in order at the end.
 //   PACKED (K5, matvec, p <= 64, commutative, flat dense): the matrix is
 //     read as the flat stream of n p elements, VEC at a time.  A step is S
 //     elements, a multiple of p and of VEC, so thread t's VEC elements always
@@ -62,7 +77,11 @@
 //     operator keeps its order.
 // Wide loads: VEC = 4 four-byte elements (16 bytes) per load where the host
 // found A 16-byte aligned (and p % 4 == 0 for COLUMNS and ROWS), else
-// VEC = 1; the host's choice, counted per form.
+// VEC = 1; a quantized matrix VEC = 16 one-byte codes per 16-byte load
+// (codes and scales 16-byte aligned, p % 16 == 0), else 4 codes per 32-bit
+// load (codes 4-byte and scales 16-byte aligned, p % 4 == 0), else one;
+// the host's choice, counted per form.  A misaligned operand takes a
+// narrower load and is never copied.
 // Chunks: where one pass over the reduction axis would leave the card idle
 // (few outputs, a long axis), it is cut into chunks over grid y.  Each block
 // writes its partials to the stream's workspace, fences, and takes a ticket
@@ -71,16 +90,20 @@
 // resets the counter to 0 for the next launch on the stream.  No memset, no
 // second launch; one workspace (counters, partials) per stream, so launches
 // on two streams never share a counter.
-// K9: the matrix operand loads a code (int8_t or uint8_t), decodes it to the
-// bits of the reference's field decode with integer operations (the fp8
-// fields moved into float32's positions and rebiased by a power of two;
-// no hardware fp8 conversion: the reference decodes every code as finite,
-// e4m3 0x7F as 480) and multiplies it by its block's scale in f32, rounded
-// on its own; only that value reaches the map.  A matvec thread walks down
-// one column and keeps the column's scale in a register for `block` rows;
-// vecmat lanes of one row read the row's scale row beside the codes.  Every
-// row reads its own scale, so a chunk may cut a quantization block (the
-// reference's row tile had to be a multiple of `block`: a TPU tiling rule).
+// K9: the matrix operand loads VEC codes (int8_t or uint8_t) at once, takes
+// each out of its word with one byte permute (prmt), decodes it to the
+// bits of the reference's field decode with integer operations (int8 by
+// the 2^23 trick; the fp8 fields moved into float32's positions and
+// rebiased by a power of two; no hardware fp8 conversion: the reference
+// decodes every code as finite, e4m3 0x7F as 480) and multiplies it by its
+// block's scale in f32, rounded on its own; only that value reaches the
+// map.  A matvec thread walks down VEC columns and keeps their scales in
+// registers for `block` rows; a STRIPS lane keeps its VEC columns' scales
+// for every row of its strip.  The reference (_dequant_tile) broadcasts
+// one scale tile over its rows in VMEM, so its scales leave HBM once a
+// tile; these kernels keep that property in registers.  A matvec chunk may
+// cut a quantization block (the reference's row tile had to be a multiple
+// of `block`: a TPU tiling rule); a strip never does.
 #pragma once
 
 #include "common.cuh"
@@ -98,15 +121,20 @@ constexpr long MAX_GRID_Y = 65535;
 constexpr int PACKED_MAX_COLS = 64;
 // TALL's shared tile: R p elements of at most this many bytes.
 constexpr int TALL_BYTES = 16384;
+// STRIPS: the most rows a strip holds, and the warps of a block.
+constexpr int STRIP_MAX = 128;
+constexpr int WARPS = THREADS / 32;
 
-enum Kind { COLUMNS = 0, ROWS = 1, PACKED = 2, TALL = 3 };
+enum Kind { COLUMNS = 0, ROWS = 1, PACKED = 2, TALL = 3, STRIPS = 4 };
 
-// The launch the host planned (kernels/matvec.py: geometry), nine longs.
+// The launch the host planned (kernels/matvec.py: geometry), ten longs.
 // width: COLUMNS column threads per block, ROWS lanes per row, PACKED
-// active threads (S / vec), TALL rows per block.  per_chunk: the reduction
-// extent of one chunk (rows, columns, or PACKED's flat elements).
+// active threads (S / vec), TALL rows per block, STRIPS rows per strip.
+// per_chunk: the reduction extent of one chunk (rows, columns, or
+// PACKED's flat elements).  stream: 1 where a dense ROWS launch's matrix
+// outgrows L2, so that its 16-byte loads evict first.
 struct Geometry {
-  long kind, vec, width, B, n, p, tiles, chunks, per_chunk;
+  long kind, vec, width, B, n, p, tiles, chunks, per_chunk, stream;
 };
 
 __host__ __device__ inline long cdiv(long a, long b) { return (a + b - 1) / b; }
@@ -116,6 +144,24 @@ template <typename T, int VEC>
 struct alignas(sizeof(T) * VEC) Pack {
   T v[VEC];
 };
+
+// A dense row load: VEC elements in one instruction; a 16-byte ROWS load
+// of a matrix larger than L2 (`CS`) marked evict-first (ld.global.cs), so
+// that it does not evict what a later load of the same call, or the next
+// call, would find in L2.  Measured on the H100 against plain loads, in
+// one call: K7's vecmat at (40, 2048, 256) 9% faster, at (8, 4096, 4096)
+// 2.5%; COLUMNS gained or lost 2-3% by what ran before it, so it has none.
+template <bool CS, typename T>
+__device__ __forceinline__ T load_word(const T* p) {
+  if constexpr (CS && sizeof(T) == 16) {
+    const uint4 r = __ldcs(reinterpret_cast<const uint4*>(p));
+    T out;
+    std::memcpy(&out, &r, sizeof out);
+    return out;
+  } else {
+    return *p;
+  }
+}
 
 // Wide loads only of 4-byte leaves, and only where the partials of VEC
 // columns fit the blocks' shared memory.
@@ -133,10 +179,12 @@ constexpr bool wide_ok() {
 // on any.
 // ---------------------------------------------------------------------------
 
-template <typename T, int W>
+template <typename T, int W, bool CS = false>
 struct Dense {
   using V = T;
   static constexpr int VEC = W;
+  static constexpr bool QUANT = false;
+  static constexpr bool EVICT = CS;
   using Word = Pack<T, W>;
   const T* a;
   long n, p;
@@ -157,7 +205,7 @@ struct Dense {
     using Raw = Word;
     const T* r;
     __device__ Raw raw(long j) const {
-      return *reinterpret_cast<const Word*>(r + j);
+      return load_word<CS>(reinterpret_cast<const Word*>(r + j));
     }
     __device__ void decode(const Raw& w, T (&v)[W]) const {
 #pragma unroll
@@ -170,86 +218,96 @@ struct Dense {
   __device__ Row row(long b, long i) const { return Row{a + (b * n + i) * p}; }
 };
 
-// Codes q (B, n, p) of Dec::Code and f32 scales s (B, nb, p), one per
-// `block` rows per column.  An element is __fmul_rn(Dec::apply(code),
-// scale): the dequantized value of the plain version, bit for bit.  With
-// VEC = 4 a thread loads four adjacent codes as one 32-bit word and their
-// scales as one float4 (codes 4-byte and scales 16-byte aligned), so a warp
-// reads 128 bytes of codes per row, not 32.
+// W adjacent codes of Dec::Code in one load -- one code, a 32-bit word of
+// four, or a 16-byte vector of sixteen -- and their W f32 scales (one
+// float, or float4s).  An element is __fmul_rn(Dec::apply(code), scale):
+// the dequantized value of the plain version, bit for bit.
+template <typename Dec, int W>
+struct Codes {
+  using Code = typename Dec::Code;
+  static_assert(W == 1 || W == 4 || W == 16,
+                "one code, a 32-bit word of four or 16 bytes of sixteen");
+  using Raw = typename std::conditional<
+      W == 1, Code,
+      typename std::conditional<W == 4, unsigned, uint4>::type>::type;
+
+  __device__ static Raw load(const Code* c) {
+    return *reinterpret_cast<const Raw*>(c);
+  }
+  __device__ static void scales(const float* s, float (&v)[W]) {
+    if constexpr (W == 1) {
+      v[0] = s[0];
+    } else {
+#pragma unroll
+      for (int k = 0; k < W / 4; ++k) {
+        const float4 f = reinterpret_cast<const float4*>(s)[k];
+        v[4 * k] = f.x, v[4 * k + 1] = f.y, v[4 * k + 2] = f.z,
+        v[4 * k + 3] = f.w;
+      }
+    }
+  }
+  // The W codes of a load, each times its scale, rounded on its own; code u
+  // of a word leaves it by one byte permute (byte u, zeros above).
+  __device__ static void dequantize(const Raw& r, const float (&s)[W],
+                                    float (&v)[W]) {
+    if constexpr (W == 1) {
+      v[0] = __fmul_rn(Dec::apply(r), s[0]);
+    } else {
+      unsigned w[W / 4];
+      if constexpr (W == 4) {
+        w[0] = r;
+      } else {
+        w[0] = r.x, w[1] = r.y, w[2] = r.z, w[3] = r.w;
+      }
+#pragma unroll
+      for (int k = 0; k < W / 4; ++k)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const unsigned byte = __byte_perm(w[k], 0u, 0x4440u | u);
+          v[4 * k + u] =
+              __fmul_rn(Dec::apply(static_cast<Code>(byte)), s[4 * k + u]);
+        }
+    }
+  }
+};
+
+// Codes q (B, n, p) and f32 scales s (B, nb, p), one per `block` rows per
+// column, VEC = W codes a load (codes W-byte aligned, scales 16-byte
+// aligned for W > 1, p % W == 0).  column(b, j) walks down columns
+// j .. j + W - 1 and keeps their W scales in registers until its rows
+// leave the quantization block.
 template <typename Dec, int W>
 struct Quantized {
   using V = float;
   using Code = typename Dec::Code;
+  using Decode = Dec;
+  using Load = Codes<Dec, W>;
   static constexpr int VEC = W;
-  static_assert(W == 1 || W == 4, "one code or a 32-bit word of four");
-  using Word = typename std::conditional<W == 1, Code, unsigned>::type;
+  static constexpr bool QUANT = true;
+  static constexpr bool EVICT = false;
   const Code* q;
   const float* s;
   long n, p, block, nb;
 
-  // The W codes of a word, each times its scale, rounded on its own.
-  __device__ static void dequantize(Word w, const float (&scale)[W],
-                                    float (&v)[W]) {
-    if constexpr (W == 1) {
-      v[0] = __fmul_rn(Dec::apply(w), scale[0]);
-    } else {
-#pragma unroll
-      for (int u = 0; u < W; ++u)
-        v[u] = __fmul_rn(Dec::apply(static_cast<Code>((w >> (8 * u)) & 0xffu)),
-                         scale[u]);
-    }
-  }
-
-  __device__ static void load_scales(const float* sc, float (&scale)[W]) {
-    if constexpr (W == 1) {
-      scale[0] = sc[0];
-    } else {
-      const float4 s4 = *reinterpret_cast<const float4*>(sc);
-      scale[0] = s4.x, scale[1] = s4.y, scale[2] = s4.z, scale[3] = s4.w;
-    }
-  }
-
   struct Column {
-    using Raw = Word;
+    using Raw = typename Load::Raw;
     const Code* c;
     const float* sc;
     long p, block;
     long end;      // the first row past the block whose scales are held
     float scale[W];
-    __device__ Raw raw(long i) const {
-      return *reinterpret_cast<const Raw*>(c + i * p);
-    }
-    __device__ void decode(long i, Raw w, float (&v)[W]) {
+    __device__ Raw raw(long i) const { return Load::load(c + i * p); }
+    __device__ void decode(long i, const Raw& w, float (&v)[W]) {
       if (i >= end) {                  // rows only ever increase
         const long k = i / block;
-        load_scales(sc + k * p, scale);
+        Load::scales(sc + k * p, scale);
         end = (k + 1) * block;
       }
-      dequantize(w, scale, v);
-    }
-  };
-  struct Row {
-    struct Raw {
-      Word w;
-      float scale[W];
-    };
-    const Code* r;
-    const float* sr;
-    __device__ Raw raw(long j) const {
-      Raw o;
-      o.w = *reinterpret_cast<const Word*>(r + j);
-      load_scales(sr + j, o.scale);
-      return o;
-    }
-    __device__ void decode(const Raw& o, float (&v)[W]) const {
-      dequantize(o.w, o.scale, v);
+      Load::dequantize(w, scale, v);
     }
   };
   __device__ Column column(long b, long j) const {
     return Column{q + b * n * p + j, s + b * nb * p + j, p, block, -1, {}};
-  }
-  __device__ Row row(long b, long i) const {
-    return Row{q + (b * n + i) * p, s + (b * nb + i / block) * p};
   }
 };
 
@@ -302,9 +360,9 @@ __device__ __forceinline__ const void* batch_vector(const void* x, long b,
 }
 
 // Fold rows i, i + step, ... < end of one thread's VEC columns into acc, in
-// row order.  Four rows at a time: their matrix loads all issue before the
-// first is decoded, so a thread keeps four loads in flight whatever the
-// decode and the operator cost.
+// row order.  Eight rows at a time: their matrix loads all issue before the
+// first is decoded, so a thread keeps eight loads in flight (128 bytes)
+// whatever the decode and the operator cost.
 template <typename Map, typename Op, int VEC, typename Col>
 __device__ __forceinline__ void fold_rows(Col& c, const void* xb, long i,
                                           long end, long step,
@@ -312,7 +370,7 @@ __device__ __forceinline__ void fold_rows(Col& c, const void* xb, long i,
   using In = typename Map::In;
   using V = typename Leaf<In>::A;
   using X = typename Leaf<In>::X;
-  constexpr int U = 4;
+  constexpr int U = 8;
   for (; i + (U - 1) * step < end; i += U * step) {
     typename Col::Raw raw[U];
     X xv[U];
@@ -397,6 +455,20 @@ __device__ void fold_chunks(const typename Op::E* partials, long K, long m,
   }
 }
 
+// fold_chunks over a tile of R outputs, THREADS at a time (a COLUMNS tile
+// of 16-code loads holds up to 4,096 columns).
+template <typename Op>
+__device__ void fold_tile(const typename Op::E* partials, long K, long m,
+                          long base, long R, Leaves out,
+                          typename Op::E* smem) {
+  for (long o = 0; o < R; o += THREADS) {
+    if (o) __syncthreads();            // smem is read by the last piece
+    fold_chunks<Op>(partials, K, m, base + o,
+                    static_cast<int>(R - o < THREADS ? R - o : THREADS), out,
+                    smem);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // COLUMNS: K4 / K7 / K9 matvec
 // ---------------------------------------------------------------------------
@@ -411,7 +483,9 @@ matvec_columns(Mat M, const void* x, Geometry g, typename Op::E* partials,
   constexpr int VEC = Mat::VEC;
   static_assert(std::is_same<typename Leaf<In>::A, V>::value,
                 "the map's matrix leaf is the operand's element type");
-  __shared__ E part[THREADS * VEC];
+  // The row groups combine PV of a thread's VEC columns a pass.
+  constexpr int PV = VEC < 4 ? VEC : 4;
+  __shared__ E part[THREADS * PV];
   __shared__ bool last;
   const long n = M.n, p = M.p;
   const int tc = static_cast<int>(g.width);
@@ -429,7 +503,7 @@ matvec_columns(Mat M, const void* x, Geometry g, typename Op::E* partials,
   if (j < p) {
     auto c = M.column(b, j);
     const void* xb = batch_vector<typename Leaf<In>::X>(x, b, n);
-    if constexpr (Op::COMMUTATIVE) {
+    if constexpr (Op::COMMUTATIVE && !Mat::QUANT) {
       fold_rows<Map, Op, VEC>(c, xb, r0 + grp, r1, groups, acc);
     } else {
       const long len = cdiv(r1 - r0, groups);
@@ -440,13 +514,18 @@ matvec_columns(Mat M, const void* x, Geometry g, typename Op::E* partials,
   }
   if (groups > 1) {  // combine the row groups in group order
 #pragma unroll
-    for (int u = 0; u < VEC; ++u) part[threadIdx.x * VEC + u] = acc[u];
-    __syncthreads();
-    if (grp == 0 && j < p) {
+    for (int u0 = 0; u0 < VEC; u0 += PV) {
+      if (u0) __syncthreads();         // the last pass has read part
 #pragma unroll
-      for (int u = 0; u < VEC; ++u)
-        for (int k = 1; k < groups; ++k)
-          acc[u] = Op::combine(acc[u], part[(k * tc + col) * VEC + u]);
+      for (int u = 0; u < PV; ++u) part[threadIdx.x * PV + u] = acc[u0 + u];
+      __syncthreads();
+      if (grp == 0 && j < p) {
+#pragma unroll
+        for (int u = 0; u < PV; ++u)
+          for (int k = 1; k < groups; ++k)
+            acc[u0 + u] =
+                Op::combine(acc[u0 + u], part[(k * tc + col) * PV + u]);
+      }
     }
   }
   const long m = g.B * p;
@@ -465,9 +544,8 @@ matvec_columns(Mat M, const void* x, Geometry g, typename Op::E* partials,
   }
   if (!last_of_tile(counters, &last)) return;
   const long first = tile * tc * VEC;
-  fold_chunks<Op>(partials, gridDim.y, m, b * p + first,
-                  static_cast<int>(p - first < tc * VEC ? p - first : tc * VEC),
-                  out, part);
+  fold_tile<Op>(partials, gridDim.y, m, b * p + first,
+                p - first < tc * VEC ? p - first : tc * VEC, out, part);
 }
 
 // ---------------------------------------------------------------------------
@@ -503,7 +581,7 @@ vecmat_rows(Mat M, const void* x, Geometry g, typename Op::E* partials,
     V a[VEC];
     // Chunk bounds and lane runs are whole multiples of VEC (p % VEC == 0).
     if constexpr (Op::COMMUTATIVE) {
-#pragma unroll 4
+#pragma unroll 8
       for (long c = c0 + lane * VEC; c < c1; c += lanes * VEC) {
         r.decode(r.raw(c), a);
 #pragma unroll
@@ -557,6 +635,149 @@ vecmat_rows(Mat M, const void* x, Geometry g, typename Op::E* partials,
   fold_chunks<Op>(partials, gridDim.y, m, b * n + first,
                   static_cast<int>(n - first < rows ? n - first : rows), out,
                   part);
+}
+
+// ---------------------------------------------------------------------------
+// STRIPS: K9 vecmat, a strip of one quantization block's rows a block
+// ---------------------------------------------------------------------------
+
+// A strip holds at most STRIP_MAX rows of one quantization block: the
+// min(block, n) rows of a block fall into strips_per_block strips of
+// `rows` (the last strip of a short final block may be empty).
+__host__ __device__ inline long strips_per_block(long n, long block,
+                                                 long rows) {
+  return cdiv(block < n ? block : n, rows);
+}
+
+// The warp's fold of eight values a lane (eight rows), each over the 32
+// lanes in lane order, by an ordered reduce-scatter: 9 shuffles, not 8 x 5.
+// Lanes pair up at distance 1, 2, 4 -- the lower lane's values on the left
+// -- and each step halves the rows a lane keeps; then distance 8 and 16
+// fold whole rows.  Lane l ends holding row 4 (l & 1) + (l & 2) + (l >> 2
+// & 1) (strip_row below).
+template <typename Op>
+__device__ __forceinline__ typename Op::E fold_eight(
+    const typename Op::E (&v)[8], int lane) {
+  using E = typename Op::E;
+  const bool u1 = lane & 1, u2 = lane & 2, u4 = lane & 4;
+  E a[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const E r = E::shfl_xor(u1 ? v[j] : v[4 + j], 1);
+    a[j] = u1 ? Op::combine(r, v[4 + j]) : Op::combine(v[j], r);
+  }
+  E c[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const E r = E::shfl_xor(u2 ? a[j] : a[2 + j], 2);
+    c[j] = u2 ? Op::combine(r, a[2 + j]) : Op::combine(a[j], r);
+  }
+  const E r = E::shfl_xor(u4 ? c[0] : c[1], 4);
+  E t = u4 ? Op::combine(r, c[1]) : Op::combine(c[0], r);
+#pragma unroll
+  for (int m = 8; m < 32; m <<= 1) {
+    const E s = E::shfl_xor(t, m);
+    t = (lane & m) ? Op::combine(s, t) : Op::combine(t, s);
+  }
+  return t;
+}
+
+// The row of the eight whose fold fold_eight leaves in lane `lane`.
+__device__ __forceinline__ int strip_row(int lane) {
+  return ((lane & 1) << 2) | (lane & 2) | ((lane >> 2) & 1);
+}
+
+template <typename Map, typename Op, typename Dec, int W>
+__global__ void __launch_bounds__(THREADS)
+vecmat_strips(Quantized<Dec, W> M, const void* x, Geometry g,
+              typename Op::E* partials, unsigned* counters, Leaves out) {
+  using E = typename Op::E;
+  using In = typename Map::In;
+  using X = typename Leaf<In>::X;
+  using Load = Codes<Dec, W>;
+  constexpr int U = 8;                            // rows in flight
+  static_assert(std::is_same<typename In::T0, float>::value,
+                "the map's matrix leaf is the dequantized float");
+  __shared__ E acc[WARPS][STRIP_MAX];             // a warp's row totals
+  __shared__ bool last;
+  const long n = M.n, p = M.p, block = M.block;
+  const long rows = g.width;                      // a strip's rows, at most
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long b = blockIdx.x / g.tiles;
+  const long tile = blockIdx.x - b * g.tiles;
+  const long spq = strips_per_block(n, block, rows);
+  const long k = tile / spq;                      // the quantization block
+  const long r0 = k * block + (tile - k * spq) * rows;
+  const long kend = (k + 1) * block < n ? (k + 1) * block : n;
+  const long r1 = r0 + rows < kend ? r0 + rows : kend;
+  const long R = r1 > r0 ? r1 - r0 : 0;
+  // The warp's contiguous run of the chunk, 32 W columns a step.
+  const long c0 = static_cast<long>(blockIdx.y) * g.per_chunk;
+  const long c1 = c0 + g.per_chunk < p ? c0 + g.per_chunk : p;
+  const long len = cdiv(cdiv(c1 - c0, 32 * W), WARPS) * 32 * W;
+  const long w0 = c0 + warp * len;
+  const long w1 = w0 + len < c1 ? w0 + len : c1;
+  for (long r = lane; r < R; r += 32) acc[warp][r] = Op::identity();
+  __syncwarp();
+  const typename Dec::Code* q = M.q + (b * n + r0) * p;
+  const float* sc = M.s + (b * M.nb + k) * p;
+  const void* xb = batch_vector<X>(x, b, p);
+  for (long s = w0; s < w1; s += 32 * W) {
+    const long c = s + lane * W;
+    const bool on = c < w1;           // a lane past the run adds identity
+    float scale[W];
+    X xv[W];
+    if (on) {
+      Load::scales(sc + c, scale);
+#pragma unroll
+      for (int u = 0; u < W; ++u) xv[u] = vec_at<X>(xb, c + u);
+    }
+    // The strip's rows, U at a time: each lane folds its W columns of a
+    // row in order, the warp its lanes in order (fold_eight), and lanes
+    // 0 .. 7 add the rows' totals to the warp's.
+    for (long r = 0; r < R; r += U) {
+      typename Load::Raw raw[U];
+#pragma unroll
+      for (int v = 0; v < U; ++v)
+        if (on && r + v < R) raw[v] = Load::load(q + (r + v) * p + c);
+      E part[U];
+#pragma unroll
+      for (int v = 0; v < U; ++v) {
+        part[v] = Op::identity();
+        if (on && r + v < R) {
+          float a[W];
+          Load::dequantize(raw[v], scale, a);
+#pragma unroll
+          for (int u = 0; u < W; ++u)
+            part[v] = Op::combine(part[v],
+                                  Map::apply(vm_element<In>(a[u], xv[u])));
+        }
+      }
+      const E row_total = fold_eight<Op>(part, lane);
+      const long i = r + strip_row(lane);
+      if (lane < U && i < R)
+        acc[warp][i] = Op::combine(acc[warp][i], row_total);
+    }
+  }
+  __syncthreads();
+  // Thread t folds row t's warp totals in warp order.
+  E total = Op::identity();
+  if (threadIdx.x < R) {
+    for (int w = 0; w < WARPS; ++w)
+      total = Op::combine(total, acc[w][threadIdx.x]);
+  }
+  const long m = g.B * n;
+  if (g.chunks == 1) {
+    if (threadIdx.x < R) total.store(out, b * n + r0 + threadIdx.x);
+    return;
+  }
+  if (threadIdx.x < R) {
+    partials[static_cast<long>(blockIdx.y) * m + b * n + r0 + threadIdx.x] =
+        total;
+    __threadfence();
+  }
+  if (!last_of_tile(counters, &last)) return;
+  fold_tile<Op>(partials, gridDim.y, m, b * n + r0, R, out, &acc[0][0]);
 }
 
 // ---------------------------------------------------------------------------
@@ -698,8 +919,10 @@ vecmat_tall(const T* a, const void* x, Geometry g, Leaves out) {
 inline cudaError_t grid_of(const Geometry& g, dim3* grid) {
   if (g.B <= 0 || g.n <= 0 || g.p <= 0 || g.tiles <= 0 || g.chunks <= 0 ||
       g.chunks > MAX_GRID_Y || g.tiles > MAX_GRID_X || g.per_chunk < 0 ||
-      (g.vec != 1 && g.vec != 4) || g.width <= 0 || g.width > THREADS ||
-      (g.kind != PACKED && g.kind != TALL && (g.width & (g.width - 1))) ||
+      (g.vec != 1 && g.vec != 4 && g.vec != 16) || g.width <= 0 ||
+      g.width > THREADS ||
+      (g.kind != PACKED && g.kind != TALL && g.kind != STRIPS &&
+       (g.width & (g.width - 1))) ||
       (g.kind != PACKED && g.kind != TALL && g.p % g.vec != 0))
     return cudaErrorInvalidValue;
   // TALL's tiles run over all B n rows; the other kinds have B x tiles.
@@ -718,21 +941,35 @@ cudaError_t launch_mat(const Geometry& g, const Mat& M, const void* x,
   cudaError_t err = grid_of(g, &grid);
   if (err != cudaSuccess) return err;
   if ((Map::In::LEAVES == 2 && x == nullptr) ||
-      (g.chunks > 1 && (counters == nullptr || partials == nullptr)) ||
-      (g.kind == COLUMNS ? g.tiles != cdiv(cdiv(g.p, g.vec), g.width) ||
-                               (g.chunks > 1 && g.width * g.vec > THREADS)
-                         : g.tiles != cdiv(g.n, THREADS / g.width)))
+      (g.chunks > 1 && (counters == nullptr || partials == nullptr)))
     return cudaErrorInvalidValue;
   E* part = static_cast<E*>(partials);
   unsigned* count = static_cast<unsigned*>(counters);
-  if (g.kind == COLUMNS)
-    matvec_columns<Map, Op, Mat><<<grid, THREADS, 0, stream>>>(
-        M, x, g, part, count, out);
-  else if (g.kind == ROWS)
+  if (g.kind == COLUMNS) {
+    if constexpr (Mat::EVICT) {
+      return cudaErrorInvalidValue;    // evict-first loads are ROWS's alone
+    } else {
+      if (g.tiles != cdiv(cdiv(g.p, g.vec), g.width))
+        return cudaErrorInvalidValue;
+      matvec_columns<Map, Op, Mat><<<grid, THREADS, 0, stream>>>(
+          M, x, g, part, count, out);
+    }
+  } else if constexpr (Mat::QUANT) {
+    // STRIPS: strips of `width` rows in every quantization block, chunks
+    // of whole warp steps.
+    if (g.kind != STRIPS || g.width > STRIP_MAX ||
+        g.tiles !=
+            cdiv(g.n, M.block) * strips_per_block(g.n, M.block, g.width) ||
+        g.per_chunk % (32 * g.vec) != 0)
+      return cudaErrorInvalidValue;
+    vecmat_strips<Map, Op, typename Mat::Decode, Mat::VEC>
+        <<<grid, THREADS, 0, stream>>>(M, x, g, part, count, out);
+  } else {
+    if (g.kind != ROWS || g.tiles != cdiv(g.n, THREADS / g.width))
+      return cudaErrorInvalidValue;
     vecmat_rows<Map, Op, Mat><<<grid, THREADS, 0, stream>>>(
         M, x, g, part, count, out);
-  else
-    return cudaErrorInvalidValue;
+  }
   return cudaGetLastError();
 }
 
@@ -770,7 +1007,7 @@ cudaError_t launch_stream(const Geometry& g, const T* a, const void* x,
 // A dense matrix of the map's leaf type (x and A share one dtype).  `in`
 // holds In's leaves in the map's order: (x, A) for COLUMNS and PACKED,
 // (A, x) for ROWS and TALL, (A) alone without a vector.  `geo` points at
-// the nine longs of a Geometry; `counters` (one zero word per grid-x tile)
+// the ten longs of a Geometry; `counters` (one zero word per grid-x tile)
 // and `partials` (chunks x outputs elements of Op::E) are the stream's
 // workspace, read only when chunks > 1.
 template <typename Map, typename Op>
@@ -783,6 +1020,7 @@ cudaError_t run_dense(const Leaves& in, const Leaves& out, const void* geo,
                 "x and A share one dtype");
   Geometry g;
   std::memcpy(&g, geo, sizeof g);
+  if (g.vec != 1 && g.vec != 4) return cudaErrorInvalidValue;
   const bool matvec_order = g.kind == COLUMNS || g.kind == PACKED;
   const T* A = static_cast<const T*>(
       In::LEAVES == 2 && matvec_order ? in.p[1] : in.p[0]);
@@ -792,7 +1030,10 @@ cudaError_t run_dense(const Leaves& in, const Leaves& out, const void* geo,
       if (reinterpret_cast<unsigned long>(A) % 16)
         return cudaErrorInvalidValue;
       if (g.kind == COLUMNS || g.kind == ROWS)
-        return launch_mat<Map, Op>(g, Dense<T, 4>{A, g.n, g.p}, x, counters,
+        return g.kind == ROWS && g.stream
+            ? launch_mat<Map, Op>(g, Dense<T, 4, true>{A, g.n, g.p}, x,
+                                  counters, partials, out, stream)
+            : launch_mat<Map, Op>(g, Dense<T, 4>{A, g.n, g.p}, x, counters,
                                    partials, out, stream);
       return launch_stream<Map, Op, T, 4>(g, A, x, counters, partials, out,
                                           stream);
@@ -808,29 +1049,39 @@ cudaError_t run_dense(const Leaves& in, const Leaves& out, const void* geo,
 }
 
 // A quantized matrix: codes of Dec::Code, f32 scales, one per `block` rows;
-// four codes a load where the geometry's vec says so (p % 4 == 0; the
-// caller aligns codes to 4 and scales to 16 bytes).  COLUMNS and ROWS only.
+// vec codes a load, as the host chose from the operands' alignment (16:
+// codes and scales 16-byte aligned, p % 16 == 0; 4: codes 4-byte and
+// scales 16-byte aligned, p % 4 == 0; else 1).  COLUMNS and STRIPS only.
+template <typename Map, typename Op, typename Dec, int W>
+cudaError_t launch_quantized(const Geometry& g, const void* q, const void* s,
+                             long block, const void* x, void* counters,
+                             void* partials, Leaves out, cudaStream_t stream) {
+  using Code = typename Dec::Code;
+  if (W > 1 && (reinterpret_cast<unsigned long>(q) % W ||
+                reinterpret_cast<unsigned long>(s) % 16))
+    return cudaErrorInvalidValue;
+  const Quantized<Dec, W> M{static_cast<const Code*>(q),
+                            static_cast<const float*>(s), g.n, g.p, block,
+                            cdiv(g.n, block)};
+  return launch_mat<Map, Op>(g, M, x, counters, partials, out, stream);
+}
+
 template <typename Map, typename Op, typename Dec>
 cudaError_t run_quantized(const void* geo, const void* q, const void* s,
                           long block, const void* x, void* counters,
                           void* partials, Leaves out, cudaStream_t stream) {
-  using Code = typename Dec::Code;
   Geometry g;
   std::memcpy(&g, geo, sizeof g);
-  if (block <= 0 || (g.kind != COLUMNS && g.kind != ROWS))
+  if (block <= 0 || (g.kind != COLUMNS && g.kind != STRIPS))
     return cudaErrorInvalidValue;
-  const Code* codes = static_cast<const Code*>(q);
-  const float* scales = static_cast<const float*>(s);
-  const long nb = cdiv(g.n, block);
-  if (g.vec == 4) {
-    if (reinterpret_cast<unsigned long>(q) % 4 ||
-        reinterpret_cast<unsigned long>(s) % 16)
-      return cudaErrorInvalidValue;
-    const Quantized<Dec, 4> M{codes, scales, g.n, g.p, block, nb};
-    return launch_mat<Map, Op>(g, M, x, counters, partials, out, stream);
-  }
-  const Quantized<Dec, 1> M{codes, scales, g.n, g.p, block, nb};
-  return launch_mat<Map, Op>(g, M, x, counters, partials, out, stream);
+  if (g.vec == 16)
+    return launch_quantized<Map, Op, Dec, 16>(g, q, s, block, x, counters,
+                                              partials, out, stream);
+  if (g.vec == 4)
+    return launch_quantized<Map, Op, Dec, 4>(g, q, s, block, x, counters,
+                                             partials, out, stream);
+  return launch_quantized<Map, Op, Dec, 1>(g, q, s, block, x, counters,
+                                           partials, out, stream);
 }
 
 }  // namespace

@@ -265,6 +265,10 @@ class _Gen:
             f"  __device__ static {name} shfl_down({name} v, int d, int w) {{\n"
             + "".join(f"    v.v{i} = rt::shfl_down_leaf(v.v{i}, d, w);\n"
                       for i in k)
+            + "    return v;\n  }\n"
+            f"  __device__ static {name} shfl_xor({name} v, int m) {{\n"
+            + "".join(f"    v.v{i} = rt::shfl_xor_leaf(v.v{i}, m);\n"
+                      for i in k)
             + "    return v;\n  }\n};\n")
         return name
 

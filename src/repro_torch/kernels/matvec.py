@@ -22,12 +22,16 @@ versions (``csrc/matvec.cuh``).
 :func:`launch` is the launcher of every form, flat and batched, dense and
 quantized; ``kernels/batched.py`` builds K7's GEMVs and K9's batched forms
 on it.  Every call is one CUDA launch.  The host plans it:
-:func:`geometry` picks the kind of launch (``COLUMNS`` for a matvec,
-``ROWS`` or, over at most 64 dense columns, ``TALL`` for a vecmat,
-``PACKED`` for K5), the load width (16-byte loads of 4-byte leaves where
-``A`` is 16-byte aligned, else one element a load) and the chunks of the
-reduction axis; a chunked launch keeps its partials and tickets in the
-stream's workspace (``_lib.workspace``), and its last block folds them.
+:func:`launch_kind` picks the kind of launch (``COLUMNS`` for a matvec,
+``ROWS`` or, over at most 64 dense columns, ``TALL`` for a dense vecmat,
+``STRIPS`` for a quantized one, ``PACKED`` for K5), :func:`load_width` and
+:func:`quant_width` the load width (16-byte loads of 4-byte leaves where
+``A`` is 16-byte aligned, else one element a load; 16, 4 or 1 codes a load
+of a quantized matrix, as its codes and scales are aligned -- a
+misaligned operand takes a narrower load, never a copy) and
+:func:`geometry` the chunks of the reduction axis; a chunked launch keeps
+its partials and tickets in the stream's workspace (``_lib.workspace``),
+and its last block folds them.
 :func:`resolve` keeps each call's launch (its ``_lib.plan`` -- the unit,
 the output's dtypes and the loaded library -- and its geometry), so a call
 allocates once (its outputs) and makes one ctypes call.
@@ -59,8 +63,8 @@ Pytree = Any
 
 MATVEC, VECMAT, PACKED = 0, 1, 2      # what a wrapper asks launch() for
 # The kinds of launch of csrc/matvec.cuh (its enum Kind).
-COLUMNS, ROWS, PACKED_STREAM, TALL = 0, 1, 2, 3
-KIND_NAMES = ("columns", "rows", "packed", "tall")
+COLUMNS, ROWS, PACKED_STREAM, TALL, STRIPS = 0, 1, 2, 3, 4
+KIND_NAMES = ("columns", "rows", "packed", "tall", "strips")
 
 # The reference's tall-narrow route (ops.py ``_matvec_pallas``): p <= 64
 # columns, n >= 4 * 128 rows and a commutative operator go to K5.
@@ -77,6 +81,9 @@ MIN_STEPS = 8                 # reduction steps a thread takes, at least
 MAX_GRID_Y = 65535
 TALL_BYTES = 16384            # TALL's shared tile (csrc/matvec.cuh)
 WIDE = 4                      # elements per 16-byte load of 4-byte leaves
+QUANT_WIDE = 16               # codes per 16-byte load of a quantized matrix
+STRIP_MAX = 128               # rows a STRIPS tile holds, at most
+WARPS = THREADS // 32
 
 
 def uses_packed(n: int, p: int, op) -> bool:
@@ -97,14 +104,16 @@ def _pow2_floor(v: int) -> int:
     return 1 << (max(1, v).bit_length() - 1)
 
 
-def launch_kind(form: int, p: int) -> int:
-    """The kind of launch of a dense ``form`` over ``p`` columns: COLUMNS
-    for a matvec, PACKED_STREAM for K5, TALL for a vecmat over at most 64
-    columns, ROWS for a wider one."""
+def launch_kind(form: int, p: int, quantized: bool = False) -> int:
+    """The kind of launch of ``form`` over ``p`` columns: COLUMNS for a
+    matvec, PACKED_STREAM for K5, STRIPS for a ``quantized`` vecmat, TALL
+    for a dense vecmat over at most 64 columns, ROWS for a wider one."""
     if form == MATVEC:
         return COLUMNS
     if form == PACKED:
         return PACKED_STREAM
+    if quantized:
+        return STRIPS
     return TALL if p <= PACKED_MAX_COLS else ROWS
 
 
@@ -117,25 +126,51 @@ def load_width(kind: int, p: int, wide: bool, aligned: bool) -> int:
         p % 4 == 0 or kind in (PACKED_STREAM, TALL)) else 1
 
 
+def quant_width(p: int, codes: int, scales: int) -> int:
+    """Codes per load of a quantized matrix of ``p`` columns whose codes and
+    scales start at addresses ``codes`` and ``scales``: 16 (one 16-byte
+    load) where both are 16-byte aligned and p % 16 == 0, 4 (a 32-bit
+    word, the scales as float4) where the codes are 4-byte and the scales
+    16-byte aligned and p % 4 == 0, else one.  Every row and every scale
+    row then starts aligned too."""
+    if scales % 16 == 0:
+        if codes % 16 == 0 and p % 16 == 0:
+            return QUANT_WIDE
+        if codes % 4 == 0 and p % 4 == 0:
+            return 4
+    return 1
+
+
 def geometry(kind: int, B: int, n: int, p: int, vec: int, *, sms: int,
-             itemsize: int = 4, quantized: bool = False) -> tuple[int, ...]:
+             itemsize: int = 4, block: int = 0,
+             stream: bool = False) -> tuple[int, ...]:
     """The launch of one ``kind`` over ``B`` matrices of ``(n, p)``
     elements of ``itemsize`` bytes, ``vec`` of them a load, on a card of
-    ``sms`` multiprocessors: the nine longs of ``csrc/matvec.cuh``'s
-    ``Geometry`` -- (kind, vec, width, B, n, p, tiles, chunks, per_chunk).
+    ``sms`` multiprocessors: the ten longs of ``csrc/matvec.cuh``'s
+    ``Geometry`` -- (kind, vec, width, B, n, p, tiles, chunks, per_chunk,
+    stream); ``stream``: a ROWS launch of 16-byte loads over a dense
+    matrix larger than L2, which evict first (:func:`streams`).
     The targets scale with the card: TARGET_THREADS = THREADS_PER_SM sms
     threads, TARGET_BLOCKS = BLOCKS_PER_SM sms blocks.
 
     * COLUMNS (matvec): ``width`` column threads by 256 / width row groups
       a block; the rows split until about TARGET_THREADS threads walk them,
       at least MIN_STEPS rows each, so few rows (n = 10) take one group and
-      one chunk: each thread walks all n rows of its columns.
-    * ROWS (vecmat, p > 64 or a quantized matrix): ``width`` lanes a row,
-      enough for MIN_STEPS loads a lane, up to the whole block; a
-      ``quantized`` row (a code word and a scale vector a load) takes one
-      warp unless its rows would fill fewer than TARGET_BLOCKS blocks that
-      way.  The columns split into chunks while the grid has fewer than
-      TARGET_BLOCKS blocks.
+      one chunk: each thread walks all n rows of its columns.  A quantized
+      matrix (``block`` rows a scale; 16 codes carry four times a dense
+      thread's bytes a row) takes half the threads and up to 16 groups,
+      and each chunk holds whole quantization blocks a group.
+    * ROWS (dense vecmat, p > 64): ``width`` lanes a row, enough for
+      MIN_STEPS loads a lane (half as many in a row of at most 64 loads),
+      up to the whole block.  The columns split into chunks while the grid
+      has fewer than TARGET_BLOCKS blocks.
+    * STRIPS (quantized vecmat, quantization ``block`` rows a scale): a
+      tile is a strip of ``width`` = min(block, n, STRIP_MAX) rows inside
+      one quantization block (``tiles`` = nb strips per block); each warp
+      walks a contiguous run of the chunk, 32 vec columns a step, through
+      all the strip's rows.  The columns split into chunks of whole steps
+      of all eight warps while the grid has fewer than TARGET_BLOCKS
+      blocks.
     * PACKED (K5): ``width`` threads read the flat stream, a step of width
       vec elements a multiple of p and vec; chunks of whole steps.
     * TALL (vecmat over p <= 64 dense columns): ``width`` rows a block, a
@@ -146,23 +181,36 @@ def geometry(kind: int, B: int, n: int, p: int, vec: int, *, sms: int,
     per = 0
     if kind == COLUMNS:
         cols = _cdiv(p, vec)
-        split = min(max(1, _cdiv(target_threads, B * cols)),
-                    max(1, n // MIN_STEPS))
-        groups, chunks = (_pow2_ceil(split), 1) if split <= 8 else \
-            (8, min(_cdiv(split, 8), MAX_GRID_Y))
+        most = 16 if block else 8
+        split = min(max(1, _cdiv(target_threads // (2 if block else 1),
+                                 B * cols)), max(1, n // MIN_STEPS))
+        groups, chunks = (_pow2_ceil(split), 1) if split <= most else \
+            (most, min(_cdiv(split, most), MAX_GRID_Y))
         width = THREADS // groups
         tiles = _cdiv(cols, width)
-        per = _cdiv(n, chunks)
+        # A quantized group's run of rows starts at a quantization block.
+        run = groups * block if block else 1
+        per = _cdiv(_cdiv(n, chunks), run) * run
         chunks = _cdiv(n, per)
     elif kind == ROWS:
         steps = _cdiv(p, vec)
-        width = min(THREADS, _pow2_floor(steps // MIN_STEPS))
-        if quantized and B * _cdiv(n, THREADS // 32) >= target_blocks:
-            width = min(width, 32)
+        # A short row (at most 64 loads, K7's decode-attention rows) takes
+        # twice the lanes: four loads a lane.
+        width = min(THREADS, _pow2_floor(
+            steps // (MIN_STEPS // 2 if steps <= 64 else MIN_STEPS)))
         tiles = _cdiv(n, THREADS // width)
         chunks = min(max(1, _cdiv(target_blocks, B * tiles)),
                      max(1, steps // (MIN_STEPS * width)), MAX_GRID_Y)
         step = width * vec
+        per = _cdiv(_cdiv(p, chunks), step) * step
+        chunks = _cdiv(p, per)
+    elif kind == STRIPS:
+        rows = min(block, n)
+        width = min(rows, STRIP_MAX)
+        tiles = _cdiv(n, block) * _cdiv(rows, width)
+        step = WARPS * 32 * vec          # a step of every warp
+        chunks = min(max(1, _cdiv(target_blocks, B * tiles)),
+                     _cdiv(p, step), MAX_GRID_Y)
         per = _cdiv(_cdiv(p, chunks), step) * step
         chunks = _cdiv(p, per)
     elif kind == PACKED_STREAM:
@@ -178,10 +226,23 @@ def geometry(kind: int, B: int, n: int, p: int, vec: int, *, sms: int,
         tiles, chunks = _cdiv(B * n, width), 1
     else:
         raise ValueError(f"no launch kind {kind}")
-    return (kind, vec, width, B, n, p, tiles, chunks, per)
+    return (kind, vec, width, B, n, p, tiles, chunks, per, int(stream))
 
 
-_GEO_ARRAY = ctypes.c_long * 9
+_GEO_ARRAY = ctypes.c_long * 10
+
+
+def streams(nbytes: int, device: int) -> bool:
+    """Whether a dense matrix of ``nbytes`` outgrows the L2 cache of CUDA
+    ``device`` (asked once), so that no call finds it there."""
+    found = _L2.get(device)
+    if found is None:
+        found = _L2[device] = torch.cuda.get_device_properties(
+            device).L2_cache_size
+    return nbytes > found
+
+
+_L2: dict[int, int] = {}
 
 
 def sms(device: int) -> int:
@@ -238,10 +299,6 @@ def launch(form, what, f, op, A, x, *, batched: bool = False) -> Pytree:
         rc = lib.rt_gemv(*ins, *[o.data_ptr() for o in outs], call.geo_ptr,
                          counters, partials, stream)
     else:
-        if call.realign:
-            # The kernel loads four codes and four scales at a time.
-            A = alg.Quantized(A.values.clone(), A.scales.clone(), A.block,
-                              A.mode)
         rc = lib.rt_qmatvec(call.geo_ptr, A.values.data_ptr(),
                             A.scales.data_ptr(), A.block, _lib.ptr(x),
                             counters, partials, _lib.leaf_ptrs(outs), stream)
@@ -258,7 +315,7 @@ class _Call:
     it is the cheapest allocation torch offers) and the workspace it
     needs."""
 
-    __slots__ = ("plan", "quant", "realign", "geo", "geo_array", "geo_ptr",
+    __slots__ = ("plan", "quant", "geo", "geo_array", "geo_ptr",
                  "grid_x", "name", "x_dtype", "x_shape", "out_shape",
                  "template", "partial_bytes")
 
@@ -275,8 +332,9 @@ def resolve(form, what, f, op, A, x, batched: bool = False) -> _Call:
     if isinstance(A, alg.Quantized):
         M = A.values
         key = (form, id(op), id(f), A.mode, A.block, M.dtype, A.scales.dtype,
-               M.shape, A.scales.shape, x is None, M.data_ptr() % 4 == 0 and
-               A.scales.data_ptr() % 16 == 0, batched, M.get_device())
+               M.shape, A.scales.shape, x is None, quant_width(
+                   M.shape[-1], M.data_ptr(), A.scales.data_ptr()), batched,
+               M.get_device())
     else:
         M = A
         key = (form, id(op), id(f), A.dtype, A.shape, x is None,
@@ -320,7 +378,6 @@ def _make_call(key, form, what, f, op, A, x, batched) -> _Call:
     c.x_shape = shape[:-2] + ((p,) if form == VECMAT else (n,))
     if x is not None:
         _check_vector(what, c, x)
-    aligned = key[-3]
     if quant is None:
         _lib.require_cuda(what, A, *(() if x is None else (x,)))
         c.plan = _lib.plan("matvec", what, op, (A,) if x is None else (
@@ -328,8 +385,7 @@ def _make_call(key, form, what, f, op, A, x, batched) -> _Call:
         elem_bytes = c.plan.elem_bytes
         kind = launch_kind(form, p)
         vec = load_width(kind, p, A.element_size() == 4 and elem_bytes <= 16,
-                         aligned)
-        c.realign = False
+                         key[-3])
     else:
         codes = alg.QUANT_DEVICE[quant][0]
         scales = shape[:-2] + (_cdiv(n, A.block), p)
@@ -344,11 +400,13 @@ def _make_call(key, form, what, f, op, A, x, batched) -> _Call:
             (_F32, x) if form == VECMAT else (x, _F32)), f, spread=True,
             quant=quant)
         elem_bytes = c.plan.elem_bytes
-        kind = COLUMNS if form == MATVEC else ROWS
-        vec = WIDE if p % 4 == 0 else 1
-        c.realign = vec == WIDE and not aligned
+        kind = launch_kind(form, p, quantized=True)
+        vec = key[-3]
     c.geo = geometry(kind, B, n, p, vec, sms=sms(M.get_device()),
-                     itemsize=M.element_size(), quantized=quant is not None)
+                     itemsize=M.element_size(),
+                     block=0 if quant is None else A.block,
+                     stream=kind == ROWS and vec == WIDE and
+                     streams(M.nbytes, M.get_device()))
     c.geo_array = _GEO_ARRAY(*c.geo)
     c.geo_ptr = ctypes.addressof(c.geo_array)
     c.grid_x = c.geo[6] if kind == TALL else B * c.geo[6]

@@ -1,4 +1,5 @@
-"""The PyTorch port's primitives and kernel modules against the JAX package.
+"""The PyTorch port's primitives and kernel modules against the JAX package
+(the batched scan and mapreduce, K7s and K7m: ``test_torch_batched_scan.py``).
 
 Inputs come from numpy with a seed (``conftest.make_operand``); the same
 arrays go through the JAX function -- its Pallas kernel in interpret mode,
@@ -16,10 +17,10 @@ products of up to 700 factors near 1: rtol = 1e-4.  Quickstart's sequence
 ends in 1,000-term sums, 100,000-term UnitFloat8 sums and 128-step
 recurrences: rtol = 1e-4, atol = 1e-3.
 """
+import ctypes
 import dataclasses
 import gc
 import weakref
-import zlib
 
 import numpy as np
 import pytest
@@ -42,7 +43,6 @@ from repro_torch.kernels import batched as batched_k  # noqa: E402
 from repro_torch.kernels import copy as copy_k  # noqa: E402
 from repro_torch.kernels import mapreduce as mapreduce_k  # noqa: E402
 from repro_torch.kernels import matvec as matvec_k  # noqa: E402
-from repro_torch.kernels import ref as t_ref  # noqa: E402
 from repro_torch.kernels import scan as scan_k  # noqa: E402
 
 PI = "pallas-interpret"
@@ -124,31 +124,6 @@ def test_k3_masked_add_f32_matches_pallas():
                             (_t(v), _t(m)), backend="cuda")
     np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5,
                                atol=1e-3)
-
-
-# ---------------------------------------------------------------------------
-# K7m: batched masked mapreduce (ADD over f32 with an int32 mask)
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("B,n", [(2, 64), (3, 5), (1, 300)])
-def test_k7m_masked_batched_add_matches_pallas(B, n):
-    rng = np.random.default_rng(B * 1000 + n)
-    logp = make_operand("add", rng, (B, n))
-    emitted = rng.integers(0, n + 1, (B,))
-    mask = jnp.asarray(np.arange(n)[None, :] < emitted[:, None], jnp.int32)
-    want = j_forge.mapreduce(lambda t: jnp.where(t[1] != 0, t[0], 0.0),
-                             j_alg.ADD, (logp, mask), layout=JBatched(),
-                             backend=PI)
-    xs = (_t(logp), _t(mask))
-    masked = t_alg.masked_select(0.0)
-    for got in (batched_k.batched_mapreduce_plain(masked, t_alg.ADD, xs),
-                t_ref.ref_batched_mapreduce(masked, t_alg.ADD, xs),
-                batched_k.batched_mapreduce_cuda(masked, t_alg.ADD, xs),
-                t_forge.mapreduce(masked, t_alg.ADD, xs, layout=TBatched())):
-        assert got.shape == (B,) and got.dtype == torch.float32
-        np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5,
-                                   atol=1e-3)
 
 
 # ---------------------------------------------------------------------------
@@ -252,68 +227,6 @@ def test_k4_mapreduce_axis_forms_match_pallas(axis, op_name):
                                 backend=backend)
         assert got.dtype == torch.int32
         np.testing.assert_array_equal(_np(got), np.asarray(want))
-
-
-# ---------------------------------------------------------------------------
-# K7s: batched scan
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("op_name", INT_OPS)
-@pytest.mark.parametrize("n", [1, 64, 2047, 2048, 2049])
-def test_k7s_batched_scan_int32_matches_pallas(op_name, n):
-    """Rows up to and across the kernel's one-block tile (2,048)."""
-    rng = np.random.default_rng(n)
-    lo, hi = (1, 2) if op_name == "mul" else (-50, 50)
-    x = jnp.asarray(rng.integers(lo, hi, (3, n)), jnp.int32)
-    jop, top = getattr(j_alg, op_name.upper()), getattr(t_alg, op_name.upper())
-    for inclusive in (True, False):
-        want = np.asarray(j_forge.scan(jop, x, inclusive=inclusive,
-                                       layout=JBatched(), backend=PI))
-        for got in (t_forge.scan(top, _t(x), inclusive=inclusive,
-                                 layout=TBatched()),
-                    batched_k.batched_scan_cuda(top, _t(x),
-                                                inclusive=inclusive)):
-            assert got.dtype == torch.int32
-            np.testing.assert_array_equal(_np(got), want)
-
-
-@pytest.mark.parametrize("n", [64, 2049])
-def test_k7s_batched_scan_f32_probabilities_match_pallas(n):
-    """The nucleus cutoff's scan: exclusive ADD over probability rows."""
-    rng = np.random.default_rng(n + 1)
-    logits = rng.normal(size=(4, n)).astype(np.float32)
-    probs = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
-    want = j_forge.scan(j_alg.ADD, jnp.asarray(probs), inclusive=False,
-                        layout=JBatched(), backend=PI)
-    for backend in ("torch", "cuda"):
-        got = t_forge.scan(t_alg.ADD, torch.from_numpy(probs),
-                           inclusive=False, layout=TBatched(),
-                           backend=backend)
-        np.testing.assert_allclose(_np(got), np.asarray(want), rtol=0,
-                                   atol=1e-6)
-
-
-def test_k7s_batched_scan_affine_and_reverse_match_pallas():
-    a, b = make_operand("affine", np.random.default_rng(12), (3, 70))
-    for reverse in (False, True):
-        wa, wb = j_forge.scan(j_alg.AFFINE, (a, b), reverse=reverse,
-                              layout=JBatched(), backend=PI)
-        for backend in ("torch", "cuda"):
-            ga, gb = t_forge.scan(t_alg.AFFINE, (_t(a), _t(b)),
-                                  reverse=reverse, layout=TBatched(),
-                                  backend=backend)
-            np.testing.assert_allclose(_np(ga), np.asarray(wa), **F32_TOL)
-            np.testing.assert_allclose(_np(gb), np.asarray(wb), **F32_TOL)
-
-
-@pytest.mark.parametrize("shape", [(0, 5), (3, 0)])
-def test_k7s_zero_extent_passthrough_matches_reference(shape):
-    x = jnp.zeros(shape, jnp.float32)
-    want = j_forge.scan(j_alg.ADD, x, layout=JBatched(), backend="xla")
-    xt = torch.zeros(shape)
-    got = t_forge.scan(t_alg.ADD, xt, layout=TBatched(), backend="cuda")
-    assert got is xt and tuple(got.shape) == want.shape
 
 
 # ---------------------------------------------------------------------------
@@ -437,81 +350,6 @@ def test_unsupported_layout_and_unknown_backend():
     assert t_ki.available_backends() == ("cuda", "torch")
     assert all(t_ki.supports(r, b) for r in t_ki.route_keys()
                for b in ("cuda", "torch"))
-
-
-@pytest.mark.parametrize("op_name", ["add", "max", "min"])
-@pytest.mark.parametrize("shape", [(0, 5), (3, 0)])
-def test_batched_zero_extent_guard_matches_reference(op_name, shape):
-    jop, top = getattr(j_alg, op_name.upper()), getattr(t_alg, op_name.upper())
-    for dt in (jnp.float32, jnp.int32):
-        x = jnp.zeros(shape, dt)
-        want = j_forge.mapreduce(lambda v: v, jop, x, layout=JBatched(),
-                                 backend="xla")
-        got = t_forge.mapreduce(t_alg.IDENTITY, top, _t(x),
-                                layout=TBatched())
-        assert got.shape == want.shape
-        assert str(got.dtype).split(".")[-1] == str(want.dtype)
-        np.testing.assert_array_equal(_np(got), np.asarray(want))
-
-
-def _reroute_operand(op_name, rng, shape):
-    """make_operand's element; for rows of thousands of quaternions or 2x2
-    matrices, elements within 1% of the identity (that still do not
-    commute), so that the products stay of size 1 and float32 rounding in
-    another association stays below 1e-5 of it."""
-    if op_name == "affine" or shape[1] < 1000:
-        return make_operand(op_name, rng, shape)
-    ident = (1, 0, 0, 0) if op_name == "quaternion_mul" else (1, 0, 0, 1)
-    return tuple(jnp.asarray(c + rng.uniform(-0.01, 0.01, shape),
-                             jnp.float32) for c in ident)
-
-
-@pytest.mark.parametrize("op_name", ["quaternion_mul", "mat2_mul", "affine"])
-def test_batched_mapreduce_reroutes_non_commutative_ops(op_name,
-                                                        monkeypatch):
-    """mapreduce@batched with an operator that does not commute scans the
-    mapped rows on scan@batched (K7s on the card) and takes each row's last
-    element, as the reference's dispatch does; K7m, which folds in no fixed
-    order, is never asked.  Held within 1e-5 of each output's size against
-    the reference's pallas-interpret and xla routes, at n = 1 and at the
-    reference's scan tile (2,048) +-1."""
-    calls = []
-    for backend in ("torch", "cuda"):
-        impl = t_ki._IMPL_REGISTRY[("scan@batched", backend)]
-
-        def spy(*args, _impl=impl, _backend=backend, **kwargs):
-            calls.append(_backend)
-            return _impl(*args, **kwargs)
-
-        monkeypatch.setitem(t_ki._IMPL_REGISTRY, ("scan@batched", backend),
-                            spy)
-
-        def refuse(*args, **kwargs):
-            raise AssertionError("mapreduce@batched reached its own impl")
-
-        monkeypatch.setitem(t_ki._IMPL_REGISTRY,
-                            ("mapreduce@batched", backend), refuse)
-    jop, top = j_alg.STD_OPS[op_name], t_alg.STD_OPS[op_name]
-    rng = np.random.default_rng(zlib.crc32(op_name.encode()))
-    for B, n in ((1, 1), (3, 7), (2, 2047), (1, 2048), (2, 2049)):
-        xs = _reroute_operand(op_name, rng, (B, n))
-        # Each reference route jitted: compiled once per shape, not op by op.
-        wants = [jax.jit(lambda x, b=b: j_forge.mapreduce(
-            lambda t: t, jop, x, layout=JBatched(), backend=b))(xs)
-            for b in (PI, "xla")]
-        for backend in ("torch", "cuda"):
-            del calls[:]
-            got = t_forge.mapreduce(t_alg.IDENTITY, top,
-                                    jax.tree.map(_t, xs), layout=TBatched(),
-                                    backend=backend)
-            assert calls == [backend]
-            for want in wants:
-                for g, w in zip(got, want):
-                    g, w = _np(g), np.asarray(w)
-                    assert g.shape == w.shape == (B,)
-                    size = max(float(np.abs(w).max()), 1.0)
-                    np.testing.assert_allclose(g, w, rtol=0, atol=1e-5 * size,
-                                               err_msg=f"{op_name} {B}x{n}")
 
 
 def test_flat_scan_zero_extent_passthrough():
@@ -835,7 +673,7 @@ def test_gemv_kind_and_load_width(form, p, wide, aligned, want):
     (MV.ROWS, 1, 10**3, 10**4, 4, dict(width=256, chunks=1)),  # block a row
     (MV.ROWS, 1, 10**4, 10**3, 4, dict(width=16, chunks=1)),
     (MV.ROWS, 1, 10, 10**6, 4, dict(width=256, chunks=52)),
-    (MV.ROWS, 40, 2048, 256, 4, dict(width=8, chunks=1)),
+    (MV.ROWS, 40, 2048, 256, 4, dict(width=16, chunks=1)),  # short rows
     (MV.TALL, 1, 10**6, 10, 4, dict(width=256, tiles=3907, chunks=1)),
     (MV.TALL, 3, 5, 64, 4, dict(width=64, tiles=1)),
     (MV.PACKED_STREAM, 1, 10**6, 10, 4, dict(width=255, chunks=516)),
@@ -866,7 +704,7 @@ def test_gemv_geometry_covers_the_reduction_within_the_grid(seed):
                     kind in (MV.PACKED_STREAM, MV.TALL) and p > 64 or \
                     kind == MV.PACKED_STREAM and B > 1:
                 continue
-            _, v, width, _, _, _, tiles, chunks, per = MV.geometry(
+            _, v, width, _, _, _, tiles, chunks, per, _ = MV.geometry(
                 kind, B, n, p, vec, sms=sms, itemsize=itemsize)
             assert v == vec and 1 <= width <= MV.THREADS and tiles >= 1
             assert 1 <= chunks <= MV.MAX_GRID_Y
@@ -1112,6 +950,191 @@ def test_k6_route_at_the_recurrence_s_and_the_sort_s_shapes(card_entries,
     assert (k6.launches, k6.long_t_launches) == ((0, 1) if long_t else (1, 0))
 
 
+# ---------------------------------------------------------------------------
+# K9's host plan: the STRIPS and quantized COLUMNS launches, and the load
+# width of a quantized operand, aligned or not
+# ---------------------------------------------------------------------------
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+@pytest.mark.parametrize("p,codes,scales,want", [
+    (256000, 0, 0, 16), (4096, 0, 0, 16), (16, 0, 0, 16),
+    (256000, 4, 0, 4), (256000, 8, 0, 4), (4100, 0, 0, 4), (8, 0, 0, 4),
+    (256000, 1, 0, 1), (256000, 15, 0, 1), (256000, 0, 4, 1),
+    (256000, 4, 4, 1), (31, 0, 0, 1), (1, 0, 0, 1)])
+def test_quantized_kind_and_load_width(p, codes, scales, want):
+    """A quantized matvec takes COLUMNS and a vecmat STRIPS (never ROWS);
+    16 codes a load where codes and scales are 16-byte aligned and p % 16
+    == 0, 4 where the codes are 4-byte and the scales 16-byte aligned and
+    p % 4 == 0, else one: a misaligned operand takes a narrower load."""
+    assert MV.launch_kind(MV.MATVEC, p, quantized=True) == MV.COLUMNS
+    assert MV.launch_kind(MV.VECMAT, p, quantized=True) == MV.STRIPS
+    assert MV.quant_width(p, 4096 + codes, 8192 + scales) == want
+
+
+def _strips_cover(geo, block):
+    """Every (batch, row, column) of a STRIPS launch falls in exactly one
+    block's strip and one warp's run; no strip leaves its quantization
+    block (a block's batch is blockIdx.x // tiles, so no block spans two
+    batches); the grid fits."""
+    kind, vec, width, B, n, p, tiles, chunks, per, stream = geo
+    assert stream == 0
+    assert kind == MV.STRIPS and 1 <= width <= MV.STRIP_MAX
+    spq = _cdiv(min(block, n), width)
+    assert tiles == _cdiv(n, block) * spq and B * tiles < 2**31
+    rows = []
+    for tile in range(tiles):
+        k, s = divmod(tile, spq)
+        r0 = k * block + s * width
+        r1 = min(r0 + width, (k + 1) * block, n)
+        if r0 < r1:
+            assert r0 // block == (r1 - 1) // block
+            rows.append((r0, r1))
+    assert rows[0][0] == 0 and rows[-1][1] == n
+    assert all(a[1] == b[0] for a, b in zip(rows, rows[1:]))
+    assert 1 <= chunks <= MV.MAX_GRID_Y and per % (32 * vec) == 0
+    runs = []
+    for c in range(chunks):
+        c0, c1 = c * per, min(c * per + per, p)
+        assert c0 < c1
+        step = _cdiv(_cdiv(c1 - c0, 32 * vec), MV.WARPS) * 32 * vec
+        runs += [(c0 + w * step, min(c0 + (w + 1) * step, c1))
+                 for w in range(MV.WARPS) if c0 + w * step < c1]
+    assert runs[0][0] == 0 and runs[-1][1] == p
+    assert all(a[1] == b[0] for a, b in zip(runs, runs[1:]))
+
+
+@pytest.mark.parametrize("B,n,p,block,want", [
+    (1, 2560, 256000, 64, dict(width=64, tiles=40, chunks=13)),  # unembed
+    (8, 4096, 4096, 64, dict(width=64, tiles=64, chunks=1)),
+    (1, 64, 100000, 64, dict(width=64, tiles=1, chunks=25)),
+    (3, 65, 31, 16, dict(width=16, tiles=5, chunks=1)),
+    (1, 300, 160, 512, dict(width=128, tiles=3, chunks=1)),
+])
+def test_strips_geometry_at_the_model_s_shapes(B, n, p, block, want):
+    """K9's vecmat: a strip of one quantization block's rows a block, 16
+    codes a load; the unembed's columns cut into chunks of whole warp steps
+    until the grid fills the card."""
+    vec = MV.quant_width(p, 0, 0)
+    geo = MV.geometry(MV.STRIPS, B, n, p, vec, sms=H100_SMS, block=block)
+    got = dict(zip(("kind", "vec", "width", "B", "n", "p", "tiles",
+                    "chunks", "per_chunk"), geo))
+    assert {k: got[k] for k in want} == want
+    _strips_cover(geo, block)
+    # Each block loads the scales of its chunk's columns once (one lane a
+    # column segment a step): B tiles p floats in all, which is B nb p --
+    # 41 MB at the unembed, not the B n p of a scale read per row.
+    nb = _cdiv(n, block)
+    scale_bytes = 4 * B * got["tiles"] * p
+    assert scale_bytes == 4 * B * nb * p * _cdiv(min(block, n), got["width"])
+    if block <= MV.STRIP_MAX:
+        assert scale_bytes == 4 * B * nb * p
+
+
+@pytest.mark.parametrize("B,n,p,want", [
+    (1, 2560, 256000, dict(width=32, tiles=500, chunks=1)),
+    (8, 4096, 4096, dict(width=16, tiles=16, chunks=2, per_chunk=2048)),
+])
+def test_quantized_columns_geometry_at_the_model_s_shapes(B, n, p, want):
+    """K9's matvec: 16 codes a thread a row, about half the dense form's
+    threads, and a row group's run starting at a quantization block."""
+    geo = dict(zip(("kind", "vec", "width", "B", "n", "p", "tiles",
+                    "chunks", "per_chunk"),
+                   MV.geometry(MV.COLUMNS, B, n, p, 16, sms=H100_SMS,
+                               block=64)))
+    assert {k: geo[k] for k in want} == want
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_quantized_geometry_covers_the_matrix_within_the_grid(seed):
+    """At random shapes, blocks and load widths: STRIPS covers every
+    (batch, row, column) once inside one quantization block, and COLUMNS
+    every column and row once, each row group's run starting at a
+    quantization block where the rows are chunked."""
+    rng = np.random.default_rng(seed)
+    for _ in range(60):
+        B = int(rng.choice([1, 2, 3, 8]))
+        n, p = (int(v) for v in 10 ** rng.uniform(0, 5, 2))
+        block = int(rng.choice([1, 16, 32, 64, 100, 128, 4096]))
+        sms = int(rng.choice([H100_SMS, 114, 1]))
+        vec = int(rng.choice([w for w in (1, 4, 16) if p % w == 0]))
+        _strips_cover(MV.geometry(MV.STRIPS, B, n, p, vec, sms=sms,
+                                  block=block), block)
+        _, v, width, _, _, _, tiles, chunks, per, _ = MV.geometry(
+            MV.COLUMNS, B, n, p, vec, sms=sms, block=block)
+        groups = MV.THREADS // width
+        assert width & (width - 1) == 0 and tiles * width * vec >= p
+        assert 1 <= chunks <= MV.MAX_GRID_Y
+        assert (chunks - 1) * per < n <= chunks * per
+        assert chunks == 1 or per % (groups * block) == 0
+
+
+@pytest.mark.parametrize("form", ["matvec", "vecmat"])
+@pytest.mark.parametrize("codes,scales,vec", [(0, 0, 16), (1, 0, 1),
+                                              (4, 0, 4), (15, 0, 1),
+                                              (0, 1, 1)])
+def test_misaligned_quantized_operand_takes_a_narrower_load_not_a_copy(
+        card_entries, monkeypatch, form, codes, scales, vec):
+    """A quantized operand whose codes lie 1-15 bytes or whose scales lie 4
+    bytes off their alignment reaches the kernel as it is -- its own codes
+    and scales pointers, no copy -- with the narrower load width its
+    alignment allows, counted under its kind and width."""
+    monkeypatch.setattr(MV, "sms", lambda device: H100_SMS)
+    monkeypatch.setattr(MV, "_CALLS", {})
+    monkeypatch.setattr(MV, "form_launches", {})
+    n, p, block = 100, 64, 32
+    q = t_alg.quantize(torch.randn(n, p, generator=torch.Generator()
+                                   .manual_seed(codes)), block=block)
+    vbuf = torch.zeros(n * p + 16, dtype=torch.int8)
+    sbuf = torch.zeros(q.scales.numel() + 4)
+    values = vbuf[codes:codes + n * p].view(n, p)
+    scales_ = sbuf[scales:scales + q.scales.numel()].view(q.scales.shape)
+    values.copy_(q.values)
+    scales_.copy_(q.scales)
+    assert vbuf.data_ptr() % 16 == 0 and sbuf.data_ptr() % 16 == 0
+    op = t_alg.Quantized(_on_card(values), _on_card(scales_), block, "int8")
+    x = _on_card(torch.ones(n if form == "matvec" else p))
+    wrapper = MV.matvec_quantized_cuda if form == "matvec" else \
+        MV.vecmat_quantized_cuda
+    before = wrapper.launches
+    wrapper(t_alg.TIMES, t_alg.ADD, op, x)
+    (name, args), = card_entries.calls
+    assert name == "rt_qmatvec" and wrapper.launches == before + 1
+    assert args[1] == values.data_ptr() and args[2] == scales_.data_ptr()
+    geo = tuple((ctypes.c_long * 10).from_address(args[0]))
+    kind = "columns" if form == "matvec" else "strips"
+    assert geo[:2] == ((MV.COLUMNS if form == "matvec" else MV.STRIPS), vec)
+    assert MV.form_launches == {f"{kind}/{vec}": 1}
+
+
+@pytest.mark.parametrize("form,n,stream", [
+    ("vecmat", 100, 0), ("vecmat", 300, 1), ("matvec", 300, 0)])
+def test_gemv_loads_of_a_matrix_larger_than_l2_evict_first(
+        card_entries, monkeypatch, form, n, stream):
+    """A dense vecmat's matrix larger than L2 (here a 1 MB one) is read
+    from memory on every call, so its 16-byte ROWS loads evict first (the
+    geometry's tenth long); a smaller one stays for the next call, and a
+    matvec's COLUMNS loads never evict first.  The entry reads the ten
+    longs the host planned."""
+    monkeypatch.setattr(MV, "sms", lambda device: H100_SMS)
+    monkeypatch.setattr(MV, "_CALLS", {})
+    monkeypatch.setitem(MV._L2, -1, 1 << 20)
+    A = _on_card(torch.zeros(n, 1000))
+    if form == "matvec":
+        MV.matvec_cuda(t_alg.TIMES, t_alg.ADD, A, _on_card(torch.zeros(n)))
+    else:
+        MV.vecmat_cuda(t_alg.TIMES, t_alg.ADD, A, _on_card(torch.zeros(1000)))
+    (name, args), = card_entries.calls
+    geo = tuple((ctypes.c_long * 10).from_address(args[3]))
+    kind = MV.COLUMNS if form == "matvec" else MV.ROWS
+    assert name == "rt_gemv" and geo[9] == stream
+    assert geo == MV.geometry(kind, 1, n, 1000, 4, sms=H100_SMS,
+                              stream=bool(stream))
+
+
 PAIR = t_alg.DeviceMap("pair", lambda u, v: (u, v), "return x;")
 
 
@@ -1123,7 +1146,10 @@ def test_k5_and_k4_matvec_match_pallas(n, p):
     rng = np.random.default_rng(n + p)
     A = jnp.asarray(rng.integers(-9, 10, (n, p)), jnp.int32)
     xv = jnp.asarray(rng.integers(-9, 10, (n,)), jnp.int32)
-    want = j_forge.matvec(lambda x, a: x * a, j_alg.ADD, A, xv, backend=PI)
+    # Both reference routes jitted, compiled once rather than op by op:
+    # int32 terms round nothing, and AFFINE is held within a tolerance.
+    want = jax.jit(lambda a, v: j_forge.matvec(
+        lambda x, e: x * e, j_alg.ADD, a, v, backend=PI))(A, xv)
     for got in (t_forge.matvec(t_alg.TIMES, t_alg.ADD, _t(A), _t(xv),
                                backend="cuda"),
                 matvec_k.matvec_packed_cuda(t_alg.TIMES, t_alg.ADD, _t(A),
@@ -1131,8 +1157,8 @@ def test_k5_and_k4_matvec_match_pallas(n, p):
         np.testing.assert_array_equal(_np(got), np.asarray(want))
     Af = jnp.asarray(rng.uniform(0.9, 1.1, (n, p)), jnp.float32)
     xf = jnp.asarray(rng.uniform(-0.1, 0.1, (n,)), jnp.float32)
-    wa, wb = j_forge.matvec(lambda x, a: (x, a), j_alg.AFFINE, Af, xf,
-                            backend="xla")
+    wa, wb = jax.jit(lambda a, v: j_forge.matvec(
+        lambda x, e: (x, e), j_alg.AFFINE, a, v, backend="xla"))(Af, xf)
     for backend in ("torch", "cuda"):
         ga, gb = t_forge.matvec(PAIR, t_alg.AFFINE, _t(Af), _t(xf),
                                 backend=backend)

@@ -43,7 +43,18 @@ Six phases, any failure exits non-zero:
    / 2,049: one block in one launch, or the multi-block form; K7s a tile
    of 2,048 and one more: the single-tile form, or the three-phase one),
    with the form each call took; their public calls are timed beside
-   them; and the "[host]" line gives the host microseconds of each stage
+   them.  K7m at every launch kind (LANES, BLOCK, SPLIT) and load width
+   (16, 8, 4 bytes and one element a load): int32 ADD and MAX bit-exact,
+   f32, the masked pair and UnitFloat8 within 1e-5 of each row's sum of
+   |values|, at B = 1, n = 1, odd n, leaves 4-8 bytes off their alignment
+   and split rows of 4 to 256 chunks; each call's kind and width by the
+   wrapper's counter against the host's rule; a split f32 sum the same
+   bits on 20 calls; the served call one allocation; the split rule
+   against every chunk count at eleven f32 rows (K7M_SWEEP: device µs
+   and each count's sums); then its six rows
+   (K7M_ROWS: the served scores, the reference's bench row, few long rows,
+   many short rows, MAX, UnitFloat8 codes) timed beside their bound and
+   library call.  The "[host]" line gives the host microseconds of each stage
    of one K3 call at (4,) and one K7s call at (4, 64), in the wrappers'
    earlier form and now.  Every GEMV form (K4's short, chunked and
    row-wide forms, the tall-narrow vecmat, K5's flat stream) is held
@@ -103,6 +114,11 @@ Six phases, any failure exits non-zero:
    positions, the same checks, K10 in all 46 layers of every prefill, the
    peak device memory, and the same profile.
 
+Each serve summary holds its token streams' digest ("streams"), and each
+profile the device ms under the decode step's aten ops ("ops_ms":
+clone, _to_copy, index_put_, einsum, bmm, mm, ...), so two trees' runs
+compare.
+
 The line before the card line holds {"kernels": [...]}.  A kernel's
 "launches" are those of the path its slice made the main one, named by
 "launches_path": the primitives path for K1-K9, as before, and gemma2's
@@ -110,7 +126,9 @@ serving path for K10, which the primitives path does not run.  Beside them
 stand the launches on every path (primitives, greedy, sampled, gemma2) and
 their sum, "launches_total"; K3's and K7s's rows add their small
 form's launches per path ("launches_small", "launches_single-tile") and
-the public call's time at the same shape ("public_ms").  The last line is
+the public call's time at the same shape ("public_ms"); K7m's its
+launches by kind and width per path ("launches_kinds") and its timed
+rows ("rows").  The last line is
 {"ok": true, "device":
 {...}}.  The script imports nothing of JAX or of the JAX package.
 """
@@ -119,6 +137,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import gc
+import hashlib
 import json
 import math
 import os
@@ -257,14 +276,17 @@ def reset_counts() -> None:
     for obj, attr in (*COUNTERS.values(), *FORMS.values()):
         setattr(obj, attr, 0)
     matvec_k.form_launches.clear()
+    batched_k.form_launches.clear()
 
 
 def read_counts() -> dict:
-    """Every counter: the kernels', their small forms', and the GEMV
-    launches by kind and load width ("GEMV columns/4", "GEMV tall/1")."""
+    """Every counter: the kernels', their small forms', and the GEMV and
+    K7m launches by kind and load width ("GEMV columns/4", "GEMV tall/1",
+    "K7m lanes/4")."""
     return {**{k: getattr(obj, attr)
                for k, (obj, attr) in (*COUNTERS.items(), *FORMS.items())},
-            **{f"GEMV {k}": v for k, v in matvec_k.form_launches.items()}}
+            **{f"GEMV {k}": v for k, v in matvec_k.form_launches.items()},
+            **{f"K7m {k}": v for k, v in batched_k.form_launches.items()}}
 
 
 class CheckFailed(Exception):
@@ -418,6 +440,8 @@ def path_units() -> list:
                                    quant=quant)[0])
 
     mapped("mapreduce", alg.IDENTITY, alg.MAX, i32)
+    mapped("mapreduce", alg.IDENTITY, alg.ADD, i32)
+    mapped("mapreduce", alg.IDENTITY, alg.MAX, f32)
     mapped("mapreduce", alg.IDENTITY, alg.ADD, f32)
     mapped("mapreduce", alg.masked_select, alg.ADD, f32, i32)
     mapped("mapreduce", alg.unitfloat8_decode, alg.ADD, u8)
@@ -491,6 +515,253 @@ def phase_build() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# K7m's rows: the served call and five device-bound shapes, timed beside
+# their bound and library call
+# ---------------------------------------------------------------------------
+
+# (label, (B, n), what): "masked" is the engine's per-slot scores (f32 and
+# an int32 mask), "uf8" UnitFloat8 codes decoded to f32 and summed.
+K7M_ROWS = (
+    ("served", (BATCH, CACHE_LEN), "masked"),
+    ("reference bench", (64, 16384), "add"),
+    ("few long rows", (8, 1 << 24), "add"),
+    ("many short rows", (1 << 18, 256), "add"),
+    ("MAX", (4096, 65536), "max"),
+    ("1-byte codes", (16384, 16384), "uf8"),
+)
+
+
+def k7m_operands(gen, B: int, n: int, what: str):
+    """(map, operator, leaves, library call) of one K7m row."""
+    dev = "cuda"
+    if what == "masked":
+        logp = -torch.rand(B, n, generator=gen, device=dev) * 12
+        emitted = torch.randint(0, n + 1, (B,), generator=gen, device=dev)
+        mask = (torch.arange(n, device=dev)[None] < emitted[:, None]).int()
+        return alg.masked_select(0.0), alg.ADD, (logp, mask), \
+            lambda: torch.sum(torch.where(mask != 0, logp, 0.0), dim=1)
+    if what == "uf8":
+        u = torch.randint(0, 256, (B, n), generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.uint8)
+        return alg.unitfloat8_decode, alg.ADD, u, \
+            lambda: torch.sum(alg.unitfloat8_decode(u), dim=1)
+    x = torch.randn(B, n, generator=gen, device=dev)
+    if what == "max":
+        return alg.IDENTITY, alg.MAX, x, lambda: torch.amax(x, dim=1)
+    return alg.IDENTITY, alg.ADD, x, lambda: torch.sum(x, dim=1)
+
+
+def k7m_row(gen, label: str, B: int, n: int, what: str) -> dict:
+    """One K7m row: the wrapper and its library call in turns (CUDA events,
+    median of 7 rounds), each one's device ms a call (torch.profiler), the
+    plain version, the bound (each leaf read once, the (B,) f32 result
+    written once) and its launch kind and width."""
+    f, op, xs, library = k7m_operands(gen, B, n, what)
+    leaves = torch.utils._pytree.tree_leaves(xs)
+    nbytes = sum(l.nbytes for l in leaves) + 4 * B
+    ops = B * n * {"add": 1, "max": 1, "masked": 2, "uf8": 3}[what]
+    fn = lambda: batched_k.batched_mapreduce_cuda(f, op, xs)  # noqa: E731
+    before = dict(batched_k.form_launches)
+    fn()
+    form = [k for k, v in batched_k.form_launches.items()
+            if v != before.get(k, 0)]
+    big = nbytes > 1 << 24
+    row = {"row": label, "shape": f"({B}, {n}) {what}", "bytes": nbytes,
+           **time_turns({"ms": fn, "library_ms": library},
+                        reps=20 if big else 200),
+           "device_ms": call_device_ms(fn),
+           "library_device_ms": call_device_ms(library),
+           "plain_ms": time_ms(lambda: batched_k.batched_mapreduce_plain(
+               f, op, xs), 3 if big else 20),
+           "bound": bound_ms(nbytes, ops), "form": form}
+    row["x_bound"] = (row["device_ms"] or math.nan) / row["bound"][0]
+    row["x_library"] = row["ms"] / row["library_ms"]
+    log(f"[K7m] {json.dumps(row)}")
+    return row
+
+
+# check_k7m's cases: (B, n, what, leaf offset in elements, kind/width the
+# host's rule gives).  "i32" / "i32max": int32 ADD / MAX, bit-exact; "f32",
+# "masked", "uf8": within 1e-5 of each row's sum of |values|.  A leaf 1 or
+# 2 f32 elements past its 16-byte boundary takes 4- or 8-byte loads.
+K7M_CASES = (
+    (8, 64, "i32", 0, "lanes/4"), (8, 64, "i32max", 0, "lanes/4"),
+    (8, 64, "masked", 0, "lanes/4"), (1 << 12, 256, "f32", 0, "lanes/4"),
+    (3, 257, "i32", 0, "lanes/1"), (3, 257, "f32", 0, "lanes/1"),
+    (5, 1, "i32max", 0, "lanes/1"), (1, 1, "f32", 0, "lanes/1"),
+    (1, 1, "masked", 0, "lanes/1"), (3, 257, "masked", 0, "lanes/1"),
+    (7, 130, "f32", 0, "lanes/2"), (64, 512, "uf8", 0, "lanes/16"),
+    (1, 400, "i32", 1, "lanes/1"), (9, 1000, "i32max", 2, "lanes/2"),
+    (1, 2048, "i32", 1, "block/1"),
+    (BATCH, CACHE_LEN, "masked", 0, "block/4"),
+    (600, 4096, "i32", 0, "block/4"), (600, 4096, "i32max", 0, "block/4"),
+    (300, 16384, "uf8", 0, "block/16"), (530, 4100, "masked", 1, "block/1"),
+    (200, 24576, "i32", 0, "block/4"),
+    (2, 4 * (5 * 8192 + 3), "i32", 0, "split/4"),
+    (2, 4 * (5 * 8192 + 3), "i32max", 0, "split/4"),
+    (5, 4 * (7 * 8192 + 5), "i32", 0, "split/4"),
+    (8, 1 << 20, "f32", 0, "split/4"), (1, 1 << 20, "i32", 0, "split/4"),
+    (8, 1 << 22, "i32", 0, "split/4"), (1, 1 << 23, "i32", 0, "split/4"),
+    (2, 100001, "f32", 0, "split/1"), (3, 1 << 16, "i32", 1, "split/1"),
+    (4, 1 << 20, "uf8", 0, "split/16"), (6, 1 << 16, "masked", 2,
+                                          "split/2"),
+)
+
+
+def k7m_case(gen, B: int, n: int, what: str, offset: int):
+    """(map, operator, leaves, per-row bound) of a check_k7m case; the
+    leaves start ``offset`` elements past a 16-byte boundary."""
+    dev = "cuda"
+
+    def placed(t):
+        if not offset:
+            return t
+        buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)
+        out = buf[offset:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    if what in ("i32", "i32max"):
+        x = placed(torch.randint(-2**31, 2**31 - 1, (B, n), generator=gen,
+                                 device=dev, dtype=torch.int32))
+        return alg.IDENTITY, alg.ADD if what == "i32" else alg.MAX, x, None
+    if what == "uf8":
+        u = placed(torch.randint(0, 256, (B, n), generator=gen, device=dev,
+                                 dtype=torch.int32).to(torch.uint8))
+        return alg.unitfloat8_decode, alg.ADD, u, \
+            alg.unitfloat8_decode(u).abs().sum(1)
+    v = placed(torch.randn(B, n, generator=gen, device=dev))
+    if what == "f32":
+        return alg.IDENTITY, alg.ADD, v, v.abs().sum(1)
+    mask = placed((torch.rand(B, n, generator=gen, device=dev) > 0.3).int())
+    return alg.masked_select(0.0), alg.ADD, (v, mask), \
+        (v.abs() * mask).sum(1)
+
+
+def check_k7m_forms(gen, note) -> None:
+    """K7m, every launch kind and load width against its plain version
+    (K7M_CASES: B = 1, n = 1, odd n, leaves off their alignment, split rows
+    of 4, 5, 7, 8, 12, 32, 66 and 256 chunks, a last chunk shorter than the
+    others), each call one launch of the kind and width the host's rule
+    gives, a split launch leaving the stream's counters at 0; a split f32
+    sum the same bits on every call (its chunks fold in order); the served
+    call allocates its output and nothing else."""
+    k7m = batched_k.batched_mapreduce_cuda
+    for B, n, what, offset, form in K7M_CASES:
+        f, op, xs, scale = k7m_case(gen, B, n, what, offset)
+        before = dict(batched_k.form_launches)
+        got = one_launch("K7m", lambda: k7m(f, op, xs))
+        ran = [k for k, v in batched_k.form_launches.items()
+               if v != before.get(k, 0)]
+        want = batched_k.batched_mapreduce_plain(f, op, xs)
+        err = max_err(got, want)
+        note("K7m", err)
+        if scale is None:
+            ok, bound = torch.equal(got, want), "bit-exact"
+        else:
+            ok = bool(((got - want).abs() <= 1e-5 * scale).all())
+            bound = "within 1e-5 x each row's sum|v|"
+        if form.startswith("split"):
+            # Each row's last block set its counter back to 0.
+            counters = _lib.workspace(got, _lib.stream_ptr(got), 0, 0).counters
+            ok = ok and int(counters.count_nonzero()) == 0
+            bound += ", the stream's counters 0 at rest"
+        expect(ok and ran == [form] and got.shape == (B,),
+               f"K7m {what} ({B}, {n}), offset {offset}: {ran} "
+               f"(want {form}), max abs err {err:.3g}, {bound}")
+    f, op, xs, _ = k7m_case(gen, 8, 1 << 20, "f32", 0)
+    first = k7m(f, op, xs)
+    expect(all(torch.equal(k7m(f, op, xs), first) for _ in range(20)),
+           "K7m f32 (8, 1048576), 32 chunks a row: 20 more calls give the "
+           "same bits")
+    f, op, xs, _ = k7m_case(gen, BATCH, CACHE_LEN, "masked", 0)
+    k7m(f, op, xs)
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+    k7m(f, op, xs)
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - allocs
+    expect(allocs == 1, f"K7m served ({BATCH}, {CACHE_LEN}) masked call: "
+                        f"{allocs} allocation (its output)")
+
+
+# The split rule's sweep (kernels/batched.py: SPLIT_LOADS, SPLIT_MIN): f32
+# ADD rows around the rule's edges, each cut into every count of
+# SWEEP_CHUNKS that gives a thread a load or more and the grid at most 8
+# blocks a multiprocessor, and into the rule's own count.
+K7M_SWEEP = ((64, 16384), (64, 131072), (64, 262144), (16, 65536),
+             (16, 262144), (8, 1 << 20), (4, 1 << 20), (1, 65536),
+             (1, 1 << 20), (1, 1 << 22), (200, 98304))
+SWEEP_CHUNKS = (1, 2, 3, 4, 6, 8, 16, 32, 66, 132, 264, 528)
+
+
+def k7m_sweep(gen, note) -> None:
+    """Device µs a call (torch.profiler) of each K7M_SWEEP row at each
+    chunk count, the call's planned geometry replaced by a hand-made one;
+    each count's sums within 1e-5 of each row's sum|v|.  Prints one
+    ``[K7m sweep]`` line a row: the rule's count, the fastest count and
+    every count's µs."""
+    k7m = batched_k.batched_mapreduce_cuda
+    blocks = 8 * matvec_k.sms(0)
+    for B, n in K7M_SWEEP:
+        x = torch.randn(B, n, generator=gen, device="cuda")
+        want, scale = batched_k.batched_mapreduce_plain(
+            alg.IDENTITY, alg.ADD, x), x.abs().sum(1)
+        batched_k._ROWS_CALLS.clear()
+        k7m(alg.IDENTITY, alg.ADD, x)
+        call, = batched_k._ROWS_CALLS.values()
+        planned, planned_bytes = call.geo, call.partial_bytes
+        vec, rule = planned[1], planned[5]
+        loads = n // vec
+        counts = sorted({c for c in SWEEP_CHUNKS
+                         if c <= max(1, loads // batched_k.ROWS_THREADS)
+                         and B * c <= blocks} | {rule})
+        us = {}
+        for c in counts:
+            per = -(-loads // c)
+            c = -(-loads // per)
+            call.geo_array[:] = (batched_k.SPLIT if c > 1 else
+                                 batched_k.BLOCK, vec, batched_k.ROWS_THREADS,
+                                 B, n, c, per)
+            call.partial_bytes = 4 * B * c if c > 1 else 0
+            got = k7m(alg.IDENTITY, alg.ADD, x)
+            note("K7m", max_err(got, want))
+            expect(bool(((got - want).abs() <= 1e-5 * scale).all()),
+                   f"K7m sweep ({B}, {n}) f32 ADD, {c} chunks a row: within "
+                   f"1e-5 x each row's sum|v|")
+            ms = call_device_ms(lambda: k7m(alg.IDENTITY, alg.ADD, x))
+            us[c] = ms * 1e3 if ms else None
+        call.geo_array[:], call.partial_bytes = planned, planned_bytes
+        seen = {c: t for c, t in us.items() if t is not None}
+        best = min(seen, key=seen.get) if seen else None
+        log("[K7m sweep] " + json.dumps({
+            "B": B, "n": n, "MB": x.nbytes / 1e6, "rule": rule, "best": best,
+            "rule_over_best": us[rule] / us[best] if us[rule] and best
+            else None, "us": us}))
+
+
+def check_k7m(res, gen, note) -> None:
+    """K7m's forms (check_k7m_forms), the split rule's sweep (k7m_sweep),
+    then K7M_ROWS timed (k7m_row); the served row is the kernels line's,
+    the others ride with it."""
+    check_k7m_forms(gen, note)
+    k7m_sweep(gen, note)
+    rows = [k7m_row(gen, label, *shape, what)
+            for label, shape, what in K7M_ROWS]
+    served = rows[0]
+    res["K7m"].update({k: served[k] for k in (
+        "ms", "library_ms", "plain_ms", "bound", "device_ms", "shape")})
+    res["K7m"]["rows"] = [{k: r[k] for k in (
+        "row", "shape", "ms", "device_ms", "library_ms", "library_device_ms",
+        "x_bound", "x_library", "form")} | {"bound_ms": r["bound"][0]}
+        for r in rows]
+
+
+def streams_digest(outs) -> str:
+    """A short hash of a serve run's token streams, to compare two trees'."""
+    return hashlib.sha256(json.dumps(outs).encode()).hexdigest()[:16]
+
+
+# ---------------------------------------------------------------------------
 # Phase 2: every kernel against its plain version on the card
 # ---------------------------------------------------------------------------
 
@@ -561,36 +832,7 @@ def phase_kernels(gen: torch.Generator) -> dict:
             alg.IDENTITY, alg.MAX, big), 3),
         "bound_ms": bound_ms(4 * (1 << 24), 1 << 24)[0]}
 
-    # -- K7m: batched masked mapreduce (per-slot sequence scores).  f32 sums
-    # in another order: held at 1e-5 relative to the row's sum of |values|.
-    masked = alg.masked_select(0.0)
-
-    def scores(B, n):
-        logp = -torch.rand(B, n, generator=gen, device=dev) * 12
-        emitted = torch.randint(0, n + 1, (B,), generator=gen, device=dev)
-        mask = (torch.arange(n, device=dev)[None] < emitted[:, None]).int()
-        return logp, mask
-
-    for B, n in ((8, 64), (BATCH, CACHE_LEN), (1, 1), (3, 257)):
-        lp, mask = scores(B, n)
-        got = batched_k.batched_mapreduce_cuda(masked, alg.ADD, (lp, mask))
-        want = batched_k.batched_mapreduce_plain(masked, alg.ADD, (lp, mask))
-        err = max_err(got, want)
-        note("K7m", err)
-        scale = max(float(lp.abs().sum(1).max()), 1.0)
-        expect(err <= 1e-5 * scale, f"K7m masked ADD f32 ({B},{n}): max abs "
-                                    f"err {err:.3g} <= 1e-5 x {scale:.3g}")
-    lp, mask = scores(BATCH, CACHE_LEN)
-    res["K7m"].update(time_turns({
-        "ms": lambda: batched_k.batched_mapreduce_cuda(masked, alg.ADD,
-                                                       (lp, mask)),
-        "library_ms": lambda: torch.sum(torch.where(mask != 0, lp, 0.0),
-                                        dim=1)}))
-    res["K7m"]["plain_ms"] = time_ms(lambda: batched_k.batched_mapreduce_plain(
-        masked, alg.ADD, (lp, mask)))
-    res["K7m"]["bound"] = bound_ms(8 * BATCH * CACHE_LEN + 4 * BATCH,
-                                   BATCH * CACHE_LEN)
-    res["K7m"]["shape"] = f"({BATCH}, {CACHE_LEN}) f32 masked ADD"
+    check_k7m(res, gen, note)
     check_k6_long(res, gen, note)
     check_k4(res, gen, note)
     check_gemv_forms(gen, note)
@@ -607,7 +849,8 @@ def phase_kernels(gen: torch.Generator) -> dict:
             f"{r['bound'][0]:.6f} ms ({r['bound'][1]}); " + json.dumps(
                 {x: v for x, v in r.items() if x in (
                     "large", "modes", "dense_mv_ms", "dense_bmm_ms",
-                    "shapes", "public_ms", "device_ms", "public_ratio")}))
+                    "shapes", "public_ms", "device_ms", "public_ratio",
+                    "library_device_ms", "library_innermost_ms", "rows")}))
     return res
 
 
@@ -638,6 +881,22 @@ def launch_ms(fn) -> float | None:
         if ops:
             return ms / ops
     return None
+
+
+def call_device_ms(fn) -> float | None:
+    """Device milliseconds a call of ``fn``: its kernels' mean time
+    (torch.profiler, 20 calls a window) times the kernels a call launches,
+    from the window that saw the most of them (at most three windows, the
+    first that saw a whole number a call ends it: the profiler drops events
+    at a window's edge).  None if no window saw any."""
+    ms, ops = 0.0, 0.0
+    for _ in range(3):
+        w_ms, w_ops = device_ms(fn, 20)
+        if w_ops > ops:
+            ms, ops = w_ms, w_ops
+        if ops >= 1 and float(ops).is_integer():
+            break
+    return ms / ops * max(1, round(ops)) if ops else None
 
 
 def one_launch(k: str, fn):
@@ -878,6 +1137,17 @@ def check_k6_long(res, gen, note) -> None:
                                                 dtype=torch.int32), 10),
         bound=bound_ms(2 * 4 * N_SORT * 256, N_SORT * 256),
         shape=f"(1, {N_SORT}, 256) int32 ADD exclusive (plain at T = 65536)")
+    # torch.cumsum along dim 1 of (1, T, 256) walks each of the 256 columns
+    # in one thread; the same scan over the innermost axis of the
+    # transposed tensor (its copy not timed) is the library's fast layout.
+    ohT = oh.transpose(1, 2).contiguous()
+    ms, kernels = device_ms(lambda: torch.cumsum(oh, dim=1,
+                                                 dtype=torch.int32), 2)
+    res["K6-long"].update(
+        library_device_ms=ms / kernels if kernels else None,   # one a call
+        library_innermost_ms=time_ms(lambda: torch.cumsum(
+            ohT, dim=2, dtype=torch.int32), 10))
+    del ohT
 
 
 def check_k4(res, gen, note) -> None:
@@ -2789,6 +3059,7 @@ def phase_serve(cfg, params, prompts, path=GREEDY_PATH,
         "launches": launches,
         "memory": memory,
         "profile": profile,
+        "streams": streams_digest(outs),
     }
     log(f"[{tag}] " + json.dumps(summary))
     return summary
@@ -2915,6 +3186,7 @@ def phase_sampled(cfg, params, prompts) -> dict:
         "serve_s": wall, "decode_tok_per_s": stats["decode_tok_per_s"],
         "decode_steps": stats["decode_steps"],
         "distinct_tokens": len({t for o in outs for t in o}),
+        "streams": streams_digest(outs),
         "launches": launches,
         "launches_per_request": {k: n / len(reqs)
                                  for k, n in launches.items()},
@@ -2926,6 +3198,13 @@ def phase_sampled(cfg, params, prompts) -> dict:
     }
     log("[sampled] " + json.dumps(summary))
     return summary
+
+
+# The aten ops of a decode step whose device time profile_device reports:
+# the cache clones, the upcasts, the slot writes, einsum and its products.
+SPLIT_OPS = ("aten::clone", "aten::_to_copy", "aten::copy_", "aten::index_put_",
+             "aten::einsum", "aten::bmm", "aten::mm", "aten::matmul",
+             "aten::softmax", "aten::where", "aten::tanh")
 
 
 def profile_device(label: str, fn, units: int) -> dict:
@@ -2959,6 +3238,14 @@ def profile_device(label: str, fn, units: int) -> dict:
         m = re.search(r"\brt::(\w+)::", name)
         if m:
             port[m.group(1)] += ms / units
+    # Device ms under each aten op, its children included (so einsum holds
+    # its bmm and its own copies; copy_ runs under clone and _to_copy too).
+    by_op = {}
+    for e in prof.key_averages():
+        if e.key in SPLIT_OPS:
+            us = getattr(e, "device_time_total", None)
+            by_op[e.key] = (us if us is not None else e.cuda_time_total) \
+                / 1e3 / units
     out = {"measured": True, "units": units,
            "wall_ms_profiled": wall_ms / units,
            "device_ms": busy_ms / units,
@@ -2967,7 +3254,7 @@ def profile_device(label: str, fn, units: int) -> dict:
                         if "scan_channel_tiles" in name) / units,
            "device_idle_share": 1.0 - busy_ms / wall_ms,
            "device_ops": ops / units, "memsets": memsets / units,
-           "port_kernels_ms": dict(port),
+           "port_kernels_ms": dict(port), "ops_ms": by_op,
            "top": [[name[:60], ms / units]
                    for name, ms in by_name.most_common(8)]}
     log(f"[profile {label}] " + json.dumps(out))
@@ -3076,11 +3363,15 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
             "shape": r["shape"]})
-        for extra in ("public_ms", "paper_worst", "device_ms"):
+        for extra in ("public_ms", "paper_worst", "device_ms", "rows"):
             if extra in r:   # the public call at the same shape; the worst
                 kernels[-1][extra] = r[extra]    # Table V/VI row's ratio;
                 # the kernel alone (torch.profiler) where the host's launch
-                # takes longer
+                # takes longer; K7m's timed rows
+        if k == "K7m":                  # its launches by kind, per path
+            kernels[-1]["launches_kinds"] = {
+                path: {x.split()[1]: v for x, v in p["launches"].items()
+                       if x.startswith("K7m ")} for path, p in paths.items()}
         for form in FORMS:              # the small form's share, per path
             if form.startswith(f"{k} "):
                 kernels[-1]["launches_" + form.split()[1]] = {

@@ -7,7 +7,10 @@
 //   struct E {                        // one element: leaves v0 .. v(k-1)
 //     using T0 = float; ...           // leaf types: float, double, int,
 //     T0 v0; ...                      //   unsigned char, signed char
+//     static constexpr int LEAVES, WIDEST, BYTES[LEAVES];  // leaf sizes
 //     static E load(const rt::Leaves&, long i);
+//     template <int W>                // W elements a leaf, one load each
+//     static void load_vec(const rt::Leaves&, long i, E (&e)[W]);
 //     void store(const rt::Leaves&, long i) const;  // skips null leaves
 //     static E shfl_up(E, int d);  static E shfl_down(E, int d, int width);
 //     static E shfl_xor(E, int m);
@@ -221,6 +224,20 @@ __device__ E load_cg(const E* p) {
     for (unsigned w = 0; w < sizeof(E); ++w) dst[w] = __ldcg(src + w);
   }
   return v;
+}
+
+// W adjacent elements of one leaf, read in one load of W sizeof(T) bytes
+// (at most 16, the address a multiple of that): the generated elements'
+// load_vec, K7m's loads.
+template <typename T, int W>
+struct alignas(sizeof(T) * W) LeafVec {
+  T v[W];
+};
+
+template <typename T, int W>
+__device__ __forceinline__ LeafVec<T, W> load_leaf(const void* p, long i) {
+  static_assert(sizeof(T) * W <= 16, "a load holds at most 16 bytes");
+  return *reinterpret_cast<const LeafVec<T, W>*>(static_cast<const T*>(p) + i);
 }
 
 // ---------------------------------------------------------------------------

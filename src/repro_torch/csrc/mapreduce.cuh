@@ -7,7 +7,8 @@
 // _mapreduce_kernel), which folds tiles into a VMEM accumulator along the
 // TPU's sequential grid and collapses it on the last step.
 // K7m replaces: src/repro/kernels/batched.py::batched_mapreduce_pallas (the
-// mapreduce body with the batch on a parallel grid axis).
+// mapreduce body over a (B, cdiv(n, block)) grid, the batch axis parallel
+// and the tile axis sequential).
 //
 // Bound on this card: memory, one read of every input leaf element (1 byte
 // per element for UnitFloat8) and one write of the result.  K3: a
@@ -20,14 +21,34 @@
 // (one block's THREADS x ITEMS_PER_THREAD, the serving path's (B,) flags):
 // one block reduces and stores the result, one launch with no memset, no
 // ticket and no partials; at these sizes the host's launch, not the device,
-// takes the time.  K7m: one block per row, the same block reduction; rows
-// are independent, so no cross-block completion (K3's small form is its
-// kernel with one row).
-// Commutative operators only, as the reference asserts (mapreduce.py:89):
-// blocks and lanes finish in any order.
+// takes the time.
+//
+// K7m: the host plans each launch (kernels/batched.py: rows_geometry) from
+// (B, n, the leaves' widths and alignment, the card's SM count) and passes
+// it in, seven longs; every call is one launch.  A thread reads VEC
+// adjacent elements of every leaf a load -- VEC x its size bytes, 16 for
+// four f32 or sixteen UnitFloat8 codes -- where n % VEC == 0 and each leaf
+// is aligned to its load (else a narrower load: nothing is copied), four
+// loads in flight.  Three kinds:
+//   LANES (short rows, up to 512 loads): a group of 4-32 lanes a row and
+//     256 / lanes rows a block; the group folds by shuffles, with no
+//     shared memory and no barrier, and its first lane stores the row.
+//   BLOCK (B alone fills the card): a block a row, its threads striding
+//     the row, a block reduction, thread 0 stores.
+//   SPLIT (B below the card's block target, long rows): each row cut into
+//     `chunks` chunks over grid y.  Each block writes its partial to the
+//     stream's workspace, fences, and takes a ticket from its row's
+//     counter; the block that draws the last folds the row's partials in
+//     chunk order (warp 0, through L2) and sets the counter back to 0 for
+//     the next launch on the stream.  No memset, no second launch.
+// Every fold is in a fixed order, so an f32 sum is the same from run to
+// run.  A thread's loads stride the row, so K7m is registered for
+// commutative operators only, as the reference asserts (mapreduce.py:89).
 #pragma once
 
 #include "common.cuh"
+
+#include <cstring>
 
 namespace rt {
 namespace mapreduce {
@@ -73,18 +94,18 @@ flat_kernel(Leaves x, long n, typename Op::E* partials, unsigned* ticket,
   if (threadIdx.x == 0) v.store(out, 0);
 }
 
+// K3's small form: one block folds all n elements.
 template <typename Map, typename Op>
 __global__ void __launch_bounds__(THREADS)
-rows_kernel(Leaves x, long n, Leaves out) {
+small_kernel(Leaves x, long n, Leaves out) {
   using E = typename Op::E;
   using In = typename Map::In;
   __shared__ E warp_smem[THREADS / 32];
-  const long row = static_cast<long>(blockIdx.x) * n;
   E acc = Op::identity();
   for (long i = threadIdx.x; i < n; i += THREADS)
-    acc = Op::combine(acc, Map::apply(In::load(x, row + i)));
+    acc = Op::combine(acc, Map::apply(In::load(x, i)));
   acc = block_reduce_commutative<Op, THREADS>(acc, warp_smem);
-  if (threadIdx.x == 0) acc.store(out, blockIdx.x);
+  if (threadIdx.x == 0) acc.store(out, 0);
 }
 
 // K3.  `partials` holds grid_for(n) elements of Op::E; `ticket` is one
@@ -113,21 +134,183 @@ cudaError_t small(Leaves x, long n, Leaves out, cudaStream_t stream) {
     return cudaErrorInvalidValue;
   } else {
     if (n <= 0 || n > SMALL) return cudaErrorInvalidValue;
-    rows_kernel<Map, Op><<<1, THREADS, 0, stream>>>(x, n, out);
+    small_kernel<Map, Op><<<1, THREADS, 0, stream>>>(x, n, out);
     return cudaGetLastError();
   }
 }
 
-// K7m.
+// ---------------------------------------------------------------------------
+// K7m
+// ---------------------------------------------------------------------------
+
+enum RowsKind { LANES = 0, BLOCK = 1, SPLIT = 2 };
+constexpr long MAX_GRID_X = 2147483647;
+constexpr long MAX_GRID_Y = 65535;
+
+// The launch the host planned (kernels/batched.py: rows_geometry), seven
+// longs.  vec: elements a load; lanes: LANES's lanes a row (THREADS for
+// BLOCK and SPLIT); chunks, per_chunk: a row's chunks and the loads of one
+// (LANES and BLOCK: one chunk of the whole row).
+struct RowsGeometry {
+  long kind, vec, lanes, B, n, chunks, per_chunk;
+};
+
+// Fold loads w, w + stride, ... < end of the row starting at element
+// `base` (load w holds elements base + w W .. + W - 1 of every leaf) into
+// acc, U loads in flight a thread, each folded in element order.
+template <typename Map, typename Op, int W>
+__device__ __forceinline__ void fold_loads(const Leaves& x, long base, long w,
+                                           long end, long stride,
+                                           typename Op::E& acc) {
+  using In = typename Map::In;
+  constexpr int U = 4;
+  for (; w + (U - 1) * stride < end; w += U * stride) {
+    In e[U][W];
+#pragma unroll
+    for (int k = 0; k < U; ++k)
+      In::template load_vec<W>(x, base + (w + k * stride) * W, e[k]);
+#pragma unroll
+    for (int k = 0; k < U; ++k)
+#pragma unroll
+      for (int u = 0; u < W; ++u) acc = Op::combine(acc, Map::apply(e[k][u]));
+  }
+  for (; w < end; w += stride) {
+    In e[W];
+    In::template load_vec<W>(x, base + w * W, e);
+#pragma unroll
+    for (int u = 0; u < W; ++u) acc = Op::combine(acc, Map::apply(e[u]));
+  }
+}
+
+// LANES: `lanes` threads a row, 256 / lanes rows a block.
+template <typename Map, typename Op, int W>
+__global__ void __launch_bounds__(THREADS)
+rows_lanes(Leaves x, RowsGeometry g, Leaves out) {
+  using E = typename Op::E;
+  const int lanes = static_cast<int>(g.lanes);
+  const long row =
+      static_cast<long>(blockIdx.x) * (THREADS / lanes) + threadIdx.x / lanes;
+  const int lane = threadIdx.x & (lanes - 1);
+  E acc = Op::identity();
+  if (row < g.B) fold_loads<Map, Op, W>(x, row * g.n, lane, g.n / W, lanes, acc);
+  // Every lane of the warp takes part, a row past B with the identity.
+  for (int d = lanes / 2; d > 0; d >>= 1)
+    acc = Op::combine(acc, E::shfl_down(acc, d, lanes));
+  if (lane == 0 && row < g.B) acc.store(out, row);
+}
+
+// Warp 0 of a SPLIT row's last block: the row's K partials in chunk order
+// -- lane l a run of them in order, then the lanes in lane order (lane 0
+// ends holding lanes 0 .. 31) -- read through L2, never a stale L1 line.
+template <typename Op>
+__device__ __forceinline__ typename Op::E fold_in_order(
+    const typename Op::E* p, long K) {
+  using E = typename Op::E;
+  const long lane = threadIdx.x & 31;
+  const long len = (K + 31) / 32;
+  const long k1 = (lane + 1) * len < K ? (lane + 1) * len : K;
+  E v = Op::identity();
+  for (long k = lane * len; k < k1; ++k) v = Op::combine(v, load_cg(p + k));
+  for (int d = 1; d < 32; d <<= 1) v = Op::combine(v, E::shfl_down(v, d, 32));
+  return v;
+}
+
+// BLOCK and SPLIT: block (row, chunk) folds the chunk's loads; `partials`
+// holds B chunks elements of Op::E (row-major), `counters` B zero words,
+// both read only when chunks > 1.
+template <typename Map, typename Op, int W>
+__global__ void __launch_bounds__(THREADS)
+rows_blocks(Leaves x, RowsGeometry g, typename Op::E* partials,
+            unsigned* counters, Leaves out) {
+  using E = typename Op::E;
+  __shared__ E warp_smem[THREADS / 32];
+  __shared__ bool last;
+  const long row = blockIdx.x;
+  const long loads = g.n / W;
+  const long c0 = static_cast<long>(blockIdx.y) * g.per_chunk;
+  const long c1 = c0 + g.per_chunk < loads ? c0 + g.per_chunk : loads;
+  E acc = Op::identity();
+  fold_loads<Map, Op, W>(x, row * g.n, c0 + threadIdx.x, c1, THREADS, acc);
+  acc = block_reduce_commutative<Op, THREADS>(acc, warp_smem);
+  if (g.chunks == 1) {
+    if (threadIdx.x == 0) acc.store(out, row);
+    return;
+  }
+  E* part = partials + row * g.chunks;
+  if (threadIdx.x == 0) {
+    part[blockIdx.y] = acc;
+    __threadfence();  // publish the partial before taking a ticket
+    const unsigned ticket = atomicAdd(counters + row, 1u);
+    last = ticket == g.chunks - 1;
+    if (last) counters[row] = 0;
+  }
+  __syncthreads();
+  if (!last || threadIdx.x >= 32) return;
+  __threadfence();
+  acc = fold_in_order<Op>(part, g.chunks);
+  if (threadIdx.x == 0) acc.store(out, row);
+}
+
+template <typename Map, typename Op, int W>
+cudaError_t launch_rows(const Leaves& x, const RowsGeometry& g,
+                        void* counters, void* partials, const Leaves& out,
+                        cudaStream_t stream) {
+  using In = typename Map::In;
+  using E = typename Op::E;
+  if constexpr (W * In::WIDEST > 16) {
+    return cudaErrorInvalidValue;          // a load holds at most 16 bytes
+  } else {
+    for (int k = 0; k < In::LEAVES; ++k)
+      if (reinterpret_cast<unsigned long>(x.p[k]) % (W * In::BYTES[k]))
+        return cudaErrorInvalidValue;
+    const long loads = g.n / W;
+    if (g.kind == LANES) {
+      if (g.lanes < 4 || g.lanes > 32 || (g.lanes & (g.lanes - 1)) ||
+          g.chunks != 1)
+        return cudaErrorInvalidValue;
+      const long per_block = THREADS / g.lanes;
+      const long grid = (g.B + per_block - 1) / per_block;
+      if (grid > MAX_GRID_X) return cudaErrorInvalidValue;
+      rows_lanes<Map, Op, W><<<static_cast<unsigned>(grid), THREADS, 0,
+                               stream>>>(x, g, out);
+    } else {
+      if (g.lanes != THREADS || g.B > MAX_GRID_X || g.chunks > MAX_GRID_Y ||
+          g.per_chunk <= 0 || (g.chunks - 1) * g.per_chunk >= loads ||
+          g.chunks * g.per_chunk < loads ||
+          (g.kind == BLOCK) != (g.chunks == 1) ||
+          (g.chunks > 1 && (counters == nullptr || partials == nullptr)))
+        return cudaErrorInvalidValue;
+      rows_blocks<Map, Op, W>
+          <<<dim3(static_cast<unsigned>(g.B), static_cast<unsigned>(g.chunks)),
+             THREADS, 0, stream>>>(x, g, static_cast<E*>(partials),
+                                   static_cast<unsigned*>(counters), out);
+    }
+    return cudaGetLastError();
+  }
+}
+
+// K7m: `geo` points at the seven longs of a RowsGeometry; `counters` (B
+// zero words) and `partials` (B chunks elements of Op::E) are the stream's
+// workspace, read only when chunks > 1.
 template <typename Map, typename Op>
-cudaError_t rows(Leaves x, long B, long n, Leaves out, cudaStream_t stream) {
+cudaError_t rows(const Leaves& x, const Leaves& out, const void* geo,
+                 void* counters, void* partials, cudaStream_t stream) {
   if constexpr (!Op::COMMUTATIVE) {
     return cudaErrorInvalidValue;
   } else {
-    if (B <= 0 || n <= 0 || B > 2147483647L) return cudaErrorInvalidValue;
-    rows_kernel<Map, Op><<<static_cast<unsigned>(B), THREADS, 0, stream>>>(
-        x, n, out);
-    return cudaGetLastError();
+    RowsGeometry g;
+    std::memcpy(&g, geo, sizeof g);
+    if (g.B <= 0 || g.n <= 0 || g.vec <= 0 || g.n % g.vec ||
+        (g.kind != LANES && g.kind != BLOCK && g.kind != SPLIT))
+      return cudaErrorInvalidValue;
+    switch (g.vec) {
+      case 1: return launch_rows<Map, Op, 1>(x, g, counters, partials, out, stream);
+      case 2: return launch_rows<Map, Op, 2>(x, g, counters, partials, out, stream);
+      case 4: return launch_rows<Map, Op, 4>(x, g, counters, partials, out, stream);
+      case 8: return launch_rows<Map, Op, 8>(x, g, counters, partials, out, stream);
+      case 16: return launch_rows<Map, Op, 16>(x, g, counters, partials, out, stream);
+      default: return cudaErrorInvalidValue;
+    }
   }
 }
 

@@ -122,7 +122,8 @@ int rt_segscan(void* const* x, void* const* y, long n, int inclusive,
         "rt_tile": (_I, []),
         "rt_segscan": (_I, [_PP, _PP, _L, _I, _P, _P]),
     }),
-    # K3 (flat: the small form and the multi-block one) and K7m (rows).
+    # K3 (flat: the small form and the multi-block one) and K7m (rows of
+    # (B, n): one entry for every kind of launch).
     "mapreduce": Family("mapreduce.cuh", f"""
 long rt_mapreduce_small_max() {{ return rt::mapreduce::SMALL; }}
 long rt_mapreduce_flat_grid(long n) {{ return rt::mapreduce::grid_for(n); }}
@@ -131,19 +132,22 @@ int rt_mapreduce_flat(void* const* x, long n, void* partials, void* ticket,
   return rt::mapreduce::flat<Map, Op>(rt::leaves(x), n, partials, ticket,
                                       rt::leaves(out), {_ST});
 }}
-int rt_mapreduce_rows(void* const* x, long B, long n, void* const* out,
-                      void* stream) {{
-  return rt::mapreduce::rows<Map, Op>(rt::leaves(x), B, n, rt::leaves(out),
-                                      {_ST});
-}}""", {
+""", {
         "rt_mapreduce_small_max": (_L, []),
         "rt_mapreduce_flat_grid": (_L, [_L]),
         "rt_mapreduce_flat": (_I, [_PP, _L, _P, _P, _PP, _P]),
-        "rt_mapreduce_rows": (_I, [_PP, _L, _L, _PP, _P]),
     }, {
         "rt_mapreduce_small": LeafEntry(
             "long n, void* stream", [_L, _P],
             f"rt::mapreduce::small<Map, Op>(x, n, y, {_ST})"),
+        # K7m: every launch kind, its geometry planned by the host
+        # (kernels/batched.py: rows_geometry); counters and partials are
+        # the stream's workspace.
+        "rt_mapreduce_rows": LeafEntry(
+            "const void* geo, void* counters, void* partials, void* stream",
+            [_P, _P, _P, _P],
+            "rt::mapreduce::rows<Map, Op>(x, y, geo, counters, partials, "
+            f"{_ST})"),
     }, "rt_mapreduce_small_max"),
     # K4, K5 and K7 over B dense (n, p) matrices (B = 1: flat): one entry for
     # every kind of launch, its geometry planned by the host
@@ -249,12 +253,24 @@ class _Gen:
         self.parts.append(
             f"struct {name} {{\n{types}"
             f"  static constexpr int LEAVES = {len(dtypes)};\n"
+            f"  static constexpr int WIDEST = "
+            f"{max(d.itemsize for d in dtypes)};\n"
+            f"  static constexpr int BYTES[LEAVES] = "
+            f"{{{', '.join(str(d.itemsize) for d in dtypes)}}};\n"
             + "".join(f"  T{i} v{i};\n" for i in k)
             + f"  __device__ static {name} load(const rt::Leaves& p, long i) {{\n"
             f"    {name} e;\n"
             + "".join(f"    e.v{i} = static_cast<const T{i}*>(p.p[{i}])[i];\n"
                       for i in k)
             + "    return e;\n  }\n"
+            "  template <int W>\n"
+            f"  __device__ static void load_vec(const rt::Leaves& p, long i, "
+            f"{name} (&e)[W]) {{\n"
+            + "".join(f"    {{\n      const auto w = rt::load_leaf<T{i}, W>"
+                      f"(p.p[{i}], i);\n#pragma unroll\n"
+                      f"      for (int u = 0; u < W; ++u) e[u].v{i} = w.v[u];"
+                      f"\n    }}\n" for i in k)
+            + "  }\n"
             "  __device__ void store(const rt::Leaves& p, long i) const {\n"
             + "".join(f"    if (p.p[{i}]) static_cast<T{i}*>(p.p[{i}])[i] = "
                       f"v{i};\n" for i in k)

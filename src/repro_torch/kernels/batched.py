@@ -10,8 +10,13 @@ forms, each with its plain version (``csrc/scan.cuh``,
   ``f(x)`` over ``(B, n)`` leaves -> ``(B,)``, one launch for the whole
   batch (replaces ``batched_mapreduce_pallas``).  ``f`` is a
   :class:`~repro_torch.core.operators.DeviceMap`, run inside the kernel.
-  Plain version: :func:`batched_mapreduce_plain`.  It refuses operators
-  that do not commute; the registry reroutes those through K7s.
+  The host plans the launch (:func:`rows_width`, :func:`rows_geometry`):
+  LANES for short rows (4-32 lanes a row, folded by shuffles), BLOCK (a
+  block a row) where B fills the card, SPLIT (rows cut into chunks whose
+  partials the last block of a row folds in chunk order) where it does
+  not; 16-byte loads where the leaves allow them.  Plain version:
+  :func:`batched_mapreduce_plain`.  It refuses operators that do not
+  commute; the registry reroutes those through K7s.
 * :func:`batched_matvec_cuda` / :func:`batched_vecmat_cuda` -- K7's GEMVs,
   ``y[b, j] = op_i f(x[b, i], A[b, i, j])`` and ``z[b, i] = op_j f(A[b, i,
   j], x[b, j])`` over ``(B, n, p)`` matrices, one launch for the whole
@@ -28,13 +33,15 @@ forms, each with its plain version (``csrc/scan.cuh``,
 Given CPU tensors a wrapper runs the plain version; given CUDA tensors it
 launches the kernel or raises.  ``launches`` counts each wrapper's calls
 that launched its kernel (K7s above one tile per row issues three CUDA
-launches per call).
+launches per call); ``form_launches`` counts K7m's launches by kind and
+load width (``"lanes/4"``, ``"split/1"``, ...).
 K7s's rows of at most one tile (the sampling path's (4, 64) nucleus scan)
 take its single-tile form: one launch, one allocation (the output), the
 pointers as scalar arguments, counted again in ``single_tile_launches``.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Any
 
 import torch
@@ -95,32 +102,142 @@ def batched_mapreduce_plain(f, op, xs: Pytree) -> Pytree:
     return ref.ref_fold(op, f(xs), axis=1)
 
 
+# K7m's kinds of launch (csrc/mapreduce.cuh: RowsKind) and its host plan.
+LANES, BLOCK, SPLIT = 0, 1, 2
+ROWS_KIND_NAMES = ("lanes", "block", "split")
+ROWS_THREADS = 256            # a block (csrc/mapreduce.cuh: THREADS)
+LANE_LOADS = 4                # loads a lane takes before a row takes more lanes
+LANES_MAX = 32                # lanes a row, at most, under LANES
+LANES_ROW_MAX = 512           # LANES takes rows of at most this many loads
+# A split row's chunks hold SPLIT_LOADS loads a thread or more, and a row is
+# cut into SPLIT_MIN chunks or none: below either a chunk's ticket and the
+# fold cost more than the chunk saves (chip_smoke.py's k7m_sweep on the
+# H100; its table and the rows where the rule is off the best are in
+# PERF.md).
+SPLIT_LOADS = 32
+SPLIT_MIN = 4
+MAX_GRID_X = 2**31 - 1
+
+
+def rows_width(n: int, leaf_bytes, addresses) -> int:
+    """Elements a load of a K7m row: the widest of 16, 8, 4, 2, 1 whose
+    load of the widest leaf holds at most 16 bytes, that divides n (so
+    every row starts aligned) and at whose load size every leaf's
+    ``addresses`` is aligned.  A misaligned or odd-length leaf takes a
+    narrower load; nothing is copied."""
+    w = 16 // max(leaf_bytes)
+    while w > 1 and (n % w or any(a % (w * b)
+                                  for a, b in zip(addresses, leaf_bytes))):
+        w //= 2
+    return w
+
+
+def rows_geometry(B: int, n: int, vec: int, *, sms: int) -> tuple[int, ...]:
+    """K7m's launch over ``B`` rows of ``n`` elements, ``vec`` a load, on a
+    card of ``sms`` multiprocessors: the seven longs of ``csrc/
+    mapreduce.cuh``'s ``RowsGeometry`` -- (kind, vec, lanes, B, n, chunks,
+    per_chunk), per_chunk in loads.
+
+    * LANES, a row of at most LANES_ROW_MAX loads: a power of two of 4 to
+      32 lanes a row, LANE_LOADS loads a lane or more.
+    * BLOCK, a longer row: a block a row, where B alone fills the card or
+      the rows are too short to cut.
+    * SPLIT: rows cut into chunks, a block each, until the grid has
+      ``matvec.BLOCKS_PER_SM`` blocks a multiprocessor (the GEMVs'
+      target), each thread SPLIT_LOADS loads of its chunk or more, and
+      SPLIT_MIN chunks a row or more.
+    """
+    loads = n // vec
+    if loads <= LANES_ROW_MAX:
+        lanes = min(LANES_MAX, max(4, 1 << (max(1, loads // LANE_LOADS)
+                                            .bit_length() - 1)))
+        return (LANES, vec, lanes, B, n, 1, loads)
+    chunks = min(max(1, -(-matvec_k.BLOCKS_PER_SM * sms // B)),
+                 max(1, loads // (ROWS_THREADS * SPLIT_LOADS)),
+                 matvec_k.MAX_GRID_Y)
+    per = -(-loads // chunks)
+    chunks = -(-loads // per)
+    if chunks < SPLIT_MIN:
+        chunks, per = 1, loads
+    return (SPLIT if chunks > 1 else BLOCK, vec, ROWS_THREADS, B, n, chunks,
+            per)
+
+
+class _RowsCall:
+    """A K7m launch of one (plan, shape, leaf alignment, device), resolved
+    once: its geometry (and the address of the ctypes array C reads it
+    from), its name for the counters, a one-element template of a
+    single-leaf output, and the workspace it needs."""
+
+    __slots__ = ("geo", "geo_array", "geo_ptr", "name", "template",
+                 "partial_bytes")
+
+
+_ROWS_CALLS: dict[tuple, _RowsCall] = {}
+_GEO_ARRAY = ctypes.c_long * 7
+form_launches: dict[str, int] = {}
+
+
+def _rows_call(key, plan, leaves) -> _RowsCall:
+    x = leaves[0]
+    B, n = x.shape
+    vec = rows_width(n, [l.element_size() for l in leaves],
+                     [l.data_ptr() for l in leaves])
+    c = _RowsCall()
+    c.geo = rows_geometry(B, n, vec, sms=matvec_k.sms(x.get_device()))
+    c.geo_array = _GEO_ARRAY(*c.geo)
+    c.geo_ptr = ctypes.addressof(c.geo_array)
+    c.name = f"{ROWS_KIND_NAMES[c.geo[0]]}/{vec}"
+    c.template = x.new_empty(1, dtype=plan.out_dtypes[0]).expand(B) \
+        if len(plan.out_dtypes) == 1 else None
+    c.partial_bytes = B * c.geo[5] * plan.elem_bytes if c.geo[5] > 1 else 0
+    if len(_ROWS_CALLS) >= matvec_k.MAX_CALLS:
+        _ROWS_CALLS.clear()
+    _ROWS_CALLS[key] = c
+    return c
+
+
 def batched_mapreduce_cuda(f, op, xs: Pytree) -> Pytree:
-    """K7m: per-row op-reduce of ``f(x)`` over ``(B, n)`` leaves, B, n >= 1."""
-    leaves = pytree.tree_leaves(xs)
-    if not leaves[0].is_cuda:
+    """K7m: per-row op-reduce of ``f(x)`` over ``(B, n)`` leaves, B, n >= 1:
+    one launch of the kind the host plans (:func:`rows_geometry`), one
+    allocation (the outputs)."""
+    leaves = (xs,) if isinstance(xs, torch.Tensor) else xs if \
+        _lib._sig(xs) is not None else pytree.tree_leaves(xs)
+    x = leaves[0]
+    if not x.is_cuda:
         return batched_mapreduce_plain(f, op, xs)
     what = "mapreduce@batched (cuda)"
     if not op.commutative:
         raise NotImplementedError(
-            f"{what}: the kernel folds rows in no fixed order, so it takes "
-            f"commutative operators only, got {op.name!r}")
-    unit, out_dtypes, out_spec = _lib.map_unit("mapreduce", what, f, op, xs)
-    shape = leaves[0].shape
-    if any(l.shape != shape for l in leaves) or len(shape) != 2 \
-            or 0 in shape:
+            f"{what}: the kernel folds a row's elements across threads, so "
+            f"it takes commutative operators only, got {op.name!r}")
+    plan = _lib.plan("mapreduce", what, op, xs, f)
+    shape = x.shape
+    if len(shape) != 2 or 0 in shape or any(l.shape != shape
+                                            for l in leaves[1:]):
         raise ValueError(f"{what}: takes non-empty (B, n) leaves of one "
                          f"shape, got {[tuple(l.shape) for l in leaves]}")
+    if shape[0] > MAX_GRID_X:
+        raise ValueError(f"{what}: B = {shape[0]} exceeds the grid's "
+                         f"{MAX_GRID_X} rows")
     _lib.require_cuda(what, *leaves)
-    lib = _lib.load(unit)
-    B, n = shape
-    outs = [torch.empty((B,), dtype=d, device=leaves[0].device)
-            for d in out_dtypes]
-    _lib.check(lib.rt_mapreduce_rows(
-        _lib.leaf_ptrs(leaves), B, n, _lib.leaf_ptrs(outs),
-        _lib.stream_ptr(leaves[0])), what)
+    key = (plan, shape, tuple(l.data_ptr() % 16 for l in leaves),
+           x.get_device())
+    call = _ROWS_CALLS.get(key) or _rows_call(key, plan, leaves)
+    lib = plan.lib or plan.load()
+    outs = [torch.empty_like(call.template)] if call.template is not None \
+        else _lib.outputs(x, plan.out_dtypes, shape[:1])
+    stream = _lib.stream_ptr(x)
+    counters = partials = None
+    if call.partial_bytes:
+        w = _lib.workspace(x, stream, shape[0], call.partial_bytes)
+        counters, partials = w.counters.data_ptr(), w.partials.data_ptr()
+    _lib.check(lib.rt_mapreduce_rows(*_lib.ptrs(leaves), *_lib.ptrs(outs),
+                                     call.geo_ptr, counters, partials,
+                                     stream), what)
     batched_mapreduce_cuda.launches += 1
-    return pytree.tree_unflatten(outs, out_spec)
+    form_launches[call.name] = form_launches.get(call.name, 0) + 1
+    return plan.outputs(outs)
 
 
 batched_mapreduce_cuda.launches = 0

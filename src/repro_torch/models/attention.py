@@ -187,7 +187,11 @@ def init_gqa_cache(cfg, batch, cache_len, is_local, dtype, device):
 def gqa_decode(params, cfg, x, cache, pos, *, is_local):
     """One-token decode.  x: (B,1,D); pos: (B,) per-slot positions
     (continuous batching: every row sits at its own depth in its own cache
-    slot).  Returns (y, new_cache); the input cache is left as it was."""
+    slot).  Returns (y, cache): this step's k and v are written into slot
+    ``pos % L`` of ``cache``'s own tensors in place, as the reference's
+    ``.at[bidx, slot].set`` is under jit (the engine owns the cache; a copy
+    of every layer's cache a step would only cost memory and bandwidth),
+    and the same tensors come back."""
     if pos.ndim != 1:
         raise ValueError(f"gqa_decode takes a (B,) position vector, got "
                          f"shape {tuple(pos.shape)}")
@@ -207,12 +211,11 @@ def gqa_decode(params, cfg, x, cache, pos, *, is_local):
     else:
         key_valid = slot_idx <= qpos
     bidx = torch.arange(B, device=x.device)
-    kc = cache["k"].clone()
-    vc = cache["v"].clone()
+    kc, vc = cache["k"], cache["v"]
     kc[bidx, slot] = k[:, 0].to(kc.dtype)
     vc[bidx, slot] = v[:, 0].to(vc.dtype)
     out = decode_attention(q, kc, vc, key_valid=key_valid,
                            softcap=cfg.attn_softcap)
     out = out.reshape(B, 1, H, hd)
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dtype))
-    return y, {"k": kc, "v": vc}
+    return y, cache

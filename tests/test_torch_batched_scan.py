@@ -9,8 +9,9 @@ the CPU the port's kernel wrappers run their plain versions, so these tests
 hold the plain versions (the oracles the card's kernels are held against
 in ``chip_smoke.py``) and the route layer to the reference.
 
-Tolerances: integer scans are bit-exact; the masked float32 sums are held
-at rtol = 1e-5, atol = 1e-3, the batched scan of probability rows (whose
+Tolerances: integer scans and reductions are bit-exact; the masked
+float32 sums are held at rtol = 1e-5, atol = 1e-3, UnitFloat8 and f32 sums
+at rtol = atol = 1e-5, the batched scan of probability rows (whose
 prefixes stay below 1) at atol = 1e-6, AFFINE at rtol = atol = 1e-5.
 """
 
@@ -50,7 +51,7 @@ def _np(x):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("B,n", [(2, 64), (3, 5), (1, 300)])
+@pytest.mark.parametrize("B,n", [(2, 64), (3, 5), (1, 300), (2, 1)])
 def test_k7m_masked_batched_add_matches_pallas(B, n):
     rng = np.random.default_rng(B * 1000 + n)
     logp = make_operand("add", rng, (B, n))
@@ -68,6 +69,36 @@ def test_k7m_masked_batched_add_matches_pallas(B, n):
         assert got.shape == (B,) and got.dtype == torch.float32
         np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5,
                                    atol=1e-3)
+
+
+@pytest.mark.parametrize("what,B,n", [
+    ("add", 3, 5), ("add", 2, 1), ("max", 4, 7), ("max", 1, 300),
+    ("uf8", 3, 37), ("uf8", 2, 1), ("f32", 3, 9)])
+def test_k7m_batched_mapreduce_matches_pallas(what, B, n):
+    """int32 ADD / MAX (bit-exact), UnitFloat8 codes decoded to f32 and
+    f32 ADD (rtol = atol = 1e-5), at n = 1 and n not a multiple of any
+    load width: the plain version and the wrapper's CPU route against the
+    reference's Pallas kernel on the same numpy inputs."""
+    rng = np.random.default_rng(B * 100 + n)
+    if what == "uf8":
+        x = rng.integers(0, 256, (B, n)).astype(np.uint8)
+        jf, tf, jop, top = (j_alg.unitfloat8_decode, t_alg.unitfloat8_decode,
+                            j_alg.ADD, t_alg.ADD)
+    else:
+        x = rng.integers(-1000, 1000, (B, n)).astype(
+            np.float32 if what == "f32" else np.int32)
+        jf, tf = (lambda v: v), t_alg.IDENTITY
+        jop, top = (j_alg.MAX, t_alg.MAX) if what == "max" else \
+            (j_alg.ADD, t_alg.ADD)
+    want = np.asarray(j_forge.mapreduce(jf, jop, jnp.asarray(x),
+                                        layout=JBatched(), backend=PI))
+    for got in (batched_k.batched_mapreduce_plain(tf, top, _t(x)),
+                batched_k.batched_mapreduce_cuda(tf, top, _t(x))):
+        assert got.shape == (B,) and _np(got).dtype == want.dtype
+        if what in ("add", "max"):
+            np.testing.assert_array_equal(_np(got), want)
+        else:
+            np.testing.assert_allclose(_np(got), want, **F32_TOL)
 
 
 # ---------------------------------------------------------------------------

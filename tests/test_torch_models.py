@@ -200,9 +200,14 @@ def test_gqa_forward_and_decode_match_reference(name, j, is_local, S):
         x1 = _x((2, 1, cfg_j.d_model), 10 + step)
         y_j, c_j = j_decode(blk_j["attn"], jnp.asarray(x1), c_j,
                             jnp.asarray(pos + step))
+        k_in, v_in = c_t["k"], c_t["v"]
+        ptrs = (k_in.data_ptr(), v_in.data_ptr())
         y_t, c_t = TA.gqa_decode(blk_t["attn"], cfg_t, torch.from_numpy(x1),
                                  c_t, torch.from_numpy(pos + step),
                                  is_local=is_local)
+        # The slot is written in place: the step returns the input tensors.
+        assert c_t["k"] is k_in and c_t["v"] is v_in
+        assert (c_t["k"].data_ptr(), c_t["v"].data_ptr()) == ptrs
         _close(y_t, y_j, what=f"gqa_decode step {step}")
         for key in ("k", "v"):
             _close(c_t[key], c_j[key], what=f"gqa_decode cache {key}")

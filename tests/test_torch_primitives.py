@@ -863,6 +863,9 @@ class _Entries:
     def rt_scan_channel_chunk(self):
         return 64
 
+    def rt_mapreduce_small_max(self):
+        return 2048
+
     def __getattr__(self, name):
         if not name.startswith("rt_"):
             raise AttributeError(name)
@@ -1133,6 +1136,157 @@ def test_gemv_loads_of_a_matrix_larger_than_l2_evict_first(
     assert name == "rt_gemv" and geo[9] == stream
     assert geo == MV.geometry(kind, 1, n, 1000, 4, sms=H100_SMS,
                               stream=bool(stream))
+
+
+# ---------------------------------------------------------------------------
+# K7m's host plan: the launch kind, the load width by alignment, the chunks
+# ---------------------------------------------------------------------------
+
+BK = batched_k
+
+
+@pytest.mark.parametrize("B,n,vec,sms,want", [
+    # The served scores: a block a row, too short to cut.
+    (4, 4096, 4, H100_SMS, (BK.BLOCK, 256, 1)),
+    (64, 16384, 4, H100_SMS, (BK.BLOCK, 256, 1)),      # the reference bench
+    (64, 1 << 16, 4, H100_SMS, (BK.BLOCK, 256, 1)),    # two chunks: too few
+    (64, 1 << 17, 4, H100_SMS, (BK.SPLIT, 256, 4)),
+    (8, 1 << 20, 4, H100_SMS, (BK.SPLIT, 256, 32)),    # 32 loads a thread
+    (8, 1 << 24, 4, H100_SMS, (BK.SPLIT, 256, 66)),    # few long rows
+    (1 << 18, 256, 4, H100_SMS, (BK.LANES, 16, 1)),    # many short rows
+    (4096, 65536, 4, H100_SMS, (BK.BLOCK, 256, 1)),    # B fills the card
+    (16384, 16384, 16, H100_SMS, (BK.BLOCK, 256, 1)),  # UnitFloat8 codes
+    (200, 24576, 4, H100_SMS, (BK.BLOCK, 256, 1)),     # rows too short
+    (2, 4 * (5 * 8192 + 3), 4, H100_SMS, (BK.SPLIT, 256, 5)),
+    (8, 1 << 24, 4, 114, (BK.SPLIT, 256, 57)),         # another card
+    (8, 64, 4, H100_SMS, (BK.LANES, 4, 1)),
+    (1, 1, 1, H100_SMS, (BK.LANES, 4, 1)),
+    (3, 257, 1, H100_SMS, (BK.LANES, 32, 1)),
+    (5, 512, 1, H100_SMS, (BK.LANES, 32, 1)),
+    (5, 513, 1, H100_SMS, (BK.BLOCK, 256, 1)),
+])
+def test_k7m_launch_kind_and_chunks(B, n, vec, sms, want):
+    """Which launch a (B, n) takes: LANES for rows of at most 512 loads
+    (4-32 lanes, four loads a lane or more), a block a row above, its rows
+    cut into chunks while the grid has fewer than four blocks a
+    multiprocessor and each thread keeps 32 loads of its chunk -- into four
+    chunks or more, or none."""
+    kind, v, lanes, gB, gn, chunks, per = BK.rows_geometry(B, n, vec, sms=sms)
+    assert (kind, lanes, chunks) == want and (v, gB, gn) == (vec, B, n)
+    assert (chunks - 1) * per < n // vec <= chunks * per
+
+
+@pytest.mark.parametrize("n,leaf_bytes,offsets,want", [
+    (4096, [4, 4], [0, 0], 4),          # the served pair: 16-byte loads
+    (4096, [4, 4], [4, 0], 1),          # values 4 bytes off: one a load
+    (4096, [4, 4], [0, 8], 2),          # the mask 8 bytes off
+    (4098, [4], [0], 2),                # n % 4 == 2
+    (257, [4], [0], 1),                 # odd n
+    (1, [4], [0], 1),
+    (16384, [1], [0], 16),              # UnitFloat8: 16 codes a load
+    (16384, [1], [4], 4),
+    (16388, [1], [0], 4),
+    (4096, [8], [0], 2),                # f64: two a load
+    (4096, [4, 1], [0, 4], 4),          # f32 beside 1-byte flags
+])
+def test_k7m_load_width_by_alignment(n, leaf_bytes, offsets, want):
+    """Elements a load: 16 bytes of the widest leaf where n and every
+    leaf's alignment allow it, else the widest narrower load that fits --
+    a misaligned or odd-length leaf is read as it lies, never copied."""
+    assert BK.rows_width(n, leaf_bytes, [4096 + o for o in offsets]) == want
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_k7m_geometry_covers_each_row_within_the_grid(seed):
+    """At random shapes every kind covers each row's loads once, in
+    chunks within the grid's limits, and only a row cut in two or more
+    chunks is SPLIT."""
+    rng = np.random.default_rng(seed)
+    for _ in range(300):
+        B = int(10 ** rng.uniform(0, 6))
+        vec = int(rng.choice([1, 2, 4, 16]))
+        n = vec * max(1, int(10 ** rng.uniform(0, 7)) // vec)
+        sms = int(rng.choice([H100_SMS, 114, 1]))
+        kind, _, lanes, _, _, chunks, per = BK.rows_geometry(B, n, vec,
+                                                             sms=sms)
+        loads = n // vec
+        assert (chunks - 1) * per < loads <= chunks * per
+        assert 1 <= chunks <= MV.MAX_GRID_Y
+        if kind == BK.LANES:
+            assert loads <= BK.LANES_ROW_MAX and chunks == 1
+            assert lanes in (4, 8, 16, 32)
+        else:
+            assert lanes == BK.ROWS_THREADS and loads > BK.LANES_ROW_MAX
+            assert (kind == BK.SPLIT) == (chunks > 1)
+            assert chunks == 1 or per >= BK.ROWS_THREADS * BK.SPLIT_LOADS
+            assert chunks == 1 or chunks >= BK.SPLIT_MIN
+
+
+@pytest.fixture
+def k7m_calls(card_entries, monkeypatch):
+    monkeypatch.setattr(MV, "sms", lambda device: H100_SMS)
+    monkeypatch.setattr(BK, "_ROWS_CALLS", {})
+    monkeypatch.setattr(BK, "form_launches", {})
+    monkeypatch.setattr(BK.batched_mapreduce_cuda, "launches", 0)
+    return card_entries
+
+
+def _geo(address):
+    return tuple((ctypes.c_long * 7).from_address(address))
+
+
+def test_k7m_served_call_is_one_entry_through_a_plan(k7m_calls):
+    """The engine's (4, 4096) masked scores: one entry call, its leaves'
+    and output's pointers as scalars, the plan and launch found again on
+    the second call (one library loaded, one launch kept), no workspace."""
+    lib = k7m_calls
+    v = _on_card(torch.zeros(4, 4096))
+    m = _on_card(torch.ones(4, 4096, dtype=torch.int32))
+    masked = t_alg.masked_select(0.0)
+    outs = [BK.batched_mapreduce_cuda(masked, t_alg.ADD, (v, m))
+            for _ in range(2)]
+    assert [c[0] for c in lib.calls] == ["rt_mapreduce_rows"] * 2
+    assert len(lib.loaded) == 1 and len(BK._ROWS_CALLS) == 1
+    for (_, args), out in zip(lib.calls, outs):
+        assert out.shape == (4,) and out.dtype == torch.float32
+        assert args[:3] == (v.data_ptr(), m.data_ptr(), out.data_ptr())
+        assert _geo(args[3]) == BK.rows_geometry(4, 4096, 4, sms=H100_SMS)
+        assert args[4:] == (None, None, 7)
+    assert BK.form_launches == {"block/4": 2}
+    assert BK.batched_mapreduce_cuda.launches == 2 and _lib._WORKSPACES == {}
+
+
+def test_k7m_split_call_takes_the_stream_s_workspace(k7m_calls):
+    """A SPLIT launch gets a zero counter a row and B chunks partials of
+    the output element from the stream's workspace."""
+    lib = k7m_calls
+    x = _on_card(torch.zeros(2, 1 << 18, dtype=torch.int32))
+    BK.batched_mapreduce_cuda(t_alg.IDENTITY, t_alg.ADD, x)
+    (name, args), = lib.calls
+    geo = _geo(args[2])
+    assert geo[0] == BK.SPLIT and geo[5] == 8
+    w = _lib.workspace(x, 7, 1, 0)
+    assert args[3:] == (w.counters.data_ptr(), w.partials.data_ptr(), 7)
+    assert int(w.counters[:2].count_nonzero()) == 0
+    assert w.partials.numel() >= 2 * 8 * 4
+    assert BK.form_launches == {"split/4": 1}
+
+
+@pytest.mark.parametrize("offset,vec", [(0, 4), (1, 1), (2, 2), (3, 1)])
+def test_k7m_misaligned_leaf_takes_a_narrower_load_not_a_copy(
+        k7m_calls, offset, vec):
+    """A leaf 4, 8 or 12 bytes past its 16-byte boundary reaches the kernel
+    as it lies -- its own pointer, no copy -- with the narrower load its
+    alignment allows, counted under its kind and width."""
+    buf = torch.zeros(3 * 4096 + 4)
+    assert buf.data_ptr() % 16 == 0
+    x = _on_card(buf[offset:offset + 3 * 4096].view(3, 4096))
+    BK.batched_mapreduce_cuda(t_alg.IDENTITY, t_alg.MAX, x)
+    (name, args), = k7m_calls.calls
+    geo = _geo(args[2])
+    assert args[0] == x.data_ptr() and geo[1] == vec
+    assert geo == BK.rows_geometry(3, 4096, vec, sms=H100_SMS)
+    assert BK.form_launches == {f"{BK.ROWS_KIND_NAMES[geo[0]]}/{vec}": 1}
 
 
 PAIR = t_alg.DeviceMap("pair", lambda u, v: (u, v), "return x;")

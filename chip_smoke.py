@@ -2,14 +2,15 @@
 
     python3 chip_smoke.py
 
-Six phases, any failure exits non-zero:
+Seven phases, any failure exits non-zero:
 
 1. build -- generate the translation units of every kernel, operator, map
    and dtype combination the run's paths use (kernels/_lib.py, from each
    operator's and map's device form) and compile them with nvcc, one
    process per unit, all started together; print the time and each unit's
-   registers and spills, and check that K10's bf16 units hold HGMMA in
-   their SASS and spill nothing.
+   registers and spills (and, for the AFFINE and MAXPLUS_AFFINE f32 units
+   that xlstm-1.3b's K6 calls build, each K6 kernel's), and check that
+   K10's bf16 units hold HGMMA in their SASS and spill nothing.
 2. kernels -- hold each kernel of the serving paths (K2 flat scan, K6
    channel scan's channel-tile route and its long-T path, K3 flat
    mapreduce, K7m batched
@@ -38,7 +39,11 @@ Six phases, any failure exits non-zero:
    to 2^24 on each side of both tile sizes, and the same call 1,000 times
    on one stream.  K6's channel-tile route at the RG-LRU's shapes: int32
    AFFINE bit-exact, f32 AFFINE within 1e-5 x max|h| of a float64 walk,
-   device ms by torch.profiler beside the bound.  K3 and K7s are
+   device ms by torch.profiler beside the bound; and at xlstm-1.3b's
+   shapes: the mLSTM's chunk states, (1, 33, 4,194,304) and (1, 33, 4096)
+   f32 AFFINE, on the same route and bound, and its stabilizer, (1, 2112,
+   4) and (1, 1024, 4) f32 MAXPLUS_AFFINE on the long-T path, both leaves
+   within 1e-5 of their size of a float64 walk.  K3 and K7s are
    held on both sides of their small forms' limits (K3 n = 2,047 / 2,048
    / 2,049: one block in one launch, or the multi-block form; K7s a tile
    of 2,048 and one more: the single-tile form, or the three-phase one),
@@ -113,6 +118,15 @@ Six phases, any failure exits non-zero:
    Engine.generate as in phase 4: 8 greedy requests on 4 slots of 4,096
    positions, the same checks, K10 in all 46 layers of every prefill, the
    peak device memory, and the same profile.
+7. serve xlstm-1.3b -- gemma2's tensors freed, xlstm-1.3b at full width
+   (48 layers: 42 mLSTM with 4 heads of dh 1024, 6 sLSTM; d_model 2048,
+   vocab 50304; 1,907,394,896 parameters, bf16 weights from a seed) as in
+   phase 4: the same 8 greedy requests on 4 slots, the cuda backend's
+   prefill logits against the torch backend's at 17, 1,024 and 2,100
+   tokens within 2e-2 of max|logit|, every kernel of its path launched (K2,
+   K3, K6 for the chunk states, K6-long for the stabilizer, K7m), the
+   same profile (with K6-long's share of the prefill), and the host
+   seconds of the sLSTM's loop over time in a 1,024-token prefill.
 
 Each serve summary holds its token streams' digest ("streams"), and each
 profile the device ms under the decode step's aten ops ("ops_ms":
@@ -123,9 +137,10 @@ The line before the card line holds {"kernels": [...]}.  A kernel's
 "launches" are those of the path its slice made the main one, named by
 "launches_path": the primitives path for K1-K9, as before, and gemma2's
 serving path for K10, which the primitives path does not run.  Beside them
-stand the launches on every path (primitives, greedy, sampled, gemma2) and
-their sum, "launches_total"; K3's and K7s's rows add their small
-form's launches per path ("launches_small", "launches_single-tile") and
+stand the launches on every path (primitives, greedy, sampled, gemma2,
+xlstm) and their sum, "launches_total"; K6's and K6-long's rows add their
+checks at xlstm-1.3b's shapes ("xlstm"); K3's and K7s's rows add their
+small form's launches per path ("launches_small", "launches_single-tile") and
 the public call's time at the same shape ("public_ms"); K7m's its
 launches by kind and width per path ("launches_kinds") and its timed
 rows ("rows").  The last line is
@@ -171,6 +186,7 @@ from repro_torch.kernels import scan as scan_k  # noqa: E402
 from repro_torch.kernels import segmented as seg_k  # noqa: E402
 from repro_torch.models import blocks as BK  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.serving import sampling as SP  # noqa: E402
 from repro_torch.serving.engine import Engine, Request  # noqa: E402
 
@@ -217,6 +233,11 @@ GREEDY_PATH = ("K2", "K6", "K3", "K7m", "K10")
 SAMPLED_PATH = ("K2", "K6", "K6-long", "K3", "K7m", "K7s", "K4-matvec",
                 "K10")
 GEMMA2_PATH = ("K2", "K3", "K7m", "K10")   # no recurrence: no K6
+# xLSTM: the mLSTM's chunk states on K6's channel-tile route, its
+# stabilizer (MAXPLUS_AFFINE) on the long-T path from 128 steps; no
+# attention, so no K10.
+XLSTM_PATH = ("K2", "K6", "K6-long", "K3", "K7m")
+XLSTM_PARAMS = 1_907_394_896
 # The library's own path runs every kernel but the models' attention.
 PRIMITIVES_PATH = tuple(k for k in COUNTERS if k != "K10")
 # The path whose launches a kernel's "launches" report: its slice's main one.
@@ -510,8 +531,38 @@ def phase_build() -> dict:
         expect(ops["HGMMA"] > 0, f"{u.label}: SASS holds HGMMA "
                                  f"({ops['HGMMA']} instructions)")
         expect(spilled[u.label] == 0, f"{u.label}: ptxas reports no spills")
+    # The units of xlstm-1.3b's K6 calls (AFFINE for the chunk states,
+    # MAXPLUS_AFFINE for the stabilizer, f32): each K6 kernel's registers
+    # and spilled bytes.
+    xlstm = {}
+    for op in (alg.AFFINE, alg.MAXPLUS_AFFINE):
+        u = _lib.unit("scan", "build", op, [torch.float32] * 2)
+        xlstm[u.label] = kernel_resources(u.path.with_suffix(".log")
+                                          .read_text())
+        log(f"  xlstm {u.label}: {json.dumps(xlstm[u.label])}")
     return {"units": len(units), "seconds": seconds, "prebuilt": {
-        u.digest for u in units}, **worst}
+        u.digest for u in units}, "xlstm_units": xlstm, **worst}
+
+
+K6_KERNELS = ("scan_channel_tiles", "chunk_aggregates", "scan_totals",
+              "chunk_rescan")
+
+
+def kernel_resources(ptxas_log: str) -> dict:
+    """Registers and spilled bytes (stores and loads) of each K6 kernel
+    (``K6_KERNELS``) in a unit's ``-Xptxas -v`` log."""
+    out = {}
+    for block in ptxas_log.split("Compiling entry function")[1:]:
+        entry = block.split("'")[1] if "'" in block else ""
+        name = next((n for n in K6_KERNELS if n in entry), None)
+        if name is None:
+            continue
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", block)]
+        spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", block))
+        r = out.setdefault(name, {"registers": 0, "spill_bytes": 0})
+        r["registers"] = max([r["registers"], *regs])
+        r["spill_bytes"] += spills
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -834,6 +885,7 @@ def phase_kernels(gen: torch.Generator) -> dict:
 
     check_k7m(res, gen, note)
     check_k6_long(res, gen, note)
+    check_k6_xlstm(res, gen, note)
     check_k4(res, gen, note)
     check_gemv_forms(gen, note)
     check_k7s(res, gen, note)
@@ -850,7 +902,8 @@ def phase_kernels(gen: torch.Generator) -> dict:
                 {x: v for x, v in r.items() if x in (
                     "large", "modes", "dense_mv_ms", "dense_bmm_ms",
                     "shapes", "public_ms", "device_ms", "public_ratio",
-                    "library_device_ms", "library_innermost_ms", "rows")}))
+                    "library_device_ms", "library_innermost_ms", "rows",
+                    "xlstm")}))
     return res
 
 
@@ -1148,6 +1201,107 @@ def check_k6_long(res, gen, note) -> None:
         library_innermost_ms=time_ms(lambda: torch.cumsum(
             ohT, dim=2, dtype=torch.int32), 10))
     del ohT
+
+
+# xlstm-1.3b's K6 calls at a 2,100-token prompt (padded to 33 chunks of 64):
+# the mLSTM's chunk states over H dh^2 = 4 x 1024^2 channels (C) and H dh =
+# 4096 (n), on the channel-tile route; its stabilizer over (1, 2112, 4), 12
+# neutral pad steps last, on the long-T path; and at 1,024 tokens.
+XLSTM_STATES = ((1, 33, 4 * 1024 * 1024), (1, 33, 4096))
+XLSTM_STABILIZER = (((1, 2112, 4), 12), ((1, 1024, 4), 0))
+
+
+def stabilizer_gates(gen, B, T, H, pad=0):
+    """The stabilizer's inputs as the mLSTM makes them: log forget gates
+    log sigmoid(N(3, 1)) (open forget gates, bias 3), log input gates N(0,
+    2), the last ``pad`` steps neutral (lf = 0, li = -1e30)."""
+    lf = F.logsigmoid(torch.randn(B, T, H, generator=gen, device="cuda") + 3)
+    li = 2 * torch.randn(B, T, H, generator=gen, device="cuda")
+    if pad:
+        lf[:, T - pad:] = 0.0
+        li[:, T - pad:] = -1e30
+    return lf, li
+
+
+def check_k6_xlstm(res, gen, note) -> None:
+    """K6 at xlstm-1.3b's shapes.  The chunk states, f32 AFFINE over 4.2 M
+    channels (channel-tile route, one launch) as linear_recurrence calls it
+    without h0: the B leaf alone written, the A leaf's output null.  B
+    within 1e-5 x max|h| of a float64 walk as check_k6 holds the RG-LRU's;
+    device ms by torch.profiler beside the bound (a, b read, h written
+    once).  The
+    stabilizer, MAXPLUS_AFFINE f32 over (1, 2112, 4) (a 2,100-token prompt
+    with 12 neutral pad steps) and (1, 1024, 4), on the long-T path: its A
+    leaf is a sum of the log forget gates, reassociated at chunk edges, and
+    its B leaf a max of such sums, exact given them; both leaves within
+    1e-5 x the larger of max|A| and max|B| of a float64 walk."""
+    dev = torch.device("cuda")
+    k6 = scan_k.scan_channel_cuda
+    xl = res["K6"]["xlstm"] = {}
+    for B, T, C in XLSTM_STATES:
+        expect(not scan_k.uses_long_t(B, T, C),
+               f"({B},{T},{C}) takes the channel-tile route by the threshold")
+        a = torch.empty(B, T, C, device=dev).uniform_(0.01, 1.0,
+                                                      generator=gen)
+        b = torch.randn(B, T, C, generator=gen, device=dev)
+        h_only = (False, True)
+        got = one_launch("K6", lambda: k6(alg.AFFINE, (a, b), keep=h_only))
+        walk = scan_k.scan_channel_plain(alg.AFFINE, (a.double(),
+                                                      b.double()))[1]
+        plain = scan_k.scan_channel_plain(alg.AFFINE, (a, b), keep=h_only)[1]
+        err, plain_err = max_err(got[1], walk), max_err(plain, walk)
+        scale = float(walk.abs().max())
+        dropped = got[0] is None
+        del got, walk, plain
+        note("K6", err)
+        expect(dropped and err <= 1e-5 * scale,
+               f"K6 ({B},{T},{C}) f32 AFFINE, the mLSTM's chunk states, A "
+               f"leaf not written: max abs err {err:.3g} <= 1e-5 x max|h| "
+               f"{scale:.3g} of the f64 walk (the f32 plain walk's: "
+               f"{plain_err:.3g})")
+        elems = B * T * C
+        xl[f"({B}, {T}, {C})"] = {
+            "ms": time_ms(lambda: k6(alg.AFFINE, (a, b), keep=h_only), 10),
+            "device_ms": device_ms(
+                lambda: k6(alg.AFFINE, (a, b), keep=h_only))[0],
+            # Both leaves written, as before linear_recurrence dropped A:
+            # the same call's comparison (bound 4 arrays).
+            "both_leaves_device_ms": device_ms(
+                lambda: k6(alg.AFFINE, (a, b)))[0],
+            "both_leaves_bound_ms": bound_ms(4 * 4 * elems, 3 * elems)[0],
+            "plain_ms": time_ms(lambda: scan_k.scan_channel_plain(
+                alg.AFFINE, (a, b), keep=h_only), 3),
+            "bound_ms": bound_ms(3 * 4 * elems, 2 * elems)[0],
+            "max_abs_err": err, "tolerance": 1e-5 * scale}
+        del a, b
+    xl = res["K6-long"]["xlstm"] = {}
+    for (B, T, H), pad in XLSTM_STABILIZER:
+        expect(scan_k.uses_long_t(B, T, H),
+               f"({B},{T},{H}) takes the long-T path by the threshold")
+        lf, li = stabilizer_gates(gen, B, T, H, pad)
+        op = alg.MAXPLUS_AFFINE
+        long_t = k6.long_t_launches
+        got = k6(op, (lf, li))
+        walk = scan_k.scan_channel_plain(op, (lf.double(), li.double()))
+        plain = scan_k.scan_channel_plain(op, (lf, li))
+        errs = [max_err(g, w) for g, w in zip(got, walk)]
+        plain_err = max_err(plain, walk)
+        scale = max(float(w.abs().max()) for w in walk)
+        note("K6-long", max(errs))
+        expect(k6.long_t_launches == long_t + 1 and
+               max(errs) <= 1e-5 * scale,
+               f"K6-long ({B},{T},{H}) f32 MAXPLUS_AFFINE, the mLSTM's "
+               f"stabilizer, one long-T launch: max abs err A {errs[0]:.3g}, "
+               f"B {errs[1]:.3g} <= 1e-5 x {scale:.3g} of the f64 walk (the "
+               f"f32 plain walk's: {plain_err:.3g})")
+        elems = B * T * H
+        xl[f"({B}, {T}, {H})"] = {
+            "ms": time_ms(lambda: k6(op, (lf, li))),
+            "device_ms": call_device_ms(lambda: k6(op, (lf, li))),
+            "plain_ms": time_ms(lambda: scan_k.scan_channel_plain(
+                op, (lf, li)), 3),
+            "bound_ms": bound_ms(4 * 4 * elems, 3 * elems)[0],
+            "max_abs_err": max(errs), "tolerance": 1e-5 * scale}
 
 
 def check_k4(res, gen, note) -> None:
@@ -3042,7 +3196,8 @@ def phase_serve(cfg, params, prompts, path=GREEDY_PATH,
     profile = profile_serving(eng, params, cfg, prompts[4])
     if profile["prefill"]["measured"]:
         log(f"[{tag}] prefill T={PROMPT_LENS[4]}: {profile['prefill']['device_ms']:.3f} "
-            f"device ms, K6 {profile['prefill']['k6_ms']:.4f} ms of it")
+            f"device ms, K6 {profile['prefill']['k6_ms']:.4f} ms and K6-long "
+            f"{profile['prefill']['k6_long_ms']:.4f} ms of it")
     memory["peak_generate_profile_gb"] = \
         torch.cuda.max_memory_allocated() / 1e9
     prompt_tokens = sum(PROMPT_LENS)
@@ -3082,6 +3237,102 @@ def phase_gemma2() -> dict:
     expect(round(lm.count_params(params) / 1e9, 2) == 27.23,
            "gemma2-27b: 27.23 B parameters")
     return phase_serve(cfg, params, prompts, GEMMA2_PATH, "gemma2")
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: serve xlstm-1.3b FULL
+# ---------------------------------------------------------------------------
+
+
+def xlstm_param_count(cfg) -> int:
+    """xLSTM's parameters from its config alone.  An mLSTM block: the up
+    and gate projections (d x 2d each), the conv (width x 2d and a bias),
+    q, k and v (H blocks of dh^2 each), the input and forget gates (d x H
+    and H each), the down projection (2d x d), the skip scale (2d), a norm.
+    An sLSTM block: w_in (d x 4d), r (4 gates of H blocks of p^2), the gate
+    bias (4 d), w_out (d x d), the gelu ffn (d x ff twice), a norm.  The
+    tied embedding and the final norm."""
+    d, H = cfg.d_model, cfg.n_heads
+    inner = 2 * d
+    ff = int(d * 4 / 3 / 64) * 64 or 64
+    mlstm = (3 * d * inner + cfg.conv_width * inner + inner
+             + 3 * inner * inner // H + 2 * (d * H + H) + inner + d)
+    slstm = 4 * d * d + 4 * d * d // H + 4 * d + d * d + 2 * d * ff + d
+    return sum(mlstm if kind == "mlstm" else slstm
+               for kind in cfg.layer_pattern()) + cfg.vocab_size * d + d
+
+
+def layer_divergence(params, cfg, prompt) -> dict:
+    """Where the cuda and torch backends' prefills of ``prompt`` part, layer
+    by layer.  Each block runs on both backends from the torch backend's
+    input (``own``: the layer's own difference) and on the cuda backend
+    from its own carried input (``carried``), each as max|difference| /
+    max|torch output| with the share of elements that differ at all (the
+    activations are bf16, so any difference is a flipped rounding of at
+    least one bf16 step)."""
+    prefix, unit, n_units, suffix = lm._dec_spec(cfg)
+    dec = params["decoder"]
+    layers = [*zip(prefix, dec["prefix"]),
+              *[(k, u[j]) for u in dec["units"] for j, k in enumerate(unit)],
+              *zip(suffix, dec["suffix"])]
+    toks = torch.tensor([prompt], dtype=torch.int64,
+                        device=params["embed"]["embedding"].device)
+    h_t = L.embed(params["embed"], toks, cfg.embed_scale,
+                  cfg.activation_dtype)
+    h_c, rows = h_t, []
+    for i, (kind, p) in enumerate(layers):
+        def run(x):
+            return BK.block_forward(p, kind, cfg, x, mode="train")[0]
+        with ki.use_backend("torch"):
+            nxt_t = run(h_t)
+        own_c, h_c = run(h_t), run(h_c)
+        scale = float(nxt_t.float().abs().max())
+        rows.append({
+            "layer": i, "kind": kind,
+            "own": float((own_c.float() - nxt_t.float()).abs().max()) / scale,
+            "own_differ": float((own_c != nxt_t).float().mean()),
+            "carried": float((h_c.float() - nxt_t.float()).abs().max())
+            / scale,
+            "carried_differ": float((h_c != nxt_t).float().mean())})
+        h_t = nxt_t
+    first = [r["layer"] for r in rows if r["own_differ"] > 0]
+    out = {"tokens": len(prompt), "first_own": first[0] if first else None,
+           "worst_own": max(rows, key=lambda r: r["own"]), "layers": rows}
+    log(f"[xlstm] layer divergence, prefill T={len(prompt)}: "
+        + json.dumps(out))
+    return out
+
+
+def phase_xlstm() -> dict:
+    """xlstm-1.3b FULL after gemma2's tensors are gone: 3.81 GB of bf16
+    weights and four slots of float32 mLSTM state (0.7 GB a slot)."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[xlstm] {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+        f"before loading")
+    cfg, params, prompts = load_model("xlstm-1.3b", "xlstm",
+                                      xlstm_param_count)
+    expect(lm.count_params(params) == XLSTM_PARAMS,
+           f"xlstm-1.3b: {XLSTM_PARAMS} parameters, as the reference's tree")
+    summary = phase_serve(cfg, params, prompts, XLSTM_PATH, "xlstm")
+    # The sLSTM layers' loops over the profiled prefill's steps, a cell of
+    # some twenty launches a step: host time, under the profiler.
+    loop = summary["profile"]["prefill"]["ranges"].get("slstm loop", {})
+    layers = sum(kind == "slstm" for kind in cfg.layer_pattern())
+    expect(loop.get("count") == layers,
+           f"the profiled prefill T={PROMPT_LENS[4]} ran the sLSTM loop "
+           f"{loop.get('count')} times, once in each of its {layers} layers")
+    summary["slstm"] = {
+        "tokens": PROMPT_LENS[4], "slstm_layers": layers,
+        "slstm_s": loop["host_ms"] / 1e3,
+        "slstm_us_per_step": loop["host_ms"] * 1e3 / layers / PROMPT_LENS[4]}
+    log(f"[xlstm] sLSTM loop, prefill T={PROMPT_LENS[4]}, under the "
+        f"profiler: " + json.dumps(summary["slstm"]))
+    summary["divergence"] = layer_divergence(params, cfg, prompts[4])
+    summary["phase_s"] = time.perf_counter() - t0
+    log(f"[xlstm] phase 7 took {summary['phase_s']:.1f} s")
+    return summary
 
 
 # ---------------------------------------------------------------------------
@@ -3207,6 +3458,10 @@ SPLIT_OPS = ("aten::clone", "aten::_to_copy", "aten::copy_", "aten::index_put_",
              "aten::softmax", "aten::where", "aten::tanh")
 
 
+# The profiler ranges the port's modules open (models/recurrent.py).
+PORT_RANGES = ("slstm loop",)
+
+
 def profile_device(label: str, fn, units: int) -> dict:
     """Run ``fn`` once under torch.profiler and report, per unit of work
     (a decode step, a prefill), the wall time, the device kernel time, the
@@ -3222,14 +3477,23 @@ def profile_device(label: str, fn, units: int) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = collections.Counter()
     ops = memsets = 0
+    # The port's own profiler ranges (record_function): host ms and count.
+    ranges = collections.defaultdict(lambda: {"count": 0, "host_ms": 0.0})
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if e.name in PORT_RANGES:
+            # A range is a host event, and its annotation on the device's
+            # timeline spans the kernels launched in it: no device time.
+            if e.device_type == torch.autograd.DeviceType.CPU:
+                ranges[e.name]["count"] += 1
+                ranges[e.name]["host_ms"] += e.time_range.elapsed_us() / 1e3
+        elif e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] += e.time_range.elapsed_us() / 1e3
             ops += 1
             memsets += e.name.startswith("Memset")
+    ranges = dict(ranges)
     if not ops:
         log(f"[profile {label}] device time not measured (no device events)")
-        return {"measured": False}
+        return {"measured": False, "ranges": ranges}
     busy_ms = sum(by_name.values())
     # The port's own kernels by family (rt::flash is K10, rt::scan K2/K6/
     # K7s, ...), whether or not they make the top eight.
@@ -3249,12 +3513,17 @@ def profile_device(label: str, fn, units: int) -> dict:
     out = {"measured": True, "units": units,
            "wall_ms_profiled": wall_ms / units,
            "device_ms": busy_ms / units,
-           # K6's channel-tile route (the RG-LRU's recurrence).
+           # K6's channel-tile route (the RG-LRU's recurrence, the mLSTM's
+           # chunk states) and its long-T path's three kernels (the mLSTM's
+           # stabilizer, the radix sort's rank scans).
            "k6_ms": sum(ms for name, ms in by_name.items()
                         if "scan_channel_tiles" in name) / units,
+           "k6_long_ms": sum(ms for name, ms in by_name.items() if any(
+               k in name for k in ("chunk_aggregates", "scan_totals",
+                                   "chunk_rescan"))) / units,
            "device_idle_share": 1.0 - busy_ms / wall_ms,
            "device_ops": ops / units, "memsets": memsets / units,
-           "port_kernels_ms": dict(port), "ops_ms": by_op,
+           "port_kernels_ms": dict(port), "ops_ms": by_op, "ranges": ranges,
            "top": [[name[:60], ms / units]
                    for name, ms in by_name.most_common(8)]}
     log(f"[profile {label}] " + json.dumps(out))
@@ -3338,6 +3607,7 @@ def main() -> int:
         sampled = phase_sampled(cfg, params, prompts)
         del params
         gemma2 = phase_gemma2()
+        xlstm = phase_xlstm()
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1
@@ -3348,7 +3618,7 @@ def main() -> int:
     for k, r in res.items():
         name, source, replaces = META[k]
         paths = {"primitives": prims, "greedy": serve, "sampled": sampled,
-                 "gemma2": gemma2}
+                 "gemma2": gemma2, "xlstm": xlstm}
         kernels.append({
             "name": f"{k} {name}", "route": "cuda", "source": source,
             "replaces": replaces,
@@ -3359,15 +3629,17 @@ def main() -> int:
             "launches_greedy": serve["launches"][k],
             "launches_sampled": sampled["launches"][k],
             "launches_gemma2": gemma2["launches"][k],
+            "launches_xlstm": xlstm["launches"][k],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
             "shape": r["shape"]})
-        for extra in ("public_ms", "paper_worst", "device_ms", "rows"):
+        for extra in ("public_ms", "paper_worst", "device_ms", "rows",
+                      "xlstm"):
             if extra in r:   # the public call at the same shape; the worst
                 kernels[-1][extra] = r[extra]    # Table V/VI row's ratio;
                 # the kernel alone (torch.profiler) where the host's launch
-                # takes longer; K7m's timed rows
+                # takes longer; K7m's timed rows; K6's at xLSTM's shapes
         if k == "K7m":                  # its launches by kind, per path
             kernels[-1]["launches_kinds"] = {
                 path: {x.split()[1]: v for x, v in p["launches"].items()

@@ -5,6 +5,7 @@ Importing this package registers every architecture; use
 """
 from repro_torch.configs import gemma2_27b  # noqa: F401
 from repro_torch.configs import recurrentgemma_2b  # noqa: F401
+from repro_torch.configs import xlstm_1p3b  # noqa: F401
 from repro_torch.configs.base import (  # noqa: F401
     ModelConfig,
     get_config,

@@ -8,8 +8,10 @@ of JAX.  It
 * unstacks ``decoder.units``, which the reference stacks on a leading axis
   (its ``vmap`` init), into the port's list of per-unit tuples;
 * casts every leaf to ``dtype``, except the leaves the reference keeps in
-  float32 -- ``lam``, ``bias_a``, ``bias_x`` and the norm scales -- which
-  stay float32.
+  float32, which stay float32: the norm scales, the RG-LRU's ``lam``,
+  ``bias_a`` and ``bias_x``, the mLSTM's gate projections and biases, and
+  the sLSTM's gate ``bias`` -- by path, since the conv's ``bias`` (under
+  ``mixer.conv``) takes the weight dtype.
 
 The same JAX parameters then give both packages the same function.
 ``quantized_from_jax`` does the same for a quantized matrix operand.
@@ -21,22 +23,31 @@ import torch
 
 from repro_torch.core import operators as alg
 
-F32_LEAVES = ("lam", "bias_a", "bias_x", "scale")
+F32_LEAVES = ("lam", "bias_a", "bias_x", "scale", "w_igate", "w_fgate",
+              "b_igate", "b_fgate")
 
 
-def _convert(node, key, device, dtype):
+def keeps_f32(path) -> bool:
+    """Whether the leaf at ``path`` (its dict keys, outermost first) stays
+    float32: a key of ``F32_LEAVES``, or the sLSTM's ``bias`` directly
+    under its ``mixer`` (a conv's ``bias`` sits under ``mixer.conv``)."""
+    return path[-1] in F32_LEAVES or tuple(path[-2:]) == ("mixer", "bias")
+
+
+def _convert(node, path, device, dtype):
     if isinstance(node, dict):
-        return {k: _convert(v, k, device, dtype) for k, v in node.items()}
+        return {k: _convert(v, path + (k,), device, dtype)
+                for k, v in node.items()}
     if isinstance(node, (tuple, list)):
-        return tuple(_convert(v, key, device, dtype) for v in node)
+        return tuple(_convert(v, path, device, dtype) for v in node)
     t = torch.from_numpy(np.array(node, dtype=np.float32))
     return t.to(device=device,
-                dtype=torch.float32 if key in F32_LEAVES else dtype)
+                dtype=torch.float32 if keeps_f32(path) else dtype)
 
 
 def params_from_jax(tree, cfg, device, dtype=torch.float32):
     """The port's parameter tree from the reference's (numpy leaves)."""
-    out = _convert(tree, None, device, dtype)
+    out = _convert(tree, (), device, dtype)
     dec = dict(out["decoder"])
     units = dec["units"]
     dec["units"] = [tuple(_index(blk, u) for blk in units)

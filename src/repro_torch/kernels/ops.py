@@ -294,8 +294,11 @@ def _linrec_torch(a, b, h0=None, *, reverse=False):
 
 
 def _linrec_cuda(a, b, h0=None, *, reverse=False):
+    # Without h0 the A leaf (the running product of a) is not read, so K6
+    # does not write it.
     A, B = scan_k.scan_channel_cuda(alg.AFFINE, (a, b), inclusive=True,
-                                    reverse=reverse)
+                                    reverse=reverse,
+                                    keep=(h0 is not None, True))
     if h0 is None:
         return B
     return A * h0[:, None, :] + B

@@ -111,11 +111,23 @@ def uses_long_t(B: int, T: int, C: int) -> bool:
     return B * C <= LONG_T_MAX_CHANNELS and T >= LONG_T_MIN_STEPS
 
 
+def _kept(keep, leaves):
+    """``keep`` checked against ``leaves``: one flag per leaf, None for
+    all of them."""
+    if keep is None:
+        return (True,) * len(leaves)
+    if len(keep) != len(leaves) or not any(keep):
+        raise ValueError(f"keep: one flag per leaf and at least one set, "
+                         f"got {keep} for {len(leaves)} leaves")
+    return tuple(bool(k) for k in keep)
+
+
 def scan_channel_plain(op, xs: Pytree, *, inclusive: bool = True,
-                       reverse: bool = False) -> Pytree:
+                       reverse: bool = False, keep=None) -> Pytree:
     """Plain version of K6: the serial walk over T, vectorized over (B, C),
-    the carry on the left."""
+    the carry on the left.  A leaf that ``keep`` drops comes back None."""
     leaves, spec = pytree.tree_flatten(xs)
+    keep = _kept(keep, leaves)
     T = leaves[0].shape[1]
     outs = [torch.empty_like(l) for l in leaves]
     acc = op.identity(pytree.tree_map(lambda l: l[:, 0], xs))
@@ -127,31 +139,38 @@ def scan_channel_plain(op, xs: Pytree, *, inclusive: bool = True,
             o[:, t] = v
         if not inclusive:
             acc = op.combine(acc, x_t)
-    return pytree.tree_unflatten(outs, spec)
+    return pytree.tree_unflatten(
+        [o if k else None for o, k in zip(outs, keep)], spec)
 
 
 def scan_channel_cuda(op, xs: Pytree, *, inclusive: bool = True,
-                      reverse: bool = False) -> Pytree:
+                      reverse: bool = False, keep=None) -> Pytree:
     """K6: scan along axis 1 of ``(B, T, C)`` leaves, independent per
     (b, c); ``reverse`` walks T from the end.  :func:`uses_long_t` picks
-    the route from the shape."""
+    the route from the shape.  ``keep``: one flag per leaf (default all);
+    a dropped leaf is not written (its output pointer is null, which the
+    element's store skips) and comes back None -- ``linear_recurrence``
+    without ``h0`` reads only the B leaf, and the A leaf would be a
+    quarter of the bytes."""
     x = xs if isinstance(xs, torch.Tensor) else pytree.tree_leaves(xs)[0]
     if not x.is_cuda:
-        return scan_channel_plain(op, xs, inclusive=inclusive, reverse=reverse)
+        return scan_channel_plain(op, xs, inclusive=inclusive, reverse=reverse,
+                                  keep=keep)
     what = "scan along T of (B, T, C) (cuda)"
     leaves = _leaves(what, xs, 3)
+    keep = _kept(keep, leaves)
     plan = _lib.plan("scan", what, op, xs)
     B, T, C = x.shape
     if B > 65535:
         raise ValueError(f"{what}: B = {B} exceeds the grid's 65535 rows")
     lib = plan.lib or plan.load()
     long_t = uses_long_t(B, T, C)
-    outs = [torch.empty_like(l) for l in leaves]
+    outs = [torch.empty_like(l) if k else None for l, k in zip(leaves, keep)]
     scratch = _lib.scratch(B * C * -(-T // lib.rt_scan_channel_chunk()),
                            len(leaves), x) if long_t else None
     _lib.check(lib.rt_scan_channel(
-        *_lib.ptrs((*leaves, *outs)), B, T, C, int(inclusive), int(reverse),
-        _lib.ptr(scratch), _lib.stream_ptr(x)), what)
+        *[_lib.ptr(t) for t in (*leaves, *outs)], B, T, C, int(inclusive),
+        int(reverse), _lib.ptr(scratch), _lib.stream_ptr(x)), what)
     if long_t:
         scan_channel_cuda.long_t_launches += 1
     else:

@@ -1,8 +1,9 @@
 """Layer blocks: residual wiring for the kinds of the port.
 
 The port of ``repro.models.blocks`` for ``attn_global`` / ``attn_local``
-(GQA + MLP; ``gqa_dense`` is ``attn_global``'s alias) and ``rglru``
-(Griffin recurrent + MLP): pre-norm residuals with optional gemma-style
+(GQA + MLP; ``gqa_dense`` is ``attn_global``'s alias), ``rglru`` (Griffin
+recurrent + MLP) and ``mlstm`` / ``slstm`` (xLSTM: the mixer alone, which
+carries its own projections): pre-norm residuals with optional gemma-style
 post-norms (``cfg.post_norm``).
 
 ``block_forward(params, kind, cfg, x, mode=...)`` returns
@@ -17,7 +18,11 @@ from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
 
 _ATTN_KINDS = ("attn_global", "attn_local", "gqa_dense")
-_KINDS = _ATTN_KINDS + ("rglru",)
+_KINDS = _ATTN_KINDS + ("rglru", "mlstm", "slstm")
+
+
+def _has_mlp(kind):
+    return kind not in ("mlstm", "slstm")
 
 
 def _check_kind(kind):
@@ -33,12 +38,18 @@ def init_block(gen, kind, cfg, dtype):
         p["post_norm1"] = L.init_rmsnorm(cfg.d_model, gen.device)
     if kind in _ATTN_KINDS:
         p["attn"] = A.init_gqa(gen, cfg, dtype)
-    else:
+    elif kind == "rglru":
         p["mixer"] = R.init_rglru_block(gen, cfg, dtype)
-    p["norm2"] = L.init_rmsnorm(cfg.d_model, gen.device)
-    if cfg.post_norm:
-        p["post_norm2"] = L.init_rmsnorm(cfg.d_model, gen.device)
-    p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation, dtype)
+    elif kind == "mlstm":
+        p["mixer"] = R.init_mlstm_block(gen, cfg, dtype)
+    else:
+        p["mixer"] = R.init_slstm_block(gen, cfg, dtype)
+    if _has_mlp(kind):
+        p["norm2"] = L.init_rmsnorm(cfg.d_model, gen.device)
+        if cfg.post_norm:
+            p["post_norm2"] = L.init_rmsnorm(cfg.d_model, gen.device)
+        p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation,
+                              dtype)
     return p
 
 
@@ -52,10 +63,13 @@ def _mixer_apply(params, kind, cfg, x, *, mode, cache, pos, cache_len):
         return A.gqa_forward(
             params["attn"], cfg, x, is_local=is_local,
             return_cache_len=cache_len if mode == "prefill" else 0)
+    forward, decode = {
+        "rglru": (R.rglru_forward, R.rglru_decode),
+        "mlstm": (R.mlstm_forward, R.mlstm_decode),
+        "slstm": (R.slstm_forward, R.slstm_decode)}[kind]
     if mode == "decode":
-        return R.rglru_decode(params["mixer"], cfg, x, cache)
-    return R.rglru_forward(params["mixer"], cfg, x,
-                           return_cache=mode == "prefill")
+        return decode(params["mixer"], cfg, x, cache)
+    return forward(params["mixer"], cfg, x, return_cache=mode == "prefill")
 
 
 def block_forward(params, kind, cfg, x, *, mode="train",
@@ -68,6 +82,8 @@ def block_forward(params, kind, cfg, x, *, mode="train",
     if cfg.post_norm:
         h = L.rmsnorm(params["post_norm1"], h, cfg.norm_eps)
     x = x + h
+    if not _has_mlp(kind):
+        return x, new_cache
     h = L.mlp(params["mlp"], L.rmsnorm(params["norm2"], x, cfg.norm_eps),
               cfg.activation)
     if cfg.post_norm:
@@ -81,4 +97,8 @@ def init_block_cache(kind, cfg, batch, cache_len, dtype, device):
     if kind in _ATTN_KINDS:
         return A.init_gqa_cache(cfg, batch, cache_len, kind == "attn_local",
                                 dtype, device)
-    return R.init_rglru_cache(cfg, batch, dtype, device)
+    if kind == "rglru":
+        return R.init_rglru_cache(cfg, batch, dtype, device)
+    if kind == "mlstm":
+        return R.init_mlstm_cache(cfg, batch, dtype, device)
+    return R.init_slstm_cache(cfg, batch, device)

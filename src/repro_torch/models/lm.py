@@ -79,8 +79,10 @@ def init_params(cfg, *, seed: int = 0, device=None,
                 dtype: torch.dtype = torch.float32) -> Pytree:
     """Random parameters drawn on ``device`` (default: the CUDA device) from
     a ``torch.Generator`` seeded with ``seed``.  Weights take ``dtype``;
-    norm scales and the RG-LRU's ``lam``/``bias_a``/``bias_x`` stay
-    float32, as in the reference."""
+    norm scales, the RG-LRU's ``lam``/``bias_a``/``bias_x``, the mLSTM's
+    gate projections and biases (``w_igate``, ``w_fgate``, ``b_igate``,
+    ``b_fgate``) and the sLSTM's gate ``bias`` stay float32, as in the
+    reference."""
     if cfg.is_encdec or cfg.mtp_depth or cfg.num_prefix_embeds:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder, MTP and prefix-embedding models "
@@ -118,7 +120,8 @@ def prefill(params, cfg, tokens, *, cache_len):
 def init_caches(cfg, batch, cache_len, dtype, device):
     """Zeroed decode caches for ``batch`` slots: attention caches (local
     rings, full-length global caches) and conv tails in ``dtype``,
-    recurrent states in float32."""
+    recurrent states (the RG-LRU's h, the mLSTM's C, n and m, the sLSTM's
+    c, n, h and m) in float32."""
     prefix, unit, n_units, suffix = _dec_spec(cfg)
 
     def one(kind):

@@ -35,6 +35,7 @@ from repro_torch.kernels import batched as batched_k  # noqa: E402
 from repro_torch.kernels import matvec as matvec_k  # noqa: E402
 from repro_torch.kernels import ref as t_ref  # noqa: E402
 from torch.utils import _pytree as pytree  # noqa: E402
+from test_torch_models import one_torch_thread  # noqa: E402,F401
 
 REF_BACKENDS = ["pallas-interpret", "xla"]
 PORT_BACKENDS = ["torch", "cuda"]

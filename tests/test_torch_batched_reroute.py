@@ -25,6 +25,7 @@ from repro_torch.core import intrinsics as t_ki  # noqa: E402
 from repro_torch.core import operators as t_alg  # noqa: E402
 from repro_torch.core import primitives as t_forge  # noqa: E402
 from repro_torch.core.layout import Batched as TBatched  # noqa: E402
+from test_torch_models import one_torch_thread  # noqa: E402,F401
 
 PI = "pallas-interpret"
 

@@ -31,6 +31,7 @@ from repro_torch.core import primitives as t_forge  # noqa: E402
 from repro_torch.core.layout import Batched as TBatched  # noqa: E402
 from repro_torch.kernels import batched as batched_k  # noqa: E402
 from repro_torch.kernels import ref as t_ref  # noqa: E402
+from test_torch_models import one_torch_thread  # noqa: E402,F401
 
 PI = "pallas-interpret"
 F32_TOL = dict(rtol=1e-5, atol=1e-5)

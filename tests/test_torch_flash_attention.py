@@ -27,6 +27,7 @@ from repro_torch.kernels import _lib  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_k  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.models import attention as TA  # noqa: E402
+from test_torch_models import one_torch_thread  # noqa: E402,F401
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 BF16 = dict(rtol=1e-2, atol=1e-2)

@@ -36,8 +36,21 @@ from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.models import recurrent as TR  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Torch's CPU ops on one thread while a test module of the port runs
+    (every ``test_torch_*.py`` imports this fixture).  The suite runs in
+    several worker processes at once and the port's CPU ops here are
+    small: a pool of threads per worker, as many as the cores, only spins
+    against the other workers' compilations."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 NAME = "recurrentgemma-2b"
-NAMES = ("recurrentgemma-2b", "gemma2-27b")
+NAMES = ("recurrentgemma-2b", "gemma2-27b", "xlstm-1.3b")
 
 
 def _configs(dtype, name=NAME):
@@ -114,20 +127,31 @@ def test_config_fields_match_reference(name):
 
 
 def test_params_from_jax_layout_and_dtypes(f32):
-    """Units unstacked; weights in bf16; norm scales (post-norms included)
-    and the RG-LRU's lam and biases stay float32."""
+    """Units unstacked, each leaf the reference's stacked leaf less its
+    unit axis; weights in bf16; the leaves that the reference's own bf16
+    init keeps in float32 (the RG-LRU's lam and biases, the mLSTM's gate
+    projections and biases, the sLSTM's gate bias), found by path, stay
+    float32, and so do the norm scales (post-norms included)."""
     cfg_j, cfg_t, params_j, params_t = f32
     assert tlm.count_params(params_t) == sum(
         l.size for l in jax.tree.leaves(params_j))
     bf = params_from_jax(jax.tree.map(np.asarray, params_j), cfg_t, "cpu",
                          torch.bfloat16)
-    j = cfg_t.unit.index("attn_local")
-    assert bf["decoder"]["units"][0][j]["attn"]["wq"].shape == \
-        params_j["decoder"]["units"][j]["attn"]["wq"].shape[1:]
-    f32_keys = ("scale", "lam", "bias_a", "bias_x")
-    for path, leaf in _shapes(bf).items():
-        want = torch.float32 if path[-1] in f32_keys else torch.bfloat16
-        assert leaf[1] == want, path
+    ref = jax.eval_shape(functools.partial(
+        jlm.init_params, cfg=cfg_j, dtype=jnp.bfloat16), jax.random.PRNGKey(0))
+    want = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(ref)[0]:
+        keys = tuple(getattr(k, "key", getattr(k, "idx", None)) for k in path)
+        shape, dtype = leaf.shape, leaf.dtype
+        if keys[:2] == ("decoder", "units"):
+            units = [keys[:2] + (u,) + keys[2:] for u in range(cfg_t.n_units)]
+            shape = shape[1:]
+        else:
+            units = [keys]
+        for k in units:
+            want[k] = (shape, torch.float32 if dtype == jnp.float32 or
+                       k[-1] == "scale" else torch.bfloat16)
+    assert _shapes(bf) == want
     blocks = [b for u in bf["decoder"]["units"] for b in u]
     assert all(("post_norm1" in b and "post_norm2" in b) == cfg_t.post_norm
                for b in blocks)

@@ -30,6 +30,7 @@ from repro_torch.core import operators as t_alg  # noqa: E402
 from repro_torch.core import primitives as t_forge  # noqa: E402
 from repro_torch.kernels import _lib  # noqa: E402
 from repro_torch.kernels import scan as scan_k  # noqa: E402
+from test_torch_models import one_torch_thread  # noqa: E402,F401
 
 OP_NAMES = sorted(j_alg.STD_OPS)
 SEEDS = [1, 32, 63]
@@ -152,8 +153,11 @@ def test_semirings_match_reference(name):
     js, ts = j_alg.STD_SEMIRINGS[name], t_alg.STD_SEMIRINGS[name]
     _close(ts.f(torch.from_numpy(xv[:, None]), torch.from_numpy(A)),
            js.f(xv[:, None], A))
-    want_mv = j_forge.semiring_matvec(js, A, xv, backend="xla")
-    want_vm = j_forge.semiring_vecmat(js, A, xz, backend="xla")
+    # The reference jitted: one program for both products, held to a
+    # tolerance, instead of op by op.
+    want_mv, want_vm = jax.jit(lambda A, xv, xz: (
+        j_forge.semiring_matvec(js, A, xv, backend="xla"),
+        j_forge.semiring_vecmat(js, A, xz, backend="xla")))(A, xv, xz)
     for backend in ("torch", "cuda"):
         got_mv = t_forge.semiring_matvec(ts, torch.from_numpy(A),
                                          torch.from_numpy(xv),

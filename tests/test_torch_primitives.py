@@ -44,6 +44,7 @@ from repro_torch.kernels import copy as copy_k  # noqa: E402
 from repro_torch.kernels import mapreduce as mapreduce_k  # noqa: E402
 from repro_torch.kernels import matvec as matvec_k  # noqa: E402
 from repro_torch.kernels import scan as scan_k  # noqa: E402
+from test_torch_models import one_torch_thread  # noqa: E402,F401
 
 PI = "pallas-interpret"
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -951,6 +952,34 @@ def test_k6_route_at_the_recurrence_s_and_the_sort_s_shapes(card_entries,
     assert (args[7] is not None) == long_t
     k6 = scan_k.scan_channel_cuda
     assert (k6.launches, k6.long_t_launches) == ((0, 1) if long_t else (1, 0))
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_k6_linear_recurrence_writes_the_a_leaf_only_when_h0_reads_it(
+        card_entries, with_h0):
+    """linear_recurrence on the card without h0 reads only the B leaf of
+    K6's AFFINE scan, so the A leaf's output pointer is null (the element's
+    store skips it) and no A tensor is allocated; with h0 both are
+    written.  The plain version drops the same leaf and keeps B's values."""
+    a = _on_card(torch.full((1, 33, 4096), 0.5))
+    b = _on_card(torch.ones(1, 33, 4096))
+    h0 = _on_card(torch.zeros(1, 4096)) if with_h0 else None
+    h = t_forge.linear_recurrence(a, b, h0, layout=TBatched(),
+                                  backend="cuda")
+    (name, args), = card_entries.calls
+    assert name == "rt_scan_channel" and args[4:9] == (1, 33, 4096, 1, 0)
+    assert args[:2] == (a.data_ptr(), b.data_ptr())
+    assert (args[2] is not None) == with_h0 and args[3] is not None
+    assert h.shape == (1, 33, 4096)
+    full = scan_k.scan_channel_plain(t_alg.AFFINE, (a[:, :5, :7],
+                                                    b[:, :5, :7]))
+    dropped = scan_k.scan_channel_plain(t_alg.AFFINE, (a[:, :5, :7],
+                                                       b[:, :5, :7]),
+                                        keep=(False, True))
+    assert dropped[0] is None
+    torch.testing.assert_close(dropped[1], full[1], rtol=0, atol=0)
+    with pytest.raises(ValueError, match="one flag per leaf"):
+        scan_k.scan_channel_cuda(t_alg.AFFINE, (a, b), keep=(False, False))
 
 
 # ---------------------------------------------------------------------------

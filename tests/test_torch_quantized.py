@@ -16,6 +16,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core import operators as j_alg  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import operators as t_alg  # noqa: E402
+from test_torch_models import one_torch_thread  # noqa: E402,F401
 from torch.utils import _pytree as pytree  # noqa: E402
 
 QUANT_MODES = ["int8", "fp8_e4m3", "fp8_e5m2"]

@@ -28,6 +28,7 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.core import operators as t_alg  # noqa: E402
 from repro_torch.core.layout import Batched as TBatched  # noqa: E402
 from repro_torch.kernels import ref as t_ref  # noqa: E402
+from test_torch_models import one_torch_thread  # noqa: E402,F401
 from test_torch_batched import (  # noqa: E402
     PORT_BACKENDS, _assert_close, _np, _ref_routes, _route, _seed, _t)
 

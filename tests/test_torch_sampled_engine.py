@@ -18,7 +18,7 @@ from repro.serving.engine import Request as JRequest  # noqa: E402
 from repro_torch.configs import base as TC  # noqa: E402
 from repro_torch.serving.engine import Engine as TEngine  # noqa: E402
 from repro_torch.serving.engine import Request as TRequest  # noqa: E402
-from test_torch_models import both_params  # noqa: E402
+from test_torch_models import both_params, one_torch_thread  # noqa: E402,F401
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.serving import sampling as JSP  # noqa: E402
 from repro_torch.core import intrinsics as t_ki  # noqa: E402
 from repro_torch.serving import sampling as SP  # noqa: E402
+from test_torch_models import one_torch_thread  # noqa: E402,F401
 
 SEEDS = np.array([0, 3, -1, 2 ** 31 - 1], np.int32)
 DRAWS, VOCAB = 64, 64

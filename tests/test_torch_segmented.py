@@ -34,6 +34,7 @@ from repro_torch.core import primitives as t_forge  # noqa: E402
 from repro_torch.core.layout import Segmented as TSegmented  # noqa: E402
 from repro_torch.kernels import ref as t_ref  # noqa: E402
 from repro_torch.kernels import segmented as t_seg  # noqa: E402
+from test_torch_models import one_torch_thread  # noqa: E402,F401
 
 N = 2100
 OFFSETS = {

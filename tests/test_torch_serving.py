@@ -35,7 +35,8 @@ from repro_torch.serving.engine import Engine as TEngine  # noqa: E402
 from repro_torch.serving.engine import Request as TRequest  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
-from test_torch_models import NAMES, both_params  # noqa: E402
+from test_torch_models import (  # noqa: E402,F401
+    NAMES, both_params, one_torch_thread)
 
 NAME = "recurrentgemma-2b"
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -44,11 +45,12 @@ PROMPT_LENS = (5, 40, 17, 9)
 MAX_NEW = (6, 4, 8, 3)
 
 
-@pytest.fixture(scope="module", params=NAMES)
-def served(request):
-    cfg_j = dataclasses.replace(JC.get_config(request.param, smoke=True),
+def serve_both(name):
+    """Both engines of ``name``'s float32 smoke config with the same
+    parameters, and their greedy streams of the four requests."""
+    cfg_j = dataclasses.replace(JC.get_config(name, smoke=True),
                                 dtype="float32")
-    cfg_t = dataclasses.replace(TC.get_config(request.param, smoke=True),
+    cfg_t = dataclasses.replace(TC.get_config(name, smoke=True),
                                 dtype="float32")
     params_j, params_t = both_params(cfg_j, cfg_t, 3, torch.float32)
     rng = np.random.default_rng(0)
@@ -62,6 +64,17 @@ def served(request):
     t_out = t_eng.generate([TRequest(prompt=p, max_new_tokens=m)
                             for p, m in zip(prompts, MAX_NEW)])
     return j_eng, t_eng, j_out, t_out, prompts
+
+
+# xlstm-1.3b's served tests are these, run from
+# tests/test_torch_serving_xlstm.py: --dist loadfile gives a file to one
+# worker, so its reference engine builds beside this file's, not after them.
+SERVED_HERE = tuple(n for n in NAMES if n != "xlstm-1.3b")
+
+
+@pytest.fixture(scope="module", params=SERVED_HERE)
+def served(request):
+    return serve_both(request.param)
 
 
 def test_greedy_streams_identical_to_reference(served):
@@ -101,7 +114,9 @@ def gemma_engines():
                                 dtype="float32")
     cfg_t = dataclasses.replace(TC.get_config("gemma2-27b", smoke=True),
                                 dtype="float32")
-    params_j = jlm.init_params(jax.random.PRNGKey(0), cfg_j)
+    # Jitted: one program draws the tree, not one compilation an op.
+    params_j = jax.jit(jlm.init_params, static_argnums=1)(
+        jax.random.PRNGKey(0), cfg_j)
     params_t = params_from_jax(jax.tree.map(np.asarray, params_j), cfg_t,
                                "cpu", torch.float32)
     return (JEngine(cfg_j, None, params_j, cache_len=64, batch_size=4),

@@ -24,6 +24,7 @@ from repro_torch.core import operators as t_alg  # noqa: E402
 from repro_torch.core import primitives as t_forge  # noqa: E402
 from repro_torch.core.layout import Segmented as TSegmented  # noqa: E402
 from repro_torch.kernels import sort as sort_k  # noqa: E402
+from test_torch_models import one_torch_thread  # noqa: E402,F401
 
 DTYPES = ["float32", "int32", "uint32"]
 OFFSETS = [0, 7, 7, 30, 31, 64, 90]          # empty and length-1 segments

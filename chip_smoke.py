@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Seven phases, any failure exits non-zero:
+Ten phases, any failure exits non-zero:
 
 1. build -- generate the translation units of every kernel, operator, map
    and dtype combination the run's paths use (kernels/_lib.py, from each
@@ -30,10 +30,12 @@ Seven phases, any failure exits non-zero:
    every GEMV's device time by torch.profiler), and the prefill attention
    of a 2,100-token prompt in
    gemma2-27b (32 query / 16 kv heads of 128, soft cap 50, global and
-   window 4096) and recurrentgemma-2b (10 / 1 heads of 256, window 2048)
-   in bf16; time the kernel, the plain version and one PyTorch library
-   call of the same function with CUDA events (K2, K3, K7m and K7s in
-   turns with the library call, the median of 7 rounds).  K2 is one
+   window 4096), recurrentgemma-2b (10 / 1 heads of 256, window 2048),
+   gemma3-4b (8 / 4 heads of 256, global and window 1024), minitron-4b (24
+   / 8 of 128) and moonshot-v1-16b-a3b (16 / 16 of 128) in bf16; time
+   the kernel, the plain version and one PyTorch library call of the same
+   function with CUDA events (K2, K3, K7m and K7s in turns with the
+   library call, the median of 7 rounds).  K2 is one
    launch at every n (a tile, or the single-pass lookback above it):
    int32 ADD and int32 AFFINE with odd multipliers bit-exact from n = 1
    to 2^24 on each side of both tile sizes, and the same call 1,000 times
@@ -114,7 +116,8 @@ Seven phases, any failure exits non-zero:
 6. serve gemma2-27b -- recurrentgemma's tensors freed, gemma2-27b at full
    width (46 layers, d_model 4608, 32 query / 16 kv heads, d_ff 36864,
    vocab 256000, local window 4096 alternating with global attention,
-   post-norms, 27.23 B parameters, bf16 weights from a seed) through
+   post-norms, 27,227,128,320 parameters, counted from its config by
+   param_count, bf16 weights from a seed) through
    Engine.generate as in phase 4: 8 greedy requests on 4 slots of 4,096
    positions, the same checks, K10 in all 46 layers of every prefill, the
    peak device memory, and the same profile.
@@ -127,6 +130,23 @@ Seven phases, any failure exits non-zero:
    K3, K6 for the chunk states, K6-long for the stabilizer, K7m), the
    same profile (with K6-long's share of the prefill), and the host
    seconds of the sLSTM's loop over time in a 1,024-token prefill.
+8-10. serve gemma3-4b, minitron-4b and moonshot-v1-16b-a3b -- each after
+   the previous model's tensors are freed, at full width (3,880,099,328,
+   4,190,309,376 and 28,386,595,776 parameters, each counted from its
+   config by param_count, bf16 weights from a seed) as in phase 6: the
+   same 8 greedy requests on 4 slots of 4,096 positions, the backends'
+   prefill logits at 17, 1,024 and 2,100 tokens against the float32
+   floor (f32_floor: their logits are small beside their bf16 noise, so
+   in float32 activations the two backends within 1e-3 of max|logit|,
+   and in bf16 within twice the torch backend's own distance from
+   float32), every kernel of GEMMA2_PATH launched, K10 in every attention layer of every prefill, the peak
+   memory and the same profile.  gemma3-4b: qk-norm, 5 local (a ring of
+   1,024 keys, which the 1,500- and 2,100-token prompts overrun) : 1
+   global layers at head_dim 256; minitron-4b: relu2, an untied 256,000 x
+   3,072 unembedding; moonshot-v1-16b-a3b: 47 MoE layers (64 experts
+   top-6, 2 shared, a sigmoid router in float32), whose two prefills of a
+   prompt must give the same logits to the bit, and the count of tokens
+   that choose other experts on the cuda route than on the torch one.
 
 Each serve summary holds its token streams' digest ("streams"), and each
 profile the device ms under the decode step's aten ops ("ops_ms":
@@ -138,7 +158,9 @@ The line before the card line holds {"kernels": [...]}.  A kernel's
 "launches_path": the primitives path for K1-K9, as before, and gemma2's
 serving path for K10, which the primitives path does not run.  Beside them
 stand the launches on every path (primitives, greedy, sampled, gemma2,
-xlstm) and their sum, "launches_total"; K6's and K6-long's rows add their
+xlstm, gemma3, minitron, moonshot) and their sum, "launches_total"; K10's
+row its time, bound and SDPA time at each served model's prefill layers
+("shapes"); K6's and K6-long's rows add their
 checks at xlstm-1.3b's shapes ("xlstm"); K3's and K7s's rows add their
 small form's launches per path ("launches_small", "launches_single-tile") and
 the public call's time at the same shape ("public_ms"); K7m's its
@@ -151,6 +173,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import dataclasses
 import gc
 import hashlib
 import json
@@ -187,6 +210,7 @@ from repro_torch.kernels import segmented as seg_k  # noqa: E402
 from repro_torch.models import blocks as BK  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.models import moe as moe_m  # noqa: E402
 from repro_torch.serving import sampling as SP  # noqa: E402
 from repro_torch.serving.engine import Engine, Request  # noqa: E402
 
@@ -238,6 +262,7 @@ GEMMA2_PATH = ("K2", "K3", "K7m", "K10")   # no recurrence: no K6
 # attention, so no K10.
 XLSTM_PATH = ("K2", "K6", "K6-long", "K3", "K7m")
 XLSTM_PARAMS = 1_907_394_896
+GEMMA2_PARAMS = 27_227_128_320
 # The library's own path runs every kernel but the models' attention.
 PRIMITIVES_PATH = tuple(k for k in COUNTERS if k != "K10")
 # The path whose launches a kernel's "launches" report: its slice's main one.
@@ -2153,22 +2178,29 @@ def check_k7_k9(res, gen, note) -> None:
 
 
 # K10's cases: (label, B, S, T, K, G, hd, dtype, causal, window, softcap).
-# The first three are timed (K10_TIMED), the first being the kernel's row:
+# The first seven are timed (K10_TIMED), the first being the kernel's row:
 # a gemma2-27b global layer's prefill of the 2,100-token prompt; then its
 # local layers' and recurrentgemma-2b's (MQA, window 2048, which bites at
-# 2,100 but skips no tile).  The "skips tiles" cases have query tiles whose
-# window starts a whole kv tile or more after key 0.  bf16 runs the
-# tensor-core body (query blocks of 192 rows up to head_dim 128, 128 above)
-# and f32 the CUDA-core body (32 rows), so each edge has a case in both, and
-# the bf16 query tiles meet T = 63 and 65 at a block's edge +-1.  head_dim
-# 80 (one 64-wide box and one that TMA's zero fill pads) and 192 (three
-# boxes, the largest ring in shared memory) reach the body's other forms.
+# 2,100 but skips no tile), gemma3-4b's global and local layers (8 / 4
+# heads of 256, the local window 1024), minitron-4b's (24 / 8 heads: G = 3)
+# and moonshot-v1-16b-a3b's (16 / 16: G = 1).  The "skips tiles" cases have
+# query tiles whose window starts a whole kv tile or more after key 0.
+# bf16 runs the tensor-core body (query blocks of 192 rows up to head_dim
+# 128, 128 above) and f32 the CUDA-core body (32 rows), so each edge has a
+# case in both, and the bf16 query tiles meet T = 63 and 65 at a block's
+# edge +-1.  head_dim 80 (one 64-wide box and one that TMA's zero fill
+# pads) and 192 (three boxes, the largest ring in shared memory) reach the
+# body's other forms.
 BF16, F32 = torch.bfloat16, torch.float32
 K10_CASES = (
     ("gemma2-27b global", 1, 2100, 2100, 16, 2, 128, BF16, True, 0, 50.0),
     ("gemma2-27b local", 1, 2100, 2100, 16, 2, 128, BF16, True, 4096, 50.0),
     ("recurrentgemma-2b local", 1, 2100, 2100, 1, 10, 256, BF16, True, 2048,
      0.0),
+    ("gemma3-4b global", 1, 2100, 2100, 4, 2, 256, BF16, True, 0, 0.0),
+    ("gemma3-4b local", 1, 2100, 2100, 4, 2, 256, BF16, True, 1024, 0.0),
+    ("minitron-4b", 1, 2100, 2100, 8, 3, 128, BF16, True, 0, 0.0),
+    ("moonshot-v1-16b-a3b", 1, 2100, 2100, 16, 1, 128, BF16, True, 0, 0.0),
     ("T = 1", 2, 1, 1, 16, 2, 128, BF16, True, 0, 50.0),
     ("S, T at a tile -1, +1", 2, 31, 65, 16, 2, 128, BF16, True, 0, 50.0),
     ("S, T at a tile +1, -1", 2, 33, 63, 1, 10, 256, BF16, True, 2048, 0.0),
@@ -2207,7 +2239,7 @@ K10_CASES = (
     ("bf16, ragged T, window and soft cap, head_dim 192", 1, 300, 277, 1, 3,
      192, BF16, True, 200, 50.0),
 )
-K10_TIMED = tuple(c[0] for c in K10_CASES[:3])
+K10_TIMED = tuple(c[0] for c in K10_CASES[:7])
 K10_UNITS = sorted({(c[7], c[6]) for c in K10_CASES}, key=str)
 
 
@@ -3103,13 +3135,25 @@ def phase_primitives(res, gen) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def dense_param_count(cfg) -> int:
-    """gemma2's parameters from its config alone: per layer wq, wk, wv, wo,
-    the GeGLU MLP's three matrices and four norms; the tied embedding and
-    the final norm."""
+def param_count(cfg) -> int:
+    """The parameters of a model of GQA blocks from its config alone.  A
+    block: wq, wk, wv, wo; q_norm and k_norm over head_dim with qk-norm;
+    two norms, two more with post-norms; a dense MLP (w_in, w_out and, for
+    swiglu / geglu, w_gate), or an MoE: the router (d x E) and its bias,
+    E experts of moe_d_ff and the shared experts as one MLP
+    n_shared_experts times as wide.  The embedding, an untied unembedding
+    and the final norm."""
     d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    layer = 2 * d * H * hd + 2 * d * K * hd + 3 * d * cfg.d_ff + 4 * d
-    return cfg.n_layers * layer + cfg.vocab_size * d + d
+    mats = 3 if cfg.activation in ("swiglu", "geglu") else 2
+    attn = 2 * d * H * hd + 2 * d * K * hd + (2 * hd if cfg.qk_norm else 0)
+    norms = (4 if cfg.post_norm else 2) * d
+    dense = mats * d * cfg.d_ff
+    moe = (d * cfg.n_experts + cfg.n_experts
+           + (cfg.n_experts + cfg.n_shared_experts) * mats * d * cfg.moe_d_ff)
+    blocks = sum(attn + norms + (moe if kind.endswith("_moe") else dense)
+                 for kind in cfg.layer_pattern())
+    embed = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+    return blocks + embed + d
 
 
 def load_model(name: str = "recurrentgemma-2b", tag: str = "serve",
@@ -3135,8 +3179,43 @@ def load_model(name: str = "recurrentgemma-2b", tag: str = "serve",
     return cfg, params, prompts
 
 
+def f32_floor(params, cfg, toks, logits_c, logits_t) -> dict:
+    """The two backends' bf16 prefill logits held against the same model
+    in float32 activations (the bf16 weights upcast in each product), for
+    a model whose bf16 rounding noise is large beside its logits.  In
+    float32 (K10's CUDA-core body) the backends compute the same function:
+    within 1e-3 of max|logit|.  In bf16 each backend is a rounding of that
+    function; where the torch backend lies D from it, the two lie at most
+    about 2 D apart (|c - t| <= |c - f| + |f - t|, both terms bf16 noise of
+    one size): the cuda backend's K10 adds no error of its own."""
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    c32, _ = lm.prefill(params, cfg32, toks, cache_len=CACHE_LEN)
+    with ki.use_backend("torch"):
+        f, _ = lm.prefill(params, cfg32, toks, cache_len=CACHE_LEN)
+    T = toks.shape[1]
+    out = {"tokens": T, "max_logit_f32": float(f.abs().max()),
+           "f32_cuda_vs_torch": float((c32 - f).abs().max()),
+           "cuda_vs_f32": float((logits_c - f).abs().max()),
+           "torch_vs_f32": float((logits_t - f).abs().max()),
+           "cuda_vs_torch": float((logits_c - logits_t).abs().max())}
+    expect(out["f32_cuda_vs_torch"] <= 1e-3 * out["max_logit_f32"],
+           f"prefill T={T} in float32 activations: cuda vs torch backend "
+           f"max abs err {out['f32_cuda_vs_torch']:.4g} <= 1e-3 x "
+           f"max|logit| {out['max_logit_f32']:.4g}")
+    expect(out["cuda_vs_torch"] <= 2 * out["torch_vs_f32"],
+           f"prefill T={T} in bf16: cuda vs torch backend max abs err "
+           f"{out['cuda_vs_torch']:.4g} <= 2 x the torch backend's own "
+           f"error against float32 activations, {out['torch_vs_f32']:.4g} "
+           f"(the cuda backend's {out['cuda_vs_f32']:.4g}); argmax "
+           f"{int(logits_c.argmax())} vs {int(logits_t.argmax())} (float32 "
+           f"{int(f.argmax())})")
+    return out
+
+
 def phase_serve(cfg, params, prompts, path=GREEDY_PATH,
-                tag="serve") -> dict:
+                tag="serve", floor=False) -> dict:
+    """``floor``: hold the backends' prefill logits to the float32 floor
+    (f32_floor) instead of 2e-2 of their magnitude."""
     dev = torch.device("cuda")
     memory = {"weights_gb": torch.cuda.memory_allocated() / 1e9}
     torch.cuda.reset_peak_memory_stats()
@@ -3146,7 +3225,8 @@ def phase_serve(cfg, params, prompts, path=GREEDY_PATH,
     # last past recurrentgemma's window).  bf16 activations round the
     # recurrence's and the attention's f32 outputs, so one ulp of f32
     # difference can flip a bf16 rounding and move through every layer:
-    # held at 2e-2 of the logits' magnitude.
+    # held at 2e-2 of the logits' magnitude, or to the float32 floor.
+    routes = []
     for p in (prompts[0], prompts[4], prompts[6]):
         toks = torch.tensor([p], dtype=torch.int64, device=dev)
         logits_c, _ = lm.prefill(params, cfg, toks, cache_len=CACHE_LEN)
@@ -3157,10 +3237,15 @@ def phase_serve(cfg, params, prompts, path=GREEDY_PATH,
             f"prefill T={len(p)}: finite logits of shape (1, {cfg.vocab_size})")
         err = float((logits_c - logits_t).abs().max())
         scale = float(logits_t.abs().max())
-        expect(err <= 2e-2 * scale,
-               f"prefill T={len(p)}: cuda vs torch backend max abs err "
-               f"{err:.4g} <= 2e-2 x max|logit| {scale:.4g}; argmax "
-               f"{int(logits_c.argmax())} vs {int(logits_t.argmax())}")
+        if floor:
+            routes.append(f32_floor(params, cfg, toks, logits_c, logits_t))
+        else:
+            expect(err <= 2e-2 * scale,
+                   f"prefill T={len(p)}: cuda vs torch backend max abs err "
+                   f"{err:.4g} <= 2e-2 x max|logit| {scale:.4g}; argmax "
+                   f"{int(logits_c.argmax())} vs {int(logits_t.argmax())}")
+            routes.append({"tokens": len(p), "cuda_vs_torch": err,
+                           "max_logit": scale})
         del logits_c, logits_t
     memory["peak_prefill_checks_gb"] = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
@@ -3214,29 +3299,11 @@ def phase_serve(cfg, params, prompts, path=GREEDY_PATH,
         "launches": launches,
         "memory": memory,
         "profile": profile,
+        "routes": routes,
         "streams": streams_digest(outs),
     }
     log(f"[{tag}] " + json.dumps(summary))
     return summary
-
-
-# ---------------------------------------------------------------------------
-# Phase 6: serve gemma2-27b FULL
-# ---------------------------------------------------------------------------
-
-
-def phase_gemma2() -> dict:
-    """gemma2-27b FULL after the recurrentgemma phases' tensors are gone:
-    54.4 GB of bf16 weights and 6.2 GB of caches on the 80 GB card."""
-    gc.collect()
-    torch.cuda.empty_cache()
-    log(f"[gemma2] {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
-        f"before loading")
-    cfg, params, prompts = load_model("gemma2-27b", "gemma2",
-                                      dense_param_count)
-    expect(round(lm.count_params(params) / 1e9, 2) == 27.23,
-           "gemma2-27b: 27.23 B parameters")
-    return phase_serve(cfg, params, prompts, GEMMA2_PATH, "gemma2")
 
 
 # ---------------------------------------------------------------------------
@@ -3332,6 +3399,99 @@ def phase_xlstm() -> dict:
     summary["divergence"] = layer_divergence(params, cfg, prompts[4])
     summary["phase_s"] = time.perf_counter() - t0
     log(f"[xlstm] phase 7 took {summary['phase_s']:.1f} s")
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# Phases 6 and 8-10: serve gemma2-27b, then gemma3-4b, minitron-4b and
+# moonshot-v1-16b-a3b FULL
+# ---------------------------------------------------------------------------
+
+# (config, tag, parameters by the reference's tree): gemma3-4b's qk-norm
+# and 5 local : 1 global layers at head_dim 256, minitron-4b's relu2 MLP and
+# untied 256,000 x 3,072 unembedding, moonshot-v1-16b-a3b's MoE (64 experts
+# top-6 and 2 shared on 47 of its 48 layers, a sigmoid router).  Each runs
+# GEMMA2_PATH: attention and MLPs, no recurrence.
+MODELS = (("gemma3-4b", "gemma3", 3_880_099_328),
+          ("minitron-4b", "minitron", 4_190_309_376),
+          ("moonshot-v1-16b-a3b", "moonshot", 28_386_595_776))
+
+
+def expert_choices(params, cfg, toks, backend) -> list:
+    """Each MoE layer's selected experts for every token of one prefill on
+    ``backend``, in ascending id, by a recording wrapper around the
+    router's ``route`` for the length of the call."""
+    seen, route = [], moe_m.route
+
+    def recording(p, c, xf):
+        out = route(p, c, xf)
+        seen.append(out[3].sort(dim=1)[0])
+        return out
+
+    moe_m.route = recording
+    try:
+        with ki.use_backend(backend):
+            lm.prefill(params, cfg, toks, cache_len=CACHE_LEN)
+    finally:
+        moe_m.route = route
+    return seen
+
+
+def moe_checks(params, cfg, prompts) -> dict:
+    """Two prefills of one prompt on the cuda route give the same logits
+    to the bit (each token's experts summed in a fixed order, no atomics);
+    and how many tokens of each prompt choose other experts in some MoE
+    layer on the cuda route than on the torch one (the router runs in
+    float32 on inputs that K10 and blockwise attention round apart)."""
+    out = {"repeat": {}, "expert_choices": {}}
+    for p in (prompts[4], prompts[6]):
+        toks = torch.tensor([p], dtype=torch.int64, device="cuda")
+        a, _ = lm.prefill(params, cfg, toks, cache_len=CACHE_LEN)
+        b, _ = lm.prefill(params, cfg, toks, cache_len=CACHE_LEN)
+        expect(torch.equal(a, b), f"moonshot prefill T={len(p)}: two runs "
+                                  f"give bit-identical logits")
+        out["repeat"][len(p)] = True
+        del a, b
+    for p in (prompts[0], prompts[4], prompts[6]):
+        toks = torch.tensor([p], dtype=torch.int64, device="cuda")
+        cuda = expert_choices(params, cfg, toks, "cuda")
+        plain = expert_choices(params, cfg, toks, "torch")
+        expect(len(cuda) == len(plain) == cfg.n_units,
+               f"moonshot prefill T={len(p)}: {len(cuda)} MoE layers "
+               f"routed on each route")
+        differ = [(c != t).any(dim=1) for c, t in zip(cuda, plain)]
+        per_layer = [int(d.sum()) for d in differ]
+        out["expert_choices"][len(p)] = {
+            "tokens": len(p), "moe_layers": len(per_layer),
+            "tokens_differ_any_layer": int(torch.stack(differ).any(0).sum()),
+            "layers_with_a_difference": sum(n > 0 for n in per_layer),
+            "first_layer": next((i for i, n in enumerate(per_layer) if n),
+                                None),
+            "max_tokens_in_a_layer": max(per_layer),
+            "per_layer": per_layer}
+    log("[moonshot] " + json.dumps(out))
+    return out
+
+
+def phase_model(name: str, tag: str, n_params: int,
+                floor: bool = True) -> dict:
+    """A model of GQA blocks at full width after the previous phase's
+    tensors are gone (gemma2-27b: 54.4 GB of bf16 weights and 6.2 GB of
+    caches on the 80 GB card), served as phase_serve does; ``floor``: its
+    backends' logits held to the float32 floor (f32_floor)."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{tag}] {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+        f"before loading")
+    cfg, params, prompts = load_model(name, tag, param_count)
+    expect(lm.count_params(params) == n_params,
+           f"{name}: {n_params} parameters, as the reference's tree")
+    summary = phase_serve(cfg, params, prompts, GEMMA2_PATH, tag, floor)
+    if cfg.n_experts:
+        summary["moe"] = moe_checks(params, cfg, prompts)
+    summary["phase_s"] = time.perf_counter() - t0
+    log(f"[{tag}] phase took {summary['phase_s']:.1f} s")
     return summary
 
 
@@ -3606,8 +3766,10 @@ def main() -> int:
         serve = phase_serve(cfg, params, prompts)
         sampled = phase_sampled(cfg, params, prompts)
         del params
-        gemma2 = phase_gemma2()
+        gemma2 = phase_model("gemma2-27b", "gemma2", GEMMA2_PARAMS,
+                             floor=False)
         xlstm = phase_xlstm()
+        models = {tag: phase_model(name, tag, n) for name, tag, n in MODELS}
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1
@@ -3618,7 +3780,7 @@ def main() -> int:
     for k, r in res.items():
         name, source, replaces = META[k]
         paths = {"primitives": prims, "greedy": serve, "sampled": sampled,
-                 "gemma2": gemma2, "xlstm": xlstm}
+                 "gemma2": gemma2, "xlstm": xlstm, **models}
         kernels.append({
             "name": f"{k} {name}", "route": "cuda", "source": source,
             "replaces": replaces,
@@ -3630,16 +3792,19 @@ def main() -> int:
             "launches_sampled": sampled["launches"][k],
             "launches_gemma2": gemma2["launches"][k],
             "launches_xlstm": xlstm["launches"][k],
+            **{f"launches_{tag}": m["launches"][k]
+               for tag, m in models.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
             "shape": r["shape"]})
         for extra in ("public_ms", "paper_worst", "device_ms", "rows",
-                      "xlstm"):
+                      "xlstm", "shapes"):
             if extra in r:   # the public call at the same shape; the worst
                 kernels[-1][extra] = r[extra]    # Table V/VI row's ratio;
                 # the kernel alone (torch.profiler) where the host's launch
-                # takes longer; K7m's timed rows; K6's at xLSTM's shapes
+                # takes longer; K7m's timed rows; K6's at xLSTM's shapes;
+                # K10's at each served model's prefill layers
         if k == "K7m":                  # its launches by kind, per path
             kernels[-1]["launches_kinds"] = {
                 path: {x.split()[1]: v for x, v in p["launches"].items()

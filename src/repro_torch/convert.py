@@ -9,9 +9,10 @@ of JAX.  It
   (its ``vmap`` init), into the port's list of per-unit tuples;
 * casts every leaf to ``dtype``, except the leaves the reference keeps in
   float32, which stay float32: the norm scales, the RG-LRU's ``lam``,
-  ``bias_a`` and ``bias_x``, the mLSTM's gate projections and biases, and
-  the sLSTM's gate ``bias`` -- by path, since the conv's ``bias`` (under
-  ``mixer.conv``) takes the weight dtype.
+  ``bias_a`` and ``bias_x``, the mLSTM's gate projections and biases, the
+  sLSTM's gate ``bias`` and the MoE's ``router`` and ``router_bias`` -- by
+  path, since the conv's ``bias`` (under ``mixer.conv``) takes the weight
+  dtype.  An untied ``embed.unembed`` carries across with the rest.
 
 The same JAX parameters then give both packages the same function.
 ``quantized_from_jax`` does the same for a quantized matrix operand.
@@ -24,7 +25,7 @@ import torch
 from repro_torch.core import operators as alg
 
 F32_LEAVES = ("lam", "bias_a", "bias_x", "scale", "w_igate", "w_fgate",
-              "b_igate", "b_fgate")
+              "b_igate", "b_fgate", "router", "router_bias")
 
 
 def keeps_f32(path) -> bool:

@@ -1,13 +1,14 @@
 """Attention of the port: GQA, global and sliding-window, prefill and
 decode.
 
-The port of the GQA parts of ``repro.models.attention``.  Prefill attention
-on the cuda backend is kernel K10 (``kernels/flash_attention.py``: the
-reference's ``flash_attention_pallas`` as a hand-written CUDA kernel, in
-the models' layout); on the torch backend it is ``blockwise_attention``,
-the reference models' own XLA core (the online softmax over KV blocks, the
-flash pattern), which the CPU tests hold against the reference.  Decode
-attention is plain tensor code (``decode_attention``), as in the reference.
+The port of the GQA parts of ``repro.models.attention``, qk-norm
+included.  Prefill attention on the cuda backend is kernel K10
+(``kernels/flash_attention.py``: the reference's ``flash_attention_pallas``
+as a hand-written CUDA kernel, in the models' layout); on the torch
+backend it is ``blockwise_attention``, the reference models' own XLA core
+(the online softmax over KV blocks, the flash pattern), which the CPU
+tests hold against the reference.  Decode attention is plain tensor code
+(``decode_attention``), as in the reference.
 Global layers keep a ``cache_len`` cache written at [0, S); local layers a
 ring of ``min(cache_len, local_window)`` slots.
 
@@ -109,15 +110,19 @@ def decode_attention(q, k_cache, v_cache, *, key_valid, softcap=0.0):
 
 
 def init_gqa(gen, cfg, dtype=torch.float32):
+    """The projections; with ``cfg.qk_norm`` (gemma3) an rmsnorm of q and
+    of k over ``head_dim``, whose scales stay float32 as every norm's."""
     d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    if cfg.qk_norm:
-        raise NotImplementedError("qk_norm attention is not in this port yet")
-    return {
+    p = {
         "wq": L.dense_init(gen, (d, H, hd), 0, dtype),
         "wk": L.dense_init(gen, (d, K, hd), 0, dtype),
         "wv": L.dense_init(gen, (d, K, hd), 0, dtype),
         "wo": L.dense_init(gen, (H, hd, d), (0, 1), dtype),
     }
+    if cfg.qk_norm:
+        p["q_norm"] = L.init_rmsnorm(hd, gen.device)
+        p["k_norm"] = L.init_rmsnorm(hd, gen.device)
+    return p
 
 
 def _project_qkv(params, cfg, x, positions, dtype, is_local):
@@ -125,6 +130,10 @@ def _project_qkv(params, cfg, x, positions, dtype, is_local):
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dtype))
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(dtype))
     v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(dtype))
+    if cfg.qk_norm:
+        # After the projection, before rope; prefill and decode both.
+        q = L.rmsnorm(params["q_norm"], q, cfg.norm_eps)
+        k = L.rmsnorm(params["k_norm"], k, cfg.norm_eps)
     theta = (cfg.rope_theta_global
              if (not is_local and cfg.rope_theta_global) else cfg.rope_theta)
     q = L.rope(q, positions, theta)

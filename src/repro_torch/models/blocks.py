@@ -1,13 +1,14 @@
 """Layer blocks: residual wiring for the kinds of the port.
 
 The port of ``repro.models.blocks`` for ``attn_global`` / ``attn_local``
-(GQA + MLP; ``gqa_dense`` is ``attn_global``'s alias), ``rglru`` (Griffin
-recurrent + MLP) and ``mlstm`` / ``slstm`` (xLSTM: the mixer alone, which
-carries its own projections): pre-norm residuals with optional gemma-style
-post-norms (``cfg.post_norm``).
+(GQA + MLP; ``gqa_dense`` is ``attn_global``'s alias), ``gqa_moe`` (GQA +
+MoE), ``rglru`` (Griffin recurrent + MLP) and ``mlstm`` / ``slstm``
+(xLSTM: the mixer alone, which carries its own projections): pre-norm
+residuals with optional gemma-style post-norms (``cfg.post_norm``).
 
 ``block_forward(params, kind, cfg, x, mode=...)`` returns
-``(x, cache)`` where ``mode`` is "train" | "prefill" | "decode".
+``(x, cache)`` where ``mode`` is "train" | "prefill" | "decode"; an MoE
+block's auxiliary losses are dropped (the serving path reads none).
 """
 from __future__ import annotations
 
@@ -15,14 +16,19 @@ from typing import Any
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import recurrent as R
 
-_ATTN_KINDS = ("attn_global", "attn_local", "gqa_dense")
+_ATTN_KINDS = ("attn_global", "attn_local", "gqa_dense", "gqa_moe")
 _KINDS = _ATTN_KINDS + ("rglru", "mlstm", "slstm")
 
 
 def _has_mlp(kind):
     return kind not in ("mlstm", "slstm")
+
+
+def _is_moe(kind):
+    return kind.endswith("_moe")
 
 
 def _check_kind(kind):
@@ -48,8 +54,11 @@ def init_block(gen, kind, cfg, dtype):
         p["norm2"] = L.init_rmsnorm(cfg.d_model, gen.device)
         if cfg.post_norm:
             p["post_norm2"] = L.init_rmsnorm(cfg.d_model, gen.device)
-        p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation,
-                              dtype)
+        if _is_moe(kind):
+            p["moe"] = M.init_moe(gen, cfg, dtype)
+        else:
+            p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff,
+                                  cfg.activation, dtype)
     return p
 
 
@@ -84,8 +93,11 @@ def block_forward(params, kind, cfg, x, *, mode="train",
     x = x + h
     if not _has_mlp(kind):
         return x, new_cache
-    h = L.mlp(params["mlp"], L.rmsnorm(params["norm2"], x, cfg.norm_eps),
-              cfg.activation)
+    h = L.rmsnorm(params["norm2"], x, cfg.norm_eps)
+    if _is_moe(kind):
+        h, _ = M.moe_forward(params["moe"], cfg, h)
+    else:
+        h = L.mlp(params["mlp"], h, cfg.activation)
     if cfg.post_norm:
         h = L.rmsnorm(params["post_norm2"], h, cfg.norm_eps)
     return x + h, new_cache

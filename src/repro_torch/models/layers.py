@@ -7,7 +7,9 @@ the reference's layouts and its rounding points:
 * ``rmsnorm`` computes in float32 with the gemma ``(1 + scale)`` form;
 * ``embed`` rounds ``sqrt(d)`` to the activation dtype before it multiplies;
 * ``unembed`` multiplies in the activation dtype, then casts to float32;
-* the gelu of geglu is the tanh approximation (``jax.nn.gelu``'s default).
+* the gelu of geglu is the tanh approximation (``jax.nn.gelu``'s default);
+  swiglu's gate is ``silu``, and relu2 squares the relu in the activation
+  dtype.
 
 Initialisers draw from an explicit ``torch.Generator`` on the target device.
 """
@@ -81,7 +83,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 
 # ---------------------------------------------------------------------------
-# MLP (gated)
+# MLP (gated: swiglu, geglu; ungated: gelu, relu, relu2)
 # ---------------------------------------------------------------------------
 
 
@@ -94,9 +96,16 @@ def init_mlp(gen, d, ff, activation, dtype=torch.float32):
 
 
 def _act(name, x):
+    if name == "swiglu":
+        return F.silu(x)
     if name in ("geglu", "gelu"):
         return F.gelu(x, approximate="tanh")
-    raise NotImplementedError(f"activation {name!r} is not in this port yet")
+    if name == "relu":
+        return F.relu(x)
+    if name == "relu2":
+        r = F.relu(x)
+        return r * r              # squared in the activation dtype
+    raise ValueError(name)
 
 
 def mlp(params, x, activation):

@@ -8,7 +8,8 @@ mirror the same layout: ``{"prefix": [...], "units": [(...), ...],
 "suffix": [...]}``, every leaf leading with the batch (slot) axis.
 
 * ``init_params(cfg, seed=..., device=...)`` -> params
-* ``prefill(params, cfg, tokens, cache_len=...)`` -> (last_logits, caches)
+* ``prefill(params, cfg, tokens, cache_len=..., vision_embeds=None)``
+  -> (last_logits, caches)
 * ``decode_step(params, cfg, caches, tokens, pos)`` -> (logits, caches)
 """
 from __future__ import annotations
@@ -81,12 +82,12 @@ def init_params(cfg, *, seed: int = 0, device=None,
     a ``torch.Generator`` seeded with ``seed``.  Weights take ``dtype``;
     norm scales, the RG-LRU's ``lam``/``bias_a``/``bias_x``, the mLSTM's
     gate projections and biases (``w_igate``, ``w_fgate``, ``b_igate``,
-    ``b_fgate``) and the sLSTM's gate ``bias`` stay float32, as in the
-    reference."""
-    if cfg.is_encdec or cfg.mtp_depth or cfg.num_prefix_embeds:
+    ``b_fgate``), the sLSTM's gate ``bias`` and the MoE's ``router`` and
+    ``router_bias`` stay float32, as in the reference."""
+    if cfg.is_encdec or cfg.mtp_depth:
         raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder, MTP and prefix-embedding models "
-            f"are not in this port yet")
+            f"{cfg.name}: encoder-decoder and MTP models are not in this "
+            f"port yet")
     gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
     return {
         "embed": L.init_embed(gen, cfg.vocab_size, cfg.d_model,
@@ -105,11 +106,24 @@ def count_params(params: Pytree) -> int:
 # ---------------------------------------------------------------------------
 
 
-def prefill(params, cfg, tokens, *, cache_len):
-    """Full-sequence forward over exact-length ``tokens`` (B, S), building
-    decode caches.  Returns (last_logits (B, vocab) float32, caches)."""
-    h = L.embed(params["embed"], tokens, cfg.embed_scale,
-                cfg.activation_dtype)
+def _embed_inputs(params, cfg, tokens, vision_embeds=None):
+    """The token embeddings, behind ``vision_embeds`` (B, P, D) in the
+    activation dtype where the config takes prefix embeddings (a VLM's
+    patch embeddings), so that the sequence's positions, from 0, run over
+    prefix and tokens."""
+    dtype = cfg.activation_dtype
+    h = L.embed(params["embed"], tokens, cfg.embed_scale, dtype)
+    if cfg.num_prefix_embeds and vision_embeds is not None:
+        h = torch.cat([vision_embeds.to(dtype), h], dim=1)
+    return h
+
+
+def prefill(params, cfg, tokens, *, cache_len, vision_embeds=None):
+    """Full-sequence forward over exact-length ``tokens`` (B, S), behind
+    the prefix ``vision_embeds`` where given, building decode caches.  The
+    logits are the last token's.  Returns (last_logits (B, vocab) float32,
+    caches)."""
+    h = _embed_inputs(params, cfg, tokens, vision_embeds)
     h, caches = _run_stack(params["decoder"], _dec_spec(cfg), cfg, h,
                            mode="prefill", cache_len=cache_len)
     h = L.rmsnorm(params["final_norm"], h[:, -1:], cfg.norm_eps)

@@ -20,9 +20,11 @@ samples with the reference's counter-based keys: the ``j``-th token of a
 request with seed ``s`` uses ``fold_in(fold_in(PRNGKey(seed), s), j)``, so a
 request's stream depends only on its prompt and seed, never on batch
 composition (``serving/sampling.py``; the radix top-k and nucleus scan run
-kernels K2, K4, K6 and K7s on the card).  Prefill is exact-length; prefill
-buckets, quantized KV, the other strategies, the padded oracle and the
-``mesh`` argument come with later slices.
+kernels K2, K4, K6 and K7s on the card).  Prefill is exact-length,
+behind zero prefix embeddings where the config takes them
+(``num_prefix_embeds``), so a request's positions start after the prefix;
+prefill buckets, quantized KV, the other strategies, the padded oracle and
+the ``mesh`` argument come with later slices.
 """
 from __future__ import annotations
 
@@ -90,8 +92,22 @@ class Engine:
         self.last_stats: dict = {}
         self.last_scores = np.zeros((0,), np.float32)
 
-    def _prefill(self, params, toks):
-        return lm.prefill(params, self.cfg, toks, cache_len=self.cache_len)
+    def _make_batch(self, toks) -> dict:
+        """Prefill inputs: the tokens, and for a config with prefix
+        embeddings zero float32 ``vision_embeds`` of (B, P, d_model) (the
+        reference engine's stand-in for a frontend's output)."""
+        cfg = self.cfg
+        batch = {"tokens": toks}
+        if cfg.num_prefix_embeds:
+            batch["vision_embeds"] = torch.zeros(
+                (toks.shape[0], cfg.num_prefix_embeds, cfg.d_model),
+                dtype=torch.float32, device=self.device)
+        return batch
+
+    def _prefill(self, params, batch):
+        return lm.prefill(params, self.cfg, batch["tokens"],
+                          cache_len=self.cache_len,
+                          vision_embeds=batch.get("vision_embeds"))
 
     def _decode(self, params, caches, toks, pos):
         return lm.decode_step(params, self.cfg, caches, toks, pos)
@@ -225,7 +241,8 @@ class Engine:
                 t0 = time.perf_counter()
                 toks = torch.tensor([r.prompt], dtype=torch.int64,
                                     device=self.device)
-                logits1, caches1 = self._prefill(self.params, toks)
+                logits1, caches1 = self._prefill(self.params,
+                                                 self._make_batch(toks))
                 extras = self.strategy.host_prefill(self, toks)
                 pos0 = len(r.prompt) + self.cfg.num_prefix_embeds
                 state = self._admit_impl(

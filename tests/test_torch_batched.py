@@ -1,7 +1,11 @@
 """The port's batched GEMVs (K7) against the reference -- the matvec /
 vecmat rows of ``tests/test_conformance.py``'s matrix -- and its quantized
-GEMVs (K9) under max-plus and min-plus and on CPU tensors (K9's
-conformance legs: ``test_torch_quantized_gemv.py``).
+GEMVs (K9) on CPU tensors (K9's conformance legs:
+``test_torch_quantized_gemv.py``; under max-plus and min-plus:
+``test_torch_batched_quantized.py``).  The conformance GEMVs run from
+``test_torch_batched_gemv.py`` and the integer ones from
+``test_torch_batched_gemv_int32.py``: files of at most 12 tests, which
+``--dist loadfile`` queues behind the larger files.
 
 Inputs come from numpy with a seed; the same arrays go through the JAX
 routes (``backend="pallas-interpret"``, the Pallas kernel bodies, and
@@ -33,7 +37,6 @@ from repro_torch.core import primitives as t_forge  # noqa: E402
 from repro_torch.core.layout import Batched as TBatched  # noqa: E402
 from repro_torch.kernels import batched as batched_k  # noqa: E402
 from repro_torch.kernels import matvec as matvec_k  # noqa: E402
-from repro_torch.kernels import ref as t_ref  # noqa: E402
 from torch.utils import _pytree as pytree  # noqa: E402
 from test_torch_models import one_torch_thread  # noqa: E402,F401
 
@@ -150,51 +153,6 @@ def _ref_routes(form, f, op, A, x, layout):
     return dict(zip(REF_BACKENDS, outs))
 
 
-@pytest.mark.parametrize("form", ["matvec", "vecmat"])
-@pytest.mark.parametrize("case", sorted(MV_CASES))
-def test_batched_gemv_conformance(case, form):
-    (jf_mv, jf_vm, jop), (tf_mv, tf_vm, top) = MV_CASES[case]
-    jf, tf = (jf_mv, tf_mv) if form == "matvec" else (jf_vm, tf_vm)
-    rng = np.random.default_rng(_seed("bmv", case, form))
-    for B, n, p in _mv_shapes():
-        A = (rng.normal(size=(B, n, p)) * 0.2).astype(np.float32)
-        x = (rng.normal(size=(B, n if form == "matvec" else p)) * 0.2
-             ).astype(np.float32)
-        # sum |x| |a| per output: the size of an ADD (or shear) result.
-        scale = (np.abs(x)[:, :, None] * np.abs(A)).sum(1) if form == \
-            "matvec" else (np.abs(A) * np.abs(x)[:, None, :]).sum(2)
-        err = f"{form}@batched {case} {B}x{n}x{p}"
-        oracle = (t_ref.ref_batched_matvec if form == "matvec"
-                  else t_ref.ref_batched_vecmat)(tf, top, _t(A), _t(x))
-        wants = _ref_routes(form, jf, jop, jnp.asarray(A), jnp.asarray(x),
-                            JBatched())
-        for jb, want in wants.items():
-            for tb in PORT_BACKENDS:
-                got = _route(form, tf, top, _t(A), _t(x), TBatched(), tb)
-                _assert_close(got, want, scale, case == "min",
-                              f"{err} {tb} vs {jb}")
-        _assert_close(oracle, want, scale, case == "min", f"{err} oracle")
-
-
-@pytest.mark.parametrize("form", ["matvec", "vecmat"])
-@pytest.mark.parametrize("op_name", ["add", "max", "min", "mul"])
-def test_batched_gemv_int32_bit_exact(op_name, form):
-    """Integer-valued data: every operator bit-exact, int32 and f32."""
-    rng = np.random.default_rng(_seed("bmvi", op_name, form))
-    jop, top = getattr(j_alg, op_name.upper()), getattr(t_alg, op_name.upper())
-    for dt in (np.int32, np.float32):
-        A = rng.integers(-3, 4, (3, 37, 70)).astype(dt)
-        x = rng.integers(-3, 4, (3, 37 if form == "matvec" else 70)).astype(dt)
-        jf = (lambda u, v: u * v)
-        # Jitted: integer-valued terms, so a fused multiply-add rounds
-        # nothing, and the result stays bit-exact.
-        want = _ref_route(form, jf, jop, jnp.asarray(A), jnp.asarray(x),
-                          JBatched(), "xla", jit=True)
-        for tb in PORT_BACKENDS:
-            got = _route(form, t_alg.TIMES, top, _t(A), _t(x), TBatched(), tb)
-            _assert_close(got, want, None, True, f"{form} {op_name} {dt}")
-
-
 def test_batched_zero_extents_are_identity_rows_without_launching():
     counts = (batched_k.batched_matvec_cuda.launches,
               batched_k.batched_vecmat_cuda.launches)
@@ -212,41 +170,12 @@ def test_batched_zero_extents_are_identity_rows_without_launching():
 
 
 # ---------------------------------------------------------------------------
-# K9 over other algebras, and on CPU tensors (the conformance legs:
-# test_torch_quantized_gemv.py)
+# K9 on CPU tensors (the conformance legs: test_torch_quantized_gemv.py;
+# over other algebras: test_torch_batched_quantized.py)
 # ---------------------------------------------------------------------------
 
 QUANT_MODES = ["int8", "fp8_e4m3", "fp8_e5m2"]
 Q_BLOCK = 32
-
-
-@pytest.mark.parametrize("layout", ["flat", "batched"])
-@pytest.mark.parametrize("mode", QUANT_MODES)
-def test_quantized_tropical_bit_exact(mode, layout):
-    """A quantized operand under another algebra: max-plus and min-plus
-    over the dequantized matrix, bit-exact against the reference's xla
-    route (the dequantized elements are the reference's bits, x + a rounds
-    once, and MAX / MIN fold in any order).  The Pallas body, interpreted,
-    reads 1 ulp off in some outputs: it computes ``x + decode * scale`` in
-    one XLA fusion, which can contract into a fused multiply-add; the
-    port's kernel rounds the product on its own, as the xla route does."""
-    batched = layout == "batched"
-    jl, tl = (JBatched(), TBatched()) if batched else (None, None)
-    shape = (2, 40, 13) if batched else (40, 13)
-    rng = np.random.default_rng(_seed("qt", mode, layout))
-    A = rng.normal(size=shape).astype(np.float32)
-    jq = j_alg.quantize(jnp.asarray(A), mode=mode, block=Q_BLOCK)
-    tq = t_alg.quantize(_t(A), mode=mode, block=Q_BLOCK)
-    for form in ("matvec", "vecmat"):
-        x = rng.normal(size=shape[:-2] + (
-            (40,) if form == "matvec" else (13,))).astype(np.float32)
-        for jop, top in ((j_alg.MAX, t_alg.MAX), (j_alg.MIN, t_alg.MIN)):
-            want = _ref_route(form, lambda u, v: u + v, jop, jq,
-                              jnp.asarray(x), jl, "xla")
-            for tb in PORT_BACKENDS:
-                got = _route(form, t_alg.PLUS, top, tq, _t(x), tl, tb)
-                _assert_close(got, want, None, True,
-                              f"{form} {top.name} {mode} {layout}")
 
 
 def test_quantized_wrappers_take_plain_versions_on_the_cpu():

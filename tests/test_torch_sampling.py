@@ -7,10 +7,10 @@
   ``log`` of a number near 1 cancels (values near 0).
 * ``sample_tokens``: identical ids for the same logits, keys and steps, with
   top-k, top-p, full-vocabulary Gumbel and greedy settings.
-* The nucleus pins of the reference's ``tests/test_serving.py``.
-
-The sampled ``Engine`` against the reference's:
-``test_torch_sampled_engine.py``.
+The nucleus pins of the reference's ``tests/test_serving.py``:
+``test_torch_sampling_nucleus.py``; the sampled ``Engine`` against the
+reference's: ``test_torch_sampled_engine.py`` (files of at most 12 tests,
+which ``--dist loadfile`` queues behind the larger files).
 """
 import numpy as np
 import pytest
@@ -20,7 +20,6 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.serving import sampling as JSP  # noqa: E402
-from repro_torch.core import intrinsics as t_ki  # noqa: E402
 from repro_torch.serving import sampling as SP  # noqa: E402
 from test_torch_models import one_torch_thread  # noqa: E402,F401
 
@@ -107,52 +106,3 @@ def test_sample_tokens_identical_ids(temperature, top_k, top_p):
     got, want = _sample_both(logits, seeds, steps, temperature=temperature,
                              top_k=top_k, top_p=top_p)
     np.testing.assert_array_equal(got, want)
-
-
-# ---------------------------------------------------------------------------
-# The nucleus pins (reference tests/test_serving.py), through the port and
-# held against the reference's draws, at the reference's vocabulary cut to
-# 64 (one (DRAWS, VOCAB) shape keeps the reference's compilations few).
-# 4-bit digits keep the CPU's plain rank scans small; the result does not
-# depend on the digit width.
-# ---------------------------------------------------------------------------
-
-
-@pytest.fixture
-def narrow_digits(monkeypatch):
-    monkeypatch.setattr(t_ki, "SORT_DIGIT_BITS", 4)
-
-
-def _draws(logits_row, *, top_k, top_p, n=DRAWS):
-    logits = np.tile(np.asarray(logits_row, np.float32)[None, :], (n, 1))
-    got, want = _sample_both(logits, np.arange(n, dtype=np.int32),
-                             np.zeros(n, np.int32), temperature=1.0,
-                             top_k=top_k, top_p=top_p)
-    np.testing.assert_array_equal(got, want)
-    return got
-
-
-def test_nucleus_all_candidates_survive_on_renormalized_mass(narrow_digits):
-    """8 equal candidates carrying about half the full-vocab mass,
-    top_p=0.95: the renormalized exclusive prefix tops out at 7/8 < 0.95,
-    so all 8 survive."""
-    logits = np.full(VOCAB, 3.0, np.float32)
-    cands = np.arange(0, 56, 7)
-    logits[cands] = 5.0
-    draws = _draws(logits, top_k=8, top_p=0.95)
-    assert set(draws) == set(cands.tolist())
-
-
-def test_nucleus_truncates_on_renormalized_prefix(narrow_digits):
-    logits = np.full(VOCAB, -30.0, np.float32)
-    logits[7] = np.log(0.7)
-    logits[[13, 21, 34]] = np.log(0.1)
-    draws = _draws(logits, top_k=4, top_p=0.75)
-    assert set(draws) == {7, 13}
-
-
-def test_nucleus_first_candidate_always_survives(narrow_digits):
-    rng = np.random.default_rng(3)
-    logits = rng.normal(size=VOCAB).astype(np.float32)
-    draws = _draws(logits, top_k=8, top_p=1e-6)
-    assert (draws == int(np.argmax(logits))).all()

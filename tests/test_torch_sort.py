@@ -8,7 +8,12 @@ the same plain versions through the kernel wrappers).  Inputs come from
 numpy with a seed: float32 with +-0, +-inf, NaNs and ties, int32 and
 uint32.  Every result is held bit for bit (float keys compared as their
 bits, so the canonical NaN and +0.0 are pinned too).  The composition's
-digit width is checked at 4 and 8 bits.
+digit width is checked at 4 and 8 bits.  Three files of at most 12 tests
+each, which ``--dist loadfile`` queues behind the larger files, hold the
+rest: ``test_torch_sort_flat.py`` (``sort`` and ``argsort``, flat),
+``test_torch_sort_segmented.py`` (the segmented sort family and the
+sampling path's segmented top-k) and ``test_torch_sort_top_k.py`` (the
+ragged segmented top-k at both digit widths).
 """
 import numpy as np
 import pytest
@@ -81,19 +86,6 @@ def _layouts(variant, n):
 # ---------------------------------------------------------------------------
 # Flat layout
 # ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("descending", [False, True])
-@pytest.mark.parametrize("backend", ["torch", "cuda"])
-def test_sort_and_argsort_flat_bit_exact(dtype, descending, backend):
-    k = _keys(dtype, N, seed=1)
-    jk, tk = jnp.asarray(k), torch.from_numpy(k)
-    _same(t_forge.sort(tk, descending=descending, backend=backend),
-          j_forge.sort(jk, descending=descending, backend="xla"), dtype)
-    got = t_forge.argsort(tk, descending=descending, backend=backend)
-    assert got.dtype == torch.int32
-    _same(got, j_forge.argsort(jk, descending=descending, backend="xla"))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -191,65 +183,6 @@ def test_zero_length_and_k_bounds():
 # ---------------------------------------------------------------------------
 # Segmented layout
 # ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("variant", ["offsets", "flags"])
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_segmented_sort_family_bit_exact(variant, dtype):
-    n = N
-    k = _keys(dtype, n, seed=9)
-    jl, tl = _layouts(variant, n)
-    jk, tk = jnp.asarray(k), torch.from_numpy(k)
-    for descending in (False, True):
-        _same(t_forge.sort(tk, descending=descending, layout=tl),
-              j_forge.sort(jk, descending=descending, layout=jl,
-                           backend="xla"))
-        _same(t_forge.argsort(tk, descending=descending, layout=tl),
-              j_forge.argsort(jk, descending=descending, layout=jl,
-                              backend="xla"))
-    iota = np.arange(n, dtype=np.int32)
-    wk, wv = j_forge.sort_pairs(jk, jnp.asarray(iota), layout=jl,
-                                backend="xla")
-    gk, gv = t_forge.sort_pairs(tk, torch.from_numpy(iota), layout=tl)
-    _same(gk, wk)
-    _same(gv, wv)
-
-
-@pytest.mark.parametrize("variant", ["offsets", "flags"])
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_segmented_top_k_ragged(variant, dtype, digit_bits):
-    """k exceeds some segment lengths; empty and never-started segments
-    come back filled with the identity and index -1."""
-    n = N
-    k = _keys(dtype, n, seed=11)
-    jl, tl = _layouts(variant, n)
-    for largest in (True, False):
-        wv, wi = j_forge.top_k(jnp.asarray(k), 9, largest=largest,
-                               layout=jl, backend="xla")
-        kw = ({"offsets": tl.offsets} if variant == "offsets" else
-              {"flags": tl.flags, "num_segments": 8})
-        gv, gi = sort_k.segmented_top_k_radix(
-            torch.from_numpy(k), 9, largest=largest, **kw)
-        assert gv.shape == wv.shape and gi.dtype == torch.int32
-        _same(gv, wv)
-        _same(gi, wi)
-
-
-def test_segmented_top_k_sampling_shape():
-    """The sampling path's call: (B V,) float32 logits, offsets b V."""
-    B, V = 3, N // 3
-    rng = np.random.default_rng(12)
-    flat = rng.normal(size=B * V).astype(np.float32)
-    off = (np.arange(B + 1) * V).astype(np.int32)
-    wv, wi = j_forge.top_k(jnp.asarray(flat), 9,
-                           layout=JSegmented(offsets=jnp.asarray(off)),
-                           backend="xla")
-    for backend in ("torch", "cuda"):
-        gv, gi = t_forge.top_k(torch.from_numpy(flat), 9,
-                               layout=TSegmented(offsets=torch.from_numpy(
-                                   off)), backend=backend)
-        _same(gv, wv)
-        _same(gi, wi)
 
 
 def test_segmented_descriptor_validation_matches_reference():

@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Ten phases, any failure exits non-zero:
+Eleven phases, any failure exits non-zero:
 
 1. build -- generate the translation units of every kernel, operator, map
    and dtype combination the run's paths use (kernels/_lib.py, from each
@@ -32,10 +32,13 @@ Ten phases, any failure exits non-zero:
    gemma2-27b (32 query / 16 kv heads of 128, soft cap 50, global and
    window 4096), recurrentgemma-2b (10 / 1 heads of 256, window 2048),
    gemma3-4b (8 / 4 heads of 256, global and window 1024), minitron-4b (24
-   / 8 of 128) and moonshot-v1-16b-a3b (16 / 16 of 128) in bf16; time
+   / 8 of 128), moonshot-v1-16b-a3b (16 / 16 of 128) and deepseek-v3-671b's
+   MLA (128 heads, q and k 192 wide, v 128) in bf16, with v narrower than q
+   in both bodies at ragged shapes too; time
    the kernel, the plain version and one PyTorch library call of the same
    function with CUDA events (K2, K3, K7m and K7s in turns with the
-   library call, the median of 7 rounds).  K2 is one
+   library call, the median of 7 rounds; SDPA for K10, with the backend
+   its dispatch picks).  K2 is one
    launch at every n (a tile, or the single-pass lookback above it):
    int32 ADD and int32 AFFINE with odd multipliers bit-exact from n = 1
    to 2^24 on each side of both tile sizes, and the same call 1,000 times
@@ -147,6 +150,16 @@ Ten phases, any failure exits non-zero:
    top-6, 2 shared, a sigmoid router in float32), whose two prefills of a
    prompt must give the same logits to the bit, and the count of tokens
    that choose other experts on the cuda route than on the torch one.
+11. serve deepseek-v3-671b -- moonshot's tensors freed, every published
+   width (d_model 7168, 128 heads of MLA: q-LoRA 1536, kv-LoRA 512, q/k
+   192 and v 128 wide; vocab 129,280) at 4 of its 61 layers (3 mla_dense,
+   1 mla_moe: 256 experts top-8, one shared, a sigmoid router; the MTP
+   head in the tree, never run): 15,797,367,040 parameters, counted by
+   param_count, bf16 from a seed.  The engine's caches are the latent
+   ckv (4, 4,096, 512) and krope (4, 4,096, 64) in bf16 per layer; one
+   prefill launches K10 once per MLA layer in its (bf16, 192, 128) unit;
+   then as phases 8-10: the 8 requests, f32_floor, moonshot's MoE checks,
+   the profile.
 
 Each serve summary holds its token streams' digest ("streams"), and each
 profile the device ms under the decode step's aten ops ("ops_ms":
@@ -158,7 +171,8 @@ The line before the card line holds {"kernels": [...]}.  A kernel's
 "launches_path": the primitives path for K1-K9, as before, and gemma2's
 serving path for K10, which the primitives path does not run.  Beside them
 stand the launches on every path (primitives, greedy, sampled, gemma2,
-xlstm, gemma3, minitron, moonshot) and their sum, "launches_total"; K10's
+xlstm, gemma3, minitron, moonshot, deepseek) and their sum,
+"launches_total"; K10's
 row its time, bound and SDPA time at each served model's prefill layers
 ("shapes"); K6's and K6-long's rows add their
 checks at xlstm-1.3b's shapes ("xlstm"); K3's and K7s's rows add their
@@ -508,8 +522,8 @@ def path_units() -> list:
         mapped("qmatvec", alg.TIMES, alg.ADD, f32, f32, quant=mode)
     mapped("qmatvec", alg.PLUS, alg.MIN, f32, f32, quant="int8")
     mapped("qmatvec", D4, alg.MAT2_MUL, f32, f32, quant="int8")
-    for dtype, hd in K10_UNITS:
-        units.append(flash_k.flash_unit(dtype, hd, "build"))
+    for dtype, hd, dv in K10_UNITS:
+        units.append(flash_k.flash_unit(dtype, hd, "build", dv))
     return units
 
 
@@ -547,10 +561,10 @@ def phase_build() -> dict:
             worst["spilled_units"].append([u.label, spills])
     # K10's bf16 units run the tensor-core body: their SASS must hold the
     # warpgroup products, and none may spill.
-    for dtype, hd in K10_UNITS:
+    for dtype, hd, dv in K10_UNITS:
         if dtype != BF16:
             continue
-        u = flash_k.flash_unit(dtype, hd, "build")
+        u = flash_k.flash_unit(dtype, hd, "build", dv)
         ops = sass_ops(u.path)
         log(f"  sass {u.label}: {ops}")
         expect(ops["HGMMA"] > 0, f"{u.label}: SASS holds HGMMA "
@@ -2177,22 +2191,30 @@ def check_k7_k9(res, gen, note) -> None:
     del A, q
 
 
-# K10's cases: (label, B, S, T, K, G, hd, dtype, causal, window, softcap).
-# The first seven are timed (K10_TIMED), the first being the kernel's row:
+# K10's cases: (label, B, S, T, K, G, hd, dtype, causal, window, softcap[,
+# dv]), dv the value head dim where it is not hd.
+# The first eight are timed (K10_TIMED), the first being the kernel's row:
 # a gemma2-27b global layer's prefill of the 2,100-token prompt; then its
 # local layers' and recurrentgemma-2b's (MQA, window 2048, which bites at
 # 2,100 but skips no tile), gemma3-4b's global and local layers (8 / 4
-# heads of 256, the local window 1024), minitron-4b's (24 / 8 heads: G = 3)
-# and moonshot-v1-16b-a3b's (16 / 16: G = 1).  The "skips tiles" cases have
-# query tiles whose window starts a whole kv tile or more after key 0.
-# bf16 runs the tensor-core body (query blocks of 192 rows up to head_dim
-# 128, 128 above) and f32 the CUDA-core body (32 rows), so each edge has a
-# case in both, and the bf16 query tiles meet T = 63 and 65 at a block's
-# edge +-1.  head_dim 80 (one 64-wide box and one that TMA's zero fill
-# pads) and 192 (three boxes, the largest ring in shared memory) reach the
-# body's other forms.
+# heads of 256, the local window 1024), minitron-4b's (24 / 8 heads: G = 3),
+# moonshot-v1-16b-a3b's (16 / 16: G = 1) and deepseek-v3-671b's MLA layer
+# (128 heads, q and k 192 wide, v 128: the tensor-core body's three groups
+# with a 192-wide QK^T).  The "value head" cases hold v narrower than q in
+# both bodies: a value row padded by TMA's zero fill (48 of 64), the
+# two-stage ring at head_dim 256, query blocks at their edge.  The "skips
+# tiles" cases have query tiles whose window starts a whole kv tile or more
+# after key 0.  bf16 runs the tensor-core body (query blocks of 192 rows up
+# to a value head of 128, 128 above) and f32 the CUDA-core body (32 rows),
+# so each edge has a case in both, and the bf16 query tiles meet T = 63 and
+# 65 at a block's edge +-1.  head_dim 80 (one 64-wide box and one that
+# TMA's zero fill pads) and 192 (three boxes, the largest ring in shared
+# memory) reach the body's other forms.
 BF16, F32 = torch.bfloat16, torch.float32
-K10_CASES = (
+K10Case = collections.namedtuple(
+    "K10Case", "label B S T K G hd dtype causal window softcap dv",
+    defaults=(None,))
+K10_CASES = tuple(K10Case(*c) for c in (
     ("gemma2-27b global", 1, 2100, 2100, 16, 2, 128, BF16, True, 0, 50.0),
     ("gemma2-27b local", 1, 2100, 2100, 16, 2, 128, BF16, True, 4096, 50.0),
     ("recurrentgemma-2b local", 1, 2100, 2100, 1, 10, 256, BF16, True, 2048,
@@ -2201,6 +2223,8 @@ K10_CASES = (
     ("gemma3-4b local", 1, 2100, 2100, 4, 2, 256, BF16, True, 1024, 0.0),
     ("minitron-4b", 1, 2100, 2100, 8, 3, 128, BF16, True, 0, 0.0),
     ("moonshot-v1-16b-a3b", 1, 2100, 2100, 16, 1, 128, BF16, True, 0, 0.0),
+    ("deepseek-v3-671b MLA", 1, 2100, 2100, 128, 1, 192, BF16, True, 0, 0.0,
+     128),
     ("T = 1", 2, 1, 1, 16, 2, 128, BF16, True, 0, 50.0),
     ("S, T at a tile -1, +1", 2, 31, 65, 16, 2, 128, BF16, True, 0, 50.0),
     ("S, T at a tile +1, -1", 2, 33, 63, 1, 10, 256, BF16, True, 2048, 0.0),
@@ -2238,17 +2262,32 @@ K10_CASES = (
      80, BF16, True, 90, 30.0),
     ("bf16, ragged T, window and soft cap, head_dim 192", 1, 300, 277, 1, 3,
      192, BF16, True, 200, 50.0),
-)
-K10_TIMED = tuple(c[0] for c in K10_CASES[:7])
-K10_UNITS = sorted({(c[7], c[6]) for c in K10_CASES}, key=str)
+    ("bf16, value head 128 of 192, ragged T, window and soft cap", 2, 150,
+     203, 2, 2, 192, BF16, True, 90, 30.0, 128),
+    ("bf16, value head 128 of 192, query block 193 against T = 65", 1, 193,
+     65, 2, 1, 192, BF16, True, 0, 0.0, 128),
+    ("bf16, value head 48 of 80, S > T, not causal", 1, 129, 65, 1, 2, 80,
+     BF16, False, 0, 0.0, 48),
+    ("bf16, value head 128 of 256 (two stages), window", 1, 300, 300, 1, 2,
+     256, BF16, True, 100, 0.0, 128),
+    ("f32, value head 128 of 192 (MLA)", 1, 100, 100, 4, 1, 192, F32, True,
+     0, 0.0, 128),
+    ("f32, value head 48 of 80, window and soft cap", 1, 70, 70, 2, 2, 80,
+     F32, True, 16, 30.0, 48),
+))
+K10_TIMED = tuple(c.label for c in K10_CASES[:8])
+K10_UNITS = sorted({(c.dtype, c.hd, c.dv or c.hd) for c in K10_CASES},
+                   key=str)
 
 
-def skips_window_tiles(S: int, T: int, hd: int, dtype, window: int) -> bool:
+def skips_window_tiles(c: K10Case) -> bool:
     """Whether a query block of K10 starts its keys past the first kv tile
     (csrc/flash_attention.cuh: KvRange's begin > 0): a window that ends a
     whole tile before the block's first query, in a block whose rows all
     keep a key."""
-    rows = _lib.load(flash_k.flash_unit(dtype, hd, "K10")).rt_flash_rows()
+    S, T, window = c.S, c.T, c.window
+    rows = _lib.load(flash_k.flash_unit(c.dtype, c.hd, "K10",
+                                        c.dv)).rt_flash_rows()
     q0 = (S - 1) // rows * rows
     return window > 0 and S - 1 < T + window - 1 and \
         q0 - window + 1 >= flash_k.KV_BLOCK
@@ -2263,12 +2302,14 @@ def attention_pairs(S: int, T: int, causal: bool, window: int) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-def k10_bound(B, S, T, K, G, hd, dtype, causal, window):
-    """q, k, v read once (k and v per kv head), out written once; 4 hd
-    operations per kept pair (score and p . v) at the dtype's peak."""
+def k10_bound(B, S, T, K, G, hd, dtype, causal, window, dv=None):
+    """q, k, v read once (k and v per kv head), out written once; 2 (hd +
+    dv) operations per kept pair (the score over hd, p . v over the value
+    head dim dv, hd where None) at the dtype's peak."""
+    dv = dv or hd
     size = torch.empty((), dtype=dtype).element_size()
-    nbytes = size * hd * (2 * B * S * K * G + 2 * B * T * K)
-    ops = 4 * hd * B * K * G * attention_pairs(S, T, causal, window)
+    nbytes = size * (B * S * K * G * (hd + dv) + B * T * K * (hd + dv))
+    ops = 2 * (hd + dv) * B * K * G * attention_pairs(S, T, causal, window)
     return bound_ms(nbytes, ops, BF16_OPS_PER_S if dtype == BF16
                     else F32_OPS_PER_S)
 
@@ -2278,6 +2319,13 @@ def k10_row_err(got, want) -> float:
     query of one head, its hd elements)."""
     d = (got.float() - want.float()).norm(dim=-1)
     return float((d / want.float().norm(dim=-1).clamp_min(1e-30)).max())
+
+
+def sdpa_backend(q, k, v, **kw) -> str:
+    """The backend SDPA picks for these inputs (its own dispatch,
+    ``torch._fused_sdp_choice``)."""
+    from torch.nn.attention import SDPBackend
+    return SDPBackend(torch._fused_sdp_choice(q, k, v, **kw)).name
 
 
 def check_k10(res, gen, note) -> None:
@@ -2292,11 +2340,14 @@ def check_k10(res, gen, note) -> None:
     mask that wrongly keeps or drops k of the n keys a row averages moves
     it by about sqrt(k / n) of its norm: 0.022 for one key in 2,048, three
     times the bf16 bound."""
-    for label, B, S, T, K, G, hd, dtype, causal, window, cap in K10_CASES:
+    for case in K10_CASES:
+        label, B, S, T, K, G, hd, dtype, causal, window, cap, dv = case
+        dv = dv or hd
+
         def rn(*shape):
             return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
-        q, k, v = rn(B, S, K, G, hd), rn(B, T, K, hd), rn(B, T, K, hd)
+        q, k, v = rn(B, S, K, G, hd), rn(B, T, K, hd), rn(B, T, K, dv)
         kw = dict(causal=causal, window=window, softcap=cap)
         got = flash_k.flash_attention_gqa(q, k, v, **kw)
         want = ref.flash_attention_gqa_ref(q, k, v, kv_block=flash_k.KV_BLOCK,
@@ -2304,8 +2355,9 @@ def check_k10(res, gen, note) -> None:
         note("K10", max_err(got, want))
         err = k10_row_err(got, want)
         tol = 2 ** -7 if dtype == BF16 else 1e-5
-        expect(bool(torch.isfinite(got).all()) and err <= tol,
-               f"K10 {label} ({B}, {S}/{T}, {K * G}/{K} heads, {hd}) "
+        expect(bool(torch.isfinite(got).all()) and err <= tol
+               and tuple(got.shape) == (B, S, K, G, dv),
+               f"K10 {label} ({B}, {S}/{T}, {K * G}/{K} heads, {hd}/{dv}) "
                f"{str(dtype)[6:]} causal={causal} window={window} softcap="
                f"{cap}: max row err / row norm {err:.3g} <= {tol:.3g} (max "
                f"abs err {max_err(got, want):.3g})")
@@ -2323,6 +2375,7 @@ def check_k10(res, gen, note) -> None:
             continue
         qs = q.reshape(B, S, K * G, hd).transpose(1, 2).contiguous()
         ks, vs = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+        sdpa = dict(is_causal=True, enable_gqa=True)
         timing = {
             "ms": time_ms(lambda: flash_k.flash_attention_gqa(q, k, v, **kw),
                           20),
@@ -2330,9 +2383,11 @@ def check_k10(res, gen, note) -> None:
                 q, k, v, kv_block=flash_k.KV_BLOCK, **kw), 3),
             # A speed baseline only: SDPA has no soft cap and no window.
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                qs, ks, vs, is_causal=True, enable_gqa=True), 20)}
-        bound = k10_bound(B, S, T, K, G, hd, dtype, causal, window)
-        what = (f"({B}, {S}, {K * G}/{K} heads, {hd}) {str(dtype)[6:]} "
+                qs, ks, vs, **sdpa), 20),
+            "library_backend": sdpa_backend(qs, ks, vs, **sdpa)}
+        bound = k10_bound(B, S, T, K, G, hd, dtype, causal, window, dv)
+        what = (f"({B}, {S}, {K * G}/{K} heads, {hd}"
+                + (f"/{dv}" if dv != hd else "") + f") {str(dtype)[6:]} "
                 f"{label}"
                 + (f" softcap {cap:g}" if cap else ""))
         if not res["K10"].get("shape"):
@@ -2342,8 +2397,7 @@ def check_k10(res, gen, note) -> None:
         del qs, ks, vs
     del q, k, v, got, want
     for dtype in (BF16, F32):
-        expect(any(c[7] == dtype and skips_window_tiles(c[2], c[3], c[6],
-                                                        c[7], c[9])
+        expect(any(c.dtype == dtype and skips_window_tiles(c)
                    for c in K10_CASES),
                f"K10: a {str(dtype)[6:]} case skips kv tiles before its "
                f"window")
@@ -3136,32 +3190,48 @@ def phase_primitives(res, gen) -> dict:
 
 
 def param_count(cfg) -> int:
-    """The parameters of a model of GQA blocks from its config alone.  A
-    block: wq, wk, wv, wo; q_norm and k_norm over head_dim with qk-norm;
-    two norms, two more with post-norms; a dense MLP (w_in, w_out and, for
-    swiglu / geglu, w_gate), or an MoE: the router (d x E) and its bias,
-    E experts of moe_d_ff and the shared experts as one MLP
-    n_shared_experts times as wide.  The embedding, an untied unembedding
-    and the final norm."""
+    """The parameters of a model of GQA or MLA blocks from its config
+    alone.  A GQA block: wq, wk, wv, wo; q_norm and k_norm over head_dim
+    with qk-norm.  An MLA block: w_dq (d x q_lora), q_norm, w_uq (q_lora x
+    H (nope + rope)), w_dkv (d x (kv_lora + rope)), kv_norm, w_uk and w_uv
+    (kv_lora x H nope, x H v), wo (H v x d).  Either: two norms, two more
+    with post-norms; a dense MLP (w_in, w_out and, for swiglu / geglu,
+    w_gate), or an MoE: the router (d x E) and its bias, E experts of
+    moe_d_ff and the shared experts as one MLP n_shared_experts times as
+    wide.  The embedding, an untied unembedding, the final norm, and an MTP
+    head's proj (2d x d), block and three norms."""
     d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     mats = 3 if cfg.activation in ("swiglu", "geglu") else 2
-    attn = 2 * d * H * hd + 2 * d * K * hd + (2 * hd if cfg.qk_norm else 0)
+    if cfg.use_mla:
+        qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+        nd, rd, vd = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                      cfg.v_head_dim)
+        attn = (d * qr + qr + qr * H * (nd + rd) + d * (kvr + rd) + kvr
+                + kvr * H * (nd + vd) + H * vd * d)
+    else:
+        attn = 2 * d * H * hd + 2 * d * K * hd + (2 * hd if cfg.qk_norm
+                                                  else 0)
     norms = (4 if cfg.post_norm else 2) * d
     dense = mats * d * cfg.d_ff
     moe = (d * cfg.n_experts + cfg.n_experts
            + (cfg.n_experts + cfg.n_shared_experts) * mats * d * cfg.moe_d_ff)
-    blocks = sum(attn + norms + (moe if kind.endswith("_moe") else dense)
-                 for kind in cfg.layer_pattern())
+
+    def block(kind):
+        return attn + norms + (moe if kind.endswith("_moe") else dense)
+
+    blocks = sum(block(kind) for kind in cfg.layer_pattern())
     embed = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
-    return blocks + embed + d
+    mtp = 2 * d * d + block("dense") + 3 * d if cfg.mtp_depth else 0
+    return blocks + embed + d + mtp
 
 
 def load_model(name: str = "recurrentgemma-2b", tag: str = "serve",
-               n_params_want=None):
+               n_params_want=None, cut=None):
     """The model's bf16 weights from SEED and the prompts; ``n_params_want``
-    (a function of the config), where given, must count the parameters."""
+    (a function of the config), where given, must count the parameters;
+    ``cut``: fields of the FULL config replaced (its depth)."""
     dev = torch.device("cuda")
-    cfg = get_config(name)
+    cfg = dataclasses.replace(get_config(name), **(cut or {}))
     t0 = time.perf_counter()
     params = lm.init_params(cfg, seed=SEED, device=dev, dtype=torch.bfloat16)
     torch.cuda.synchronize()
@@ -3274,7 +3344,8 @@ def phase_serve(cfg, params, prompts, path=GREEDY_PATH,
            f"all {launches['K3']} K3 launches of the {tag} path (the "
            f"decode loop's all-done predicate over {BATCH} slots) took the "
            f"small form")
-    attn_layers = sum(kind in BK._ATTN_KINDS for kind in cfg.layer_pattern())
+    attn_layers = sum(kind in BK._ATTN_KINDS + BK._MLA_KINDS
+                      for kind in cfg.layer_pattern())
     expect(launches["K10"] >= attn_layers * len(reqs),
            f"K10 launched {launches['K10']} times: at least once in each of "
            f"the {attn_layers} attention layers of {len(reqs)} prefills")
@@ -3437,7 +3508,7 @@ def expert_choices(params, cfg, toks, backend) -> list:
     return seen
 
 
-def moe_checks(params, cfg, prompts) -> dict:
+def moe_checks(params, cfg, prompts, tag) -> dict:
     """Two prefills of one prompt on the cuda route give the same logits
     to the bit (each token's experts summed in a fixed order, no atomics);
     and how many tokens of each prompt choose other experts in some MoE
@@ -3448,7 +3519,7 @@ def moe_checks(params, cfg, prompts) -> dict:
         toks = torch.tensor([p], dtype=torch.int64, device="cuda")
         a, _ = lm.prefill(params, cfg, toks, cache_len=CACHE_LEN)
         b, _ = lm.prefill(params, cfg, toks, cache_len=CACHE_LEN)
-        expect(torch.equal(a, b), f"moonshot prefill T={len(p)}: two runs "
+        expect(torch.equal(a, b), f"{tag} prefill T={len(p)}: two runs "
                                   f"give bit-identical logits")
         out["repeat"][len(p)] = True
         del a, b
@@ -3457,7 +3528,7 @@ def moe_checks(params, cfg, prompts) -> dict:
         cuda = expert_choices(params, cfg, toks, "cuda")
         plain = expert_choices(params, cfg, toks, "torch")
         expect(len(cuda) == len(plain) == cfg.n_units,
-               f"moonshot prefill T={len(p)}: {len(cuda)} MoE layers "
+               f"{tag} prefill T={len(p)}: {len(cuda)} MoE layers "
                f"routed on each route")
         differ = [(c != t).any(dim=1) for c, t in zip(cuda, plain)]
         per_layer = [int(d.sum()) for d in differ]
@@ -3469,7 +3540,7 @@ def moe_checks(params, cfg, prompts) -> dict:
                                 None),
             "max_tokens_in_a_layer": max(per_layer),
             "per_layer": per_layer}
-    log("[moonshot] " + json.dumps(out))
+    log(f"[{tag}] " + json.dumps(out))
     return out
 
 
@@ -3489,9 +3560,83 @@ def phase_model(name: str, tag: str, n_params: int,
            f"{name}: {n_params} parameters, as the reference's tree")
     summary = phase_serve(cfg, params, prompts, GEMMA2_PATH, tag, floor)
     if cfg.n_experts:
-        summary["moe"] = moe_checks(params, cfg, prompts)
+        summary["moe"] = moe_checks(params, cfg, prompts, tag)
     summary["phase_s"] = time.perf_counter() - t0
     log(f"[{tag}] phase took {summary['phase_s']:.1f} s")
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: serve deepseek-v3-671b at full width, 4 of its 61 layers
+# ---------------------------------------------------------------------------
+
+# Every published width, cut to its 3 mla_dense layers and 1 mla_moe layer
+# (256 experts top-8, one shared, a sigmoid router): 61 layers do not fit
+# one card.  The MTP head is in the tree (686,265,344 parameters), and
+# serving never runs it.
+DEEPSEEK_CUT = dict(n_layers=4, n_units=1)
+DEEPSEEK_PARAMS = 15_797_367_040
+
+
+def check_latent_caches(cfg, params) -> dict:
+    """The engine's zeroed caches: per MLA layer the latent ``ckv`` (slots,
+    cache_len, kv_lora_rank) and ``krope`` (slots, cache_len,
+    qk_rope_head_dim) in bf16, nothing else."""
+    eng = Engine(cfg, params, cache_len=CACHE_LEN, batch_size=BATCH,
+                 device="cuda")
+    caches = eng._fresh_state()["caches"]
+    layers = [*caches["prefix"], *[c for u in caches["units"] for c in u],
+              *caches["suffix"]]
+    want = {"ckv": (BATCH, CACHE_LEN, cfg.kv_lora_rank),
+            "krope": (BATCH, CACHE_LEN, cfg.qk_rope_head_dim)}
+    for i, c in enumerate(layers):
+        got = {k: tuple(t.shape) for k, t in c.items()}
+        expect(got == want and all(t.dtype == BF16 for t in c.values()),
+               f"deepseek layer {i}: latent cache {got} bf16, want {want}")
+    per_layer = sum(t.numel() * t.element_size() for t in layers[0].values())
+    out = {"layers": len(layers), "shapes": want, "bytes_per_layer": per_layer}
+    log("[deepseek] latent caches " + json.dumps(out))
+    del eng, caches, layers
+    return out
+
+
+def phase_deepseek() -> dict:
+    """deepseek-v3-671b at every published width, 4 of its 61 layers,
+    after moonshot's tensors are gone (31.59 GB of bf16 weights), served
+    as phase_serve does with moonshot's MoE checks.  K10 runs each MLA
+    layer's prefill attention at q/k 192 and v 128: once per layer of a
+    prefill, in the (bf16, 192, 128) unit."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[deepseek] {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+        f"before loading")
+    cfg, params, prompts = load_model("deepseek-v3-671b", "deepseek",
+                                      param_count, DEEPSEEK_CUT)
+    expect(lm.count_params(params) == DEEPSEEK_PARAMS,
+           f"deepseek-v3-671b cut to {cfg.n_layers} layers: "
+           f"{DEEPSEEK_PARAMS} parameters, as the reference's tree")
+    latent = check_latent_caches(cfg, params)
+    mla_layers = sum(k in BK._MLA_KINDS for k in cfg.layer_pattern())
+    unit = flash_k.flash_unit(BF16, cfg.qk_nope_head_dim
+                              + cfg.qk_rope_head_dim, "deepseek",
+                              cfg.v_head_dim)
+    toks = torch.tensor([prompts[4]], dtype=torch.int64, device="cuda")
+    reset_counts()
+    lm.prefill(params, cfg, toks, cache_len=CACHE_LEN)
+    torch.cuda.synchronize()
+    k10 = read_counts()["K10"]
+    expect(k10 == mla_layers and unit.digest in _lib._LOADED,
+           f"deepseek prefill T={len(prompts[4])}: K10 launched {k10} times, "
+           f"once in each of its {mla_layers} MLA layers, in the "
+           f"{unit.label} unit")
+    summary = phase_serve(cfg, params, prompts, GEMMA2_PATH, "deepseek",
+                          floor=True)
+    summary["moe"] = moe_checks(params, cfg, prompts, "deepseek")
+    summary["latent_caches"] = latent
+    summary["k10_per_prefill"] = {"launches": k10, "unit": unit.label}
+    summary["phase_s"] = time.perf_counter() - t0
+    log(f"[deepseek] phase 11 took {summary['phase_s']:.1f} s")
     return summary
 
 
@@ -3770,6 +3915,7 @@ def main() -> int:
                              floor=False)
         xlstm = phase_xlstm()
         models = {tag: phase_model(name, tag, n) for name, tag, n in MODELS}
+        models["deepseek"] = phase_deepseek()
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1

@@ -4,6 +4,7 @@ Importing this package registers every architecture; use
 ``repro_torch.configs.base.get_config(name)`` / ``list_archs()``.
 """
 from repro_torch.configs import deepseek_coder_33b  # noqa: F401
+from repro_torch.configs import deepseek_v3_671b  # noqa: F401
 from repro_torch.configs import gemma2_27b  # noqa: F401
 from repro_torch.configs import gemma3_4b  # noqa: F401
 from repro_torch.configs import internvl2_76b  # noqa: F401

@@ -12,7 +12,10 @@ of JAX.  It
   ``bias_a`` and ``bias_x``, the mLSTM's gate projections and biases, the
   sLSTM's gate ``bias`` and the MoE's ``router`` and ``router_bias`` -- by
   path, since the conv's ``bias`` (under ``mixer.conv``) takes the weight
-  dtype.  An untied ``embed.unembed`` carries across with the rest.
+  dtype.  An untied ``embed.unembed`` carries across with the rest, and
+  so does deepseek-v3's ``mtp`` head, a single block (not stacked), whose
+  MLA ``q_norm`` and ``kv_norm`` scales stay float32 by their ``scale``
+  key as every norm's.
 
 The same JAX parameters then give both packages the same function.
 ``quantized_from_jax`` does the same for a quantized matrix operand.

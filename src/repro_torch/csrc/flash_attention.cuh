@@ -1,6 +1,8 @@
 // K10: fused attention with causal, sliding-window and soft-cap masks, for
-// every GQA prefill of the models; bfloat16 on the tensor cores, float32 on
-// the CUDA cores.
+// every GQA and MLA prefill of the models; bfloat16 on the tensor cores,
+// float32 on the CUDA cores.  q and k rows are HD wide, v and out rows DV
+// (DV <= HD; MLA: HD 192, DV 128), so V is read at its own width, never
+// padded to q's.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention_pallas
 // (body _flash_kernel), which keeps the online softmax's running (m, l, acc)
@@ -18,15 +20,18 @@
 // Bound on this card: operations.  At gemma2-27b's prefill (32 query heads,
 // 16 kv heads, head_dim 128, T = 2,100) one layer is 36.1 GFLOP against
 // 51.6 MB of q, k, v and out: 0.0365 ms at the 989 TFLOP/s bf16 tensor peak
-// (0.0154 ms for the bytes).  Beside the products, every score takes an
-// exp2 and, soft-capped, an exp2 and a reciprocal more on the special-
-// function units, which do 16 a clock per SM.
+// (0.0154 ms for the bytes); at deepseek-v3's MLA layer (128 heads, HD 192,
+// DV 128) 180.7 GFLOP against 344 MB: 0.183 ms (0.103 for the bytes).
+// Beside the products, every score takes an exp2 and, soft-capped, an exp2
+// and a reciprocal more on the special-function units, which do 16 a clock
+// per SM.
 //
 // TensorCores (bfloat16, the models' path).  One block per (batch, query
 // head, 64 G query rows): a producer warpgroup and G consumer warpgroups,
-// G = 3 up to head_dim 128 and 2 above it (the O accumulator needs 64 or
-// 128 registers a thread; setmaxnreg gives the producer 24 or 40 and each
-// consumer 160 or 232).  The producer's first thread issues TMA loads: q's
+// G = 3 up to a value head of 128 and 2 above it (the O accumulator, DV
+// wide, needs 64 or 128 registers a thread; setmaxnreg gives the producer
+// 24 or 40 and each consumer 160 or 232; q's width costs no registers).
+// The producer's first thread issues TMA loads: q's
 // rows once, then K and V tiles of 64 keys into a ring of STAGES stages,
 // each stage with a full barrier for K, one for V and an empty barrier the
 // consumers arrive at.  A consumer group owns 64 query rows and, per tile:
@@ -35,7 +40,7 @@
 // units (a row's max over the quad of lanes that hold it by two shuffles,
 // maxima and sums as trees; l kept per lane and summed at the end; O's
 // rescale skipped, exactly, when no row of the warp has a new maximum);
-// then O += P V by wgmma.m64n{HDP}k16 with P's bf16 fragment taken from
+// then O += P V by wgmma.m64n{DVP}k16 with P's bf16 fragment taken from
 // the S accumulator's registers and V read MN-major (transposed) from shared
 // memory.  The groups interleave on their own: one's softmax runs while
 // another's products do.  The softmax, not the products, sets the pace (a
@@ -46,22 +51,26 @@
 // length, batch), with boxes of (64, 1, rows, 1) and the 128-byte swizzle,
 // which caps a box row at 64 bf16: a row of head_dim 128 or 256 loads as 2
 // or 4 boxes, and a head_dim that is not a multiple of 64 is padded to HDP
-// with zeros by the hardware, as are key rows at or past T and query rows
-// at or past S; nothing crosses into the next batch element.  Query head h
-// reads kv head h / (H / KH) through the maps' head coordinate: the GQA
-// broadcast is never materialised.  Only tiles that hold a dropped key (the
-// causal diagonal, the window's edge, the T tail) are masked.  The soft cap's
-// tanh is 1 - 2 / (2^(2 x log2 e) + 1) from ex2.approx and rcp.approx, a few
-// float32 ulp from tanhf (tanh.approx.f32's 2^-11 would move a capped score
-// by 0.02 at softcap 50, more than the bf16 rounding of p).  The wgmma
-// instructions, whose operand lists depend on HDP, are generated per unit
+// (v's to DVP) with zeros by the hardware, as are key rows at or past T and
+// query rows at or past S; nothing crosses into the next batch element.  V
+// has a map and a box count of its own.  The ring takes three stages where
+// they fit in the 227 KB of shared memory a block may use (MLA's 72 KB of q
+// and three 40 KB stages of K and V: 193 KB), else two (head_dim 256).
+// Query head h reads kv head h / (H / KH) through the maps' head
+// coordinate: the GQA broadcast is never materialised.  Only tiles that
+// hold a dropped key (the causal diagonal, the window's edge, the T tail)
+// are masked.  The soft cap's tanh is 1 - 2 / (2^(2 x log2 e) + 1) from
+// ex2.approx and rcp.approx, a few float32 ulp from tanhf (tanh.approx.f32's
+// 2^-11 would move a capped score by 0.02 at softcap 50, more than the bf16
+// rounding of p).  The wgmma
+// instructions, whose operand lists depend on DVP, are generated per unit
 // (kernels/_lib.py: struct Wgmma).
 //
 // CudaCores (float32).  A block of 4 warps owns 32 query rows; each warp
-// owns 8 rows and keeps their (m, l, acc) in registers (acc split over the
-// lanes by head dimension); K and V tiles of 64 keys are staged in shared
-// memory, a lane takes keys lane and lane + 32 for the scores, and p goes
-// through shared memory to the p . v loop.  The float32 check's 1e-5 row
+// owns 8 rows and keeps their (m, l, acc) in registers (acc, DV wide, split
+// over the lanes by value dimension); K and V tiles of 64 keys are staged in
+// shared memory, a lane takes keys lane and lane + 32 for the scores, and p
+// goes through shared memory to the p . v loop.  The float32 check's 1e-5 row
 // bound rules out TF32, and no served model runs float32 attention on the
 // card.
 //
@@ -131,31 +140,35 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <int HD>
+template <int HD, int DV>
 struct Smem {
   static constexpr int KROW = HD + PAD;
+  static constexpr int VROW = DV + PAD;
   static constexpr size_t q = sizeof(float) * BQ * HD;
-  static constexpr size_t kv = sizeof(float) * BK * KROW;
+  static constexpr size_t k = sizeof(float) * BK * KROW;
+  static constexpr size_t v = sizeof(float) * BK * VROW;
   static constexpr size_t p = sizeof(float) * BQ * BK;
-  static constexpr size_t bytes = q + 2 * kv + p;
+  static constexpr size_t bytes = q + k + v + p;
 };
 
-// q, out: (B, S, H, HD); k, v: (B, T, KH, HD); all contiguous.
-template <int HD>
+// q: (B, S, H, HD); k: (B, T, KH, HD); v: (B, T, KH, DV); out: (B, S, H,
+// DV); all contiguous.
+template <int HD, int DV>
 __global__ void __launch_bounds__(WARPS * 32)
 attend(const float* __restrict__ q, const float* __restrict__ k,
        const float* __restrict__ v, float* __restrict__ out, int S,
        int T_len, int H, int KH, int nqt, int causal, int window,
        float softcap, float scale, float empty_l) {
-  using SM = Smem<HD>;
-  constexpr int KROW = SM::KROW;
-  constexpr int DI = (HD + 31) / 32;     // head dimensions per lane
-  constexpr int CH = HD / 2;             // 8-byte chunks per K/V row
+  using SM = Smem<HD, DV>;
+  constexpr int KROW = SM::KROW, VROW = SM::VROW;
+  constexpr int DI = (DV + 31) / 32;     // value dimensions per lane
+  constexpr int CH = HD / 2;             // 8-byte chunks per K row
+  constexpr int VCH = DV / 2;            // and per V row
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);
   float* ks = reinterpret_cast<float*>(smem + SM::q);
-  float* vs = reinterpret_cast<float*>(smem + SM::q + SM::kv);
-  float* ps = reinterpret_cast<float*>(smem + SM::q + 2 * SM::kv);
+  float* vs = reinterpret_cast<float*>(smem + SM::q + SM::k);
+  float* ps = reinterpret_cast<float*>(smem + SM::q + SM::k + SM::v);
 
   const int BH = gridDim.x / nqt;
   const int bh = blockIdx.x % BH;
@@ -165,9 +178,10 @@ attend(const float* __restrict__ q, const float* __restrict__ k,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const long qstride = static_cast<long>(H) * HD;
   const long kstride = static_cast<long>(KH) * HD;
+  const long vstride = static_cast<long>(KH) * DV;
   const float* qb = q + (static_cast<long>(b) * S * H + h) * HD;
   const float* kb = k + (static_cast<long>(b) * T_len * KH + kh) * HD;
-  const float* vb = v + (static_cast<long>(b) * T_len * KH + kh) * HD;
+  const float* vb = v + (static_cast<long>(b) * T_len * KH + kh) * DV;
 
   for (int e = threadIdx.x; e < BQ * HD; e += WARPS * 32) {
     const int r = e / HD, t = q0 + r;
@@ -191,13 +205,15 @@ attend(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();                     // the previous tile is consumed
     for (int e = threadIdx.x; e < BK * CH; e += WARPS * 32) {
       const int r = e / CH, c = e % CH, t = k0 + r;
-      uint2 kk = make_uint2(0u, 0u), vv = make_uint2(0u, 0u);
-      if (t < T_len) {
-        kk = reinterpret_cast<const uint2*>(kb + t * kstride)[c];
-        vv = reinterpret_cast<const uint2*>(vb + t * kstride)[c];
-      }
+      uint2 kk = make_uint2(0u, 0u);
+      if (t < T_len) kk = reinterpret_cast<const uint2*>(kb + t * kstride)[c];
       reinterpret_cast<uint2*>(ks + r * KROW)[c] = kk;
-      reinterpret_cast<uint2*>(vs + r * KROW)[c] = vv;
+    }
+    for (int e = threadIdx.x; e < BK * VCH; e += WARPS * 32) {
+      const int r = e / VCH, c = e % VCH, t = k0 + r;
+      uint2 vv = make_uint2(0u, 0u);
+      if (t < T_len) vv = reinterpret_cast<const uint2*>(vb + t * vstride)[c];
+      reinterpret_cast<uint2*>(vs + r * VROW)[c] = vv;
     }
     __syncthreads();
 
@@ -259,11 +275,11 @@ attend(const float* __restrict__ q, const float* __restrict__ k,
       for (int r = 0; r < ROWS; ++r) pr[r] = load4(pw + r * BK + j);
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
-        const float* vrow = vs + (j + jj) * KROW;
+        const float* vrow = vs + (j + jj) * VROW;
 #pragma unroll
         for (int i = 0; i < DI; ++i) {
           const int d = lane + 32 * i;
-          if (HD % 32 != 0 && d >= HD) continue;
+          if (DV % 32 != 0 && d >= DV) continue;
           const float vd = vrow[d];
 #pragma unroll
           for (int r = 0; r < ROWS; ++r) {
@@ -276,7 +292,8 @@ attend(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  float* ob = out + (static_cast<long>(b) * S * H + h) * HD;
+  const long ostride = static_cast<long>(H) * DV;
+  float* ob = out + (static_cast<long>(b) * S * H + h) * DV;
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
     const int qp = qrow0 + r;
@@ -285,15 +302,15 @@ attend(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < DI; ++i) {
       const int d = lane + 32 * i;
-      if (HD % 32 != 0 && d >= HD) continue;
-      ob[qp * qstride + d] = acc[r][i] / lr;
+      if (DV % 32 != 0 && d >= DV) continue;
+      ob[qp * ostride + d] = acc[r][i] / lr;
     }
   }
 }
 
 }  // namespace cc
 
-template <int HD>
+template <int HD, int DV = HD>
 struct CudaCores {
   using Elem = float;
   static constexpr int BQ = cc::BQ;
@@ -305,17 +322,17 @@ struct CudaCores {
     const long nqt = (S + BQ - 1) / BQ;
     const long blocks = nqt * B * H;
     if (blocks > INT_MAX) return cudaErrorInvalidValue;
-    constexpr size_t smem = cc::Smem<HD>::bytes;
+    constexpr size_t smem = cc::Smem<HD, DV>::bytes;
     static bool configured = false;
     if (!configured) {
       const cudaError_t e = cudaFuncSetAttribute(
-          cc::attend<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          cc::attend<HD, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
           static_cast<int>(smem));
       if (e != cudaSuccess) return e;
       configured = true;
     }
-    cc::attend<HD><<<static_cast<unsigned>(blocks), cc::WARPS * 32, smem,
-                     stream>>>(
+    cc::attend<HD, DV><<<static_cast<unsigned>(blocks), cc::WARPS * 32, smem,
+                         stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(out),
         static_cast<int>(S), static_cast<int>(T_len), static_cast<int>(H),
@@ -334,23 +351,34 @@ namespace tc {
 constexpr uint32_t ROW_BYTES = 128;      // one swizzled box row: 64 bf16
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int HD>
+// The shared memory a block may use (227 KB), less room for the barriers.
+constexpr size_t SMEM_LIMIT = 232448 - 256;
+
+template <int HD, int DV>
 struct Shape {
+  static constexpr int HDP = (HD + 63) / 64 * 64;   // whole 64-wide boxes
+  static constexpr int DVP = (DV + 63) / 64 * 64;
   // Consumer groups of 64 query rows: three where a thread's registers
-  // hold O at 160 a thread, two (at 232) for wider rows.
-  static constexpr int GROUPS = HD <= 128 ? 3 : 2;
+  // hold O (DVP / 2 of them) at 160 a thread, two (at 232) for wider value
+  // rows.  q's width sets only the QK^T loop's length.
+  static constexpr int GROUPS = DVP <= 128 ? 3 : 2;
   static constexpr int BQ = 64 * GROUPS;             // query rows per block
   static constexpr int THREADS = 128 * (GROUPS + 1);
-  static constexpr int HDP = (HD + 63) / 64 * 64;   // whole 64-wide boxes
-  static constexpr int BOXES = HDP / 64;
-  static constexpr int STAGES = HDP > 192 ? 2 : 3;
+  static constexpr int BOXES = HDP / 64;             // of a q or k row
+  static constexpr int VBOXES = DVP / 64;            // of a v row
   static constexpr uint32_t Q_BOX = BQ * ROW_BYTES;
   static constexpr uint32_t KV_BOX = BK * ROW_BYTES;
   static constexpr uint32_t Q_BYTES = BOXES * Q_BOX;
-  static constexpr uint32_t KV_BYTES = BOXES * KV_BOX;   // K or V of a tile
+  static constexpr uint32_t K_BYTES = BOXES * KV_BOX;    // K of a tile
+  static constexpr uint32_t V_BYTES = VBOXES * KV_BOX;   // V of a tile
   // The 128-byte swizzle repeats every 1,024 bytes, so every box starts on
   // a 1,024-byte boundary; the slack aligns the dynamic base.
-  static constexpr size_t SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES;
+  static constexpr size_t ring(int stages) {
+    return 1024 + Q_BYTES + static_cast<size_t>(stages) * (K_BYTES + V_BYTES);
+  }
+  static constexpr int STAGES = ring(3) <= SMEM_LIMIT ? 3 : 2;
+  static constexpr size_t SMEM = ring(STAGES);
+  static_assert(SMEM <= SMEM_LIMIT, "q and a two-stage ring fit a block");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -445,10 +473,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // operands are K-major boxes of 64 columns: the k-th 16 columns of a row
 // sit 32 k bytes into its 128-byte box row (the swizzle is applied to the
 // address), 8-row groups 1,024 bytes apart.
-template <typename W, int HD>
+template <typename W, int HD, int DV>
 __device__ __forceinline__ void issue_qk(float (&sc)[32], uint32_t qa,
                                          uint32_t kt) {
-  using SH = Shape<HD>;
+  using SH = Shape<HD, DV>;
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
@@ -459,11 +487,11 @@ __device__ __forceinline__ void issue_qk(float (&sc)[32], uint32_t qa,
   wgmma_commit();
 }
 
-// O += P V: P from registers; V's rows are keys, its 64-wide boxes of head
+// O += P V: P from registers; V's rows are keys, its 64-wide boxes of value
 // dimensions KV_BOX apart (the leading offset), 8-key groups 1,024 bytes
 // apart.
-template <typename W, int HDP>
-__device__ __forceinline__ void issue_pv(float (&o)[HDP / 2],
+template <typename W, int DVP>
+__device__ __forceinline__ void issue_pv(float (&o)[DVP / 2],
                                          const uint32_t (&pa)[4][4],
                                          uint32_t vt) {
   fence_regs(o);
@@ -584,17 +612,19 @@ __device__ __forceinline__ void rescale(float (&o)[N],
   }
 }
 
-// q, out: (B, S, H, HD); k, v: (B, T, KH, HD), through the tensor maps.
-template <int HD, typename W>
-__global__ void __launch_bounds__(Shape<HD>::THREADS, 1)
+// q: (B, S, H, HD), k: (B, T, KH, HD), v: (B, T, KH, DV) through the
+// tensor maps; out: (B, S, H, DV).
+template <int HD, int DV, typename W>
+__global__ void __launch_bounds__(Shape<HD, DV>::THREADS, 1)
 attend(const __grid_constant__ CUtensorMap qmap,
        const __grid_constant__ CUtensorMap kmap,
        const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* out, int S,
        int T_len, int H, int KH, int nqt, int causal, int window,
        float softcap, float scale, float empty_l) {
-  using SH = Shape<HD>;
-  constexpr int HDP = SH::HDP, STAGES = SH::STAGES;
-  static_assert(W::N == HDP, "the unit's P . V wgmma spans the padded row");
+  using SH = Shape<HD, DV>;
+  constexpr int DVP = SH::DVP, STAGES = SH::STAGES;
+  static_assert(W::N == DVP,
+                "the unit's P . V wgmma spans the padded value row");
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 3 * STAGES];
   const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -603,8 +633,8 @@ attend(const __grid_constant__ CUtensorMap qmap,
   auto full_k = [&](int s) { return smem_u32(&bars[1 + s]); };
   auto full_v = [&](int s) { return smem_u32(&bars[1 + STAGES + s]); };
   auto empty = [&](int s) { return smem_u32(&bars[1 + 2 * STAGES + s]); };
-  auto k_tile = [&](int s) { return skv + 2 * s * SH::KV_BYTES; };
-  auto v_tile = [&](int s) { return skv + (2 * s + 1) * SH::KV_BYTES; };
+  auto k_tile = [&](int s) { return skv + s * (SH::K_BYTES + SH::V_BYTES); };
+  auto v_tile = [&](int s) { return k_tile(s) + SH::K_BYTES; };
 
   const int BH = gridDim.x / nqt;
   const int bh = blockIdx.x % BH;
@@ -640,12 +670,12 @@ attend(const __grid_constant__ CUtensorMap qmap,
       for (int i = 0; i < tiles; ++i) {
         const int s = i % STAGES, k0 = kv.begin + i * BK;
         bar_wait(empty(s), ((i / STAGES) & 1) ^ 1);
-        bar_expect(full_k(s), SH::KV_BYTES);
+        bar_expect(full_k(s), SH::K_BYTES);
         for (int j = 0; j < SH::BOXES; ++j)
           tma_load(k_tile(s) + j * SH::KV_BOX, &kmap, full_k(s), 64 * j, kh,
                    k0, b);
-        bar_expect(full_v(s), SH::KV_BYTES);
-        for (int j = 0; j < SH::BOXES; ++j)
+        bar_expect(full_v(s), SH::V_BYTES);
+        for (int j = 0; j < SH::VBOXES; ++j)
           tma_load(v_tile(s) + j * SH::KV_BOX, &vmap, full_v(s), 64 * j, kh,
                    k0, b);
       }
@@ -662,9 +692,9 @@ attend(const __grid_constant__ CUtensorMap qmap,
                window, softcap, scale);
     const uint32_t qa = sq + (group - 1) * 64 * ROW_BYTES;
 
-    float o[HDP / 2];
+    float o[DVP / 2];
 #pragma unroll
-    for (int i = 0; i < HDP / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DVP / 2; ++i) o[i] = 0.f;
     bar_wait(bar_q, 0);
     for (int i = 0; i < tiles; ++i) {
       const int s = i % STAGES, k0 = kv.begin + i * BK;
@@ -672,7 +702,7 @@ attend(const __grid_constant__ CUtensorMap qmap,
       float sc[32], alpha[2];
       uint32_t pa[4][4];
       bar_wait(full_k(s), parity);
-      issue_qk<W, HD>(sc, qa, k_tile(s));
+      issue_qk<W, HD, DV>(sc, qa, k_tile(s));
       wgmma_wait();
       fence_regs(sc);
       // Only tiles that hold a dropped key for one of the group's rows
@@ -682,7 +712,7 @@ attend(const __grid_constant__ CUtensorMap qmap,
       pack_p(sc, pa);
       rescale(o, alpha);
       bar_wait(full_v(s), parity);
-      issue_pv<W, HDP>(o, pa, v_tile(s));
+      issue_pv<W, DVP>(o, pa, v_tile(s));
       wgmma_wait();
       fence_regs(o);
       if (tid == 0) bar_arrive(empty(s));
@@ -698,9 +728,9 @@ attend(const __grid_constant__ CUtensorMap qmap,
           1.f / (sm.m[e] == NEG_INF ? empty_l : fmaxf(sum, 1e-30f));
       if (sm.row[e] >= S) continue;
       __nv_bfloat16* orow =
-          out + ((static_cast<long>(b) * S + sm.row[e]) * H + h) * HD;
+          out + ((static_cast<long>(b) * S + sm.row[e]) * H + h) * DV;
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j)
+      for (int j = 0; j < DV / 8; ++j)
         *reinterpret_cast<uint32_t*>(orow + 8 * j + sm.col) =
             pack_bf16(o[4 * j + 2 * e] * inv, o[4 * j + 2 * e + 1] * inv);
     }
@@ -754,10 +784,11 @@ inline bool encode(CUtensorMap* map, const void* p, long B, long len,
 
 }  // namespace tc
 
-template <int HD, typename W>
+template <int HD, typename W, int DV = HD>
 struct TensorCores {
   using Elem = __nv_bfloat16;
-  static constexpr int BQ = tc::Shape<HD>::BQ;
+  using SH = tc::Shape<HD, DV>;
+  static constexpr int BQ = SH::BQ;
 
   static cudaError_t run(const void* q, const void* k, const void* v,
                          void* out, long B, long S, long T_len, long H,
@@ -769,19 +800,19 @@ struct TensorCores {
     CUtensorMap qmap, kmap, vmap;
     if (!tc::encode(&qmap, q, B, S, H, HD, BQ) ||
         !tc::encode(&kmap, k, B, T_len, KH, HD, BK) ||
-        !tc::encode(&vmap, v, B, T_len, KH, HD, BK))
+        !tc::encode(&vmap, v, B, T_len, KH, DV, BK))
       return cudaErrorInvalidValue;
-    constexpr size_t smem = tc::Shape<HD>::SMEM;
+    constexpr size_t smem = SH::SMEM;
     static bool configured = false;
     if (!configured) {
       const cudaError_t e = cudaFuncSetAttribute(
-          tc::attend<HD, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          tc::attend<HD, DV, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
           static_cast<int>(smem));
       if (e != cudaSuccess) return e;
       configured = true;
     }
-    tc::attend<HD, W><<<static_cast<unsigned>(blocks), tc::Shape<HD>::THREADS, smem,
-                        stream>>>(
+    tc::attend<HD, DV, W><<<static_cast<unsigned>(blocks), SH::THREADS, smem,
+                            stream>>>(
         qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out),
         static_cast<int>(S), static_cast<int>(T_len), static_cast<int>(H),
         static_cast<int>(KH), static_cast<int>(nqt), causal,
@@ -791,12 +822,13 @@ struct TensorCores {
 };
 
 // The checks both bodies share, then the body.
-template <typename Body, int HD>
+template <typename Body, int HD, int DV = HD>
 cudaError_t run(const void* q, const void* k, const void* v, void* out,
                 long B, long S, long T_len, long H, long KH, int causal,
                 long window, float softcap, float scale, float empty_l,
                 cudaStream_t stream) {
   static_assert(HD % 16 == 0 && HD >= 16 && HD <= 256, "head_dim");
+  static_assert(DV % 16 == 0 && DV >= 16 && DV <= HD, "v_head_dim");
   if (B < 1 || S < 1 || T_len < 1 || KH < 1 || H % KH != 0 ||
       S > INT_MAX || T_len > INT_MAX || window < 0 || window > INT_MAX)
     return cudaErrorInvalidValue;

@@ -2,8 +2,8 @@
 
 The kernel bodies are templates in ``csrc/*.cuh`` over an element type, a
 functor ``Op`` and, for mapreduce and matvec, a map ``Map``; K10's
-``flash`` family takes no operator, only an element type, a head dim and
-the body the wrapper runs for that type.
+``flash`` family takes no operator, only an element type, a q/k head dim,
+a value head dim and the body the wrapper runs for that type.
 A kernel wrapper asks for a :class:`Unit`: one translation unit for one
 family of kernels (``FAMILIES``) and one (operator, map, leaf dtypes)
 combination.  The
@@ -172,23 +172,26 @@ int rt_qmatvec(const void* geo, const void* q, const void* s, long block,
 }}""", {
         "rt_qmatvec": (_I, [_P, _P, _P, _L, _P, _P, _P, _PP, _P]),
     }),
-    # K10, one unit per (element type, head_dim): the generated part
-    # defines Elem, HD and the Body its element type runs (for the tensor
-    # cores with the unit's wgmma instructions); a body that reads another
-    # element type does not compile.
+    # K10, one unit per (element type, head_dim, v_head_dim): the
+    # generated part defines Elem, HD, DV and the Body its element type
+    # runs (for the tensor cores with the unit's wgmma instructions); a
+    # body that reads another element type does not compile, and a call
+    # whose value head dim is not the unit's is refused.
     "flash": Family("flash_attention.cuh", f"""
 static_assert(std::is_same<Body::Elem, Elem>::value,
               "the body reads the unit's element type");
 int rt_flash_rows() {{ return Body::BQ; }}
 int rt_flash(const void* q, const void* k, const void* v, void* out, long B,
-             long S, long T, long H, long KH, int causal, long window,
-             float softcap, float scale, float empty_l, void* stream) {{
-  return rt::flash::run<Body, HD>(q, k, v, out, B, S, T, H, KH, causal,
-                                  window, softcap, scale, empty_l, {_ST});
+             long S, long T, long H, long KH, long dv, int causal,
+             long window, float softcap, float scale, float empty_l,
+             void* stream) {{
+  if (dv != DV) return cudaErrorInvalidValue;
+  return rt::flash::run<Body, HD, DV>(q, k, v, out, B, S, T, H, KH, causal,
+                                      window, softcap, scale, empty_l, {_ST});
 }}""", {
         "rt_flash_rows": (_I, []),
-        "rt_flash": (_I, [_P, _P, _P, _P, _L, _L, _L, _L, _L, _I, _L, _F, _F,
-                          _F, _P]),
+        "rt_flash": (_I, [_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _I, _L, _F,
+                          _F, _F, _P]),
     }),
     # K1.
     "copy": Family("copy.cuh", f"""
@@ -447,13 +450,14 @@ _PLANS: dict[tuple, Plan] = {}
 def unit(family: str, what: str, op: alg.AssocOp | None = None,
          dtypes=(), f: alg.DeviceMap | None = None, in_dtypes=(),
          quant: str | None = None, head_dim: int | None = None,
-         body: str | None = None) -> Unit:
+         body: str | None = None, v_head_dim: int | None = None) -> Unit:
     """The unit of ``family`` for ``op`` over elements of leaf ``dtypes``
     (and, for mapreduce / matvec, the map ``f`` from leaves ``in_dtypes``
     to ``dtypes``; for qmatvec, the decode of quantization mode ``quant``,
     ``core/operators.py``'s ``QUANT_DEVICE``; for flash, no operator, one
     element dtype of ``FLASH_CTYPES``, a ``head_dim`` of
-    ``FLASH_HEAD_DIMS`` and the kernel ``body`` of ``FLASH_BODIES`` that
+    ``FLASH_HEAD_DIMS``, a ``v_head_dim`` of them up to ``head_dim``
+    (None: ``head_dim``) and the kernel ``body`` of ``FLASH_BODIES`` that
     the caller picked for the dtype).
 
     Raises NotImplementedError, naming the route, for an operator or map
@@ -462,12 +466,15 @@ def unit(family: str, what: str, op: alg.AssocOp | None = None,
     back to the plain version.  A wrapper asks on every call, so the units
     are kept per combination.
     """
+    if head_dim is not None and v_head_dim is None:
+        v_head_dim = head_dim
     key = (family, op, tuple(dtypes), f, tuple(in_dtypes), quant, head_dim,
-           body)
+           v_head_dim, body)
     found = _UNITS.get(key)
     if found is None:
         found = _UNITS[key] = _make_unit(family, what, op, dtypes, f,
-                                         in_dtypes, quant, head_dim, body)
+                                         in_dtypes, quant, head_dim,
+                                         v_head_dim, body)
     return found
 
 
@@ -477,13 +484,14 @@ FLASH_HEAD_DIMS = tuple(range(16, 257, 16))
 FLASH_BODIES = ("CudaCores", "TensorCores")
 
 
-def _wgmma(head_dim: int) -> str:
-    """The tensor-core body's two wgmma forms for ``head_dim``, whose
-    operand lists (one register per accumulator element) the header cannot
-    spell: S = Q K^T at m64n64k16 from shared memory, and O += P V at
-    m64n{N}k16 over the row padded to whole 64-wide boxes, P from registers,
-    V transposed."""
-    n = -(-head_dim // 64) * 64
+def _wgmma(v_head_dim: int) -> str:
+    """The tensor-core body's two wgmma forms for a value head of
+    ``v_head_dim``, whose operand lists (one register per accumulator
+    element) the header cannot spell: S = Q K^T at m64n64k16 from shared
+    memory (any q/k head_dim, 16 columns a step), and O += P V at
+    m64n{N}k16 over the value row padded to whole 64-wide boxes, P from
+    registers, V transposed."""
+    n = -(-v_head_dim // 64) * 64
 
     def outs(count):
         return ", ".join(f'"+f"(d[{i}])' for i in range(count))
@@ -518,10 +526,11 @@ def _wgmma(head_dim: int) -> str:
 
 
 def _make_unit(family, what, op, dtypes, f, in_dtypes, quant,
-               head_dim, body) -> Unit:
+               head_dim, v_head_dim, body) -> Unit:
     gen = _Gen()
     label = family
-    if (head_dim is None) != (family != "flash"):
+    if (head_dim is None) != (family != "flash") or \
+            (v_head_dim is not None and head_dim is None):
         raise ValueError(f"{what}: a flash unit, and only one, takes a "
                          f"head_dim, got {head_dim!r} for {family}")
     if head_dim is not None:
@@ -535,17 +544,26 @@ def _make_unit(family, what, op, dtypes, f, in_dtypes, quant,
             raise NotImplementedError(
                 f"{what}: the cuda kernel takes head_dim 16 to 256 in steps "
                 f"of 16, got {head_dim}")
+        if v_head_dim not in FLASH_HEAD_DIMS or v_head_dim > head_dim:
+            raise NotImplementedError(
+                f"{what}: the cuda kernel takes a value head dim of 16 to "
+                f"head_dim {head_dim} in steps of 16, got {v_head_dim}")
         if body not in FLASH_BODIES:
             raise ValueError(f"{what}: a flash unit's body is one of "
                              f"{FLASH_BODIES}, got {body!r}")
         gen.parts.append(f"using Elem = {FLASH_CTYPES[dtypes[0]]};\n"
-                         f"constexpr int HD = {head_dim};\n")
+                         f"constexpr int HD = {head_dim};\n"
+                         f"constexpr int DV = {v_head_dim};\n")
+        # A body's value head dim defaults to HD.
+        dv = "" if v_head_dim == head_dim else ", DV"
         if body == "TensorCores":
-            gen.parts.append(_wgmma(head_dim))
-            gen.parts.append("using Body = rt::flash::TensorCores<HD, Wgmma>;\n")
+            gen.parts.append(_wgmma(v_head_dim))
+            gen.parts.append(
+                f"using Body = rt::flash::TensorCores<HD, Wgmma{dv}>;\n")
         else:
-            gen.parts.append("using Body = rt::flash::CudaCores<HD>;\n")
-        label = f"flash {_names(dtypes)[0]} head_dim {head_dim}"
+            gen.parts.append(f"using Body = rt::flash::CudaCores<HD{dv}>;\n")
+        label = f"flash {_names(dtypes)[0]} head_dim {head_dim}" + (
+            f" v_head_dim {v_head_dim}" if dv else "")
     if op is not None:
         if op.device is None:
             raise NotImplementedError(

@@ -212,8 +212,11 @@ def _round_up(x: int, m: int) -> int:
 def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
                         q_block=256, kv_block=256):
     """Plain version of K10 with the reference kernel's semantics
-    (``repro/kernels/flash_attention.py``): q (N, S, d), k and v (N, T, d)
-    -> (N, S, d) in q's dtype.
+    (``repro/kernels/flash_attention.py``): q (N, S, d), k (N, T, d) and v
+    (N, T, dv) -> (N, S, dv) in q's dtype.  ``dv`` is d in the reference
+    kernel; MLA's value head is narrower than its q/k head, and the value
+    product and the output take v's own width, as the reference's
+    ``blockwise_attention`` does.
 
     Scores are ``(q . k in float32) * (1 / sqrt(d))``, soft-capped as
     ``softcap * tanh(s / softcap)``; a key is kept where ``kpos < T``,
@@ -239,7 +242,8 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
     qpos = torch.arange(S, device=q.device)[:, None]
     m = torch.full((N, S, 1), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((N, S, 1), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((N, S, d), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((N, S, v.shape[-1]), dtype=torch.float32,
+                      device=q.device)
     for start in range(0, T + pad, kb):
         s = torch.einsum("nsd,ntd->nst", qf,
                          kp[:, start:start + kb].float()) * scale
@@ -265,18 +269,19 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
 
 def flash_attention_gqa_ref(q, k, v, **kw):
     """:func:`flash_attention_ref` in the model's layout: q (B, S, K, G,
-    hd), k and v (B, T, K, hd) -> (B, S, K, G, hd); query head (k, g)
-    attends to kv head k, broadcast here."""
-    B, S, K, G, hd = q.shape
+    hd), k (B, T, K, hd) and v (B, T, K, dv) -> (B, S, K, G, dv); query
+    head (k, g) attends to kv head k, broadcast here."""
+    B, S, K, G, _ = q.shape
     T = k.shape[1]
 
-    def heads(x, n):        # (B, n, K, [G,] hd) -> (B K G, n, hd)
+    def heads(x, n):        # (B, n, K, [G,] w) -> (B K G, n, w)
+        w = x.shape[-1]
         if x.ndim == 4:
-            x = x[:, :, :, None].expand(B, n, K, G, hd)
-        return x.permute(0, 2, 3, 1, 4).reshape(B * K * G, n, hd)
+            x = x[:, :, :, None].expand(B, n, K, G, w)
+        return x.permute(0, 2, 3, 1, 4).reshape(B * K * G, n, w)
 
     out = flash_attention_ref(heads(q, S), heads(k, T), heads(v, T), **kw)
-    return out.reshape(B, K, G, S, hd).permute(0, 3, 1, 2, 4)
+    return out.reshape(B, K, G, S, v.shape[-1]).permute(0, 3, 1, 2, 4)
 
 
 def flash_attention_bytes(N, S, T, d, dtype, q_block=256, kv_block=256):

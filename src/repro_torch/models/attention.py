@@ -1,16 +1,23 @@
-"""Attention of the port: GQA, global and sliding-window, prefill and
-decode.
+"""Attention of the port: GQA, global and sliding-window, and MLA, prefill
+and decode.
 
-The port of the GQA parts of ``repro.models.attention``, qk-norm
+The port of ``repro.models.attention`` but for cross attention, qk-norm
 included.  Prefill attention on the cuda backend is kernel K10
 (``kernels/flash_attention.py``: the reference's ``flash_attention_pallas``
 as a hand-written CUDA kernel, in the models' layout); on the torch
 backend it is ``blockwise_attention``, the reference models' own XLA core
 (the online softmax over KV blocks, the flash pattern), which the CPU
 tests hold against the reference.  Decode attention is plain tensor code
-(``decode_attention``), as in the reference.
+(``decode_attention``, ``mla_decode``), as in the reference.
 Global layers keep a ``cache_len`` cache written at [0, S); local layers a
 ring of ``min(cache_len, local_window)`` slots.
+
+MLA (deepseek-v3): q through a low-rank projection, K and V from a
+shared latent.  Prefill expands K (``qk_nope + qk_rope`` wide) and V
+(``v_head_dim`` wide) per head and runs K10 with a value head dim of its
+own; the cache keeps only the latent ``ckv`` (B, L, kv_lora_rank) and the
+shared rope key ``krope`` (B, L, qk_rope_head_dim); decode attends in the
+latent space (``w_uk`` absorbed into q), never expanding K or V.
 
 Layouts are the reference's: q (B, S, K, G, hd), k and v (B, T, K, hd).
 """
@@ -226,5 +233,134 @@ def gqa_decode(params, cfg, x, cache, pos, *, is_local):
     out = decode_attention(q, kc, vc, key_valid=key_valid,
                            softcap=cfg.attn_softcap)
     out = out.reshape(B, 1, H, hd)
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dtype))
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v3): low-rank q, compressed KV, absorbed decode
+# ---------------------------------------------------------------------------
+
+
+def init_mla(gen, cfg, dtype=torch.float32):
+    """The projections of ``repro.models.attention.init_mla``; the two
+    norms' scales stay float32 as every norm's."""
+    d, H = cfg.d_model, cfg.n_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    nd, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {
+        "w_dq": L.dense_init(gen, (d, qr), 0, dtype),
+        "q_norm": L.init_rmsnorm(qr, gen.device),
+        "w_uq": L.dense_init(gen, (qr, H, nd + rd), 0, dtype),
+        "w_dkv": L.dense_init(gen, (d, kvr + rd), 0, dtype),
+        "kv_norm": L.init_rmsnorm(kvr, gen.device),
+        "w_uk": L.dense_init(gen, (kvr, H, nd), 0, dtype),
+        "w_uv": L.dense_init(gen, (kvr, H, vd), 0, dtype),
+        "wo": L.dense_init(gen, (H, vd, d), (0, 1), dtype),
+    }
+
+
+def _mla_q(params, cfg, x, positions, dtype):
+    """(q_nope, q_rope): the q-LoRA down-projection, its rmsnorm (float32
+    inside), the up-projection to every head, rope on the last
+    ``qk_rope_head_dim`` dims."""
+    nd = cfg.qk_nope_head_dim
+    cq = torch.einsum("bsd,dr->bsr", x, params["w_dq"].to(dtype))
+    cq = L.rmsnorm(params["q_norm"], cq, cfg.norm_eps)
+    q = torch.einsum("bsr,rhk->bshk", cq, params["w_uq"].to(dtype))
+    q_nope, q_rope = q[..., :nd], q[..., nd:]
+    return q_nope, L.rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_ckv(params, cfg, x, positions, dtype):
+    """(ckv, k_rope): the normed latent (B, S, kv_lora_rank) and the rope
+    key (B, S, qk_rope_head_dim) that every head shares."""
+    kvr = cfg.kv_lora_rank
+    ckv_full = torch.einsum("bsd,dr->bsr", x, params["w_dkv"].to(dtype))
+    ckv, k_rope = ckv_full[..., :kvr], ckv_full[..., kvr:]
+    ckv = L.rmsnorm(params["kv_norm"], ckv, cfg.norm_eps)
+    k_rope = L.rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return ckv, k_rope
+
+
+def mla_forward(params, cfg, x, *, return_cache_len=0):
+    """Full-sequence MLA from position 0 with K and V expanded per head
+    (compute-optimal for prefill): q and k are ``qk_nope + qk_rope`` wide,
+    v ``v_head_dim``; K10 (cuda backend) or ``blockwise_attention`` (torch)
+    takes v at its own width.  With ``return_cache_len`` the latent cache
+    holds ``ckv`` and ``krope`` at [0, S).  Returns (y, cache|None)."""
+    dtype = x.dtype
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    nd, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    positions = torch.arange(S, device=x.device)
+    q_nope, q_rope = _mla_q(params, cfg, x, positions, dtype)
+    ckv, k_rope = _mla_ckv(params, cfg, x, positions, dtype)
+    k_nope = torch.einsum("bsr,rhk->bshk", ckv, params["w_uk"].to(dtype))
+    val = torch.einsum("bsr,rhk->bshk", ckv, params["w_uv"].to(dtype))
+    q = torch.cat([q_nope, q_rope], dim=-1).reshape(B, S, H, 1, nd + rd)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, rd)],
+                  dim=-1)
+    if ki.current_backend(q) == "cuda":
+        out = flash_k.flash_attention_gqa(q, k, val, causal=True)
+    else:
+        out = blockwise_attention(q, k, val, qpos=positions, causal=True)
+    out = out.reshape(B, S, H, vd)
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dtype))
+    cache = None
+    if return_cache_len:
+        if return_cache_len < S:
+            raise ValueError(f"MLA cache_len={return_cache_len} < prefill "
+                             f"length {S}")
+        cache = init_mla_cache(cfg, B, return_cache_len, ckv.dtype, x.device)
+        cache["ckv"][:, :S] = ckv
+        cache["krope"][:, :S] = k_rope
+    return y, cache
+
+
+def init_mla_cache(cfg, batch, cache_len, dtype, device):
+    """The zeroed latent cache: ``ckv`` (B, L, kv_lora_rank) and ``krope``
+    (B, L, qk_rope_head_dim)."""
+    return {"ckv": torch.zeros((batch, cache_len, cfg.kv_lora_rank),
+                               dtype=dtype, device=device),
+            "krope": torch.zeros((batch, cache_len, cfg.qk_rope_head_dim),
+                                 dtype=dtype, device=device)}
+
+
+def mla_decode(params, cfg, x, cache, pos):
+    """Absorbed one-token decode, attention entirely in the latent space:
+    ``q_abs = q_nope . w_uk`` scores against ``ckv`` and ``q_rope`` against
+    ``krope`` in float32, the context is p . ckv in float32, and ``w_uv``
+    and ``wo`` map it out.  x: (B,1,D); pos: (B,) per-slot positions.
+    Writes the step's ``ckv`` and ``krope`` into slot ``pos % L`` of the
+    cache's own tensors in place, as ``gqa_decode`` does, and returns
+    them."""
+    if pos.ndim != 1:
+        raise ValueError(f"mla_decode takes a (B,) position vector, got "
+                         f"shape {tuple(pos.shape)}")
+    dtype = x.dtype
+    B = x.shape[0]
+    nd, rd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    positions = pos.to(torch.int32)[:, None]
+    q_nope, q_rope = _mla_q(params, cfg, x, positions, dtype)   # (B,1,H,*)
+    ckv_new, krope_new = _mla_ckv(params, cfg, x, positions, dtype)
+    # Absorb w_uk into q: q_abs[b,1,h,r] = sum_n q_nope[b,1,h,n] w_uk[r,h,n]
+    q_abs = torch.einsum("bshn,rhn->bshr", q_nope, params["w_uk"].to(dtype))
+    scale = 1.0 / math.sqrt(nd + rd)
+    ckv_c, kr_c = cache["ckv"], cache["krope"]
+    Lc = ckv_c.shape[1]
+    valid = torch.arange(Lc, device=x.device)[None, :] <= pos[:, None]
+    bidx = torch.arange(B, device=x.device)
+    ckv_c[bidx, pos % Lc] = ckv_new[:, 0].to(ckv_c.dtype)
+    kr_c[bidx, pos % Lc] = krope_new[:, 0].to(kr_c.dtype)
+    ckv_f = ckv_c.float()
+    s = (torch.einsum("bshr,btr->bhst", q_abs.float(), ckv_f)
+         + torch.einsum("bshr,btr->bhst", q_rope.float(), kr_c.float())) \
+        * scale
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhst,btr->bshr", p, ckv_f)              # (B,1,H,kvr)
+    out = torch.einsum("bshr,rhk->bshk", ctx.to(dtype),
+                       params["w_uv"].to(dtype))                # (B,1,H,vd)
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dtype))
     return y, cache

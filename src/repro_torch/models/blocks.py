@@ -2,9 +2,11 @@
 
 The port of ``repro.models.blocks`` for ``attn_global`` / ``attn_local``
 (GQA + MLP; ``gqa_dense`` is ``attn_global``'s alias), ``gqa_moe`` (GQA +
-MoE), ``rglru`` (Griffin recurrent + MLP) and ``mlstm`` / ``slstm``
-(xLSTM: the mixer alone, which carries its own projections): pre-norm
-residuals with optional gemma-style post-norms (``cfg.post_norm``).
+MoE), ``mla_dense`` / ``mla_moe`` (MLA + MLP or MoE, deepseek-v3; their
+cache is the latent ``ckv`` and ``krope``), ``rglru`` (Griffin recurrent +
+MLP) and ``mlstm`` / ``slstm`` (xLSTM: the mixer alone, which carries its
+own projections): pre-norm residuals with optional gemma-style post-norms
+(``cfg.post_norm``).
 
 ``block_forward(params, kind, cfg, x, mode=...)`` returns
 ``(x, cache)`` where ``mode`` is "train" | "prefill" | "decode"; an MoE
@@ -20,7 +22,8 @@ from repro_torch.models import moe as M
 from repro_torch.models import recurrent as R
 
 _ATTN_KINDS = ("attn_global", "attn_local", "gqa_dense", "gqa_moe")
-_KINDS = _ATTN_KINDS + ("rglru", "mlstm", "slstm")
+_MLA_KINDS = ("mla_dense", "mla_moe")
+_KINDS = _ATTN_KINDS + _MLA_KINDS + ("rglru", "mlstm", "slstm")
 
 
 def _has_mlp(kind):
@@ -44,6 +47,8 @@ def init_block(gen, kind, cfg, dtype):
         p["post_norm1"] = L.init_rmsnorm(cfg.d_model, gen.device)
     if kind in _ATTN_KINDS:
         p["attn"] = A.init_gqa(gen, cfg, dtype)
+    elif kind in _MLA_KINDS:
+        p["attn"] = A.init_mla(gen, cfg, dtype)
     elif kind == "rglru":
         p["mixer"] = R.init_rglru_block(gen, cfg, dtype)
     elif kind == "mlstm":
@@ -71,6 +76,12 @@ def _mixer_apply(params, kind, cfg, x, *, mode, cache, pos, cache_len):
                                 is_local=is_local)
         return A.gqa_forward(
             params["attn"], cfg, x, is_local=is_local,
+            return_cache_len=cache_len if mode == "prefill" else 0)
+    if kind in _MLA_KINDS:
+        if mode == "decode":
+            return A.mla_decode(params["attn"], cfg, x, cache, pos)
+        return A.mla_forward(
+            params["attn"], cfg, x,
             return_cache_len=cache_len if mode == "prefill" else 0)
     forward, decode = {
         "rglru": (R.rglru_forward, R.rglru_decode),
@@ -109,6 +120,8 @@ def init_block_cache(kind, cfg, batch, cache_len, dtype, device):
     if kind in _ATTN_KINDS:
         return A.init_gqa_cache(cfg, batch, cache_len, kind == "attn_local",
                                 dtype, device)
+    if kind in _MLA_KINDS:
+        return A.init_mla_cache(cfg, batch, cache_len, dtype, device)
     if kind == "rglru":
         return R.init_rglru_cache(cfg, batch, dtype, device)
     if kind == "mlstm":

@@ -83,18 +83,32 @@ def init_params(cfg, *, seed: int = 0, device=None,
     norm scales, the RG-LRU's ``lam``/``bias_a``/``bias_x``, the mLSTM's
     gate projections and biases (``w_igate``, ``w_fgate``, ``b_igate``,
     ``b_fgate``), the sLSTM's gate ``bias`` and the MoE's ``router`` and
-    ``router_bias`` stay float32, as in the reference."""
-    if cfg.is_encdec or cfg.mtp_depth:
+    ``router_bias`` stay float32, as in the reference.  With
+    ``cfg.mtp_depth`` the tree holds the multi-token-prediction head
+    (``mtp``: ``proj``, one ``mla_dense`` or ``attn_global`` block, three
+    norms) as the reference's does; serving never runs it (its loss is
+    training's)."""
+    if cfg.is_encdec:
         raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder and MTP models are not in this "
-            f"port yet")
+            f"{cfg.name}: encoder-decoder models are not in this port yet")
     gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
-    return {
-        "embed": L.init_embed(gen, cfg.vocab_size, cfg.d_model,
-                              cfg.tie_embeddings, dtype),
+    d = cfg.d_model
+    params = {
+        "embed": L.init_embed(gen, cfg.vocab_size, d, cfg.tie_embeddings,
+                              dtype),
         "decoder": _init_stack(gen, _dec_spec(cfg), cfg, dtype),
-        "final_norm": L.init_rmsnorm(cfg.d_model, gen.device),
+        "final_norm": L.init_rmsnorm(d, gen.device),
     }
+    if cfg.mtp_depth:
+        kind = "mla_dense" if cfg.use_mla else "attn_global"
+        params["mtp"] = {
+            "proj": L.dense_init(gen, (2 * d, d), 0, dtype),
+            "block": BK.init_block(gen, kind, cfg, dtype),
+            "norm_h": L.init_rmsnorm(d, gen.device),
+            "norm_e": L.init_rmsnorm(d, gen.device),
+            "final_norm": L.init_rmsnorm(d, gen.device),
+        }
+    return params
 
 
 def count_params(params: Pytree) -> int:

@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Eleven phases, any failure exits non-zero:
+Twelve phases, any failure exits non-zero:
 
 1. build -- generate the translation units of every kernel, operator, map
    and dtype combination the run's paths use (kernels/_lib.py, from each
@@ -32,9 +32,11 @@ Eleven phases, any failure exits non-zero:
    gemma2-27b (32 query / 16 kv heads of 128, soft cap 50, global and
    window 4096), recurrentgemma-2b (10 / 1 heads of 256, window 2048),
    gemma3-4b (8 / 4 heads of 256, global and window 1024), minitron-4b (24
-   / 8 of 128), moonshot-v1-16b-a3b (16 / 16 of 128) and deepseek-v3-671b's
-   MLA (128 heads, q and k 192 wide, v 128) in bf16, with v narrower than q
-   in both bodies at ragged shapes too; time
+   / 8 of 128), moonshot-v1-16b-a3b (16 / 16 of 128), deepseek-v3-671b's
+   MLA (128 heads, q and k 192 wide, v 128) and seamless-m4t-medium (16 /
+   16 of 64: its encoder, not causal; its decoder's self attention; its
+   cross attention, 64 queries over 2,100 keys) in bf16, with v narrower
+   than q in both bodies at ragged shapes too; time
    the kernel, the plain version and one PyTorch library call of the same
    function with CUDA events (K2, K3, K7m and K7s in turns with the
    library call, the median of 7 rounds; SDPA for K10, with the backend
@@ -160,6 +162,25 @@ Eleven phases, any failure exits non-zero:
    prefill launches K10 once per MLA layer in its (bf16, 192, 128) unit;
    then as phases 8-10: the 8 requests, f32_floor, moonshot's MoE checks,
    the profile.
+12. serve seamless-m4t-medium -- deepseek's tensors freed, the
+   encoder-decoder at full width and depth (12 bidirectional encoder
+   layers, 12 decoder layers of causal self and cross attention; d_model
+   1024, 16 heads of 64, relu MLPs, vocab 256,206): 614,739,968
+   parameters, counted by param_count, bf16 from a seed.  The same 8
+   greedy requests through Engine.generate, which runs the padded path
+   (generate_padded: left-padded prompts, one prefill a batch over a zero
+   source, as the reference engine's, then one decode step at one
+   position a token) in two batches of four: every length and id, K10 36
+   times a prefill, K7m once a batch (the scores); the run twice, equal
+   digests.  A zero source makes every cross attention exactly zero, so
+   the model is checked directly too, with 0.1 N(0, 1) frames: prefill
+   and four decode steps at one position, the cuda backend against the
+   torch one by the float32 floor (hold_floor), at decoder prompt / source
+   lengths 17 / 17, 1,024 / 1,024, 2,100 / 2,100 and 64 / 2,100; one
+   prefill's K10 launches (12 encoder + 12 self + 12 cross) in the (bf16,
+   64) unit; a decode step at one position equal to the bit to the same
+   step at a (B,) vector of it; then the profile of one prefill and of
+   eight decode steps of four rows.
 
 Each serve summary holds its token streams' digest ("streams"), and each
 profile the device ms under the decode step's aten ops ("ops_ms":
@@ -171,7 +192,7 @@ The line before the card line holds {"kernels": [...]}.  A kernel's
 "launches_path": the primitives path for K1-K9, as before, and gemma2's
 serving path for K10, which the primitives path does not run.  Beside them
 stand the launches on every path (primitives, greedy, sampled, gemma2,
-xlstm, gemma3, minitron, moonshot, deepseek) and their sum,
+xlstm, gemma3, minitron, moonshot, deepseek, seamless) and their sum,
 "launches_total"; K10's
 row its time, bound and SDPA time at each served model's prefill layers
 ("shapes"); K6's and K6-long's rows add their
@@ -337,6 +358,7 @@ def reset_counts() -> None:
         setattr(obj, attr, 0)
     matvec_k.form_launches.clear()
     batched_k.form_launches.clear()
+    flash_k.unit_launches.clear()
 
 
 def read_counts() -> dict:
@@ -2193,14 +2215,17 @@ def check_k7_k9(res, gen, note) -> None:
 
 # K10's cases: (label, B, S, T, K, G, hd, dtype, causal, window, softcap[,
 # dv]), dv the value head dim where it is not hd.
-# The first eight are timed (K10_TIMED), the first being the kernel's row:
+# The first eleven are timed (K10_TIMED), the first being the kernel's row:
 # a gemma2-27b global layer's prefill of the 2,100-token prompt; then its
 # local layers' and recurrentgemma-2b's (MQA, window 2048, which bites at
 # 2,100 but skips no tile), gemma3-4b's global and local layers (8 / 4
 # heads of 256, the local window 1024), minitron-4b's (24 / 8 heads: G = 3),
-# moonshot-v1-16b-a3b's (16 / 16: G = 1) and deepseek-v3-671b's MLA layer
+# moonshot-v1-16b-a3b's (16 / 16: G = 1), deepseek-v3-671b's MLA layer
 # (128 heads, q and k 192 wide, v 128: the tensor-core body's three groups
-# with a 192-wide QK^T).  The "value head" cases hold v narrower than q in
+# with a 192-wide QK^T) and seamless-m4t-medium's three (16 / 16 heads of
+# 64: the encoder's bidirectional layer, the decoder's causal self
+# attention, and its cross attention of a 64-token decoder prompt over
+# 2,100 source frames, neither causal nor S = T).  The "value head" cases hold v narrower than q in
 # both bodies: a value row padded by TMA's zero fill (48 of 64), the
 # two-stage ring at head_dim 256, query blocks at their edge.  The "skips
 # tiles" cases have query tiles whose window starts a whole kv tile or more
@@ -2225,6 +2250,12 @@ K10_CASES = tuple(K10Case(*c) for c in (
     ("moonshot-v1-16b-a3b", 1, 2100, 2100, 16, 1, 128, BF16, True, 0, 0.0),
     ("deepseek-v3-671b MLA", 1, 2100, 2100, 128, 1, 192, BF16, True, 0, 0.0,
      128),
+    ("seamless-m4t-medium encoder", 1, 2100, 2100, 16, 1, 64, BF16, False, 0,
+     0.0),
+    ("seamless-m4t-medium decoder self", 1, 2100, 2100, 16, 1, 64, BF16,
+     True, 0, 0.0),
+    ("seamless-m4t-medium cross", 1, 64, 2100, 16, 1, 64, BF16, False, 0,
+     0.0),
     ("T = 1", 2, 1, 1, 16, 2, 128, BF16, True, 0, 50.0),
     ("S, T at a tile -1, +1", 2, 31, 65, 16, 2, 128, BF16, True, 0, 50.0),
     ("S, T at a tile +1, -1", 2, 33, 63, 1, 10, 256, BF16, True, 2048, 0.0),
@@ -2275,7 +2306,7 @@ K10_CASES = tuple(K10Case(*c) for c in (
     ("f32, value head 48 of 80, window and soft cap", 1, 70, 70, 2, 2, 80,
      F32, True, 16, 30.0, 48),
 ))
-K10_TIMED = tuple(c.label for c in K10_CASES[:8])
+K10_TIMED = tuple(c.label for c in K10_CASES[:11])
 K10_UNITS = sorted({(c.dtype, c.hd, c.dv or c.hd) for c in K10_CASES},
                    key=str)
 
@@ -2375,13 +2406,14 @@ def check_k10(res, gen, note) -> None:
             continue
         qs = q.reshape(B, S, K * G, hd).transpose(1, 2).contiguous()
         ks, vs = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
-        sdpa = dict(is_causal=True, enable_gqa=True)
+        sdpa = dict(is_causal=causal, enable_gqa=True)
         timing = {
             "ms": time_ms(lambda: flash_k.flash_attention_gqa(q, k, v, **kw),
                           20),
             "plain_ms": time_ms(lambda: ref.flash_attention_gqa_ref(
                 q, k, v, kv_block=flash_k.KV_BLOCK, **kw), 3),
-            # A speed baseline only: SDPA has no soft cap and no window.
+            # A speed baseline only: SDPA has no soft cap and no window;
+            # its mask is the case's (causal or not).
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                 qs, ks, vs, **sdpa), 20),
             "library_backend": sdpa_backend(qs, ks, vs, **sdpa)}
@@ -3199,7 +3231,10 @@ def param_count(cfg) -> int:
     w_gate), or an MoE: the router (d x E) and its bias, E experts of
     moe_d_ff and the shared experts as one MLP n_shared_experts times as
     wide.  The embedding, an untied unembedding, the final norm, and an MTP
-    head's proj (2d x d), block and three norms."""
+    head's proj (2d x d), block and three norms.  An encoder-decoder's
+    ``dec_attn`` block holds a second GQA block's projections (cross
+    attention) and a third norm; its encoder, ``n_enc_layers`` blocks of
+    GQA, two norms and a dense MLP, and the encoder's final norm."""
     d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     mats = 3 if cfg.activation in ("swiglu", "geglu") else 2
     if cfg.use_mla:
@@ -3217,9 +3252,13 @@ def param_count(cfg) -> int:
            + (cfg.n_experts + cfg.n_shared_experts) * mats * d * cfg.moe_d_ff)
 
     def block(kind):
+        if kind == "dec_attn":
+            return 2 * attn + norms + d + dense
         return attn + norms + (moe if kind.endswith("_moe") else dense)
 
     blocks = sum(block(kind) for kind in cfg.layer_pattern())
+    if cfg.is_encdec:
+        blocks += cfg.n_enc_layers * block("enc_attn") + d
     embed = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
     mtp = 2 * d * d + block("dense") + 3 * d if cfg.mtp_depth else 0
     return blocks + embed + d + mtp
@@ -3249,7 +3288,7 @@ def load_model(name: str = "recurrentgemma-2b", tag: str = "serve",
     return cfg, params, prompts
 
 
-def f32_floor(params, cfg, toks, logits_c, logits_t) -> dict:
+def f32_floor(params, cfg, toks, logits_c, logits_t, **inputs) -> dict:
     """The two backends' bf16 prefill logits held against the same model
     in float32 activations (the bf16 weights upcast in each product), for
     a model whose bf16 rounding noise is large beside its logits.  In
@@ -3257,23 +3296,31 @@ def f32_floor(params, cfg, toks, logits_c, logits_t) -> dict:
     within 1e-3 of max|logit|.  In bf16 each backend is a rounding of that
     function; where the torch backend lies D from it, the two lie at most
     about 2 D apart (|c - t| <= |c - f| + |f - t|, both terms bf16 noise of
-    one size): the cuda backend's K10 adds no error of its own."""
+    one size): the cuda backend's K10 adds no error of its own.
+    ``inputs``: the prefill's other inputs (an encoder's ``src_embeds``)."""
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    c32, _ = lm.prefill(params, cfg32, toks, cache_len=CACHE_LEN)
+    c32, _ = lm.prefill(params, cfg32, toks, cache_len=CACHE_LEN, **inputs)
     with ki.use_backend("torch"):
-        f, _ = lm.prefill(params, cfg32, toks, cache_len=CACHE_LEN)
-    T = toks.shape[1]
-    out = {"tokens": T, "max_logit_f32": float(f.abs().max()),
+        f, _ = lm.prefill(params, cfg32, toks, cache_len=CACHE_LEN, **inputs)
+    return hold_floor(f"prefill T={toks.shape[1]}", toks.shape[1], logits_c,
+                      logits_t, c32, f)
+
+
+def hold_floor(what, tokens, logits_c, logits_t, c32, f) -> dict:
+    """f32_floor's two checks: the float32 runs ``c32`` (cuda backend) and
+    ``f`` (torch) within 1e-3 of max|f|, and the bf16 runs ``logits_c``
+    and ``logits_t`` within twice the torch backend's distance from f."""
+    out = {"tokens": tokens, "max_logit_f32": float(f.abs().max()),
            "f32_cuda_vs_torch": float((c32 - f).abs().max()),
            "cuda_vs_f32": float((logits_c - f).abs().max()),
            "torch_vs_f32": float((logits_t - f).abs().max()),
            "cuda_vs_torch": float((logits_c - logits_t).abs().max())}
     expect(out["f32_cuda_vs_torch"] <= 1e-3 * out["max_logit_f32"],
-           f"prefill T={T} in float32 activations: cuda vs torch backend "
+           f"{what} in float32 activations: cuda vs torch backend "
            f"max abs err {out['f32_cuda_vs_torch']:.4g} <= 1e-3 x "
            f"max|logit| {out['max_logit_f32']:.4g}")
     expect(out["cuda_vs_torch"] <= 2 * out["torch_vs_f32"],
-           f"prefill T={T} in bf16: cuda vs torch backend max abs err "
+           f"{what} in bf16: cuda vs torch backend max abs err "
            f"{out['cuda_vs_torch']:.4g} <= 2 x the torch backend's own "
            f"error against float32 activations, {out['torch_vs_f32']:.4g} "
            f"(the cuda backend's {out['cuda_vs_f32']:.4g}); argmax "
@@ -3626,7 +3673,7 @@ def phase_deepseek() -> dict:
     lm.prefill(params, cfg, toks, cache_len=CACHE_LEN)
     torch.cuda.synchronize()
     k10 = read_counts()["K10"]
-    expect(k10 == mla_layers and unit.digest in _lib._LOADED,
+    expect(k10 == mla_layers == flash_k.unit_launches.get(unit.label),
            f"deepseek prefill T={len(prompts[4])}: K10 launched {k10} times, "
            f"once in each of its {mla_layers} MLA layers, in the "
            f"{unit.label} unit")
@@ -3637,6 +3684,212 @@ def phase_deepseek() -> dict:
     summary["k10_per_prefill"] = {"launches": k10, "unit": unit.label}
     summary["phase_s"] = time.perf_counter() - t0
     log(f"[deepseek] phase 11 took {summary['phase_s']:.1f} s")
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: serve seamless-m4t-medium, the encoder-decoder, at full width
+# and depth
+# ---------------------------------------------------------------------------
+
+SEAMLESS_PARAMS = 614_739_968
+SEAMLESS_PATH = ("K7m", "K10")    # the padded path: no loop predicate (K3)
+# (decoder prompt, source frames) of the direct checks: equal lengths as the
+# engine's prefill, and a short prompt over a long source.
+SEAMLESS_CHECKS = ((17, 17), (1024, 1024), (2100, 2100), (64, 2100))
+SEAMLESS_DECODE = 4               # decode steps held after a prefill
+
+
+def seamless_source(gen, cfg, T) -> torch.Tensor:
+    """A real source, 0.1 N(0, 1) frames (1, T, d_model) in float32, as
+    the reference's tests draw one: the engine's own source is all zeros,
+    which makes the encoder's output and every cross attention exactly
+    zero (the encoder has no biases)."""
+    return 0.1 * torch.randn(1, T, cfg.d_model, generator=gen,
+                             device="cuda")
+
+
+def prefill_and_decode(params, cfg, toks, src, steps, backend):
+    """One prefill over ``src`` and ``steps`` decode steps at one position
+    for the batch (the padded path's), fed ``toks``' next tokens; every
+    step's logits, on ``backend``."""
+    S = toks.shape[1] - steps
+    with ki.use_backend(backend):
+        logits, caches = lm.prefill(params, cfg, toks[:, :S],
+                                    cache_len=CACHE_LEN, src_embeds=src)
+        out = [logits]
+        for t in range(steps):
+            logits, caches = lm.decode_step(params, cfg, caches,
+                                            toks[:, S + t:S + t + 1], S + t)
+            out.append(logits)
+    return out
+
+
+def seamless_checks(params, cfg, prompts, gen) -> dict:
+    """The model itself, with a real source: at each (prompt, source)
+    length of SEAMLESS_CHECKS the cuda backend's prefill logits and
+    SEAMLESS_DECODE steps after it at one position held against the torch
+    backend's by the float32 floor (hold_floor); one prefill's K10
+    launches, 12 encoder + 12 self + 12 cross layers in the (bf16, 64)
+    unit; and a decode step at one position and at a (B,) vector of it
+    equal to the bit."""
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    out = {"floor": []}
+    for S, T in SEAMLESS_CHECKS:
+        toks = torch.randint(cfg.vocab_size, (1, S + SEAMLESS_DECODE),
+                             generator=gen, device="cuda")
+        src = seamless_source(gen, cfg, T)
+        runs = {(c, b): prefill_and_decode(params, c, toks, src,
+                                           SEAMLESS_DECODE, b)
+                for c in (cfg, cfg32) for b in ("cuda", "torch")}
+        for i in range(SEAMLESS_DECODE + 1):
+            c, t = runs[cfg, "cuda"][i], runs[cfg, "torch"][i]
+            expect(bool(torch.isfinite(c).all()) and tuple(c.shape) == (
+                1, cfg.vocab_size), f"seamless S={S} T={T} step {i}: finite "
+                                    f"logits of shape (1, {cfg.vocab_size})")
+            what = (f"seamless prefill S={S} over T={T} frames" if i == 0
+                    else f"seamless decode step {i} after S={S}, T={T}")
+            row = hold_floor(what, S + i, c, t, runs[cfg32, "cuda"][i],
+                             runs[cfg32, "torch"][i])
+            out["floor"].append({"S": S, "T": T, "step": i, **row})
+        del runs
+    toks = torch.tensor([prompts[4]], dtype=torch.int64, device="cuda")
+    src = seamless_source(gen, cfg, toks.shape[1])
+    layers = cfg.n_enc_layers + 2 * cfg.n_units
+    unit = flash_k.flash_unit(BF16, cfg.head_dim, "seamless")
+    reset_counts()
+    _, caches = lm.prefill(params, cfg, toks, cache_len=CACHE_LEN,
+                           src_embeds=src)
+    torch.cuda.synchronize()
+    k10 = read_counts()["K10"]
+    expect(k10 == layers == flash_k.unit_launches.get(unit.label),
+           f"seamless prefill T={toks.shape[1]}: K10 launched {k10} times, "
+           f"once in each of its {cfg.n_enc_layers} encoder, "
+           f"{cfg.n_units} self and {cfg.n_units} cross attention layers "
+           f"({layers}), in the {unit.label} unit")
+    out["k10_per_prefill"] = {"launches": k10, "unit": unit.label}
+    copy = torch.utils._pytree.tree_map(torch.clone, caches)
+    nxt = toks[:, -1:]
+    a, _ = lm.decode_step(params, cfg, caches, nxt, toks.shape[1])
+    b, _ = lm.decode_step(params, cfg, copy, nxt, torch.full(
+        (1,), toks.shape[1], dtype=torch.int32, device="cuda"))
+    expect(torch.equal(a, b), "seamless decode at one position and at a "
+                              "(B,) vector of it: the same logits to the bit")
+    out["vector_pos_equal"] = True
+    log("[seamless] " + json.dumps(out))
+    return out
+
+
+def profile_seamless(params, cfg, prompt, steps: int = 8) -> dict:
+    """Where the time goes: one prefill of ``prompt`` over a zero source of
+    its length (the engine's), and ``steps`` decode steps at one position
+    of a batch of four such prefills."""
+    def batch(rows):
+        toks = torch.tensor([prompt] * rows, dtype=torch.int64,
+                            device="cuda")
+        return toks, torch.zeros((*toks.shape, cfg.d_model), device="cuda")
+
+    toks, src = batch(1)
+    prefill = profile_device(
+        f"seamless prefill T={len(prompt)}",
+        lambda: lm.prefill(params, cfg, toks, cache_len=CACHE_LEN,
+                           src_embeds=src), 1)
+    toks, src = batch(BATCH)
+    _, caches = lm.prefill(params, cfg, toks, cache_len=CACHE_LEN,
+                           src_embeds=src)
+    nxt = toks[:, -1:]
+
+    def decode():
+        for t in range(steps):
+            lm.decode_step(params, cfg, caches, nxt, len(prompt) + t)
+
+    decode()                                                 # warm-up
+    return {"prefill": prefill,
+            "decode_step": profile_device(f"seamless decode x{steps}",
+                                          decode, steps)}
+
+
+def serve_seamless(cfg, params, prompts) -> dict:
+    """The 8 greedy requests through ``Engine.generate``, which runs the
+    padded path in two batches of four (the source zeros, as the
+    reference engine's)."""
+    eng = Engine(cfg, params, cache_len=CACHE_LEN, batch_size=BATCH,
+                 device="cuda")
+    reqs = [Request(prompt=p, max_new_tokens=m)
+            for p, m in zip(prompts, MAX_NEW)]
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    for i, (o, r) in enumerate(zip(outs, reqs)):
+        expect(len(o) == r.max_new_tokens and all(
+            0 <= t < cfg.vocab_size for t in o),
+            f"seamless request {i} (prompt {len(r.prompt)}): {len(o)} "
+            f"tokens == max_new_tokens {r.max_new_tokens}, ids in the "
+            f"vocabulary")
+    batches = -(-len(reqs) // BATCH)
+    expect(launches["K10"] == (cfg.n_enc_layers + 2 * cfg.n_units) * batches
+           and launches["K7m"] == batches,
+           f"seamless generate: K10 launched {launches['K10']} times (36 a "
+           f"prefill, {batches} prefills), K7m {launches['K7m']} (the "
+           f"scores of each batch)")
+    for k in SEAMLESS_PATH:
+        expect(launches[k] > 0, f"{k} launched {launches[k]} times on the "
+                                f"seamless path")
+    stats = eng.last_stats
+    return {"outs": outs, "launches": launches, "serve_s": wall,
+            "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
+            "decode_tok_per_s": stats["decode_tok_per_s"],
+            "generated_tokens": sum(len(o) for o in outs),
+            "scores": eng.last_scores.tolist(),
+            "streams": streams_digest(outs)}
+
+
+def phase_seamless(gen) -> dict:
+    """seamless-m4t-medium at full width and all 24 layers, after
+    deepseek's tensors are gone (1.23 GB of bf16 weights): the served run
+    twice (equal digests), the checks with a real source, the profile."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[seamless] {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+        f"before loading")
+    cfg, params, prompts = load_model("seamless-m4t-medium", "seamless",
+                                      param_count)
+    expect(lm.count_params(params) == SEAMLESS_PARAMS,
+           f"seamless-m4t-medium: {SEAMLESS_PARAMS} parameters, as the "
+           f"reference's tree")
+    memory = {"weights_gb": torch.cuda.memory_allocated() / 1e9}
+    torch.cuda.reset_peak_memory_stats()
+    served = [serve_seamless(cfg, params, prompts) for _ in range(2)]
+    memory["peak_generate_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    expect(served[0]["streams"] == served[1]["streams"],
+           f"seamless: two served runs give the same streams "
+           f"({served[0]['streams']}, {served[1]['streams']})")
+    torch.cuda.reset_peak_memory_stats()
+    checks = seamless_checks(params, cfg, prompts, gen)
+    memory["peak_checks_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    profile = profile_seamless(params, cfg, prompts[4])
+    run = served[1]
+    prompt_tokens = sum(PROMPT_LENS)
+    summary = {
+        "model": cfg.name, "requests": len(PROMPT_LENS), "slots": BATCH,
+        "cache_len": CACHE_LEN, "prompt_tokens": prompt_tokens,
+        # The padded path prefills each batch at its longest prompt.
+        "padded_prompt_tokens": sum(
+            BATCH * max(PROMPT_LENS[i:i + BATCH])
+            for i in range(0, len(PROMPT_LENS), BATCH)),
+        **{k: run[k] for k in ("generated_tokens", "prefill_s", "decode_s",
+                               "serve_s", "decode_tok_per_s", "launches",
+                               "streams", "scores")},
+        "prefill_tok_per_s": prompt_tokens / run["prefill_s"],
+        "serve_s_runs": [r["serve_s"] for r in served],
+        "memory": memory, "profile": profile, "checks": checks}
+    summary["phase_s"] = time.perf_counter() - t0
+    log("[seamless] " + json.dumps(summary))
+    log(f"[seamless] phase 12 took {summary['phase_s']:.1f} s")
     return summary
 
 
@@ -3916,6 +4169,7 @@ def main() -> int:
         xlstm = phase_xlstm()
         models = {tag: phase_model(name, tag, n) for name, tag, n in MODELS}
         models["deepseek"] = phase_deepseek()
+        models["seamless"] = phase_seamless(gen)
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1

@@ -11,6 +11,7 @@ from repro_torch.configs import internvl2_76b  # noqa: F401
 from repro_torch.configs import minitron_4b  # noqa: F401
 from repro_torch.configs import moonshot_v1_16b_a3b  # noqa: F401
 from repro_torch.configs import recurrentgemma_2b  # noqa: F401
+from repro_torch.configs import seamless_m4t_medium  # noqa: F401
 from repro_torch.configs import xlstm_1p3b  # noqa: F401
 from repro_torch.configs.base import (  # noqa: F401
     ModelConfig,

@@ -5,8 +5,9 @@
 array (``jax.tree.map(np.asarray, params)``), so this module imports nothing
 of JAX.  It
 
-* unstacks ``decoder.units``, which the reference stacks on a leading axis
-  (its ``vmap`` init), into the port's list of per-unit tuples;
+* unstacks ``decoder.units`` (and an encoder-decoder's
+  ``encoder.units``), which the reference stacks on a leading axis (its
+  ``vmap`` init), into the port's list of per-unit tuples;
 * casts every leaf to ``dtype``, except the leaves the reference keeps in
   float32, which stay float32: the norm scales, the RG-LRU's ``lam``,
   ``bias_a`` and ``bias_x``, the mLSTM's gate projections and biases, the
@@ -52,11 +53,15 @@ def _convert(node, path, device, dtype):
 def params_from_jax(tree, cfg, device, dtype=torch.float32):
     """The port's parameter tree from the reference's (numpy leaves)."""
     out = _convert(tree, (), device, dtype)
-    dec = dict(out["decoder"])
-    units = dec["units"]
-    dec["units"] = [tuple(_index(blk, u) for blk in units)
-                    for u in range(cfg.n_units)]
-    out["decoder"] = dec
+    stacks = {"decoder": cfg.n_units}
+    if cfg.is_encdec:
+        stacks["encoder"] = cfg.n_enc_layers
+    for name, n_units in stacks.items():
+        stack = dict(out[name])
+        units = stack["units"]
+        stack["units"] = [tuple(_index(blk, u) for blk in units)
+                          for u in range(n_units)]
+        out[name] = stack
     return out
 
 

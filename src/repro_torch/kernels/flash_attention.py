@@ -17,7 +17,7 @@ flash_attention_gqa_ref`, with the reference kernel's semantics.  Given CPU
 tensors, or under ``use_backend("torch")``, a wrapper runs its plain
 version; given CUDA tensors it launches the kernel or raises.
 ``flash_attention_gqa.launches`` counts the kernel's launches through either
-entry.  The kernel takes head_dim 16 to 256 in steps of 16, and a value
+entry, and ``unit_launches`` the same launches by unit label.  The kernel takes head_dim 16 to 256 in steps of 16, and a value
 head dim ``dv`` of its own, 16 to head_dim in steps of 16 (MLA: q and k
 192 wide, v 128); the output is v's width.  V is read at its own width,
 never padded to q's.
@@ -48,6 +48,7 @@ KV_BLOCK = 64       # keys per K/V tile of either body (csrc: BK)
 # The body each element type runs in csrc/flash_attention.cuh (a unit's
 # rt_flash_rows() gives the body's query rows per block).
 BODIES = {torch.bfloat16: "TensorCores", torch.float32: "CudaCores"}
+unit_launches: dict[str, int] = {}
 
 
 def flash_unit(dtype: torch.dtype, head_dim: int, what: str,
@@ -134,6 +135,7 @@ def _launch(q, k, v, causal, window, softcap, kv_block, what):
         k.shape[2], dv, int(bool(causal)), int(window), float(softcap),
         1.0 / math.sqrt(d), empty_l, _lib.stream_ptr(q)), what)
     flash_attention_gqa.launches += 1
+    unit_launches[unit.label] = unit_launches.get(unit.label, 0) + 1
     return out
 
 

@@ -1,8 +1,8 @@
-"""Attention of the port: GQA, global and sliding-window, and MLA, prefill
-and decode.
+"""Attention of the port: GQA, global and sliding-window, MLA and cross
+attention, prefill and decode.
 
-The port of ``repro.models.attention`` but for cross attention, qk-norm
-included.  Prefill attention on the cuda backend is kernel K10
+The port of ``repro.models.attention``, qk-norm included.  Prefill
+attention on the cuda backend is kernel K10
 (``kernels/flash_attention.py``: the reference's ``flash_attention_pallas``
 as a hand-written CUDA kernel, in the models' layout); on the torch
 backend it is ``blockwise_attention``, the reference models' own XLA core
@@ -18,6 +18,16 @@ shared latent.  Prefill expands K (``qk_nope + qk_rope`` wide) and V
 own; the cache keeps only the latent ``ckv`` (B, L, kv_lora_rank) and the
 shared rope key ``krope`` (B, L, qk_rope_head_dim); decode attends in the
 latent space (``w_uk`` absorbed into q), never expanding K or V.
+
+Cross attention (the encoder-decoder's decoder): q from the decoder
+stream, k and v from the encoder's output, no rope and no qk-norm, every
+query over every source frame (K10 not causal, S != T); its decode cache
+is k and v over the source length in bf16, whatever the activation dtype.
+
+A decode step's ``pos`` is a (B,) vector (continuous batching: every row
+at its own depth in its own slot) or one position for an aligned batch (a
+Python int or a 0-d tensor: the padded path), which is filled into a (B,)
+vector on entry: both run the one vector path.
 
 Layouts are the reference's: q (B, S, K, G, hd), k and v (B, T, K, hd).
 """
@@ -200,20 +210,34 @@ def init_gqa_cache(cfg, batch, cache_len, is_local, dtype, device):
             "v": torch.zeros((batch, Lc, K, hd), dtype=dtype, device=device)}
 
 
+def _step_positions(pos, batch, device, what):
+    """The step's (B,) position vector: ``pos`` itself, or one position
+    for an aligned batch (a Python int or a 0-d tensor) filled across its
+    ``batch`` rows.  Anything else raises."""
+    if not isinstance(pos, torch.Tensor):
+        return torch.full((batch,), int(pos), dtype=torch.int32,
+                          device=device)
+    if pos.ndim == 0:
+        return pos.to(device=device, dtype=torch.int32).expand(batch)
+    if pos.ndim != 1:
+        raise ValueError(f"{what} takes a (B,) position vector or one "
+                         f"position, got shape {tuple(pos.shape)}")
+    return pos
+
+
 def gqa_decode(params, cfg, x, cache, pos, *, is_local):
     """One-token decode.  x: (B,1,D); pos: (B,) per-slot positions
     (continuous batching: every row sits at its own depth in its own cache
-    slot).  Returns (y, cache): this step's k and v are written into slot
-    ``pos % L`` of ``cache``'s own tensors in place, as the reference's
-    ``.at[bidx, slot].set`` is under jit (the engine owns the cache; a copy
-    of every layer's cache a step would only cost memory and bandwidth),
-    and the same tensors come back."""
-    if pos.ndim != 1:
-        raise ValueError(f"gqa_decode takes a (B,) position vector, got "
-                         f"shape {tuple(pos.shape)}")
+    slot), or one position for every row of an aligned batch.  Returns (y,
+    cache): this step's k and v are written into slot ``pos % L`` of
+    ``cache``'s own tensors in place, as the reference's ``.at[bidx,
+    slot].set`` and ``dynamic_update_slice`` are under jit (the engine owns
+    the cache; a copy of every layer's cache a step would only cost memory
+    and bandwidth), and the same tensors come back."""
     dtype = x.dtype
     B = x.shape[0]
     H, hd = cfg.n_heads, cfg.head_dim
+    pos = _step_positions(pos, B, x.device, "gqa_decode")
     positions = pos.to(torch.int32)[:, None]
     q, k, v = _project_qkv(params, cfg, x, positions, dtype, is_local)
     Lc = cache["k"].shape[1]
@@ -235,6 +259,69 @@ def gqa_decode(params, cfg, x, cache, pos, *, is_local):
     out = out.reshape(B, 1, H, hd)
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dtype))
     return y, cache
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (the encoder-decoder's decoder)
+# ---------------------------------------------------------------------------
+
+
+def init_cross(gen, cfg, dtype=torch.float32):
+    """Cross attention's projections: ``init_gqa``'s."""
+    return init_gqa(gen, cfg, dtype)
+
+
+def _cross_kv(params, enc_out, dtype):
+    k = torch.einsum("bsd,dhk->bshk", enc_out, params["wk"].to(dtype))
+    v = torch.einsum("bsd,dhk->bshk", enc_out, params["wv"].to(dtype))
+    return k, v
+
+
+def cross_forward(params, cfg, x, enc_out, enc_valid_len=None):
+    """x: (B,S,D) queries; enc_out: (B,T,D), the encoder's output, gives
+    the keys and values: every query attends over the source frames (not
+    causal), with no rope and no qk-norm.  ``enc_valid_len`` (a Python
+    int, where given): only the first ``enc_valid_len`` frames are keys --
+    K10 (cuda backend) over k and v cut to them, ``blockwise_attention``
+    (torch backend) masking the rest."""
+    dtype = x.dtype
+    B, S, _ = x.shape
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dtype))
+    q = q.reshape(B, S, K, H // K, hd)
+    k, v = _cross_kv(params, enc_out, dtype)
+    if ki.current_backend(q) == "cuda":
+        if enc_valid_len is not None:
+            k, v = k[:, :enc_valid_len], v[:, :enc_valid_len]
+        out = flash_k.flash_attention_gqa(q, k, v, causal=False)
+    else:
+        out = blockwise_attention(q, k, v,
+                                  qpos=torch.arange(S, device=x.device),
+                                  causal=False, kv_len=enc_valid_len)
+    out = out.reshape(B, S, H, hd)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dtype))
+
+
+def cross_build_cache(params, cfg, enc_out):
+    """The decode cache of cross attention: k and v over the T source
+    frames, (B, T, K, hd), in bf16 whatever the activation dtype, as the
+    reference builds it."""
+    k, v = _cross_kv(params, enc_out, enc_out.dtype)
+    return {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
+
+
+def cross_decode(params, cfg, x, cache):
+    """One query a row over every frame of the cross cache.  x: (B,1,D)."""
+    dtype = x.dtype
+    B = x.shape[0]
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dtype))
+    T = cache["k"].shape[1]
+    out = decode_attention(
+        q.reshape(B, 1, K, H // K, hd), cache["k"], cache["v"],
+        key_valid=torch.ones((T,), dtype=torch.bool, device=x.device))
+    out = out.reshape(B, 1, H, hd)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -331,16 +418,14 @@ def mla_decode(params, cfg, x, cache, pos):
     """Absorbed one-token decode, attention entirely in the latent space:
     ``q_abs = q_nope . w_uk`` scores against ``ckv`` and ``q_rope`` against
     ``krope`` in float32, the context is p . ckv in float32, and ``w_uv``
-    and ``wo`` map it out.  x: (B,1,D); pos: (B,) per-slot positions.
-    Writes the step's ``ckv`` and ``krope`` into slot ``pos % L`` of the
-    cache's own tensors in place, as ``gqa_decode`` does, and returns
-    them."""
-    if pos.ndim != 1:
-        raise ValueError(f"mla_decode takes a (B,) position vector, got "
-                         f"shape {tuple(pos.shape)}")
+    and ``wo`` map it out.  x: (B,1,D); pos: (B,) per-slot positions, or
+    one position for every row of an aligned batch.  Writes the step's
+    ``ckv`` and ``krope`` into slot ``pos % L`` of the cache's own tensors
+    in place, as ``gqa_decode`` does, and returns them."""
     dtype = x.dtype
     B = x.shape[0]
     nd, rd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    pos = _step_positions(pos, B, x.device, "mla_decode")
     positions = pos.to(torch.int32)[:, None]
     q_nope, q_rope = _mla_q(params, cfg, x, positions, dtype)   # (B,1,H,*)
     ckv_new, krope_new = _mla_ckv(params, cfg, x, positions, dtype)

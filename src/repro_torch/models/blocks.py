@@ -1,11 +1,14 @@
-"""Layer blocks: residual wiring for the kinds of the port.
+"""Layer blocks: residual wiring for every layer kind.
 
-The port of ``repro.models.blocks`` for ``attn_global`` / ``attn_local``
+The port of ``repro.models.blocks``: ``attn_global`` / ``attn_local``
 (GQA + MLP; ``gqa_dense`` is ``attn_global``'s alias), ``gqa_moe`` (GQA +
-MoE), ``mla_dense`` / ``mla_moe`` (MLA + MLP or MoE, deepseek-v3; their
-cache is the latent ``ckv`` and ``krope``), ``rglru`` (Griffin recurrent +
-MLP) and ``mlstm`` / ``slstm`` (xLSTM: the mixer alone, which carries its
-own projections): pre-norm residuals with optional gemma-style post-norms
+MoE), ``enc_attn`` (bidirectional GQA + MLP, the encoder's), ``dec_attn``
+(causal self attention, then cross attention over the encoder's output,
+then the MLP; its cache is ``{"self": ..., "cross": ...}``), ``mla_dense``
+/ ``mla_moe`` (MLA + MLP or MoE, deepseek-v3; their cache is the latent
+``ckv`` and ``krope``), ``rglru`` (Griffin recurrent + MLP) and ``mlstm``
+/ ``slstm`` (xLSTM: the mixer alone, which carries its own projections):
+pre-norm residuals with optional gemma-style post-norms
 (``cfg.post_norm``).
 
 ``block_forward(params, kind, cfg, x, mode=...)`` returns
@@ -21,9 +24,10 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import recurrent as R
 
-_ATTN_KINDS = ("attn_global", "attn_local", "gqa_dense", "gqa_moe")
+_ATTN_KINDS = ("attn_global", "attn_local", "gqa_dense", "gqa_moe",
+               "enc_attn")
 _MLA_KINDS = ("mla_dense", "mla_moe")
-_KINDS = _ATTN_KINDS + _MLA_KINDS + ("rglru", "mlstm", "slstm")
+_KINDS = _ATTN_KINDS + _MLA_KINDS + ("dec_attn", "rglru", "mlstm", "slstm")
 
 
 def _has_mlp(kind):
@@ -47,6 +51,10 @@ def init_block(gen, kind, cfg, dtype):
         p["post_norm1"] = L.init_rmsnorm(cfg.d_model, gen.device)
     if kind in _ATTN_KINDS:
         p["attn"] = A.init_gqa(gen, cfg, dtype)
+    elif kind == "dec_attn":
+        p["attn"] = A.init_gqa(gen, cfg, dtype)
+        p["cross"] = A.init_cross(gen, cfg, dtype)
+        p["norm_cross"] = L.init_rmsnorm(cfg.d_model, gen.device)
     elif kind in _MLA_KINDS:
         p["attn"] = A.init_mla(gen, cfg, dtype)
     elif kind == "rglru":
@@ -76,6 +84,7 @@ def _mixer_apply(params, kind, cfg, x, *, mode, cache, pos, cache_len):
                                 is_local=is_local)
         return A.gqa_forward(
             params["attn"], cfg, x, is_local=is_local,
+            causal=kind != "enc_attn",
             return_cache_len=cache_len if mode == "prefill" else 0)
     if kind in _MLA_KINDS:
         if mode == "decode":
@@ -92,16 +101,47 @@ def _mixer_apply(params, kind, cfg, x, *, mode, cache, pos, cache_len):
     return forward(params["mixer"], cfg, x, return_cache=mode == "prefill")
 
 
-def block_forward(params, kind, cfg, x, *, mode="train",
-                  cache=None, pos=None, cache_len=0):
-    """Returns (x, new_cache)."""
-    _check_kind(kind)
+def _dec_attn(params, cfg, x, *, mode, cache, pos, cache_len, enc_out):
+    """The decoder's self attention (``attn_global``) and its residual, then
+    cross attention over ``enc_out`` in prefill and train, over the cross
+    cache in decode, which hands that cache back unchanged.  Returns (x,
+    new_cache)."""
     h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
-    h, new_cache = _mixer_apply(params, kind, cfg, h, mode=mode,
-                                cache=cache, pos=pos, cache_len=cache_len)
-    if cfg.post_norm:
-        h = L.rmsnorm(params["post_norm1"], h, cfg.norm_eps)
+    h, new_self = _mixer_apply(
+        params, "attn_global", cfg, h, mode=mode,
+        cache=cache["self"] if mode == "decode" else None, pos=pos,
+        cache_len=cache_len)
     x = x + h
+    hc = L.rmsnorm(params["norm_cross"], x, cfg.norm_eps)
+    if mode == "decode":
+        hc = A.cross_decode(params["cross"], cfg, hc, cache["cross"])
+        new_cross = cache["cross"]
+    else:
+        hc = A.cross_forward(params["cross"], cfg, hc, enc_out)
+        new_cross = (A.cross_build_cache(params["cross"], cfg, enc_out)
+                     if mode == "prefill" else None)
+    new_cache = ({"self": new_self, "cross": new_cross}
+                 if mode != "train" else None)
+    return x + hc, new_cache
+
+
+def block_forward(params, kind, cfg, x, *, mode="train",
+                  cache=None, pos=None, cache_len=0, enc_out=None):
+    """Returns (x, new_cache).  ``enc_out``: the encoder's output, which a
+    ``dec_attn`` block's cross attention reads in prefill and train."""
+    _check_kind(kind)
+    if kind == "dec_attn":
+        x, new_cache = _dec_attn(params, cfg, x, mode=mode, cache=cache,
+                                 pos=pos, cache_len=cache_len,
+                                 enc_out=enc_out)
+    else:
+        h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
+        h, new_cache = _mixer_apply(params, kind, cfg, h, mode=mode,
+                                    cache=cache, pos=pos,
+                                    cache_len=cache_len)
+        if cfg.post_norm:
+            h = L.rmsnorm(params["post_norm1"], h, cfg.norm_eps)
+        x = x + h
     if not _has_mlp(kind):
         return x, new_cache
     h = L.rmsnorm(params["norm2"], x, cfg.norm_eps)
@@ -120,6 +160,14 @@ def init_block_cache(kind, cfg, batch, cache_len, dtype, device):
     if kind in _ATTN_KINDS:
         return A.init_gqa_cache(cfg, batch, cache_len, kind == "attn_local",
                                 dtype, device)
+    if kind == "dec_attn":
+        # The cross entry is ``cache_len`` long, as the reference's: a
+        # stand-in of the tree's structure; prefill builds the real one
+        # over the source length (``cross_build_cache``).
+        return {"self": A.init_gqa_cache(cfg, batch, cache_len, False, dtype,
+                                         device),
+                "cross": A.init_gqa_cache(cfg, batch, cache_len, False,
+                                          dtype, device)}
     if kind in _MLA_KINDS:
         return A.init_mla_cache(cfg, batch, cache_len, dtype, device)
     if kind == "rglru":

@@ -1,15 +1,20 @@
-"""The causal LM: parameters, prefill and one-token decode.
+"""The causal LM and the encoder-decoder: parameters, prefill and
+one-token decode.
 
-The port of ``repro.models.lm`` for the slice.  The layer stack is
+The port of ``repro.models.lm`` for serving.  The layer stack is
 ``prefix + unit * n_units + suffix`` (configs); where the reference stacks
 the ``units`` parameters on a leading axis and runs them with ``lax.scan``,
 the port keeps a list of per-unit tuples and runs a Python loop.  Caches
 mirror the same layout: ``{"prefix": [...], "units": [(...), ...],
-"suffix": [...]}``, every leaf leading with the batch (slot) axis.
+"suffix": [...]}``, every leaf leading with the batch (slot) axis.  An
+encoder-decoder (``cfg.is_encdec``) has an encoder stack of
+``n_enc_layers`` bidirectional ``enc_attn`` blocks, run once a prefill
+over ``src_embeds``, whose normed output every decoder ``dec_attn`` block
+attends over.
 
 * ``init_params(cfg, seed=..., device=...)`` -> params
-* ``prefill(params, cfg, tokens, cache_len=..., vision_embeds=None)``
-  -> (last_logits, caches)
+* ``prefill(params, cfg, tokens, cache_len=..., src_embeds=None,
+  vision_embeds=None)`` -> (last_logits, caches)
 * ``decode_step(params, cfg, caches, tokens, pos)`` -> (logits, caches)
 """
 from __future__ import annotations
@@ -30,6 +35,10 @@ def _dec_spec(cfg):
     return (tuple(cfg.prefix), tuple(cfg.unit), cfg.n_units, tuple(cfg.suffix))
 
 
+def _enc_spec(cfg):
+    return ((), ("enc_attn",), cfg.n_enc_layers, ())
+
+
 def _init_stack(gen, spec, cfg, dtype):
     prefix, unit, n_units, suffix = spec
     return {
@@ -41,14 +50,15 @@ def _init_stack(gen, spec, cfg, dtype):
 
 
 def _run_stack(params, spec, cfg, h, *, mode, caches=None,
-               pos=None, cache_len=0):
+               pos=None, cache_len=0, enc_out=None):
     """Returns (h, new_caches); new_caches is None in train mode."""
     prefix, unit, n_units, suffix = spec
     new = {"prefix": [], "units": [], "suffix": []}
 
     def run(p, kind, c):
-        return BK.block_forward(p, kind, cfg, h, mode=mode,
-                                cache=c, pos=pos, cache_len=cache_len)
+        return BK.block_forward(p, kind, cfg, h, mode=mode, cache=c,
+                                pos=pos, cache_len=cache_len,
+                                enc_out=enc_out)
 
     def cache_of(part, i, j=None):
         if mode != "decode":
@@ -87,10 +97,8 @@ def init_params(cfg, *, seed: int = 0, device=None,
     ``cfg.mtp_depth`` the tree holds the multi-token-prediction head
     (``mtp``: ``proj``, one ``mla_dense`` or ``attn_global`` block, three
     norms) as the reference's does; serving never runs it (its loss is
-    training's)."""
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not in this port yet")
+    training's).  An encoder-decoder's tree adds the ``encoder`` stack and
+    its ``enc_norm``."""
     gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
     d = cfg.d_model
     params = {
@@ -99,6 +107,9 @@ def init_params(cfg, *, seed: int = 0, device=None,
         "decoder": _init_stack(gen, _dec_spec(cfg), cfg, dtype),
         "final_norm": L.init_rmsnorm(d, gen.device),
     }
+    if cfg.is_encdec:
+        params["encoder"] = _init_stack(gen, _enc_spec(cfg), cfg, dtype)
+        params["enc_norm"] = L.init_rmsnorm(d, gen.device)
     if cfg.mtp_depth:
         kind = "mla_dense" if cfg.use_mla else "attn_global"
         params["mtp"] = {
@@ -132,14 +143,28 @@ def _embed_inputs(params, cfg, tokens, vision_embeds=None):
     return h
 
 
-def prefill(params, cfg, tokens, *, cache_len, vision_embeds=None):
+def _encode(params, cfg, src_embeds):
+    """The encoder over ``src_embeds`` (B, T, d_model), in the activation
+    dtype, positions from 0, without caches; then ``enc_norm``."""
+    h = src_embeds.to(cfg.activation_dtype)
+    h, _ = _run_stack(params["encoder"], _enc_spec(cfg), cfg, h,
+                      mode="train")
+    return L.rmsnorm(params["enc_norm"], h, cfg.norm_eps)
+
+
+def prefill(params, cfg, tokens, *, cache_len, src_embeds=None,
+            vision_embeds=None):
     """Full-sequence forward over exact-length ``tokens`` (B, S), behind
-    the prefix ``vision_embeds`` where given, building decode caches.  The
-    logits are the last token's.  Returns (last_logits (B, vocab) float32,
-    caches)."""
+    the prefix ``vision_embeds`` where given, building decode caches.  An
+    encoder-decoder first encodes ``src_embeds`` (B, T, d_model); its
+    decoder's caches hold the self attention's k and v and the cross
+    attention's over the T frames.  The logits are the last token's.
+    Returns (last_logits (B, vocab) float32, caches)."""
+    enc_out = _encode(params, cfg, src_embeds) if cfg.is_encdec else None
     h = _embed_inputs(params, cfg, tokens, vision_embeds)
     h, caches = _run_stack(params["decoder"], _dec_spec(cfg), cfg, h,
-                           mode="prefill", cache_len=cache_len)
+                           mode="prefill", cache_len=cache_len,
+                           enc_out=enc_out)
     h = L.rmsnorm(params["final_norm"], h[:, -1:], cfg.norm_eps)
     logits = L.unembed(params["embed"], h, cfg.final_softcap)
     return logits[:, 0], caches
@@ -162,8 +187,10 @@ def init_caches(cfg, batch, cache_len, dtype, device):
 
 def decode_step(params, cfg, caches, tokens, pos):
     """One-token decode.  tokens: (B, 1) int; pos: (B,) per-slot positions
-    (continuous batching: each row advances through its own cache slot).
-    Returns (logits (B, vocab) float32, new_caches)."""
+    (continuous batching: each row advances through its own cache slot),
+    or one position for every row of an aligned batch (a Python int or a
+    0-d tensor: the padded path).  An encoder-decoder's cross caches come
+    from its prefill.  Returns (logits (B, vocab) float32, new_caches)."""
     h = L.embed(params["embed"], tokens, cfg.embed_scale,
                 cfg.activation_dtype)
     h, new_caches = _run_stack(params["decoder"], _dec_spec(cfg), cfg, h,

@@ -1,7 +1,7 @@
 """Serving engine: continuous batching over slots, greedy or sampled
-decoding.
+decoding, and the padded path.
 
-The port of the continuous path of ``repro.serving.engine``.  A host-side
+The port of ``repro.serving.engine``.  A host-side
 FIFO scheduler (``serving/scheduler.py``) admits requests into live batch
 slots; each admission prefills the request alone at its exact prompt length
 and scatters the resulting caches into its slot (``serving/cache.py``).
@@ -15,6 +15,13 @@ the port runs it from Python and reads the predicate back once per step:
 one host sync per decode step.  Drains read the finished outputs back
 through the CSR compaction (kernel K2) and the per-slot scores (K7m).
 
+The padded path (``generate_padded``) is the reference's fixed-batch
+host loop: one prefill over the left-padded batch, then one decode step at
+one position for the whole batch and one read of its tokens a step.  It
+is the differential oracle of the continuous path, and the only path of
+an encoder-decoder, whose cross caches are as long as each batch's source
+(``generate`` routes one there; ``serve`` refuses one).
+
 Decoding is greedy at ``temperature=0`` (the default) and otherwise
 samples with the reference's counter-based keys: the ``j``-th token of a
 request with seed ``s`` uses ``fold_in(fold_in(PRNGKey(seed), s), j)``, so a
@@ -22,9 +29,11 @@ request's stream depends only on its prompt and seed, never on batch
 composition (``serving/sampling.py``; the radix top-k and nucleus scan run
 kernels K2, K4, K6 and K7s on the card).  Prefill is exact-length,
 behind zero prefix embeddings where the config takes them
-(``num_prefix_embeds``), so a request's positions start after the prefix;
-prefill buckets, quantized KV, the other strategies, the padded oracle and
-the ``mesh`` argument come with later slices.
+(``num_prefix_embeds``), so a request's positions start after the prefix,
+and over a zero source (``src_embeds``) for an encoder-decoder, as the
+reference engine's stand-ins for a frontend's output; prefill buckets,
+quantized KV, the other strategies and the ``mesh`` argument come with
+later slices.
 """
 from __future__ import annotations
 
@@ -69,9 +78,8 @@ class Engine:
                  temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
                  top_p_candidates: int = 64, seed: int = 0,
                  max_new_cap: int | None = None, device=None):
-        if cfg.is_encdec:
-            raise NotImplementedError(
-                "encoder-decoder serving is not in this port yet")
+        # The reference refuses an encoder-decoder under any strategy but
+        # vanilla; this engine has only the vanilla strategy so far.
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = pytree.tree_map(lambda t: t.to(self.device), params)
@@ -93,11 +101,18 @@ class Engine:
         self.last_scores = np.zeros((0,), np.float32)
 
     def _make_batch(self, toks) -> dict:
-        """Prefill inputs: the tokens, and for a config with prefix
-        embeddings zero float32 ``vision_embeds`` of (B, P, d_model) (the
-        reference engine's stand-in for a frontend's output)."""
+        """Prefill inputs: the tokens (B, S); for an encoder-decoder a zero
+        float32 source ``src_embeds`` of (B, S, d_model), and for a config
+        with prefix embeddings zero float32 ``vision_embeds`` of (B, P,
+        d_model) (the reference engine's stand-ins for a frontend's
+        output).  A zero source makes the encoder's output, and so every
+        cross attention's, exactly zero: the encoder has no biases."""
         cfg = self.cfg
         batch = {"tokens": toks}
+        if cfg.is_encdec:
+            batch["src_embeds"] = torch.zeros(
+                (*toks.shape, cfg.d_model), dtype=torch.float32,
+                device=self.device)
         if cfg.num_prefix_embeds:
             batch["vision_embeds"] = torch.zeros(
                 (toks.shape[0], cfg.num_prefix_embeds, cfg.d_model),
@@ -107,6 +122,7 @@ class Engine:
     def _prefill(self, params, batch):
         return lm.prefill(params, self.cfg, batch["tokens"],
                           cache_len=self.cache_len,
+                          src_embeds=batch.get("src_embeds"),
                           vision_embeds=batch.get("vision_embeds"))
 
     def _decode(self, params, caches, toks, pos):
@@ -210,6 +226,11 @@ class Engine:
         Returns the scheduler's completed ``RequestState`` records in
         submission order (tokens, seq_logprob, submit/admit/finish steps).
         """
+        if self.cfg.is_encdec:
+            raise NotImplementedError(
+                "continuous batching for enc-dec archs: cross-attention "
+                "caches are source-length-shaped, which breaks uniform slot "
+                "scatter -- use generate_padded()")
         pending = []
         for a in arrivals:
             step, req = a if isinstance(a, tuple) else (0, a)
@@ -314,6 +335,114 @@ class Engine:
 
     def generate(self, requests: list) -> list:
         """Run requests to completion (continuous batching); token lists in
-        input order.  More requests than ``batch_size`` simply queue."""
-        recs = self.serve([(0, r) for r in requests])
-        return [rec.tokens for rec in recs]
+        input order.  More requests than ``batch_size`` simply queue.  An
+        encoder-decoder runs on the padded path, ``batch_size`` requests at
+        a time in input order, a request without a seed taking its index
+        in ``requests`` as the continuous path's do (the reference's padded
+        path takes at most ``batch_size``); ``last_scores`` and
+        ``last_stats`` then cover every batch."""
+        if not self.cfg.is_encdec:
+            recs = self.serve([(0, r) for r in requests])
+            return [rec.tokens for rec in recs]
+        B = self.batch_size
+        outs, stats = [], {"prefill_s": 0.0, "decode_s": 0.0,
+                           "seq_logprob": []}
+        for first in range(0, len(requests), B):
+            batch = [r if r.seed is not None else
+                     dataclasses.replace(r, seed=first + i)
+                     for i, r in enumerate(requests[first:first + B])]
+            outs += self.generate_padded(batch)
+            for key in stats:
+                stats[key] += self.last_stats[key]
+        n_tok = sum(len(o) for o in outs)
+        stats["decode_tok_per_s"] = n_tok / max(stats["decode_s"], 1e-9)
+        self.last_stats = stats
+        self.last_scores = np.asarray(stats["seq_logprob"], np.float32)
+        return outs
+
+    # -----------------------------------------------------------------------
+    # Padded-batch path (the vanilla parity oracle)
+    # -----------------------------------------------------------------------
+
+    def generate_padded(self, requests: list) -> list:
+        """Fixed-batch path: pad to ``batch_size``, left-pad the prompts to
+        the longest (pad token 0, attended as in the reference), one
+        prefill, then one decode step at one position for the whole batch
+        and one host read of its tokens a step.  The differential oracle of
+        vanilla sampling:
+        the same seeds give the continuous path's tokens.  Request ``i``
+        without a seed takes seed ``i``.  ``last_scores`` holds each
+        request's summed log-probabilities, one batched masked mapreduce
+        over (requests, steps) (K7m on the card)."""
+        cfg = self.cfg
+        B = self.batch_size
+        n_req = len(requests)
+        if not 1 <= n_req <= B:
+            raise ValueError(f"generate_padded takes 1 to batch_size={B} "
+                             f"requests, got {n_req}")
+        dev = self.device
+        seeds = np.arange(B, dtype=np.int32)
+        for i, r in enumerate(requests):
+            if r.seed is not None:
+                seeds[i] = r.seed
+        seeds = torch.from_numpy(seeds).to(dev)
+        plen = max(len(r.prompt) for r in requests)
+        toks = np.zeros((B, plen), np.int64)
+        for i, r in enumerate(requests):
+            toks[i, plen - len(r.prompt):] = r.prompt       # left-pad
+        batch = self._make_batch(torch.from_numpy(toks).to(dev))
+
+        t0 = time.perf_counter()
+        logits, caches = self._prefill(self.params, batch)
+        self._sync()
+        prefill_s = time.perf_counter() - t0
+
+        max_new = max(r.max_new_tokens for r in requests)
+        outputs = [[] for _ in range(B)]
+        done = np.zeros(B, bool)
+        tok = self._sample(self._base_key, logits, seeds,
+                           torch.zeros((B,), dtype=torch.int32, device=dev))
+        tok_h = tok.cpu().numpy()
+        step_logps = [SP.chosen_logprobs(logits, tok)]     # stays on device
+        pos0 = plen + cfg.num_prefix_embeds
+        t1 = time.perf_counter()
+        for i, r in enumerate(requests):
+            # The first token: the same cap / EOS bookkeeping as every later
+            # one (a 0-budget request emits nothing; EOS first finishes it).
+            if r.max_new_tokens >= 1:
+                outputs[i].append(int(tok_h[i]))
+            if len(outputs[i]) >= r.max_new_tokens or \
+                    (outputs[i] and outputs[i][-1] == r.eos_id):
+                done[i] = True
+        for t in range(1, max_new):
+            if done[:n_req].all():
+                break
+            logits, caches = self._decode(self.params, caches, tok[:, None],
+                                          pos0 + t - 1)
+            tok = self._sample(self._base_key, logits, seeds,
+                               torch.full((B,), t, dtype=torch.int32,
+                                          device=dev))
+            tok_h = tok.cpu().numpy()
+            step_logps.append(SP.chosen_logprobs(logits, tok))
+            for i, r in enumerate(requests):
+                if not done[i] and len(outputs[i]) < r.max_new_tokens:
+                    outputs[i].append(int(tok_h[i]))
+                    if outputs[i][-1] == r.eos_id or \
+                            len(outputs[i]) >= r.max_new_tokens:
+                        done[i] = True
+        decode_s = time.perf_counter() - t1
+        n_tok = sum(len(o) for o in outputs[:n_req])
+
+        # One masked row a request over (n_req, steps): one launch, the
+        # same call for one request or a full batch.
+        lengths = torch.tensor([len(o) for o in outputs[:n_req]],
+                               dtype=torch.int32, device=dev)
+        lp = torch.stack(step_logps, dim=1)[:n_req].float()
+        self.last_scores = SP.masked_seq_logprobs(lp, lengths).cpu().numpy()
+        self.last_stats = {
+            "prefill_s": prefill_s,
+            "decode_s": decode_s,
+            "decode_tok_per_s": n_tok / max(decode_s, 1e-9),
+            "seq_logprob": self.last_scores.tolist(),
+        }
+        return outputs[:n_req]

@@ -7,7 +7,8 @@ both packages and the reference jitted: ``_mla_q`` and ``_mla_ckv``;
 ``mla_forward``'s output and latent cache on both prefill routes (the
 torch backend's ``blockwise_attention`` and K10's, whose plain version
 runs here); three ``mla_decode`` steps with the slots at different
-depths, each writing its slot of the cache in place.  All within 1e-5
+depths, each writing its slot of the cache in place (one position for
+the whole batch in ``test_torch_scalar_pos.py``).  All within 1e-5
 (float32 sums in another order).  K10's plain version with a value head
 narrower than q's against the reference's ``blockwise_attention``: 1e-5
 in float32, each output row within 2^-7 of its norm in bfloat16 (one bf16
@@ -127,13 +128,14 @@ def test_mla_decode_steps_match_reference(mla):
 
 
 def test_mla_decode_takes_a_position_vector_only(mla):
-    """The scalar-position branch of the reference (an aligned batch) is
-    not in the port: a scalar raises, as ``gqa_decode``'s does."""
+    """A position vector (B,), or one position for an aligned batch
+    (``test_torch_scalar_pos.py`` holds that branch): a position of any
+    other shape raises, as ``gqa_decode``'s does."""
     _, cfg_t, _, pt = mla
     cache = TA.init_mla_cache(cfg_t, 2, 64, torch.float32, "cpu")
     with pytest.raises(ValueError, match=r"\(B,\) position vector"):
         TA.mla_decode(pt, cfg_t, torch.zeros(2, 1, cfg_t.d_model), cache,
-                      torch.tensor(5))
+                      torch.full((2, 1), 5))
 
 
 def _qkv(shape_q, T, dv, dtype, seed):

@@ -86,10 +86,14 @@ def _descriptors(name):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("op_name,dtype", CASES)
-@pytest.mark.parametrize("offsets", sorted(OFFSETS))
-@pytest.mark.parametrize("inclusive", [True, False])
-def test_segmented_scan_matches_reference(op_name, dtype, offsets, inclusive):
+def scan_matches_reference(op_name, dtype, offsets, inclusive):
+    """``scan@segmented`` on both routes against the reference at both
+    descriptors: the body of ``test_segmented_scan_matches_reference`` in
+    ``test_torch_segmented_scan_add.py`` (the two ADD cases) and
+    ``test_torch_segmented_scan_max_quaternion.py`` (MAX and
+    QUATERNION_MUL), files of at most 12 tests each, which ``--dist
+    loadfile`` queues behind the larger files (the reference's first
+    segmented scan or mapreduce of a dtype compiles for seconds)."""
     x, xt = _inputs(op_name, dtype)
     offs, flags = _descriptors(offsets)
     jop, top = j_alg.STD_OPS[op_name], t_alg.STD_OPS[op_name]
@@ -133,9 +137,10 @@ def test_segmented_scan_zero_extent_passthrough():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("op_name,dtype", CASES)
-@pytest.mark.parametrize("offsets", sorted(OFFSETS))
-def test_segmented_mapreduce_matches_reference(op_name, dtype, offsets):
+def mapreduce_matches_reference(op_name, dtype, offsets):
+    """``mapreduce@segmented`` on both routes against the reference at
+    both descriptors: the body of ``test_segmented_mapreduce_matches_reference``
+    in ``test_torch_segmented_mapreduce.py``, a file of at most 12 tests."""
     x, xt = _inputs(op_name, dtype, seed=1)
     offs, flags = _descriptors(offsets)
     ns = int(flags.sum()) + 2        # two trailing segments never started

@@ -8,9 +8,10 @@ the same plain versions through the kernel wrappers).  Inputs come from
 numpy with a seed: float32 with +-0, +-inf, NaNs and ties, int32 and
 uint32.  Every result is held bit for bit (float keys compared as their
 bits, so the canonical NaN and +0.0 are pinned too).  The composition's
-digit width is checked at 4 and 8 bits.  Three files of at most 12 tests
-each, which ``--dist loadfile`` queues behind the larger files, hold the
-rest: ``test_torch_sort_flat.py`` (``sort`` and ``argsort``, flat),
+digit width is checked at 4 and 8 bits.  This file and four more of at
+most 12 tests each, which ``--dist loadfile`` queues behind the larger
+files, hold the rest: ``test_torch_sort_pairs.py`` (flat ``sort_pairs``
+and ``top_k``), ``test_torch_sort_flat.py`` (``sort`` and ``argsort``, flat),
 ``test_torch_sort_segmented.py`` (the segmented sort family and the
 sampling path's segmented top-k) and ``test_torch_sort_top_k.py`` (the
 ragged segmented top-k at both digit widths).
@@ -86,42 +87,6 @@ def _layouts(variant, n):
 # ---------------------------------------------------------------------------
 # Flat layout
 # ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_sort_pairs_flat_carries_a_pytree(dtype):
-    k = _keys(dtype, N, seed=2, ties=True)
-    vals = np.random.default_rng(3).normal(size=(N, 3)).astype(np.float32)
-    iota = np.arange(N, dtype=np.int32)
-    for descending in (False, True):
-        wk, (wv, wi) = j_forge.sort_pairs(
-            jnp.asarray(k), (jnp.asarray(vals), jnp.asarray(iota)),
-            descending=descending, backend="xla")
-        gk, (gv, gi) = t_forge.sort_pairs(
-            torch.from_numpy(k), (torch.from_numpy(vals),
-                                  torch.from_numpy(iota)),
-            descending=descending)
-        for got, want in ((gk, wk), (gv, wv), (gi, wi)):
-            _same(got, want, f"{dtype} desc={descending}")
-
-
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("largest", [True, False])
-def test_top_k_flat_ties_and_specials(dtype, largest):
-    for ties in (False, True):
-        k = _keys(dtype, N, seed=5, ties=ties)
-        wv, wi = j_forge.top_k(jnp.asarray(k), 17, largest=largest,
-                               backend="xla")
-        gv, gi = t_forge.top_k(torch.from_numpy(k), 17, largest=largest)
-        _same(gv, wv)
-        _same(gi, wi)
-
-
-def test_top_k_nan_ranks_above_inf():
-    k = torch.tensor([1.0, float("inf"), float("nan"), -float("inf"), 2.0])
-    v, i = t_forge.top_k(k, 2)
-    assert torch.isnan(v[0]) and int(i[0]) == 2
-    assert torch.isinf(v[1]) and int(i[1]) == 1
 
 
 @pytest.fixture(params=[4, 8])

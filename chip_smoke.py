@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Twelve phases, any failure exits non-zero:
+Thirteen phases, any failure exits non-zero:
 
 1. build -- generate the translation units of every kernel, operator, map
    and dtype combination the run's paths use (kernels/_lib.py, from each
@@ -110,6 +110,10 @@ Twelve phases, any failure exits non-zero:
    ms and K6's share) and eight
    decode steps (torch.profiler) for where the time goes, and the decode
    loop's predicate: one K3 launch a call and no memset on the device.
+   Then the same requests through Engine(prefill_buckets="pow2"): every
+   prompt right-padded to a power of two (the 2,100-token one to 4,096,
+   past the 2,048-slot ring) and read at its own length; the streams'
+   digest must be the exact-length run's (serve_bucketed).
 5. sampled serve -- the same model through Engine(temperature=0.8,
    top_k=40, top_p=0.95, seed=0): the first four prompts, 16 new tokens
    each, request seeds 0-3.  Checks lengths and ids, that a second run and
@@ -125,7 +129,8 @@ Twelve phases, any failure exits non-zero:
    param_count, bf16 weights from a seed) through
    Engine.generate as in phase 4: 8 greedy requests on 4 slots of 4,096
    positions, the same checks, K10 in all 46 layers of every prefill, the
-   peak device memory, and the same profile.
+   peak device memory, the same profile and a "pow2" bucketed run; then,
+   with its weights still loaded, phase 13.
 7. serve xlstm-1.3b -- gemma2's tensors freed, xlstm-1.3b at full width
    (48 layers: 42 mLSTM with 4 heads of dh 1024, 6 sLSTM; d_model 2048,
    vocab 50304; 1,907,394,896 parameters, bf16 weights from a seed) as in
@@ -134,7 +139,10 @@ Twelve phases, any failure exits non-zero:
    tokens within 2e-2 of max|logit|, every kernel of its path launched (K2,
    K3, K6 for the chunk states, K6-long for the stabilizer, K7m), the
    same profile (with K6-long's share of the prefill), and the host
-   seconds of the sLSTM's loop over time in a 1,024-token prefill.
+   seconds of the sLSTM's loop over time in a 1,024-token prefill, and a
+   bucketed run at buckets three tokens above each prompt (the 64-token
+   one exact: 67 tokens would take its prefill from one mLSTM chunk to
+   two, which rounds otherwise).
 8-10. serve gemma3-4b, minitron-4b and moonshot-v1-16b-a3b -- each after
    the previous model's tensors are freed, at full width (3,880,099,328,
    4,190,309,376 and 28,386,595,776 parameters, each counted from its
@@ -181,6 +189,24 @@ Twelve phases, any failure exits non-zero:
    64) unit; a decode step at one position equal to the bit to the same
    step at a (B,) vector of it; then the profile of one prefill and of
    eight decode steps of four rows.
+13. strategies (phase_strategies, run inside phase 6 on gemma2-27b's
+   FULL weights): the 8 requests at 16 new tokens at most, 4 slots of
+   4,096.  Speculative decoding (k = 4) with the target as its own draft
+   (acceptance exactly 1.0) and with recurrentgemma-2b FULL from the seed
+   as the draft, both giving the gemma2 phase's streams cut to 16; the
+   recurrentgemma draft again sampled over the full vocabulary at
+   temperature 1 on the first four prompts (8 new tokens), equal to
+   vanilla sampling at the same seeds, with proposals rejected and rolled
+   back (greedy random-init streams repeat the prompt's last token, which
+   any draft guesses).  Beam search (width 4, 2 slots of 2,048, two
+   requests) equal to reference_beam to the bit, scores included.
+   Constrained decoding (greedy, a seeded 3-state DFA allowing 1% of the
+   256,000 tokens in each state, four requests): no masked id, equal to
+   reference_constrained.  quantize_kv int8 and fp8_e4m3 with
+   poison_on_evict, sampled over the full vocabulary: every request served
+   in a recycled slot equals it on a fresh engine.  Each run: its launches (each of its path's kernels
+   launched), peak memory (under 80 GB), decode tokens/s and the device ms
+   of one loop iteration with the slots full (device_busy).
 
 Each serve summary holds its token streams' digest ("streams"), and each
 profile the device ms under the decode step's aten ops ("ops_ms":
@@ -192,7 +218,10 @@ The line before the card line holds {"kernels": [...]}.  A kernel's
 "launches_path": the primitives path for K1-K9, as before, and gemma2's
 serving path for K10, which the primitives path does not run.  Beside them
 stand the launches on every path (primitives, greedy, sampled, gemma2,
-xlstm, gemma3, minitron, moonshot, deepseek, seamless) and their sum,
+xlstm, gemma3, minitron, moonshot, deepseek, seamless; phase 13's
+speculative, speculative_draft, speculative_sampled, beam, constrained,
+quantized_int8 and quantized_fp8_e4m3; the bucketed runs
+bucketed_greedy, bucketed_gemma2 and bucketed_xlstm) and their sum,
 "launches_total"; K10's
 row its time, bound and SDPA time at each served model's prefill layers
 ("shapes"); K6's and K6-long's rows add their
@@ -247,7 +276,10 @@ from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import moe as moe_m  # noqa: E402
 from repro_torch.serving import sampling as SP  # noqa: E402
+from repro_torch.serving import strategies as ST  # noqa: E402
 from repro_torch.serving.engine import Engine, Request  # noqa: E402
+from repro_torch.serving.strategies.ref import (  # noqa: E402
+    reference_beam, reference_constrained)
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12          # float32 outside the tensor cores (same rate
@@ -297,6 +329,36 @@ GEMMA2_PATH = ("K2", "K3", "K7m", "K10")   # no recurrence: no K6
 # attention, so no K10.
 XLSTM_PATH = ("K2", "K6", "K6-long", "K3", "K7m")
 XLSTM_PARAMS = 1_907_394_896
+# xLSTM's bucketed run: buckets three tokens above each prompt, but for the
+# 64-token one, which stays exact.  The pads' gates are neutral and their
+# products exact zeros, so such a prefill is the exact-length one to the bit
+# (measured on the H100) -- except where the bucket takes the prompt from one
+# mLSTM chunk of 64 to two: 67 tokens gave logits 0.0625 apart and a stream
+# that parts at its eighth token.
+XLSTM_BUCKETS = tuple(n if n == 64 else n + 3 for n in PROMPT_LENS)
+# Phase 13, the strategies on gemma2-27b: max_new_tokens capped at 16 (the
+# greedy streams are then the first 16 tokens of the gemma2 phase's);
+# speculative with k = 4 (15 loop tokens = 3 rounds of 5 with a perfect
+# draft); beam width 4 over 2 slots of 2,048 (8 cache rows); a 3-state DFA
+# allowing 1% of the vocabulary in each state.
+STRATEGY_NEW = 16
+SPEC_K = 4
+SPEC_SAMPLED_NEW = 8
+# The random-init models' greedy and top-k / top-p streams repeat the
+# prompt's last token (its logit, about 10, beside some 256,000 near 0):
+# full-vocabulary sampling at temperature 1 gives streams that depend on
+# their context, for the runs that must show a stale cache or state.
+FULL_VOCAB = dict(temperature=1.0, seed=0)
+BEAM_WIDTH, BEAM_BATCH, BEAM_CACHE = 4, 2, 2048
+DFA_STATES, DFA_DENSITY = 3, 0.01
+# The acceptance chain (K7s), the loop predicate (K3), the drain (K2,
+# K7m), the prefills (K10).
+SPEC_PATH = ("K2", "K3", "K7m", "K7s", "K10")
+
+# Beam: two segmented radix sorts a round (K4's histogram, K6-long's
+# ranks, K2's segment starts), the non-EOS rank (K7s); no K7m (the answer's
+# score is an argmax, not a masked sum).
+BEAM_PATH = ("K2", "K3", "K4-matvec", "K6-long", "K7s", "K10")
 GEMMA2_PARAMS = 27_227_128_320
 # The library's own path runs every kernel but the models' attention.
 PRIMITIVES_PATH = tuple(k for k in COUNTERS if k != "K10")
@@ -3330,9 +3392,12 @@ def hold_floor(what, tokens, logits_c, logits_t, c32, f) -> dict:
 
 
 def phase_serve(cfg, params, prompts, path=GREEDY_PATH,
-                tag="serve", floor=False) -> dict:
+                tag="serve", floor=False, buckets=None) -> dict:
     """``floor``: hold the backends' prefill logits to the float32 floor
-    (f32_floor) instead of 2e-2 of their magnitude."""
+    (f32_floor) instead of 2e-2 of their magnitude; ``buckets``: serve the
+    requests again with ``Engine(prefill_buckets=buckets)``, whose streams
+    must be the exact-length run's (serve_bucketed).  The summary's
+    ``outs`` (not logged) holds the streams."""
     dev = torch.device("cuda")
     memory = {"weights_gb": torch.cuda.memory_allocated() / 1e9}
     torch.cuda.reset_peak_memory_stats()
@@ -3421,7 +3486,42 @@ def phase_serve(cfg, params, prompts, path=GREEDY_PATH,
         "streams": streams_digest(outs),
     }
     log(f"[{tag}] " + json.dumps(summary))
+    if buckets is not None:
+        summary["bucketed"] = serve_bucketed(cfg, params, reqs, buckets, tag,
+                                             summary["streams"])
+    summary["outs"] = outs
     return summary
+
+
+def serve_bucketed(cfg, params, reqs, buckets, tag, digest) -> dict:
+    """The phase's requests through ``Engine(prefill_buckets=buckets)``:
+    each prompt right-padded to its bucket and read at its own length
+    (``valid_len``).  The streams must be the exact-length run's."""
+    eng = Engine(cfg, params, cache_len=CACHE_LEN, batch_size=BATCH,
+                 device="cuda", prefill_buckets=buckets)
+    plen = [len(r.prompt) for r in reqs]
+    padded = [len(eng._pad_prompt(r.prompt)[0][0]) for r in reqs]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = eng.last_stats
+    out = {"buckets": list(eng.prefill_buckets), "prompt_tokens": plen,
+           "prefilled_tokens": padded, "prefill_s": stats["prefill_s"],
+           "decode_s": stats["decode_s"], "serve_s": wall,
+           "decode_tok_per_s": stats["decode_tok_per_s"],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": read_counts(), "streams": streams_digest(outs)}
+    log(f"[{tag} bucketed] " + json.dumps(out))
+    expect(out["streams"] == digest,
+           f"{tag}: the bucketed run (prompts of {plen} tokens prefilled at "
+           f"{padded}) gives the exact-length run's streams, digest "
+           f"{digest}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3500,7 +3600,8 @@ def phase_xlstm() -> dict:
                                       xlstm_param_count)
     expect(lm.count_params(params) == XLSTM_PARAMS,
            f"xlstm-1.3b: {XLSTM_PARAMS} parameters, as the reference's tree")
-    summary = phase_serve(cfg, params, prompts, XLSTM_PATH, "xlstm")
+    summary = phase_serve(cfg, params, prompts, XLSTM_PATH, "xlstm",
+                          buckets=XLSTM_BUCKETS)
     # The sLSTM layers' loops over the profiled prefill's steps, a cell of
     # some twenty launches a step: host time, under the profiler.
     loop = summary["profile"]["prefill"]["ranges"].get("slstm loop", {})
@@ -3592,11 +3693,14 @@ def moe_checks(params, cfg, prompts, tag) -> dict:
 
 
 def phase_model(name: str, tag: str, n_params: int,
-                floor: bool = True) -> dict:
+                floor: bool = True, buckets=None, after=None) -> dict:
     """A model of GQA blocks at full width after the previous phase's
     tensors are gone (gemma2-27b: 54.4 GB of bf16 weights and 6.2 GB of
     caches on the 80 GB card), served as phase_serve does; ``floor``: its
-    backends' logits held to the float32 floor (f32_floor)."""
+    backends' logits held to the float32 floor (f32_floor); ``buckets``:
+    phase_serve's bucketed run; ``after(cfg, params, prompts, summary)``,
+    where given, runs while the weights are loaded, its result the
+    summary's ``after``."""
     t0 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
@@ -3605,12 +3709,247 @@ def phase_model(name: str, tag: str, n_params: int,
     cfg, params, prompts = load_model(name, tag, param_count)
     expect(lm.count_params(params) == n_params,
            f"{name}: {n_params} parameters, as the reference's tree")
-    summary = phase_serve(cfg, params, prompts, GEMMA2_PATH, tag, floor)
+    summary = phase_serve(cfg, params, prompts, GEMMA2_PATH, tag, floor,
+                          buckets)
+    if after is not None:
+        summary["after"] = after(cfg, params, prompts, summary)
     if cfg.n_experts:
         summary["moe"] = moe_checks(params, cfg, prompts, tag)
     summary["phase_s"] = time.perf_counter() - t0
     log(f"[{tag}] phase took {summary['phase_s']:.1f} s")
     return summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the decoding strategies and quantized caches on gemma2-27b
+# ---------------------------------------------------------------------------
+
+
+class _Profiled(Exception):
+    """Raised out of a serve once its first loop iteration is profiled."""
+
+
+def device_busy(fn) -> dict:
+    """Run ``fn`` under torch.profiler's device activity alone and sum the
+    device events' time straight from its raw results (a speculative round
+    launches some 60,000 operations, which the parsed event list of
+    profile_device takes minutes to build): the device ms, the wall ms and
+    the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ns, ops = 0, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            busy_ns += e.duration_ns() if hasattr(e, "duration_ns") \
+                else e.duration_us() * 1000
+            ops += 1
+    if not ops:
+        return {"measured": False, "wall_ms": wall_ms}
+    return {"measured": True, "device_ms": busy_ns / 1e6, "wall_ms": wall_ms,
+            "device_idle_share": 1.0 - busy_ns / 1e6 / wall_ms,
+            "device_ops": ops}
+
+
+def profile_iteration(eng, reqs) -> dict:
+    """Device ms of one loop iteration (a decode step, or a speculative or
+    beam round) with the engine's slots full: serve ``reqs`` again, profile
+    its first iteration (device_busy) and stop the serve there."""
+    real, box = eng._dispatch_loop, {}
+
+    def first(state, budget, stop_on_free):
+        box.update(device_busy(lambda: real(state, 1, stop_on_free)))
+        raise _Profiled
+
+    eng._dispatch_loop = first
+    try:
+        eng.serve([(0, r) for r in reqs[:eng.batch_size]])
+    except _Profiled:
+        pass
+    finally:
+        eng._dispatch_loop = real
+    return box
+
+
+def strategy_run(label, eng, reqs, path):
+    """One serve of ``reqs`` (all arriving at step 0) through ``eng``: its
+    records, and a summary with the kernels' launches (each of ``path``
+    must launch), the peak device memory (under 80 GB), the decode rate,
+    and (profile_iteration, after the timed serve) the device ms of one
+    loop iteration with the slots full."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    recs = eng.serve([(0, r) for r in reqs])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    stats = dict(eng.last_stats)
+    outs = [rec.tokens for rec in recs]
+    summary = {
+        "run": label, "strategy": eng.strategy.name,
+        "quantize_kv": eng.quantize_kv, "requests": len(reqs),
+        "slots": eng.batch_size, "cache_len": eng.cache_len,
+        "generated_tokens": stats["total_tokens"],
+        "decode_steps": stats["decode_steps"],
+        "loop_dispatches": stats["loop_dispatches"],
+        "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
+        "serve_s": wall, "decode_tok_per_s": stats["decode_tok_per_s"],
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches, "streams": streams_digest(outs),
+        "heads": [o[:6] for o in outs[:3]],
+        **{k: v for k, v in stats.items() if k.startswith("spec_")}}
+    summary["iteration"] = profile_iteration(eng, reqs)
+    summary["peak_gb"] = max(summary["peak_gb"],
+                             torch.cuda.max_memory_allocated() / 1e9)
+    log("[strategies] " + json.dumps(summary))
+    for i, (o, r) in enumerate(zip(outs, reqs)):
+        expect(0 < len(o) <= r.max_new_tokens and all(
+            0 <= t < eng.cfg.vocab_size for t in o),
+            f"{label} request {i}: {len(o)} tokens of at most "
+            f"{r.max_new_tokens}, ids in the vocabulary")
+    for k in path:
+        expect(launches[k] > 0, f"{k} launched {launches[k]} times on the "
+                                f"{label} path")
+    expect(summary["peak_gb"] < 80,
+           f"{label}: peak device memory {summary['peak_gb']:.2f} GB < 80")
+    return summary, recs
+
+
+def dfa_tables(vocab: int, seed: int = SEED):
+    """A seeded DFA over the vocabulary: each state allows about
+    DFA_DENSITY of it (token 0 always: no dead state)."""
+    rng = np.random.default_rng(seed)
+    allowed = rng.random((DFA_STATES, vocab)) < DFA_DENSITY
+    allowed[:, 0] = True
+    trans = rng.integers(0, DFA_STATES, (DFA_STATES, vocab)).astype(np.int32)
+    return allowed, trans
+
+
+def phase_strategies(cfg, params, prompts, gemma2) -> dict:
+    """Speculative, beam and constrained decoding and quantized KV caches
+    on gemma2-27b's FULL weights, still loaded after its serve phase."""
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    runs = {}
+
+    def engine(batch=BATCH, cache_len=CACHE_LEN, **kw):
+        return Engine(cfg, params, cache_len=cache_len, batch_size=batch,
+                      device=dev, **kw)
+
+    new = [min(m, STRATEGY_NEW) for m in MAX_NEW]
+    reqs = [Request(prompt=p, max_new_tokens=m) for p, m in zip(prompts, new)]
+    # Greedy streams are batch-independent: the gemma2 phase's, cut to 16.
+    want = [o[:m] for o, m in zip(gemma2["outs"], new)]
+
+    # Speculative: the target as its own draft (shared tensors), then
+    # recurrentgemma-2b FULL from the seed as the draft.
+    s, recs = strategy_run("speculative", engine(
+        strategy=ST.Speculative(cfg, params, k=SPEC_K)), reqs, SPEC_PATH)
+    expect([r.tokens for r in recs] == want,
+           f"speculative (k = {SPEC_K}, the target as its draft): the "
+           f"vanilla streams, digest {streams_digest(want)}")
+    expect(s["spec_acceptance_rate"] == 1.0,
+           f"the perfect draft's acceptance {s['spec_acceptance_rate']} "
+           f"== 1.0 ({s['spec_accepted']} of {s['spec_proposed']} in "
+           f"{s['spec_rounds']} rounds)")
+    runs["speculative"] = s
+    dcfg = get_config("recurrentgemma-2b")
+    dparams = lm.init_params(dcfg, seed=SEED, device=dev,
+                             dtype=torch.bfloat16)
+    s, recs = strategy_run("speculative_draft", engine(
+        strategy=ST.Speculative(dcfg, dparams, k=SPEC_K)), reqs, SPEC_PATH)
+    expect([r.tokens for r in recs] == want,
+           f"speculative (k = {SPEC_K}, recurrentgemma-2b's draft, "
+           f"acceptance {s['spec_acceptance_rate']:.4f}): the vanilla "
+           f"streams, digest {streams_digest(want)}")
+    runs["speculative_draft"] = s
+
+    # Sampled over the full vocabulary, recurrentgemma-2b's draft: the
+    # first four prompts.  The draft samples from its own key stream, so
+    # proposals are rejected and the rollback runs.
+    sreqs = [Request(prompt=p, max_new_tokens=SPEC_SAMPLED_NEW, seed=i)
+             for i, p in enumerate(prompts[:BATCH])]
+    van = engine(**FULL_VOCAB).generate(sreqs)
+    s, recs = strategy_run("speculative_sampled", engine(
+        strategy=ST.Speculative(dcfg, dparams, k=SPEC_K), **FULL_VOCAB),
+        sreqs, SPEC_PATH)
+    expect([r.tokens for r in recs] == van,
+           f"sampled speculative (recurrentgemma-2b's draft, acceptance "
+           f"{s['spec_acceptance_rate']:.4f}): vanilla's sampled streams at "
+           f"the same seeds, digest {streams_digest(van)}")
+    expect(s["spec_accepted"] < s["spec_proposed"],
+           f"sampled speculative: {s['spec_proposed'] - s['spec_accepted']} "
+           f"of {s['spec_proposed']} proposals rejected and rolled back")
+    runs["speculative_sampled"] = s
+    del dparams, recs
+
+    # Beam search: two requests, width 4, over 2 slots of 2,048.
+    breqs = [Request(prompt=prompts[i], max_new_tokens=STRATEGY_NEW)
+             for i in (0, 4)]
+    beng = engine(batch=BEAM_BATCH, cache_len=BEAM_CACHE,
+                  strategy=ST.BeamSearch(width=BEAM_WIDTH))
+    s, recs = strategy_run("beam", beng, breqs, BEAM_PATH)
+    torch.cuda.reset_peak_memory_stats()
+    for r, rec in zip(breqs, recs):
+        toks, score = reference_beam(beng, r.prompt, width=BEAM_WIDTH,
+                                     max_new=r.max_new_tokens)
+        expect(rec.tokens == toks and rec.seq_logprob == score,
+               f"beam (width {BEAM_WIDTH}, prompt {len(r.prompt)}): "
+               f"{len(rec.tokens)} tokens, score {rec.seq_logprob:.6f}, the "
+               f"oracle's {len(toks)} tokens and {score:.6f}")
+    s["oracle_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    s["scores"] = [rec.seq_logprob for rec in recs]
+    runs["beam"] = s
+    del beng, recs
+
+    # Constrained (greedy): a 3-state DFA allowing 1% of the vocabulary.
+    allowed, trans = dfa_tables(cfg.vocab_size)
+    creqs = reqs[:BATCH]
+    ceng = engine(strategy=ST.Constrained(allowed, trans))
+    s, recs = strategy_run("constrained", ceng, creqs, GEMMA2_PATH)
+    for r, rec in zip(creqs, recs):
+        state, masked = 0, 0
+        for t in rec.tokens:
+            masked += not allowed[state, t]
+            state = trans[state, t]
+        toks, _ = reference_constrained(
+            ceng, r.prompt, 0, allowed=allowed, transitions=trans,
+            max_new=r.max_new_tokens)
+        expect(masked == 0 and rec.tokens == toks,
+               f"constrained (prompt {len(r.prompt)}): {masked} masked ids "
+               f"in {len(rec.tokens)}, the oracle's stream")
+    s["allowed_per_state"] = allowed.sum(axis=1).tolist()
+    runs["constrained"] = s
+    del ceng, recs
+
+    # Quantized KV with poisoned evictions, sampled over the full
+    # vocabulary: 8 requests through 4 slots; each request served in a
+    # recycled slot against a fresh engine.
+    qreqs = [Request(prompt=r.prompt, max_new_tokens=r.max_new_tokens,
+                     seed=i) for i, r in enumerate(reqs)]
+    for mode in ("int8", "fp8_e4m3"):
+        s, recs = strategy_run(f"quantized_{mode}", engine(
+            quantize_kv=mode, poison_on_evict=True, **FULL_VOCAB), qreqs,
+            GEMMA2_PATH)
+        recycled = [i for i, rec in enumerate(recs) if rec.admit_step > 0]
+        fresh = engine(quantize_kv=mode, **FULL_VOCAB).generate(
+            [qreqs[i] for i in recycled])
+        expect(len(recycled) >= BATCH and all(
+            recs[i].tokens == f for i, f in zip(recycled, fresh)),
+            f"quantize_kv={mode}: the {len(recycled)} requests served in "
+            f"recycled, poisoned slots give a fresh engine's streams")
+        s["recycled"] = recycled
+        runs[f"quantized_{mode}"] = s
+    out = {"runs": runs, "phase_s": time.perf_counter() - t0}
+    log(f"[strategies] phase 13 took {out['phase_s']:.1f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4161,11 +4500,12 @@ def main() -> int:
         res = phase_kernels(gen)
         prims = phase_primitives(res, gen)
         cfg, params, prompts = load_model()
-        serve = phase_serve(cfg, params, prompts)
+        serve = phase_serve(cfg, params, prompts, buckets="pow2")
         sampled = phase_sampled(cfg, params, prompts)
         del params
         gemma2 = phase_model("gemma2-27b", "gemma2", GEMMA2_PARAMS,
-                             floor=False)
+                             floor=False, buckets="pow2",
+                             after=phase_strategies)
         xlstm = phase_xlstm()
         models = {tag: phase_model(name, tag, n) for name, tag, n in MODELS}
         models["deepseek"] = phase_deepseek()
@@ -4176,11 +4516,16 @@ def main() -> int:
     lazy = [d for d in _lib._LOADED if d not in build["prebuilt"]]
     log(f"[build] {len(lazy)} units built during the run, not up front"
         + (f": {lazy}" if lazy else ""))
+    # Phase 13's runs and the bucketed runs of phases 4, 6 and 7.
+    slice16 = {**gemma2["after"]["runs"],
+               "bucketed_greedy": serve["bucketed"],
+               "bucketed_gemma2": gemma2["bucketed"],
+               "bucketed_xlstm": xlstm["bucketed"]}
     kernels = []
     for k, r in res.items():
         name, source, replaces = META[k]
         paths = {"primitives": prims, "greedy": serve, "sampled": sampled,
-                 "gemma2": gemma2, "xlstm": xlstm, **models}
+                 "gemma2": gemma2, "xlstm": xlstm, **models, **slice16}
         kernels.append({
             "name": f"{k} {name}", "route": "cuda", "source": source,
             "replaces": replaces,
@@ -4193,7 +4538,7 @@ def main() -> int:
             "launches_gemma2": gemma2["launches"][k],
             "launches_xlstm": xlstm["launches"][k],
             **{f"launches_{tag}": m["launches"][k]
-               for tag, m in models.items()},
+               for tag, m in {**models, **slice16}.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],

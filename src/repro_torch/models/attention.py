@@ -38,6 +38,7 @@ import math
 import torch
 
 from repro_torch.core import intrinsics as ki
+from repro_torch.core import operators as alg
 from repro_torch.kernels import flash_attention as flash_k
 from repro_torch.models import layers as L
 
@@ -159,10 +160,16 @@ def _project_qkv(params, cfg, x, positions, dtype, is_local):
 
 
 def gqa_forward(params, cfg, x, *, is_local, causal=True,
-                return_cache_len=0):
+                return_cache_len=0, valid_len=None):
     """Full-sequence forward of a sequence that starts at position 0 (K10
     counts query and key positions from 0, so both routes take them from
-    here).  Returns (y, cache|None)."""
+    here).  Returns (y, cache|None).
+
+    ``valid_len`` (a Python int): valid leading length of ``x`` under
+    prompt bucketing.  The outputs at valid positions are exact under right
+    padding -- the causal mask keeps every pad key out of every valid
+    query's window, on K10 as in ``blockwise_attention`` -- so only the
+    cache uses it."""
     dtype = x.dtype
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)
@@ -179,25 +186,34 @@ def gqa_forward(params, cfg, x, *, is_local, causal=True,
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dtype))
     cache = None
     if return_cache_len:
-        cache = _build_cache(k, v, return_cache_len, is_local, cfg)
+        cache = _build_cache(k, v, return_cache_len, is_local, cfg,
+                             valid_len=valid_len)
     return y, cache
 
 
-def _build_cache(k, v, cache_len, is_local, cfg):
+def _build_cache(k, v, cache_len, is_local, cfg, valid_len=None):
     """Build a decode cache from prefill K/V.  Local: a ring where position
     t sits in slot t % W and the ring holds the last W positions.  Global:
-    ``cache_len`` slots, positions [0, S) written in place."""
+    ``cache_len`` slots, positions [0, S) written in place.
+
+    ``valid_len``: valid leading K/V length under prompt bucketing.  A
+    local ring must hold the last W *valid* positions, [valid_len - W,
+    valid_len), not the padded sequence's last W rows; slots no valid
+    position reaches stay zero, as in an exact-length prefill.  A global
+    cache takes every row, pads included, as the reference's: decode writes
+    each slot before its ``slot <= pos`` window reaches it."""
     B, S, K, hd = k.shape
     if not is_local and cache_len < S:
         raise ValueError(f"global-attention cache_len={cache_len} < prefill "
                          f"length {S}")
     W = min(cache_len, cfg.local_window) if is_local else cache_len
-    t0 = max(S - W, 0)
-    slots = (t0 + torch.arange(S - t0, device=k.device)) % W
+    end = S if valid_len is None or not is_local else int(valid_len)
+    t0 = max(end - W, 0)
+    slots = (t0 + torch.arange(end - t0, device=k.device)) % W
     kc = torch.zeros((B, W, K, hd), dtype=k.dtype, device=k.device)
     vc = torch.zeros((B, W, K, hd), dtype=v.dtype, device=v.device)
-    kc[:, slots] = k[:, t0:]
-    vc[:, slots] = v[:, t0:]
+    kc[:, slots] = k[:, t0:end]
+    vc[:, slots] = v[:, t0:end]
     return {"k": kc, "v": vc}
 
 
@@ -225,6 +241,21 @@ def _step_positions(pos, batch, device, what):
     return pos
 
 
+def _kv_write(leaf, new, bidx, slot, dtype):
+    """Write this step's ``new`` (B, K, hd) into ``leaf`` at ``[bidx,
+    slot]`` in place; returns the dense cache attention reads.  A
+    ``KVQuant`` leaf quantizes at write (one scale per vector, values and
+    scales at the same index) and is dequantized whole into the activation
+    ``dtype`` at read, as the reference's ``_kv_scatter``."""
+    if isinstance(leaf, alg.KVQuant):
+        qn = alg.quantize_kv(new, leaf.mode)
+        leaf.values[bidx, slot] = qn.values
+        leaf.scales[bidx, slot] = qn.scales
+        return leaf.dequantize(dtype)
+    leaf[bidx, slot] = new.to(leaf.dtype)
+    return leaf
+
+
 def gqa_decode(params, cfg, x, cache, pos, *, is_local):
     """One-token decode.  x: (B,1,D); pos: (B,) per-slot positions
     (continuous batching: every row sits at its own depth in its own cache
@@ -233,7 +264,8 @@ def gqa_decode(params, cfg, x, cache, pos, *, is_local):
     ``cache``'s own tensors in place, as the reference's ``.at[bidx,
     slot].set`` and ``dynamic_update_slice`` are under jit (the engine owns
     the cache; a copy of every layer's cache a step would only cost memory
-    and bandwidth), and the same tensors come back."""
+    and bandwidth), and the same tensors come back.  A ``KVQuant`` cache
+    (``Engine(quantize_kv=)``) stores codes and scales (``_kv_write``)."""
     dtype = x.dtype
     B = x.shape[0]
     H, hd = cfg.n_heads, cfg.head_dim
@@ -251,10 +283,9 @@ def gqa_decode(params, cfg, x, cache, pos, *, is_local):
     else:
         key_valid = slot_idx <= qpos
     bidx = torch.arange(B, device=x.device)
-    kc, vc = cache["k"], cache["v"]
-    kc[bidx, slot] = k[:, 0].to(kc.dtype)
-    vc[bidx, slot] = v[:, 0].to(vc.dtype)
-    out = decode_attention(q, kc, vc, key_valid=key_valid,
+    kread = _kv_write(cache["k"], k[:, 0], bidx, slot, dtype)
+    vread = _kv_write(cache["v"], v[:, 0], bidx, slot, dtype)
+    out = decode_attention(q, kread, vread, key_valid=key_valid,
                            softcap=cfg.attn_softcap)
     out = out.reshape(B, 1, H, hd)
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dtype))

@@ -75,8 +75,16 @@ def init_block(gen, kind, cfg, dtype):
     return p
 
 
-def _mixer_apply(params, kind, cfg, x, *, mode, cache, pos, cache_len):
-    """Dispatch the sequence mixer.  Returns (y, new_cache)."""
+def _mixer_apply(params, kind, cfg, x, *, mode, cache, pos, cache_len,
+                 valid_len=None):
+    """Dispatch the sequence mixer.  Returns (y, new_cache).
+
+    ``valid_len``: (prefill) valid leading length of ``x`` under prompt
+    bucketing -- attention layers snapshot their caches at it; recurrent
+    layers freeze or neutralize their state past it.  Causality already
+    keeps right pads out of every valid position's output.  MLA takes none:
+    its cache is written at [0, S) and decode masks slots past ``pos``, so
+    pad entries are overwritten before they are ever read."""
     if kind in _ATTN_KINDS:
         is_local = kind == "attn_local"
         if mode == "decode":
@@ -85,7 +93,8 @@ def _mixer_apply(params, kind, cfg, x, *, mode, cache, pos, cache_len):
         return A.gqa_forward(
             params["attn"], cfg, x, is_local=is_local,
             causal=kind != "enc_attn",
-            return_cache_len=cache_len if mode == "prefill" else 0)
+            return_cache_len=cache_len if mode == "prefill" else 0,
+            valid_len=valid_len)
     if kind in _MLA_KINDS:
         if mode == "decode":
             return A.mla_decode(params["attn"], cfg, x, cache, pos)
@@ -98,10 +107,12 @@ def _mixer_apply(params, kind, cfg, x, *, mode, cache, pos, cache_len):
         "slstm": (R.slstm_forward, R.slstm_decode)}[kind]
     if mode == "decode":
         return decode(params["mixer"], cfg, x, cache)
-    return forward(params["mixer"], cfg, x, return_cache=mode == "prefill")
+    return forward(params["mixer"], cfg, x, return_cache=mode == "prefill",
+                   valid_len=valid_len)
 
 
-def _dec_attn(params, cfg, x, *, mode, cache, pos, cache_len, enc_out):
+def _dec_attn(params, cfg, x, *, mode, cache, pos, cache_len, enc_out,
+              valid_len=None):
     """The decoder's self attention (``attn_global``) and its residual, then
     cross attention over ``enc_out`` in prefill and train, over the cross
     cache in decode, which hands that cache back unchanged.  Returns (x,
@@ -110,7 +121,7 @@ def _dec_attn(params, cfg, x, *, mode, cache, pos, cache_len, enc_out):
     h, new_self = _mixer_apply(
         params, "attn_global", cfg, h, mode=mode,
         cache=cache["self"] if mode == "decode" else None, pos=pos,
-        cache_len=cache_len)
+        cache_len=cache_len, valid_len=valid_len)
     x = x + h
     hc = L.rmsnorm(params["norm_cross"], x, cfg.norm_eps)
     if mode == "decode":
@@ -126,19 +137,22 @@ def _dec_attn(params, cfg, x, *, mode, cache, pos, cache_len, enc_out):
 
 
 def block_forward(params, kind, cfg, x, *, mode="train",
-                  cache=None, pos=None, cache_len=0, enc_out=None):
+                  cache=None, pos=None, cache_len=0, enc_out=None,
+                  valid_len=None):
     """Returns (x, new_cache).  ``enc_out``: the encoder's output, which a
-    ``dec_attn`` block's cross attention reads in prefill and train."""
+    ``dec_attn`` block's cross attention reads in prefill and train;
+    ``valid_len``: prefill's valid leading length (``_mixer_apply``)."""
     _check_kind(kind)
     if kind == "dec_attn":
         x, new_cache = _dec_attn(params, cfg, x, mode=mode, cache=cache,
                                  pos=pos, cache_len=cache_len,
-                                 enc_out=enc_out)
+                                 enc_out=enc_out, valid_len=valid_len)
     else:
         h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
         h, new_cache = _mixer_apply(params, kind, cfg, h, mode=mode,
                                     cache=cache, pos=pos,
-                                    cache_len=cache_len)
+                                    cache_len=cache_len,
+                                    valid_len=valid_len)
         if cfg.post_norm:
             h = L.rmsnorm(params["post_norm1"], h, cfg.norm_eps)
         x = x + h

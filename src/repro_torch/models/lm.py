@@ -14,7 +14,7 @@ attends over.
 
 * ``init_params(cfg, seed=..., device=...)`` -> params
 * ``prefill(params, cfg, tokens, cache_len=..., src_embeds=None,
-  vision_embeds=None)`` -> (last_logits, caches)
+  vision_embeds=None, valid_len=None)`` -> (last_logits, caches)
 * ``decode_step(params, cfg, caches, tokens, pos)`` -> (logits, caches)
 """
 from __future__ import annotations
@@ -50,15 +50,16 @@ def _init_stack(gen, spec, cfg, dtype):
 
 
 def _run_stack(params, spec, cfg, h, *, mode, caches=None,
-               pos=None, cache_len=0, enc_out=None):
-    """Returns (h, new_caches); new_caches is None in train mode."""
+               pos=None, cache_len=0, enc_out=None, valid_len=None):
+    """Returns (h, new_caches); new_caches is None in train mode.
+    ``valid_len``: prefill's valid leading length (prompt bucketing)."""
     prefix, unit, n_units, suffix = spec
     new = {"prefix": [], "units": [], "suffix": []}
 
     def run(p, kind, c):
         return BK.block_forward(p, kind, cfg, h, mode=mode, cache=c,
                                 pos=pos, cache_len=cache_len,
-                                enc_out=enc_out)
+                                enc_out=enc_out, valid_len=valid_len)
 
     def cache_of(part, i, j=None):
         if mode != "decode":
@@ -153,19 +154,29 @@ def _encode(params, cfg, src_embeds):
 
 
 def prefill(params, cfg, tokens, *, cache_len, src_embeds=None,
-            vision_embeds=None):
-    """Full-sequence forward over exact-length ``tokens`` (B, S), behind
-    the prefix ``vision_embeds`` where given, building decode caches.  An
+            vision_embeds=None, valid_len=None):
+    """Full-sequence forward over ``tokens`` (B, S), behind the prefix
+    ``vision_embeds`` where given, building decode caches.  An
     encoder-decoder first encodes ``src_embeds`` (B, T, d_model); its
     decoder's caches hold the self attention's k and v and the cross
-    attention's over the T frames.  The logits are the last token's.
+    attention's over the T frames.
+
+    ``valid_len`` (a Python int): the number of valid leading *token*
+    positions when ``tokens`` is right-padded to a bucket length.  The
+    caches and the logits are then those of a ``valid_len``-token prefill
+    (causality keeps the pads out of every valid position; the cache
+    snapshots and the logit read move to ``valid_len``, after the prefix).
+    None: every position is valid, and the logits are the last token's.
     Returns (last_logits (B, vocab) float32, caches)."""
     enc_out = _encode(params, cfg, src_embeds) if cfg.is_encdec else None
     h = _embed_inputs(params, cfg, tokens, vision_embeds)
+    n_prefix = h.shape[1] - tokens.shape[1]
+    vl = None if valid_len is None else int(valid_len) + n_prefix
     h, caches = _run_stack(params["decoder"], _dec_spec(cfg), cfg, h,
                            mode="prefill", cache_len=cache_len,
-                           enc_out=enc_out)
-    h = L.rmsnorm(params["final_norm"], h[:, -1:], cfg.norm_eps)
+                           enc_out=enc_out, valid_len=vl)
+    h_last = h[:, -1:] if vl is None else h[:, vl - 1:vl]
+    h = L.rmsnorm(params["final_norm"], h_last, cfg.norm_eps)
     logits = L.unembed(params["embed"], h, cfg.final_softcap)
     return logits[:, 0], caches
 

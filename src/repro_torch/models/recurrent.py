@@ -123,8 +123,13 @@ def _rglru_gates(params, u):
     return a, i, mult
 
 
-def rglru_forward(params, cfg, x, *, return_cache=False):
-    """x: (B, T, D) -> (y, cache|None).  The scan primitive carries h."""
+def rglru_forward(params, cfg, x, *, return_cache=False, valid_len=None):
+    """x: (B, T, D) -> (y, cache|None).  The scan primitive carries h.
+
+    ``valid_len`` (a Python int): valid leading length of ``x`` under
+    prompt bucketing.  The recurrence runs over the whole padded sequence
+    (outputs at valid positions depend only on earlier ones) and the cache
+    snapshots the state and the conv tail at ``valid_len``."""
     dtype = x.dtype
     u_pre = x @ params["wx"].to(dtype)
     gate_branch = x @ params["wy"].to(dtype)
@@ -137,13 +142,18 @@ def rglru_forward(params, cfg, x, *, return_cache=False):
     cache = None
     if return_cache:
         # The state snapshot is the activation-dtype h, widened back to f32.
-        cache = {"h": h[:, -1].float(), "conv": _conv_tail(cfg, u_pre)}
+        last = -1 if valid_len is None else int(valid_len) - 1
+        cache = {"h": h[:, last].float(),
+                 "conv": _conv_tail(cfg, u_pre, valid_len)}
     return y, cache
 
 
-def _conv_tail(cfg, u_pre):
-    """The last ``conv_width - 1`` inputs, zero-padded on the left."""
+def _conv_tail(cfg, u_pre, valid_len=None):
+    """The last ``conv_width - 1`` inputs ending at ``valid_len`` (or the
+    end), zero-padded on the left."""
     W = cfg.conv_width
+    if valid_len is not None:
+        u_pre = u_pre[:, :int(valid_len)]
     T = u_pre.shape[1]
     tail = u_pre[:, max(T - (W - 1), 0):]
     if tail.shape[1] < W - 1:
@@ -297,10 +307,15 @@ def _mlstm_chunk_scan(q, k, v, lf, li, m, state_dtype=torch.float32):
     return h, (Cf, nf)
 
 
-def mlstm_forward(params, cfg, x, *, return_cache=False):
+def mlstm_forward(params, cfg, x, *, return_cache=False, valid_len=None):
     """x: (B, T, D) -> (y, cache|None).  A prompt pads to a chunk multiple
     with neutral gates (i' = 0: no state update; f' = 1: no decay), so the
-    cache for T tokens is exact and pad outputs are sliced off."""
+    cache for T tokens is exact and pad outputs are sliced off.
+
+    ``valid_len`` (a Python int, prompt bucketing) takes the same neutral
+    gates from ``valid_len`` on: the (C, n) state after the whole padded
+    scan (K6 at the padded length) is the state after ``valid_len`` steps,
+    and the cached stabilizer and conv tail are read at ``valid_len``."""
     dtype = x.dtype
     B, T_in, D = x.shape
     H = cfg.n_heads
@@ -323,8 +338,9 @@ def mlstm_forward(params, cfg, x, *, return_cache=False):
     xf = x.float()
     li = xf @ params["w_igate"] + params["b_igate"]
     lf = F.logsigmoid(xf @ params["w_fgate"] + params["b_fgate"])
-    if pad:
-        live = (torch.arange(T, device=x.device) < T_in)[None, :, None]
+    eff_len = T_in if valid_len is None else int(valid_len)
+    if pad or valid_len is not None:
+        live = (torch.arange(T, device=x.device) < eff_len)[None, :, None]
         li = torch.where(live, li, -1e30)
         lf = torch.where(live, lf, 0.0)
     m = _mlstm_stabilizer(lf, li)
@@ -343,8 +359,8 @@ def mlstm_forward(params, cfg, x, *, return_cache=False):
         y = y[:, :T_in]
     cache = None
     if return_cache:
-        cache = {"C": Cf, "n": nf, "m": m[:, T_in - 1].clone(),
-                 "conv": _conv_tail(cfg, u[:, :T_in]).clone()}
+        cache = {"C": Cf, "n": nf, "m": m[:, eff_len - 1].clone(),
+                 "conv": _conv_tail(cfg, u[:, :T_in], valid_len).clone()}
     return y, cache
 
 
@@ -452,17 +468,25 @@ def _slstm_inputs(params, x):
     return (x @ w).reshape(B, T, 4, D).float()
 
 
-def slstm_forward(params, cfg, x, *, return_cache=False):
-    """x: (B, T, D) -> (y, cache|None); the cell runs once per step."""
+def slstm_forward(params, cfg, x, *, return_cache=False, valid_len=None):
+    """x: (B, T, D) -> (y, cache|None); the cell runs once per step.
+
+    ``valid_len`` (a Python int, prompt bucketing): the carry is frozen
+    from ``valid_len`` on, so the cache is the state after ``valid_len``
+    steps.  A frozen step's output is the frozen carry's h, as the
+    reference's masked scan gives, so the cell does not run there."""
     dtype = x.dtype
+    T = x.shape[1]
+    steps = T if valid_len is None else min(int(valid_len), T)
     xg = _slstm_inputs(params, x)
     carry = init_slstm_cache(cfg, x.shape[0], x.device)
     hs = []
     # The loop's host time is a profiler range of its own ("slstm loop").
     with torch.profiler.record_function("slstm loop"):
-        for t in range(x.shape[1]):
+        for t in range(steps):
             carry = _slstm_cell(params, xg[:, t], carry)
             hs.append(carry["h"])
+    hs += [carry["h"]] * (T - steps)
     h = torch.stack(hs, dim=1).to(dtype)                       # (B, T, D)
     y = h @ params["w_out"].to(dtype)
     y = y + L.mlp(params["ffn"], y, "gelu")

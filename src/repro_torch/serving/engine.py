@@ -1,39 +1,53 @@
-"""Serving engine: continuous batching over slots, greedy or sampled
-decoding, and the padded path.
+"""Serving engine: continuous batching over slots, pluggable decoding
+strategies, and the padded path.
 
 The port of ``repro.serving.engine``.  A host-side
 FIFO scheduler (``serving/scheduler.py``) admits requests into live batch
-slots; each admission prefills the request alone at its exact prompt length
-and scatters the resulting caches into its slot (``serving/cache.py``).
+slots; each admission prefills the request alone -- at its exact prompt
+length, or right-padded to a bucket length with ``prefill_buckets=`` (the
+caches and logits are then read at the prompt's own length, ``valid_len``)
+-- and scatters the resulting caches into its slot (``serving/cache.py``).
 Decode then runs in a loop whose body is the strategy's ``step`` and whose
 condition is the all-done predicate: a ``mapreduce`` over the active flags
 (kernel K3 on the card).  Slots free as requests hit EOS or
-``max_new_tokens``; the scheduler recycles them for waiting arrivals.
+``max_new_tokens``; the scheduler recycles them for waiting arrivals, and
+with ``poison_on_evict=True`` a freed slot's caches are overwritten with
+NaN first, so a stale read would show.  ``quantize_kv=`` keeps every
+attention KV cache as ``KVQuant`` codes and scales (``"int8"``,
+``"fp8_e4m3"`` -- alias ``"fp8"`` -- or ``"fp8_e5m2"``), quantized at
+write and dequantized at read.
+
+**What the loop body does is the strategy** (``Engine(strategy=...)``,
+``serving/strategies/``): greedy / top-k / top-p is the default
+(``Vanilla``); speculative decoding, beam search and DFA-constrained
+sampling ride the same loop and scheduler.
 
 Where the reference runs the loop as one ``lax.while_loop`` on the device,
-the port runs it from Python and reads the predicate back once per step:
-one host sync per decode step.  Drains read the finished outputs back
-through the CSR compaction (kernel K2) and the per-slot scores (K7m).
+the port runs it from Python and reads the predicate back once per
+iteration -- one host sync per decode step, or per speculative or beam
+round.  Drains read the finished outputs back through the CSR compaction
+(kernel K2) and the per-slot scores (K7m).
 
 The padded path (``generate_padded``) is the reference's fixed-batch
 host loop: one prefill over the left-padded batch, then one decode step at
 one position for the whole batch and one read of its tokens a step.  It
-is the differential oracle of the continuous path, and the only path of
-an encoder-decoder, whose cross caches are as long as each batch's source
-(``generate`` routes one there; ``serve`` refuses one).
+is the vanilla differential oracle of the continuous path (it refuses any
+other strategy), and the only path of an encoder-decoder, whose cross
+caches are as long as each batch's source (``generate`` routes one there;
+``serve`` refuses one, and the engine refuses an encoder-decoder under any
+strategy but vanilla).
 
 Decoding is greedy at ``temperature=0`` (the default) and otherwise
 samples with the reference's counter-based keys: the ``j``-th token of a
 request with seed ``s`` uses ``fold_in(fold_in(PRNGKey(seed), s), j)``, so a
 request's stream depends only on its prompt and seed, never on batch
 composition (``serving/sampling.py``; the radix top-k and nucleus scan run
-kernels K2, K4, K6 and K7s on the card).  Prefill is exact-length,
-behind zero prefix embeddings where the config takes them
-(``num_prefix_embeds``), so a request's positions start after the prefix,
-and over a zero source (``src_embeds``) for an encoder-decoder, as the
-reference engine's stand-ins for a frontend's output; prefill buckets,
-quantized KV, the other strategies and the ``mesh`` argument come with
-later slices.
+kernels K2, K4, K6 and K7s on the card).  Prefill runs behind zero prefix
+embeddings where the config takes them (``num_prefix_embeds``), so a
+request's positions start after the prefix, and over a zero source
+(``src_embeds``) for an encoder-decoder, as the reference engine's
+stand-ins for a frontend's output.  The reference's ``mesh`` argument
+(sharded prefill and decode) is not in the port.
 """
 from __future__ import annotations
 
@@ -52,8 +66,8 @@ from repro_torch.devices import resolve_device
 from repro_torch.models import lm
 from repro_torch.serving import cache as CA
 from repro_torch.serving import sampling as SP
+from repro_torch.serving import strategies as ST
 from repro_torch.serving.scheduler import Scheduler
-from repro_torch.serving.strategies import Vanilla
 
 
 @dataclasses.dataclass
@@ -77,12 +91,11 @@ class Engine:
     def __init__(self, cfg, params, *, cache_len: int, batch_size: int,
                  temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
                  top_p_candidates: int = 64, seed: int = 0,
-                 max_new_cap: int | None = None, device=None):
-        # The reference refuses an encoder-decoder under any strategy but
-        # vanilla; this engine has only the vanilla strategy so far.
+                 max_new_cap: int | None = None, poison_on_evict: bool = False,
+                 quantize_kv: str | None = None, strategy=None,
+                 prefill_buckets=None, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.params = pytree.tree_map(lambda t: t.to(self.device), params)
         self.cache_len = cache_len
         self.batch_size = batch_size
         self.temperature = temperature
@@ -90,7 +103,21 @@ class Engine:
         self.top_p = top_p
         self.top_p_candidates = top_p_candidates
         self.max_new_cap = max_new_cap or cache_len
-        self.strategy = Vanilla()
+        self.poison_on_evict = poison_on_evict
+        if quantize_kv == "fp8":              # spelling alias: default format
+            quantize_kv = "fp8_e4m3"
+        if quantize_kv is not None and quantize_kv not in alg.QUANT_MODES:
+            raise ValueError(
+                f"quantize_kv={quantize_kv!r} not in {alg.QUANT_MODES}")
+        self.quantize_kv = quantize_kv
+        self.strategy = ST.resolve_strategy(strategy)
+        if cfg.is_encdec and self.strategy.name != "vanilla":
+            raise NotImplementedError(
+                f"strategy {self.strategy.name!r} requires the continuous "
+                "decode loop; enc-dec archs route through the padded "
+                "vanilla oracle only")
+        self.prefill_buckets = self._resolve_buckets(prefill_buckets)
+        self.params = pytree.tree_map(lambda t: t.to(self.device), params)
         self._base_key = SP.PRNGKey(seed, device=self.device)
         self._sample = functools.partial(
             SP.sample_tokens, temperature=temperature, top_k=top_k,
@@ -100,15 +127,58 @@ class Engine:
         self.last_stats: dict = {}
         self.last_scores = np.zeros((0,), np.float32)
 
-    def _make_batch(self, toks) -> dict:
+    def _resolve_buckets(self, spec):
+        """Normalize ``prefill_buckets`` to a sorted tuple (or None).
+
+        ``"pow2"`` generates powers of two from 8 up to the cache budget
+        (the budget itself last); an explicit sequence is validated against
+        it.  Prompts longer than the largest bucket prefill at their exact
+        length."""
+        limit = self.cache_len - self.cfg.num_prefix_embeds
+        if spec is None:
+            return None
+        if spec == "pow2":
+            out, b = [], 8
+            while b < limit:
+                out.append(b)
+                b *= 2
+            out.append(limit)
+            return tuple(out)
+        buckets = sorted({int(b) for b in spec})
+        if not buckets or buckets[0] < 1 or buckets[-1] > limit:
+            raise ValueError(
+                f"prefill_buckets={spec!r} must be nonempty ints in "
+                f"[1, {limit}] (cache_len minus prefix embeds)")
+        return tuple(buckets)
+
+    def _pad_prompt(self, prompt):
+        """Right-pad a prompt (pad token 0) to its bucket length.  Returns
+        (toks (1, L) int64 on the device, valid_len | None); None =
+        exact length (no bucketing, the prompt fills its bucket, or it
+        exceeds the largest one)."""
+        plen = len(prompt)
+        toks, vlen = list(prompt), None
+        for b in self.prefill_buckets or ():
+            if b >= plen:
+                toks += [0] * (b - plen)
+                vlen = plen if b > plen else None
+                break
+        return torch.tensor([toks], dtype=torch.int64,
+                            device=self.device), vlen
+
+    def _make_batch(self, toks, valid_len=None) -> dict:
         """Prefill inputs: the tokens (B, S); for an encoder-decoder a zero
         float32 source ``src_embeds`` of (B, S, d_model), and for a config
         with prefix embeddings zero float32 ``vision_embeds`` of (B, P,
         d_model) (the reference engine's stand-ins for a frontend's
         output).  A zero source makes the encoder's output, and so every
-        cross attention's, exactly zero: the encoder has no biases."""
+        cross attention's, exactly zero: the encoder has no biases.
+        ``valid_len`` (an int), where given: the tokens' valid length under
+        bucketing."""
         cfg = self.cfg
         batch = {"tokens": toks}
+        if valid_len is not None:
+            batch["valid_len"] = valid_len
         if cfg.is_encdec:
             batch["src_embeds"] = torch.zeros(
                 (*toks.shape, cfg.d_model), dtype=torch.float32,
@@ -123,7 +193,8 @@ class Engine:
         return lm.prefill(params, self.cfg, batch["tokens"],
                           cache_len=self.cache_len,
                           src_embeds=batch.get("src_embeds"),
-                          vision_embeds=batch.get("vision_embeds"))
+                          vision_embeds=batch.get("vision_embeds"),
+                          valid_len=batch.get("valid_len"))
 
     def _decode(self, params, caches, toks, pos):
         return lm.decode_step(params, self.cfg, caches, toks, pos)
@@ -136,16 +207,24 @@ class Engine:
     # Continuous-batching path
     # -----------------------------------------------------------------------
 
-    def _cache_zeros(self):
-        """Zeroed decode caches for every slot, in the dtypes prefill
-        produces (attention rings and conv tails in the activation dtype,
-        recurrent states in float32)."""
-        return lm.init_caches(self.cfg, self.batch_size, self.cache_len,
-                              self.cfg.activation_dtype, self.device)
+    def _cache_zeros(self, batch: int | None = None):
+        """Zeroed decode caches for ``batch`` rows (default: every slot), in
+        the dtypes prefill produces (attention rings and conv tails in the
+        activation dtype, recurrent states in float32).  Under
+        ``quantize_kv`` every attention KV leaf is a ``KVQuant`` of zero
+        codes and zero scales."""
+        caches = lm.init_caches(self.cfg, batch or self.batch_size,
+                                self.cache_len, self.cfg.activation_dtype,
+                                self.device)
+        if self.quantize_kv is not None:
+            caches = pytree.tree_map(
+                torch.zeros_like,
+                CA.quantize_kv_tree(caches, mode=self.quantize_kv))
+        return caches
 
     def _base_state(self) -> dict:
         """The standard device-resident state: caches + per-slot control
-        arrays."""
+        arrays.  Strategies with richer state extend (or replace) it."""
         B, T = self.batch_size, self.max_new_cap
 
         def zeros(*shape, dtype=torch.int32):
@@ -167,7 +246,10 @@ class Engine:
     def _admit_impl(self, state, caches1, logits1, extras, slot, seed,
                     max_new, eos, pos0):
         """Admission, delegated to the strategy; the first token stays on
-        the device."""
+        the device.  Under ``quantize_kv`` the prefilled caches are
+        quantized before the scatter."""
+        if self.quantize_kv is not None:
+            caches1 = CA.quantize_kv_tree(caches1, mode=self.quantize_kv)
         return self.strategy.admit(
             self, state, caches1, logits1, extras, slot=slot, seed=seed,
             max_new=max_new, eos=eos, pos0=pos0)
@@ -222,7 +304,9 @@ class Engine:
         """Run an open-loop arrival trace to completion.
 
         ``arrivals``: iterable of ``(arrival_step, Request)`` (or bare
-        ``Request``s, all arriving at step 0) on the decode-step clock.
+        ``Request``s, all arriving at step 0) on the decode-step clock (one
+        step = one loop iteration; a speculative round may emit several
+        tokens).
         Returns the scheduler's completed ``RequestState`` records in
         submission order (tokens, seq_logprob, submit/admit/finish steps).
         """
@@ -260,11 +344,10 @@ class Engine:
                     sched.complete(rec.slot, step=now)
                     continue
                 t0 = time.perf_counter()
-                toks = torch.tensor([r.prompt], dtype=torch.int64,
-                                    device=self.device)
-                logits1, caches1 = self._prefill(self.params,
-                                                 self._make_batch(toks))
-                extras = self.strategy.host_prefill(self, toks)
+                toks, vlen = self._pad_prompt(r.prompt)
+                logits1, caches1 = self._prefill(
+                    self.params, self._make_batch(toks, valid_len=vlen))
+                extras = self.strategy.host_prefill(self, toks, vlen)
                 pos0 = len(r.prompt) + self.cfg.num_prefix_embeds
                 state = self._admit_impl(
                     state, caches1, logits1, extras, rec.slot, rec.seed,
@@ -318,7 +401,9 @@ class Engine:
 
     def _drain_done(self, sched: Scheduler, state, now):
         """Evict finished slots: pull their ragged outputs (the only token
-        read-back, at completion) through the CSR compaction descriptor."""
+        read-back, at completion) through the CSR compaction descriptor,
+        copy the strategy's per-slot ``meta`` onto each record, and with
+        ``poison_on_evict`` poison each freed slot's caches."""
         active = state["active"].cpu()
         done_slots = [s for s in sched.live_slots if not bool(active[s])]
         if not done_slots:
@@ -327,10 +412,17 @@ class Engine:
         flat, offsets = CA.compact_ragged(outs["out"], outs["emitted"])
         flat, offsets = flat.cpu(), offsets.cpu()
         seq_lp = outs["seq_logprob"].cpu()
+        meta = {key: v.cpu() for key, v in outs.get("meta", {}).items()}
         for slot in done_slots:
             rec = sched.complete(slot, step=now)
             rec.tokens = [int(t) for t in flat[offsets[slot]:offsets[slot + 1]]]
             rec.seq_logprob = float(seq_lp[slot])
+            for key, per_slot in meta.items():
+                rec.meta[key] = per_slot[slot].item()
+            if self.poison_on_evict:
+                state = dict(state)
+                state["caches"] = self.strategy.poison(
+                    self, state["caches"], slot)
         return state
 
     def generate(self, requests: list) -> list:
@@ -373,7 +465,14 @@ class Engine:
         the same seeds give the continuous path's tokens.  Request ``i``
         without a seed takes seed ``i``.  ``last_scores`` holds each
         request's summed log-probabilities, one batched masked mapreduce
-        over (requests, steps) (K7m on the card)."""
+        over (requests, steps) (K7m on the card).  Non-vanilla strategies
+        have their own reference decoders (``strategies/ref.py``) and
+        refuse this path."""
+        if self.strategy.name != "vanilla":
+            raise NotImplementedError(
+                "generate_padded is the vanilla-sampling parity oracle; "
+                f"strategy {self.strategy.name!r} has its own reference "
+                "decoder in serving/strategies/ref.py")
         cfg = self.cfg
         B = self.batch_size
         n_req = len(requests)

@@ -94,8 +94,16 @@ def gumbel(key: torch.Tensor, n: int) -> torch.Tensor:
     return -torch.log(-torch.log(u))
 
 
+# Per-stream tags folded into the engine's base key (:func:`stream_key`),
+# the reference's values.  The verify / vanilla stream uses the *untagged*
+# base key: exact-match speculative verification samples the target's token
+# with it, which is why its stream is vanilla's at the same seeds.
+DRAFT_STREAM = 0x5D1A_F7  # draft-proposal stream of speculative decoding
+
+
 def stream_key(base_key: torch.Tensor, tag: int) -> torch.Tensor:
-    """Derive a decoding-strategy stream key: ``fold_in(base, tag)``."""
+    """Derive a decoding-strategy stream key: ``fold_in(base, tag)``; the
+    request and step folds on top of it are :func:`request_step_keys`'."""
     return fold_in(base_key, tag)
 
 

@@ -1,7 +1,9 @@
 """The decoding-strategy interface and the default greedy strategy.
 
 The port of ``DecodeStrategy``, ``vanilla_admit`` and ``Vanilla`` from
-``repro.serving.strategies.base``.  A strategy owns the policy-shaped part
+``repro.serving.strategies.base``; speculative decoding, beam search and
+constrained sampling (this package's other modules) implement the same
+interface.  A strategy owns the policy-shaped part
 of the engine's state: what happens at admission, what one decode-loop
 iteration does (token choice, EOS, log-prob bookkeeping) and how finished
 slots render at drain.  The engine keeps the scheduler, prefill admission,
@@ -32,8 +34,11 @@ class DecodeStrategy:
         """Extra parameters handed to ``step`` (none for vanilla)."""
         return ()
 
-    def host_prefill(self, eng, toks):
-        """Extra prefill work at admission, handed to ``admit``."""
+    def host_prefill(self, eng, toks, valid_len):
+        """Extra prefill work at admission (the draft model's prefill),
+        handed to ``admit`` as ``extras``; ``toks`` (1, L) is the prompt
+        as prefilled, right-padded to ``valid_len`` where that is not
+        None."""
         return ()
 
     def stats(self, eng, state) -> dict:
@@ -57,8 +62,14 @@ class DecodeStrategy:
 
     def outputs(self, eng, state) -> dict:
         """Render finished state for drain: ``{"out": (B, T) int32,
-        "emitted": (B,) int32, "seq_logprob": (B,) float32}``."""
+        "emitted": (B,) int32, "seq_logprob": (B,) float32}`` plus an
+        optional ``"meta"`` dict of per-slot (B,) tensors copied onto each
+        completed record's ``meta``."""
         raise NotImplementedError
+
+    def poison(self, eng, caches, slot):
+        """Poison a freed slot's cache state (``poison_on_evict``)."""
+        return CA.poison_slot(caches, slot)
 
 
 def vanilla_admit(eng, state, caches1, logits1, *, slot, seed, max_new, eos,
@@ -98,11 +109,22 @@ class Vanilla(DecodeStrategy):
         return vanilla_admit(eng, state, caches1, logits1, slot=slot,
                              seed=seed, max_new=max_new, eos=eos, pos0=pos0)
 
+    def _adjust_logits(self, eng, st, logits):
+        """Hook: transform the step's logits before the token choice
+        (identity here; constrained sampling masks the vocabulary)."""
+        return logits
+
+    def _post_step(self, eng, st, new, nxt, was_active):
+        """Hook: extend the committed state after the vanilla bookkeeping
+        (identity here; constrained sampling advances its DFA state)."""
+        return new
+
     def step(self, eng, params, sparams, st):
         bidx = torch.arange(eng.batch_size, device=eng.device)
         was_active = st["active"]
         logits, caches = eng._decode(
             params, st["caches"], st["tok"][:, None], st["pos"])
+        logits = self._adjust_logits(eng, st, logits)
         nxt = eng._sample(eng._base_key, logits, st["seeds"], st["emitted"])
         lp = SP.chosen_logprobs(logits, nxt)
         widx = torch.clamp(st["emitted"], max=eng.max_new_cap - 1).long()
@@ -118,7 +140,7 @@ class Vanilla(DecodeStrategy):
         new["pos"] = st["pos"] + was_active
         new["emitted"] = emitted
         new["active"] = was_active & ~hit_eos & ~hit_cap
-        return new
+        return self._post_step(eng, st, new, nxt, was_active)
 
     def outputs(self, eng, state):
         return {"out": state["out"], "emitted": state["emitted"],

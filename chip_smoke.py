@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Thirteen phases, any failure exits non-zero:
+Fourteen phases, any failure exits non-zero:
 
 1. build -- generate the translation units of every kernel, operator, map
    and dtype combination the run's paths use (kernels/_lib.py, from each
@@ -207,6 +207,27 @@ Thirteen phases, any failure exits non-zero:
    in a recycled slot equals it on a fresh engine.  Each run: its launches (each of its path's kernels
    launched), peak memory (under 80 GB), decode tokens/s and the device ms
    of one loop iteration with the slots full (device_busy).
+14. train (phase_train, after seamless's tensors are freed): K10's forward
+   log-sum-exp and its gradient (csrc/flash_attention_bwd.cuh) against
+   ``flash_attention_bwd_ref`` at recurrentgemma-2b's layer (S = 4,096,
+   window 2,048), gemma2-27b's global layer, deepseek-v3's MLA and
+   seamless's cross attention (each timed beside its bound, the plain
+   version and SDPA's forward and backward with the case's mask) and at
+   the gradient's tile edges, rows that keep no key, windows that skip
+   tiles, in bf16 and f32; K6's gradient (one reverse K6 launch) against
+   autograd through a float64 serial walk at (1, 4096, 2560) with and
+   without h0, B = 3 and T at a chunk +-1; the first train step's loss,
+   grad norm and three leaves' gradients, cuda route against torch route,
+   at one unit of recurrentgemma-2b at full width (float32 within 1e-3,
+   bf16 within twice the torch route's own distance from float32);
+   recurrentgemma-2b FULL (26 layers, f32 master weights from the seed,
+   AdamW, full remat, bf16 activations and gradients, one sequence of
+   4,096 tokens a step) for four steps: loss and grad norm finite, wall
+   ms, tokens/s, peak memory (under 80 GB), the launches of K6, its
+   reverse launch, K10 and its gradient (each launched), one step's device
+   ms and idle share; then the Trainer at smoke size in a temporary
+   directory: a fault recovered, a run cut and resumed equal to an uncut
+   one to the bit.
 
 Each serve summary holds its token streams' digest ("streams"), and each
 profile the device ms under the decode step's aten ops ("ops_ms":
@@ -215,13 +236,15 @@ compare.
 
 The line before the card line holds {"kernels": [...]}.  A kernel's
 "launches" are those of the path its slice made the main one, named by
-"launches_path": the primitives path for K1-K9, as before, and gemma2's
-serving path for K10, which the primitives path does not run.  Beside them
+"launches_path": the primitives path for K1-K9, as before, gemma2's
+serving path for K10, which the primitives path does not run, and phase
+14's four FULL train steps ("train") for K6's reverse launches (K6-reverse,
+the gradient of linear_recurrence) and K10's gradient (K10-bwd).  Beside them
 stand the launches on every path (primitives, greedy, sampled, gemma2,
 xlstm, gemma3, minitron, moonshot, deepseek, seamless; phase 13's
 speculative, speculative_draft, speculative_sampled, beam, constrained,
 quantized_int8 and quantized_fp8_e4m3; the bucketed runs
-bucketed_greedy, bucketed_gemma2 and bucketed_xlstm) and their sum,
+bucketed_greedy, bucketed_gemma2 and bucketed_xlstm; train) and their sum,
 "launches_total"; K10's
 row its time, bound and SDPA time at each served model's prefill layers
 ("shapes"); K6's and K6-long's rows add their
@@ -278,6 +301,11 @@ from repro_torch.models import moe as moe_m  # noqa: E402
 from repro_torch.serving import sampling as SP  # noqa: E402
 from repro_torch.serving import strategies as ST  # noqa: E402
 from repro_torch.serving.engine import Engine, Request  # noqa: E402
+from repro_torch.training import optimizer as OPT  # noqa: E402
+from repro_torch.training import train_step as TS  # noqa: E402
+from repro_torch.training.data import (  # noqa: E402
+    DataConfig, SyntheticDataset)
+from repro_torch.training.trainer import RunConfig, Trainer  # noqa: E402
 from repro_torch.serving.strategies.ref import (  # noqa: E402
     reference_beam, reference_constrained)
 
@@ -317,6 +345,10 @@ COUNTERS = {
     "K9-batched-vecmat": (batched_k.batched_vecmat_quantized_cuda,
                           "launches"),
     "K10": (flash_k.flash_attention_gqa, "launches"),
+    # Training (phase 14): K6's reverse launches (linear_recurrence's
+    # gradient), counted again among K6's, and K10's gradient.
+    "K6-reverse": (scan_k.scan_channel_cuda, "reverse_launches"),
+    "K10-bwd": (flash_k.flash_attention_bwd, "launches"),
 }
 GREEDY_PATH = ("K2", "K6", "K3", "K7m", "K10")
 # K4's vecmat shares matvec's source but nothing on the serving path calls
@@ -360,10 +392,14 @@ SPEC_PATH = ("K2", "K3", "K7m", "K7s", "K10")
 # score is an argmax, not a masked sum).
 BEAM_PATH = ("K2", "K3", "K4-matvec", "K6-long", "K7s", "K10")
 GEMMA2_PARAMS = 27_227_128_320
+# The counters only training moves.
+TRAIN_ONLY = ("K6-reverse", "K10-bwd")
 # The library's own path runs every kernel but the models' attention.
-PRIMITIVES_PATH = tuple(k for k in COUNTERS if k != "K10")
+PRIMITIVES_PATH = tuple(k for k in COUNTERS
+                        if k != "K10" and k not in TRAIN_ONLY)
 # The path whose launches a kernel's "launches" report: its slice's main one.
-MAIN_PATH = {k: "primitives" if k in PRIMITIVES_PATH else "gemma2"
+MAIN_PATH = {k: "train" if k in TRAIN_ONLY else
+             "primitives" if k in PRIMITIVES_PATH else "gemma2"
              for k in COUNTERS}
 META = {
     "K1": ("copy", "src/repro_torch/csrc/copy.cuh",
@@ -404,6 +440,12 @@ META = {
                           "src/repro/kernels/batched.py:274"),
     "K10": ("flash_attention", "src/repro_torch/csrc/flash_attention.cuh",
             "src/repro/kernels/flash_attention.py:83"),
+    "K6-reverse": ("scan_channel reverse (linear_recurrence's gradient)",
+                   "src/repro_torch/csrc/scan.cuh",
+                   "src/repro/kernels/scan.py:227"),
+    "K10-bwd": ("flash_attention_bwd (K10's gradient)",
+                "src/repro_torch/csrc/flash_attention_bwd.cuh",
+                "src/repro/kernels/flash_attention.py:83"),
 }
 
 
@@ -608,6 +650,9 @@ def path_units() -> list:
     mapped("qmatvec", D4, alg.MAT2_MUL, f32, f32, quant="int8")
     for dtype, hd, dv in K10_UNITS:
         units.append(flash_k.flash_unit(dtype, hd, "build", dv))
+    for dtype, hd, dv in K10B_UNITS:
+        units.append(flash_k.flash_unit(dtype, hd, "build", dv))
+        units.append(flash_k.flash_bwd_unit(dtype, hd, "build", dv))
     return units
 
 
@@ -4478,6 +4523,472 @@ def check_predicate(state) -> None:
            f"memsets a call, all K3's")
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: training -- K10's and K6's gradients, recurrentgemma-2b FULL
+# train steps on the cuda backend, the trainer at smoke size
+# ---------------------------------------------------------------------------
+
+# K10's gradient cases (K10Case fields): the four timed layers -- the
+# trained model's (recurrentgemma-2b at S = 4,096 > its window), gemma2's
+# global layer (soft cap), deepseek-v3's MLA (v narrower than q/k) and
+# seamless's cross attention (64 queries over 2,100 keys, not causal) --
+# then the edges of the gradient's tiles (64 query rows, 32 keys): T = 1;
+# S and T at a tile +-1 with B = 2; rows that keep no key; windows that
+# skip whole tiles; S > T not causal; both forward bodies (bf16's tensor
+# cores, f32's CUDA cores) giving the log-sum-exp.
+K10B_CASES = tuple(K10Case(*c) for c in (
+    ("recurrentgemma-2b local", 1, 4096, 4096, 1, 10, 256, BF16, True, 2048,
+     0.0),
+    ("gemma2-27b global", 1, 2100, 2100, 16, 2, 128, BF16, True, 0, 50.0),
+    ("deepseek-v3-671b MLA", 1, 2100, 2100, 128, 1, 192, BF16, True, 0, 0.0,
+     128),
+    ("seamless-m4t-medium cross", 1, 64, 2100, 16, 1, 64, BF16, False, 0,
+     0.0),
+    ("T = 1", 2, 1, 1, 16, 2, 128, BF16, True, 0, 50.0),
+    ("S, T at a tile -1, +1", 2, 63, 33, 2, 2, 128, BF16, True, 0, 50.0),
+    ("S, T at a tile +1, -1", 2, 65, 31, 1, 10, 256, BF16, False, 0, 0.0),
+    ("bf16, rows that keep no key", 1, 100, 20, 2, 2, 16, BF16, True, 8,
+     0.0),
+    ("bf16, window skips tiles", 1, 400, 400, 16, 2, 128, BF16, True, 100,
+     50.0),
+    ("f32, rows that keep no key", 1, 100, 20, 2, 2, 16, F32, True, 8, 0.0),
+    ("f32, window skips tiles, soft cap", 1, 400, 400, 2, 3, 64, F32, True,
+     100, 30.0),
+    ("f32, S > T, not causal", 1, 100, 37, 1, 3, 256, F32, False, 0, 0.0),
+    ("f32, value head 128 of 192 (MLA)", 1, 100, 100, 4, 1, 192, F32, True,
+     0, 0.0, 128),
+))
+K10B_TIMED = tuple(c.label for c in K10B_CASES[:4])
+K10B_UNITS = sorted({(c.dtype, c.hd, c.dv or c.hd) for c in K10B_CASES}
+                    | {(F32, 256, 256)}, key=str)
+# K6's gradient: the RG-LRU's width at S = 4,096 with and without h0, B = 3,
+# and T at K6's chunk of 64 +-1.
+K6G_CASES = ((1, 4096, 2560, False), (1, 4096, 2560, True),
+             (3, 4096, 2560, True), (3, 63, 2560, True), (3, 65, 2560, False))
+TRAIN_SEQ = 4096
+TRAIN_STEPS = 4
+# The first step's cuda-vs-torch check runs one unit (rglru, rglru,
+# attn_local) at full width: the torch route's blockwise attention and
+# log-step scan at S = 4,096 through all 26 layers would cost minutes.
+TRAIN_CUT = dict(n_layers=3, n_units=1, suffix=())
+# Leaves whose gradients the check holds, by path in the parameter tree.
+TRAIN_LEAVES = {
+    "embed.embedding": ("embed", "embedding"),
+    "units.0.0.mixer.gate_a": ("decoder", "units", 0, 0, "mixer", "gate_a"),
+    "units.0.2.attn.wq": ("decoder", "units", 0, 2, "attn", "wq"),
+}
+
+
+def k10b_bound(B, S, T, K, G, hd, dtype, causal, window, dv=None):
+    """q, k, v, out, dout read once (lse and D aside), dq, dk, dv written
+    once; per kept pair the four products (q . k and dout . v over hd and
+    dv, dS K and dS^T q over hd, P^T dout over dv): 2 (3 hd + 2 dv)
+    operations, at the dtype's peak."""
+    dv = dv or hd
+    size = torch.empty((), dtype=dtype).element_size()
+    rows, keys = B * S * K * G, B * T * K
+    nbytes = size * (rows * (2 * hd + 2 * dv) + keys * 2 * (hd + dv))
+    ops = 2 * (3 * hd + 2 * dv) * B * K * G * attention_pairs(S, T, causal,
+                                                               window)
+    return bound_ms(nbytes, ops, BF16_OPS_PER_S if dtype == BF16
+                    else F32_OPS_PER_S)
+
+
+def sdpa_fwd_bwd(q, k, v, dout, causal, window):
+    """SDPA's forward and backward with the case's mask (a speed baseline
+    only: no soft cap), in SDPA's (B, heads, length, d) layout."""
+    B, S, K, G, hd = q.shape
+    T = k.shape[1]
+    qs = q.reshape(B, S, K * G, hd).transpose(1, 2).detach().requires_grad_()
+    ks = k.transpose(1, 2).detach().requires_grad_()
+    vs = v.transpose(1, 2).detach().requires_grad_()
+    dos = dout.reshape(B, S, K * G, -1).transpose(1, 2)
+    kw = {"enable_gqa": True}
+    if window:
+        qpos = torch.arange(S, device=q.device)[:, None]
+        kpos = torch.arange(T, device=q.device)[None, :]
+        kw["attn_mask"] = ((qpos - kpos) < window) & (
+            (qpos >= kpos) if causal else True)
+    else:
+        kw["is_causal"] = causal
+
+    def run():
+        out = F.scaled_dot_product_attention(qs, ks, vs, **kw)
+        torch.autograd.grad(out, (qs, ks, vs), dos)
+
+    return run, sdpa_backend(qs, ks, vs, **{x: y for x, y in kw.items()
+                                            if x != "enable_gqa"})
+
+
+def check_k10_bwd(res) -> None:
+    """K10's forward log-sum-exp against its plain version's, and its
+    gradient against ``flash_attention_bwd_ref`` on the same inputs (q, k,
+    v, the kernel's out and lse, dout).  The log-sum-exp of every row that
+    keeps a key within 1e-4 (1 + |lse|) (scores summed in another order,
+    ex2.approx in the tensor-core body).  Each of dq, dk, dv within tol x
+    its largest entry (at T = 1, where dq and dk vanish, of dv's): bf16
+    2^-7 -- each output rounds to bf16 (2^-9 of itself at most) and a P
+    that crosses a bf16 rounding boundary moves one term of dv by 2^-8 of
+    it; float32 1e-5, the sums in another order.
+    A mask that keeps or drops a wrong key moves a row's gradient by the
+    size of its terms, far beyond either."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    r = res["K10-bwd"]
+    for case in K10B_CASES:
+        label, B, S, T, K, G, hd, dtype, causal, window, cap, dv = case
+        dv = dv or hd
+        H = K * G
+
+        def rn(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+        q, k, v = rn(B, S, K, G, hd), rn(B, T, K, hd), rn(B, T, K, dv)
+        dout = rn(B, S, H, dv)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        q4 = q.reshape(B, S, H, hd)
+        before = flash_k.flash_attention_gqa.launches
+        out, lse = flash_k.flash_attention_lse(q4, k, v, **kw)
+        launched_fwd = flash_k.flash_attention_gqa.launches - before
+        _, lse_ref = ref.flash_attention_gqa_ref(
+            q, k, v, kv_block=flash_k.KV_BLOCK, return_lse=True, **kw)
+        kept = lse_ref > -1e29
+        lse_err = float(((lse - lse_ref).abs() / (1 + lse_ref.abs()))[kept]
+                        .max()) if kept.any() else 0.0
+        before = flash_k.flash_attention_bwd.launches
+        got = flash_k.flash_attention_bwd(q4, k, v, out, lse, dout, **kw)
+        torch.cuda.synchronize()
+        launched = flash_k.flash_attention_bwd.launches - before
+        want = ref.flash_attention_bwd_ref(
+            q4, k, v, out, lse, dout, empty_l=ref.flash_empty_l(
+                T, flash_k.KV_BLOCK), **kw)
+        tol = 2 ** -7 if dtype == BF16 else 1e-5
+        errs = {n: max_err(g, w) / max(float(w.float().abs().max()), 1e-30)
+                for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+        if T == 1:
+            # One key a row: P = 1 and dS = dP - D = 0 exactly, so dq and
+            # dk are the float32 rounding of two equal sums; held against
+            # dv's scale instead of their own (about 0).
+            scale = float(want[2].float().abs().max())
+            errs.update({n: max_err(g, w) / scale for n, g, w in
+                         zip(("dq", "dk"), got[:2], want[:2])})
+        r["max_abs_err"] = max(r["max_abs_err"], max_err(got, want))
+        expect(launched == launched_fwd == 1 and lse_err <= 1e-4 and all(
+            bool(torch.isfinite(g).all()) for g in got) and max(
+                errs.values()) <= tol and tuple(got[2].shape) == (B, T, K, dv),
+            f"K10-bwd {label} ({B}, {S}/{T}, {H}/{K} heads, {hd}/{dv}) "
+            f"{str(dtype)[6:]} causal={causal} window={window} softcap={cap}:"
+            f" lse err {lse_err:.3g} <= 1e-4 (1 + |lse|); max err / max "
+            f"|grad| " + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
+            + f" <= {tol:.3g}; one launch each way")
+        del want
+        if label in K10B_TIMED:
+            sdpa, backend = sdpa_fwd_bwd(q, k, v, dout, causal, window)
+            timing = {
+                "ms": time_ms(lambda: flash_k.flash_attention_bwd(
+                    q4, k, v, out, lse, dout, **kw), 5),
+                "plain_ms": time_ms(lambda: ref.flash_attention_bwd_ref(
+                    q4, k, v, out, lse, dout, **kw), 1),
+                "library_ms": time_ms(sdpa, 5),
+                "library_backend": backend,
+                "forward_ms": time_ms(lambda: flash_k.flash_attention_lse(
+                    q4, k, v, **kw), 5)}
+            bound = k10b_bound(B, S, T, K, G, hd, dtype, causal, window, dv)
+            what = (f"({B}, {S}/{T}, {H}/{K} heads, {hd}"
+                    + (f"/{dv}" if dv != hd else "") + f") "
+                    f"{str(dtype)[6:]} {label}"
+                    + (f" window {window}" if window else "")
+                    + (f" softcap {cap:g}" if cap else ""))
+            if not r.get("shape"):
+                r.update(timing, bound=bound, shape=what)
+            r.setdefault("shapes", {})[label] = dict(
+                timing, bound_ms=bound[0], bound_by=bound[1])
+            log(f"[K10-bwd] {what}: {timing['ms']:.3f} ms (forward with lse "
+                f"{timing['forward_ms']:.3f}), bound {bound[0]:.4f} ms "
+                f"({bound[1]}), plain {timing['plain_ms']:.1f} ms, SDPA "
+                f"forward+backward {timing['library_ms']:.3f} ms ({backend})")
+        del q, k, v, q4, out, lse, dout, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def linrec_walk(a, b, h0):
+    """The serial walk over T, h_t = a_t h_{t-1} + b_t, written without
+    in-place writes so that autograd differentiates it (the plain
+    version's recurrence; ``scan_channel_plain`` writes each step into its
+    output in place, whose backward copies the whole output each step)."""
+    h = h0 if h0 is not None else torch.zeros_like(a[:, 0])
+    hs = []
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1)
+
+
+def check_k6_grad(res) -> None:
+    """``linear_recurrence``'s gradient on the cuda route (K6 forward, one
+    reverse K6 launch back) against autograd through the float64 serial
+    walk: da, db and dh0 within 1e-5 of each one's largest entry (K6 sums
+    in runs and a carry, as in check_k6; the float32 walk's own error
+    beside it)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    k6 = scan_k.scan_channel_cuda
+    r = res["K6-reverse"]
+    for B, T, C, with_h0 in K6G_CASES:
+        a = torch.empty(B, T, C, device="cuda").uniform_(0.9, 0.999,
+                                                         generator=gen)
+        b = torch.randn(B, T, C, generator=gen, device="cuda")
+        h0 = torch.randn(B, C, generator=gen, device="cuda") \
+            if with_h0 else None
+        dh = torch.randn(B, T, C, generator=gen, device="cuda")
+        ins = [x.clone().requires_grad_() for x in (a, b, h0)
+               if x is not None]
+        rev = k6.reverse_launches
+        h = forge.linear_recurrence(*ins[:2], *ins[2:], layout=Batched())
+        got = torch.autograd.grad(h, ins, dh, retain_graph=True)
+        torch.cuda.synchronize()
+        launched = k6.reverse_launches - rev
+        ins64 = [x.detach().double().requires_grad_() for x in ins]
+        want = torch.autograd.grad(linrec_walk(*ins64[:2], *(
+            ins64[2:] or [None])), ins64, dh.double())
+        ins32 = [x.detach().requires_grad_() for x in ins]
+        walk32 = torch.autograd.grad(linrec_walk(*ins32[:2], *(
+            ins32[2:] or [None])), ins32, dh)
+        errs = [max_err(g, w) / float(w.abs().max()) for g, w in
+                zip(got, want)]
+        plain = [max_err(g, w) / float(w.abs().max()) for g, w in
+                 zip(walk32, want)]
+        r["max_abs_err"] = max(r["max_abs_err"], max_err(got, want))
+        expect(launched == 1 and max(errs) <= 1e-5,
+               f"K6 gradient ({B}, {T}, {C}) h0={with_h0}: max err / max "
+               f"|grad| {max(errs):.3g} <= 1e-5 against the float64 walk "
+               f"(the float32 walk's {max(plain):.3g}); one reverse launch")
+        if (B, T, C, with_h0) == K6G_CASES[0]:
+            elems = B * T * C
+            r.update(
+                ms=time_ms(lambda: torch.autograd.grad(
+                    h, ins, dh, retain_graph=True), 20),
+                plain_ms=time_ms(lambda: torch.autograd.grad(
+                    linrec_walk(*ins32[:2], None), ins32[:2], dh), 1),
+                library_ms=None,   # no PyTorch call runs the adjoint scan
+                # a, h, dh read; da, db written (the h0 leg aside).
+                bound=bound_ms(5 * 4 * elems, 4 * elems),
+                shape=f"({B}, {T}, {C}) f32 AFFINE, the gradient of "
+                      f"linear_recurrence (reverse K6 + shift and products)")
+            log(f"[K6-reverse] {r['shape']}: {r['ms']:.4f} ms, bound "
+                f"{r['bound'][0]:.4f} ms, plain {r['plain_ms']:.1f} ms")
+        del a, b, h0, dh, ins, h, got, want, ins64, ins32, walk32
+
+
+def train_cfg(grad_dtype="bfloat16"):
+    """AdamW (the reference's defaults but a one-step warmup, so that the
+    four steps move the weights), full remat."""
+    return TS.TrainConfig(optimizer=OPT.OptimizerConfig(warmup_steps=1),
+                          remat="full", grad_dtype=grad_dtype)
+
+
+def leaf(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def first_step_check(batch) -> dict:
+    """The first step's loss, grad norm and the named leaves' gradients
+    (TRAIN_LEAVES) on the cuda and torch routes, at one unit of full width
+    (TRAIN_CUT), the same f32 weights from SEED and batch, held as
+    hold_floor holds logits: both routes in float32 activations and
+    gradients compute the same function (within 1e-3 of max|g| of the
+    torch route's; the departures are K10 scaling the float32 product, not
+    q before it, and sums in another order), and in bf16 each route is a
+    rounding of that function, so the two lie within twice the torch
+    route's own distance from it.  The loss and grad norm in bf16 within
+    1e-2 relative: the loss averages 4,096 tokens' float32 cross entropy
+    of bf16 logits (2^-8 a rounding), the norm sums 2.7 billion squares."""
+    cfg = dataclasses.replace(get_config("recurrentgemma-2b"), **TRAIN_CUT)
+    out = {"depth": cfg.n_layers}
+    params = lm.init_params(cfg, seed=SEED, device="cuda")
+    runs = {}
+    for gd in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, dtype=gd)
+        for route in ("cuda", "torch"):
+            with ki.use_backend(route):
+                metrics, grads, spec = TS.value_and_grad(
+                    c, train_cfg(gd), params, batch)
+            tree = torch.utils._pytree.tree_unflatten(grads, spec)
+            runs[gd, route] = {
+                "loss": float(metrics["loss"]),
+                "grad_norm": float(OPT.global_norm(grads)),
+                **{n: leaf(tree, p).float().clone()
+                   for n, p in TRAIN_LEAVES.items()}}
+            del metrics, grads, tree
+            torch.cuda.empty_cache()
+    for n in ("loss", "grad_norm"):
+        c32, t32 = runs["float32", "cuda"][n], runs["float32", "torch"][n]
+        c, t = runs["bfloat16", "cuda"][n], runs["bfloat16", "torch"][n]
+        out[n] = {"f32_cuda": c32, "f32_torch": t32, "cuda": c, "torch": t}
+        expect(abs(c32 - t32) <= 1e-4 * abs(t32),
+               f"[train] first step {n} in float32: cuda {c32:.6g} vs torch "
+               f"{t32:.6g} within 1e-4 relative")
+        expect(abs(c - t) <= 1e-2 * abs(t),
+               f"[train] first step {n} in bf16: cuda {c:.6g} vs torch "
+               f"{t:.6g} within 1e-2 relative")
+    for n in TRAIN_LEAVES:
+        f = runs["float32", "torch"][n]
+        c32, c, t = (runs[k][n] for k in (("float32", "cuda"),
+                                          ("bfloat16", "cuda"),
+                                          ("bfloat16", "torch")))
+        held = {"max_f32": float(f.abs().max()),
+                "f32_cuda_vs_torch": float((c32 - f).abs().max()),
+                "cuda_vs_f32": float((c - f).abs().max()),
+                "torch_vs_f32": float((t - f).abs().max()),
+                "cuda_vs_torch": float((c - t).abs().max())}
+        expect(held["f32_cuda_vs_torch"] <= 1e-3 * held["max_f32"],
+               f"[train] first step, gradient of {n} in float32: cuda vs "
+               f"torch max abs err {held['f32_cuda_vs_torch']:.4g} <= 1e-3 x "
+               f"its largest entry {held['max_f32']:.4g}")
+        expect(held["cuda_vs_torch"] <= 2 * held["torch_vs_f32"],
+               f"[train] first step, gradient of {n} in bf16: cuda vs torch "
+               f"max abs err {held['cuda_vs_torch']:.4g} <= 2 x the torch "
+               f"route's own error against float32, "
+               f"{held['torch_vs_f32']:.4g} (the cuda route's "
+               f"{held['cuda_vs_f32']:.4g})")
+        out[n] = held
+    del params, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_full(batches) -> dict:
+    """recurrentgemma-2b FULL (26 layers) from f32 master weights of SEED:
+    TRAIN_STEPS AdamW steps, bf16 activations and gradients, full remat,
+    the cuda backend.  Each step's loss and grad norm finite; its wall ms,
+    tokens/s, peak memory and launches; one step profiled (device ms and
+    idle share).  Per step K6 runs 34 times (18 RG-LRU layers, the 16 of
+    the 8 units again under remat), its reverse launch 18, K10 16 (8 local
+    layers, twice) and its gradient 8."""
+    cfg = get_config("recurrentgemma-2b")
+    tc = train_cfg()
+    torch.cuda.reset_peak_memory_stats()
+    state = TS.init_state(cfg, tc, device="cuda")
+    n_params = lm.count_params(state["params"])
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    log(f"[train] {cfg.name}: {cfg.n_layers} layers, {n_params} f32 "
+        f"parameters, state {state_gb:.2f} GB (params, mu, nu)")
+    step_fn = TS.make_train_step(cfg, None, tc)
+    steps, launches = [], {}
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        if i == 2:
+            box = {}
+            prof = device_busy(lambda: box.update(
+                out=step_fn(state, batches[i])))
+            state, metrics = box["out"]
+        else:
+            state, metrics = step_fn(state, batches[i])
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = read_counts()
+        launches = {k: launches.get(k, 0) + v for k, v in c.items()}
+        row = {"step": i, "loss": loss, "grad_norm": gnorm,
+               "lr": float(metrics["lr"]), "wall_ms": wall * 1e3,
+               "tokens_per_s": TRAIN_SEQ / wall,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches": {"K6": c["K6"] - c["K6-reverse"],
+                            "K6-reverse": c["K6-reverse"], "K10": c["K10"],
+                            "K10-bwd": c["K10-bwd"]}}
+        if i == 2:
+            row["profile"] = prof
+        steps.append(row)
+        log(f"[train] step {i}: " + json.dumps(row))
+        expect(math.isfinite(loss) and math.isfinite(gnorm),
+               f"[train] step {i}: loss {loss:.5f} and grad norm {gnorm:.4f} "
+               f"finite")
+        for k, n in row["launches"].items():
+            expect(n > 0, f"[train] step {i}: {k} launched {n} times")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"model": cfg.name, "layers": cfg.n_layers, "params": n_params,
+            "state_gb": state_gb, "seq_len": TRAIN_SEQ, "steps": steps,
+            "peak_gb": max(s["peak_gb"] for s in steps),
+            "launches": launches}
+
+
+def train_smoke_trainer() -> dict:
+    """The Trainer at recurrentgemma-2b SMOKE size on the card, in a
+    temporary directory: a fault injected at step 6 is recovered from the
+    newest checkpoint; a run cut at step 6 and resumed to 10 ends in the
+    state of an uncut 10-step run, to the bit."""
+    import tempfile
+    cfg = get_config("recurrentgemma-2b", smoke=True)
+    tc = TS.TrainConfig(optimizer=OPT.OptimizerConfig(
+        peak_lr=1e-2, warmup_steps=5, decay_steps=100), remat="full")
+    data = SyntheticDataset(DataConfig(seq_len=64, global_batch=4,
+                                       vocab_size=cfg.vocab_size), cfg)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        boom = {"armed": True}
+
+        def fault(step):
+            if step == 6 and boom["armed"]:
+                boom["armed"] = False
+                raise RuntimeError("injected fault")
+
+        run = RunConfig(total_steps=12, ckpt_dir=os.path.join(tmp, "fault"),
+                        ckpt_every=4, log_every=100)
+        t = Trainer(cfg, None, tc, run, data, fault_hook=fault)
+        state = t.run()
+        out["recoveries"] = t.recoveries
+        expect(t.recoveries == 1 and int(state["step"]) == 12,
+               f"[trainer] smoke: the fault at step 6 recovered "
+               f"({t.recoveries} recovery), ended at step "
+               f"{int(state['step'])}")
+        run = RunConfig(total_steps=6, ckpt_dir=os.path.join(tmp, "cut"),
+                        ckpt_every=3, log_every=100)
+        Trainer(cfg, None, tc, run, data).run()
+        run.total_steps = 10
+        resumed = Trainer(cfg, None, tc, run, data).run()
+        run = RunConfig(total_steps=10, ckpt_dir=os.path.join(tmp, "uncut"),
+                        ckpt_every=3, log_every=100)
+        uncut = Trainer(cfg, None, tc, run, data).run()
+        la = torch.utils._pytree.tree_leaves(resumed)
+        lb = torch.utils._pytree.tree_leaves(uncut)
+        differ = sum(not torch.equal(x, y) for x, y in zip(la, lb))
+        out["resume_leaves_differing"] = differ
+        expect(len(la) == len(lb) and differ == 0,
+               f"[trainer] smoke: cut at 6 and resumed to 10 equals the "
+               f"uncut run to the bit ({differ} of {len(la)} leaves differ)")
+    return out
+
+
+def phase_train(res) -> dict:
+    """Phase 14, after the serve phases have freed their models."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_k10_bwd(res)
+    check_k6_grad(res)
+    cfg = get_config("recurrentgemma-2b")
+    data = SyntheticDataset(DataConfig(seq_len=TRAIN_SEQ, global_batch=1,
+                                       vocab_size=cfg.vocab_size), cfg)
+    batches = [data.batch(i) for i in range(TRAIN_STEPS)]
+    summary = {"first_step": first_step_check(batches[0])}
+    log("[train] first step " + json.dumps(summary["first_step"]))
+    summary.update(train_full(batches))
+    expect(summary["peak_gb"] < 80,
+           f"[train] peak {summary['peak_gb']:.2f} GB under 80")
+    summary["trainer"] = train_smoke_trainer()
+    summary["phase_s"] = time.perf_counter() - t0
+    log(f"[train] phase 14 took {summary['phase_s']:.1f} s; " + json.dumps(
+        {k: v for k, v in summary.items() if k not in ("steps", "launches")}))
+    return summary
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4510,6 +5021,7 @@ def main() -> int:
         models = {tag: phase_model(name, tag, n) for name, tag, n in MODELS}
         models["deepseek"] = phase_deepseek()
         models["seamless"] = phase_seamless(gen)
+        train = phase_train(res)
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1
@@ -4525,7 +5037,8 @@ def main() -> int:
     for k, r in res.items():
         name, source, replaces = META[k]
         paths = {"primitives": prims, "greedy": serve, "sampled": sampled,
-                 "gemma2": gemma2, "xlstm": xlstm, **models, **slice16}
+                 "gemma2": gemma2, "xlstm": xlstm, **models, **slice16,
+                 "train": train}
         kernels.append({
             "name": f"{k} {name}", "route": "cuda", "source": source,
             "replaces": replaces,
@@ -4538,7 +5051,7 @@ def main() -> int:
             "launches_gemma2": gemma2["launches"][k],
             "launches_xlstm": xlstm["launches"][k],
             **{f"launches_{tag}": m["launches"][k]
-               for tag, m in {**models, **slice16}.items()},
+               for tag, m in {**models, **slice16, "train": train}.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],

@@ -20,6 +20,15 @@ of JAX.  It
 
 The same JAX parameters then give both packages the same function.
 ``quantized_from_jax`` does the same for a quantized matrix operand.
+
+``state_from_jax(state, cfg, device)`` carries the reference's train state
+(``repro.training.train_step.init_state``: float32 ``params``, the
+optimizer's ``opt`` -- AdamW's ``mu`` and ``nu``, or Adafactor's ``v``
+tree -- and ``step``) into the port's layout: params and AdamW's moments
+unstacked as ``params_from_jax`` does, every leaf float32; Adafactor's
+moments stay in the reference's layout, its units stacked, because they
+are moments of the stacked leaves (``training/optimizer.py``).
+``state_to_jax`` is its inverse, numpy leaves in the reference's layout.
 """
 from __future__ import annotations
 
@@ -50,19 +59,75 @@ def _convert(node, path, device, dtype):
                 dtype=torch.float32 if keeps_f32(path) else dtype)
 
 
-def params_from_jax(tree, cfg, device, dtype=torch.float32):
-    """The port's parameter tree from the reference's (numpy leaves)."""
-    out = _convert(tree, (), device, dtype)
+def _stacks(cfg) -> dict:
+    """The stacks whose ``units`` the reference stacks, and their count."""
     stacks = {"decoder": cfg.n_units}
     if cfg.is_encdec:
         stacks["encoder"] = cfg.n_enc_layers
-    for name, n_units in stacks.items():
+    return stacks
+
+
+def params_from_jax(tree, cfg, device, dtype=torch.float32):
+    """The port's parameter tree from the reference's (numpy leaves)."""
+    out = _convert(tree, (), device, dtype)
+    for name, n_units in _stacks(cfg).items():
         stack = dict(out[name])
         units = stack["units"]
         stack["units"] = [tuple(_index(blk, u) for blk in units)
                           for u in range(n_units)]
         out[name] = stack
     return out
+
+
+def _host(node):
+    if isinstance(node, dict):
+        return {k: _host(v) for k, v in node.items()}
+    if isinstance(node, (tuple, list)):
+        return tuple(_host(v) for v in node)
+    return node.detach().cpu().numpy()
+
+
+def params_to_jax(tree, cfg) -> dict:
+    """The reference's layout of a port tree (parameters, or an optimizer
+    moment that mirrors them), numpy leaves, ``units`` stacked on a leading
+    axis again."""
+    out = _host(tree)
+    for name in _stacks(cfg):
+        stack = dict(out[name])
+        units = stack["units"]
+        stack["units"] = tuple(
+            _stack([unit[j] for unit in units]) for j in range(len(units[0]))
+        ) if units else ()
+        out[name] = stack
+    return out
+
+
+def _stack(nodes):
+    if isinstance(nodes[0], dict):
+        return {k: _stack([n[k] for n in nodes]) for k in nodes[0]}
+    return np.stack(nodes)
+
+
+def state_from_jax(state, cfg, device) -> dict:
+    """The port's train state from the reference's (numpy leaves): float32
+    params and optimizer moments in the port's layout, ``step`` an int32
+    0-d tensor."""
+    opt = {name: _convert(tree, (), device, torch.float32) if name == "v"
+           else params_from_jax(tree, cfg, device)
+           for name, tree in state["opt"].items()}
+    return {"params": params_from_jax(state["params"], cfg, device),
+            "opt": opt,
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=device)}
+
+
+def state_to_jax(state, cfg) -> dict:
+    """The reference's layout of a port train state, numpy leaves."""
+    return {"params": params_to_jax(state["params"], cfg),
+            "opt": {name: _host(tree) if name == "v"
+                    else params_to_jax(tree, cfg)
+                    for name, tree in state["opt"].items()},
+            "step": np.asarray(state["step"].cpu().numpy(), np.int32)}
 
 
 def _index(node, i):

@@ -111,6 +111,14 @@ def _leaves(data) -> list:
         pytree.tree_leaves(data)
 
 
+def scoped_backend() -> str | None:
+    """The innermost use_backend() scope of this thread, or None.  The
+    autograd engine runs a CUDA backward on threads of its own, which see
+    no scope: code that computes again in the backward (``lm._remat``)
+    pins the forward's with this."""
+    return _BACKEND_SCOPE.stack[-1] if _BACKEND_SCOPE.stack else None
+
+
 def current_backend(data=None) -> str:
     """The backend dispatch uses when no explicit ``backend=`` is passed:
     the innermost use_backend() scope, else ``cuda`` when ``data``'s leaves
@@ -340,6 +348,8 @@ def dispatch(primitive: str, layout, backend: str | None,
                                                           leaves)
         if handled:
             return result
+    backend = backend or _backend_of(leaves)
+    _check_grad(route, backend, args)
     if route.noncomm_route is not None and not getattr(
             args[route.op_arg], "commutative", False):
         # Order-preserving reroute: scan the mapped values with the same
@@ -350,8 +360,38 @@ def dispatch(primitive: str, layout, backend: str | None,
         incl = resolve_impl(route.noncomm_route, backend, vals)(
             op, vals, inclusive=True)
         return pytree.tree_map(lambda l: l[:, -1], incl)
-    impl = resolve_impl(route.key, backend or _backend_of(leaves))
+    impl = resolve_impl(route.key, backend)
     return impl(*args, **kwargs)
+
+
+# The routes whose cuda implementation carries its gradient (an
+# ``autograd.Function``: kernels/ops.py's ``LinearRecurrence``).
+GRAD_ROUTES = frozenset({"linear_recurrence@flat",
+                         "linear_recurrence@batched"})
+
+
+def _requires_grad(arg) -> bool:
+    if isinstance(arg, torch.Tensor):
+        return arg.requires_grad
+    if type(arg) in pytree.SUPPORTED_NODES:
+        return any(isinstance(t, torch.Tensor) and t.requires_grad
+                   for t in pytree.tree_leaves(arg))
+    return False
+
+
+def _check_grad(route: RouteDef, backend: str, args: tuple) -> None:
+    """A cuda route launches through ctypes, so its output has no
+    ``grad_fn``: with grad mode on and an input that requires grad it would
+    silently cut the graph.  Such a call raises, naming the route, unless
+    the route carries its gradient (``GRAD_ROUTES``)."""
+    if backend != "cuda" or route.key in GRAD_ROUTES or \
+            not torch.is_grad_enabled():
+        return
+    if any(_requires_grad(a) for a in args):
+        raise RuntimeError(
+            f"{route.key} (cuda): the kernel has no gradient, and an input "
+            f"requires one; call it under torch.no_grad(), or on the torch "
+            f"backend (use_backend('torch')) to differentiate through it")
 
 
 # -- the table itself -------------------------------------------------------

@@ -15,7 +15,10 @@
 // qpos >= kpos and window qpos - kpos < window, positions from 0 for q and
 // k alike; a dropped score is -1e30; the running maximum moves once per kv
 // tile of BK = 64 keys; l sums the float32 p; p rounds to the element type
-// before the float32 p . v product; out = acc / max(l, 1e-30).
+// before the float32 p . v product; out = acc / max(l, 1e-30).  Given a
+// non-null lse (training: flash_attention_bwd.cuh reads it), each row's
+// log-sum-exp m + log l of its scores, natural log, goes to lse (B, S, H)
+// float32; serving passes null and writes nothing more.
 //
 // Bound on this card: operations.  At gemma2-27b's prefill (32 query heads,
 // 16 kv heads, head_dim 128, T = 2,100) one layer is 36.1 GFLOP against
@@ -156,9 +159,9 @@ struct Smem {
 template <int HD, int DV>
 __global__ void __launch_bounds__(WARPS * 32)
 attend(const float* __restrict__ q, const float* __restrict__ k,
-       const float* __restrict__ v, float* __restrict__ out, int S,
-       int T_len, int H, int KH, int nqt, int causal, int window,
-       float softcap, float scale, float empty_l) {
+       const float* __restrict__ v, float* __restrict__ out,
+       float* __restrict__ lse, int S, int T_len, int H, int KH, int nqt,
+       int causal, int window, float softcap, float scale, float empty_l) {
   using SM = Smem<HD, DV>;
   constexpr int KROW = SM::KROW, VROW = SM::VROW;
   constexpr int DI = (DV + 31) / 32;     // value dimensions per lane
@@ -299,6 +302,8 @@ attend(const float* __restrict__ q, const float* __restrict__ k,
     const int qp = qrow0 + r;
     if (qp >= S) continue;
     const float lr = m[r] == NEG_INF ? empty_l : fmaxf(l[r], 1e-30f);
+    if (lse != nullptr && lane == 0)
+      lse[(static_cast<long>(b) * S + qp) * H + h] = m[r] + logf(l[r]);
 #pragma unroll
     for (int i = 0; i < DI; ++i) {
       const int d = lane + 32 * i;
@@ -316,9 +321,10 @@ struct CudaCores {
   static constexpr int BQ = cc::BQ;
 
   static cudaError_t run(const void* q, const void* k, const void* v,
-                         void* out, long B, long S, long T_len, long H,
-                         long KH, int causal, long window, float softcap,
-                         float scale, float empty_l, cudaStream_t stream) {
+                         void* out, float* lse, long B, long S, long T_len,
+                         long H, long KH, int causal, long window,
+                         float softcap, float scale, float empty_l,
+                         cudaStream_t stream) {
     const long nqt = (S + BQ - 1) / BQ;
     const long blocks = nqt * B * H;
     if (blocks > INT_MAX) return cudaErrorInvalidValue;
@@ -334,7 +340,7 @@ struct CudaCores {
     cc::attend<HD, DV><<<static_cast<unsigned>(blocks), cc::WARPS * 32, smem,
                          stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out),
+        static_cast<const float*>(v), static_cast<float*>(out), lse,
         static_cast<int>(S), static_cast<int>(T_len), static_cast<int>(H),
         static_cast<int>(KH), static_cast<int>(nqt), causal,
         static_cast<int>(window), softcap, scale, empty_l);
@@ -350,6 +356,7 @@ namespace tc {
 
 constexpr uint32_t ROW_BYTES = 128;      // one swizzled box row: 64 bf16
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // The shared memory a block may use (227 KB), less room for the barriers.
 constexpr size_t SMEM_LIMIT = 232448 - 256;
@@ -618,9 +625,9 @@ template <int HD, int DV, typename W>
 __global__ void __launch_bounds__(Shape<HD, DV>::THREADS, 1)
 attend(const __grid_constant__ CUtensorMap qmap,
        const __grid_constant__ CUtensorMap kmap,
-       const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* out, int S,
-       int T_len, int H, int KH, int nqt, int causal, int window,
-       float softcap, float scale, float empty_l) {
+       const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* out,
+       float* lse, int S, int T_len, int H, int KH, int nqt, int causal,
+       int window, float softcap, float scale, float empty_l) {
   using SH = Shape<HD, DV>;
   constexpr int DVP = SH::DVP, STAGES = SH::STAGES;
   static_assert(W::N == DVP,
@@ -727,6 +734,9 @@ attend(const __grid_constant__ CUtensorMap qmap,
       const float inv =
           1.f / (sm.m[e] == NEG_INF ? empty_l : fmaxf(sum, 1e-30f));
       if (sm.row[e] >= S) continue;
+      if (lse != nullptr && lane % 4 == 0)   // natural log, from log2 units
+        lse[(static_cast<long>(b) * S + sm.row[e]) * H + h] =
+            (sm.m[e] + log2f(sum)) * LN2;
       __nv_bfloat16* orow =
           out + ((static_cast<long>(b) * S + sm.row[e]) * H + h) * DV;
 #pragma unroll
@@ -791,9 +801,10 @@ struct TensorCores {
   static constexpr int BQ = SH::BQ;
 
   static cudaError_t run(const void* q, const void* k, const void* v,
-                         void* out, long B, long S, long T_len, long H,
-                         long KH, int causal, long window, float softcap,
-                         float scale, float empty_l, cudaStream_t stream) {
+                         void* out, float* lse, long B, long S, long T_len,
+                         long H, long KH, int causal, long window,
+                         float softcap, float scale, float empty_l,
+                         cudaStream_t stream) {
     const long nqt = (S + BQ - 1) / BQ;
     const long blocks = nqt * B * H;
     if (blocks > INT_MAX) return cudaErrorInvalidValue;
@@ -813,7 +824,7 @@ struct TensorCores {
     }
     tc::attend<HD, DV, W><<<static_cast<unsigned>(blocks), SH::THREADS, smem,
                             stream>>>(
-        qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out),
+        qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), lse,
         static_cast<int>(S), static_cast<int>(T_len), static_cast<int>(H),
         static_cast<int>(KH), static_cast<int>(nqt), causal,
         static_cast<int>(window), softcap, scale, empty_l);
@@ -824,16 +835,16 @@ struct TensorCores {
 // The checks both bodies share, then the body.
 template <typename Body, int HD, int DV = HD>
 cudaError_t run(const void* q, const void* k, const void* v, void* out,
-                long B, long S, long T_len, long H, long KH, int causal,
-                long window, float softcap, float scale, float empty_l,
-                cudaStream_t stream) {
+                float* lse, long B, long S, long T_len, long H, long KH,
+                int causal, long window, float softcap, float scale,
+                float empty_l, cudaStream_t stream) {
   static_assert(HD % 16 == 0 && HD >= 16 && HD <= 256, "head_dim");
   static_assert(DV % 16 == 0 && DV >= 16 && DV <= HD, "v_head_dim");
   if (B < 1 || S < 1 || T_len < 1 || KH < 1 || H % KH != 0 ||
       S > INT_MAX || T_len > INT_MAX || window < 0 || window > INT_MAX)
     return cudaErrorInvalidValue;
-  return Body::run(q, k, v, out, B, S, T_len, H, KH, causal, window, softcap,
-                   scale, empty_l, stream);
+  return Body::run(q, k, v, out, lse, B, S, T_len, H, KH, causal, window,
+                   softcap, scale, empty_l, stream);
 }
 
 }  // namespace

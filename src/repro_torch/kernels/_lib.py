@@ -3,7 +3,8 @@
 The kernel bodies are templates in ``csrc/*.cuh`` over an element type, a
 functor ``Op`` and, for mapreduce and matvec, a map ``Map``; K10's
 ``flash`` family takes no operator, only an element type, a q/k head dim,
-a value head dim and the body the wrapper runs for that type.
+a value head dim and the body the wrapper runs for that type; its
+gradient's ``flash_bwd`` family the same but the body.
 A kernel wrapper asks for a :class:`Unit`: one translation unit for one
 family of kernels (``FAMILIES``) and one (operator, map, leaf dtypes)
 combination.  The
@@ -184,14 +185,31 @@ int rt_flash_rows() {{ return Body::BQ; }}
 int rt_flash(const void* q, const void* k, const void* v, void* out, long B,
              long S, long T, long H, long KH, long dv, int causal,
              long window, float softcap, float scale, float empty_l,
-             void* stream) {{
+             void* lse, void* stream) {{
   if (dv != DV) return cudaErrorInvalidValue;
-  return rt::flash::run<Body, HD, DV>(q, k, v, out, B, S, T, H, KH, causal,
-                                      window, softcap, scale, empty_l, {_ST});
+  return rt::flash::run<Body, HD, DV>(q, k, v, out, static_cast<float*>(lse),
+                                      B, S, T, H, KH, causal, window, softcap,
+                                      scale, empty_l, {_ST});
 }}""", {
         "rt_flash_rows": (_I, []),
         "rt_flash": (_I, [_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _I, _L, _F,
-                          _F, _F, _P]),
+                          _F, _F, _P, _P]),
+    }),
+    # K10's gradient (flash_attention_bwd.cuh), one unit per (element type,
+    # head_dim, v_head_dim) as the forward's: dq (and D), then dk and dv.
+    "flash_bwd": Family("flash_attention_bwd.cuh", f"""
+int rt_flash_bwd(const void* q, const void* k, const void* v,
+                 const void* out, const void* dout, const void* lse, void* D,
+                 void* dq, void* dk, void* dv, long B, long S, long T, long H,
+                 long KH, long dv_dim, int causal, long window, float softcap,
+                 float scale, float empty_l, void* stream) {{
+  if (dv_dim != DV) return cudaErrorInvalidValue;
+  return rt::flash_bwd::run<Elem, HD, DV>(
+      q, k, v, out, dout, static_cast<const float*>(lse),
+      static_cast<float*>(D), dq, dk, dv, B, S, T, H, KH, causal, window,
+      softcap, scale, empty_l, {_ST});
+}}""", {
+        "rt_flash_bwd": (_I, [_P] * 10 + [_L] * 6 + [_I, _L, _F, _F, _F, _P]),
     }),
     # K1.
     "copy": Family("copy.cuh", f"""
@@ -458,7 +476,8 @@ def unit(family: str, what: str, op: alg.AssocOp | None = None,
     element dtype of ``FLASH_CTYPES``, a ``head_dim`` of
     ``FLASH_HEAD_DIMS``, a ``v_head_dim`` of them up to ``head_dim``
     (None: ``head_dim``) and the kernel ``body`` of ``FLASH_BODIES`` that
-    the caller picked for the dtype).
+    the caller picked for the dtype; flash_bwd, K10's gradient, the same
+    but no body).
 
     Raises NotImplementedError, naming the route, for an operator or map
     without a device form and for leaf structures or dtypes the device form
@@ -482,6 +501,7 @@ _UNITS: dict[tuple, Unit] = {}
 FLASH_CTYPES = {torch.float32: "float", torch.bfloat16: "__nv_bfloat16"}
 FLASH_HEAD_DIMS = tuple(range(16, 257, 16))
 FLASH_BODIES = ("CudaCores", "TensorCores")
+FLASH_FAMILIES = ("flash", "flash_bwd")
 
 
 def _wgmma(v_head_dim: int) -> str:
@@ -529,7 +549,7 @@ def _make_unit(family, what, op, dtypes, f, in_dtypes, quant,
                head_dim, v_head_dim, body) -> Unit:
     gen = _Gen()
     label = family
-    if (head_dim is None) != (family != "flash") or \
+    if (head_dim is None) != (family not in FLASH_FAMILIES) or \
             (v_head_dim is not None and head_dim is None):
         raise ValueError(f"{what}: a flash unit, and only one, takes a "
                          f"head_dim, got {head_dim!r} for {family}")
@@ -548,9 +568,10 @@ def _make_unit(family, what, op, dtypes, f, in_dtypes, quant,
             raise NotImplementedError(
                 f"{what}: the cuda kernel takes a value head dim of 16 to "
                 f"head_dim {head_dim} in steps of 16, got {v_head_dim}")
-        if body not in FLASH_BODIES:
+        if (body not in FLASH_BODIES) != (family == "flash_bwd"):
             raise ValueError(f"{what}: a flash unit's body is one of "
-                             f"{FLASH_BODIES}, got {body!r}")
+                             f"{FLASH_BODIES}, and a flash_bwd unit takes "
+                             f"none, got {body!r} for {family}")
         gen.parts.append(f"using Elem = {FLASH_CTYPES[dtypes[0]]};\n"
                          f"constexpr int HD = {head_dim};\n"
                          f"constexpr int DV = {v_head_dim};\n")
@@ -560,9 +581,9 @@ def _make_unit(family, what, op, dtypes, f, in_dtypes, quant,
             gen.parts.append(_wgmma(v_head_dim))
             gen.parts.append(
                 f"using Body = rt::flash::TensorCores<HD, Wgmma{dv}>;\n")
-        else:
+        elif body == "CudaCores":
             gen.parts.append(f"using Body = rt::flash::CudaCores<HD{dv}>;\n")
-        label = f"flash {_names(dtypes)[0]} head_dim {head_dim}" + (
+        label = f"{family} {_names(dtypes)[0]} head_dim {head_dim}" + (
             f" v_head_dim {v_head_dim}" if dv else "")
     if op is not None:
         if op.device is None:

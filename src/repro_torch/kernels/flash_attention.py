@@ -16,6 +16,14 @@ flash_attention_ref` and :func:`~repro_torch.kernels.ref.
 flash_attention_gqa_ref`, with the reference kernel's semantics.  Given CPU
 tensors, or under ``use_backend("torch")``, a wrapper runs its plain
 version; given CUDA tensors it launches the kernel or raises.
+
+The gradient: where grad mode is on and q, k or v requires grad, both
+entries run through :class:`Attention`, an ``autograd.Function`` whose
+forward is K10 writing each row's log-sum-exp too, and whose backward is
+:func:`flash_attention_bwd` (``csrc/flash_attention_bwd.cuh``, two
+launches, counted in ``flash_attention_bwd.launches``; plain version
+``ref.flash_attention_bwd_ref``, which it runs on CPU tensors).  Without
+grad the forward writes no log-sum-exp, as serving has it.
 ``flash_attention_gqa.launches`` counts the kernel's launches through either
 entry, and ``unit_launches`` the same launches by unit label.  The kernel takes head_dim 16 to 256 in steps of 16, and a value
 head dim ``dv`` of its own, 16 to head_dim in steps of 16 (MLA: q and k
@@ -60,14 +68,25 @@ def flash_unit(dtype: torch.dtype, head_dim: int, what: str,
                      v_head_dim=v_head_dim, body=BODIES.get(dtype))
 
 
+def flash_bwd_unit(dtype: torch.dtype, head_dim: int, what: str,
+                   v_head_dim: int | None = None) -> _lib.Unit:
+    """The generated unit of K10's gradient for ``dtype`` elements."""
+    return _lib.unit("flash_bwd", what, dtypes=[dtype], head_dim=head_dim,
+                     v_head_dim=v_head_dim)
+
+
 def _on_card(q: torch.Tensor) -> bool:
     return q.is_cuda and ki.current_backend(q) == "cuda"
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                     q_block=Q_BLOCK, kv_block=KV_BLOCK):
     """K10: q (N, S, d), k (N, T, d) and v (N, T, dv) -> (N, S, dv)."""
-    if not _on_card(q):
+    if not _on_card(q) and not _needs_grad(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        softcap=softcap, q_block=q_block,
                                        kv_block=kv_block)
@@ -75,7 +94,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
         if t.ndim != 3:
             raise ValueError(f"flash_attention (cuda): {name} must be "
                              f"(N, length, d), got {tuple(t.shape)}")
-    out = _launch(q[:, :, None], k[:, :, None], v[:, :, None], causal,
+    out = _attend(q[:, :, None], k[:, :, None], v[:, :, None], causal,
                   window, softcap, kv_block, "flash_attention (cuda)")
     return out[:, :, 0]
 
@@ -84,7 +103,7 @@ def flash_attention_gqa(q, k, v, *, causal=True, window=0, softcap=0.0,
                         q_block=Q_BLOCK, kv_block=KV_BLOCK):
     """K10 in the models' layout: q (B, S, K, G, hd), k (B, T, K, hd) and
     v (B, T, K, dv) -> (B, S, K, G, dv)."""
-    if not _on_card(q):
+    if not _on_card(q) and not _needs_grad(q, k, v):
         return ref.flash_attention_gqa_ref(q, k, v, causal=causal,
                                            window=window, softcap=softcap,
                                            q_block=q_block, kv_block=kv_block)
@@ -93,14 +112,107 @@ def flash_attention_gqa(q, k, v, *, causal=True, window=0, softcap=0.0,
         raise ValueError(f"{what}: q must be (B, S, K, G, hd), got "
                          f"{tuple(q.shape)}")
     B, S, K, G, hd = q.shape
-    out = _launch(q.reshape(B, S, K * G, hd), k, v, causal, window, softcap,
+    out = _attend(q.reshape(B, S, K * G, hd), k, v, causal, window, softcap,
                   kv_block, what)
     return out.reshape(B, S, K, G, v.shape[-1])
 
 
-def _launch(q, k, v, causal, window, softcap, kv_block, what):
-    """q (B, S, H, d), k (B, T, K, d) and v (B, T, K, dv) with K dividing
-    H -> (B, S, H, dv)."""
+def _attend(q, k, v, causal, window, softcap, kv_block, what):
+    """K10 in the kernel's layout, through :class:`Attention` where a
+    gradient is wanted."""
+    if _needs_grad(q, k, v):
+        return Attention.apply(q, k, v, causal, window, softcap, kv_block)
+    return _launch(q, k, v, causal, window, softcap, kv_block, what)[0]
+
+
+class Attention(torch.autograd.Function):
+    """K10 with its gradient, in the kernel's layout: q (B, S, H, d), k
+    (B, T, K, d), v (B, T, K, dv).  The forward keeps q, k, v, out and the
+    rows' log-sum-exp; the backward is :func:`flash_attention_bwd`.  On
+    CPU tensors both halves run their plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, kv_block):
+        out, lse = flash_attention_lse(q, k, v, causal=causal, window=window,
+                                       softcap=softcap, kv_block=kv_block)
+        ctx.save_for_backward(q, k, v, out, lse)
+        # The backward runs where the forward did: the autograd engine's
+        # thread sees no use_backend() scope.
+        ctx.args = (causal, window, softcap, kv_block,
+                    ki.current_backend(q))
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, softcap, kv_block, backend = ctx.args
+        with ki.use_backend(backend):
+            dq, dk, dv = flash_attention_bwd(
+                q, k, v, out, lse, dout, causal=causal, window=window,
+                softcap=softcap, kv_block=kv_block)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_lse(q, k, v, *, causal=True, window=0, softcap=0.0,
+                        kv_block=KV_BLOCK):
+    """K10 in the kernel's layout, q (B, S, H, d), k (B, T, K, d) and v
+    (B, T, K, dv), with each row's log-sum-exp: (out (B, S, H, dv), lse
+    (B, S, H) float32), the forward half of :class:`Attention`."""
+    if _on_card(q):
+        return _launch(q, k, v, causal, window, softcap, kv_block,
+                       "flash_attention (cuda)", with_lse=True)
+    B, S, H, d = q.shape
+    out, lse = ref.flash_attention_gqa_ref(
+        q.reshape(B, S, k.shape[2], -1, d), k, v, causal=causal,
+        window=window, softcap=softcap, kv_block=kv_block, return_lse=True)
+    return out.reshape(B, S, H, v.shape[3]), lse
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0,
+                        softcap=0.0, kv_block=KV_BLOCK):
+    """K10's gradient (dq, dk, dv) in the kernel's layout (see
+    :func:`ref.flash_attention_bwd_ref`): on the card two launches of
+    ``csrc/flash_attention_bwd.cuh``, dq (and D) over query tiles, then dk
+    and dv over key tiles; given CPU tensors its plain version."""
+    empty_l = ref.flash_empty_l(k.shape[1], kv_block)
+    if not _on_card(q):
+        return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                           causal=causal, window=window,
+                                           softcap=softcap, empty_l=empty_l)
+    what = "flash_attention_bwd (cuda)"
+    _check(q, k, v, window, kv_block, what)
+    B, S, H, d = q.shape
+    T, dvw = k.shape[1], v.shape[3]
+    if out.shape != (B, S, H, dvw) or dout.shape != out.shape or \
+            lse.shape != (B, S, H) or lse.dtype != torch.float32 or \
+            out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise ValueError(f"{what}: out and dout must be {(B, S, H, dvw)} "
+                         f"{q.dtype} and lse {(B, S, H)} float32, got "
+                         f"{tuple(out.shape)} {out.dtype}, "
+                         f"{tuple(dout.shape)} {dout.dtype} and "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    unit = flash_bwd_unit(q.dtype, d, what, dvw)
+    q, k, v, out, lse, dout = (t.contiguous()
+                               for t in (q, k, v, out, lse, dout))
+    _lib.require_cuda(what, q, k, v, out, lse, dout)
+    lib = _lib.load(unit)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    D = torch.empty_like(lse)
+    _lib.check(lib.rt_flash_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), D.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, S, T, H, k.shape[2], dvw,
+        int(bool(causal)), int(window), float(softcap), 1.0 / math.sqrt(d),
+        empty_l, _lib.stream_ptr(q)), what)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+def _check(q, k, v, window, kv_block, what):
+    """The operand checks of both kernels' launches."""
     if kv_block != KV_BLOCK:
         raise ValueError(f"{what}: the kernel's key tiles are {KV_BLOCK} "
                          f"keys, got kv_block={kv_block}")
@@ -117,6 +229,14 @@ def _launch(q, k, v, causal, window, softcap, kv_block, what):
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if window < 0:
         raise ValueError(f"{what}: window must be >= 0, got {window}")
+
+
+def _launch(q, k, v, causal, window, softcap, kv_block, what,
+            with_lse=False):
+    """q (B, S, H, d), k (B, T, K, d) and v (B, T, K, dv) with K dividing
+    H -> (out (B, S, H, dv), lse (B, S, H) float32 or None)."""
+    _check(q, k, v, window, kv_block, what)
+    B, S, H, d = q.shape
     dv = v.shape[3]
     unit = flash_unit(q.dtype, d, what, dv)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -126,17 +246,18 @@ def _launch(q, k, v, causal, window, softcap, kv_block, what):
     lib = _lib.load(unit)
     T = k.shape[1]
     out = q.new_empty((B, S, H, dv))
+    lse = q.new_empty((B, S, H), dtype=torch.float32) if with_lse else None
     # The reference's key count of a row that keeps no key: its padded
     # kv tiles (kernels/ref.py: flash_attention_ref).
-    kb = min(kv_block, -(-T // 8) * 8)
-    empty_l = float(-(-T // kb) * kb)
+    empty_l = ref.flash_empty_l(T, kv_block)
     _lib.check(lib.rt_flash(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, T, H,
         k.shape[2], dv, int(bool(causal)), int(window), float(softcap),
-        1.0 / math.sqrt(d), empty_l, _lib.stream_ptr(q)), what)
+        1.0 / math.sqrt(d), empty_l, _lib.ptr(lse), _lib.stream_ptr(q)),
+        what)
     flash_attention_gqa.launches += 1
     unit_launches[unit.label] = unit_launches.get(unit.label, 0) + 1
-    return out
+    return out, lse
 
 
 flash_attention_gqa.launches = 0

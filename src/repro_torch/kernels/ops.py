@@ -294,6 +294,13 @@ def _linrec_torch(a, b, h0=None, *, reverse=False):
 
 
 def _linrec_cuda(a, b, h0=None, *, reverse=False):
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (a, b, h0)):
+        return LinearRecurrence.apply(a, b, h0, reverse)
+    return _linrec_k6(a, b, h0, reverse)
+
+
+def _linrec_k6(a, b, h0, reverse):
     # Without h0 the A leaf (the running product of a) is not read, so K6
     # does not write it.
     A, B = scan_k.scan_channel_cuda(alg.AFFINE, (a, b), inclusive=True,
@@ -302,6 +309,44 @@ def _linrec_cuda(a, b, h0=None, *, reverse=False):
     if h0 is None:
         return B
     return A * h0[:, None, :] + B
+
+
+class LinearRecurrence(torch.autograd.Function):
+    """K6's ``linear_recurrence`` with its gradient.  Forward: K6 as
+    without one, keeping h.  Backward, for h_t = a_t h_{t-1} + b_t: the
+    adjoint g_t = dh_t + a_{t+1} g_{t+1} is the same recurrence run the
+    other way, one further K6 launch over (a', dh) with a'_t = a_{t+1} and
+    a'_{T-1} = 0; then db = g, da_t = g_t h_{t-1} (h_{-1} = h0, or 0) and
+    dh0 = a_0 g_0.  A ``reverse`` recurrence mirrors it along T.  The shift
+    and the products are plain tensor code.  On CPU tensors K6's wrapper
+    runs its plain version, so the same backward runs there."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0, reverse):
+        h = _linrec_k6(a, b, h0, reverse)
+        ctx.save_for_backward(a, h, h0)
+        ctx.reverse = reverse
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h, h0 = ctx.saved_tensors
+        rev = ctx.reverse
+        zero = torch.zeros_like(a[:, :1])
+        start = zero if h0 is None else h0[:, None].to(h.dtype)
+        # a' and the neighbour state h_{t-1} (h_{t+1} for a reverse one).
+        if rev:
+            a_next = torch.cat([zero, a[:, :-1]], dim=1)
+            h_prev = torch.cat([h[:, 1:], start], dim=1)
+        else:
+            a_next = torch.cat([a[:, 1:], zero], dim=1)
+            h_prev = torch.cat([start, h[:, :-1]], dim=1)
+        _, g = scan_k.scan_channel_cuda(
+            alg.AFFINE, (a_next, dh.contiguous().to(a.dtype)),
+            inclusive=True, reverse=not rev, keep=(False, True))
+        edge = -1 if rev else 0
+        dh0 = None if h0 is None else (a[:, edge] * g[:, edge]).to(h0.dtype)
+        return g * h_prev, g, dh0, None
 
 
 def _per_backend(fn):

@@ -209,8 +209,15 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+def flash_empty_l(T: int, kv_block: int) -> float:
+    """The key count a row that keeps no key divides by: its padded kv
+    tiles of ``min(kv_block, round_up(T, 8))`` keys."""
+    kb = min(kv_block, _round_up(T, 8))
+    return float(_round_up(T, kb))
+
+
 def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
-                        q_block=256, kv_block=256):
+                        q_block=256, kv_block=256, return_lse=False):
     """Plain version of K10 with the reference kernel's semantics
     (``repro/kernels/flash_attention.py``): q (N, S, d), k (N, T, d) and v
     (N, T, dv) -> (N, S, dv) in q's dtype.  ``dv`` is d in the reference
@@ -229,6 +236,8 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
     independent, so ``q_block`` changes no result; it is kept for the
     reference's signature.  A row that sees no key at all (S > T + window
     - 1) averages v over the padded tiles, as the reference kernel does.
+    ``return_lse``: also each row's log-sum-exp ``m + log l`` (N, S)
+    float32, which the gradient (:func:`flash_attention_bwd_ref`) reads.
     """
     del q_block
     N, S, d = q.shape
@@ -264,13 +273,17 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
                           vp[:, start:start + kb].float())
         acc = acc * alpha + pv
         m = m_new
-    return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+    out = (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(l))[..., 0]
+    return out
 
 
 def flash_attention_gqa_ref(q, k, v, **kw):
     """:func:`flash_attention_ref` in the model's layout: q (B, S, K, G,
     hd), k (B, T, K, hd) and v (B, T, K, dv) -> (B, S, K, G, dv); query
-    head (k, g) attends to kv head k, broadcast here."""
+    head (k, g) attends to kv head k, broadcast here.  With
+    ``return_lse=True`` also the rows' log-sum-exp, (B, S, K G)."""
     B, S, K, G, _ = q.shape
     T = k.shape[1]
 
@@ -281,7 +294,64 @@ def flash_attention_gqa_ref(q, k, v, **kw):
         return x.permute(0, 2, 3, 1, 4).reshape(B * K * G, n, w)
 
     out = flash_attention_ref(heads(q, S), heads(k, T), heads(v, T), **kw)
-    return out.reshape(B, K, G, S, v.shape[-1]).permute(0, 3, 1, 2, 4)
+    lse = None
+    if kw.get("return_lse"):
+        out, lse = out
+        lse = lse.reshape(B, K * G, S).transpose(1, 2)
+    out = out.reshape(B, K, G, S, v.shape[-1]).permute(0, 3, 1, 2, 4)
+    return out if lse is None else (out, lse)
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal=True,
+                            window=0, softcap=0.0, empty_l=None):
+    """Plain version of K10's gradient (``csrc/flash_attention_bwd.cuh``)
+    in the kernel's layout: q (B, S, H, d), k (B, T, KH, d), v (B, T, KH,
+    dv), out and dout (B, S, H, dv), lse (B, S, H) float32 (the forward's
+    ``return_lse``), KH dividing H -> (dq, dk, dv) in the inputs' dtypes.
+
+    An explicit backward, in float32: P = exp(s - lse) for a kept key
+    (the score ``s`` scaled and soft-capped as the forward's), 0 for a
+    dropped one; D = rowsum(dout . out); dV = P^T dout with P rounded to
+    v's dtype first, as the forward rounds p before p . v; dS = P (dP - D)
+    with dP = dout V^T, times 1 - (s / softcap)^2 under a cap; dQ = dS K /
+    sqrt(d), dK = dS^T Q / sqrt(d), the G query heads of a kv head summed
+    in float32.  A row that keeps no key averaged v over ``empty_l`` keys
+    (:func:`flash_empty_l`; default the forward kernel's tiles of 64): its
+    P is ``1 / empty_l`` at each of the T keys and its dS 0."""
+    B, S, H, d = q.shape
+    T, KH, dvw = k.shape[1], k.shape[2], v.shape[-1]
+    G = H // KH
+    if empty_l is None:
+        empty_l = flash_empty_l(T, 64)
+    scale = 1.0 / math.sqrt(d)
+    dev = q.device
+    qf = q.float().reshape(B, S, KH, G, d)
+    kf, vf = k.float(), v.float()
+    dof = dout.float().reshape(B, S, KH, G, dvw)
+    s = torch.einsum("bskgd,btkd->bkgst", qf, kf) * scale
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    qpos = torch.arange(S, device=dev)[:, None]
+    kpos = torch.arange(T, device=dev)[None, :]
+    keep = torch.ones((S, T), dtype=torch.bool, device=dev)
+    if causal:
+        keep = keep & (qpos >= kpos)
+    if window:
+        keep = keep & ((qpos - kpos) < window)
+    lse_ = lse.float().reshape(B, S, KH, G).permute(0, 2, 3, 1)[..., None]
+    p = torch.where(keep, torch.exp(s - lse_), 0.0)
+    empty = ~keep.any(dim=1)
+    p = torch.where(empty[:, None], 1.0 / empty_l, p)
+    D = (dof * out.float().reshape(B, S, KH, G, dvw)).sum(-1)
+    dvv = torch.einsum("bkgst,bskgc->btkc", p.to(v.dtype).float(), dof)
+    dp = torch.einsum("bskgc,btkc->bkgst", dof, vf)
+    ds = torch.where(keep, p * (dp - D.permute(0, 2, 3, 1)[..., None]), 0.0)
+    if softcap:
+        ds = ds * (1.0 - (s / softcap) ** 2)
+    dq = torch.einsum("bkgst,btkd->bskgd", ds, kf) * scale
+    dk = torch.einsum("bkgst,bskgd->btkd", ds, qf) * scale
+    return (dq.reshape(B, S, H, d).to(q.dtype), dk.to(k.dtype),
+            dvv.to(v.dtype))
 
 
 def flash_attention_bytes(N, S, T, d, dtype, q_block=256, kv_block=256):

@@ -17,7 +17,8 @@
 A wrapper given CPU tensors runs the plain version.  Given CUDA tensors it
 launches the kernel or raises.  ``launches`` on each wrapper counts the calls
 that launched its kernel; K6 counts its long-T path apart, in
-``long_t_launches``.
+``long_t_launches``, and the channel-tile route's reverse launches (the
+gradient of ``linear_recurrence``) again in ``reverse_launches``.
 """
 from __future__ import annotations
 
@@ -175,9 +176,12 @@ def scan_channel_cuda(op, xs: Pytree, *, inclusive: bool = True,
         scan_channel_cuda.long_t_launches += 1
     else:
         scan_channel_cuda.launches += 1
+        scan_channel_cuda.reverse_launches += int(reverse)
     return plan.outputs(outs)
 
 
-# Launches of the channel-tile route and of the long-T path, counted apart.
+# Launches of the channel-tile route and of the long-T path, counted apart;
+# the channel-tile route's reverse ones again among its own.
 scan_channel_cuda.launches = 0
 scan_channel_cuda.long_t_launches = 0
+scan_channel_cuda.reverse_launches = 0

@@ -12,8 +12,10 @@ pre-norm residuals with optional gemma-style post-norms
 (``cfg.post_norm``).
 
 ``block_forward(params, kind, cfg, x, mode=...)`` returns
-``(x, cache)`` where ``mode`` is "train" | "prefill" | "decode"; an MoE
-block's auxiliary losses are dropped (the serving path reads none).
+``(x, cache, aux)`` where ``mode`` is "train" | "prefill" | "decode" and
+``aux`` is an MoE block's auxiliary losses (``lb_loss``, ``router_z``),
+:data:`ZERO_AUX` for any other block: Python zeros, so that a block
+without them launches nothing for them.
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import recurrent as R
+
+ZERO_AUX = {"lb_loss": 0.0, "router_z": 0.0}
 
 _ATTN_KINDS = ("attn_global", "attn_local", "gqa_dense", "gqa_moe",
                "enc_attn")
@@ -139,9 +143,10 @@ def _dec_attn(params, cfg, x, *, mode, cache, pos, cache_len, enc_out,
 def block_forward(params, kind, cfg, x, *, mode="train",
                   cache=None, pos=None, cache_len=0, enc_out=None,
                   valid_len=None):
-    """Returns (x, new_cache).  ``enc_out``: the encoder's output, which a
-    ``dec_attn`` block's cross attention reads in prefill and train;
-    ``valid_len``: prefill's valid leading length (``_mixer_apply``)."""
+    """Returns (x, new_cache, aux).  ``enc_out``: the encoder's output,
+    which a ``dec_attn`` block's cross attention reads in prefill and
+    train; ``valid_len``: prefill's valid leading length
+    (``_mixer_apply``)."""
     _check_kind(kind)
     if kind == "dec_attn":
         x, new_cache = _dec_attn(params, cfg, x, mode=mode, cache=cache,
@@ -156,16 +161,17 @@ def block_forward(params, kind, cfg, x, *, mode="train",
         if cfg.post_norm:
             h = L.rmsnorm(params["post_norm1"], h, cfg.norm_eps)
         x = x + h
+    aux = ZERO_AUX
     if not _has_mlp(kind):
-        return x, new_cache
+        return x, new_cache, aux
     h = L.rmsnorm(params["norm2"], x, cfg.norm_eps)
     if _is_moe(kind):
-        h, _ = M.moe_forward(params["moe"], cfg, h)
+        h, aux = M.moe_forward(params["moe"], cfg, h)
     else:
         h = L.mlp(params["mlp"], h, cfg.activation)
     if cfg.post_norm:
         h = L.rmsnorm(params["post_norm2"], h, cfg.norm_eps)
-    return x + h, new_cache
+    return x + h, new_cache, aux
 
 
 def init_block_cache(kind, cfg, batch, cache_len, dtype, device):

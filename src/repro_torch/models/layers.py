@@ -9,7 +9,8 @@ the reference's layouts and its rounding points:
 * ``unembed`` multiplies in the activation dtype, then casts to float32;
 * the gelu of geglu is the tanh approximation (``jax.nn.gelu``'s default);
   swiglu's gate is ``silu``, and relu2 squares the relu in the activation
-  dtype.
+  dtype;
+* ``softmax_cross_entropy`` is training's loss, with the z-loss.
 
 Initialisers draw from an explicit ``torch.Generator`` on the target device.
 """
@@ -137,6 +138,20 @@ def embed(params, tokens, scale=False, dtype=torch.bfloat16):
         # sqrt(d) rounds to the activation dtype first, as the reference.
         x = x * torch.tensor(math.sqrt(x.shape[-1]), dtype=dtype)
     return x
+
+
+def softmax_cross_entropy(logits, labels, z_loss: float = 0.0):
+    """Mean token cross-entropy in float32, plus ``z_loss`` times the
+    squared log-partition; labels < 0 are masked out."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        labels.clamp(min=0).long()[..., None])[..., 0]
+    loss = lse - gold
+    if z_loss:
+        loss = loss + z_loss * lse.square()
+    mask = (labels >= 0).float()
+    return (loss * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 def unembed(params, x, softcap=0.0):

@@ -60,7 +60,7 @@ def route(params, cfg, xf):
     probs (T, E), gates (T, k), idx (T, k) int64): the selected experts in
     descending order of their selection score, ties to the lower id."""
     k = cfg.moe_top_k
-    logits = xf.float() @ params["router"]
+    logits = xf.float() @ params["router"].float()
     if cfg.router_type == "sigmoid":
         scores = torch.sigmoid(logits)
         sel = scores + params["router_bias"][None, :]

@@ -336,8 +336,8 @@ def mlstm_forward(params, cfg, x, *, return_cache=False, valid_len=None):
     v = blockdiag_apply(params["wv"], u)
 
     xf = x.float()
-    li = xf @ params["w_igate"] + params["b_igate"]
-    lf = F.logsigmoid(xf @ params["w_fgate"] + params["b_fgate"])
+    li = xf @ params["w_igate"].float() + params["b_igate"]
+    lf = F.logsigmoid(xf @ params["w_fgate"].float() + params["b_fgate"])
     eff_len = T_in if valid_len is None else int(valid_len)
     if pad or valid_len is not None:
         live = (torch.arange(T, device=x.device) < eff_len)[None, :, None]
@@ -395,8 +395,8 @@ def mlstm_decode(params, cfg, x, cache):
     k = blockdiag_apply(params["wk"], c).reshape(B, H, dh)
     v = blockdiag_apply(params["wv"], u).reshape(B, H, dh)
     xf = x[:, 0].float()
-    li = xf @ params["w_igate"] + params["b_igate"]
-    lf = F.logsigmoid(xf @ params["w_fgate"] + params["b_fgate"])
+    li = xf @ params["w_igate"].float() + params["b_igate"]
+    lf = F.logsigmoid(xf @ params["w_fgate"].float() + params["b_fgate"])
     m_new = torch.maximum(lf + cache["m"], li)
     fp = torch.exp(lf + cache["m"] - m_new)
     ip = torch.exp(li - m_new)

@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Fourteen phases, any failure exits non-zero:
+Fifteen phases, any failure exits non-zero:
 
 1. build -- generate the translation units of every kernel, operator, map
    and dtype combination the run's paths use (kernels/_lib.py, from each
@@ -227,7 +227,29 @@ Fourteen phases, any failure exits non-zero:
    reverse launch, K10 and its gradient (each launched), one step's device
    ms and idle share; then the Trainer at smoke size in a temporary
    directory: a fault recovered, a run cut and resumed equal to an uncut
-   one to the bit.
+   one to the bit.  Then xlstm-1.3b, recurrentgemma's tensors freed: the
+   mLSTM stabilizer's gradient (MAXPLUS_AFFINE, kernels/ops.py's
+   MaxplusAffineScan: one reverse K6 launch, on K6-long at its train
+   shapes) against autograd through a float64 serial walk at (1, 1024, 4),
+   (1, 2112, 4), B = 3, T at three long-T chunks +-1 and a channel-tile
+   shape; the first step cuda vs torch at one unit (7 mLSTM + 1 sLSTM
+   layers) at full width, as recurrentgemma's; xlstm-1.3b FULL (48 layers,
+   1,907,394,896 parameters, f32 master weights, AdamW, full remat, bf16)
+   for three steps of one 1,024-token sequence: loss and grad norm finite,
+   wall ms, tokens/s, peak memory (under 80 GB), one step's device ms and
+   idle share, the launches of K6, K6-long and their reverse launches.
+15. tune (phase_tune): the autotuner (core/tuning.py) on a temporary cache
+   file, for every tuned route at a served or paper shape (K1 10^8 f32; K2
+   10^7 f32 ADD; K3 10^8 int32; K7m (8, 2^24); K7s (4, 64); K8 10^7 with
+   about 10^4 segments; K7's matvec and vecmat (8, 4096, 4096); K6's
+   linear_recurrence (1, 1024, 2560); the sort of 10^6 uint32 keys): the
+   first call races the ladder (every candidate's units built in one
+   parallel build first), every candidate's output is held to the plain
+   version (bit for bit on integer-valued data; K6 within 1e-5 of max|h|),
+   the winner's time beside the untuned call's in turns, a second call and
+   a fresh tuner on the same file hit the cache with the launches of one
+   call at the winner's policy; a [tune] line per route (its key, each candidate's ms, the
+   winner, the units built and their build seconds).
 
 Each serve summary holds its token streams' digest ("streams"), and each
 profile the device ms under the decode step's aten ops ("ops_ms":
@@ -239,12 +261,15 @@ The line before the card line holds {"kernels": [...]}.  A kernel's
 "launches_path": the primitives path for K1-K9, as before, gemma2's
 serving path for K10, which the primitives path does not run, and phase
 14's four FULL train steps ("train") for K6's reverse launches (K6-reverse,
-the gradient of linear_recurrence) and K10's gradient (K10-bwd).  Beside them
+the gradient of linear_recurrence) and K10's gradient (K10-bwd), and its
+three xlstm-1.3b steps ("train_xlstm") for K6-long's reverse launches
+(K6-long-reverse, the mLSTM stabilizer's gradient).  Beside them
 stand the launches on every path (primitives, greedy, sampled, gemma2,
 xlstm, gemma3, minitron, moonshot, deepseek, seamless; phase 13's
 speculative, speculative_draft, speculative_sampled, beam, constrained,
 quantized_int8 and quantized_fp8_e4m3; the bucketed runs
-bucketed_greedy, bucketed_gemma2 and bucketed_xlstm; train) and their sum,
+bucketed_greedy, bucketed_gemma2 and bucketed_xlstm; train, train_xlstm)
+and their sum,
 "launches_total"; K10's
 row its time, bound and SDPA time at each served model's prefill layers
 ("shapes"); K6's and K6-long's rows add their
@@ -271,6 +296,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -288,6 +314,7 @@ from repro_torch.kernels import batched as batched_k  # noqa: E402
 from repro_torch.kernels import copy as copy_k  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_k  # noqa: E402
 from repro_torch.core import primitives as forge  # noqa: E402
+from repro_torch.core import tuning  # noqa: E402
 from repro_torch.core.layout import Batched, Flat, Segmented  # noqa: E402
 from repro_torch.kernels import mapreduce as mapreduce_k  # noqa: E402
 from repro_torch.kernels import matvec as matvec_k  # noqa: E402
@@ -346,8 +373,11 @@ COUNTERS = {
                           "launches"),
     "K10": (flash_k.flash_attention_gqa, "launches"),
     # Training (phase 14): K6's reverse launches (linear_recurrence's
-    # gradient), counted again among K6's, and K10's gradient.
+    # gradient), counted again among K6's, K6-long's (the mLSTM
+    # stabilizer's gradient) again among K6-long's, and K10's gradient.
     "K6-reverse": (scan_k.scan_channel_cuda, "reverse_launches"),
+    "K6-long-reverse": (scan_k.scan_channel_cuda,
+                        "long_t_reverse_launches"),
     "K10-bwd": (flash_k.flash_attention_bwd, "launches"),
 }
 GREEDY_PATH = ("K2", "K6", "K3", "K7m", "K10")
@@ -393,12 +423,13 @@ SPEC_PATH = ("K2", "K3", "K7m", "K7s", "K10")
 BEAM_PATH = ("K2", "K3", "K4-matvec", "K6-long", "K7s", "K10")
 GEMMA2_PARAMS = 27_227_128_320
 # The counters only training moves.
-TRAIN_ONLY = ("K6-reverse", "K10-bwd")
+TRAIN_ONLY = ("K6-reverse", "K6-long-reverse", "K10-bwd")
 # The library's own path runs every kernel but the models' attention.
 PRIMITIVES_PATH = tuple(k for k in COUNTERS
                         if k != "K10" and k not in TRAIN_ONLY)
 # The path whose launches a kernel's "launches" report: its slice's main one.
-MAIN_PATH = {k: "train" if k in TRAIN_ONLY else
+MAIN_PATH = {k: "train_xlstm" if k == "K6-long-reverse" else
+             "train" if k in TRAIN_ONLY else
              "primitives" if k in PRIMITIVES_PATH else "gemma2"
              for k in COUNTERS}
 META = {
@@ -443,6 +474,10 @@ META = {
     "K6-reverse": ("scan_channel reverse (linear_recurrence's gradient)",
                    "src/repro_torch/csrc/scan.cuh",
                    "src/repro/kernels/scan.py:227"),
+    "K6-long-reverse": ("scan_channel long-T reverse (the mLSTM "
+                        "stabilizer's gradient)",
+                        "src/repro_torch/csrc/scan.cuh",
+                        "src/repro/kernels/scan.py:227"),
     "K10-bwd": ("flash_attention_bwd (K10's gradient)",
                 "src/repro_torch/csrc/flash_attention_bwd.cuh",
                 "src/repro/kernels/flash_attention.py:83"),
@@ -4779,6 +4814,128 @@ def check_k6_grad(res) -> None:
         del a, b, h0, dh, ins, h, got, want, ins64, ins32, walk32
 
 
+# The mLSTM stabilizer's gradient (MaxplusAffineScan): xlstm-1.3b's train
+# shape (1, 1024, 4 heads) and a long prompt's (1, 2112, 4) on K6-long,
+# B = 3, T at three long-T chunks of 64 +-1, and a channel-tile shape.
+MAXPLUS_GRAD_CASES = ((1, 1024, 4), (1, 2112, 4), (3, 1024, 4),
+                      (1, 191, 4), (1, 193, 4), (1, 33, 4096))
+# xlstm-1.3b's training: three steps of one 1,024-token sequence (its sLSTM
+# loop is host-bound under autograd), the first-step check at one unit of 7
+# mLSTM and 1 sLSTM layers.
+XLSTM_TRAIN_SEQ = 1024
+XLSTM_TRAIN_STEPS = 3
+XLSTM_TRAIN_CUT = dict(n_layers=8, n_units=1)
+XLSTM_TRAIN_LEAVES = {
+    "embed.embedding": ("embed", "embedding"),
+    "units.0.0.mixer.w_igate": ("decoder", "units", 0, 0, "mixer",
+                                "w_igate"),
+    "units.0.0.mixer.w_fgate": ("decoder", "units", 0, 0, "mixer",
+                                "w_fgate"),
+    "units.0.7.mixer.r": ("decoder", "units", 0, 7, "mixer", "r"),
+}
+XLSTM_TRAIN_KERNELS = ("K6", "K6-reverse", "K6-long", "K6-long-reverse")
+
+
+def maxplus_walk(lf, li):
+    """The stabilizer's scan as a serial walk over T that autograd
+    differentiates: A_t = A_{t-1} + lf_t, Bm_t = max(Bm_{t-1} + lf_t, li_t)
+    from (0, -inf)."""
+    A = torch.zeros_like(lf[:, 0])
+    Bm = torch.full_like(lf[:, 0], -math.inf)
+    As, Bs = [], []
+    for t in range(lf.shape[1]):
+        A = A + lf[:, t]
+        Bm = torch.maximum(Bm + lf[:, t], li[:, t])
+        As.append(A)
+        Bs.append(Bm)
+    return torch.stack(As, dim=1), torch.stack(Bs, dim=1)
+
+
+def check_maxplus_grad(res) -> None:
+    """The MAXPLUS_AFFINE scan's gradient on the cuda route (K6 forward, one
+    reverse K6 launch back: K6-long where (B, T, 2 H) takes the long-T
+    path) against autograd through the float64 serial walk: dlf and dli
+    within 1e-5 of each one's largest entry (the forget gates' sums in
+    chunks and a carry, as in check_k6_grad; the float32 walk's own error
+    beside it).  Log forget gates in (-1.01, -0.01), input gates N(0, 1),
+    dA and dB N(0, 1)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    k6 = scan_k.scan_channel_cuda
+    r = res["K6-long-reverse"]
+    for shape in MAXPLUS_GRAD_CASES:
+        B, T, H = shape
+        lf = -torch.rand(*shape, generator=gen, device="cuda") - 0.01
+        li = torch.randn(*shape, generator=gen, device="cuda")
+        dA = torch.randn(*shape, generator=gen, device="cuda")
+        dB = torch.randn(*shape, generator=gen, device="cuda")
+        ins = [x.clone().requires_grad_() for x in (lf, li)]
+        rev, rev_long = k6.reverse_launches, k6.long_t_reverse_launches
+        A, Bm = forge.scan(alg.MAXPLUS_AFFINE, tuple(ins), axis=1)
+        got = torch.autograd.grad((A, Bm), ins, (dA, dB), retain_graph=True)
+        torch.cuda.synchronize()
+        rev = k6.reverse_launches - rev
+        rev_long = k6.long_t_reverse_launches - rev_long
+        long_t = scan_k.uses_long_t(B, T, 2 * H)
+        ins64 = [x.detach().double().requires_grad_() for x in ins]
+        want = torch.autograd.grad(maxplus_walk(*ins64), ins64,
+                                   (dA.double(), dB.double()))
+        ins32 = [x.detach().requires_grad_() for x in ins]
+        walk32 = torch.autograd.grad(maxplus_walk(*ins32), ins32, (dA, dB))
+        errs = [max_err(g, w) / float(w.abs().max()) for g, w in
+                zip(got, want)]
+        plain = [max_err(g, w) / float(w.abs().max()) for g, w in
+                 zip(walk32, want)]
+        r["max_abs_err"] = max(r["max_abs_err"], max_err(got, want))
+        expect(rev + rev_long == 1 and rev_long == int(long_t) and
+               max(errs) <= 1e-5,
+               f"MAXPLUS_AFFINE gradient {shape}: max err / max |grad| "
+               f"{max(errs):.3g} <= 1e-5 against the float64 walk (the "
+               f"float32 walk's {max(plain):.3g}); one reverse launch, "
+               f"{'K6-long' if long_t else 'the channel-tile route'}")
+        if shape == MAXPLUS_GRAD_CASES[0]:
+            elems = B * T * H
+            r.update(
+                ms=time_ms(lambda: torch.autograd.grad(
+                    (A, Bm), ins, (dA, dB), retain_graph=True), 20),
+                plain_ms=time_ms(lambda: torch.autograd.grad(
+                    maxplus_walk(*ins32), ins32, (dA, dB)), 1),
+                library_ms=None,   # no PyTorch call runs the adjoint scan
+                # lf, li, Bm, dA, dB read; dlf, dli written.
+                bound=bound_ms(7 * 4 * elems, 10 * elems),
+                shape=f"({B}, {T}, {H}) f32 MAXPLUS_AFFINE, the gradient of "
+                      f"the mLSTM stabilizer (reverse K6-long + shares and "
+                      f"products)")
+            log(f"[K6-long-reverse] {r['shape']}: {r['ms']:.4f} ms, bound "
+                f"{r['bound'][0]:.6f} ms, plain {r['plain_ms']:.1f} ms")
+        del lf, li, dA, dB, ins, A, Bm, got, want, ins64, ins32, walk32
+
+
+def train_xlstm(res) -> dict:
+    """xlstm-1.3b's training on the card, after recurrentgemma's tensors
+    are freed: the stabilizer's gradient (check_maxplus_grad), the first
+    step cuda vs torch at one unit, then XLSTM_TRAIN_STEPS FULL steps."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_maxplus_grad(res)
+    cfg = get_config("xlstm-1.3b")
+    data = SyntheticDataset(DataConfig(seq_len=XLSTM_TRAIN_SEQ,
+                                       global_batch=1,
+                                       vocab_size=cfg.vocab_size), cfg)
+    batches = [data.batch(i) for i in range(XLSTM_TRAIN_STEPS)]
+    out = {"first_step": first_step_check(
+        batches[0], "xlstm-1.3b", XLSTM_TRAIN_CUT, XLSTM_TRAIN_LEAVES,
+        "train xlstm")}
+    log("[train xlstm] first step " + json.dumps(out["first_step"]))
+    out.update(train_full(batches, "xlstm-1.3b", XLSTM_TRAIN_SEQ,
+                          XLSTM_TRAIN_KERNELS, "train xlstm"))
+    expect(out["params"] == XLSTM_PARAMS,
+           f"[train xlstm] {out['params']} parameters, "
+           f"{XLSTM_PARAMS} expected")
+    expect(out["peak_gb"] < 80,
+           f"[train xlstm] peak {out['peak_gb']:.2f} GB under 80")
+    return out
+
+
 def train_cfg(grad_dtype="bfloat16"):
     """AdamW (the reference's defaults but a one-step warmup, so that the
     four steps move the weights), full remat."""
@@ -4792,10 +4949,12 @@ def leaf(tree, path):
     return tree
 
 
-def first_step_check(batch) -> dict:
+def first_step_check(batch, name="recurrentgemma-2b", cut=TRAIN_CUT,
+                     leaves=TRAIN_LEAVES, tag="train") -> dict:
     """The first step's loss, grad norm and the named leaves' gradients
-    (TRAIN_LEAVES) on the cuda and torch routes, at one unit of full width
-    (TRAIN_CUT), the same f32 weights from SEED and batch, held as
+    (``leaves``: TRAIN_LEAVES) on the cuda and torch routes, at one unit of
+    ``name`` at full width (``cut``: TRAIN_CUT), the same f32 weights from
+    SEED and batch, held as
     hold_floor holds logits: both routes in float32 activations and
     gradients compute the same function (within 1e-3 of max|g| of the
     torch route's; the departures are K10 scaling the float32 product, not
@@ -4804,7 +4963,7 @@ def first_step_check(batch) -> dict:
     route's own distance from it.  The loss and grad norm in bf16 within
     1e-2 relative: the loss averages 4,096 tokens' float32 cross entropy
     of bf16 logits (2^-8 a rounding), the norm sums 2.7 billion squares."""
-    cfg = dataclasses.replace(get_config("recurrentgemma-2b"), **TRAIN_CUT)
+    cfg = dataclasses.replace(get_config(name), **cut)
     out = {"depth": cfg.n_layers}
     params = lm.init_params(cfg, seed=SEED, device="cuda")
     runs = {}
@@ -4819,7 +4978,7 @@ def first_step_check(batch) -> dict:
                 "loss": float(metrics["loss"]),
                 "grad_norm": float(OPT.global_norm(grads)),
                 **{n: leaf(tree, p).float().clone()
-                   for n, p in TRAIN_LEAVES.items()}}
+                   for n, p in leaves.items()}}
             del metrics, grads, tree
             torch.cuda.empty_cache()
     for n in ("loss", "grad_norm"):
@@ -4827,12 +4986,12 @@ def first_step_check(batch) -> dict:
         c, t = runs["bfloat16", "cuda"][n], runs["bfloat16", "torch"][n]
         out[n] = {"f32_cuda": c32, "f32_torch": t32, "cuda": c, "torch": t}
         expect(abs(c32 - t32) <= 1e-4 * abs(t32),
-               f"[train] first step {n} in float32: cuda {c32:.6g} vs torch "
+               f"[{tag}] first step {n} in float32: cuda {c32:.6g} vs torch "
                f"{t32:.6g} within 1e-4 relative")
         expect(abs(c - t) <= 1e-2 * abs(t),
-               f"[train] first step {n} in bf16: cuda {c:.6g} vs torch "
+               f"[{tag}] first step {n} in bf16: cuda {c:.6g} vs torch "
                f"{t:.6g} within 1e-2 relative")
-    for n in TRAIN_LEAVES:
+    for n in leaves:
         f = runs["float32", "torch"][n]
         c32, c, t = (runs[k][n] for k in (("float32", "cuda"),
                                           ("bfloat16", "cuda"),
@@ -4843,11 +5002,11 @@ def first_step_check(batch) -> dict:
                 "torch_vs_f32": float((t - f).abs().max()),
                 "cuda_vs_torch": float((c - t).abs().max())}
         expect(held["f32_cuda_vs_torch"] <= 1e-3 * held["max_f32"],
-               f"[train] first step, gradient of {n} in float32: cuda vs "
+               f"[{tag}] first step, gradient of {n} in float32: cuda vs "
                f"torch max abs err {held['f32_cuda_vs_torch']:.4g} <= 1e-3 x "
                f"its largest entry {held['max_f32']:.4g}")
         expect(held["cuda_vs_torch"] <= 2 * held["torch_vs_f32"],
-               f"[train] first step, gradient of {n} in bf16: cuda vs torch "
+               f"[{tag}] first step, gradient of {n} in bf16: cuda vs torch "
                f"max abs err {held['cuda_vs_torch']:.4g} <= 2 x the torch "
                f"route's own error against float32, "
                f"{held['torch_vs_f32']:.4g} (the cuda route's "
@@ -4859,25 +5018,39 @@ def first_step_check(batch) -> dict:
     return out
 
 
-def train_full(batches) -> dict:
-    """recurrentgemma-2b FULL (26 layers) from f32 master weights of SEED:
-    TRAIN_STEPS AdamW steps, bf16 activations and gradients, full remat,
-    the cuda backend.  Each step's loss and grad norm finite; its wall ms,
-    tokens/s, peak memory and launches; one step profiled (device ms and
-    idle share).  Per step K6 runs 34 times (18 RG-LRU layers, the 16 of
-    the 8 units again under remat), its reverse launch 18, K10 16 (8 local
-    layers, twice) and its gradient 8."""
-    cfg = get_config("recurrentgemma-2b")
+TRAIN_KERNELS = ("K6", "K6-reverse", "K10", "K10-bwd")
+
+
+def step_launches(c: dict, kernels) -> dict:
+    """A step's launches of ``kernels``; K6's and K6-long's own without
+    their reverse ones, which count apart."""
+    own = {"K6": c["K6"] - c["K6-reverse"],
+           "K6-long": c["K6-long"] - c["K6-long-reverse"]}
+    return {k: own.get(k, c[k]) for k in kernels}
+
+
+def train_full(batches, name="recurrentgemma-2b", seq=TRAIN_SEQ,
+               kernels=TRAIN_KERNELS, tag="train") -> dict:
+    """``name`` FULL (recurrentgemma-2b: 26 layers) from f32 master
+    weights of SEED: one AdamW step a batch of ``batches`` (one sequence of
+    ``seq`` tokens), bf16 activations and gradients, full remat, the cuda
+    backend.  Each step's loss and grad norm finite; its wall ms, tokens/s,
+    peak memory and the launches of ``kernels`` (each launched); the third
+    step profiled (device ms and idle share).  Per recurrentgemma step K6
+    runs 34 times (18 RG-LRU layers, the 16 of the 8 units again under
+    remat), its reverse launch 18, K10 16 (8 local layers, twice) and its
+    gradient 8."""
+    cfg = get_config(name)
     tc = train_cfg()
     torch.cuda.reset_peak_memory_stats()
     state = TS.init_state(cfg, tc, device="cuda")
     n_params = lm.count_params(state["params"])
     state_gb = torch.cuda.memory_allocated() / 1e9
-    log(f"[train] {cfg.name}: {cfg.n_layers} layers, {n_params} f32 "
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, {n_params} f32 "
         f"parameters, state {state_gb:.2f} GB (params, mu, nu)")
     step_fn = TS.make_train_step(cfg, None, tc)
     steps, launches = [], {}
-    for i in range(TRAIN_STEPS):
+    for i in range(len(batches)):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
@@ -4896,25 +5069,23 @@ def train_full(batches) -> dict:
         launches = {k: launches.get(k, 0) + v for k, v in c.items()}
         row = {"step": i, "loss": loss, "grad_norm": gnorm,
                "lr": float(metrics["lr"]), "wall_ms": wall * 1e3,
-               "tokens_per_s": TRAIN_SEQ / wall,
+               "tokens_per_s": seq / wall,
                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-               "launches": {"K6": c["K6"] - c["K6-reverse"],
-                            "K6-reverse": c["K6-reverse"], "K10": c["K10"],
-                            "K10-bwd": c["K10-bwd"]}}
+               "launches": step_launches(c, kernels)}
         if i == 2:
             row["profile"] = prof
         steps.append(row)
-        log(f"[train] step {i}: " + json.dumps(row))
+        log(f"[{tag}] step {i}: " + json.dumps(row))
         expect(math.isfinite(loss) and math.isfinite(gnorm),
-               f"[train] step {i}: loss {loss:.5f} and grad norm {gnorm:.4f} "
-               f"finite")
+               f"[{tag}] step {i}: loss {loss:.5f} and grad norm "
+               f"{gnorm:.4f} finite")
         for k, n in row["launches"].items():
-            expect(n > 0, f"[train] step {i}: {k} launched {n} times")
+            expect(n > 0, f"[{tag}] step {i}: {k} launched {n} times")
     del state
     gc.collect()
     torch.cuda.empty_cache()
     return {"model": cfg.name, "layers": cfg.n_layers, "params": n_params,
-            "state_gb": state_gb, "seq_len": TRAIN_SEQ, "steps": steps,
+            "state_gb": state_gb, "seq_len": seq, "steps": steps,
             "peak_gb": max(s["peak_gb"] for s in steps),
             "launches": launches}
 
@@ -4983,10 +5154,178 @@ def phase_train(res) -> dict:
     expect(summary["peak_gb"] < 80,
            f"[train] peak {summary['peak_gb']:.2f} GB under 80")
     summary["trainer"] = train_smoke_trainer()
+    summary["xlstm"] = train_xlstm(res)
     summary["phase_s"] = time.perf_counter() - t0
     log(f"[train] phase 14 took {summary['phase_s']:.1f} s; " + json.dumps(
-        {k: v for k, v in summary.items() if k not in ("steps", "launches")}))
+        {k: v for k, v in summary.items()
+         if k not in ("steps", "launches", "xlstm")}))
+    log("[train xlstm] " + json.dumps(
+        {k: v for k, v in summary["xlstm"].items()
+         if k not in ("steps", "launches")}))
     return summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the autotuner
+# ---------------------------------------------------------------------------
+
+TUNE_REPEATS = 10          # calls a candidate's CUDA-event timing spans
+
+
+def tune_cases(gen) -> list:
+    """(label, route, args, kwargs, the public call, the plain version's
+    answer, tolerance) of each tuned route at a served or paper shape; a
+    tolerance of 0 is bit for bit: integer data, or small integers whose
+    float32 sums and products are exact in any order."""
+    dev = "cuda"
+
+    def ints(*shape):
+        return torch.randint(-8, 9, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    x1 = torch.randn(10**8, generator=gen, device=dev)
+    x2 = small_ints(gen, 10**7)
+    x3 = ints(10**8)
+    x7m = ints(8, 1 << 24)
+    x7s = small_ints(gen, 4 * 64).reshape(4, 64)
+    x8 = ints(10**7)
+    offs = csr_offsets(gen, 10**7, 1000)
+    A = small_ints(gen, BIG_BATCHED[0] * BIG_BATCHED[1] * BIG_BATCHED[2]
+                   ).reshape(BIG_BATCHED)
+    xv = small_ints(gen, BIG_BATCHED[0] * BIG_BATCHED[1]).reshape(
+        BIG_BATCHED[:2])
+    a = torch.empty(1, 1024, 2560, device=dev).uniform_(0.9, 0.999,
+                                                        generator=gen)
+    b = torch.randn(1, 1024, 2560, generator=gen, device=dev)
+    keys = torch.randint(0, 2**32, (10**6,), generator=gen, device=dev,
+                         dtype=torch.int64)
+    keys_u = keys.to(torch.uint32)
+    seg = Segmented(offsets=offs)
+    TM, ID = alg.TIMES, alg.IDENTITY
+    return [
+        ("K1", "copy@flat", (x1,), {"nitem": None},
+         lambda: forge.copy(x1), x1, 0),
+        ("K2", "scan@flat", (alg.ADD, x2),
+         {"axis": 0, "inclusive": True, "reverse": False},
+         lambda: forge.scan(alg.ADD, x2),
+         scan_k.scan_1d_plain(alg.ADD, x2), 0),
+        ("K3", "mapreduce@flat", (ID, alg.ADD, x3), {"axis": None},
+         lambda: forge.mapreduce(ID, alg.ADD, x3),
+         mapreduce_k.mapreduce_1d_plain(ID, alg.ADD, x3), 0),
+        ("K7m", "mapreduce@batched", (ID, alg.ADD, x7m), {},
+         lambda: forge.mapreduce(ID, alg.ADD, x7m, layout=Batched()),
+         batched_k.batched_mapreduce_plain(ID, alg.ADD, x7m), 0),
+        ("K7s", "scan@batched", (alg.ADD, x7s),
+         {"inclusive": True, "reverse": False},
+         lambda: forge.scan(alg.ADD, x7s, layout=Batched()),
+         batched_k.batched_scan_plain(alg.ADD, x7s), 0),
+        ("K8", "scan@segmented", (alg.ADD, x8),
+         {"inclusive": True, "flags": None, "offsets": offs},
+         lambda: forge.scan(alg.ADD, x8, layout=seg),
+         seg_k.segmented_scan_1d_plain(
+             alg.ADD, x8, seg_k.offsets_to_flags(offs, x8.shape[0])), 0),
+        ("K7-matvec", "matvec@batched", (TM, alg.ADD, A, xv), {},
+         lambda: forge.matvec(TM, alg.ADD, A, xv, layout=Batched()),
+         batched_k.batched_matvec_plain(TM, alg.ADD, A, xv), 0),
+        ("K7-vecmat", "vecmat@batched", (TM, alg.ADD, A, xv), {},
+         lambda: forge.vecmat(TM, alg.ADD, A, xv, layout=Batched()),
+         batched_k.batched_vecmat_plain(TM, alg.ADD, A, xv), 0),
+        ("K6", "linear_recurrence@batched", (a, b),
+         {"h0": None, "reverse": False},
+         lambda: forge.linear_recurrence(a, b, layout=Batched()),
+         scan_k.scan_channel_plain(alg.AFFINE, (a, b))[1], 1e-5),
+        ("sort", "sort@flat", (keys_u,),
+         {"descending": False, "key_bits": None},
+         lambda: forge.sort(keys_u),
+         torch.sort(keys).values.to(torch.uint32), 0),
+    ]
+
+
+def held(got, want, tol) -> float:
+    """max|got - want|, over max|want| where ``tol`` is not 0."""
+    err = max_err(got, want)
+    return err if not tol else err / float(want.double().abs().max())
+
+
+def phase_tune(gen) -> dict:
+    """Phase 15: the autotuner on a temporary cache file, route by route
+    (tune_cases).  The untuned call's launches first (the tuner off); then
+    the first call with the tuner on races the route's ladder; every
+    candidate's output is held to the plain version; the winner's time
+    beside the untuned call's in turns; a second call is a cache hit with
+    the launches of one call at the winner's policy (the untuned call's,
+    but for a sort whose winner has another digit width), and so is a
+    fresh Autotuner's first call on the same file."""
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tuning.json")
+        for label, route, args, kw, call, want, tol in tune_cases(gen):
+            spec = tuning.TUNABLE[route]
+            base = ki.resolve_tuning()
+            tuning.disable()
+            reset_counts()
+            call()
+            torch.cuda.synchronize()
+            untuned = read_counts()
+            tuner = tuning.enable(path, bench_repeats=TUNE_REPEATS)
+            err = held(call(), want, tol)
+            race = tuner.last_race
+            expect(tuner.stats["benchmarks"] == 1 and race is not None and
+                   len(race["candidates"]) == len(spec.candidates) and
+                   err <= tol,
+                   f"[tune] {label} {route}: the first call raced "
+                   f"{len(race['candidates'])} of {len(spec.candidates)} "
+                   f"candidates; its answer's err {err:.3g} <= {tol}")
+            impl = ki.resolve_impl(route, "cuda")
+            errs = {}
+            for ov in spec.candidates:
+                policy = dataclasses.replace(base, **ov)
+                errs[json.dumps(ov)] = held(impl(*args, **kw, policy=policy),
+                                            want, tol)
+            expect(max(errs.values()) <= tol,
+                   f"[tune] {label}: every candidate held to the plain "
+                   f"version within {tol}: {errs}")
+            winner = dataclasses.replace(base, **race["winner"])
+            turns = time_turns({
+                "untuned_ms": lambda: impl(*args, **kw, policy=base),
+                "tuned_ms": lambda: impl(*args, **kw, policy=winner)},
+                rounds=5, reps=20)
+            reset_counts()
+            impl(*args, **kw, policy=winner)
+            torch.cuda.synchronize()
+            at_winner = read_counts()
+            reset_counts()
+            call()
+            torch.cuda.synchronize()
+            hit = read_counts()
+            # The sort's digit width sets its count of passes, so a winner
+            # of another width launches another count than the default.
+            expect(tuner.stats == {**tuner.stats, "benchmarks": 1,
+                                   "hits": 1} and hit == at_winner,
+                   f"[tune] {label}: a second call hits the cache "
+                   f"({tuner.stats}) with the launches of one call at the "
+                   f"winner's policy, no race (the default policy's too: "
+                   f"{hit == untuned})")
+            fresh = tuning.enable(path, bench_repeats=TUNE_REPEATS)
+            call()
+            expect(fresh.stats["benchmarks"] == 0 and
+                   fresh.stats["hits"] == 1,
+                   f"[tune] {label}: a fresh tuner on the same file hits "
+                   f"({fresh.stats})")
+            row = {"route": route, "key": race["key"],
+                   "candidates_ms": {k: v * 1e3 for k, v in
+                                     race["candidates"].items()},
+                   "winner": race["winner"], "built": race["built"],
+                   "build_s": race["build_s"], "errs": errs, **turns,
+                   "tuned_over_untuned": turns["tuned_ms"]
+                   / turns["untuned_ms"]}
+            out[label] = row
+            log(f"[tune] {label} " + json.dumps(row))
+    tuning.disable()
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[tune] phase 15 took {out['phase_s']:.1f} s")
+    return out
 
 
 def card_line() -> str:
@@ -5022,6 +5361,7 @@ def main() -> int:
         models["deepseek"] = phase_deepseek()
         models["seamless"] = phase_seamless(gen)
         train = phase_train(res)
+        tuned = phase_tune(gen)
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1
@@ -5038,7 +5378,7 @@ def main() -> int:
         name, source, replaces = META[k]
         paths = {"primitives": prims, "greedy": serve, "sampled": sampled,
                  "gemma2": gemma2, "xlstm": xlstm, **models, **slice16,
-                 "train": train}
+                 "train": train, "train_xlstm": train["xlstm"]}
         kernels.append({
             "name": f"{k} {name}", "route": "cuda", "source": source,
             "replaces": replaces,
@@ -5051,7 +5391,8 @@ def main() -> int:
             "launches_gemma2": gemma2["launches"][k],
             "launches_xlstm": xlstm["launches"][k],
             **{f"launches_{tag}": m["launches"][k]
-               for tag, m in {**models, **slice16, "train": train}.items()},
+               for tag, m in {**models, **slice16, "train": train,
+                              "train_xlstm": train["xlstm"]}.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
@@ -5071,6 +5412,9 @@ def main() -> int:
             if form.startswith(f"{k} "):
                 kernels[-1]["launches_" + form.split()[1]] = {
                     path: p["launches"][form] for path, p in paths.items()}
+    log("[tune] " + json.dumps({k: {x: v[x] for x in (
+        "winner", "untuned_ms", "tuned_ms", "tuned_over_untuned")}
+        for k, v in tuned.items() if k != "phase_s"}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,37 +1,157 @@
-"""The route registry and backend dispatch (the registry half of
-``repro.core.intrinsics``).
+"""The route registry, backend dispatch and tuning policies (the registry
+half of ``repro.core.intrinsics``).
 
 One declarative table says which (primitive, layout) routes exist, how each
-validates its arguments and what it does at zero extent; implementations
-register per backend from ``kernels/ops.py``.  Two backends exist:
+validates its arguments, what it does at zero extent and which policy knobs
+its autotuner races; implementations register per backend from
+``kernels/ops.py``.  Two backends exist:
 
 * ``torch`` -- the plain PyTorch versions, always available, on any device;
 * ``cuda``  -- the hand-written kernels under ``csrc/``.  On a CUDA tensor a
   ``cuda`` route launches its kernel or raises; it never swaps in the plain
   version.
 
-With no explicit ``backend=`` and no :func:`use_backend` scope, the backend
-follows the operands: ``cuda`` for tensors on a CUDA device, ``torch``
-otherwise.  The TPU tiling helpers and tuning policies of the reference do
-not port: their work moves inside the kernels.  The one policy value the
-compositions read is :data:`SORT_DIGIT_BITS`, the radix sort's digit width.
+With no explicit ``backend=``, no :func:`use_backend` scope and no
+(deprecated) :func:`force_backend` pin, the backend follows the operands:
+``cuda`` for tensors on a CUDA device, ``torch`` otherwise.  The TPU tiling
+helpers of the reference do not port: their work moves inside the kernels.
+The tuning policies do (:class:`TuningPolicy`): each tunable ``cuda``
+implementation takes ``policy=`` and maps one field onto one launch knob of
+its kernel; ``core/tuning.py``'s autotuner races a route's ladder
+(:class:`TuneRecipe`) through the hook :func:`resolve_impl` consults.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import threading
+import warnings
 from typing import Callable
 
 import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.core import layout as lay
+from repro_torch.core import operators as alg
 
-# The radix sort's digit width (bits per scatter pass): the reference's
-# ``gpu_h100`` tuning value.  Wider digits mean fewer passes but a wider
-# one-hot matrix per pass (2^bits buckets); kernels/sort.py reads it.
-SORT_DIGIT_BITS = 8
+
+# --------------------------------------------------------------------------
+# Tuning policies (the reference's A40 <: Ampere <: AbstractArch analogue).
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class TuningPolicy:
+    """Per-card launch knobs of the port's kernels, with the reference's
+    field names.  The defaults are the launch every kernel made before the
+    knobs existed, so a policy with no overrides changes nothing.  What each
+    field means here (on the TPU a field sized a Pallas grid step; on the
+    card it sizes a thread's or a block's share of the work):
+
+    * ``nitem_copy`` -- K1's 16-byte vectors a thread (``kernels/copy.py``:
+      1, 2, 4, 8 or 16).
+    * ``nitem_scan`` -- the items a thread of a scan tile scans
+      (``csrc/tile_scan.cuh``: ``Tile<E, N>``, at most 8 N and 128 bytes of
+      them): K2 (its lookback's tile, ``Lookback<E, N>``, takes up to 4 N
+      items of 128 bytes), K7s, K8; K6's steps a thread a chunk
+      (``csrc/scan.cuh``: ``Run<E, N>``) and its long-T chunk of 8 N steps;
+      the radix sort's rank and offset scans.  A compile-time constant: each
+      value is a unit of its own.
+    * ``nitem_reduce`` -- K3's items a thread before its grid grows (and its
+      small form's extent, 256 N; ``csrc/mapreduce.cuh``: ``Flat<N>``, a
+      unit of its own); K7m's split chunk, at least 4 N loads a thread
+      (host-side, ``kernels/batched.py: rows_geometry``).
+    * ``matvec_rows`` -- K7's matvec (COLUMNS): row groups a block at most,
+      twice as many over a quantized matrix (``kernels/matvec.py:
+      geometry``).
+    * ``vecmat_rows`` -- K7's dense vecmat over more than 64 columns
+      (ROWS): the loads a lane takes at least, so fewer give a row more
+      lanes and a block fewer rows; TALL's and STRIPS's rows follow their
+      shared tile and quantization block instead.
+    * ``sort_digit_bits`` -- the radix sort's digit width, 2^bits buckets a
+      pass (``kernels/sort.py``).
+    * ``matvec_cols``, ``vecmat_cols``, ``tall_threshold``,
+      ``vmem_budget_bytes``, ``gpu_threads``, ``gpu_vec_bytes`` -- Pallas
+      block shapes of the reference; no port kernel reads them.
+    * ``overlap_chunks`` -- the ``@sharded`` routes' slabs, read by the
+      distributed layer when it ports.
+
+    The chip table registers ``generic`` (no card) and the GPU family
+    (``gpu_generic`` <: ``gpu_a100`` <: ``gpu_h100``; ``gpu_mi300``): the
+    port's values, today's launch on each, measured on the H100 only.  The
+    reference's TPU entries (``tpu_v5e``, ``tpu_v5p``) and interpret entries
+    (``interpret``, ``gpu_interpret``) have no port backend and are not
+    registered.
+    """
+
+    name: str = "generic"
+    nitem_copy: int = 8
+    nitem_scan: int = 8
+    nitem_reduce: int = 8
+    matvec_rows: int = 8
+    matvec_cols: int = 2
+    vecmat_rows: int = 8
+    vecmat_cols: int = 8
+    tall_threshold: float = 64.0
+    vmem_budget_bytes: int = 64 * 1024 * 1024
+    sort_digit_bits: int = 8
+    gpu_threads: int = 256
+    gpu_vec_bytes: int = 16
+    overlap_chunks: int = 4
+
+
+_TUNING_REGISTRY: dict[str, TuningPolicy] = {}
+_TUNING_PARENTS: dict[str, str] = {}
+
+
+def register_tuning(name: str, policy: TuningPolicy, parent: str = "generic"):
+    _TUNING_REGISTRY[name] = policy
+    _TUNING_PARENTS[name] = parent
+
+
+register_tuning("generic", TuningPolicy())
+register_tuning("gpu_generic", TuningPolicy(name="gpu_generic"))
+register_tuning("gpu_a100", TuningPolicy(name="gpu_a100"),
+                parent="gpu_generic")
+register_tuning("gpu_h100", TuningPolicy(name="gpu_h100"), parent="gpu_a100")
+register_tuning("gpu_mi300", TuningPolicy(name="gpu_mi300"),
+                parent="gpu_generic")
+
+
+def resolve_tuning(name: str | None = None) -> TuningPolicy:
+    """The policy registered as ``name`` (None: :func:`detect_chip`'s), or
+    that of its nearest registered parent."""
+    if name is None:
+        name = detect_chip()
+    while name not in _TUNING_REGISTRY:
+        name = _TUNING_PARENTS.get(name, "generic")
+    return _TUNING_REGISTRY[name]
+
+
+@functools.cache
+def detect_chip() -> str:
+    """The chip-table name of the current CUDA card, from
+    ``torch.cuda.get_device_name()`` ("NVIDIA H100 80GB HBM3" gives
+    ``gpu_h100``); ``generic`` with no card.  Asked once a process."""
+    if not torch.cuda.is_available():
+        return "generic"
+    kind = torch.cuda.get_device_name().lower()
+    for tag, name in (("h100", "gpu_h100"), ("h200", "gpu_h100"),
+                      ("a100", "gpu_a100"), ("mi300", "gpu_mi300"),
+                      ("mi250", "gpu_mi300")):
+        if tag in kind:
+            return name
+    return "gpu_generic"
+
+
+def default_policy_name(backend: str | None) -> str | None:
+    """The tuning-policy name a backend's kernels resolve when no policy is
+    passed, shared by the compositions and the autotuner hook so that both
+    start from the same base policy: None (the detected card's) for both
+    backends -- the ``torch`` rows read no knob, but the radix sort's digit
+    width is a policy field on either."""
+    return None
 
 
 # --------------------------------------------------------------------------
@@ -40,6 +160,13 @@ SORT_DIGIT_BITS = 8
 # --------------------------------------------------------------------------
 
 _IMPL_REGISTRY: dict[tuple[str, str], Callable] = {}
+_FORCED_BACKEND: str | None = None           # legacy force_backend() shim
+_FORCE_BACKEND_WARNED = False
+_SUB_BACKEND_WARNED = False
+# Optional autotuner hook (installed by core.tuning, to avoid a layering
+# cycle): called as hook(primitive, backend, impl); it may return a wrapped
+# impl that injects a benchmarked TuningPolicy, or None to pass through.
+_TUNER_HOOK: Callable[[str, str, Callable], Callable | None] | None = None
 
 
 class _BackendScope(threading.local):
@@ -50,6 +177,12 @@ class _BackendScope(threading.local):
 
 
 _BACKEND_SCOPE = _BackendScope()
+
+
+def set_tuner_hook(hook: Callable | None):
+    """Install (or clear) the autotune wrapper consulted by resolve_impl."""
+    global _TUNER_HOOK
+    _TUNER_HOOK = hook
 
 
 def register_impl(primitive: str, backend: str):
@@ -105,6 +238,48 @@ def use_backend(backend: str):
         _BACKEND_SCOPE.stack.pop()
 
 
+def force_backend(backend: str | None):
+    """Deprecated: process-global backend pin.  Use :func:`use_backend`.
+
+    Kept as a warn-once shim with unchanged behavior (a global default that
+    scoped overrides and explicit ``backend=`` arguments still beat).
+    """
+    global _FORCED_BACKEND, _FORCE_BACKEND_WARNED
+    if not _FORCE_BACKEND_WARNED:
+        warnings.warn(
+            "force_backend() is deprecated; use the scoped "
+            "repro_torch.core.intrinsics.use_backend(...) context manager "
+            "instead", DeprecationWarning, stacklevel=2)
+        _FORCE_BACKEND_WARNED = True
+    _FORCED_BACKEND = backend
+
+
+def sub_backend_alias(fn):
+    """Deprecated-alias shim: the composition entry points (the radix
+    sorts) used to spell their backend parameter ``sub_backend=``.  The
+    alias still works -- warn once per process, like :func:`force_backend`
+    -- and forwards to ``backend=``; passing both spellings is an error."""
+
+    @functools.wraps(fn)
+    def wrapper(*args, sub_backend=None, **kwargs):
+        global _SUB_BACKEND_WARNED
+        if sub_backend is not None:
+            if "backend" in kwargs:
+                raise TypeError(
+                    f"{fn.__name__}: got both backend= and its deprecated "
+                    "alias sub_backend=; pass backend= only")
+            if not _SUB_BACKEND_WARNED:
+                warnings.warn(
+                    "the sub_backend= keyword is deprecated; compositions "
+                    "now take the same backend= spelling as every other "
+                    "primitive", DeprecationWarning, stacklevel=2)
+                _SUB_BACKEND_WARNED = True
+            kwargs["backend"] = sub_backend
+        return fn(*args, **kwargs)
+
+    return wrapper
+
+
 def _leaves(data) -> list:
     """``data``'s leaves; a bare tensor is its own, with no pytree walk."""
     return [data] if isinstance(data, torch.Tensor) else \
@@ -121,14 +296,17 @@ def scoped_backend() -> str | None:
 
 def current_backend(data=None) -> str:
     """The backend dispatch uses when no explicit ``backend=`` is passed:
-    the innermost use_backend() scope, else ``cuda`` when ``data``'s leaves
-    lie on a CUDA device, else ``torch``."""
+    the innermost use_backend() scope, else the (deprecated) forced
+    global, else ``cuda`` when ``data``'s leaves lie on a CUDA device,
+    else ``torch``."""
     return _backend_of(_leaves(data))
 
 
 def _backend_of(leaves: list) -> str:
     if _BACKEND_SCOPE.stack:
         return _BACKEND_SCOPE.stack[-1]
+    if _FORCED_BACKEND is not None:
+        return _FORCED_BACKEND
     if leaves and isinstance(leaves[0], torch.Tensor) and leaves[0].is_cuda:
         return "cuda"
     return "torch"
@@ -148,12 +326,39 @@ def resolve_impl(primitive: str, backend: str | None = None,
         # hidden behind the plain version.
         raise NotImplementedError(
             f"{primitive}: no {backend!r} implementation")
+    if _TUNER_HOOK is not None:
+        wrapped = _TUNER_HOOK(primitive, backend, impl)
+        if wrapped is not None:
+            return wrapped
     return impl
 
 
 # --------------------------------------------------------------------------
 # The declarative primitive registry.
 # --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class TuneRecipe:
+    """How to build a tuning cache key + which policy knobs to race.
+
+    ``dims`` selects the generic key extractor in ``core.tuning``:
+
+    * ``"flat"``   -- ``n`` = total element count over the data's leaves;
+    * ``"row"``    -- ``(B, n)`` leaves: per-row extent + batch bucket;
+    * ``"trail2"`` -- ``(B, d1, d2)`` leading leaf: the two trailing dims
+      bucket *separately* (``"8192x128"``) because the launch branches on
+      the aspect ratio, plus the batch bucket.
+    """
+
+    ladder: tuple  # TuningPolicy field-override dicts to race
+    # Argument indices default to the enclosing RouteDef's data_arg/op_arg
+    # (resolved in core.tuning) -- override only when the key should read a
+    # different operand than dispatch validates.
+    data_arg: int | None = None
+    op_arg: int | None = None      # positional index of the AssocOp, or
+    op_label: str | None = None    # a fixed label when the op is implicit
+    dims: str = "flat"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,6 +387,7 @@ class RouteDef:
     zero_extent: str | None = None
     needs_descriptor: bool = False    # Segmented: exactly one of flags/offsets
     needs_num_segments: bool = False  # Segmented flag variant: static extent
+    tuning: TuneRecipe | None = None
     notes: str = ""
 
     @property
@@ -349,7 +555,7 @@ def dispatch(primitive: str, layout, backend: str | None,
         if handled:
             return result
     backend = backend or _backend_of(leaves)
-    _check_grad(route, backend, args)
+    _check_grad(route, backend, args, kwargs, leaves)
     if route.noncomm_route is not None and not getattr(
             args[route.op_arg], "commutative", False):
         # Order-preserving reroute: scan the mapped values with the same
@@ -364,10 +570,22 @@ def dispatch(primitive: str, layout, backend: str | None,
     return impl(*args, **kwargs)
 
 
+def _maxplus_affine_form(args, kwargs, leaves) -> bool:
+    """The mLSTM stabilizer's form: an inclusive forward scan under
+    MAXPLUS_AFFINE along axis 1 of 3-D leaves."""
+    return (args[0] is alg.MAXPLUS_AFFINE and kwargs.get("axis") == 1
+            and kwargs.get("inclusive", True)
+            and not kwargs.get("reverse", False)
+            and all(l.ndim == 3 for l in leaves))
+
+
 # The routes whose cuda implementation carries its gradient (an
-# ``autograd.Function``: kernels/ops.py's ``LinearRecurrence``).
-GRAD_ROUTES = frozenset({"linear_recurrence@flat",
-                         "linear_recurrence@batched"})
+# ``autograd.Function`` of kernels/ops.py: ``LinearRecurrence``,
+# ``MaxplusAffineScan``), each with the test of the calls it carries it
+# for (None: every call).
+GRAD_ROUTES = {"linear_recurrence@flat": None,
+               "linear_recurrence@batched": None,
+               "scan@flat": _maxplus_affine_form}
 
 
 def _requires_grad(arg) -> bool:
@@ -379,14 +597,18 @@ def _requires_grad(arg) -> bool:
     return False
 
 
-def _check_grad(route: RouteDef, backend: str, args: tuple) -> None:
+def _check_grad(route: RouteDef, backend: str, args: tuple, kwargs: dict,
+                leaves: list) -> None:
     """A cuda route launches through ctypes, so its output has no
     ``grad_fn``: with grad mode on and an input that requires grad it would
     silently cut the graph.  Such a call raises, naming the route, unless
-    the route carries its gradient (``GRAD_ROUTES``)."""
-    if backend != "cuda" or route.key in GRAD_ROUTES or \
-            not torch.is_grad_enabled():
+    the route carries its gradient for it (``GRAD_ROUTES``)."""
+    if backend != "cuda" or not torch.is_grad_enabled():
         return
+    if route.key in GRAD_ROUTES:
+        form = GRAD_ROUTES[route.key]
+        if form is None or form(args, kwargs, leaves):
+            return
     if any(_requires_grad(a) for a in args):
         raise RuntimeError(
             f"{route.key} (cuda): the kernel has no gradient, and an input "
@@ -396,36 +618,65 @@ def _check_grad(route: RouteDef, backend: str, args: tuple) -> None:
 
 # -- the table itself -------------------------------------------------------
 
+# The reference's ladders, every route that is not sharded; the sharded
+# routes' overlap_chunks ladders come with the distributed layer.
+_NITEM_SCAN = tuple({"nitem_scan": v} for v in (4, 8, 16, 32))
+_NITEM_REDUCE = tuple({"nitem_reduce": v} for v in (4, 8, 16))
+_NITEM_COPY = tuple({"nitem_copy": v} for v in (4, 8, 16))
+# Radix sort races digit width x block policy: wider digits mean fewer
+# scatter passes but a larger per-pass rank scan, and the rank scan's own
+# block size (nitem_scan) interacts with the digit count.
+_SORT_LADDER = tuple({"sort_digit_bits": d, "nitem_scan": m}
+                     for d in (2, 4, 8) for m in (8, 16))
+_MATVEC_ROWS = tuple({"matvec_rows": v} for v in (4, 8, 16))
+_VECMAT_ROWS = tuple({"vecmat_rows": v} for v in (4, 8, 16))
+# K6's channel-tile route cannot take 32 steps a thread of the AFFINE f32
+# pair its recurrence scans: two register sets of 32 pairs are 128 of a
+# thread's registers, so Run<E, N> caps a run at 128 bytes, and 32 would
+# launch what 16 launches.  The port's ladder leaves it out.
+_NITEM_LINREC = tuple(c for c in _NITEM_SCAN if c["nitem_scan"] != 32)
+
+_SORT_TUNE = TuneRecipe(_SORT_LADDER, op_label="keys")
+
 define_primitive(
     "copy",
-    RouteDef("copy", "flat", zero_extent="passthrough"),
+    RouteDef("copy", "flat", zero_extent="passthrough",
+             tuning=TuneRecipe(_NITEM_COPY, op_label="copy")),
     doc="bandwidth-ceiling tiled copy")
 
 define_primitive(
     "scan",
-    RouteDef("scan", "flat", data_arg=1, op_arg=0, zero_extent="passthrough"),
+    RouteDef("scan", "flat", data_arg=1, op_arg=0, zero_extent="passthrough",
+             tuning=TuneRecipe(_NITEM_SCAN)),
     RouteDef("scan", "batched", data_arg=1, op_arg=0, arg_ranks=((1, 2),),
              fixed_kwargs=(("axis", 0),), zero_extent="passthrough",
+             tuning=TuneRecipe(_NITEM_SCAN, dims="row"),
              notes="per-row scan along axis 1 of (B, n) leaves"),
     RouteDef("scan", "segmented", data_arg=1, op_arg=0, arg_ranks=((1, 1),),
              fixed_kwargs=(("axis", 0), ("reverse", False)),
              needs_descriptor=True, zero_extent="passthrough",
+             tuning=TuneRecipe(_NITEM_SCAN),
              notes="restarts at every segment boundary"),
     doc="prefix scan with any associative operator")
 
 define_primitive(
     "mapreduce",
     RouteDef("mapreduce", "flat", data_arg=2, op_arg=1,
-             commutative_only=True),
+             commutative_only=True,
+             tuning=TuneRecipe(_NITEM_REDUCE)),
     RouteDef("mapreduce", "batched", data_arg=2, op_arg=1,
              arg_ranks=((2, 2),), fixed_kwargs=(("axis", None),),
              noncomm_route="scan@batched",
              zero_extent="batched_reduce_identity",
+             # Non-commutative ops never reach this tuner: dispatch reroutes
+             # them to scan@batched, whose own ladder races nitem_scan.
+             tuning=TuneRecipe(_NITEM_REDUCE, dims="row"),
              notes="non-commutative ops reroute via scan@batched"),
     RouteDef("mapreduce", "segmented", data_arg=2, op_arg=1,
              arg_ranks=((2, 1),), fixed_kwargs=(("axis", None),),
              needs_descriptor=True, needs_num_segments=True,
              zero_extent="segmented_reduce_identity",
+             tuning=TuneRecipe(_NITEM_SCAN),
              notes="one output element per segment; empties yield identity; "
                    "order-preserving (segmented scan + gather), so "
                    "non-commutative ops are valid"),
@@ -436,7 +687,8 @@ define_primitive(
     RouteDef("matvec", "flat", data_arg=2, op_arg=1,
              arg_ranks=((2, 2), (3, 1))),
     RouteDef("matvec", "batched", data_arg=2, op_arg=1,
-             arg_ranks=((2, 3), (3, 2)), zero_extent="batched_mv_identity"),
+             arg_ranks=((2, 3), (3, 2)), zero_extent="batched_mv_identity",
+             tuning=TuneRecipe(_MATVEC_ROWS, dims="trail2")),
     doc="y[j] = op_i f(x[i], A[i, j]) (generalized semiring matvec)")
 
 define_primitive(
@@ -444,14 +696,18 @@ define_primitive(
     RouteDef("vecmat", "flat", data_arg=2, op_arg=1,
              arg_ranks=((2, 2), (3, 1))),
     RouteDef("vecmat", "batched", data_arg=2, op_arg=1,
-             arg_ranks=((2, 3), (3, 2)), zero_extent="batched_mv_identity"),
+             arg_ranks=((2, 3), (3, 2)), zero_extent="batched_mv_identity",
+             tuning=TuneRecipe(_VECMAT_ROWS, dims="trail2")),
     doc="z[i] = op_j f(A[i, j], x[j]) (generalized semiring vecmat)")
 
 define_primitive(
     "linear_recurrence",
     RouteDef("linear_recurrence", "flat", arg_ranks=((0, 3), (1, 3))),
     RouteDef("linear_recurrence", "batched", arg_ranks=((0, 3), (1, 3)),
-             notes="the recurrent models' prefill route"),
+             tuning=TuneRecipe(_NITEM_LINREC, op_label="affine",
+                               dims="trail2"),
+             notes="the recurrent models' prefill route; tuner keys carry "
+                   "a batch bucket"),
     doc="h_t = a_t * h_{t-1} + b_t along axis 1 of (B, T, C)")
 
 for _sort_prim, _sort_notes in (
@@ -463,9 +719,10 @@ for _sort_prim, _sort_notes in (
                   "identity and index -1")):
     define_primitive(
         _sort_prim,
-        RouteDef(_sort_prim, "flat", arg_ranks=((0, 1),)),
+        RouteDef(_sort_prim, "flat", arg_ranks=((0, 1),),
+                 tuning=_SORT_TUNE),
         RouteDef(_sort_prim, "segmented", arg_ranks=((0, 1),),
                  needs_descriptor=True,
                  needs_num_segments=(_sort_prim == "top_k"),
-                 notes=_sort_notes),
+                 tuning=_SORT_TUNE, notes=_sort_notes),
         doc=f"radix-sort family: {_sort_prim}")

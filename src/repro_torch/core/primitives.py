@@ -22,18 +22,27 @@ registry in ``core.intrinsics``; implementations register per backend from
     h = forge.linear_recurrence(a, b, layout=Batched())        # (B, T, C)
     v, i = forge.top_k(logits.reshape(-1), 40,
                        layout=Segmented(offsets=offsets))      # (S, 40)
+
+The pre-layout names (``segmented_scan``, ``batched_mapreduce``, ...) remain
+as deprecation shims that forward to the polymorphic surface; each warns
+once per process.  ``REPRO_AUTOTUNE=1`` in the environment turns on the
+autotuner (``core/tuning.py``) when this module is imported.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Any, Callable
 
 import torch
 
 from repro_torch.core import intrinsics as ki
 from repro_torch.core import operators as alg
+from repro_torch.core import tuning as _tuning
 from repro_torch.core.layout import (  # noqa: F401  (re-exported)
     FLAT, Batched, Flat, Layout, Segmented)
 from repro_torch.kernels import ops as _ops  # noqa: F401  (registers backends)
+
+_tuning.maybe_enable_from_env()  # REPRO_AUTOTUNE=1 turns on autotuned dispatch
 
 Pytree = Any
 
@@ -206,3 +215,161 @@ def top_k(keys: torch.Tensor, k: int, *, largest: bool = True,
     flag variant needs ``Segmented(num_segments=...)``)."""
     return ki.dispatch("top_k", layout, backend, (keys, k),
                        {"largest": largest, "key_bits": key_bits})
+
+
+# ---------------------------------------------------------------------------
+# Deprecation shims: the pre-layout names.  Each forwards verbatim to the
+# polymorphic surface and warns once per process.
+# ---------------------------------------------------------------------------
+
+_WARNED: set[str] = set()
+
+
+def _warn_deprecated(name: str, replacement: str) -> None:
+    if name in _WARNED:
+        return
+    _WARNED.add(name)
+    warnings.warn(
+        f"forge.{name} is deprecated; use {replacement}",
+        DeprecationWarning, stacklevel=3)
+
+
+def batched_scan(op: alg.AssocOp, xs: Pytree, *, inclusive: bool = True,
+                 reverse: bool = False, backend: str | None = None) -> Pytree:
+    """Deprecated: use ``scan(op, xs, layout=Batched())``."""
+    _warn_deprecated("batched_scan", "scan(op, xs, layout=Batched())")
+    return scan(op, xs, inclusive=inclusive, reverse=reverse,
+                layout=Batched(), backend=backend)
+
+
+def batched_mapreduce(f: Callable, op: alg.AssocOp, xs: Pytree, *,
+                      backend: str | None = None) -> Pytree:
+    """Deprecated: use ``mapreduce(f, op, xs, layout=Batched())``."""
+    _warn_deprecated("batched_mapreduce",
+                     "mapreduce(f, op, xs, layout=Batched())")
+    return mapreduce(f, op, xs, layout=Batched(), backend=backend)
+
+
+def batched_matvec(f: Callable, op: alg.AssocOp, A, x: torch.Tensor, *,
+                   backend: str | None = None) -> Pytree:
+    """Deprecated: use ``matvec(f, op, A, x, layout=Batched())``."""
+    _warn_deprecated("batched_matvec",
+                     "matvec(f, op, A, x, layout=Batched())")
+    return matvec(f, op, A, x, layout=Batched(), backend=backend)
+
+
+def batched_vecmat(f: Callable, op: alg.AssocOp, A, x: torch.Tensor, *,
+                   backend: str | None = None) -> Pytree:
+    """Deprecated: use ``vecmat(f, op, A, x, layout=Batched())``."""
+    _warn_deprecated("batched_vecmat",
+                     "vecmat(f, op, A, x, layout=Batched())")
+    return vecmat(f, op, A, x, layout=Batched(), backend=backend)
+
+
+def batched_semiring_matvec(semiring: alg.Semiring, A, x: torch.Tensor, *,
+                            backend: str | None = None) -> Pytree:
+    """Deprecated: use ``semiring_matvec(..., layout=Batched())``."""
+    _warn_deprecated("batched_semiring_matvec",
+                     "semiring_matvec(semiring, A, x, layout=Batched())")
+    return semiring_matvec(semiring, A, x, layout=Batched(), backend=backend)
+
+
+def batched_semiring_vecmat(semiring: alg.Semiring, A, x: torch.Tensor, *,
+                            backend: str | None = None) -> Pytree:
+    """Deprecated: use ``semiring_vecmat(..., layout=Batched())``."""
+    _warn_deprecated("batched_semiring_vecmat",
+                     "semiring_vecmat(semiring, A, x, layout=Batched())")
+    return semiring_vecmat(semiring, A, x, layout=Batched(), backend=backend)
+
+
+def batched_linear_recurrence(a: torch.Tensor, b: torch.Tensor,
+                              h0: torch.Tensor | None = None, *,
+                              reverse: bool = False,
+                              backend: str | None = None) -> torch.Tensor:
+    """Deprecated: use ``linear_recurrence(a, b, h0, layout=Batched())``."""
+    _warn_deprecated("batched_linear_recurrence",
+                     "linear_recurrence(a, b, h0, layout=Batched())")
+    return linear_recurrence(a, b, h0, reverse=reverse, layout=Batched(),
+                             backend=backend)
+
+
+def segmented_scan(op: alg.AssocOp, xs: Pytree, *,
+                   flags: torch.Tensor | None = None,
+                   offsets: torch.Tensor | None = None,
+                   inclusive: bool = True,
+                   backend: str | None = None) -> Pytree:
+    """Deprecated: use ``scan(op, xs, layout=Segmented(...))``."""
+    _warn_deprecated("segmented_scan",
+                     "scan(op, xs, layout=Segmented(flags=... | offsets=...))")
+    return scan(op, xs, inclusive=inclusive,
+                layout=Segmented(flags=flags, offsets=offsets),
+                backend=backend)
+
+
+def segmented_mapreduce(f: Callable, op: alg.AssocOp, xs: Pytree, *,
+                        flags: torch.Tensor | None = None,
+                        offsets: torch.Tensor | None = None,
+                        num_segments: int | None = None,
+                        backend: str | None = None) -> Pytree:
+    """Deprecated: use ``mapreduce(f, op, xs, layout=Segmented(...))``."""
+    _warn_deprecated("segmented_mapreduce",
+                     "mapreduce(f, op, xs, layout=Segmented(...))")
+    return mapreduce(f, op, xs,
+                     layout=Segmented(flags=flags, offsets=offsets,
+                                      num_segments=num_segments),
+                     backend=backend)
+
+
+def segmented_sort(keys: torch.Tensor, *, flags: torch.Tensor | None = None,
+                   offsets: torch.Tensor | None = None,
+                   descending: bool = False, key_bits: int | None = None,
+                   backend: str | None = None) -> torch.Tensor:
+    """Deprecated: use ``sort(keys, layout=Segmented(...))``."""
+    _warn_deprecated("segmented_sort", "sort(keys, layout=Segmented(...))")
+    return sort(keys, descending=descending, key_bits=key_bits,
+                layout=Segmented(flags=flags, offsets=offsets),
+                backend=backend)
+
+
+def segmented_sort_pairs(keys: torch.Tensor, values: Pytree, *,
+                         flags: torch.Tensor | None = None,
+                         offsets: torch.Tensor | None = None,
+                         descending: bool = False,
+                         key_bits: int | None = None,
+                         backend: str | None = None
+                         ) -> tuple[torch.Tensor, Pytree]:
+    """Deprecated: use ``sort_pairs(keys, values, layout=Segmented(...))``."""
+    _warn_deprecated("segmented_sort_pairs",
+                     "sort_pairs(keys, values, layout=Segmented(...))")
+    return sort_pairs(keys, values, descending=descending, key_bits=key_bits,
+                      layout=Segmented(flags=flags, offsets=offsets),
+                      backend=backend)
+
+
+def segmented_argsort(keys: torch.Tensor, *,
+                      flags: torch.Tensor | None = None,
+                      offsets: torch.Tensor | None = None,
+                      descending: bool = False, key_bits: int | None = None,
+                      backend: str | None = None) -> torch.Tensor:
+    """Deprecated: use ``argsort(keys, layout=Segmented(...))``."""
+    _warn_deprecated("segmented_argsort",
+                     "argsort(keys, layout=Segmented(...))")
+    return argsort(keys, descending=descending, key_bits=key_bits,
+                   layout=Segmented(flags=flags, offsets=offsets),
+                   backend=backend)
+
+
+def segmented_top_k(keys: torch.Tensor, k: int, *,
+                    flags: torch.Tensor | None = None,
+                    offsets: torch.Tensor | None = None,
+                    num_segments: int | None = None, largest: bool = True,
+                    key_bits: int | None = None,
+                    backend: str | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Deprecated: use ``top_k(keys, k, layout=Segmented(...))``."""
+    _warn_deprecated("segmented_top_k",
+                     "top_k(keys, k, layout=Segmented(...))")
+    return top_k(keys, k, largest=largest, key_bits=key_bits,
+                 layout=Segmented(flags=flags, offsets=offsets,
+                                  num_segments=num_segments),
+                 backend=backend)

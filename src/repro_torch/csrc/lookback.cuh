@@ -66,8 +66,10 @@ constexpr unsigned AGGREGATE = 1;    // flag states; 0: not yet written
 constexpr unsigned PREFIX = 2;
 constexpr unsigned EPOCH_MAX = (1u << 30) - 1;
 
-// Elements a thread: 128 bytes of them, 32 at most (a tile of 8,192 4-byte
-// elements, 4,096 8-byte ones, 2,048 quaternions, 768 40-byte elements);
+// Elements a thread: 128 bytes of them, 4 N at most for the knob N (the
+// tuning policy's nitem_scan, tile_scan.cuh's Tile; 32 at N = 8: a tile of
+// 8,192 4-byte elements, 4,096 8-byte ones, 2,048 quaternions, 768 40-byte
+// elements; the tile's shared memory bounds the bytes at any N);
 // four blocks a multiprocessor for 4-byte elements, three for 8- to
 // 16-byte ones (as many as fit without spilling an AFFINE f32 pair or a
 // quaternion).  A block
@@ -75,9 +77,10 @@ constexpr unsigned EPOCH_MAX = (1u << 30) - 1;
 // lookback come once a tile: the tile is large, and the registers few
 // enough that several blocks share a multiprocessor and keep loads in
 // flight while others wait.
-template <typename E> struct Lookback {
+template <typename E, int N = 8> struct Lookback {
   static constexpr int ITEMS =
-      128 / sizeof(E) >= 32 ? 32 : (128 / sizeof(E) >= 1 ? 128 / sizeof(E) : 1);
+      128 / sizeof(E) >= 4 * N ? 4 * N
+                               : (128 / sizeof(E) >= 1 ? 128 / sizeof(E) : 1);
   static constexpr long SIZE = static_cast<long>(tile::THREADS) * ITEMS;
   static constexpr int MIN_BLOCKS =
       sizeof(E) <= 4 ? 4 : (sizeof(E) <= 16 ? 3 : 1);
@@ -192,13 +195,13 @@ __device__ typename Op::E look_back(const Status<typename Op::E>& st, long t) {
   }
 }
 
-template <typename Op>
+template <typename Op, int N>
 __global__ void __launch_bounds__(tile::THREADS,
-                                  Lookback<typename Op::E>::MIN_BLOCKS)
+                                  Lookback<typename Op::E, N>::MIN_BLOCKS)
 scan_lookback(Leaves x, Leaves y, long n, bool inclusive,
               Status<typename Op::E> st, unsigned* ticket) {
   using E = typename Op::E;
-  constexpr int ITEMS = Lookback<E>::ITEMS;
+  constexpr int ITEMS = Lookback<E, N>::ITEMS;
   __shared__ tile::TileSmem<E, ITEMS> s;
   __shared__ long tile_s;
   __shared__ E prefix_s;
@@ -209,7 +212,7 @@ scan_lookback(Leaves x, Leaves y, long n, bool inclusive,
   }
   __syncthreads();
   const long t = tile_s;
-  const long base = t * Lookback<E>::SIZE;
+  const long base = t * Lookback<E, N>::SIZE;
   E r[ITEMS];
   tile::load_tile<Op>(s, r, base, n, [&](long i) { return E::load(x, i); });
   const E total = tile::scan_tile_regs<Op>(s, r, Op::identity(), inclusive);
@@ -237,19 +240,20 @@ scan_lookback(Leaves x, Leaves y, long n, bool inclusive,
 // (0 at rest), `flags` 2 cdiv(n, SIZE) words, 8-byte aligned, and `values`
 // 2 cdiv(n, SIZE) elements; epoch is in 1 .. EPOCH_MAX and new on the
 // stream.
-template <typename Op>
+template <typename Op, int N = 8>
 cudaError_t scan(Leaves x, Leaves y, long n, bool inclusive, void* counters,
                  void* flags, void* values, unsigned epoch,
                  cudaStream_t stream) {
   using E = typename Op::E;
+  constexpr long SIZE = Lookback<E, N>::SIZE;
   if (n <= 0 || epoch == 0 || epoch > EPOCH_MAX) return cudaErrorInvalidValue;
-  const long tiles = (n + Lookback<E>::SIZE - 1) / Lookback<E>::SIZE;
+  const long tiles = (n + SIZE - 1) / SIZE;
   if (tiles > 0x7fffffffL) return cudaErrorInvalidValue;
   E* v = static_cast<E*>(values);
   const Status<E> st{static_cast<unsigned*>(flags), v, v + tiles, epoch};
-  scan_lookback<Op><<<static_cast<unsigned>(tiles), tile::THREADS, 0,
-                      stream>>>(x, y, n, inclusive, st,
-                                static_cast<unsigned*>(counters));
+  scan_lookback<Op, N><<<static_cast<unsigned>(tiles), tile::THREADS, 0,
+                         stream>>>(x, y, n, inclusive, st,
+                                   static_cast<unsigned*>(counters));
   return cudaGetLastError();
 }
 

@@ -17,8 +17,11 @@
 // single-launch completion: each block writes its partial, fences, and takes
 // an atomic ticket, and the block that draws the last ticket folds the
 // partials through L2.  The grid is capped at two blocks per SM, so the
-// partials stay a few hundred elements.  K3's small form, for n <= SMALL
-// (one block's THREADS x ITEMS_PER_THREAD, the serving path's (B,) flags):
+// partials stay a few hundred elements.  The knob N (the tuning policy's
+// nitem_reduce, 8 by default) is the items a thread of the grid takes
+// before the grid grows, a template parameter of the unit.  K3's small
+// form, for n <= SMALL (one block's THREADS x N, the serving path's (B,)
+// flags):
 // one block reduces and stores the result, one launch with no memset, no
 // ticket and no partials; at these sizes the host's launch, not the device,
 // takes the time.
@@ -55,14 +58,15 @@ namespace mapreduce {
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int ITEMS_PER_THREAD = 8;
 constexpr int MAX_BLOCKS = 2 * 132;
-constexpr long SMALL = THREADS * ITEMS_PER_THREAD;  // grid_for(n) == 1
-
-long grid_for(long n) {
-  const long want = (n + THREADS * ITEMS_PER_THREAD - 1) / (THREADS * ITEMS_PER_THREAD);
-  return want < 1 ? 1 : (want > MAX_BLOCKS ? MAX_BLOCKS : want);
-}
+template <int N> struct Flat {            // K3 at the knob N
+  static_assert(N >= 1, "a thread takes one item or more");
+  static constexpr long SMALL = static_cast<long>(THREADS) * N;  // grid 1
+  static long grid(long n) {
+    const long want = (n + SMALL - 1) / SMALL;
+    return want < 1 ? 1 : (want > MAX_BLOCKS ? MAX_BLOCKS : want);
+  }
+};
 
 template <typename Map, typename Op>
 __global__ void __launch_bounds__(THREADS)
@@ -108,9 +112,9 @@ small_kernel(Leaves x, long n, Leaves out) {
   if (threadIdx.x == 0) acc.store(out, 0);
 }
 
-// K3.  `partials` holds grid_for(n) elements of Op::E; `ticket` is one
-// 4-byte word of scratch.
-template <typename Map, typename Op>
+// K3.  `partials` holds Flat<N>::grid(n) elements of Op::E; `ticket` is
+// one 4-byte word of scratch.
+template <typename Map, typename Op, int N = 8>
 cudaError_t flat(Leaves x, long n, void* partials, void* ticket, Leaves out,
                  cudaStream_t stream) {
   if constexpr (!Op::COMMUTATIVE) {
@@ -119,7 +123,7 @@ cudaError_t flat(Leaves x, long n, void* partials, void* ticket, Leaves out,
     if (n <= 0) return cudaErrorInvalidValue;
     cudaError_t err = cudaMemsetAsync(ticket, 0, sizeof(unsigned), stream);
     if (err != cudaSuccess) return err;
-    const long grid = grid_for(n);
+    const long grid = Flat<N>::grid(n);
     flat_kernel<Map, Op><<<static_cast<unsigned>(grid), THREADS, 0, stream>>>(
         x, n, static_cast<typename Op::E*>(partials),
         static_cast<unsigned*>(ticket), out);
@@ -128,12 +132,12 @@ cudaError_t flat(Leaves x, long n, void* partials, void* ticket, Leaves out,
 }
 
 // K3's small form, n <= SMALL: one block, one launch, nothing to clear.
-template <typename Map, typename Op>
+template <typename Map, typename Op, int N = 8>
 cudaError_t small(Leaves x, long n, Leaves out, cudaStream_t stream) {
   if constexpr (!Op::COMMUTATIVE) {
     return cudaErrorInvalidValue;
   } else {
-    if (n <= 0 || n > SMALL) return cudaErrorInvalidValue;
+    if (n <= 0 || n > Flat<N>::SMALL) return cudaErrorInvalidValue;
     small_kernel<Map, Op><<<1, THREADS, 0, stream>>>(x, n, out);
     return cudaGetLastError();
   }

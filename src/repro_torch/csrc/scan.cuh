@@ -32,8 +32,10 @@
 //     C = 2560 that is 160 blocks, each with all of T.
 //   - T is a loop of chunks inside the block, which takes the place of the
 //     TPU's sequential grid axis.  A chunk is RUNS = 32 runs of STEPS steps
-//     (64 bytes of elements, 8 at most: 8 AFFINE f32 pairs, 256 steps a
-//     chunk).
+//     (the knob N of the tuning policy's nitem_scan, at most 8 N and at
+//     most 128 bytes of elements; at N = 8, 64 bytes, 8 at most: 8 AFFINE
+//     f32 pairs, 256 steps a chunk).  Runs of more than 64 bytes hold the
+//     block to one a multiprocessor, for the registers of two run sets.
 //     Thread (run, c) holds its run of channel c in registers; a warp holds
 //     two runs of the 16 channels, so each of its loads and stores covers two
 //     whole 64-byte row segments and coalesces without a pass through shared
@@ -51,7 +53,8 @@
 //     float operator differs from the plain serial walk by rounding; integer
 //     operators are bit-exact.
 // Long-T path, for few channels and long T (the radix sort's rank scan,
-// (1, n, 2^d) int32 ADD exclusive): T chunked by CHUNK steps over blocks,
+// (1, n, 2^d) int32 ADD exclusive): T chunked by CHUNK = 8 N steps (64 at
+// N = 8) over blocks,
 //   1. each thread folds one (b, chunk, c) in walk order into agg;
 //   2. the exclusive scan of agg along the chunk axis, one row per (b, c)
 //      (tile_scan.cuh's carry phase);
@@ -68,7 +71,9 @@ namespace scan {
 namespace {
 
 constexpr int CH_THREADS = 128;          // the long-T path
-constexpr int CHUNK = 64;
+template <int N> struct LongT {          // steps a thread walks
+  static constexpr long CHUNK = 8L * N;
+};
 
 constexpr int CT = 16;                   // channels a block
 constexpr int CT_THREADS = 512;
@@ -76,18 +81,20 @@ constexpr int RUNS = CT_THREADS / CT;    // runs of each channel a chunk: 32
 static_assert(RUNS == 32 && CT_THREADS / 32 == CT,
               "one warp scans one channel's run totals");
 
-template <typename E> struct Run {        // steps a thread takes a chunk
+template <typename E, int N = 8> struct Run {  // steps a thread a chunk
+  static constexpr int BYTES = 8 * N < 128 ? 8 * N : 128;   // at most
   static constexpr int STEPS =
-      64 / sizeof(E) >= 8 ? 8 : (64 / sizeof(E) >= 1 ? 64 / sizeof(E) : 1);
+      BYTES / sizeof(E) >= N ? N : (BYTES / sizeof(E) >= 1 ? BYTES / sizeof(E) : 1);
+  static constexpr int MIN_BLOCKS = STEPS * sizeof(E) <= 64 ? 2 : 1;
 };
 
 // The channel-tile route: grid (cdiv(C, CT), B).
-template <typename Op>
-__global__ void __launch_bounds__(CT_THREADS, 2)
+template <typename Op, int N>
+__global__ void __launch_bounds__(CT_THREADS, Run<typename Op::E, N>::MIN_BLOCKS)
 scan_channel_tiles(Leaves x, Leaves y, long T_len, long C, bool inclusive,
                    bool reverse) {
   using E = typename Op::E;
-  constexpr int R = Run<E>::STEPS;
+  constexpr int R = Run<E, N>::STEPS;
   constexpr long CHUNK_STEPS = static_cast<long>(RUNS) * R;
   __shared__ E run_prefix[RUNS][CT + 1];    // padded: one bank a lane
   __shared__ E carry[CT];
@@ -152,11 +159,12 @@ scan_channel_tiles(Leaves x, Leaves y, long T_len, long C, bool inclusive,
 
 // Long-T phase 1: the fold of chunk k of channel (b, c), in walk order.
 // Thread index over (chunk, c) within row b = blockIdx.y, c fastest.
-template <typename Op>
+template <typename Op, int N>
 __global__ void __launch_bounds__(CH_THREADS)
 chunk_aggregates(Leaves x, long T_len, long C, long nchunks, bool reverse,
                  typename Op::E* agg) {
   using E = typename Op::E;
+  constexpr long CHUNK = LongT<N>::CHUNK;
   const long idx = static_cast<long>(blockIdx.x) * CH_THREADS + threadIdx.x;
   if (idx >= nchunks * C) return;
   const long k = idx / C, c = idx - k * C;
@@ -174,11 +182,12 @@ chunk_aggregates(Leaves x, long T_len, long C, long nchunks, bool reverse,
 
 // Long-T phase 3: walk chunk k again from its carry (the exclusive prefix of
 // the chunks before it, left in agg by phase 2).
-template <typename Op>
+template <typename Op, int N>
 __global__ void __launch_bounds__(CH_THREADS)
 chunk_rescan(Leaves x, Leaves y, long T_len, long C, long nchunks,
              bool inclusive, bool reverse, const typename Op::E* agg) {
   using E = typename Op::E;
+  constexpr long CHUNK = LongT<N>::CHUNK;
   const long idx = static_cast<long>(blockIdx.x) * CH_THREADS + threadIdx.x;
   if (idx >= nchunks * C) return;
   const long k = idx / C, c = idx - k * C;
@@ -202,26 +211,29 @@ chunk_rescan(Leaves x, Leaves y, long T_len, long C, long nchunks,
 
 // K7s: the three-phase scan of `rows` rows of n elements.  `scratch` holds
 // rows * cdiv(n, tile) elements when n > tile.
-template <typename Op>
+template <typename Op, int N = 8>
 cudaError_t rows(Leaves x, Leaves y, long rows, long n, bool inclusive,
                  void* scratch, cudaStream_t stream) {
   if (rows <= 0 || n <= 0 || rows > 65535) return cudaErrorInvalidValue;
-  return tile::launch_scan_rows<Op>(x, y, rows, n, inclusive, scratch, stream);
+  return tile::launch_scan_rows<Op, false, N>(x, y, rows, n, inclusive,
+                                              scratch, stream);
 }
 
 // K2's and K7s's single-tile form: rows of n <= one tile, one launch, no
 // scratch.
-template <typename Op>
+template <typename Op, int N = 8>
 cudaError_t single_tile(Leaves x, Leaves y, long rows, long n, bool inclusive,
                         cudaStream_t stream) {
-  if (rows <= 0 || n <= 0 || rows > 65535 || n > tile::Tile<typename Op::E>::SIZE)
+  if (rows <= 0 || n <= 0 || rows > 65535 ||
+      n > tile::Tile<typename Op::E, N>::SIZE)
     return cudaErrorInvalidValue;
-  return tile::launch_scan_rows<Op>(x, y, rows, n, inclusive, nullptr, stream);
+  return tile::launch_scan_rows<Op, false, N>(x, y, rows, n, inclusive,
+                                              nullptr, stream);
 }
 
 // K6.  A null `scratch` takes the channel-tile route, a non-null one the
 // long-T path; scratch holds B * C * cdiv(T, CHUNK) elements.
-template <typename Op>
+template <typename Op, int N = 8>
 cudaError_t channel(Leaves x, Leaves y, long B, long T_len, long C,
                     bool inclusive, bool reverse, void* scratch,
                     cudaStream_t stream) {
@@ -230,21 +242,22 @@ cudaError_t channel(Leaves x, Leaves y, long B, long T_len, long C,
   if (scratch == nullptr) {
     const dim3 grid(static_cast<unsigned>((C + CT - 1) / CT),
                     static_cast<unsigned>(B));
-    scan_channel_tiles<Op><<<grid, CT_THREADS, 0, stream>>>(
+    scan_channel_tiles<Op, N><<<grid, CT_THREADS, 0, stream>>>(
         x, y, T_len, C, inclusive, reverse);
     return cudaGetLastError();
   }
   if (B * C > 65535) return cudaErrorInvalidValue;
+  constexpr long CHUNK = LongT<N>::CHUNK;
   const long nchunks = (T_len + CHUNK - 1) / CHUNK;
   E* agg = static_cast<E*>(scratch);
   const dim3 grid(
       static_cast<unsigned>((nchunks * C + CH_THREADS - 1) / CH_THREADS),
       static_cast<unsigned>(B));
-  chunk_aggregates<Op><<<grid, CH_THREADS, 0, stream>>>(x, T_len, C, nchunks,
-                                                         reverse, agg);
-  tile::scan_totals<Op><<<dim3(1, static_cast<unsigned>(B * C)),
-                          tile::THREADS, 0, stream>>>(agg, nchunks);
-  chunk_rescan<Op><<<grid, CH_THREADS, 0, stream>>>(
+  chunk_aggregates<Op, N><<<grid, CH_THREADS, 0, stream>>>(
+      x, T_len, C, nchunks, reverse, agg);
+  tile::scan_totals<Op, N><<<dim3(1, static_cast<unsigned>(B * C)),
+                             tile::THREADS, 0, stream>>>(agg, nchunks);
+  chunk_rescan<Op, N><<<grid, CH_THREADS, 0, stream>>>(
       x, y, T_len, C, nchunks, inclusive, reverse, agg);
   return cudaGetLastError();
 }

@@ -27,12 +27,13 @@ namespace {
 
 // x = {flags, values...}, y = {null, outputs...}.  `scratch` holds
 // cdiv(n, tile) lifted elements when n > tile.
-template <typename Op>
+// N: the tile's knob (tile_scan.cuh: Tile).
+template <typename Op, int N = 8>
 cudaError_t scan(Leaves x, Leaves y, long n, bool inclusive, void* scratch,
                  cudaStream_t stream) {
   if (n <= 0 || y.p[0] != nullptr) return cudaErrorInvalidValue;
-  return tile::launch_scan_rows<Op, true>(x, y, 1, n, inclusive, scratch,
-                                          stream);
+  return tile::launch_scan_rows<Op, true, N>(x, y, 1, n, inclusive, scratch,
+                                             stream);
 }
 
 }  // namespace

@@ -22,10 +22,14 @@
 // elements keeps the transposition free of bank conflicts), scans them
 // serially in registers, then the thread aggregates go through a warp
 // shuffle scan that combines the lower lane's value on the left, then the
-// warp totals through shared memory.  ITEMS shrinks as the element grows
-// (8 for 4- and 8-byte elements, 4 for a quaternion, 1 for a 40-byte one),
-// so the tile's shared memory stays near 16 KB and the registers bounded;
-// the lookback takes twice as many (Lookback<E>).
+// warp totals through shared memory.  ITEMS is the knob N (the tuning
+// policy's nitem_scan, 8 by default; core/intrinsics.py: TuningPolicy),
+// at most 8 N bytes and at most 128 bytes of elements, at least one: at
+// N = 8, 8 for 4- and 8-byte elements, 4 for a quaternion, 1 for a 40-byte
+// one, so the tile's shared memory stays near 16 KB and the registers
+// bounded (at most 33 KB at any N); the lookback takes more (Lookback<E>).
+// N rides every kernel below as a template parameter, so each value is a
+// unit of its own (kernels/_lib.py: unit).
 #pragma once
 
 #include "common.cuh"
@@ -38,10 +42,11 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 
-template <typename E> struct Tile {
-  static constexpr int BYTES = 64;  // element bytes per thread's items
+template <typename E, int N = 8> struct Tile {
+  static_assert(N >= 1, "a thread scans one item or more");
+  static constexpr int BYTES = 8 * N < 128 ? 8 * N : 128;  // at most
   static constexpr int ITEMS =
-      BYTES / sizeof(E) >= 8 ? 8 : (BYTES / sizeof(E) >= 1 ? BYTES / sizeof(E) : 1);
+      BYTES / sizeof(E) >= N ? N : (BYTES / sizeof(E) >= 1 ? BYTES / sizeof(E) : 1);
   static constexpr int SIZE = THREADS * ITEMS;
 };
 
@@ -146,14 +151,15 @@ __device__ void store_tile(TileSmem<E, ITEMS>& s, E (&r)[ITEMS], long base,
 
 // Phase 1: the total of each tile of each row, in element order, into
 // totals[row * tiles + tile].
-template <typename Op>
+template <typename Op, int N>
 __global__ void __launch_bounds__(THREADS)
 reduce_tiles(Leaves x, long n, typename Op::E* totals) {
   using E = typename Op::E;
-  __shared__ TileSmem<E> s;
+  using T = Tile<E, N>;
+  __shared__ TileSmem<E, T::ITEMS> s;
   const long row = static_cast<long>(blockIdx.y) * n;
-  const long base = static_cast<long>(blockIdx.x) * Tile<E>::SIZE;
-  E r[Tile<E>::ITEMS];
+  const long base = static_cast<long>(blockIdx.x) * T::SIZE;
+  E r[T::ITEMS];
   load_tile<Op>(s, r, base, n, [&](long i) { return E::load(x, row + i); });
   const E total = scan_tile_regs<Op>(s, r, Op::identity(), true);
   if (threadIdx.x == 0)
@@ -162,15 +168,16 @@ reduce_tiles(Leaves x, long n, typename Op::E* totals) {
 
 // Phase 2: exclusive scan in place of each row's nb values, one block per
 // row (blockIdx.y), walking them a tile at a time with a running carry.
-template <typename Op>
+template <typename Op, int N>
 __global__ void __launch_bounds__(THREADS)
 scan_totals(typename Op::E* totals, long nb) {
   using E = typename Op::E;
-  __shared__ TileSmem<E> s;
+  using T = Tile<E, N>;
+  __shared__ TileSmem<E, T::ITEMS> s;
   E* row = totals + static_cast<long>(blockIdx.y) * nb;
   E carry = Op::identity();
-  for (long base = 0; base < nb; base += Tile<E>::SIZE) {
-    E r[Tile<E>::ITEMS];
+  for (long base = 0; base < nb; base += T::SIZE) {
+    E r[T::ITEMS];
     load_tile<Op>(s, r, base, nb, [&](long i) { return row[i]; });
     const E total = scan_tile_regs<Op>(s, r, carry, false);
     store_tile(s, r, base, nb, [&](long i, const E& v) { row[i] = v; });
@@ -181,15 +188,15 @@ scan_totals(typename Op::E* totals, long nb) {
 // Phase 3 (or the whole scan when n <= SIZE): scan each tile with its carry.
 // SEG: the element is a segmented lift's (flag, values...) and an exclusive
 // scan gives the identity at every element whose own flag starts a segment.
-template <typename Op, bool SEG>
+template <typename Op, bool SEG, int N>
 __global__ void __launch_bounds__(THREADS)
 scan_tiles(Leaves x, Leaves y, long n, bool inclusive,
            const typename Op::E* carries) {
   using E = typename Op::E;
-  constexpr int ITEMS = Tile<E>::ITEMS;
-  __shared__ TileSmem<E> s;
+  constexpr int ITEMS = Tile<E, N>::ITEMS;
+  __shared__ TileSmem<E, ITEMS> s;
   const long row = static_cast<long>(blockIdx.y) * n;
-  const long base = static_cast<long>(blockIdx.x) * Tile<E>::SIZE;
+  const long base = static_cast<long>(blockIdx.x) * Tile<E, N>::SIZE;
   E r[ITEMS];
   load_tile<Op>(s, r, base, n, [&](long i) { return E::load(x, row + i); });
   bool starts[SEG ? ITEMS : 1];
@@ -214,23 +221,25 @@ scan_tiles(Leaves x, Leaves y, long n, bool inclusive,
 
 // The whole scan of `rows` rows of n elements.  `scratch` holds
 // rows * cdiv(n, SIZE) elements when n > SIZE (unused otherwise).
-template <typename Op, bool SEG = false>
+template <typename Op, bool SEG = false, int N = 8>
 cudaError_t launch_scan_rows(Leaves x, Leaves y, long rows, long n,
                              bool inclusive, void* scratch,
                              cudaStream_t stream) {
   using E = typename Op::E;
-  const long nb = (n + Tile<E>::SIZE - 1) / Tile<E>::SIZE;
+  constexpr long SIZE = Tile<E, N>::SIZE;
+  const long nb = (n + SIZE - 1) / SIZE;
   const unsigned ry = static_cast<unsigned>(rows);
   if (nb <= 1) {
-    scan_tiles<Op, SEG><<<dim3(1, ry), THREADS, 0, stream>>>(x, y, n, inclusive,
-                                                            nullptr);
+    scan_tiles<Op, SEG, N><<<dim3(1, ry), THREADS, 0, stream>>>(
+        x, y, n, inclusive, nullptr);
     return cudaGetLastError();
   }
   E* totals = static_cast<E*>(scratch);
   const dim3 grid(static_cast<unsigned>(nb), ry);
-  reduce_tiles<Op><<<grid, THREADS, 0, stream>>>(x, n, totals);
-  scan_totals<Op><<<dim3(1, ry), THREADS, 0, stream>>>(totals, nb);
-  scan_tiles<Op, SEG><<<grid, THREADS, 0, stream>>>(x, y, n, inclusive, totals);
+  reduce_tiles<Op, N><<<grid, THREADS, 0, stream>>>(x, n, totals);
+  scan_totals<Op, N><<<dim3(1, ry), THREADS, 0, stream>>>(totals, nb);
+  scan_tiles<Op, SEG, N><<<grid, THREADS, 0, stream>>>(x, y, n, inclusive,
+                                                       totals);
   return cudaGetLastError();
 }
 

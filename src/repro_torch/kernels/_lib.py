@@ -7,7 +7,9 @@ a value head dim and the body the wrapper runs for that type; its
 gradient's ``flash_bwd`` family the same but the body.
 A kernel wrapper asks for a :class:`Unit`: one translation unit for one
 family of kernels (``FAMILIES``) and one (operator, map, leaf dtypes)
-combination.  The
+combination; the tile families (``KNOB_FAMILIES``: K2, K6, K7s, K8, K3)
+also take the tuning policy's item count, the compile-time constant
+``NITEM`` of the unit (``knob``), so each value is a unit of its own.  The
 unit is generated here from the operator's and the map's own device forms
 (``core/operators.py``): it includes the family's header, defines the element
 structs (per-leaf loads, stores and warp shuffles), the functor and the map,
@@ -24,6 +26,7 @@ together), so a caller that knows its path can build it up front.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -32,6 +35,7 @@ import math
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -81,14 +85,16 @@ FAMILIES = {
     # K2 (one tile: rt_scan_tile; above: the lookback), K7s (rows = B) and
     # K6 (the channel-tile route and the long-T path).
     "scan": Family("scan.cuh", f"""
-int rt_tile() {{ return rt::tile::Tile<Op::E>::SIZE; }}
-long rt_lookback_tile() {{ return rt::lookback::Lookback<Op::E>::SIZE; }}
+int rt_tile() {{ return rt::tile::Tile<Op::E, NITEM>::SIZE; }}
+long rt_lookback_tile() {{
+  return rt::lookback::Lookback<Op::E, NITEM>::SIZE;
+}}
 int rt_scan_rows(void* const* x, void* const* y, long rows, long n,
                  int inclusive, void* scratch, void* stream) {{
-  return rt::scan::rows<Op>(rt::leaves(x), rt::leaves(y), rows, n,
-                            inclusive != 0, scratch, {_ST});
+  return rt::scan::rows<Op, NITEM>(rt::leaves(x), rt::leaves(y), rows, n,
+                                   inclusive != 0, scratch, {_ST});
 }}
-int rt_scan_channel_chunk() {{ return rt::scan::CHUNK; }}""", {
+int rt_scan_channel_chunk() {{ return rt::scan::LongT<NITEM>::CHUNK; }}""", {
         "rt_tile": (_I, []),
         "rt_lookback_tile": (_L, []),
         "rt_scan_rows": (_I, [_PP, _PP, _L, _L, _I, _P, _P]),
@@ -97,28 +103,29 @@ int rt_scan_channel_chunk() {{ return rt::scan::CHUNK; }}""", {
         # K2 and K7s, rows of n <= one tile.
         "rt_scan_tile": LeafEntry(
             "long rows, long n, int inclusive, void* stream", [_L, _L, _I, _P],
-            f"rt::scan::single_tile<Op>(x, y, rows, n, inclusive != 0, {_ST})"),
+            "rt::scan::single_tile<Op, NITEM>(x, y, rows, n, inclusive != 0, "
+            f"{_ST})"),
         # K2 above one tile, its statuses in the stream's workspace.
         "rt_scan_lookback": LeafEntry(
             "long n, int inclusive, void* counters, void* flags, "
             "void* values, unsigned epoch, void* stream",
             [_L, _I, _P, _P, _P, ctypes.c_uint, _P],
-            "rt::lookback::scan<Op>(x, y, n, inclusive != 0, counters, flags, "
-            f"values, epoch, {_ST})"),
+            "rt::lookback::scan<Op, NITEM>(x, y, n, inclusive != 0, counters, "
+            f"flags, values, epoch, {_ST})"),
         # K6.
         "rt_scan_channel": LeafEntry(
             "long B, long T, long C, int inclusive, int reverse, "
             "void* scratch, void* stream", [_L, _L, _L, _I, _I, _P, _P],
-            "rt::scan::channel<Op>(x, y, B, T, C, inclusive != 0, "
+            "rt::scan::channel<Op, NITEM>(x, y, B, T, C, inclusive != 0, "
             f"reverse != 0, scratch, {_ST})"),
     }, "rt_tile"),
     # K8 over a segmented lift.
     "segscan": Family("segmented.cuh", f"""
-int rt_tile() {{ return rt::tile::Tile<Op::E>::SIZE; }}
+int rt_tile() {{ return rt::tile::Tile<Op::E, NITEM>::SIZE; }}
 int rt_segscan(void* const* x, void* const* y, long n, int inclusive,
                void* scratch, void* stream) {{
-  return rt::segmented::scan<Op>(rt::leaves(x), rt::leaves(y), n,
-                                 inclusive != 0, scratch, {_ST});
+  return rt::segmented::scan<Op, NITEM>(rt::leaves(x), rt::leaves(y), n,
+                                        inclusive != 0, scratch, {_ST});
 }}""", {
         "rt_tile": (_I, []),
         "rt_segscan": (_I, [_PP, _PP, _L, _I, _P, _P]),
@@ -126,12 +133,14 @@ int rt_segscan(void* const* x, void* const* y, long n, int inclusive,
     # K3 (flat: the small form and the multi-block one) and K7m (rows of
     # (B, n): one entry for every kind of launch).
     "mapreduce": Family("mapreduce.cuh", f"""
-long rt_mapreduce_small_max() {{ return rt::mapreduce::SMALL; }}
-long rt_mapreduce_flat_grid(long n) {{ return rt::mapreduce::grid_for(n); }}
+long rt_mapreduce_small_max() {{ return rt::mapreduce::Flat<NITEM>::SMALL; }}
+long rt_mapreduce_flat_grid(long n) {{
+  return rt::mapreduce::Flat<NITEM>::grid(n);
+}}
 int rt_mapreduce_flat(void* const* x, long n, void* partials, void* ticket,
                       void* const* out, void* stream) {{
-  return rt::mapreduce::flat<Map, Op>(rt::leaves(x), n, partials, ticket,
-                                      rt::leaves(out), {_ST});
+  return rt::mapreduce::flat<Map, Op, NITEM>(rt::leaves(x), n, partials,
+                                             ticket, rt::leaves(out), {_ST});
 }}
 """, {
         "rt_mapreduce_small_max": (_L, []),
@@ -140,7 +149,7 @@ int rt_mapreduce_flat(void* const* x, long n, void* partials, void* ticket,
     }, {
         "rt_mapreduce_small": LeafEntry(
             "long n, void* stream", [_L, _P],
-            f"rt::mapreduce::small<Map, Op>(x, n, y, {_ST})"),
+            f"rt::mapreduce::small<Map, Op, NITEM>(x, n, y, {_ST})"),
         # K7m: every launch kind, its geometry planned by the host
         # (kernels/batched.py: rows_geometry); counters and partials are
         # the stream's workspace.
@@ -219,6 +228,13 @@ int rt_copy(const void* x, void* y, long nbytes, int nitem, void* stream) {{
         "rt_copy": (_I, [_P, _P, _L, _I, _P]),
     }),
 }
+
+# The families whose unit carries the knob NITEM, a template argument of
+# its kernels: scan (K2, K6, K7s) and segscan (K8) read it as the tuning
+# policy's nitem_scan, mapreduce (K3) as its nitem_reduce.  At
+# DEFAULT_NITEM a unit launches what the kernels launched before the knob.
+KNOB_FAMILIES = ("scan", "segscan", "mapreduce")
+DEFAULT_NITEM = 8
 
 _LEAF_TAGS = {torch.float32: "f32", torch.float64: "f64", torch.int32: "i32",
               torch.uint8: "u8", torch.int8: "i8"}
@@ -349,10 +365,11 @@ def map_out(what: str, f, *likes) -> tuple[list, object]:
 
 
 def map_unit(family: str, what: str, f, op: alg.AssocOp, *likes,
-             quant: str | None = None):
+             quant: str | None = None, knob: int | None = None):
     """(unit, output dtypes, output tree spec) of ``op`` over the map ``f``
     of ``likes`` (pytrees of tensors); ``quant`` names the quantization
-    mode of a ``qmatvec`` unit.
+    mode of a ``qmatvec`` unit and ``knob`` the item count of a unit of
+    ``KNOB_FAMILIES``.
 
     A wrapper asks on every call, and flattening pytrees costs more host
     time than the kernel takes at the serving path's (B,) shapes, so the
@@ -367,13 +384,14 @@ def map_unit(family: str, what: str, f, op: alg.AssocOp, *likes,
         return None
 
     sigs = tuple(sig(like) for like in likes)
-    key = (family, f, op, sigs, quant) if isinstance(f, alg.DeviceMap) \
-        and None not in sigs else None
+    key = (family, f, op, sigs, quant, knob) if isinstance(
+        f, alg.DeviceMap) and None not in sigs else None
     found = _MAP_UNITS.get(key) if key else None
     if found is None:
         out_dtypes, out_spec = map_out(what, f, *likes)
         found = (unit(family, what, op, out_dtypes, f=f, in_dtypes=[
-            l.dtype for l in pytree.tree_leaves(likes)], quant=quant),
+            l.dtype for l in pytree.tree_leaves(likes)], quant=quant,
+            knob=knob),
             out_dtypes, out_spec)
         if key:
             _MAP_UNITS[key] = found
@@ -417,22 +435,24 @@ class Plan:
 
 
 def plan(family: str, what: str, op: alg.AssocOp, xs, f=None, *,
-         spread: bool = False, quant: str | None = None) -> Plan:
+         spread: bool = False, quant: str | None = None,
+         knob: int | None = None) -> Plan:
     """The launch plan of ``family`` for ``op`` over the leaves of ``xs``
     (and, for mapreduce and the GEMVs, the map ``f``); the output element
     is ``f``'s, or ``xs``'s own without a map.  ``spread``: ``xs`` is the
     tuple of ``f``'s arguments (a GEMV's vector and matrix likes) rather
     than its one argument; ``quant`` names a ``qmatvec`` unit's
-    quantization mode.
+    quantization mode; ``knob`` is the item count of a unit of
+    ``KNOB_FAMILIES`` (None: ``DEFAULT_NITEM``).
 
-    Kept per (family, id(op), id(f), leaf dtypes, spread, quant) where
+    Kept per (family, id(op), id(f), leaf dtypes, spread, quant, knob) where
     ``xs`` is a tensor or a flat tuple of tensors, so a call neither walks
     a pytree nor hashes the frozen operator dataclasses.  A miss resolves
     the unit by equality (:func:`map_unit`, :func:`unit`): an equal but
     distinct operator finds the same unit and builds nothing new.  Raises
     as they do, before anything is built."""
     key = (family, id(op), id(f), xs.dtype if isinstance(xs, torch.Tensor)
-           else _sig(xs), spread, quant)
+           else _sig(xs), spread, quant, knob)
     found = _PLANS.get(key)
     return found if found is not None else _make_plan(key, family, what, op,
                                                       xs, f)
@@ -447,15 +467,15 @@ def _sig(xs):
 
 
 def _make_plan(key, family, what, op, xs, f) -> Plan:
-    spread, quant = key[-2:]
+    spread, quant, knob = key[-3:]
     if f is not None:
         u, out_dtypes, out_spec = map_unit(family, what, f, op,
                                            *(xs if spread else (xs,)),
-                                           quant=quant)
+                                           quant=quant, knob=knob)
     else:
         leaves, out_spec = pytree.tree_flatten(xs)
         out_dtypes = [l.dtype for l in leaves]
-        u = unit(family, what, op, out_dtypes)
+        u = unit(family, what, op, out_dtypes, knob=knob)
     found = Plan(u, op, f, out_dtypes, out_spec)
     if key[3] is not None:
         _PLANS[key] = found
@@ -468,7 +488,8 @@ _PLANS: dict[tuple, Plan] = {}
 def unit(family: str, what: str, op: alg.AssocOp | None = None,
          dtypes=(), f: alg.DeviceMap | None = None, in_dtypes=(),
          quant: str | None = None, head_dim: int | None = None,
-         body: str | None = None, v_head_dim: int | None = None) -> Unit:
+         body: str | None = None, v_head_dim: int | None = None,
+         knob: int | None = None) -> Unit:
     """The unit of ``family`` for ``op`` over elements of leaf ``dtypes``
     (and, for mapreduce / matvec, the map ``f`` from leaves ``in_dtypes``
     to ``dtypes``; for qmatvec, the decode of quantization mode ``quant``,
@@ -477,7 +498,8 @@ def unit(family: str, what: str, op: alg.AssocOp | None = None,
     ``FLASH_HEAD_DIMS``, a ``v_head_dim`` of them up to ``head_dim``
     (None: ``head_dim``) and the kernel ``body`` of ``FLASH_BODIES`` that
     the caller picked for the dtype; flash_bwd, K10's gradient, the same
-    but no body).
+    but no body; ``knob``, the item count NITEM of a unit of
+    ``KNOB_FAMILIES``, None for ``DEFAULT_NITEM``, and of no other).
 
     Raises NotImplementedError, naming the route, for an operator or map
     without a device form and for leaf structures or dtypes the device form
@@ -487,13 +509,15 @@ def unit(family: str, what: str, op: alg.AssocOp | None = None,
     """
     if head_dim is not None and v_head_dim is None:
         v_head_dim = head_dim
+    if family in KNOB_FAMILIES and knob is None:
+        knob = DEFAULT_NITEM
     key = (family, op, tuple(dtypes), f, tuple(in_dtypes), quant, head_dim,
-           v_head_dim, body)
+           v_head_dim, body, knob)
     found = _UNITS.get(key)
     if found is None:
         found = _UNITS[key] = _make_unit(family, what, op, dtypes, f,
                                          in_dtypes, quant, head_dim,
-                                         v_head_dim, body)
+                                         v_head_dim, body, knob)
     return found
 
 
@@ -546,9 +570,16 @@ def _wgmma(v_head_dim: int) -> str:
 
 
 def _make_unit(family, what, op, dtypes, f, in_dtypes, quant,
-               head_dim, v_head_dim, body) -> Unit:
+               head_dim, v_head_dim, body, knob) -> Unit:
     gen = _Gen()
     label = family
+    if (knob is None) == (family in KNOB_FAMILIES) or knob is not None and (
+            not isinstance(knob, int) or knob < 1):
+        raise ValueError(f"{what}: a unit of {KNOB_FAMILIES}, and only one, "
+                         f"takes a knob of 1 or more, got {knob!r} for "
+                         f"{family}")
+    if knob is not None:
+        gen.parts.append(f"constexpr int NITEM = {knob};\n")
     if (head_dim is None) != (family not in FLASH_FAMILIES) or \
             (v_head_dim is not None and head_dim is None):
         raise ValueError(f"{what}: a flash unit, and only one, takes a "
@@ -617,6 +648,8 @@ def _make_unit(family, what, op, dtypes, f, in_dtypes, quant,
             f"  __device__ static float apply(Code c) {{\n    {body}\n  }}\n"
             f"}};\n")
         label = f"{label} {quant}"
+    if knob not in (None, DEFAULT_NITEM):
+        label = f"{label} nitem {knob}"
     fam = FAMILIES[family]
     leaves = (len(in_dtypes) if f is not None else len(dtypes), len(dtypes))
     entries = fam.entries + "".join(
@@ -691,10 +724,37 @@ def build(units) -> dict[str, Path]:
 _LOADED: dict[str, ctypes.CDLL] = {}
 
 
+class Unbuilt(Exception):
+    """Raised by :func:`load`, while :func:`deferring`, for a unit whose
+    library is not built yet."""
+
+    def __init__(self, unit: Unit):
+        super().__init__(unit.label)
+        self.unit = unit
+
+
+_DEFER = threading.local()
+
+
+@contextlib.contextmanager
+def deferring():
+    """Inside, :func:`load` builds nothing: a unit with no library raises
+    :class:`Unbuilt`.  The autotuner runs each candidate so, gathers the
+    units they need and builds them all in one parallel :func:`build`
+    before it times any."""
+    _DEFER.on = True
+    try:
+        yield
+    finally:
+        _DEFER.on = False
+
+
 def load(u: Unit) -> ctypes.CDLL:
     """The loaded library of ``u`` (built first if needed)."""
     lib = _LOADED.get(u.digest)
     if lib is None:
+        if getattr(_DEFER, "on", False) and not u.path.exists():
+            raise Unbuilt(u)
         lib = ctypes.CDLL(str(build([u])[u.digest]))
         fam = FAMILIES[u.family]
         pointers = [_P] * sum(u.leaves)

@@ -38,6 +38,13 @@ load width (``"lanes/4"``, ``"split/1"``, ...).
 K7s's rows of at most one tile (the sampling path's (4, 64) nucleus scan)
 take its single-tile form: one launch, one allocation (the output), the
 pointers as scalar arguments, counted again in ``single_tile_launches``.
+
+``nitem`` is a tuning policy's item count (None: 8): K7s's ``nitem_scan``,
+the items a thread of a tile scans (a unit of its own), and K7m's
+``nitem_reduce``, a split chunk's loads a thread, at least 4 ``nitem``
+(SPLIT_LOADS at 8; host-side, the unit stays the default's).  K7's GEMVs
+take ``rows``, the policy's ``matvec_rows`` / ``vecmat_rows``
+(``matvec.geometry``).
 """
 from __future__ import annotations
 
@@ -59,7 +66,8 @@ def batched_scan_plain(op, xs: Pytree, *, inclusive: bool = True) -> Pytree:
     return ref.ref_batched_scan(op, xs, inclusive=inclusive)
 
 
-def batched_scan_cuda(op, xs: Pytree, *, inclusive: bool = True) -> Pytree:
+def batched_scan_cuda(op, xs: Pytree, *, inclusive: bool = True,
+                      nitem: int | None = None) -> Pytree:
     """K7s: inclusive/exclusive scan along axis 1 of ``(B, n)`` leaves,
     independent per row, B, n >= 1."""
     leaves = (xs,) if isinstance(xs, torch.Tensor) else pytree.tree_leaves(xs)
@@ -67,7 +75,7 @@ def batched_scan_cuda(op, xs: Pytree, *, inclusive: bool = True) -> Pytree:
     if not x.is_cuda:
         return batched_scan_plain(op, xs, inclusive=inclusive)
     what = "scan@batched (cuda)"
-    plan = _lib.plan("scan", what, op, xs)
+    plan = _lib.plan("scan", what, op, xs, knob=nitem)
     shape = x.shape
     if len(shape) != 2 or 0 in shape or len(leaves) > 1 and any(
             l.shape != shape for l in leaves):
@@ -132,7 +140,8 @@ def rows_width(n: int, leaf_bytes, addresses) -> int:
     return w
 
 
-def rows_geometry(B: int, n: int, vec: int, *, sms: int) -> tuple[int, ...]:
+def rows_geometry(B: int, n: int, vec: int, *, sms: int,
+                  split_loads: int = SPLIT_LOADS) -> tuple[int, ...]:
     """K7m's launch over ``B`` rows of ``n`` elements, ``vec`` a load, on a
     card of ``sms`` multiprocessors: the seven longs of ``csrc/
     mapreduce.cuh``'s ``RowsGeometry`` -- (kind, vec, lanes, B, n, chunks,
@@ -144,8 +153,8 @@ def rows_geometry(B: int, n: int, vec: int, *, sms: int) -> tuple[int, ...]:
       the rows are too short to cut.
     * SPLIT: rows cut into chunks, a block each, until the grid has
       ``matvec.BLOCKS_PER_SM`` blocks a multiprocessor (the GEMVs'
-      target), each thread SPLIT_LOADS loads of its chunk or more, and
-      SPLIT_MIN chunks a row or more.
+      target), each thread ``split_loads`` (SPLIT_LOADS) loads of its
+      chunk or more, and SPLIT_MIN chunks a row or more.
     """
     loads = n // vec
     if loads <= LANES_ROW_MAX:
@@ -153,7 +162,7 @@ def rows_geometry(B: int, n: int, vec: int, *, sms: int) -> tuple[int, ...]:
                                             .bit_length() - 1)))
         return (LANES, vec, lanes, B, n, 1, loads)
     chunks = min(max(1, -(-matvec_k.BLOCKS_PER_SM * sms // B)),
-                 max(1, loads // (ROWS_THREADS * SPLIT_LOADS)),
+                 max(1, loads // (ROWS_THREADS * split_loads)),
                  matvec_k.MAX_GRID_Y)
     per = -(-loads // chunks)
     chunks = -(-loads // per)
@@ -184,7 +193,8 @@ def _rows_call(key, plan, leaves) -> _RowsCall:
     vec = rows_width(n, [l.element_size() for l in leaves],
                      [l.data_ptr() for l in leaves])
     c = _RowsCall()
-    c.geo = rows_geometry(B, n, vec, sms=matvec_k.sms(x.get_device()))
+    c.geo = rows_geometry(B, n, vec, sms=matvec_k.sms(x.get_device()),
+                          split_loads=key[-1])
     c.geo_array = _GEO_ARRAY(*c.geo)
     c.geo_ptr = ctypes.addressof(c.geo_array)
     c.name = f"{ROWS_KIND_NAMES[c.geo[0]]}/{vec}"
@@ -197,7 +207,8 @@ def _rows_call(key, plan, leaves) -> _RowsCall:
     return c
 
 
-def batched_mapreduce_cuda(f, op, xs: Pytree) -> Pytree:
+def batched_mapreduce_cuda(f, op, xs: Pytree, *,
+                           nitem: int | None = None) -> Pytree:
     """K7m: per-row op-reduce of ``f(x)`` over ``(B, n)`` leaves, B, n >= 1:
     one launch of the kind the host plans (:func:`rows_geometry`), one
     allocation (the outputs)."""
@@ -222,7 +233,7 @@ def batched_mapreduce_cuda(f, op, xs: Pytree) -> Pytree:
                          f"{MAX_GRID_X} rows")
     _lib.require_cuda(what, *leaves)
     key = (plan, shape, tuple(l.data_ptr() % 16 for l in leaves),
-           x.get_device())
+           x.get_device(), SPLIT_LOADS if nitem is None else 4 * nitem)
     call = _ROWS_CALLS.get(key) or _rows_call(key, plan, leaves)
     lib = plan.lib or plan.load()
     outs = [torch.empty_like(call.template)] if call.template is not None \
@@ -255,22 +266,24 @@ def batched_vecmat_plain(f, op, A: torch.Tensor, x: torch.Tensor) -> Pytree:
     return ref.ref_fold(op, f(A, x[:, None, :]), axis=2)
 
 
-def batched_matvec_cuda(f, op, A: torch.Tensor, x: torch.Tensor) -> Pytree:
+def batched_matvec_cuda(f, op, A: torch.Tensor, x: torch.Tensor, *,
+                        rows: int | None = None) -> Pytree:
     """K7 matvec: ``(B, n, p)`` x ``(B, n)`` -> ``(B, p)``, B, n, p >= 1."""
     if not A.is_cuda:
         return batched_matvec_plain(f, op, A, x)
     out = matvec_k.launch(matvec_k.MATVEC, "matvec@batched (cuda)", f, op,
-                          A, x, batched=True)
+                          A, x, batched=True, rows=rows)
     batched_matvec_cuda.launches += 1
     return out
 
 
-def batched_vecmat_cuda(f, op, A: torch.Tensor, x: torch.Tensor) -> Pytree:
+def batched_vecmat_cuda(f, op, A: torch.Tensor, x: torch.Tensor, *,
+                        rows: int | None = None) -> Pytree:
     """K7 vecmat: ``(B, n, p)`` x ``(B, p)`` -> ``(B, n)``, B, n, p >= 1."""
     if not A.is_cuda:
         return batched_vecmat_plain(f, op, A, x)
     out = matvec_k.launch(matvec_k.VECMAT, "vecmat@batched (cuda)", f, op,
-                          A, x, batched=True)
+                          A, x, batched=True, rows=rows)
     batched_vecmat_cuda.launches += 1
     return out
 
@@ -285,14 +298,16 @@ def batched_vecmat_quantized_plain(f, op, q, x: torch.Tensor) -> Pytree:
     return batched_vecmat_plain(f, op, q.dequantize(), x)
 
 
-def batched_matvec_quantized_cuda(f, op, q, x: torch.Tensor) -> Pytree:
+def batched_matvec_quantized_cuda(f, op, q, x: torch.Tensor, *,
+                                  rows: int | None = None) -> Pytree:
     """K9 batched matvec over a ``(B, n, p)`` Quantized matrix and float32
     ``(B, n)`` vectors -> ``(B, p)``."""
     what = "matvec@batched quantized (cuda)"
     matvec_k.require_quantized(what, q)
     if not q.values.is_cuda:
         return batched_matvec_quantized_plain(f, op, q, x)
-    out = matvec_k.launch(matvec_k.MATVEC, what, f, op, q, x, batched=True)
+    out = matvec_k.launch(matvec_k.MATVEC, what, f, op, q, x, batched=True,
+                          rows=rows)
     batched_matvec_quantized_cuda.launches += 1
     return out
 

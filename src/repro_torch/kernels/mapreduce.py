@@ -14,6 +14,10 @@ pointers as scalar arguments; above it, the multi-block form with its
 partials and the atomic ticket cleared by a memset.  The serving path's
 all-done predicate, at n = the engine's slots, always takes the small form.
 
+``nitem`` is the tuning policy's ``nitem_reduce`` (None: 8): the items a
+thread takes before the grid grows, and the small form's extent, 256
+``nitem``; each value is a unit of its own.
+
 Given CPU tensors the wrapper runs the plain version; given CUDA tensors it
 launches the kernel or raises.  ``launches`` counts the kernel's launches,
 ``small_launches`` those of the small form among them.
@@ -36,7 +40,8 @@ def mapreduce_1d_plain(f, op, xs: Pytree) -> Pytree:
     return ref.ref_mapreduce(f, op, xs)
 
 
-def mapreduce_1d_cuda(f, op, xs: Pytree) -> Pytree:
+def mapreduce_1d_cuda(f, op, xs: Pytree, *,
+                      nitem: int | None = None) -> Pytree:
     """K3: op-reduce of ``f(x)`` over flat ``(n,)`` leaves -> 0-dim
     tensors."""
     leaves = (xs,) if isinstance(xs, torch.Tensor) else pytree.tree_leaves(xs)
@@ -47,7 +52,7 @@ def mapreduce_1d_cuda(f, op, xs: Pytree) -> Pytree:
     if not op.commutative:
         raise ValueError(f"{what}: requires a commutative operator, got "
                          f"{op.name!r}")
-    plan = _lib.plan("mapreduce", what, op, xs, f)
+    plan = _lib.plan("mapreduce", what, op, xs, f, knob=nitem)
     shape = x.shape
     if len(shape) != 1 or shape[0] == 0 or len(leaves) > 1 and any(
             l.shape != shape for l in leaves):

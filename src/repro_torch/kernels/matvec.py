@@ -142,8 +142,8 @@ def quant_width(p: int, codes: int, scales: int) -> int:
 
 
 def geometry(kind: int, B: int, n: int, p: int, vec: int, *, sms: int,
-             itemsize: int = 4, block: int = 0,
-             stream: bool = False) -> tuple[int, ...]:
+             itemsize: int = 4, block: int = 0, stream: bool = False,
+             rows: int | None = None) -> tuple[int, ...]:
     """The launch of one ``kind`` over ``B`` matrices of ``(n, p)``
     elements of ``itemsize`` bytes, ``vec`` of them a load, on a card of
     ``sms`` multiprocessors: the ten longs of ``csrc/matvec.cuh``'s
@@ -151,7 +151,12 @@ def geometry(kind: int, B: int, n: int, p: int, vec: int, *, sms: int,
     stream); ``stream``: a ROWS launch of 16-byte loads over a dense
     matrix larger than L2, which evict first (:func:`streams`).
     The targets scale with the card: TARGET_THREADS = THREADS_PER_SM sms
-    threads, TARGET_BLOCKS = BLOCKS_PER_SM sms blocks.
+    threads, TARGET_BLOCKS = BLOCKS_PER_SM sms blocks.  ``rows`` is a
+    tuning policy's knob (None: today's rule, the value 8): COLUMNS's row
+    groups a block at most (``matvec_rows``; twice as many over a
+    quantized matrix) and ROWS's MIN_STEPS, the loads a lane takes at
+    least before a row gets fewer lanes and a block more rows
+    (``vecmat_rows``); the other kinds do not read it.
 
     * COLUMNS (matvec): ``width`` column threads by 256 / width row groups
       a block; the rows split until about TARGET_THREADS threads walk them,
@@ -181,7 +186,7 @@ def geometry(kind: int, B: int, n: int, p: int, vec: int, *, sms: int,
     per = 0
     if kind == COLUMNS:
         cols = _cdiv(p, vec)
-        most = 16 if block else 8
+        most = (2 if block else 1) * (rows or 8)
         split = min(max(1, _cdiv(target_threads // (2 if block else 1),
                                  B * cols)), max(1, n // MIN_STEPS))
         groups, chunks = (_pow2_ceil(split), 1) if split <= most else \
@@ -194,13 +199,14 @@ def geometry(kind: int, B: int, n: int, p: int, vec: int, *, sms: int,
         chunks = _cdiv(n, per)
     elif kind == ROWS:
         steps = _cdiv(p, vec)
+        least = rows or MIN_STEPS
         # A short row (at most 64 loads, K7's decode-attention rows) takes
         # twice the lanes: four loads a lane.
         width = min(THREADS, _pow2_floor(
-            steps // (MIN_STEPS // 2 if steps <= 64 else MIN_STEPS)))
+            steps // (least // 2 if steps <= 64 else least)))
         tiles = _cdiv(n, THREADS // width)
         chunks = min(max(1, _cdiv(target_blocks, B * tiles)),
-                     max(1, steps // (MIN_STEPS * width)), MAX_GRID_Y)
+                     max(1, steps // (least * width)), MAX_GRID_Y)
         step = width * vec
         per = _cdiv(_cdiv(p, chunks), step) * step
         chunks = _cdiv(p, per)
@@ -277,11 +283,13 @@ def vecmat_plain(f, op, A: torch.Tensor, x: torch.Tensor | None) -> Pytree:
     return ref.ref_vecmat(f, op, A, x)
 
 
-def launch(form, what, f, op, A, x, *, batched: bool = False) -> Pytree:
+def launch(form, what, f, op, A, x, *, batched: bool = False,
+           rows: int | None = None) -> Pytree:
     """One call of ``csrc/matvec.cuh``'s ``form`` over a dense tensor or a
     :class:`~repro_torch.core.operators.Quantized` ``A`` of shape ``(n, p)``
-    (``batched``: ``(B, n, p)``, with ``B`` vectors ``x``), non-empty."""
-    call = resolve(form, what, f, op, A, x, batched)
+    (``batched``: ``(B, n, p)``, with ``B`` vectors ``x``), non-empty;
+    ``rows``: :func:`geometry`'s knob."""
+    call = resolve(form, what, f, op, A, x, batched, rows)
     plan = call.plan
     lib = plan.lib or plan.load()
     M = A if call.quant is None else A.values
@@ -324,7 +332,8 @@ _CALLS: dict[tuple, _Call] = {}
 MAX_CALLS = 4096              # resolved launches kept; then forgotten
 
 
-def resolve(form, what, f, op, A, x, batched: bool = False) -> _Call:
+def resolve(form, what, f, op, A, x, batched: bool = False,
+            rows: int | None = None) -> _Call:
     """The resolved launch of :func:`launch`'s call, found by its key and
     on a miss checked and built (:func:`_make_call`); then ``x`` and the
     operands checked as every call checks them.  Raises before anything is
@@ -334,14 +343,14 @@ def resolve(form, what, f, op, A, x, batched: bool = False) -> _Call:
         key = (form, id(op), id(f), A.mode, A.block, M.dtype, A.scales.dtype,
                M.shape, A.scales.shape, x is None, quant_width(
                    M.shape[-1], M.data_ptr(), A.scales.data_ptr()), batched,
-               M.get_device())
+               rows, M.get_device())
     else:
         M = A
         key = (form, id(op), id(f), A.dtype, A.shape, x is None,
-               A.data_ptr() % 16 == 0, batched, A.get_device())
+               A.data_ptr() % 16 == 0, batched, rows, A.get_device())
     call = _CALLS.get(key)
     if call is None:
-        call = _make_call(key, form, what, f, op, A, x, batched)
+        call = _make_call(key, form, what, f, op, A, x, batched, rows)
     elif x is not None and (x.dtype != call.x_dtype or
                             x.shape != call.x_shape):
         _check_vector(what, call, x)
@@ -363,7 +372,7 @@ def _check_vector(what: str, call: _Call, x: torch.Tensor) -> None:
                          f"{x.dtype} {tuple(x.shape)}")
 
 
-def _make_call(key, form, what, f, op, A, x, batched) -> _Call:
+def _make_call(key, form, what, f, op, A, x, batched, rows) -> _Call:
     quant = A.mode if isinstance(A, alg.Quantized) else None
     M = A if quant is None else A.values
     shape = M.shape
@@ -385,7 +394,7 @@ def _make_call(key, form, what, f, op, A, x, batched) -> _Call:
         elem_bytes = c.plan.elem_bytes
         kind = launch_kind(form, p)
         vec = load_width(kind, p, A.element_size() == 4 and elem_bytes <= 16,
-                         key[-3])
+                         key[-4])
     else:
         codes = alg.QUANT_DEVICE[quant][0]
         scales = shape[:-2] + (_cdiv(n, A.block), p)
@@ -401,12 +410,12 @@ def _make_call(key, form, what, f, op, A, x, batched) -> _Call:
             quant=quant)
         elem_bytes = c.plan.elem_bytes
         kind = launch_kind(form, p, quantized=True)
-        vec = key[-3]
+        vec = key[-4]
     c.geo = geometry(kind, B, n, p, vec, sms=sms(M.get_device()),
                      itemsize=M.element_size(),
                      block=0 if quant is None else A.block,
                      stream=kind == ROWS and vec == WIDE and
-                     streams(M.nbytes, M.get_device()))
+                     streams(M.nbytes, M.get_device()), rows=rows)
     c.geo_array = _GEO_ARRAY(*c.geo)
     c.geo_ptr = ctypes.addressof(c.geo_array)
     c.grid_x = c.geo[6] if kind == TALL else B * c.geo[6]

@@ -25,6 +25,20 @@ Validation, zero-extent guards and the reroute of non-commutative batched
 mapreduces through ``scan@batched`` live in the registry's dispatch, so
 these functions only see well-formed, non-empty problems through the public
 API.
+
+Every tunable route's implementations take ``policy=`` (a
+:class:`~repro_torch.core.intrinsics.TuningPolicy`, or None for the
+kernels' default launch).  A ``cuda`` row maps one field onto one launch
+knob of its kernel (``nitem_copy`` to K1's vectors a thread, ``nitem_scan``
+to K2's, K6's, K7s's and K8's items a thread, ``nitem_reduce`` to K3's and
+K7m's, ``matvec_rows`` / ``vecmat_rows`` to K7's rows a block); the radix
+sort reads ``sort_digit_bits`` and hands the policy to its scans; a
+``torch`` row takes the policy and reads nothing of it.
+
+Two routes carry a gradient on ``cuda`` (``core/intrinsics.py:
+GRAD_ROUTES``): ``linear_recurrence`` (:class:`LinearRecurrence`) and the
+mLSTM stabilizer's ``scan@flat`` under MAXPLUS_AFFINE
+(:class:`MaxplusAffineScan`), each a reverse K6 launch back.
 """
 from __future__ import annotations
 
@@ -62,12 +76,26 @@ _DIRECT = {
 # ---------------------------------------------------------------------------
 
 
-def _copy_torch(x, *, nitem=None):
+def _copy_torch(x, *, nitem=None, policy=None):
     return ref.ref_copy(x)
 
 
-def _copy_cuda(x, *, nitem=None):
+def _copy_cuda(x, *, nitem=None, policy=None):
+    if nitem is None and policy is not None:
+        nitem = policy.nitem_copy
     return copy_k.copy_cuda(x.contiguous(), nitem=nitem)
+
+
+def _nitem_scan(policy):
+    return None if policy is None else policy.nitem_scan
+
+
+def _nitem_reduce(policy):
+    return None if policy is None else policy.nitem_reduce
+
+
+def _needs_grad(leaves) -> bool:
+    return torch.is_grad_enabled() and any(l.requires_grad for l in leaves)
 
 
 # ---------------------------------------------------------------------------
@@ -75,30 +103,38 @@ def _copy_cuda(x, *, nitem=None):
 # ---------------------------------------------------------------------------
 
 
-def _scan_torch(op, xs, *, axis=0, inclusive=True, reverse=False):
+def _scan_torch(op, xs, *, axis=0, inclusive=True, reverse=False,
+                policy=None):
     return ref.ref_scan(op, xs, axis=axis, inclusive=inclusive,
                         reverse=reverse)
 
 
-def _scan_cuda(op, xs, *, axis=0, inclusive=True, reverse=False):
+def _scan_cuda(op, xs, *, axis=0, inclusive=True, reverse=False,
+               policy=None):
+    nitem = _nitem_scan(policy)
     leaves, spec = pytree.tree_flatten(xs)
     ndim = leaves[0].ndim
     if ndim == 1:
         if reverse:
             xs = pytree.tree_map(lambda l: torch.flip(l, (0,)), xs)
-        out = scan_k.scan_1d_cuda(op, xs, inclusive=inclusive)
+        out = scan_k.scan_1d_cuda(op, xs, inclusive=inclusive, nitem=nitem)
         if reverse:
             out = pytree.tree_map(lambda l: torch.flip(l, (0,)), out)
         return out
     if ndim == 3 and axis == 1:
+        if op is alg.MAXPLUS_AFFINE and _needs_grad(leaves):
+            # The registry lets a call that needs a gradient through only
+            # in the stabilizer's form (inclusive, forward).
+            return MaxplusAffineScan.apply(*leaves, nitem)
         return scan_k.scan_channel_cuda(op, xs, inclusive=inclusive,
-                                        reverse=reverse)
+                                        reverse=reverse, nitem=nitem)
     # Any other rank or axis: move the scan axis to 1 and flatten the rest
     # into channels, (lead, T, rest), then restore.
     moved = [l.movedim(axis, 1) for l in leaves]
     xs3 = [m.reshape(m.shape[0], m.shape[1], -1).contiguous() for m in moved]
     out = scan_k.scan_channel_cuda(op, pytree.tree_unflatten(xs3, spec),
-                                   inclusive=inclusive, reverse=reverse)
+                                   inclusive=inclusive, reverse=reverse,
+                                   nitem=nitem)
     outs = [o.reshape(m.shape).movedim(1, axis)
             for o, m in zip(pytree.tree_leaves(out), moved)]
     return pytree.tree_unflatten(outs, spec)
@@ -119,16 +155,17 @@ def _segment_flags(xs, flags, offsets):
 
 
 def _segmented_scan_torch(op, xs, *, flags=None, offsets=None,
-                          inclusive=True):
+                          inclusive=True, policy=None):
     return ref.ref_segmented_scan(op, xs, _segment_flags(xs, flags, offsets),
                                   inclusive=inclusive)
 
 
 def _segmented_scan_cuda(op, xs, *, flags=None, offsets=None,
-                         inclusive=True):
+                         inclusive=True, policy=None):
     xs = pytree.tree_map(lambda l: l.contiguous(), xs)
     return seg_k.segmented_scan_1d_cuda(
-        op, xs, _segment_flags(xs, flags, offsets), inclusive=inclusive)
+        op, xs, _segment_flags(xs, flags, offsets), inclusive=inclusive,
+        nitem=_nitem_scan(policy))
 
 
 def _segmented_mapreduce(scan_seg, scan_flat, f, op, xs, flags, offsets,
@@ -145,15 +182,18 @@ def _segmented_mapreduce(scan_seg, scan_flat, f, op, xs, flags, offsets,
 
 
 def _segmented_mapreduce_torch(f, op, xs, *, flags=None, offsets=None,
-                               num_segments=None):
+                               num_segments=None, policy=None):
     return _segmented_mapreduce(ref.ref_segmented_scan, _scan_torch, f, op,
                                 xs, flags, offsets, num_segments)
 
 
 def _segmented_mapreduce_cuda(f, op, xs, *, flags=None, offsets=None,
-                              num_segments=None):
-    return _segmented_mapreduce(seg_k.segmented_scan_1d_cuda, _scan_cuda, f,
-                                op, xs, flags, offsets, num_segments)
+                              num_segments=None, policy=None):
+    nitem = _nitem_scan(policy)
+    return _segmented_mapreduce(
+        functools.partial(seg_k.segmented_scan_1d_cuda, nitem=nitem),
+        functools.partial(_scan_cuda, policy=policy), f, op, xs, flags,
+        offsets, num_segments)
 
 
 # ---------------------------------------------------------------------------
@@ -161,24 +201,25 @@ def _segmented_mapreduce_cuda(f, op, xs, *, flags=None, offsets=None,
 # ---------------------------------------------------------------------------
 
 
-def _mapreduce_torch(f, op, xs, *, axis=None):
+def _mapreduce_torch(f, op, xs, *, axis=None, policy=None):
     vals = f(xs)
     if op.name in _DIRECT and isinstance(vals, torch.Tensor):
         return _DIRECT[op.name](vals, axis)
     return ref.ref_mapreduce(f, op, xs, axis=axis)
 
 
-def _mapreduce_cuda(f, op, xs, *, axis=None):
+def _mapreduce_cuda(f, op, xs, *, axis=None, policy=None):
     if axis is None:
         if isinstance(xs, torch.Tensor):     # the serving path's flags
             flat = xs if xs.dim() == 1 else xs.reshape(-1)
         else:
             flat = pytree.tree_map(lambda l: l.reshape(-1), xs)
-        return mapreduce_k.mapreduce_1d_cuda(f, op, flat)
+        return mapreduce_k.mapreduce_1d_cuda(f, op, flat,
+                                             nitem=_nitem_reduce(policy))
     if isinstance(xs, torch.Tensor) and xs.ndim == 2 and -2 <= axis < 2:
         # The reference's route (paper section V-A): a 2-D reduction over
         # rows is a matvec, over columns a vecmat, with f on the matrix
-        # element and no vector.
+        # element and no vector (K4, which reads no knob).
         reduce = matvec_k.matvec_cuda if axis % 2 == 0 else \
             matvec_k.vecmat_cuda
         return reduce(f, op, xs.contiguous(), None)
@@ -191,18 +232,21 @@ def _mapreduce_cuda(f, op, xs, *, axis=None):
 # ---------------------------------------------------------------------------
 
 
-def _batched_scan_torch(op, xs, *, inclusive=True, reverse=False):
+def _batched_scan_torch(op, xs, *, inclusive=True, reverse=False,
+                        policy=None):
     return ref.ref_scan(op, xs, axis=1, inclusive=inclusive, reverse=reverse)
 
 
-def _batched_scan_cuda(op, xs, *, inclusive=True, reverse=False):
+def _batched_scan_cuda(op, xs, *, inclusive=True, reverse=False,
+                       policy=None):
+    nitem = _nitem_scan(policy)
     if not reverse and isinstance(xs, torch.Tensor):   # the nucleus scan
         return batched_k.batched_scan_cuda(op, xs.contiguous(),
-                                           inclusive=inclusive)
+                                           inclusive=inclusive, nitem=nitem)
     flip = (lambda l: torch.flip(l, (1,))) if reverse else \
         (lambda l: l.contiguous())
     out = batched_k.batched_scan_cuda(op, pytree.tree_map(flip, xs),
-                                      inclusive=inclusive)
+                                      inclusive=inclusive, nitem=nitem)
     return pytree.tree_map(flip, out) if reverse else out
 
 
@@ -248,33 +292,42 @@ def _vecmat_cuda(f, op, A, x):
     return matvec_k.vecmat_cuda(f, op, A.contiguous(), x.contiguous())
 
 
-def _batched_matvec_torch(f, op, A, x):
+def _batched_matvec_torch(f, op, A, x, *, policy=None):
     if _quantized(A):
         return batched_k.batched_matvec_quantized_plain(f, op, A, x)
     return batched_k.batched_matvec_plain(f, op, A, x)
 
 
-def _batched_vecmat_torch(f, op, A, x):
+def _batched_vecmat_torch(f, op, A, x, *, policy=None):
     if _quantized(A):
         return batched_k.batched_vecmat_quantized_plain(f, op, A, x)
     return batched_k.batched_vecmat_plain(f, op, A, x)
 
 
-def _batched_matvec_cuda(f, op, A, x):
+def _batched_matvec_cuda(f, op, A, x, *, policy=None):
     A, x = A.contiguous(), x.contiguous()
+    rows = None if policy is None else policy.matvec_rows
     if _quantized(A):
-        return batched_k.batched_matvec_quantized_cuda(f, op, A, x)
-    return batched_k.batched_matvec_cuda(f, op, A, x)
+        return batched_k.batched_matvec_quantized_cuda(f, op, A, x,
+                                                       rows=rows)
+    return batched_k.batched_matvec_cuda(f, op, A, x, rows=rows)
 
 
-def _batched_vecmat_cuda(f, op, A, x):
+def _batched_vecmat_cuda(f, op, A, x, *, policy=None):
     A, x = A.contiguous(), x.contiguous()
     if _quantized(A):
+        # STRIPS: a strip's rows follow the quantization block.
         return batched_k.batched_vecmat_quantized_cuda(f, op, A, x)
-    return batched_k.batched_vecmat_cuda(f, op, A, x)
+    return batched_k.batched_vecmat_cuda(
+        f, op, A, x, rows=None if policy is None else policy.vecmat_rows)
 
 
-def _batched_mapreduce_torch(f, op, xs):
+def _batched_mapreduce_cuda(f, op, xs, *, policy=None):
+    return batched_k.batched_mapreduce_cuda(f, op, xs,
+                                            nitem=_nitem_reduce(policy))
+
+
+def _batched_mapreduce_torch(f, op, xs, *, policy=None):
     vals = f(xs)
     if op.name in _DIRECT and isinstance(vals, torch.Tensor):
         return _DIRECT[op.name](vals, 1)
@@ -289,23 +342,23 @@ def _batched_mapreduce_torch(f, op, xs):
 # ---------------------------------------------------------------------------
 
 
-def _linrec_torch(a, b, h0=None, *, reverse=False):
+def _linrec_torch(a, b, h0=None, *, reverse=False, policy=None):
     return ref.ref_linear_recurrence(a, b, h0=h0, axis=1, reverse=reverse)
 
 
-def _linrec_cuda(a, b, h0=None, *, reverse=False):
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (a, b, h0)):
-        return LinearRecurrence.apply(a, b, h0, reverse)
-    return _linrec_k6(a, b, h0, reverse)
+def _linrec_cuda(a, b, h0=None, *, reverse=False, policy=None):
+    nitem = _nitem_scan(policy)
+    if _needs_grad([t for t in (a, b, h0) if t is not None]):
+        return LinearRecurrence.apply(a, b, h0, (reverse, nitem))
+    return _linrec_k6(a, b, h0, reverse, nitem)
 
 
-def _linrec_k6(a, b, h0, reverse):
+def _linrec_k6(a, b, h0, reverse, nitem=None):
     # Without h0 the A leaf (the running product of a) is not read, so K6
     # does not write it.
     A, B = scan_k.scan_channel_cuda(alg.AFFINE, (a, b), inclusive=True,
                                     reverse=reverse,
-                                    keep=(h0 is not None, True))
+                                    keep=(h0 is not None, True), nitem=nitem)
     if h0 is None:
         return B
     return A * h0[:, None, :] + B
@@ -322,8 +375,9 @@ class LinearRecurrence(torch.autograd.Function):
     runs its plain version, so the same backward runs there."""
 
     @staticmethod
-    def forward(ctx, a, b, h0, reverse):
-        h = _linrec_k6(a, b, h0, reverse)
+    def forward(ctx, a, b, h0, launch):
+        reverse, nitem = launch        # no gradient: one argument for both
+        h = _linrec_k6(a, b, h0, reverse, nitem)
         ctx.save_for_backward(a, h, h0)
         ctx.reverse = reverse
         return h
@@ -349,6 +403,50 @@ class LinearRecurrence(torch.autograd.Function):
         return g * h_prev, g, dh0, None
 
 
+class MaxplusAffineScan(torch.autograd.Function):
+    """K6's inclusive forward scan of ``(lf, li)`` along axis 1 of (B, T,
+    H) leaves under MAXPLUS_AFFINE -- the mLSTM stabilizer's -- with its
+    gradient, derived from the operator's combine (``core/operators.py``):
+    A_t = A_{t-1} + lf_t and Bm_t = max(Bm_{t-1} + lf_t, li_t) from the
+    identity (0, lowest).  Forward: K6 (its long-T path at the
+    stabilizer's shapes), keeping Bm.  Backward: with s_t the share of
+    Bm_t that came through the carry -- 1 where lf_t + Bm_{t-1} > li_t, 0
+    where it is smaller, 1/2 at an exact tie as ``jax.grad`` of the
+    reference's ``lax.associative_scan`` splits a tie of ``max``, and 0 at
+    t = 0 -- the B leaf's adjoint is g_t = dB_t + s_{t+1} g_{t+1}, a
+    reverse AFFINE recurrence, and the A leaf's the reverse cumsum of dA:
+    one reverse K6 launch over (B, T, 2 H) channels (a' = (s_{t+1}, 1),
+    b = (dB, dA)).  Then dli = (1 - s) g and dlf = s g + that cumsum.  The
+    shift, the shares and the products are plain tensor code, which on
+    CPU tensors, where K6's wrapper runs its plain version, runs the same
+    backward."""
+
+    @staticmethod
+    def forward(ctx, lf, li, nitem=None):
+        A, Bm = scan_k.scan_channel_cuda(alg.MAXPLUS_AFFINE, (lf, li),
+                                         inclusive=True, nitem=nitem)
+        ctx.save_for_backward(lf, li, Bm)
+        return A, Bm
+
+    @staticmethod
+    def backward(ctx, dA, dB):
+        lf, li, Bm = ctx.saved_tensors
+        carried = lf[:, 1:] + Bm[:, :-1]
+        s = torch.where(carried > li[:, 1:], 1.0,
+                        torch.where(carried == li[:, 1:], 0.5, 0.0)).to(
+            lf.dtype)
+        zero = torch.zeros_like(lf[:, :1])
+        s_next = torch.cat([s, zero], dim=1)
+        s = torch.cat([zero, s], dim=1)
+        H = lf.shape[2]
+        a = torch.cat([s_next, torch.ones_like(lf)], dim=2)
+        b = torch.cat([dB, dA], dim=2).to(lf.dtype)
+        _, G = scan_k.scan_channel_cuda(alg.AFFINE, (a, b), inclusive=True,
+                                        reverse=True, keep=(False, True))
+        g, csum = G[..., :H], G[..., H:]
+        return s * g + csum, (1 - s) * g, None
+
+
 def _per_backend(fn):
     # The sort compositions take the backend their scan/mapreduce steps
     # dispatch to; each registered row pins it.
@@ -362,7 +460,7 @@ IMPLS: dict[str, dict[str, Any]] = {
                      "cuda": _batched_scan_cuda},
     "mapreduce@flat": {"torch": _mapreduce_torch, "cuda": _mapreduce_cuda},
     "mapreduce@batched": {"torch": _batched_mapreduce_torch,
-                          "cuda": batched_k.batched_mapreduce_cuda},
+                          "cuda": _batched_mapreduce_cuda},
     "scan@segmented": {"torch": _segmented_scan_torch,
                        "cuda": _segmented_scan_cuda},
     "mapreduce@segmented": {"torch": _segmented_mapreduce_torch,

@@ -17,8 +17,13 @@
 A wrapper given CPU tensors runs the plain version.  Given CUDA tensors it
 launches the kernel or raises.  ``launches`` on each wrapper counts the calls
 that launched its kernel; K6 counts its long-T path apart, in
-``long_t_launches``, and the channel-tile route's reverse launches (the
-gradient of ``linear_recurrence``) again in ``reverse_launches``.
+``long_t_launches``, and each route's reverse launches (the gradients of
+``linear_recurrence`` and of the mLSTM's stabilizer) again in
+``reverse_launches`` and ``long_t_reverse_launches``.  ``nitem`` is the
+tuning policy's ``nitem_scan`` (None: the kernels' default of 8): the
+items a thread of a tile scans, K6's steps a thread a chunk and its long-T
+chunk's 8 ``nitem`` steps, each value a unit of its own
+(``kernels/_lib.py: KNOB_FAMILIES``).
 """
 from __future__ import annotations
 
@@ -46,9 +51,9 @@ def _leaves(what, xs, ndim):
     return leaves
 
 
-def scan_unit(what, op, leaves) -> _lib.Unit:
+def scan_unit(what, op, leaves, nitem=None) -> _lib.Unit:
     """The generated unit of K2, K7s and K6 for ``op`` over ``leaves``."""
-    return _lib.unit("scan", what, op, [l.dtype for l in leaves])
+    return _lib.unit("scan", what, op, [l.dtype for l in leaves], knob=nitem)
 
 
 # ---------------------------------------------------------------------------
@@ -61,14 +66,15 @@ def scan_1d_plain(op, xs: Pytree, *, inclusive: bool = True) -> Pytree:
     return ref.ref_scan(op, xs, axis=0, inclusive=inclusive)
 
 
-def scan_1d_cuda(op, xs: Pytree, *, inclusive: bool = True) -> Pytree:
+def scan_1d_cuda(op, xs: Pytree, *, inclusive: bool = True,
+                 nitem: int | None = None) -> Pytree:
     """K2: inclusive/exclusive scan over flat ``(n,)`` leaves, n >= 1."""
     x = xs if isinstance(xs, torch.Tensor) else pytree.tree_leaves(xs)[0]
     if not x.is_cuda:
         return scan_1d_plain(op, xs, inclusive=inclusive)
     what = "scan@flat (cuda)"
     leaves = _leaves(what, xs, 1)
-    plan = _lib.plan("scan", what, op, xs)
+    plan = _lib.plan("scan", what, op, xs, knob=nitem)
     lib = plan.lib or plan.load()
     n = x.shape[0]
     outs = [torch.empty_like(l) for l in leaves]
@@ -145,7 +151,8 @@ def scan_channel_plain(op, xs: Pytree, *, inclusive: bool = True,
 
 
 def scan_channel_cuda(op, xs: Pytree, *, inclusive: bool = True,
-                      reverse: bool = False, keep=None) -> Pytree:
+                      reverse: bool = False, keep=None,
+                      nitem: int | None = None) -> Pytree:
     """K6: scan along axis 1 of ``(B, T, C)`` leaves, independent per
     (b, c); ``reverse`` walks T from the end.  :func:`uses_long_t` picks
     the route from the shape.  ``keep``: one flag per leaf (default all);
@@ -160,7 +167,7 @@ def scan_channel_cuda(op, xs: Pytree, *, inclusive: bool = True,
     what = "scan along T of (B, T, C) (cuda)"
     leaves = _leaves(what, xs, 3)
     keep = _kept(keep, leaves)
-    plan = _lib.plan("scan", what, op, xs)
+    plan = _lib.plan("scan", what, op, xs, knob=nitem)
     B, T, C = x.shape
     if B > 65535:
         raise ValueError(f"{what}: B = {B} exceeds the grid's 65535 rows")
@@ -174,6 +181,7 @@ def scan_channel_cuda(op, xs: Pytree, *, inclusive: bool = True,
         int(reverse), _lib.ptr(scratch), _lib.stream_ptr(x)), what)
     if long_t:
         scan_channel_cuda.long_t_launches += 1
+        scan_channel_cuda.long_t_reverse_launches += int(reverse)
     else:
         scan_channel_cuda.launches += 1
         scan_channel_cuda.reverse_launches += int(reverse)
@@ -181,7 +189,8 @@ def scan_channel_cuda(op, xs: Pytree, *, inclusive: bool = True,
 
 
 # Launches of the channel-tile route and of the long-T path, counted apart;
-# the channel-tile route's reverse ones again among its own.
+# each one's reverse ones again among its own.
 scan_channel_cuda.launches = 0
 scan_channel_cuda.long_t_launches = 0
 scan_channel_cuda.reverse_launches = 0
+scan_channel_cuda.long_t_reverse_launches = 0

@@ -42,16 +42,18 @@ def segmented_scan_1d_plain(op, xs: Pytree, flags: torch.Tensor, *,
 
 
 def segmented_scan_1d_cuda(op, xs: Pytree, flags: torch.Tensor, *,
-                           inclusive: bool = True) -> Pytree:
+                           inclusive: bool = True,
+                           nitem: int | None = None) -> Pytree:
     """K8: segmented scan of flat ``(n,)`` leaves, n >= 1; ``flags[i] != 0``
-    starts a segment (element 0 always does)."""
+    starts a segment (element 0 always does).  ``nitem``: the tuning
+    policy's ``nitem_scan``, the items a thread of a tile scans (None: 8)."""
     leaves, spec = pytree.tree_flatten(xs)
     if not leaves[0].is_cuda:
         return segmented_scan_1d_plain(op, xs, flags, inclusive=inclusive)
     what = "scan@segmented (cuda)"
     flags = flags.to(torch.int32).contiguous()
     unit = _lib.unit("segscan", what, alg.segmented(op),
-                     [torch.int32] + [l.dtype for l in leaves])
+                     [torch.int32] + [l.dtype for l in leaves], knob=nitem)
     n = leaves[0].shape[0]
     if any(l.shape != (n,) for l in leaves) or flags.shape != (n,) or n == 0:
         raise ValueError(f"{what}: takes non-empty (n,) leaves and (n,) "

@@ -17,7 +17,13 @@ least-significant-digit radix sort is
 
 Every scan/mapreduce goes through the registry's ``resolve_impl`` with the
 ``backend`` the registered row pins, so the same composition runs the CUDA
-kernels (``cuda``) or the plain versions (``torch``).
+kernels (``cuda``) or the plain versions (``torch``).  Each entry takes a
+``policy`` (:class:`~repro_torch.core.intrinsics.TuningPolicy`; None: the
+backend's base policy, :func:`~repro_torch.core.intrinsics.resolve_tuning`):
+the digit width is its ``sort_digit_bits``, and every scan and mapreduce
+of the composition gets it explicitly, so an active autotuner never races
+them one by one.  The entries also take the deprecated ``sub_backend=``
+spelling of ``backend=`` (``intrinsics.sub_backend_alias``).
 
 The segmented variants take the flag / CSR-offset descriptors: a segmented
 sort is two chained stable radix phases -- key digits first, then
@@ -68,9 +74,21 @@ def _key_bits_for(keys, key_bits):
 # ---------------------------------------------------------------------------
 
 
-def _radix_pass(bits, payloads, shift, digit_bits, backend):
-    n_buckets = 1 << digit_bits
+def _resolve_policy(policy, backend):
+    if policy is not None:
+        return policy
+    return ki.resolve_tuning(ki.default_policy_name(backend))
+
+
+def _scan(backend, policy):
+    """The resolved ``scan@flat`` of ``backend``, called with ``policy``."""
     scan = ki.resolve_impl("scan@flat", backend)
+    return lambda op, xs, **kw: scan(op, xs, policy=policy, **kw)
+
+
+def _radix_pass(bits, payloads, shift, digit_bits, backend, policy):
+    n_buckets = 1 << digit_bits
+    scan = _scan(backend, policy)
     mapreduce = ki.resolve_impl("mapreduce@flat", backend)
 
     digit = ((bits >> shift) & _full_mask(digit_bits)).to(torch.int32)
@@ -82,7 +100,7 @@ def _radix_pass(bits, payloads, shift, digit_bits, backend):
     # buckets as channels ((1, n, R) channel layout).
     rank = scan(alg.ADD, onehot[None], axis=1, inclusive=False)[0]
     # Per-digit histogram and its exclusive scan = each bucket's base offset.
-    hist = mapreduce(alg.IDENTITY, alg.ADD, onehot, axis=0)
+    hist = mapreduce(alg.IDENTITY, alg.ADD, onehot, axis=0, policy=policy)
     base = scan(alg.ADD, hist, inclusive=False)
 
     digit = digit.long()
@@ -96,12 +114,13 @@ def _radix_pass(bits, payloads, shift, digit_bits, backend):
     return scatter(bits), tuple(scatter(p) for p in payloads)
 
 
-def _radix_passes(bits, payloads, key_bits, backend):
-    digit_bits = ki.SORT_DIGIT_BITS
+def _radix_passes(bits, payloads, key_bits, backend, policy):
+    digit_bits = policy.sort_digit_bits
     shift = 0
     while shift < key_bits:
         d = min(digit_bits, key_bits - shift)
-        bits, payloads = _radix_pass(bits, payloads, shift, d, backend)
+        bits, payloads = _radix_pass(bits, payloads, shift, d, backend,
+                                     policy)
         shift += d
     return bits, payloads
 
@@ -130,18 +149,22 @@ def _iota(n, like):
 # ---------------------------------------------------------------------------
 
 
-def sort_radix(keys, *, descending=False, key_bits=None, backend="torch"):
+@ki.sub_backend_alias
+def sort_radix(keys, *, descending=False, key_bits=None, backend="torch",
+               policy=None):
     """Stable LSD radix sort of a flat key array."""
     kb = _key_bits_for(keys, key_bits)
     if keys.shape[0] == 0:
         return keys
     bits = _to_bits(keys, kb, descending)
-    bits, _ = _radix_passes(bits, (), kb, backend)
+    bits, _ = _radix_passes(bits, (), kb, backend,
+                            _resolve_policy(policy, backend))
     return _from_bits(bits, keys.dtype, kb, descending)
 
 
+@ki.sub_backend_alias
 def sort_pairs_radix(keys, values, *, descending=False, key_bits=None,
-                     backend="torch"):
+                     backend="torch", policy=None):
     """Stable key sort carrying an arbitrary pytree payload along."""
     kb = _key_bits_for(keys, key_bits)
     leaves, treedef = pytree.tree_flatten(values)
@@ -153,21 +176,25 @@ def sort_pairs_radix(keys, values, *, descending=False, key_bits=None,
     if n == 0:
         return keys, values
     bits = _to_bits(keys, kb, descending)
-    bits, leaves = _radix_passes(bits, tuple(leaves), kb, backend)
+    bits, leaves = _radix_passes(bits, tuple(leaves), kb, backend,
+                                 _resolve_policy(policy, backend))
     return (_from_bits(bits, keys.dtype, kb, descending),
             pytree.tree_unflatten(list(leaves), treedef))
 
 
+@ki.sub_backend_alias
 def argsort_radix(keys, *, descending=False, key_bits=None,
-                  backend="torch"):
+                  backend="torch", policy=None):
     """Stable sorting permutation (int32), via an index payload."""
     _, perm = sort_pairs_radix(keys, _iota(keys.shape[0], keys),
                                descending=descending, key_bits=key_bits,
-                               backend=backend)
+                               backend=backend, policy=policy)
     return perm
 
 
-def top_k_radix(keys, k, *, largest=True, key_bits=None, backend="torch"):
+@ki.sub_backend_alias
+def top_k_radix(keys, k, *, largest=True, key_bits=None, backend="torch",
+                policy=None):
     """(values, indices) of the k extreme elements, sorted, ties stable."""
     n = keys.shape[0]
     if not 0 <= k <= n:
@@ -177,7 +204,8 @@ def top_k_radix(keys, k, *, largest=True, key_bits=None, backend="torch"):
         return keys[:0], torch.zeros((0,), dtype=torch.int32,
                                      device=keys.device)
     bits = _to_bits(keys, kb, largest)
-    bits, (idx,) = _radix_passes(bits, (_iota(n, keys),), kb, backend)
+    bits, (idx,) = _radix_passes(bits, (_iota(n, keys),), kb, backend,
+                                 _resolve_policy(policy, backend))
     return _from_bits(bits[:k], keys.dtype, kb, largest), idx[:k]
 
 
@@ -188,7 +216,7 @@ def top_k_radix(keys, k, *, largest=True, key_bits=None, backend="torch"):
 # ---------------------------------------------------------------------------
 
 
-def _segment_ids_and_starts(n, flags, offsets, keys, backend):
+def _segment_ids_and_starts(n, flags, offsets, keys, backend, policy):
     """(seg_ids, start_per_elem, seg_bits): contiguous-run bookkeeping.
 
     ``seg_ids`` are monotone run ids (offsets-declared empty segments do not
@@ -196,7 +224,7 @@ def _segment_ids_and_starts(n, flags, offsets, keys, backend):
     ``start_per_elem[i]`` is the flat index where element i's run begins,
     a running MAX scan of flagged positions.
     """
-    scan = ki.resolve_impl("scan@flat", backend)
+    scan = _scan(backend, policy)
     if offsets is not None:
         f = seg_k.offsets_to_flags(offsets, n)
         s_bound = int(offsets.shape[0]) - 1
@@ -213,7 +241,7 @@ def _segment_ids_and_starts(n, flags, offsets, keys, backend):
 
 
 def _segmented_sort_core(keys, payload_leaves, *, flags, offsets, descending,
-                         key_bits, backend, carry_starts=False):
+                         key_bits, backend, policy, carry_starts=False):
     """Two stable phases: key digits, then segment-id digits.
 
     With ``carry_starts`` each element's run-start index rides along as one
@@ -224,15 +252,17 @@ def _segmented_sort_core(keys, payload_leaves, *, flags, offsets, descending,
     if n == 0:
         return keys, tuple(payload_leaves), torch.zeros(
             (0,), dtype=torch.int32, device=keys.device)
+    policy = _resolve_policy(policy, backend)
     seg_ids, starts, seg_bits = _segment_ids_and_starts(
-        n, flags, offsets, keys, backend)
+        n, flags, offsets, keys, backend, policy)
     bits = _to_bits(keys, kb, descending)
     extra = (starts,) if carry_starts else ()
     carried = (seg_ids.to(torch.int64),) + extra + tuple(payload_leaves)
-    bits, carried = _radix_passes(bits, carried, kb, backend)
+    bits, carried = _radix_passes(bits, carried, kb, backend, policy)
     payload = (bits,) + tuple(carried[1:])
     if seg_bits > 0:
-        _, payload = _radix_passes(carried[0], payload, seg_bits, backend)
+        _, payload = _radix_passes(carried[0], payload, seg_bits, backend,
+                                   policy)
     if carry_starts:
         bits, starts, leaves = payload[0], payload[1], tuple(payload[2:])
     else:
@@ -240,18 +270,20 @@ def _segmented_sort_core(keys, payload_leaves, *, flags, offsets, descending,
     return _from_bits(bits, keys.dtype, kb, descending), leaves, starts
 
 
+@ki.sub_backend_alias
 def segmented_sort_radix(keys, *, flags=None, offsets=None, descending=False,
-                         key_bits=None, backend="torch"):
+                         key_bits=None, backend="torch", policy=None):
     """Independent stable sort of every contiguous segment (layout kept)."""
     out, _, _ = _segmented_sort_core(
         keys, (), flags=flags, offsets=offsets, descending=descending,
-        key_bits=key_bits, backend=backend)
+        key_bits=key_bits, backend=backend, policy=policy)
     return out
 
 
+@ki.sub_backend_alias
 def segmented_sort_pairs_radix(keys, values, *, flags=None, offsets=None,
                                descending=False, key_bits=None,
-                               backend="torch"):
+                               backend="torch", policy=None):
     leaves, treedef = pytree.tree_flatten(values)
     n = keys.shape[0]
     if any(l.shape[0] != n for l in leaves):
@@ -260,28 +292,31 @@ def segmented_sort_pairs_radix(keys, values, *, flags=None, offsets=None,
             f"{n}, got {[tuple(l.shape) for l in leaves]}")
     out, out_leaves, _ = _segmented_sort_core(
         keys, tuple(leaves), flags=flags, offsets=offsets,
-        descending=descending, key_bits=key_bits, backend=backend)
+        descending=descending, key_bits=key_bits, backend=backend,
+        policy=policy)
     return out, pytree.tree_unflatten(list(out_leaves), treedef)
 
 
+@ki.sub_backend_alias
 def segmented_argsort_radix(keys, *, flags=None, offsets=None,
                             descending=False, key_bits=None,
-                            backend="torch"):
+                            backend="torch", policy=None):
     """Within-segment sorting permutation: out[i] is the *offset inside its
     segment* of the element placed at flat position i."""
     _, (perm,), starts = _segmented_sort_core(
         keys, (_iota(keys.shape[0], keys),), flags=flags, offsets=offsets,
         descending=descending, key_bits=key_bits, backend=backend,
-        carry_starts=True)
+        policy=policy, carry_starts=True)
     # The sorted stream keeps the input's segment layout, and each element's
     # run start rode along through both phases -- so within-segment position
     # is the carried global index minus the carried run start.
     return perm - starts
 
 
+@ki.sub_backend_alias
 def segmented_top_k_radix(keys, k, *, flags=None, offsets=None,
                           num_segments=None, largest=True, key_bits=None,
-                          backend="torch"):
+                          backend="torch", policy=None):
     """Per-segment (values, indices): ``(S, k)`` each, extreme-first.
 
     ``indices`` are within-segment offsets into the original layout; slots
@@ -294,7 +329,8 @@ def segmented_top_k_radix(keys, k, *, flags=None, offsets=None,
         raise ValueError(f"top_k: k must be >= 0, got {k}")
     n = keys.shape[0]
     dev = keys.device
-    scan = ki.resolve_impl("scan@flat", backend)
+    policy = _resolve_policy(policy, backend)
+    scan = _scan(backend, policy)
     if offsets is not None:
         num_segments = int(offsets.shape[0]) - 1
         offs = offsets.to(torch.int32)
@@ -318,7 +354,7 @@ def segmented_top_k_radix(keys, k, *, flags=None, offsets=None,
     sorted_keys, (perm,), starts = _segmented_sort_core(
         keys, (_iota(n, keys),), flags=flags, offsets=offsets,
         descending=largest, key_bits=key_bits, backend=backend,
-        carry_starts=True)
+        policy=policy, carry_starts=True)
     within = perm - starts
 
     ks = torch.arange(k, dtype=torch.int32, device=dev)

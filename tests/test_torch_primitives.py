@@ -467,9 +467,10 @@ def test_generated_units_hold_the_small_entries(family, op, f, dtypes,
     for entry in (*fam.signatures, *fam.leaf_entries):
         assert f" {entry}(" in unit.source
     assert unit.leaves == (len(dtypes), 1 if f is not None else len(dtypes))
-    call = "rt::mapreduce::small<Map, Op>(x, n, y" if family == "mapreduce" \
-        else "rt::scan::single_tile<Op>(x, y, rows, n"
-    assert call in unit.source
+    call = "rt::mapreduce::small<Map, Op, NITEM>(x, n, y" \
+        if family == "mapreduce" else \
+        "rt::scan::single_tile<Op, NITEM>(x, y, rows, n"
+    assert call in unit.source and "constexpr int NITEM = 8;" in unit.source
 
 
 DISPATCH_ERRORS = [

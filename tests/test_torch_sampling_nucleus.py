@@ -3,6 +3,8 @@ the port's ``sample_tokens``, held against the reference's draws (the
 exact-id harness of ``test_torch_sampling.py``), in a file of at most 12
 tests so that ``--dist loadfile`` queues it behind the larger files.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -25,7 +27,9 @@ from test_torch_sampling import DRAWS, VOCAB, _sample_both  # noqa: E402
 
 @pytest.fixture
 def narrow_digits(monkeypatch):
-    monkeypatch.setattr(t_ki, "SORT_DIGIT_BITS", 4)
+    base = t_ki.resolve_tuning()
+    monkeypatch.setitem(t_ki._TUNING_REGISTRY, base.name,
+                        dataclasses.replace(base, sort_digit_bits=4))
 
 
 def _draws(logits_row, *, top_k, top_p, n=DRAWS):

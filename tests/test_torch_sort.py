@@ -16,6 +16,8 @@ and ``top_k``), ``test_torch_sort_flat.py`` (``sort`` and ``argsort``, flat),
 sampling path's segmented top-k) and ``test_torch_sort_top_k.py`` (the
 ragged segmented top-k at both digit widths).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -89,10 +91,18 @@ def _layouts(variant, n):
 # ---------------------------------------------------------------------------
 
 
+def set_digit_bits(monkeypatch, bits):
+    """Sets the radix digit width of the tuning policy the sorts resolve
+    when no policy is passed (on the CPU, ``generic``'s)."""
+    base = t_ki.resolve_tuning()
+    monkeypatch.setitem(t_ki._TUNING_REGISTRY, base.name,
+                        dataclasses.replace(base, sort_digit_bits=bits))
+
+
 @pytest.fixture(params=[4, 8])
 def digit_bits(request, monkeypatch):
-    """Runs a test at each radix digit width (``SORT_DIGIT_BITS``)."""
-    monkeypatch.setattr(t_ki, "SORT_DIGIT_BITS", request.param)
+    """Runs a test at each radix digit width (``sort_digit_bits``)."""
+    set_digit_bits(monkeypatch, request.param)
     return request.param
 
 
@@ -115,7 +125,8 @@ def test_digit_width_does_not_change_the_result(digit_bits, dtype,
 
 
 def test_default_digit_width_is_the_h100_value():
-    assert t_ki.SORT_DIGIT_BITS == 8
+    assert t_ki.resolve_tuning("gpu_h100").sort_digit_bits == 8
+    assert t_ki.resolve_tuning().sort_digit_bits == 8
 
 
 def test_key_bits_fast_path_and_validation():

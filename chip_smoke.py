@@ -208,36 +208,43 @@ Fifteen phases, any failure exits non-zero:
    launched), peak memory (under 80 GB), decode tokens/s and the device ms
    of one loop iteration with the slots full (device_busy).
 14. train (phase_train, after seamless's tensors are freed): K10's forward
-   log-sum-exp and its gradient (csrc/flash_attention_bwd.cuh) against
+   log-sum-exp and its gradient (csrc/flash_attention_bwd.cuh: bf16 on the
+   tensor cores, wgmma on a TMA ring; f32 on the CUDA cores) against
    ``flash_attention_bwd_ref`` at recurrentgemma-2b's layer (S = 4,096,
    window 2,048), gemma2-27b's global layer, deepseek-v3's MLA and
    seamless's cross attention (each timed beside its bound, the plain
-   version and SDPA's forward and backward with the case's mask) and at
-   the gradient's tile edges, rows that keep no key, windows that skip
-   tiles, in bf16 and f32; K6's gradient (one reverse K6 launch) against
-   autograd through a float64 serial walk at (1, 4096, 2560) with and
-   without h0, B = 3 and T at a chunk +-1; the first train step's loss,
-   grad norm and three leaves' gradients, cuda route against torch route,
-   at one unit of recurrentgemma-2b at full width (float32 within 1e-3,
-   bf16 within twice the torch route's own distance from float32);
-   recurrentgemma-2b FULL (26 layers, f32 master weights from the seed,
-   AdamW, full remat, bf16 activations and gradients, one sequence of
-   4,096 tokens a step) for four steps: loss and grad norm finite, wall
-   ms, tokens/s, peak memory (under 80 GB), the launches of K6, its
-   reverse launch, K10 and its gradient (each launched), one step's device
-   ms and idle share; then the Trainer at smoke size in a temporary
-   directory: a fault recovered, a run cut and resumed equal to an uncut
-   one to the bit.  Then xlstm-1.3b, recurrentgemma's tensors freed: the
-   mLSTM stabilizer's gradient (MAXPLUS_AFFINE, kernels/ops.py's
-   MaxplusAffineScan: one reverse K6 launch, on K6-long at its train
-   shapes) against autograd through a float64 serial walk at (1, 1024, 4),
-   (1, 2112, 4), B = 3, T at three long-T chunks +-1 and a channel-tile
-   shape; the first step cuda vs torch at one unit (7 mLSTM + 1 sLSTM
-   layers) at full width, as recurrentgemma's; xlstm-1.3b FULL (48 layers,
+   version, the forward with its log-sum-exp and SDPA's forward and
+   backward with the case's mask, SDPA's backend named), one kv head of ten
+   query heads split and folded, and at the gradient's tile edges, rows
+   that keep no key, windows that skip tiles, in bf16 and f32; each case
+   twice, the two gradients equal to the bit; K6's gradient (one reverse
+   K6 launch) against autograd through a float64 serial walk at (1, 4096,
+   2560) with and without h0, B = 3 and T at a chunk +-1; the first train
+   step's loss, grad norm and three leaves' gradients, cuda route against
+   torch route, at one unit of recurrentgemma-2b at full width (float32
+   within 1e-3, bf16 within twice the torch route's own distance from
+   float32); recurrentgemma-2b FULL (26 layers, f32 master weights from
+   the seed, AdamW, full remat, bf16 activations and gradients, one
+   sequence of 4,096 tokens a step) for four steps: loss and grad norm
+   finite, wall ms, tokens/s, peak memory (under 80 GB), the launches of
+   K6, its reverse launch, K10 and its gradient (each launched), one
+   step's device ms and idle share, and K10's and K10-bwd's device ms in
+   it; then the Trainer at smoke size in a temporary directory: a fault
+   recovered, a run cut and resumed equal to an uncut one to the bit.
+   Then xlstm-1.3b, recurrentgemma's tensors freed: the mLSTM
+   stabilizer's gradient (MAXPLUS_AFFINE, kernels/ops.py's
+   MaxplusAffineScan: one launch of csrc/maxplus_grad.cuh, which walks the
+   reference's combine tree) against its plain version to the bit and
+   autograd through a float64 serial walk at (1, 1024, 4), (1, 2112, 4),
+   B = 3, T at 192 +-1, a wide shape and T = 12,000 (its levels in the
+   workspace), and the reference's chain of four ties to the bit; the
+   first step cuda vs torch at one unit (7 mLSTM + 1 sLSTM layers) at
+   full width, as recurrentgemma's; xlstm-1.3b FULL (48 layers,
    1,907,394,896 parameters, f32 master weights, AdamW, full remat, bf16)
    for three steps of one 1,024-token sequence: loss and grad norm finite,
    wall ms, tokens/s, peak memory (under 80 GB), one step's device ms and
-   idle share, the launches of K6, K6-long and their reverse launches.
+   idle share, the launches of K6, its reverse launch, K6-long and the
+   stabilizer's gradient.
 15. tune (phase_tune): the autotuner (core/tuning.py) on a temporary cache
    file, for every tuned route at a served or paper shape (K1 10^8 f32; K2
    10^7 f32 ADD; K3 10^8 int32; K7m (8, 2^24); K7s (4, 64); K8 10^7 with
@@ -262,8 +269,8 @@ The line before the card line holds {"kernels": [...]}.  A kernel's
 serving path for K10, which the primitives path does not run, and phase
 14's four FULL train steps ("train") for K6's reverse launches (K6-reverse,
 the gradient of linear_recurrence) and K10's gradient (K10-bwd), and its
-three xlstm-1.3b steps ("train_xlstm") for K6-long's reverse launches
-(K6-long-reverse, the mLSTM stabilizer's gradient).  Beside them
+three xlstm-1.3b steps ("train_xlstm") for the mLSTM stabilizer's
+gradient (MAXPLUS-grad, csrc/maxplus_grad.cuh).  Beside them
 stand the launches on every path (primitives, greedy, sampled, gemma2,
 xlstm, gemma3, minitron, moonshot, deepseek, seamless; phase 13's
 speculative, speculative_draft, speculative_sampled, beam, constrained,
@@ -325,6 +332,7 @@ from repro_torch.models import blocks as BK  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import moe as moe_m  # noqa: E402
+from repro_torch.models import recurrent as rec_m  # noqa: E402
 from repro_torch.serving import sampling as SP  # noqa: E402
 from repro_torch.serving import strategies as ST  # noqa: E402
 from repro_torch.serving.engine import Engine, Request  # noqa: E402
@@ -376,8 +384,7 @@ COUNTERS = {
     # gradient), counted again among K6's, K6-long's (the mLSTM
     # stabilizer's gradient) again among K6-long's, and K10's gradient.
     "K6-reverse": (scan_k.scan_channel_cuda, "reverse_launches"),
-    "K6-long-reverse": (scan_k.scan_channel_cuda,
-                        "long_t_reverse_launches"),
+    "MAXPLUS-grad": (scan_k.maxplus_grad_cuda, "launches"),
     "K10-bwd": (flash_k.flash_attention_bwd, "launches"),
 }
 GREEDY_PATH = ("K2", "K6", "K3", "K7m", "K10")
@@ -423,12 +430,12 @@ SPEC_PATH = ("K2", "K3", "K7m", "K7s", "K10")
 BEAM_PATH = ("K2", "K3", "K4-matvec", "K6-long", "K7s", "K10")
 GEMMA2_PARAMS = 27_227_128_320
 # The counters only training moves.
-TRAIN_ONLY = ("K6-reverse", "K6-long-reverse", "K10-bwd")
+TRAIN_ONLY = ("K6-reverse", "MAXPLUS-grad", "K10-bwd")
 # The library's own path runs every kernel but the models' attention.
 PRIMITIVES_PATH = tuple(k for k in COUNTERS
                         if k != "K10" and k not in TRAIN_ONLY)
 # The path whose launches a kernel's "launches" report: its slice's main one.
-MAIN_PATH = {k: "train_xlstm" if k == "K6-long-reverse" else
+MAIN_PATH = {k: "train_xlstm" if k == "MAXPLUS-grad" else
              "train" if k in TRAIN_ONLY else
              "primitives" if k in PRIMITIVES_PATH else "gemma2"
              for k in COUNTERS}
@@ -474,10 +481,10 @@ META = {
     "K6-reverse": ("scan_channel reverse (linear_recurrence's gradient)",
                    "src/repro_torch/csrc/scan.cuh",
                    "src/repro/kernels/scan.py:227"),
-    "K6-long-reverse": ("scan_channel long-T reverse (the mLSTM "
-                        "stabilizer's gradient)",
-                        "src/repro_torch/csrc/scan.cuh",
-                        "src/repro/kernels/scan.py:227"),
+    "MAXPLUS-grad": ("maxplus_grad (the mLSTM stabilizer's gradient, in "
+                     "the reference's combine tree)",
+                     "src/repro_torch/csrc/maxplus_grad.cuh",
+                     "src/repro/kernels/scan.py:227"),
     "K10-bwd": ("flash_attention_bwd (K10's gradient)",
                 "src/repro_torch/csrc/flash_attention_bwd.cuh",
                 "src/repro/kernels/flash_attention.py:83"),
@@ -688,6 +695,7 @@ def path_units() -> list:
     for dtype, hd, dv in K10B_UNITS:
         units.append(flash_k.flash_unit(dtype, hd, "build", dv))
         units.append(flash_k.flash_bwd_unit(dtype, hd, "build", dv))
+    units.append(_lib.unit("maxplus_grad", "build"))
     return units
 
 
@@ -733,6 +741,17 @@ def phase_build() -> dict:
         log(f"  sass {u.label}: {ops}")
         expect(ops["HGMMA"] > 0, f"{u.label}: SASS holds HGMMA "
                                  f"({ops['HGMMA']} instructions)")
+        expect(spilled[u.label] == 0, f"{u.label}: ptxas reports no spills")
+    # So must K10's gradient's bf16 units (wgmma on a TMA ring).
+    for dtype, hd, dv in K10B_UNITS:
+        if dtype != BF16:
+            continue
+        u = flash_k.flash_bwd_unit(dtype, hd, "build", dv)
+        ops = sass_ops(u.path)
+        log(f"  sass {u.label}: {ops}")
+        expect(ops["HGMMA"] > 0 and "TensorCores" in u.source,
+               f"{u.label}: the tensor-core body, its SASS holds HGMMA "
+               f"({ops['HGMMA']} instructions)")
         expect(spilled[u.label] == 0, f"{u.label}: ptxas reports no spills")
     # The units of xlstm-1.3b's K6 calls (AFFINE for the chunk states,
     # MAXPLUS_AFFINE for the stabilizer, f32): each K6 kernel's registers
@@ -3809,12 +3828,13 @@ class _Profiled(Exception):
     """Raised out of a serve once its first loop iteration is profiled."""
 
 
-def device_busy(fn) -> dict:
+def device_busy(fn, kernels=None) -> dict:
     """Run ``fn`` under torch.profiler's device activity alone and sum the
     device events' time straight from its raw results (a speculative round
     launches some 60,000 operations, which the parsed event list of
     profile_device takes minutes to build): the device ms, the wall ms and
-    the idle share."""
+    the idle share; with ``kernels`` (label -> a test of an event's name),
+    each label's device ms and event count too ("kernel_ms")."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -3823,16 +3843,26 @@ def device_busy(fn) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy_ns, ops = 0, 0
+    by = {k: [0, 0] for k in kernels or ()}
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == torch.autograd.DeviceType.CUDA:
-            busy_ns += e.duration_ns() if hasattr(e, "duration_ns") \
+            ns = e.duration_ns() if hasattr(e, "duration_ns") \
                 else e.duration_us() * 1000
+            busy_ns += ns
             ops += 1
+            for k, test in (kernels or {}).items():
+                if test(e.name()):
+                    by[k][0] += ns
+                    by[k][1] += 1
     if not ops:
         return {"measured": False, "wall_ms": wall_ms}
-    return {"measured": True, "device_ms": busy_ns / 1e6, "wall_ms": wall_ms,
-            "device_idle_share": 1.0 - busy_ns / 1e6 / wall_ms,
-            "device_ops": ops}
+    out = {"measured": True, "device_ms": busy_ns / 1e6, "wall_ms": wall_ms,
+           "device_idle_share": 1.0 - busy_ns / 1e6 / wall_ms,
+           "device_ops": ops}
+    if kernels:
+        out["kernel_ms"] = {k: {"device_ms": ns / 1e6, "events": n}
+                            for k, (ns, n) in by.items()}
+    return out
 
 
 def profile_iteration(eng, reqs) -> dict:
@@ -4567,10 +4597,12 @@ def check_predicate(state) -> None:
 # trained model's (recurrentgemma-2b at S = 4,096 > its window), gemma2's
 # global layer (soft cap), deepseek-v3's MLA (v narrower than q/k) and
 # seamless's cross attention (64 queries over 2,100 keys, not causal) --
-# then the edges of the gradient's tiles (64 query rows, 32 keys): T = 1;
-# S and T at a tile +-1 with B = 2; rows that keep no key; windows that
-# skip whole tiles; S > T not causal; both forward bodies (bf16's tensor
-# cores, f32's CUDA cores) giving the log-sum-exp.
+# then one kv head of ten query heads whose 16 key tiles the dkv launch
+# splits over 17 blocks a tile and folds; the edges of the gradient's
+# tiles (64 and 128 query rows, 64 keys; the CUDA cores' 64 and 32): T =
+# 1; S and T at a tile +-1 with B = 2; rows that keep no key; windows that
+# skip whole tiles; S > T not causal; both bodies (bf16's tensor cores,
+# f32's CUDA cores), forward and backward.
 K10B_CASES = tuple(K10Case(*c) for c in (
     ("recurrentgemma-2b local", 1, 4096, 4096, 1, 10, 256, BF16, True, 2048,
      0.0),
@@ -4579,6 +4611,8 @@ K10B_CASES = tuple(K10Case(*c) for c in (
      128),
     ("seamless-m4t-medium cross", 1, 64, 2100, 16, 1, 64, BF16, False, 0,
      0.0),
+    ("bf16, one kv head, split and folded", 1, 1000, 1000, 1, 10, 128, BF16,
+     True, 0, 0.0),
     ("T = 1", 2, 1, 1, 16, 2, 128, BF16, True, 0, 50.0),
     ("S, T at a tile -1, +1", 2, 63, 33, 2, 2, 128, BF16, True, 0, 50.0),
     ("S, T at a tile +1, -1", 2, 65, 31, 1, 10, 256, BF16, False, 0, 0.0),
@@ -4658,21 +4692,32 @@ def sdpa_fwd_bwd(q, k, v, dout, causal, window):
 def check_k10_bwd(res) -> None:
     """K10's forward log-sum-exp against its plain version's, and its
     gradient against ``flash_attention_bwd_ref`` on the same inputs (q, k,
-    v, the kernel's out and lse, dout).  The log-sum-exp of every row that
-    keeps a key within 1e-4 (1 + |lse|) (scores summed in another order,
-    ex2.approx in the tensor-core body).  Each of dq, dk, dv within tol x
-    its largest entry (at T = 1, where dq and dk vanish, of dv's): bf16
-    2^-7 -- each output rounds to bf16 (2^-9 of itself at most) and a P
-    that crosses a bf16 rounding boundary moves one term of dv by 2^-8 of
-    it; float32 1e-5, the sums in another order.
-    A mask that keeps or drops a wrong key moves a row's gradient by the
-    size of its terms, far beyond either."""
+    v, the kernel's out and lse, dout), on the body its dtype's unit runs
+    (bf16: the tensor cores, float32: the CUDA cores).  The log-sum-exp of
+    every row that keeps a key within 1e-4 (1 + |lse|) (scores summed in
+    another order, ex2.approx in the tensor-core body).  Each of dq, dk, dv
+    within tol x its largest entry (at T = 1, where dq and dk vanish, of
+    dv's): bf16 2^-7 -- each output rounds to bf16 (2^-9 of itself at
+    most), and P and dS round to bf16 before their products as the
+    forward rounds p, each such rounding moving one term by 2^-9 of it;
+    float32 1e-5, the sums in another order.  A mask that keeps or drops a
+    wrong key moves a row's gradient by the size of its terms, far beyond
+    either.  Each case runs the gradient twice: the two equal to the bit
+    (no atomics; the split's fold sums in a fixed order).  The split case
+    must split."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
     r = res["K10-bwd"]
+    r["units"] = sorted({flash_k.flash_bwd_unit(c.dtype, c.hd, "units",
+                                                c.dv or c.hd).label + " on "
+                         + flash_k.BODIES[c.dtype] for c in K10B_CASES})
     for case in K10B_CASES:
         label, B, S, T, K, G, hd, dtype, causal, window, cap, dv = case
         dv = dv or hd
         H = K * G
+        body = flash_k.BODIES[dtype]
+        unit = flash_k.flash_bwd_unit(dtype, hd, "check", dv)
+        plan = flash_k.bwd_plan(B, S, T, H, K, hd, dv, causal, window, body,
+                                matvec_k.sms(0))
 
         def rn(*shape):
             return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
@@ -4691,8 +4736,11 @@ def check_k10_bwd(res) -> None:
                         .max()) if kept.any() else 0.0
         before = flash_k.flash_attention_bwd.launches
         got = flash_k.flash_attention_bwd(q4, k, v, out, lse, dout, **kw)
+        again = flash_k.flash_attention_bwd(q4, k, v, out, lse, dout, **kw)
         torch.cuda.synchronize()
         launched = flash_k.flash_attention_bwd.launches - before
+        repeat = all(torch.equal(x, y) for x, y in zip(got, again))
+        del again
         want = ref.flash_attention_bwd_ref(
             q4, k, v, out, lse, dout, empty_l=ref.flash_empty_l(
                 T, flash_k.KV_BLOCK), **kw)
@@ -4707,26 +4755,39 @@ def check_k10_bwd(res) -> None:
             errs.update({n: max_err(g, w) / scale for n, g, w in
                          zip(("dq", "dk"), got[:2], want[:2])})
         r["max_abs_err"] = max(r["max_abs_err"], max_err(got, want))
-        expect(launched == launched_fwd == 1 and lse_err <= 1e-4 and all(
-            bool(torch.isfinite(g).all()) for g in got) and max(
-                errs.values()) <= tol and tuple(got[2].shape) == (B, T, K, dv),
-            f"K10-bwd {label} ({B}, {S}/{T}, {H}/{K} heads, {hd}/{dv}) "
-            f"{str(dtype)[6:]} causal={causal} window={window} softcap={cap}:"
-            f" lse err {lse_err:.3g} <= 1e-4 (1 + |lse|); max err / max "
-            f"|grad| " + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
-            + f" <= {tol:.3g}; one launch each way")
+        split = "split" in label
+        expect(launched == 2 and launched_fwd == 1 and lse_err <= 1e-4 and
+               repeat and all(bool(torch.isfinite(g).all()) for g in got)
+               and max(errs.values()) <= tol and
+               tuple(got[2].shape) == (B, T, K, dv) and
+               (body == "TensorCores") == ("TensorCores" in unit.source)
+               and (plan.splits > 1 if split else True),
+               f"K10-bwd {label} ({B}, {S}/{T}, {H}/{K} heads, {hd}/{dv}) "
+               f"{str(dtype)[6:]} causal={causal} window={window} softcap={cap}"
+               f" on {body}, dkv split {plan.splits}: lse err {lse_err:.3g} "
+               f"<= 1e-4 (1 + |lse|); max err / max |grad| "
+               + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
+               + f" <= {tol:.3g}; two calls equal to the bit; one forward "
+               f"launch, one backward launch a call")
         del want
         if label in K10B_TIMED:
             sdpa, backend = sdpa_fwd_bwd(q, k, v, dout, causal, window)
+
+            def pair():
+                o, l = flash_k.flash_attention_lse(q4, k, v, **kw)
+                flash_k.flash_attention_bwd(q4, k, v, o, l, dout, **kw)
+
             timing = {
                 "ms": time_ms(lambda: flash_k.flash_attention_bwd(
-                    q4, k, v, out, lse, dout, **kw), 5),
+                    q4, k, v, out, lse, dout, **kw), 10),
                 "plain_ms": time_ms(lambda: ref.flash_attention_bwd_ref(
                     q4, k, v, out, lse, dout, **kw), 1),
                 "library_ms": time_ms(sdpa, 5),
                 "library_backend": backend,
                 "forward_ms": time_ms(lambda: flash_k.flash_attention_lse(
-                    q4, k, v, **kw), 5)}
+                    q4, k, v, **kw), 10),
+                "pair_ms": time_ms(pair, 10),
+                "splits": plan.splits}
             bound = k10b_bound(B, S, T, K, G, hd, dtype, causal, window, dv)
             what = (f"({B}, {S}/{T}, {H}/{K} heads, {hd}"
                     + (f"/{dv}" if dv != hd else "") + f") "
@@ -4737,10 +4798,12 @@ def check_k10_bwd(res) -> None:
                 r.update(timing, bound=bound, shape=what)
             r.setdefault("shapes", {})[label] = dict(
                 timing, bound_ms=bound[0], bound_by=bound[1])
-            log(f"[K10-bwd] {what}: {timing['ms']:.3f} ms (forward with lse "
-                f"{timing['forward_ms']:.3f}), bound {bound[0]:.4f} ms "
-                f"({bound[1]}), plain {timing['plain_ms']:.1f} ms, SDPA "
-                f"forward+backward {timing['library_ms']:.3f} ms ({backend})")
+            log(f"[K10-bwd] {what}: {timing['ms']:.4f} ms on {body} (dkv "
+                f"split {plan.splits}), bound {bound[0]:.4f} ms "
+                f"({bound[1]}), plain {timing['plain_ms']:.1f} ms; forward "
+                f"with lse {timing['forward_ms']:.4f} ms, forward + backward "
+                f"{timing['pair_ms']:.4f} ms against SDPA forward + backward "
+                f"{timing['library_ms']:.4f} ms ({backend})")
         del q, k, v, q4, out, lse, dout, got
     gc.collect()
     torch.cuda.empty_cache()
@@ -4814,11 +4877,14 @@ def check_k6_grad(res) -> None:
         del a, b, h0, dh, ins, h, got, want, ins64, ins32, walk32
 
 
-# The mLSTM stabilizer's gradient (MaxplusAffineScan): xlstm-1.3b's train
-# shape (1, 1024, 4 heads) and a long prompt's (1, 2112, 4) on K6-long,
-# B = 3, T at three long-T chunks of 64 +-1, and a channel-tile shape.
+# The mLSTM stabilizer's gradient (MaxplusAffineScan's backward, one launch
+# of csrc/maxplus_grad.cuh): xlstm-1.3b's train shape (1, 1024, 4 heads)
+# and a long prompt's (1, 2112, 4), B = 3, T about a power of two +-1, a
+# wide one, and T = 12,000, whose levels leave shared memory for the
+# workspace.
 MAXPLUS_GRAD_CASES = ((1, 1024, 4), (1, 2112, 4), (3, 1024, 4),
-                      (1, 191, 4), (1, 193, 4), (1, 33, 4096))
+                      (1, 191, 4), (1, 193, 4), (1, 33, 4096),
+                      (1, 12000, 2))
 # xlstm-1.3b's training: three steps of one 1,024-token sequence (its sLSTM
 # loop is host-bound under autograd), the first-step check at one unit of 7
 # mLSTM and 1 sLSTM layers.
@@ -4833,7 +4899,7 @@ XLSTM_TRAIN_LEAVES = {
                                 "w_fgate"),
     "units.0.7.mixer.r": ("decoder", "units", 0, 7, "mixer", "r"),
 }
-XLSTM_TRAIN_KERNELS = ("K6", "K6-reverse", "K6-long", "K6-long-reverse")
+XLSTM_TRAIN_KERNELS = ("K6", "K6-reverse", "K6-long", "MAXPLUS-grad")
 
 
 def maxplus_walk(lf, li):
@@ -4852,16 +4918,22 @@ def maxplus_walk(lf, li):
 
 
 def check_maxplus_grad(res) -> None:
-    """The MAXPLUS_AFFINE scan's gradient on the cuda route (K6 forward, one
-    reverse K6 launch back: K6-long where (B, T, 2 H) takes the long-T
-    path) against autograd through the float64 serial walk: dlf and dli
-    within 1e-5 of each one's largest entry (the forget gates' sums in
-    chunks and a carry, as in check_k6_grad; the float32 walk's own error
-    beside it).  Log forget gates in (-1.01, -0.01), input gates N(0, 1),
-    dA and dB N(0, 1)."""
+    """The MAXPLUS_AFFINE scan's gradient on the cuda route (K6 forward,
+    one launch of the stabilizer-gradient kernel back, no K6 launch) against
+    its plain version ``maxplus_grad_plain`` on the same inputs, bit for
+    bit (the same float32 operations in the same tree: a share of 0, 1/2
+    or 1 times an adjoint is exact, so no contraction moves a bit), and
+    against autograd through the float64 serial walk, dlf and dli within
+    1e-5 of each one's largest entry (the forget gates' sums in another
+    order; the float32 walk's own error beside it).  Log forget gates in
+    (-1.01, -0.01), input gates N(0, 1), dA and dB N(0, 1).  Then the
+    reference's tie chain through the model's stabilizer, m = max(A, Bm):
+    lf = 0, li = 1 over four steps, dm = (0, 0, 0, 1) -- dyadic gates, so
+    every sum is exact -- gives the reference's dli = 1/4 each and dlf =
+    (0, 1/4, 1/2, 3/4) to the bit, in every column of a (2, 4, 3) batch."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
-    k6 = scan_k.scan_channel_cuda
-    r = res["K6-long-reverse"]
+    k6, grad = scan_k.scan_channel_cuda, scan_k.maxplus_grad_cuda
+    r = res["MAXPLUS-grad"]
     for shape in MAXPLUS_GRAD_CASES:
         B, T, H = shape
         lf = -torch.rand(*shape, generator=gen, device="cuda") - 0.01
@@ -4869,13 +4941,15 @@ def check_maxplus_grad(res) -> None:
         dA = torch.randn(*shape, generator=gen, device="cuda")
         dB = torch.randn(*shape, generator=gen, device="cuda")
         ins = [x.clone().requires_grad_() for x in (lf, li)]
-        rev, rev_long = k6.reverse_launches, k6.long_t_reverse_launches
         A, Bm = forge.scan(alg.MAXPLUS_AFFINE, tuple(ins), axis=1)
+        rev = k6.reverse_launches + k6.long_t_reverse_launches
+        launched = grad.launches
         got = torch.autograd.grad((A, Bm), ins, (dA, dB), retain_graph=True)
         torch.cuda.synchronize()
-        rev = k6.reverse_launches - rev
-        rev_long = k6.long_t_reverse_launches - rev_long
-        long_t = scan_k.uses_long_t(B, T, 2 * H)
+        launched = grad.launches - launched
+        rev = k6.reverse_launches + k6.long_t_reverse_launches - rev
+        plain = scan_k.maxplus_grad_plain(lf, li, dA, dB)
+        exact = all(torch.equal(g, w) for g, w in zip(got, plain))
         ins64 = [x.detach().double().requires_grad_() for x in ins]
         want = torch.autograd.grad(maxplus_walk(*ins64), ins64,
                                    (dA.double(), dB.double()))
@@ -4883,31 +4957,46 @@ def check_maxplus_grad(res) -> None:
         walk32 = torch.autograd.grad(maxplus_walk(*ins32), ins32, (dA, dB))
         errs = [max_err(g, w) / float(w.abs().max()) for g, w in
                 zip(got, want)]
-        plain = [max_err(g, w) / float(w.abs().max()) for g, w in
-                 zip(walk32, want)]
-        r["max_abs_err"] = max(r["max_abs_err"], max_err(got, want))
-        expect(rev + rev_long == 1 and rev_long == int(long_t) and
-               max(errs) <= 1e-5,
-               f"MAXPLUS_AFFINE gradient {shape}: max err / max |grad| "
-               f"{max(errs):.3g} <= 1e-5 against the float64 walk (the "
-               f"float32 walk's {max(plain):.3g}); one reverse launch, "
-               f"{'K6-long' if long_t else 'the channel-tile route'}")
+        walk = [max_err(g, w) / float(w.abs().max()) for g, w in
+                zip(walk32, want)]
+        r["max_abs_err"] = max(r["max_abs_err"], max_err(got, plain))
+        expect(launched == 1 and rev == 0 and exact and max(errs) <= 1e-5,
+               f"MAXPLUS_AFFINE gradient {shape}: equal to the plain version "
+               f"to the bit; max err / max |grad| {max(errs):.3g} <= 1e-5 "
+               f"against the float64 walk (the float32 walk's "
+               f"{max(walk):.3g}); one launch of the stabilizer-gradient "
+               f"kernel, no K6 launch")
         if shape == MAXPLUS_GRAD_CASES[0]:
             elems = B * T * H
             r.update(
-                ms=time_ms(lambda: torch.autograd.grad(
+                ms=time_ms(lambda: grad(lf, li, dA, dB), 50),
+                autograd_ms=time_ms(lambda: torch.autograd.grad(
                     (A, Bm), ins, (dA, dB), retain_graph=True), 20),
-                plain_ms=time_ms(lambda: torch.autograd.grad(
-                    maxplus_walk(*ins32), ins32, (dA, dB)), 1),
+                plain_ms=time_ms(lambda: scan_k.maxplus_grad_plain(
+                    lf, li, dA, dB), 5),
                 library_ms=None,   # no PyTorch call runs the adjoint scan
-                # lf, li, Bm, dA, dB read; dlf, dli written.
-                bound=bound_ms(7 * 4 * elems, 10 * elems),
+                # lf, li, dA, dB read; dlf, dli written.
+                bound=bound_ms(6 * 4 * elems, 10 * elems),
                 shape=f"({B}, {T}, {H}) f32 MAXPLUS_AFFINE, the gradient of "
-                      f"the mLSTM stabilizer (reverse K6-long + shares and "
-                      f"products)")
-            log(f"[K6-long-reverse] {r['shape']}: {r['ms']:.4f} ms, bound "
-                f"{r['bound'][0]:.6f} ms, plain {r['plain_ms']:.1f} ms")
+                      f"the mLSTM stabilizer (one launch; autograd.grad "
+                      f"through it in autograd_ms)")
+            log(f"[MAXPLUS-grad] {r['shape']}: {r['ms']:.4f} ms (through "
+                f"autograd {r['autograd_ms']:.4f}), bound "
+                f"{r['bound'][0]:.6f} ms, plain {r['plain_ms']:.2f} ms")
         del lf, li, dA, dB, ins, A, Bm, got, want, ins64, ins32, walk32
+    lf = torch.zeros(2, 4, 3, device="cuda", requires_grad=True)
+    li = torch.ones(2, 4, 3, device="cuda", requires_grad=True)
+    dm = torch.zeros(2, 4, 3, device="cuda")
+    dm[:, 3] = 1.0
+    with ki.use_backend("cuda"):
+        m = rec_m._mlstm_stabilizer(lf, li)
+    dlf, dli = torch.autograd.grad(m, (lf, li), dm)
+    want_lf = torch.tensor([0.0, 0.25, 0.5, 0.75], device="cuda")
+    expect(torch.equal(dli, torch.full_like(dli, 0.25)) and torch.equal(
+        dlf, want_lf[None, :, None].expand_as(dlf)),
+        f"MAXPLUS_AFFINE gradient, the reference's chain of four ties: dli "
+        f"{dli[0, :, 0].tolist()} and dlf {dlf[0, :, 0].tolist()} equal "
+        f"(1/4, 1/4, 1/4, 1/4) and (0, 1/4, 1/2, 3/4) in every column")
 
 
 def train_xlstm(res) -> dict:
@@ -5018,14 +5107,24 @@ def first_step_check(batch, name="recurrentgemma-2b", cut=TRAIN_CUT,
     return out
 
 
+# The kernels a profiled train step breaks out, by their device events'
+# names (mangled or not): K10's forward (rt::flash's attend), its gradient
+# (rt::flash_bwd's rows, dq and dkv kernels; each launch apart too), the
+# stabilizer's gradient.
+STEP_KERNELS = {
+    "K10": lambda n: "flash" in n and "attend" in n and "flash_bwd" not in n,
+    "K10-bwd": lambda n: "flash_bwd" in n,
+    **{f"K10-bwd {x}": (lambda n, x=x: "flash_bwd" in n and
+                        f"{x}_kernel" in n) for x in ("rows", "dq", "dkv")},
+    "MAXPLUS-grad": lambda n: "maxplus_grad" in n,
+}
 TRAIN_KERNELS = ("K6", "K6-reverse", "K10", "K10-bwd")
 
 
 def step_launches(c: dict, kernels) -> dict:
-    """A step's launches of ``kernels``; K6's and K6-long's own without
-    their reverse ones, which count apart."""
-    own = {"K6": c["K6"] - c["K6-reverse"],
-           "K6-long": c["K6-long"] - c["K6-long-reverse"]}
+    """A step's launches of ``kernels``; K6's own without its reverse
+    ones, which count apart."""
+    own = {"K6": c["K6"] - c["K6-reverse"]}
     return {k: own.get(k, c[k]) for k in kernels}
 
 
@@ -5036,10 +5135,11 @@ def train_full(batches, name="recurrentgemma-2b", seq=TRAIN_SEQ,
     ``seq`` tokens), bf16 activations and gradients, full remat, the cuda
     backend.  Each step's loss and grad norm finite; its wall ms, tokens/s,
     peak memory and the launches of ``kernels`` (each launched); the third
-    step profiled (device ms and idle share).  Per recurrentgemma step K6
-    runs 34 times (18 RG-LRU layers, the 16 of the 8 units again under
-    remat), its reverse launch 18, K10 16 (8 local layers, twice) and its
-    gradient 8."""
+    step profiled (device ms and idle share, and the device ms of K10, its
+    gradient and the stabilizer's gradient: STEP_KERNELS).  Per
+    recurrentgemma step K6 runs 34 times (18 RG-LRU layers, the 16 of the 8
+    units again under remat), its reverse launch 18, K10 16 (8 local
+    layers, twice) and its gradient 8."""
     cfg = get_config(name)
     tc = train_cfg()
     torch.cuda.reset_peak_memory_stats()
@@ -5058,7 +5158,7 @@ def train_full(batches, name="recurrentgemma-2b", seq=TRAIN_SEQ,
         if i == 2:
             box = {}
             prof = device_busy(lambda: box.update(
-                out=step_fn(state, batches[i])))
+                out=step_fn(state, batches[i])), STEP_KERNELS)
             state, metrics = box["out"]
         else:
             state, metrics = step_fn(state, batches[i])
@@ -5398,12 +5498,13 @@ def main() -> int:
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
             "shape": r["shape"]})
         for extra in ("public_ms", "paper_worst", "device_ms", "rows",
-                      "xlstm", "shapes"):
+                      "xlstm", "shapes", "units", "autograd_ms"):
             if extra in r:   # the public call at the same shape; the worst
                 kernels[-1][extra] = r[extra]    # Table V/VI row's ratio;
                 # the kernel alone (torch.profiler) where the host's launch
                 # takes longer; K7m's timed rows; K6's at xLSTM's shapes;
-                # K10's at each served model's prefill layers
+                # K10's at each served model's prefill layers; K10-bwd's
+                # units and bodies; the stabilizer gradient through autograd
         if k == "K7m":                  # its launches by kind, per path
             kernels[-1]["launches_kinds"] = {
                 path: {x.split()[1]: v for x, v in p["launches"].items()

@@ -4,7 +4,8 @@ The kernel bodies are templates in ``csrc/*.cuh`` over an element type, a
 functor ``Op`` and, for mapreduce and matvec, a map ``Map``; K10's
 ``flash`` family takes no operator, only an element type, a q/k head dim,
 a value head dim and the body the wrapper runs for that type; its
-gradient's ``flash_bwd`` family the same but the body.
+gradient's ``flash_bwd`` family the same, with wgmma forms of its own; the
+mLSTM stabilizer's gradient (``maxplus_grad``) takes nothing.
 A kernel wrapper asks for a :class:`Unit`: one translation unit for one
 family of kernels (``FAMILIES``) and one (operator, map, leaf dtypes)
 combination; the tile families (``KNOB_FAMILIES``: K2, K6, K7s, K8, K3)
@@ -205,20 +206,40 @@ int rt_flash(const void* q, const void* k, const void* v, void* out, long B,
                           _F, _F, _P, _P]),
     }),
     # K10's gradient (flash_attention_bwd.cuh), one unit per (element type,
-    # head_dim, v_head_dim) as the forward's: dq (and D), then dk and dv.
+    # head_dim, v_head_dim) as the forward's, with the body its element type
+    # runs: the workspace and the dkv split are the host's
+    # (kernels/flash_attention.py: bwd_plan).
     "flash_bwd": Family("flash_attention_bwd.cuh", f"""
+static_assert(std::is_same<Body::Elem, Elem>::value,
+              "the body reads the unit's element type");
 int rt_flash_bwd(const void* q, const void* k, const void* v,
-                 const void* out, const void* dout, const void* lse, void* D,
-                 void* dq, void* dk, void* dv, long B, long S, long T, long H,
-                 long KH, long dv_dim, int causal, long window, float softcap,
-                 float scale, float empty_l, void* stream) {{
+                 const void* out, const void* dout, const void* lse, void* ws,
+                 void* counters, void* dq, void* dk, void* dv, long B, long S,
+                 long T, long H, long KH, long dv_dim, int causal,
+                 long window, float softcap, float scale, float empty_l,
+                 long splits, void* stream) {{
   if (dv_dim != DV) return cudaErrorInvalidValue;
-  return rt::flash_bwd::run<Elem, HD, DV>(
-      q, k, v, out, dout, static_cast<const float*>(lse),
-      static_cast<float*>(D), dq, dk, dv, B, S, T, H, KH, causal, window,
-      softcap, scale, empty_l, {_ST});
+  const rt::flash_bwd::Args a{{q, k, v, out, dout,
+                              static_cast<const float*>(lse),
+                              static_cast<float*>(ws),
+                              static_cast<unsigned*>(counters), dq, dk, dv,
+                              B, S, T, H, KH, causal, window, softcap, scale,
+                              empty_l, splits}};
+  return rt::flash_bwd::run<Body, HD, DV>(a, {_ST});
 }}""", {
-        "rt_flash_bwd": (_I, [_P] * 10 + [_L] * 6 + [_I, _L, _F, _F, _F, _P]),
+        "rt_flash_bwd": (_I, [_P] * 11 + [_L] * 6 + [_I, _L, _F, _F, _F, _L,
+                                                      _P]),
+    }),
+    # The mLSTM stabilizer's gradient (maxplus_grad.cuh): float32 only.
+    "maxplus_grad": Family("maxplus_grad.cuh", f"""
+long rt_maxplus_grad_floats(long T) {{ return rt::maxplus_grad::floats(T); }}
+int rt_maxplus_grad(const void* lf, const void* li, const void* dA,
+                    const void* dB, void* dlf, void* dli, void* ws, long B,
+                    long T, long H, void* stream) {{
+  return rt::maxplus_grad::run(lf, li, dA, dB, dlf, dli, ws, B, T, H, {_ST});
+}}""", {
+        "rt_maxplus_grad_floats": (_L, [_L]),
+        "rt_maxplus_grad": (_I, [_P] * 7 + [_L] * 3 + [_P]),
     }),
     # K1.
     "copy": Family("copy.cuh", f"""
@@ -497,8 +518,8 @@ def unit(family: str, what: str, op: alg.AssocOp | None = None,
     element dtype of ``FLASH_CTYPES``, a ``head_dim`` of
     ``FLASH_HEAD_DIMS``, a ``v_head_dim`` of them up to ``head_dim``
     (None: ``head_dim``) and the kernel ``body`` of ``FLASH_BODIES`` that
-    the caller picked for the dtype; flash_bwd, K10's gradient, the same
-    but no body; ``knob``, the item count NITEM of a unit of
+    the caller picked for the dtype; flash_bwd, K10's gradient, the same;
+    ``knob``, the item count NITEM of a unit of
     ``KNOB_FAMILIES``, None for ``DEFAULT_NITEM``, and of no other).
 
     Raises NotImplementedError, naming the route, for an operator or map
@@ -528,15 +549,26 @@ FLASH_BODIES = ("CudaCores", "TensorCores")
 FLASH_FAMILIES = ("flash", "flash_bwd")
 
 
-def _wgmma(v_head_dim: int) -> str:
-    """The tensor-core body's two wgmma forms for a value head of
-    ``v_head_dim``, whose operand lists (one register per accumulator
-    element) the header cannot spell: S = Q K^T at m64n64k16 from shared
-    memory (any q/k head_dim, 16 columns a step), and O += P V at
-    m64n{N}k16 over the value row padded to whole 64-wide boxes, P from
-    registers, V transposed."""
-    n = -(-v_head_dim // 64) * 64
+def _wgmma_qk() -> str:
+    """S = A B^T at m64n64k16, both operands K-major in shared memory."""
+    def outs(count):
+        return ", ".join(f'"+f"(d[{i}])' for i in range(count))
 
+    regs = ", ".join(f"%{i}" for i in range(32))
+    return (
+        "  __device__ static void qk(float (&d)[32], uint64_t a, uint64_t b,\n"
+        "                            int accumulate) {\n"
+        '    asm volatile("{\\n.reg .pred p;\\nsetp.ne.b32 p, %34, 0;\\n"\n'
+        '        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "\n'
+        f'        "{{{regs}}}, %32, %33, p, 1, 1, 0, 0;\\n}}\\n"\n'
+        f"        : {outs(32)}\n"
+        '        : "l"(a), "l"(b), "r"(accumulate));\n'
+        "  }\n")
+
+
+def _wgmma_rs(name: str, n: int) -> str:
+    """acc += A B at m64n{n}k16: A's bf16 fragments from registers, B
+    MN-major (transposed) in shared memory."""
     def outs(count):
         return ", ".join(f'"+f"(d[{i}])' for i in range(count))
 
@@ -544,17 +576,7 @@ def _wgmma(v_head_dim: int) -> str:
         return ", ".join(f"%{first + i}" for i in range(count))
 
     return (
-        "struct Wgmma {\n"
-        f"  static constexpr int N = {n};\n"
-        "  __device__ static void qk(float (&d)[32], uint64_t a, uint64_t b,\n"
-        "                            int accumulate) {\n"
-        '    asm volatile("{\\n.reg .pred p;\\nsetp.ne.b32 p, %34, 0;\\n"\n'
-        '        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "\n'
-        f'        "{{{regs(0, 32)}}}, %32, %33, p, 1, 1, 0, 0;\\n}}\\n"\n'
-        f"        : {outs(32)}\n"
-        '        : "l"(a), "l"(b), "r"(accumulate));\n'
-        "  }\n"
-        f"  __device__ static void pv(float (&d)[{n // 2}], "
+        f"  __device__ static void {name}(float (&d)[{n // 2}], "
         "const uint32_t (&a)[4],\n"
         "                            uint64_t b) {\n"
         f'    asm volatile("{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{n // 2 + 5}, 0;'
@@ -565,8 +587,33 @@ def _wgmma(v_head_dim: int) -> str:
         f"        : {outs(n // 2)}\n"
         '        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), '
         '"r"(1));\n'
-        "  }\n"
-        "};\n")
+        "  }\n")
+
+
+def _padded(dim: int) -> int:
+    return -(-dim // 64) * 64
+
+
+def _wgmma(v_head_dim: int) -> str:
+    """The tensor-core body's two wgmma forms for a value head of
+    ``v_head_dim``, whose operand lists (one register per accumulator
+    element) the header cannot spell: S = Q K^T at m64n64k16 from shared
+    memory (any q/k head_dim, 16 columns a step), and O += P V at
+    m64n{N}k16 over the value row padded to whole 64-wide boxes, P from
+    registers, V transposed."""
+    n = _padded(v_head_dim)
+    return (f"struct Wgmma {{\n  static constexpr int N = {n};\n"
+            + _wgmma_qk() + _wgmma_rs("pv", n) + "};\n")
+
+
+def _wgmma_bwd(head_dim: int, v_head_dim: int) -> str:
+    """The gradient's wgmma forms: ``qk`` (S^T = K Q^T, dP^T = V dO^T, S =
+    Q K^T, dP = dO V^T), ``pk`` at N = the padded head_dim (dK += dS^T Q,
+    dQ += dS K) and ``pv`` at N = the padded value head (dV += P^T dO)."""
+    hn, vn = _padded(head_dim), _padded(v_head_dim)
+    return (f"struct Wgmma {{\n  static constexpr int HN = {hn}, VN = {vn};\n"
+            + _wgmma_qk() + _wgmma_rs("pk", hn) + _wgmma_rs("pv", vn)
+            + "};\n")
 
 
 def _make_unit(family, what, op, dtypes, f, in_dtypes, quant,
@@ -599,21 +646,22 @@ def _make_unit(family, what, op, dtypes, f, in_dtypes, quant,
             raise NotImplementedError(
                 f"{what}: the cuda kernel takes a value head dim of 16 to "
                 f"head_dim {head_dim} in steps of 16, got {v_head_dim}")
-        if (body not in FLASH_BODIES) != (family == "flash_bwd"):
-            raise ValueError(f"{what}: a flash unit's body is one of "
-                             f"{FLASH_BODIES}, and a flash_bwd unit takes "
-                             f"none, got {body!r} for {family}")
+        if body not in FLASH_BODIES:
+            raise ValueError(f"{what}: a {family} unit's body is one of "
+                             f"{FLASH_BODIES}, got {body!r}")
         gen.parts.append(f"using Elem = {FLASH_CTYPES[dtypes[0]]};\n"
                          f"constexpr int HD = {head_dim};\n"
                          f"constexpr int DV = {v_head_dim};\n")
         # A body's value head dim defaults to HD.
         dv = "" if v_head_dim == head_dim else ", DV"
+        ns = "flash" if family == "flash" else "flash_bwd"
         if body == "TensorCores":
-            gen.parts.append(_wgmma(v_head_dim))
+            gen.parts.append(_wgmma(v_head_dim) if family == "flash" else
+                             _wgmma_bwd(head_dim, v_head_dim))
             gen.parts.append(
-                f"using Body = rt::flash::TensorCores<HD, Wgmma{dv}>;\n")
-        elif body == "CudaCores":
-            gen.parts.append(f"using Body = rt::flash::CudaCores<HD{dv}>;\n")
+                f"using Body = rt::{ns}::TensorCores<HD, Wgmma{dv}>;\n")
+        else:
+            gen.parts.append(f"using Body = rt::{ns}::CudaCores<HD{dv}>;\n")
         label = f"{family} {_names(dtypes)[0]} head_dim {head_dim}" + (
             f" v_head_dim {v_head_dim}" if dv else "")
     if op is not None:

@@ -20,10 +20,12 @@ version; given CUDA tensors it launches the kernel or raises.
 The gradient: where grad mode is on and q, k or v requires grad, both
 entries run through :class:`Attention`, an ``autograd.Function`` whose
 forward is K10 writing each row's log-sum-exp too, and whose backward is
-:func:`flash_attention_bwd` (``csrc/flash_attention_bwd.cuh``, two
-launches, counted in ``flash_attention_bwd.launches``; plain version
-``ref.flash_attention_bwd_ref``, which it runs on CPU tensors).  Without
-grad the forward writes no log-sum-exp, as serving has it.
+:func:`flash_attention_bwd` (``csrc/flash_attention_bwd.cuh`` on its
+dtype's body, bf16 on the tensor cores with the host plan
+:func:`bwd_plan`; a call counts once in ``flash_attention_bwd.launches``;
+plain version ``ref.flash_attention_bwd_ref``, which it runs on CPU
+tensors).  Without grad the forward writes no log-sum-exp, as serving has
+it.
 ``flash_attention_gqa.launches`` counts the kernel's launches through either
 entry, and ``unit_launches`` the same launches by unit label.  The kernel takes head_dim 16 to 256 in steps of 16, and a value
 head dim ``dv`` of its own, 16 to head_dim in steps of 16 (MLA: q and k
@@ -42,12 +44,14 @@ keys, so on the card any other ``kv_block`` raises.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 
 from repro_torch.core import intrinsics as ki
 from repro_torch.kernels import _lib
+from repro_torch.kernels import matvec as matvec_k
 from repro_torch.kernels import ref
 
 Q_BLOCK = 256       # the plain version's default query tile: no result
@@ -70,9 +74,84 @@ def flash_unit(dtype: torch.dtype, head_dim: int, what: str,
 
 def flash_bwd_unit(dtype: torch.dtype, head_dim: int, what: str,
                    v_head_dim: int | None = None) -> _lib.Unit:
-    """The generated unit of K10's gradient for ``dtype`` elements."""
+    """The generated unit of K10's gradient for ``dtype`` elements, with
+    the body :data:`BODIES` gives the dtype."""
     return _lib.unit("flash_bwd", what, dtypes=[dtype], head_dim=head_dim,
-                     v_head_dim=v_head_dim)
+                     v_head_dim=v_head_dim, body=BODIES.get(dtype))
+
+
+# The gradient's tensor-core dkv launch: blocks of 64 keys; the host splits
+# a key tile's work over more blocks where B KH ceil(T / 64) of them would
+# leave SMs idle.
+BWD_KEYS = 64
+BWD_ROWS = 128          # the rows workspace pads S to a multiple of this
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """The launch plan of K10's gradient (:func:`bwd_plan`).  ``splits``:
+    the dkv blocks each key tile's (query head, query tile) work is split
+    over; ``blocks``: the dkv launch's blocks; ``partials``: the float32
+    partial tiles (64 keys by hd + dv) the split blocks write; the
+    workspace (the rows' D and lse, then the partials) in float32 floats;
+    ``counters``: the ticket words of the split's fold."""
+
+    splits: int
+    blocks: int
+    partials: int
+    workspace_floats: int
+    counters: int
+
+    @property
+    def workspace_bytes(self) -> int:
+        return 4 * self.workspace_floats
+
+
+def query_tiles(k0: int, S: int, T: int, causal: bool,
+                window: int) -> list[int]:
+    """The 64-row query tiles the dkv blocks of the key tile at ``k0``
+    visit, in order (``csrc/flash_attention_bwd.cuh``: QueryTiles): those
+    whose rows may keep one of its keys, then those whose rows keep no key
+    at all, each once."""
+    tile = BWD_KEYS
+    eb = min(T + window - 1, S) if window else S
+    klast = min(k0 + tile, T) - 1
+    qb = k0 if causal else 0
+    qe = min(min(klast + window, S) if window else S, eb)
+    t0, t1 = qb // tile, (-(-qe // tile) if qb < qe else qb // tile)
+    e0, e1 = eb // tile, (-(-S // tile) if eb < S else eb // tile)
+    if t1 == t0:
+        t0, t1, e0 = e0, e1, e1
+    elif e0 < e1 and e0 <= t1:
+        t1, e0 = max(t1, e1), e1
+    return [*range(t0, t1), *range(e0, e1)]
+
+
+def bwd_plan(B: int, S: int, T: int, H: int, KH: int, hd: int, dv: int,
+             causal: bool, window: int, body: str, sms: int = 132) -> BwdPlan:
+    """The host's plan of one K10 gradient on the card.  The CUDA-core body
+    keeps its two launches: the workspace holds D, (B, S, H) floats.  The
+    tensor-core body: the rows (D and lse log2 e, (B, H, S rounded up to
+    128) each), and, where the B KH ceil(T / 64) dkv blocks (one a key
+    tile) would leave some of the ``sms`` SMs idle (recurrentgemma-2b's one
+    kv head: 64 key tiles), each key tile's G x (its query tiles) items
+    split over ``splits`` blocks -- enough for two blocks an SM, at most
+    the largest key tile's items -- with a partial tile apiece and a ticket
+    word a key tile."""
+    if body == "CudaCores":
+        return BwdPlan(1, -(-T // 32) * B * KH, 0, B * S * H, 0)
+    nkt = -(-T // BWD_KEYS)
+    n0 = B * KH * nkt
+    splits = 1
+    if n0 < sms:
+        items = (H // KH) * max(len(query_tiles(kt * BWD_KEYS, S, T, causal,
+                                                window)) for kt in range(nkt))
+        splits = max(1, min(items, -(-2 * sms // n0)))
+    partials = n0 * splits if splits > 1 else 0
+    rows = 2 * B * H * (-(-S // BWD_ROWS) * BWD_ROWS)
+    return BwdPlan(splits, n0 * splits, partials,
+                   rows + partials * BWD_KEYS * (hd + dv),
+                   n0 if splits > 1 else 0)
 
 
 def _on_card(q: torch.Tensor) -> bool:
@@ -171,9 +250,12 @@ def flash_attention_lse(q, k, v, *, causal=True, window=0, softcap=0.0,
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0,
                         softcap=0.0, kv_block=KV_BLOCK):
     """K10's gradient (dq, dk, dv) in the kernel's layout (see
-    :func:`ref.flash_attention_bwd_ref`): on the card two launches of
-    ``csrc/flash_attention_bwd.cuh``, dq (and D) over query tiles, then dk
-    and dv over key tiles; given CPU tensors its plain version."""
+    :func:`ref.flash_attention_bwd_ref`): on the card one call of
+    ``csrc/flash_attention_bwd.cuh`` on the body :data:`BODIES` gives the
+    dtype, with the workspace :func:`bwd_plan` sizes (bf16: the rows' D and
+    lse, dq over query tiles, dk and dv over key tiles, split and folded
+    where the key tiles would not fill the card; float32: dq (and D), then
+    dk and dv); given CPU tensors its plain version."""
     empty_l = ref.flash_empty_l(k.shape[1], kv_block)
     if not _on_card(q):
         return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
@@ -182,7 +264,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0,
     what = "flash_attention_bwd (cuda)"
     _check(q, k, v, window, kv_block, what)
     B, S, H, d = q.shape
-    T, dvw = k.shape[1], v.shape[3]
+    T, KH, dvw = k.shape[1], k.shape[2], v.shape[3]
     if out.shape != (B, S, H, dvw) or dout.shape != out.shape or \
             lse.shape != (B, S, H) or lse.dtype != torch.float32 or \
             out.dtype != q.dtype or dout.dtype != q.dtype:
@@ -195,15 +277,22 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0,
     q, k, v, out, lse, dout = (t.contiguous()
                                for t in (q, k, v, out, lse, dout))
     _lib.require_cuda(what, q, k, v, out, lse, dout)
+    if any(t.data_ptr() % 16 for t in (q, k, v, out, dout)):
+        raise ValueError(f"{what}: operands must be 16-byte aligned")
     lib = _lib.load(unit)
+    plan = bwd_plan(B, S, T, H, KH, d, dvw, causal, window, BODIES[q.dtype],
+                    matvec_k.sms(q.get_device()))
+    stream = _lib.stream_ptr(q)
+    counters = _lib.workspace(q, stream, plan.counters, 0).counters \
+        if plan.counters else None
+    ws = lse.new_empty(plan.workspace_floats)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    D = torch.empty_like(lse)
     _lib.check(lib.rt_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), D.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, S, T, H, k.shape[2], dvw,
+        dout.data_ptr(), lse.data_ptr(), ws.data_ptr(), _lib.ptr(counters),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, T, H, KH, dvw,
         int(bool(causal)), int(window), float(softcap), 1.0 / math.sqrt(d),
-        empty_l, _lib.stream_ptr(q)), what)
+        empty_l, plan.splits, stream), what)
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 

@@ -36,9 +36,10 @@ sort reads ``sort_digit_bits`` and hands the policy to its scans; a
 ``torch`` row takes the policy and reads nothing of it.
 
 Two routes carry a gradient on ``cuda`` (``core/intrinsics.py:
-GRAD_ROUTES``): ``linear_recurrence`` (:class:`LinearRecurrence`) and the
-mLSTM stabilizer's ``scan@flat`` under MAXPLUS_AFFINE
-(:class:`MaxplusAffineScan`), each a reverse K6 launch back.
+GRAD_ROUTES``): ``linear_recurrence`` (:class:`LinearRecurrence`, a
+reverse K6 launch back) and the mLSTM stabilizer's ``scan@flat`` under
+MAXPLUS_AFFINE (:class:`MaxplusAffineScan`, one launch of the
+stabilizer-gradient kernel back, in the reference's combine order).
 """
 from __future__ import annotations
 
@@ -406,45 +407,29 @@ class LinearRecurrence(torch.autograd.Function):
 class MaxplusAffineScan(torch.autograd.Function):
     """K6's inclusive forward scan of ``(lf, li)`` along axis 1 of (B, T,
     H) leaves under MAXPLUS_AFFINE -- the mLSTM stabilizer's -- with its
-    gradient, derived from the operator's combine (``core/operators.py``):
-    A_t = A_{t-1} + lf_t and Bm_t = max(Bm_{t-1} + lf_t, li_t) from the
-    identity (0, lowest).  Forward: K6 (its long-T path at the
-    stabilizer's shapes), keeping Bm.  Backward: with s_t the share of
-    Bm_t that came through the carry -- 1 where lf_t + Bm_{t-1} > li_t, 0
-    where it is smaller, 1/2 at an exact tie as ``jax.grad`` of the
-    reference's ``lax.associative_scan`` splits a tie of ``max``, and 0 at
-    t = 0 -- the B leaf's adjoint is g_t = dB_t + s_{t+1} g_{t+1}, a
-    reverse AFFINE recurrence, and the A leaf's the reverse cumsum of dA:
-    one reverse K6 launch over (B, T, 2 H) channels (a' = (s_{t+1}, 1),
-    b = (dB, dA)).  Then dli = (1 - s) g and dlf = s g + that cumsum.  The
-    shift, the shares and the products are plain tensor code, which on
-    CPU tensors, where K6's wrapper runs its plain version, runs the same
-    backward."""
+    gradient.  Forward: K6 (its long-T path at the stabilizer's shapes),
+    keeping lf and li.  Backward: one launch of the stabilizer-gradient
+    kernel (``kernels/scan.py: maxplus_grad_cuda``), which walks the
+    combine tree of ``lax.associative_scan`` -- the reference's scan --
+    and gives each tied ``max`` of that tree half its adjoint, as
+    ``jax.grad`` does: the reference's gradient at every pattern of ties,
+    chains of them included.  On CPU tensors its plain version runs the
+    same tree."""
 
     @staticmethod
     def forward(ctx, lf, li, nitem=None):
         A, Bm = scan_k.scan_channel_cuda(alg.MAXPLUS_AFFINE, (lf, li),
                                          inclusive=True, nitem=nitem)
-        ctx.save_for_backward(lf, li, Bm)
+        ctx.save_for_backward(lf, li)
         return A, Bm
 
     @staticmethod
     def backward(ctx, dA, dB):
-        lf, li, Bm = ctx.saved_tensors
-        carried = lf[:, 1:] + Bm[:, :-1]
-        s = torch.where(carried > li[:, 1:], 1.0,
-                        torch.where(carried == li[:, 1:], 0.5, 0.0)).to(
-            lf.dtype)
-        zero = torch.zeros_like(lf[:, :1])
-        s_next = torch.cat([s, zero], dim=1)
-        s = torch.cat([zero, s], dim=1)
-        H = lf.shape[2]
-        a = torch.cat([s_next, torch.ones_like(lf)], dim=2)
-        b = torch.cat([dB, dA], dim=2).to(lf.dtype)
-        _, G = scan_k.scan_channel_cuda(alg.AFFINE, (a, b), inclusive=True,
-                                        reverse=True, keep=(False, True))
-        g, csum = G[..., :H], G[..., H:]
-        return s * g + csum, (1 - s) * g, None
+        lf, li = ctx.saved_tensors
+        dlf, dli = scan_k.maxplus_grad_cuda(
+            lf, li, dA.contiguous().to(lf.dtype),
+            dB.contiguous().to(lf.dtype))
+        return dlf, dli, None
 
 
 def _per_backend(fn):

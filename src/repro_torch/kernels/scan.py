@@ -13,13 +13,20 @@
   with a carry) and the radix sort's rank scan on the long-T path (T
   spread over blocks; see :func:`uses_long_t`).  Plain version:
   :func:`scan_channel_plain`, a serial walk over T.
+* :func:`maxplus_grad_cuda` -- the gradient of the mLSTM stabilizer's
+  inclusive MAXPLUS_AFFINE scan along axis 1 of ``(B, T, H)`` float32
+  leaves, in the combine order of the reference's ``lax.associative_scan``
+  (``csrc/maxplus_grad.cuh``; the reference differentiates that scan with
+  XLA).  Plain version: :func:`maxplus_grad_plain`, the same tree as
+  tensor code.
 
 A wrapper given CPU tensors runs the plain version.  Given CUDA tensors it
 launches the kernel or raises.  ``launches`` on each wrapper counts the calls
 that launched its kernel; K6 counts its long-T path apart, in
 ``long_t_launches``, and each route's reverse launches (the gradients of
-``linear_recurrence`` and of the mLSTM's stabilizer) again in
-``reverse_launches`` and ``long_t_reverse_launches``.  ``nitem`` is the
+``linear_recurrence``) again in ``reverse_launches`` and
+``long_t_reverse_launches``; ``maxplus_grad_cuda.launches`` counts the
+stabilizer gradient's.  ``nitem`` is the
 tuning policy's ``nitem_scan`` (None: the kernels' default of 8): the
 items a thread of a tile scans, K6's steps a thread a chunk and its long-T
 chunk's 8 ``nitem`` steps, each value a unit of its own
@@ -194,3 +201,101 @@ scan_channel_cuda.launches = 0
 scan_channel_cuda.long_t_launches = 0
 scan_channel_cuda.reverse_launches = 0
 scan_channel_cuda.long_t_reverse_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The mLSTM stabilizer's gradient: the MAXPLUS_AFFINE scan's tree, backward
+# ---------------------------------------------------------------------------
+
+
+def _share(u, v):
+    """The share of max(u, v)'s adjoint that goes to u: 1, 0 or a half at
+    a tie, as ``jax.grad`` splits a tie of ``max``."""
+    return torch.where(u > v, 1.0, torch.where(u == v, 0.5, 0.0)).to(u.dtype)
+
+
+def maxplus_grad_plain(lf, li, dA, dB):
+    """Plain version of the stabilizer's gradient (``csrc/maxplus_grad.cuh``):
+    (dlf, dli) of the inclusive MAXPLUS_AFFINE scan (A, Bm) of (lf, li)
+    along axis 1 of (B, T, H) leaves, given (dA, dB), in the combine order
+    of ``lax.associative_scan``'s recursion, which the reference's scan
+    runs: level 0 is (lf, li); level l + 1 pairs level l's elements (0, 1),
+    (2, 3), ... under (a1 + a2, max(b1 + a2, b2)); the scan of level l
+    takes its odd positions from the scan of level l + 1 and each even one
+    2 m >= 2 as the combine of that scan's element m - 1 with element 2 m.
+    Its transpose, level by level: every max gives its adjoint to the
+    larger side, half to each at a tie."""
+    LA, LB = [lf], [li]
+    while LA[-1].shape[1] >= 2:
+        a, b = LA[-1], LB[-1]
+        n = a.shape[1] // 2 * 2
+        LA.append(a[:, 0:n:2] + a[:, 1:n:2])
+        LB.append(torch.maximum(b[:, 0:n:2] + a[:, 1:n:2], b[:, 1:n:2]))
+    L = len(LA) - 1
+    # The scan's b values of levels L .. 1.
+    RB = [None] * (L + 1)
+    RB[L] = LB[L]
+    for l in range(L - 1, 0, -1):
+        n, up = LA[l].shape[1], RB[l + 1]
+        r = torch.empty_like(LB[l])
+        r[:, 1::2] = up
+        r[:, 0] = LB[l][:, 0]
+        k = (n - 1) // 2
+        r[:, 2::2] = torch.maximum(up[:, :k] + LA[l][:, 2::2], LB[l][:, 2::2])
+        RB[l] = r
+    # The adjoints up: a level's scan adjoint gives its odd positions, plus
+    # what their even combines pass back, to the next level's; its even
+    # positions 2 m >= 2 keep their combine's share for their own element.
+    GA, GB = [dA.clone()], [dB.clone()]
+    for l in range(L):
+        n = LA[l].shape[1]
+        k = (n - 1) // 2
+        ga, gb = GA[l][:, 1:n // 2 * 2:2].clone(), GB[l][:, 1:n // 2 * 2:2].clone()
+        ea, eb = GA[l][:, 2::2], GB[l][:, 2::2]
+        s = _share(RB[l + 1][:, :k] + LA[l][:, 2::2], LB[l][:, 2::2])
+        ga[:, :k] = ga[:, :k] + ea
+        gb[:, :k] = gb[:, :k] + s * eb
+        GA.append(ga)
+        GB.append(gb)
+        new_a, new_b = ea + s * eb, (1 - s) * eb
+        GA[l][:, 2::2] = new_a
+        GB[l][:, 2::2] = new_b
+    # The adjoints down through the pair combines.
+    for l in range(L - 1, -1, -1):
+        n = LA[l].shape[1] // 2 * 2
+        ga, gb = GA[l + 1], GB[l + 1]
+        s = _share(LB[l][:, 0:n:2] + LA[l][:, 1:n:2], LB[l][:, 1:n:2])
+        GA[l][:, 0:n:2] = GA[l][:, 0:n:2] + ga
+        GB[l][:, 0:n:2] = GB[l][:, 0:n:2] + s * gb
+        GA[l][:, 1:n:2] = ga + s * gb
+        GB[l][:, 1:n:2] = (1 - s) * gb
+    return GA[0], GB[0]
+
+
+def maxplus_grad_cuda(lf, li, dA, dB):
+    """The stabilizer's gradient (dlf, dli) on the card: one launch of
+    ``csrc/maxplus_grad.cuh``, a block per (b, h) column walking the scan's
+    tree (its levels in shared memory, or past about T = 5,000 in a
+    workspace allocated here).  (B, T, H) float32 leaves.  Given CPU
+    tensors, :func:`maxplus_grad_plain`."""
+    if not lf.is_cuda:
+        return maxplus_grad_plain(lf, li, dA, dB)
+    what = "maxplus_grad (cuda)"
+    leaves = _leaves(what, (lf, li, dA, dB), 3)
+    if any(t.dtype != torch.float32 for t in leaves):
+        raise NotImplementedError(
+            f"{what}: the kernel takes float32 leaves, got "
+            f"{[str(t.dtype) for t in leaves]}")
+    lib = _lib.load(_lib.unit("maxplus_grad", what))
+    B, T, H = lf.shape
+    per = lib.rt_maxplus_grad_floats(T)
+    ws = lf.new_empty(B * H * per) if per else None
+    dlf, dli = torch.empty_like(lf), torch.empty_like(li)
+    _lib.check(lib.rt_maxplus_grad(
+        *[t.data_ptr() for t in (lf, li, dA, dB, dlf, dli)], _lib.ptr(ws), B,
+        T, H, _lib.stream_ptr(lf)), what)
+    maxplus_grad_cuda.launches += 1
+    return dlf, dli
+
+
+maxplus_grad_cuda.launches = 0

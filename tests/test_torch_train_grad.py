@@ -38,6 +38,7 @@ from repro_torch.core import primitives as t_forge  # noqa: E402
 from repro_torch.core.layout import Batched as TBatched  # noqa: E402
 from repro_torch.kernels import _lib  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_k  # noqa: E402
+from repro_torch.kernels import matvec as matvec_k  # noqa: E402
 from repro_torch.kernels import ops as ops_k  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import scan as scan_k  # noqa: E402
@@ -170,6 +171,7 @@ def card(monkeypatch):
     monkeypatch.setattr(_lib, "stream_ptr", lambda t: 7)
     monkeypatch.setattr(_lib, "_PLANS", {})
     monkeypatch.setattr(_lib, "_WORKSPACES", {})
+    monkeypatch.setattr(matvec_k, "sms", lambda device: 132)
     for w, attr in ((scan_k.scan_channel_cuda, "launches"),
                     (scan_k.scan_channel_cuda, "reverse_launches"),
                     (flash_k.flash_attention_gqa, "launches"),
@@ -216,7 +218,10 @@ def test_k6_and_k10_backward_host_side(card, monkeypatch):
     ``b`` leaf is the incoming gradient; only its B leaf is written.
     K10's: under autograd the forward passes a log-sum-exp output to
     ``rt_flash``, and the backward is one ``rt_flash_bwd`` call of the
-    (bf16, 64) gradient unit.  Each kernel's counter moves once a launch.
+    (bf16, 64) gradient unit on the tensor cores, with the workspace and
+    split of ``bwd_plan`` (one key tile: its two query heads' items split
+    over two blocks, a ticket word from the stream's workspace).  Each
+    kernel's counter moves once a launch.
     (The backwards are called directly: the autograd engine hands a
     backward plain tensors, which no longer say they lie on the card.)"""
     seen = []
@@ -265,8 +270,14 @@ def test_k6_and_k10_backward_host_side(card, monkeypatch):
                                                             dtype=bf)),
         window=4)
     (n1, args1), = card.calls
-    assert n1 == "rt_flash_bwd" and args1[10:18] == (1, 9, 9, 2, 1, 64, 1, 4)
-    assert card.loaded[-1] == flash_k.flash_bwd_unit(bf, 64, "test")
+    assert n1 == "rt_flash_bwd" and args1[11:19] == (1, 9, 9, 2, 1, 64, 1, 4)
+    plan = flash_k.bwd_plan(1, 9, 9, 2, 1, 64, 64, True, 4, "TensorCores")
+    assert (plan.splits, plan.blocks, plan.counters) == (2, 2, 1)
+    assert args1[22] == plan.splits and args1[6] is not None
+    assert args1[7] == _lib._WORKSPACES[(-1, 7)].counters.data_ptr()
+    unit = card.loaded[-1]
+    assert unit == flash_k.flash_bwd_unit(bf, 64, "test")
+    assert "rt::flash_bwd::TensorCores<HD, Wgmma>" in unit.source
     assert dq.shape == (1, 9, 2, 64) and dv.shape == v.shape
     assert flash_k.flash_attention_gqa.launches == 1
     assert flash_k.flash_attention_bwd.launches == 1

@@ -8,18 +8,19 @@ GRAD_ROUTES``), and the first train step of xlstm-1.3b smoke through it.
   against ``jax.grad`` of the reference's ``_mlstm_stabilizer`` (jitted):
   each gradient within 1e-5 of its largest entry, float32 sums of the
   forget gates taken in another order.
-* Ties (lf_t + m_{t-1} == li_t): the Function gives the carry half of the
-  adjoint at a tie, as ``jax.grad`` of ``lax.associative_scan`` splits a
-  tie of ``max``; where a chain of ties spans the reference's tree the two
-  part (``ROADMAP.md`` queue 3), and the test pins both answers on the
-  smallest input that shows it.
+* Ties (lf_t + m_{t-1} == li_t): the Function's backward walks the
+  combine tree of ``lax.associative_scan`` and halves the adjoint at each
+  tied ``max`` of it, as ``jax.grad`` does: the reference's bits at a tie,
+  at chains of two to four, and at dyadic tie patterns placed on and
+  across the tree's pair boundaries, at odd and even T up to 33.
 * xlstm-1.3b smoke, float32: ``forward_train``'s loss and every gradient
   leaf on the cuda route (both Functions engaged) against the reference's
   jitted ``value_and_grad``, 1e-4 as ``test_torch_train_forward.py``.
 * On tensors that say they lie on the card and a stand-in library: the
-  stabilizer's backward is one reverse K6 entry call, on the long-T path at
-  T >= 128, over (B, T, 2 H) channels; other forms of a MAXPLUS_AFFINE scan
-  still raise under autograd.
+  stabilizer's forward is one K6 entry call (the long-T path at T >= 128)
+  and its backward one entry call of the stabilizer-gradient kernel
+  (``csrc/maxplus_grad.cuh``); other forms of a MAXPLUS_AFFINE scan still
+  raise under autograd.
 """
 import types
 
@@ -86,13 +87,15 @@ def _one_row(*rows):
 
 
 def test_ties_split_the_adjoint_as_the_reference():
-    """A tie at one step, and a chain of two, give the reference's halves
-    to the bit (dyadic gates: every sum is exact).  A chain of three ties
-    parts from it: the reference's tree halves each of its combines, the
-    Function the carry at each step (ROADMAP.md queue 3)."""
+    """A tie at one step, a chain of two, three and four: the reference's
+    halves to the bit (dyadic gates: every sum is exact).  The chain of
+    four at dm = (0, 0, 0, 1) is the input on which a gradient along a
+    serial walk (1/8, 1/8, 1/4, 1/2) parts from the reference's tree
+    (1/4 each): the port walks the same tree."""
     for lf, li in (([0.0, 0.0], [1.0, 1.0]),
                    ([0.0, -0.5, 0.5, 0.0], [1.0, 0.5, 1.0, 0.25]),
-                   ([0.0, 0.0, 0.0], [1.0, 1.0, 1.0])):
+                   ([0.0, 0.0, 0.0], [1.0, 1.0, 1.0]),
+                   ([0.0] * 4, [1.0] * 4)):
         lf, li, dm = _one_row(lf, li, [1.0] * len(lf))
         _, got = port_grads(lf, li, dm)
         for g, w in zip(got, ref_grads(lf, li, dm)):
@@ -100,10 +103,48 @@ def test_ties_split_the_adjoint_as_the_reference():
     lf, li, dm = _one_row([0.0] * 4, [1.0] * 4, [0.0, 0.0, 0.0, 1.0])
     _, (dlf, dli) = port_grads(lf, li, dm)
     rlf, rli = ref_grads(lf, li, dm)
-    np.testing.assert_array_equal(dli.ravel(), [0.125, 0.125, 0.25, 0.5])
-    np.testing.assert_array_equal(dlf.ravel(), [0.0, 0.125, 0.25, 0.5])
-    np.testing.assert_array_equal(rli.ravel(), [0.25] * 4)
-    np.testing.assert_array_equal(rlf.ravel(), [0.0, 0.25, 0.5, 0.75])
+    np.testing.assert_array_equal(dli.ravel(), [0.25] * 4)
+    np.testing.assert_array_equal(dlf.ravel(), [0.0, 0.25, 0.5, 0.75])
+    np.testing.assert_array_equal(dli, rli)
+    np.testing.assert_array_equal(dlf, rlf)
+
+
+GATES = np.asarray([-0.5, 0.0, 0.5, 1.0], np.float32)
+
+
+def tie_patterns(T, rng):
+    """(lf, li, dm) of shape (2, T, 6), dyadic: per column a chain of
+    tied steps (lf 0 over a run of li at the level the step before it
+    reached), each run of 1 to 5 steps starting at an odd or even position
+    -- on and across the tree's pair boundaries -- over gates of -0.5
+    around it; one column all ties; one of gates drawn from {-0.5, 0, 0.5,
+    1}; dm from {-0.5, 0, 1, 2}."""
+    lf = np.full((2, T, 6), -0.5, np.float32)
+    li = np.full((2, T, 6), -0.5, np.float32)
+    for b in range(2):
+        for h in range(4):
+            start = min(int(rng.integers(1, 4)) + h % 2, T - 1)
+            run = int(rng.integers(1, 6))
+            li[b, start - 1:start + run, h] = 1.0
+            lf[b, start:start + run, h] = 0.0
+    lf[:, :, 4], li[:, :, 4] = 0.0, 1.0
+    lf[:, :, 5] = rng.choice(GATES, (2, T))
+    li[:, :, 5] = rng.choice(GATES, (2, T))
+    dm = rng.choice(np.asarray([-0.5, 0.0, 1.0, 2.0], np.float32), (2, T, 6))
+    return lf, li, dm
+
+
+@pytest.mark.parametrize("T", [5, 8, 17, 32])
+def test_tie_patterns_match_the_reference_to_the_bit(T):
+    """Chains of ties on and across the tree's pair boundaries, at odd
+    and even T up to 33 (two draws each), against ``jax.grad`` of the
+    reference's stabilizer: dlf and dli equal to the bit."""
+    rng = np.random.default_rng(T)
+    for n in (T, T + 1):
+        lf, li, dm = tie_patterns(n, rng)
+        _, got = port_grads(lf, li, dm)
+        for g, w in zip(got, ref_grads(lf, li, dm)):
+            np.testing.assert_array_equal(g, w)
 
 
 def test_xlstm_first_step_gradient_on_the_cuda_route():
@@ -157,11 +198,13 @@ def card(monkeypatch):
 @pytest.mark.parametrize("T,long_t", [(1024, True), (9, False)])
 def test_stabilizer_backward_is_one_reverse_k6_call(card, monkeypatch, T,
                                                     long_t):
-    """Forward: one K6 entry call under MAXPLUS_AFFINE.  Backward (called
-    directly: the autograd engine hands a backward plain tensors): one
-    reverse AFFINE entry call over (B, T, 2 H) channels whose ``a`` leaf
-    is the carry's share shifted by one step (a zero last) beside ones,
-    and whose ``b`` leaf is (dB, dA); only its B leaf is written."""
+    """Forward: one K6 entry call under MAXPLUS_AFFINE (its long-T path
+    from T = 128).  Backward (called directly: the autograd engine hands a
+    backward plain tensors): no K6 call, reverse or not, but one entry
+    call of the stabilizer-gradient kernel, on lf, li and the contiguous
+    float32 (dA, dB), writing (dlf, dli) of (B, T, H), after asking the
+    unit for the workspace a column needs (the stand-in answers 0: the
+    levels fit in shared memory at these T)."""
     seen = []
     real = scan_k.scan_channel_cuda
 
@@ -169,35 +212,34 @@ def test_stabilizer_backward_is_one_reverse_k6_call(card, monkeypatch, T,
         seen.append((op, xs, kw))
         return real(op, xs, **kw)
 
-    monkeypatch.setattr(ops_k, "scan_k",
-                        types.SimpleNamespace(scan_channel_cuda=record))
+    grad = scan_k.maxplus_grad_cuda
+    monkeypatch.setattr(ops_k, "scan_k", types.SimpleNamespace(
+        scan_channel_cuda=record, maxplus_grad_cuda=grad))
+    monkeypatch.setattr(grad, "launches", 0)
     B, H = 1, 4
     lf = _on_card(-torch.rand(B, T, H)).requires_grad_()
     li = _on_card(torch.rand(B, T, H)).requires_grad_()
     A, Bm = t_forge.scan(t_alg.MAXPLUS_AFFINE, (lf, li), axis=1)
     assert A.grad_fn is not None and Bm.grad_fn is not None
     dA, dB = _on_card(torch.rand(B, T, H)), _on_card(torch.rand(B, T, H))
-    ctx = types.SimpleNamespace(saved_tensors=(lf.detach(), li.detach(),
-                                               Bm.detach()))
+    ctx = types.SimpleNamespace(saved_tensors=(lf.detach(), li.detach()))
     dlf, dli, _ = ops_k.MaxplusAffineScan.backward(ctx, dA, dB)
     assert dlf.shape == dli.shape == (B, T, H)
-    (op0, _, kw0), (op1, xs1, kw1) = seen
+    (op0, _, kw0), = seen
     assert op0 is t_alg.MAXPLUS_AFFINE and not kw0.get("reverse")
-    assert op1 is t_alg.AFFINE and kw1["reverse"] is True
-    assert kw1["keep"] == (False, True)
-    a, b = xs1
-    assert a.shape == b.shape == (B, T, 2 * H)
-    assert torch.equal(a[:, -1, :H], torch.zeros(B, H))
-    assert torch.equal(a[..., H:], torch.ones(B, T, H))
-    assert torch.equal(b, torch.cat([dB, dA], dim=2))
     names = [c[0] for c in card.calls]
-    assert names == ["rt_scan_channel"] * 2
-    assert card.calls[1][1][-3] == 1                # reverse
+    assert names == ["rt_scan_channel", "rt_maxplus_grad_floats",
+                     "rt_maxplus_grad"]
+    assert card.calls[1][1] == (T,)
+    args = card.calls[2][1]
+    assert args[:4] == tuple(t.data_ptr() for t in (lf, li, dA, dB))
+    assert args[6] is None and args[7:] == (B, T, H, 7)
+    assert card.loaded[-1] == _lib.unit("maxplus_grad", "test")
+    assert grad.launches == 1
     k6 = real
-    assert (k6.long_t_launches, k6.long_t_reverse_launches) == (
-        (2, 1) if long_t else (0, 0))
-    assert (k6.launches, k6.reverse_launches) == (
-        (0, 0) if long_t else (2, 1))
+    assert (k6.long_t_launches, k6.launches) == (
+        (1, 0) if long_t else (0, 1))
+    assert k6.reverse_launches == k6.long_t_reverse_launches == 0
 
 
 def test_other_maxplus_forms_still_raise(card):

@@ -217,20 +217,25 @@ Fifteen phases, any failure exits non-zero:
    backward with the case's mask, SDPA's backend named), one kv head of ten
    query heads split and folded, and at the gradient's tile edges, rows
    that keep no key, windows that skip tiles, in bf16 and f32; each case
-   twice, the two gradients equal to the bit; K6's gradient (one reverse
-   K6 launch) against autograd through a float64 serial walk at (1, 4096,
-   2560) with and without h0, B = 3 and T at a chunk +-1; the first train
-   step's loss, grad norm and three leaves' gradients, cuda route against
-   torch route, at one unit of recurrentgemma-2b at full width (float32
+   twice, the two gradients equal to the bit; K6's gradient
+   (csrc/linrec_grad.cuh, K6-grad: one call of its short-T, channel-tile
+   or long-T form) against its plain version and a float64 serial walk,
+   two calls equal to the bit, at (1, 4096, 2560) with and without h0, B
+   = 3, T at the short form's limit +-1, xlstm-1.3b's two chunk states,
+   the long-T form, a reverse recurrence and a bf16 dh, a backward through
+   autograd launching that form's kernels and no other (torch.profiler);
+   the first train step's loss, grad norm and three leaves' gradients,
+   cuda route against torch route, at one unit of recurrentgemma-2b at full width (float32
    within 1e-3, bf16 within twice the torch route's own distance from
    float32); recurrentgemma-2b FULL (26 layers, f32 master weights from
    the seed, AdamW, full remat, bf16 activations and gradients, one
    sequence of 4,096 tokens a step) for four steps: loss and grad norm
    finite, wall ms, tokens/s, peak memory (under 80 GB), the launches of
-   K6, its reverse launch, K10 and its gradient (each launched), one
-   step's device ms and idle share, and K10's and K10-bwd's device ms in
-   it; then the Trainer at smoke size in a temporary directory: a fault
-   recovered, a run cut and resumed equal to an uncut one to the bit.
+   K6, its gradient, K10 and its gradient (each launched), one
+   step's device ms and idle share, and K10's, K10-bwd's and K6-grad's
+   device ms in it; then the Trainer at smoke size in a temporary
+   directory: a fault recovered, a run cut and resumed equal to an uncut
+   one to the bit.
    Then xlstm-1.3b, recurrentgemma's tensors freed: the mLSTM
    stabilizer's gradient (MAXPLUS_AFFINE, kernels/ops.py's
    MaxplusAffineScan: one launch of csrc/maxplus_grad.cuh, which walks the
@@ -243,8 +248,8 @@ Fifteen phases, any failure exits non-zero:
    1,907,394,896 parameters, f32 master weights, AdamW, full remat, bf16)
    for three steps of one 1,024-token sequence: loss and grad norm finite,
    wall ms, tokens/s, peak memory (under 80 GB), one step's device ms and
-   idle share, the launches of K6, its reverse launch, K6-long and the
-   stabilizer's gradient.
+   idle share, the launches of K6, its gradient, K6-long and the
+   stabilizer's gradient, and K6-grad's device ms.
 15. tune (phase_tune): the autotuner (core/tuning.py) on a temporary cache
    file, for every tuned route at a served or paper shape (K1 10^8 f32; K2
    10^7 f32 ADD; K3 10^8 int32; K7m (8, 2^24); K7s (4, 64); K8 10^7 with
@@ -267,8 +272,8 @@ The line before the card line holds {"kernels": [...]}.  A kernel's
 "launches" are those of the path its slice made the main one, named by
 "launches_path": the primitives path for K1-K9, as before, gemma2's
 serving path for K10, which the primitives path does not run, and phase
-14's four FULL train steps ("train") for K6's reverse launches (K6-reverse,
-the gradient of linear_recurrence) and K10's gradient (K10-bwd), and its
+14's four FULL train steps ("train") for linear_recurrence's gradient
+(K6-grad, csrc/linrec_grad.cuh) and K10's gradient (K10-bwd), and its
 three xlstm-1.3b steps ("train_xlstm") for the mLSTM stabilizer's
 gradient (MAXPLUS-grad, csrc/maxplus_grad.cuh).  Beside them
 stand the launches on every path (primitives, greedy, sampled, gemma2,
@@ -380,10 +385,9 @@ COUNTERS = {
     "K9-batched-vecmat": (batched_k.batched_vecmat_quantized_cuda,
                           "launches"),
     "K10": (flash_k.flash_attention_gqa, "launches"),
-    # Training (phase 14): K6's reverse launches (linear_recurrence's
-    # gradient), counted again among K6's, K6-long's (the mLSTM
-    # stabilizer's gradient) again among K6-long's, and K10's gradient.
-    "K6-reverse": (scan_k.scan_channel_cuda, "reverse_launches"),
+    # Training (phase 14): linear_recurrence's gradient, the mLSTM
+    # stabilizer's gradient and K10's gradient.
+    "K6-grad": (scan_k.linrec_grad_cuda, "launches"),
     "MAXPLUS-grad": (scan_k.maxplus_grad_cuda, "launches"),
     "K10-bwd": (flash_k.flash_attention_bwd, "launches"),
 }
@@ -430,7 +434,7 @@ SPEC_PATH = ("K2", "K3", "K7m", "K7s", "K10")
 BEAM_PATH = ("K2", "K3", "K4-matvec", "K6-long", "K7s", "K10")
 GEMMA2_PARAMS = 27_227_128_320
 # The counters only training moves.
-TRAIN_ONLY = ("K6-reverse", "MAXPLUS-grad", "K10-bwd")
+TRAIN_ONLY = ("K6-grad", "MAXPLUS-grad", "K10-bwd")
 # The library's own path runs every kernel but the models' attention.
 PRIMITIVES_PATH = tuple(k for k in COUNTERS
                         if k != "K10" and k not in TRAIN_ONLY)
@@ -478,9 +482,10 @@ META = {
                           "src/repro/kernels/batched.py:274"),
     "K10": ("flash_attention", "src/repro_torch/csrc/flash_attention.cuh",
             "src/repro/kernels/flash_attention.py:83"),
-    "K6-reverse": ("scan_channel reverse (linear_recurrence's gradient)",
-                   "src/repro_torch/csrc/scan.cuh",
-                   "src/repro/kernels/scan.py:227"),
+    "K6-grad": ("linrec_grad (linear_recurrence's gradient: the adjoint "
+                "scan fused with its shift and products)",
+                "src/repro_torch/csrc/linrec_grad.cuh",
+                "src/repro/kernels/scan.py:227"),
     "MAXPLUS-grad": ("maxplus_grad (the mLSTM stabilizer's gradient, in "
                      "the reference's combine tree)",
                      "src/repro_torch/csrc/maxplus_grad.cuh",
@@ -505,16 +510,20 @@ def reset_counts() -> None:
     matvec_k.form_launches.clear()
     batched_k.form_launches.clear()
     flash_k.unit_launches.clear()
+    scan_k.linrec_grad_cuda.form_launches.update(
+        dict.fromkeys(scan_k.LINREC_FORMS, 0))
 
 
 def read_counts() -> dict:
-    """Every counter: the kernels', their small forms', and the GEMV and
+    """Every counter: the kernels', their small forms', the GEMV and
     K7m launches by kind and load width ("GEMV columns/4", "GEMV tall/1",
-    "K7m lanes/4")."""
+    "K7m lanes/4") and K6-grad's by form ("K6-grad short")."""
     return {**{k: getattr(obj, attr)
                for k, (obj, attr) in (*COUNTERS.items(), *FORMS.items())},
             **{f"GEMV {k}": v for k, v in matvec_k.form_launches.items()},
-            **{f"K7m {k}": v for k, v in batched_k.form_launches.items()}}
+            **{f"K7m {k}": v for k, v in batched_k.form_launches.items()},
+            **{f"K6-grad {k}": v for k, v in
+               scan_k.linrec_grad_cuda.form_launches.items()}}
 
 
 class CheckFailed(Exception):
@@ -696,6 +705,8 @@ def path_units() -> list:
         units.append(flash_k.flash_unit(dtype, hd, "build", dv))
         units.append(flash_k.flash_bwd_unit(dtype, hd, "build", dv))
     units.append(_lib.unit("maxplus_grad", "build"))
+    for dh in sorted({c.dh for c in K6G_CASES}, key=str):
+        units.append(_lib.unit("linrec_grad", "build", dtypes=(F32, dh)))
     return units
 
 
@@ -4630,10 +4641,23 @@ K10B_CASES = tuple(K10Case(*c) for c in (
 K10B_TIMED = tuple(c.label for c in K10B_CASES[:4])
 K10B_UNITS = sorted({(c.dtype, c.hd, c.dv or c.hd) for c in K10B_CASES}
                     | {(F32, 256, 256)}, key=str)
-# K6's gradient: the RG-LRU's width at S = 4,096 with and without h0, B = 3,
-# and T at K6's chunk of 64 +-1.
-K6G_CASES = ((1, 4096, 2560, False), (1, 4096, 2560, True),
-             (3, 4096, 2560, True), (3, 63, 2560, True), (3, 65, 2560, False))
+# K6's gradient (csrc/linrec_grad.cuh): the RG-LRU's width at S = 4,096
+# with and without h0, B = 3, T at the short form's limit of 64 +-1,
+# xlstm-1.3b's two chunk states at 1,024 tokens (16 chunks; no h0), the
+# long-T form, reverse recurrences and a bf16 dh.  Float32 leaves.
+K6GCase = collections.namedtuple("K6GCase", "B T C h0 reverse dh",
+                                 defaults=(False, F32))
+K6G_CASES = (K6GCase(1, 4096, 2560, False), K6GCase(1, 4096, 2560, True),
+             K6GCase(3, 4096, 2560, True), K6GCase(3, 63, 2560, True),
+             K6GCase(3, 65, 2560, False),
+             K6GCase(1, 16, 4 * 1024 * 1024, False),
+             K6GCase(1, 16, 4096, False), K6GCase(2, 4096, 256, True),
+             K6GCase(1, 4096, 2560, True, True),
+             K6GCase(2, 128, 256, True, True),
+             K6GCase(1, 4096, 2560, False, False, BF16))
+# The shapes whose times the kernels line carries: the RG-LRU's and
+# xLSTM's larger chunk state.
+K6G_TIMED = (K6G_CASES[0], K6G_CASES[5])
 TRAIN_SEQ = 4096
 TRAIN_STEPS = 4
 # The first step's cuda-vs-torch check runs one unit (rglru, rglru,
@@ -4822,59 +4846,168 @@ def linrec_walk(a, b, h0):
     return torch.stack(hs, dim=1)
 
 
+def k6g_bound(c: K6GCase) -> tuple[float, str]:
+    """a, h and dh read, da and db written (h0 read and dh0 written where
+    given); three operations a step."""
+    elems, edge = c.B * c.T * c.C, c.B * c.C
+    nbytes = 16 * elems + c.dh.itemsize * elems + 8 * edge * c.h0
+    return bound_ms(nbytes, 3 * elems)
+
+
+def device_kernels(fn, per_call: int, calls: int = 50) -> list[str]:
+    """The names of the device kernels ``calls`` calls of ``fn`` launch,
+    from the profiler's raw device events (as device_busy reads them: late
+    in a run the parsed event list has come back empty for a window whose
+    kernels ran), after a warm-up call; the first of three windows that saw
+    ``per_call`` kernels a call, else the window that saw the most (a
+    window's edge can drop an event)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    best = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name() for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == torch.autograd.DeviceType.CUDA]
+        if len(names) == per_call * calls:
+            return names
+        best = max(best, names, key=len)
+    return best
+
+
+# The kernels of each form of csrc/linrec_grad.cuh, by name.
+K6G_FORM_KERNELS = {"short": ("short_t",), "tiles": ("tiles",),
+                    "long": ("long_aggregates", "scan_totals", "long_rescan")}
+
+
 def check_k6_grad(res) -> None:
     """``linear_recurrence``'s gradient on the cuda route (K6 forward, one
-    reverse K6 launch back) against autograd through the float64 serial
-    walk: da, db and dh0 within 1e-5 of each one's largest entry (K6 sums
-    in runs and a carry, as in check_k6; the float32 walk's own error
-    beside it)."""
+    call of ``csrc/linrec_grad.cuh`` back: ``scan_k.linrec_grad_cuda``) at
+    every ``K6G_CASES`` shape: da, db and dh0 within 1e-5 of each one's
+    largest entry of autograd through the float64 serial walk (each form
+    sums in runs and a carry, as K6 does; the float32 walk's own error
+    beside it) and of the plain version ``linrec_grad_plain`` on the same
+    inputs, two calls equal to the bit.  With a float32 dh the backward
+    runs through ``autograd.grad`` of the public call: one call of the
+    form ``linrec_grad_form`` picks, and at each form's first case a
+    profiled backward launches that form's kernels (one; the long-T form's
+    three) and no other kernel (a window of the profiler late in the run
+    has seen no event of a 0.5 ms kernel, so a form is profiled once).  A
+    bf16 dh (autograd hands a backward h's own dtype) goes to the wrapper
+    directly, which reads it in bf16."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
-    k6 = scan_k.scan_channel_cuda
-    r = res["K6-reverse"]
-    for B, T, C, with_h0 in K6G_CASES:
+    grad = scan_k.linrec_grad_cuda
+    r = res["K6-grad"]
+    profiled = set()     # the forms whose backward the profiler has seen
+    for c in K6G_CASES:
+        B, T, C = c.B, c.T, c.C
         a = torch.empty(B, T, C, device="cuda").uniform_(0.9, 0.999,
                                                          generator=gen)
         b = torch.randn(B, T, C, generator=gen, device="cuda")
-        h0 = torch.randn(B, C, generator=gen, device="cuda") \
-            if with_h0 else None
-        dh = torch.randn(B, T, C, generator=gen, device="cuda")
+        h0 = torch.randn(B, C, generator=gen, device="cuda") if c.h0 \
+            else None
+        dh = torch.randn(B, T, C, generator=gen, device="cuda").to(c.dh)
         ins = [x.clone().requires_grad_() for x in (a, b, h0)
                if x is not None]
-        rev = k6.reverse_launches
-        h = forge.linear_recurrence(*ins[:2], *ins[2:], layout=Batched())
-        got = torch.autograd.grad(h, ins, dh, retain_graph=True)
+        h = forge.linear_recurrence(*ins[:2], *ins[2:], reverse=c.reverse,
+                                    layout=Batched())
+        form = scan_k.linrec_grad_form(B, T, C)
+        before = grad.launches, dict(grad.form_launches)
+        rev = scan_k.scan_channel_cuda.reverse_launches + \
+            scan_k.scan_channel_cuda.long_t_reverse_launches
+        if c.dh == F32:
+            got = torch.autograd.grad(h, ins, dh, retain_graph=True)
+        else:
+            da, db, dh0 = grad(a, h.detach(), dh, h0, reverse=c.reverse)
+            got = (da, db, dh0)[:len(ins)]
         torch.cuda.synchronize()
-        launched = k6.reverse_launches - rev
+        launched = grad.launches - before[0]
+        in_form = grad.form_launches[form] - before[1][form]
+        rev = scan_k.scan_channel_cuda.reverse_launches + \
+            scan_k.scan_channel_cuda.long_t_reverse_launches - rev
+        again = grad(a, h.detach(), dh, h0, reverse=c.reverse)
+        plain = scan_k.linrec_grad_plain(a, h.detach(), dh, h0,
+                                         reverse=c.reverse)
+        same = all(torch.equal(g, x) for g, x in zip(got, again))
         ins64 = [x.detach().double().requires_grad_() for x in ins]
-        want = torch.autograd.grad(linrec_walk(*ins64[:2], *(
-            ins64[2:] or [None])), ins64, dh.double())
+        walk = linrec_walk if not c.reverse else (
+            lambda a_, b_, h_: linrec_walk(a_.flip(1), b_.flip(1),
+                                           h_).flip(1))
+        want = torch.autograd.grad(walk(*ins64[:2], *(ins64[2:] or [None])),
+                                   ins64, dh.double())
         ins32 = [x.detach().requires_grad_() for x in ins]
-        walk32 = torch.autograd.grad(linrec_walk(*ins32[:2], *(
-            ins32[2:] or [None])), ins32, dh)
+        walk32 = torch.autograd.grad(walk(*ins32[:2], *(ins32[2:] or [None])),
+                                     ins32, dh.float())
         errs = [max_err(g, w) / float(w.abs().max()) for g, w in
                 zip(got, want)]
-        plain = [max_err(g, w) / float(w.abs().max()) for g, w in
-                 zip(walk32, want)]
+        perr = [max_err(g, p) / float(w.abs().max()) for g, p, w in
+                zip(got, plain, want)]
+        wall = [max_err(g, w) / float(w.abs().max()) for g, w in
+                zip(walk32, want)]
         r["max_abs_err"] = max(r["max_abs_err"], max_err(got, want))
-        expect(launched == 1 and max(errs) <= 1e-5,
-               f"K6 gradient ({B}, {T}, {C}) h0={with_h0}: max err / max "
-               f"|grad| {max(errs):.3g} <= 1e-5 against the float64 walk "
-               f"(the float32 walk's {max(plain):.3g}); one reverse launch")
-        if (B, T, C, with_h0) == K6G_CASES[0]:
-            elems = B * T * C
-            r.update(
-                ms=time_ms(lambda: torch.autograd.grad(
+        what = (f"K6 gradient ({B}, {T}, {C}) h0={c.h0} reverse={c.reverse} "
+                f"dh {str(c.dh)[6:]}, {form} form")
+        expect(max(errs) <= 1e-5 and max(perr) <= 1e-5 and same,
+               f"{what}: max err / max |grad| {max(errs):.3g} against the "
+               f"float64 walk (the float32 walk's {max(wall):.3g}), "
+               f"{max(perr):.3g} against the plain version, each <= 1e-5; "
+               f"two calls equal to the bit: {same}")
+        expect(launched == in_form == 1 and rev == 0,
+               f"{what}: one call of the gradient kernel in its form "
+               f"({launched} calls, {in_form} in the form), no reverse K6 "
+               f"launch ({rev})")
+        if c.dh == F32 and form not in profiled:
+            profiled.add(form)
+            kinds = K6G_FORM_KERNELS[form]
+            names = device_kernels(lambda: torch.autograd.grad(
+                h, ins, dh, retain_graph=True), len(kinds))
+            seen = {k for k in kinds for n in names if k in n}
+            if not names:
+                # Late in a run the profiler has recorded no device event
+                # for such windows, three in a row, while the kernels ran
+                # (the counters above saw the launch): nothing to hold.
+                log(f"[K6-grad] {what}: the profiler recorded no device "
+                    f"event in three windows of 50 backwards; the check "
+                    f"that no other kernel runs is not measured here")
+            else:
+                # Every kernel the windows saw is one of the form's, each
+                # of them was seen, and no more than fifty backwards launch.
+                expect(all("linrec_grad" in n for n in names)
+                       and seen == set(kinds)
+                       and len(names) <= 50 * len(kinds),
+                       f"{what}: fifty backwards launch the form's kernels "
+                       f"{kinds} and no other ({len(names)} events seen, "
+                       f"{sorted(set(names))})")
+        if c in K6G_TIMED:
+            timing = {
+                "ms": time_ms(lambda: grad(a, h.detach(), dh, h0,
+                                           reverse=c.reverse), 20),
+                "device_ms": call_device_ms(lambda: grad(
+                    a, h.detach(), dh, h0, reverse=c.reverse)),
+                "autograd_ms": time_ms(lambda: torch.autograd.grad(
                     h, ins, dh, retain_graph=True), 20),
-                plain_ms=time_ms(lambda: torch.autograd.grad(
-                    linrec_walk(*ins32[:2], None), ins32[:2], dh), 1),
-                library_ms=None,   # no PyTorch call runs the adjoint scan
-                # a, h, dh read; da, db written (the h0 leg aside).
-                bound=bound_ms(5 * 4 * elems, 4 * elems),
-                shape=f"({B}, {T}, {C}) f32 AFFINE, the gradient of "
-                      f"linear_recurrence (reverse K6 + shift and products)")
-            log(f"[K6-reverse] {r['shape']}: {r['ms']:.4f} ms, bound "
-                f"{r['bound'][0]:.4f} ms, plain {r['plain_ms']:.1f} ms")
-        del a, b, h0, dh, ins, h, got, want, ins64, ins32, walk32
+                "plain_ms": time_ms(lambda: scan_k.linrec_grad_plain(
+                    a, h.detach(), dh, h0, reverse=c.reverse), 1),
+                "form": form}
+            bound = k6g_bound(c)
+            shape = f"({B}, {T}, {C}) f32 AFFINE, {form} form"
+            if c == K6G_TIMED[0]:
+                r.update(timing, bound=bound, library_ms=None, shape=(
+                    f"{shape}, the gradient of linear_recurrence (one "
+                    f"call; autograd.grad through it in autograd_ms)"))
+            r.setdefault("shapes", {})[f"({B}, {T}, {C})"] = dict(
+                timing, bound_ms=bound[0], bound_by=bound[1])
+            log(f"[K6-grad] {shape}: {timing['ms']:.4f} ms, device "
+                f"{timing['device_ms'] or math.nan:.4f}, through autograd "
+                f"{timing['autograd_ms']:.4f}, bound {bound[0]:.4f} ms "
+                f"({bound[1]}), plain {timing['plain_ms']:.1f} ms")
+        del a, b, h0, dh, ins, h, got, again, plain, want, ins64, ins32
+        del walk32
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 # The mLSTM stabilizer's gradient (MaxplusAffineScan's backward, one launch
@@ -4899,7 +5032,7 @@ XLSTM_TRAIN_LEAVES = {
                                 "w_fgate"),
     "units.0.7.mixer.r": ("decoder", "units", 0, 7, "mixer", "r"),
 }
-XLSTM_TRAIN_KERNELS = ("K6", "K6-reverse", "K6-long", "MAXPLUS-grad")
+XLSTM_TRAIN_KERNELS = ("K6", "K6-grad", "K6-long", "MAXPLUS-grad")
 
 
 def maxplus_walk(lf, li):
@@ -5110,22 +5243,17 @@ def first_step_check(batch, name="recurrentgemma-2b", cut=TRAIN_CUT,
 # The kernels a profiled train step breaks out, by their device events'
 # names (mangled or not): K10's forward (rt::flash's attend), its gradient
 # (rt::flash_bwd's rows, dq and dkv kernels; each launch apart too), the
-# stabilizer's gradient.
+# stabilizer's gradient, linear_recurrence's gradient (every kernel of
+# linrec_grad.cuh, tile_scan.cuh's scan_totals over its maps too).
 STEP_KERNELS = {
     "K10": lambda n: "flash" in n and "attend" in n and "flash_bwd" not in n,
     "K10-bwd": lambda n: "flash_bwd" in n,
     **{f"K10-bwd {x}": (lambda n, x=x: "flash_bwd" in n and
                         f"{x}_kernel" in n) for x in ("rows", "dq", "dkv")},
     "MAXPLUS-grad": lambda n: "maxplus_grad" in n,
+    "K6-grad": lambda n: "linrec_grad" in n,
 }
-TRAIN_KERNELS = ("K6", "K6-reverse", "K10", "K10-bwd")
-
-
-def step_launches(c: dict, kernels) -> dict:
-    """A step's launches of ``kernels``; K6's own without its reverse
-    ones, which count apart."""
-    own = {"K6": c["K6"] - c["K6-reverse"]}
-    return {k: own.get(k, c[k]) for k in kernels}
+TRAIN_KERNELS = ("K6", "K6-grad", "K10", "K10-bwd")
 
 
 def train_full(batches, name="recurrentgemma-2b", seq=TRAIN_SEQ,
@@ -5136,10 +5264,10 @@ def train_full(batches, name="recurrentgemma-2b", seq=TRAIN_SEQ,
     backend.  Each step's loss and grad norm finite; its wall ms, tokens/s,
     peak memory and the launches of ``kernels`` (each launched); the third
     step profiled (device ms and idle share, and the device ms of K10, its
-    gradient and the stabilizer's gradient: STEP_KERNELS).  Per
+    gradient, the stabilizer's gradient and K6's: STEP_KERNELS).  Per
     recurrentgemma step K6 runs 34 times (18 RG-LRU layers, the 16 of the 8
-    units again under remat), its reverse launch 18, K10 16 (8 local
-    layers, twice) and its gradient 8."""
+    units again under remat), its gradient 18, K10 16 (8 local layers,
+    twice) and its gradient 8."""
     cfg = get_config(name)
     tc = train_cfg()
     torch.cuda.reset_peak_memory_stats()
@@ -5171,7 +5299,7 @@ def train_full(batches, name="recurrentgemma-2b", seq=TRAIN_SEQ,
                "lr": float(metrics["lr"]), "wall_ms": wall * 1e3,
                "tokens_per_s": seq / wall,
                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-               "launches": step_launches(c, kernels)}
+               "launches": {k: c[k] for k in kernels}}
         if i == 2:
             row["profile"] = prof
         steps.append(row)
@@ -5505,10 +5633,10 @@ def main() -> int:
                 # takes longer; K7m's timed rows; K6's at xLSTM's shapes;
                 # K10's at each served model's prefill layers; K10-bwd's
                 # units and bodies; the stabilizer gradient through autograd
-        if k == "K7m":                  # its launches by kind, per path
+        if k in ("K7m", "K6-grad"):     # by kind or form, per path
             kernels[-1]["launches_kinds"] = {
                 path: {x.split()[1]: v for x, v in p["launches"].items()
-                       if x.startswith("K7m ")} for path, p in paths.items()}
+                       if x.startswith(f"{k} ")} for path, p in paths.items()}
         for form in FORMS:              # the small form's share, per path
             if form.startswith(f"{k} "):
                 kernels[-1]["launches_" + form.split()[1]] = {

@@ -5,7 +5,8 @@ functor ``Op`` and, for mapreduce and matvec, a map ``Map``; K10's
 ``flash`` family takes no operator, only an element type, a q/k head dim,
 a value head dim and the body the wrapper runs for that type; its
 gradient's ``flash_bwd`` family the same, with wgmma forms of its own; the
-mLSTM stabilizer's gradient (``maxplus_grad``) takes nothing.
+mLSTM stabilizer's gradient (``maxplus_grad``) takes nothing;
+``linear_recurrence``'s gradient (``linrec_grad``) its leaf type and dh's.
 A kernel wrapper asks for a :class:`Unit`: one translation unit for one
 family of kernels (``FAMILIES``) and one (operator, map, leaf dtypes)
 combination; the tile families (``KNOB_FAMILIES``: K2, K6, K7s, K8, K3)
@@ -240,6 +241,20 @@ int rt_maxplus_grad(const void* lf, const void* li, const void* dA,
 }}""", {
         "rt_maxplus_grad_floats": (_L, [_L]),
         "rt_maxplus_grad": (_I, [_P] * 7 + [_L] * 3 + [_P]),
+    }),
+    # linear_recurrence's gradient (linrec_grad.cuh): one unit per (leaf
+    # type L, dh's type G), LINREC_LEAVES and LINREC_CTYPES; the form is
+    # the host's (kernels/scan.py: linrec_grad_form).
+    "linrec_grad": Family("linrec_grad.cuh", f"""
+int rt_linrec_grad(const void* a, const void* h, const void* dh,
+                   const void* h0, void* da, void* db, void* dh0,
+                   void* scratch, long scratch_len, long B, long T, long C,
+                   int reverse, int form, void* stream) {{
+  return rt::linrec_grad::run<L, G>(a, h, dh, h0, da, db, dh0, scratch,
+                                    scratch_len, B, T, C, reverse != 0, form,
+                                    {_ST});
+}}""", {
+        "rt_linrec_grad": (_I, [_P] * 8 + [_L] * 4 + [_I, _I, _P]),
     }),
     # K1.
     "copy": Family("copy.cuh", f"""
@@ -519,6 +534,8 @@ def unit(family: str, what: str, op: alg.AssocOp | None = None,
     ``FLASH_HEAD_DIMS``, a ``v_head_dim`` of them up to ``head_dim``
     (None: ``head_dim``) and the kernel ``body`` of ``FLASH_BODIES`` that
     the caller picked for the dtype; flash_bwd, K10's gradient, the same;
+    linrec_grad, no operator and ``dtypes`` (the leaves' of
+    ``LINREC_LEAVES``, dh's of ``LINREC_CTYPES``);
     ``knob``, the item count NITEM of a unit of
     ``KNOB_FAMILIES``, None for ``DEFAULT_NITEM``, and of no other).
 
@@ -547,6 +564,11 @@ FLASH_CTYPES = {torch.float32: "float", torch.bfloat16: "__nv_bfloat16"}
 FLASH_HEAD_DIMS = tuple(range(16, 257, 16))
 FLASH_BODIES = ("CudaCores", "TensorCores")
 FLASH_FAMILIES = ("flash", "flash_bwd")
+# linrec_grad's leaves (a, h, h0 and the outputs) and dh, which it reads in
+# its own type.
+LINREC_LEAVES = {torch.float32: "float", torch.float64: "double"}
+LINREC_CTYPES = {**LINREC_LEAVES, torch.bfloat16: "__nv_bfloat16",
+                 torch.float16: "__half"}
 
 
 def _wgmma_qk() -> str:
@@ -664,6 +686,18 @@ def _make_unit(family, what, op, dtypes, f, in_dtypes, quant,
             gen.parts.append(f"using Body = rt::{ns}::CudaCores<HD{dv}>;\n")
         label = f"{family} {_names(dtypes)[0]} head_dim {head_dim}" + (
             f" v_head_dim {v_head_dim}" if dv else "")
+    if family == "linrec_grad":
+        dtypes = list(dtypes)
+        if len(dtypes) != 2 or dtypes[0] not in LINREC_LEAVES or \
+                dtypes[1] not in LINREC_CTYPES:
+            raise NotImplementedError(
+                f"{what}: the cuda kernel takes "
+                f"{' or '.join(_names(LINREC_LEAVES))} leaves and a dh of "
+                f"{', '.join(_names(LINREC_CTYPES))}, got "
+                f"{', '.join(_names(dtypes))}")
+        gen.parts.append(f"using L = {LINREC_LEAVES[dtypes[0]]};\n"
+                         f"using G = {LINREC_CTYPES[dtypes[1]]};\n")
+        label = f"{family} {' '.join(_names(dtypes))}"
     if op is not None:
         if op.device is None:
             raise NotImplementedError(

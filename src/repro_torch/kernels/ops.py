@@ -36,10 +36,11 @@ sort reads ``sort_digit_bits`` and hands the policy to its scans; a
 ``torch`` row takes the policy and reads nothing of it.
 
 Two routes carry a gradient on ``cuda`` (``core/intrinsics.py:
-GRAD_ROUTES``): ``linear_recurrence`` (:class:`LinearRecurrence`, a
-reverse K6 launch back) and the mLSTM stabilizer's ``scan@flat`` under
-MAXPLUS_AFFINE (:class:`MaxplusAffineScan`, one launch of the
-stabilizer-gradient kernel back, in the reference's combine order).
+GRAD_ROUTES``): ``linear_recurrence`` (:class:`LinearRecurrence`, one
+call of its gradient kernel back, ``csrc/linrec_grad.cuh``) and the mLSTM
+stabilizer's ``scan@flat`` under MAXPLUS_AFFINE
+(:class:`MaxplusAffineScan`, one launch of the stabilizer-gradient kernel
+back, in the reference's combine order).
 """
 from __future__ import annotations
 
@@ -367,13 +368,14 @@ def _linrec_k6(a, b, h0, reverse, nitem=None):
 
 class LinearRecurrence(torch.autograd.Function):
     """K6's ``linear_recurrence`` with its gradient.  Forward: K6 as
-    without one, keeping h.  Backward, for h_t = a_t h_{t-1} + b_t: the
-    adjoint g_t = dh_t + a_{t+1} g_{t+1} is the same recurrence run the
-    other way, one further K6 launch over (a', dh) with a'_t = a_{t+1} and
-    a'_{T-1} = 0; then db = g, da_t = g_t h_{t-1} (h_{-1} = h0, or 0) and
-    dh0 = a_0 g_0.  A ``reverse`` recurrence mirrors it along T.  The shift
-    and the products are plain tensor code.  On CPU tensors K6's wrapper
-    runs its plain version, so the same backward runs there."""
+    without one, keeping h.  Backward, for h_t = a_t h_{t-1} + b_t: one
+    call of ``kernels/scan.py: linrec_grad_cuda``, which runs the adjoint
+    g_t = dh_t + a_{t+1} g_{t+1} with its shift and products fused
+    (``csrc/linrec_grad.cuh``): db = g, da_t = g_t h_{t-1} (h_{-1} = h0,
+    or 0) and dh0 = a_0 g_0; a ``reverse`` recurrence mirrors it along T.
+    On CPU tensors that wrapper runs its plain version, so the same
+    backward runs there; on CUDA tensors it launches the kernel or
+    raises."""
 
     @staticmethod
     def forward(ctx, a, b, h0, launch):
@@ -386,22 +388,12 @@ class LinearRecurrence(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dh):
         a, h, h0 = ctx.saved_tensors
-        rev = ctx.reverse
-        zero = torch.zeros_like(a[:, :1])
-        start = zero if h0 is None else h0[:, None].to(h.dtype)
-        # a' and the neighbour state h_{t-1} (h_{t+1} for a reverse one).
-        if rev:
-            a_next = torch.cat([zero, a[:, :-1]], dim=1)
-            h_prev = torch.cat([h[:, 1:], start], dim=1)
-        else:
-            a_next = torch.cat([a[:, 1:], zero], dim=1)
-            h_prev = torch.cat([start, h[:, :-1]], dim=1)
-        _, g = scan_k.scan_channel_cuda(
-            alg.AFFINE, (a_next, dh.contiguous().to(a.dtype)),
-            inclusive=True, reverse=not rev, keep=(False, True))
-        edge = -1 if rev else 0
-        dh0 = None if h0 is None else (a[:, edge] * g[:, edge]).to(h0.dtype)
-        return g * h_prev, g, dh0, None
+        # Each .to and .contiguous is a no-op at the models' shapes: one
+        # float type, autograd's contiguous dh.
+        da, db, dh0 = scan_k.linrec_grad_cuda(
+            a, h.to(a.dtype), dh.contiguous(),
+            None if h0 is None else h0.to(a.dtype), reverse=ctx.reverse)
+        return da, db, None if h0 is None else dh0.to(h0.dtype), None
 
 
 class MaxplusAffineScan(torch.autograd.Function):

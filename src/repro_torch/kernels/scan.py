@@ -13,6 +13,13 @@
   with a carry) and the radix sort's rank scan on the long-T path (T
   spread over blocks; see :func:`uses_long_t`).  Plain version:
   :func:`scan_channel_plain`, a serial walk over T.
+* :func:`linrec_grad_cuda` -- the gradient of ``linear_recurrence``
+  (h_t = a_t h_{t-1} + b_t along axis 1 of ``(B, T, C)``): da, db and dh0
+  from a, the forward's h, dh and h0 in one kernel, the adjoint scan fused
+  with its shift and products (``csrc/linrec_grad.cuh``; the reference
+  differentiates K6's scan with XLA).  Three forms, by shape
+  (:func:`linrec_grad_form`).  Plain version: :func:`linrec_grad_plain`,
+  the shift, a reverse serial walk and the products as tensor code.
 * :func:`maxplus_grad_cuda` -- the gradient of the mLSTM stabilizer's
   inclusive MAXPLUS_AFFINE scan along axis 1 of ``(B, T, H)`` float32
   leaves, in the combine order of the reference's ``lax.associative_scan``
@@ -23,14 +30,14 @@
 A wrapper given CPU tensors runs the plain version.  Given CUDA tensors it
 launches the kernel or raises.  ``launches`` on each wrapper counts the calls
 that launched its kernel; K6 counts its long-T path apart, in
-``long_t_launches``, and each route's reverse launches (the gradients of
-``linear_recurrence``) again in ``reverse_launches`` and
-``long_t_reverse_launches``; ``maxplus_grad_cuda.launches`` counts the
-stabilizer gradient's.  ``nitem`` is the
-tuning policy's ``nitem_scan`` (None: the kernels' default of 8): the
-items a thread of a tile scans, K6's steps a thread a chunk and its long-T
-chunk's 8 ``nitem`` steps, each value a unit of its own
-(``kernels/_lib.py: KNOB_FAMILIES``).
+``long_t_launches``, and each route's reverse launches again in
+``reverse_launches`` and ``long_t_reverse_launches``;
+``linrec_grad_cuda.launches`` counts its calls and ``form_launches`` them
+by form; ``maxplus_grad_cuda.launches`` counts the stabilizer gradient's.
+``nitem`` is the tuning policy's ``nitem_scan`` (None: the kernels'
+default of 8): the items a thread of a tile scans, K6's steps a thread a
+chunk and its long-T chunk's 8 ``nitem`` steps, each value a unit of its
+own (``kernels/_lib.py: KNOB_FAMILIES``).
 """
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ from typing import Any
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch.core import operators as alg
 from repro_torch.kernels import _lib
 from repro_torch.kernels import ref
 
@@ -201,6 +209,95 @@ scan_channel_cuda.launches = 0
 scan_channel_cuda.long_t_launches = 0
 scan_channel_cuda.reverse_launches = 0
 scan_channel_cuda.long_t_reverse_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# linear_recurrence's gradient
+# ---------------------------------------------------------------------------
+
+# The forms of csrc/linrec_grad.cuh, in the order of its Form enum.  Up to
+# SHORT_T_MAX steps a thread walks one (b, c) (xLSTM's chunk states: T =
+# 16); the long-T form takes K6's long-T shapes; the channel tiles the rest
+# (the RG-LRU's T in the thousands).
+LINREC_FORMS = ("short", "tiles", "long")
+SHORT_T_MAX = 64
+LONG_CHUNK = 32          # steps a long-T thread walks: the header's CHUNK
+
+
+def linrec_grad_form(B: int, T: int, C: int) -> str:
+    """The form of :func:`linrec_grad_cuda` for a (B, T, C) recurrence."""
+    if T <= SHORT_T_MAX:
+        return "short"
+    return "long" if uses_long_t(B, T, C) else "tiles"
+
+
+def linrec_grad_plain(a, h, dh, h0=None, *, reverse=False):
+    """Plain version of :func:`linrec_grad_cuda`: the adjoint g_t = dh_t +
+    a_{t+1} g_{t+1} as K6's plain walk over the shifted a and dh in a's
+    type, then db = g, da_t = g_t h_{t-1} (h_{-1} = h0, or 0) and dh0 =
+    a_0 g_0, mirrored along T when ``reverse``.  Returns (da, db, dh0),
+    dh0 None without h0."""
+    zero = torch.zeros_like(a[:, :1])
+    start = zero if h0 is None else h0[:, None].to(h.dtype)
+    if reverse:
+        a_next = torch.cat([zero, a[:, :-1]], dim=1)
+        h_prev = torch.cat([h[:, 1:], start], dim=1)
+    else:
+        a_next = torch.cat([a[:, 1:], zero], dim=1)
+        h_prev = torch.cat([start, h[:, :-1]], dim=1)
+    _, g = scan_channel_plain(
+        alg.AFFINE, (a_next, dh.to(a.dtype)), inclusive=True,
+        reverse=not reverse, keep=(False, True))
+    edge = -1 if reverse else 0
+    dh0 = None if h0 is None else a[:, edge] * g[:, edge]
+    return g * h_prev, g, dh0
+
+
+def linrec_grad_cuda(a, h, dh, h0=None, *, reverse=False):
+    """The gradient of ``linear_recurrence`` on the card: (da, db, dh0)
+    from a, the forward's h, dh and h0 (or None) in one call of
+    ``csrc/linrec_grad.cuh`` -- one kernel launch on the short-T and
+    channel-tile forms, three on the long-T form (its chunk maps in
+    scratch allocated here).  a, h, dh: (B, T, C), h0: (B, C), contiguous
+    on one device; a, h and h0 of one type of ``_lib.LINREC_LEAVES``, dh
+    of ``_lib.LINREC_CTYPES``, read in its own type.  Given CPU tensors,
+    :func:`linrec_grad_plain`."""
+    if not a.is_cuda:
+        return linrec_grad_plain(a, h, dh, h0, reverse=reverse)
+    what = "linear_recurrence gradient (cuda)"
+    leaves = _leaves(what, (a, h, dh), 3)
+    B, T, C = a.shape
+    if h0 is not None:
+        _lib.require_cuda(what, a, h0)
+        if h0.shape != (B, C):
+            raise ValueError(f"{what}: h0 must be (B, C) = {(B, C)}, got "
+                             f"{tuple(h0.shape)}")
+    if h.dtype != a.dtype or h0 is not None and h0.dtype != a.dtype:
+        raise NotImplementedError(
+            f"{what}: a, h and h0 must share one dtype, got "
+            f"{[str(t.dtype) for t in (a, h, h0) if t is not None]}")
+    if B > 65535:
+        raise ValueError(f"{what}: B = {B} exceeds the grid's 65535 rows")
+    lib = _lib.load(_lib.unit("linrec_grad", what,
+                              dtypes=(a.dtype, dh.dtype)))
+    form = linrec_grad_form(B, T, C)
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    dh0 = None if h0 is None else torch.empty_like(h0)
+    scratch = None
+    if form == "long":
+        scratch = a.new_empty(2 * B * C * -(-T // LONG_CHUNK))
+    _lib.check(lib.rt_linrec_grad(
+        *[_lib.ptr(t) for t in (*leaves, h0, da, db, dh0, scratch)],
+        0 if scratch is None else scratch.nbytes, B, T, C, int(reverse),
+        LINREC_FORMS.index(form), _lib.stream_ptr(a)), what)
+    linrec_grad_cuda.launches += 1
+    linrec_grad_cuda.form_launches[form] += 1
+    return da, db, dh0
+
+
+# Calls that launched the kernel, and the same by form.
+linrec_grad_cuda.launches = 0
+linrec_grad_cuda.form_launches = dict.fromkeys(LINREC_FORMS, 0)
 
 
 # ---------------------------------------------------------------------------

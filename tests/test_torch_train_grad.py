@@ -9,15 +9,15 @@ rule that no other cuda route silently cuts the graph.
   ``jax.grad`` of the reference's ``blockwise_attention``.  Float32,
   each gradient within 1e-5 of its largest entry: the two are the same
   sums in another order.
-* K6's gradient: ``kernels/ops.py::LinearRecurrence`` (a reverse K6
-  launch, its plain version on CPU tensors) against autograd through the
-  torch route and ``jax.grad`` of the reference's ``linear_recurrence``,
-  within 1e-5 of each gradient's largest entry.
+* K6's gradient: ``kernels/ops.py::LinearRecurrence`` (one call of
+  ``csrc/linrec_grad.cuh``, its plain version on CPU tensors) against
+  autograd through the torch route and ``jax.grad`` of the reference's
+  ``linear_recurrence``, within 1e-5 of each gradient's largest entry.
 * On tensors that say they lie on the card (``test_torch_primitives``'s
   ``_OnCard``) and a stand-in library that records each entry call: a
   cuda route without a gradient raises under autograd, naming the route;
-  K6's backward is one ``reverse=True`` entry call over ``a`` shifted by
-  one; K10's forward asks for the log-sum-exp and its backward is one
+  K6's backward is one ``rt_linrec_grad`` entry call on a, h and dh as
+  they are; K10's forward asks for the log-sum-exp and its backward is one
   ``rt_flash_bwd`` call.
 """
 import types
@@ -174,6 +174,7 @@ def card(monkeypatch):
     monkeypatch.setattr(matvec_k, "sms", lambda device: 132)
     for w, attr in ((scan_k.scan_channel_cuda, "launches"),
                     (scan_k.scan_channel_cuda, "reverse_launches"),
+                    (scan_k.linrec_grad_cuda, "launches"),
                     (flash_k.flash_attention_gqa, "launches"),
                     (flash_k.flash_attention_bwd, "launches")):
         monkeypatch.setattr(w, attr, 0)
@@ -211,11 +212,11 @@ def test_cuda_routes_without_a_gradient_raise(card):
     assert [c[0] for c in card.calls] == ["rt_scan_tile"] * 2
 
 
-def test_k6_and_k10_backward_host_side(card, monkeypatch):
+def test_k6_and_k10_backward_host_side(card):
     """K6's gradient: the forward is one channel-tile entry call; the
-    backward (``LinearRecurrence.backward``) one more with ``reverse`` set,
-    whose ``a`` leaf is ``a`` shifted by one step (a zero last) and whose
-    ``b`` leaf is the incoming gradient; only its B leaf is written.
+    backward (``LinearRecurrence.backward``) one ``rt_linrec_grad`` call of
+    the float32 unit in the short form (T = 9), on a, h and dh as they are
+    -- no shifted copy, no cast, no K6 launch -- writing da and db, no h0.
     K10's: under autograd the forward passes a log-sum-exp output to
     ``rt_flash``, and the backward is one ``rt_flash_bwd`` call of the
     (bf16, 64) gradient unit on the tensor cores, with the workspace and
@@ -224,15 +225,7 @@ def test_k6_and_k10_backward_host_side(card, monkeypatch):
     kernel's counter moves once a launch.
     (The backwards are called directly: the autograd engine hands a
     backward plain tensors, which no longer say they lie on the card.)"""
-    seen = []
-    real = scan_k.scan_channel_cuda
-
-    def record(op, xs, **kw):
-        seen.append((xs, kw))
-        return real(op, xs, **kw)
-
-    monkeypatch.setattr(ops_k, "scan_k",
-                        types.SimpleNamespace(scan_channel_cuda=record))
+    k6, grad = scan_k.scan_channel_cuda, scan_k.linrec_grad_cuda
     a = _on_card(torch.rand(2, 9, 4096)).requires_grad_()
     b = _on_card(torch.rand(2, 9, 4096)).requires_grad_()
     h = t_forge.linear_recurrence(a, b, layout=TBatched())
@@ -242,16 +235,16 @@ def test_k6_and_k10_backward_host_side(card, monkeypatch):
                                 reverse=False)
     da, db, dh0, _ = ops_k.LinearRecurrence.backward(ctx, dh)
     assert da.shape == db.shape == a.shape and dh0 is None
-    (fwd_xs, fwd_kw), (bwd_xs, bwd_kw) = seen
-    assert fwd_kw["reverse"] is False and bwd_kw["reverse"] is True
-    assert bwd_kw["keep"] == (False, True)
-    shifted = torch.cat([a.detach()[:, 1:], torch.zeros(2, 1, 4096)], dim=1)
-    assert torch.equal(bwd_xs[0], shifted) and torch.equal(bwd_xs[1], dh)
     (n0, args0), (n1, args1) = card.calls
-    assert n0 == n1 == "rt_scan_channel"
-    assert args0[4:9] == (2, 9, 4096, 1, 0) and args1[4:9] == (2, 9, 4096, 1, 1)
-    assert args1[2] is None and args1[3] is not None
-    assert (real.launches, real.reverse_launches) == (2, 1)
+    assert n0 == "rt_scan_channel" and args0[4:9] == (2, 9, 4096, 1, 0)
+    assert n1 == "rt_linrec_grad"
+    assert args1[:7] == (a.data_ptr(), h.data_ptr(), dh.data_ptr(), None,
+                         da.data_ptr(), db.data_ptr(), None)
+    assert args1[7:] == (None, 0, 2, 9, 4096, 0,
+                         scan_k.LINREC_FORMS.index("short"), 7)
+    assert card.loaded[-1] == _lib.unit("linrec_grad", "test",
+                                        dtypes=(torch.float32,) * 2)
+    assert (k6.launches, k6.reverse_launches, grad.launches) == (1, 0, 1)
 
     card.calls.clear()
     bf = torch.bfloat16
